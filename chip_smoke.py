@@ -1,0 +1,403 @@
+"""Chip smoke test of the PyTorch/CUDA port (perceiverio_pytorch_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; nothing is caught):
+  1. device: requires CUDA, prints the card's name and power limit, turns
+     TF32 off for the comparisons;
+  2. build: compiles the flash attention kernel from csrc/ with nvcc;
+  3. kernel: holds the kernel against its plain PyTorch version on the card
+     at the three flow attention shapes (batch 1) in fp32 and bf16, at the
+     serving forward's shapes (6 tiles, bf16), and at a small masked case (kv_mask, q_mask, ragged Tk, kv_logical_len, an
+     all-masked row, lse); times kernel, plain version,
+     F.scaled_dot_product_attention (a yardstick only) and the bound;
+  4. model: FlowPerceiver at full width (368x496 tiles, 2048x512 latents,
+     24 self-attends), seeded random weights with a random decoder
+     projection, fp32, once through the kernel (26 launches) and once with
+     attention on the plain version; the two flows must agree;
+  5. serve: three synthetic 436x1024 frame pairs through FlowInference under
+     the PERFORMANCE policy (bf16), 6 tiles per request in one forward;
+  6. prints the kernels line and, last, {"ok": true, "device": {...}}.
+
+It exits non-zero without a result when there is no GPU or when the port's
+package is not beside it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from unittest import mock
+
+SEED = 0
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense): fp32 on the CUDA
+# cores, bf16 on the tensor cores, HBM3 bandwidth.
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+# Tolerances of kernel vs plain version, relative to max|out|: fp32 against
+# fp32; bf16 against the plain version run in fp32 on the same bf16 inputs
+# (the kernel's output is rounded to bf16, a relative step of 2^-8).
+TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# Full-width fp32 model, kernel vs plain attention, relative to max|flow|.
+MODEL_TOL = 1e-3
+
+FLOW_SITES = {
+    # name: (B, Tq, Tk, H, D, Dv) of the flow model's attention sites
+    "encoder": (1, 2048, 182528, 1, 322, 322),
+    "self": (1, 2048, 2048, 16, 32, 32),
+    "decoder": (1, 182528, 2048, 1, 512, 512),
+}
+SITE_LAUNCHES = {"encoder": 1, "self": 24, "decoder": 1}
+# Tiles of one 436x1024 request: the batch the serving forward gives K1.
+SERVE_TILES = 6
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    line = smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {line} |"
+          f" torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    return line
+
+
+def phase_build():
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    path = fa.build()
+    fa._load()
+    print(f"[build] {path} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _case_inputs(b, tq, tk, h, d, dv, dtype, masked, gen):
+    import torch
+
+    dev = "cuda"
+    q = torch.randn(b, tq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, tk, h, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, tk, h, dv, generator=gen, device=dev).to(dtype)
+    kw = {}
+    if masked:
+        kv_mask = torch.rand(b, tk, generator=gen, device=dev) > 0.3
+        kv_mask[-1] = False  # every row of the last batch entry is all-masked
+        kw = dict(
+            kv_mask=kv_mask,
+            q_mask=torch.rand(b, tq, generator=gen, device=dev) > 0.2,
+            kv_logical_len=tk - 50,
+            return_lse=True,
+        )
+    return q, k, v, kw
+
+
+def _flops_and_bytes(q, k, v, kw):
+    """Operations and bytes this call's data needs: valid (query, key) pairs
+    only; each input read once, the output (and lse) written once."""
+    import torch
+
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[3]
+    kv_len = kw.get("kv_logical_len") or tk
+    keys = torch.arange(tk, device=q.device)[None].expand(b, tk) < kv_len
+    if kw.get("kv_mask") is not None:
+        keys = keys & kw["kv_mask"]
+    rows = kw["q_mask"] if kw.get("q_mask") is not None else torch.ones(
+        b, tq, dtype=torch.bool, device=q.device)
+    pairs = int((rows.sum(1) * keys.sum(1)).sum())
+    flops = 2.0 * h * (d + dv) * pairs
+    size = q.element_size()
+    nbytes = size * (q.numel() + k.numel() + v.numel() + b * tq * h * dv)
+    for name in ("kv_mask", "q_mask"):
+        if kw.get(name) is not None:
+            nbytes += kw[name].numel()
+    if kw.get("return_lse"):
+        nbytes += 4 * b * h * tq
+    return flops, nbytes
+
+
+def _library_call(q, k, v, kw):
+    import torch
+    import torch.nn.functional as F
+
+    mask = None
+    if kw:
+        tk = k.shape[1]
+        keys = torch.arange(tk, device=q.device)[None] < kw["kv_logical_len"]
+        mask = (keys & kw["kv_mask"])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(q.shape[-1]))
+
+
+def check_case(name, shape, dtype_name, masked, reps, gen):
+    """Kernel vs plain version at one shape; returns a result record."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    q, k, v, kw = _case_inputs(*shape, dtype, masked, gen)
+    with torch.inference_mode():
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        if masked:
+            (got, got_lse), (want, want_lse) = got, want
+            finite = torch.isfinite(want_lse)
+            if not torch.equal(finite, torch.isfinite(got_lse)):
+                raise AssertionError(f"{name}/{dtype_name}: lse +inf rows differ")
+            lse_err = (got_lse[finite] - want_lse[finite]).abs().max().item()
+            if lse_err > 1e-4 * (1.0 + want_lse[finite].abs().max().item()):
+                raise AssertionError(f"{name}/{dtype_name}: lse error {lse_err}")
+            wiped = ~kw["q_mask"]
+            wiped[-1] = True  # all keys masked
+            if got.view(q.shape[0], q.shape[1], -1)[wiped].abs().max().item() != 0.0:
+                raise AssertionError(f"{name}/{dtype_name}: wiped rows are not 0")
+        got = got.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}/{dtype_name}: non-finite kernel output")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= TOL[dtype_name] * scale:
+            raise AssertionError(
+                f"{name}/{dtype_name}: max abs err {err} > {TOL[dtype_name]} * {scale}")
+
+        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), reps)
+        plain_ms = time_ms(
+            lambda: fa.flash_attention_reference(q, k, v, **kw), reps)
+        library_ms = time_ms(_library_call(q, k, v, kw), reps)
+    flops, nbytes = _flops_and_bytes(q, k, v, kw)
+    flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    rec = dict(
+        site=name, dtype=dtype_name, shape=list(shape), max_abs_err=err,
+        max_abs_out=scale, ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=max(flops_ms, bytes_ms),
+        bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+        flops=flops, tflops=flops / kernel_ms / 1e9,
+    )
+    print(f"[kernel] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_kernels(reps: int = 3):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = []
+    for dtype_name in ("fp32", "bf16"):
+        for name, shape in FLOW_SITES.items():
+            records.append(check_case(name, shape, dtype_name, False, reps, gen))
+        records.append(check_case(
+            "masked", (2, 100, 777, 2, 41, 64), dtype_name, True, reps, gen))
+    for name, shape in FLOW_SITES.items():  # the serving forward's shapes
+        records.append(check_case(
+            name, (SERVE_TILES,) + shape[1:], "bf16", False, reps, gen))
+    return records
+
+
+def _flow_model(policy):
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import FlowPerceiver
+    from perceiverio_pytorch_tpu_torch.utils.initializers import lecun_normal_
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = FlowPerceiver(img_size=(368, 496), policy=policy, device="cuda",
+                          generator=gen)
+    # The decoder projection is zero-initialised by design, which makes a
+    # fresh model's flow exactly 0; draw it at random so the check sees
+    # the whole path.
+    weight = model.perceiver._decoder.final_layer.weight
+    with torch.no_grad():
+        weight.copy_(lecun_normal_(torch.empty(weight.shape), gen))
+    return model.eval()
+
+
+def _smooth_frame(gen, height, width):
+    """A seeded smooth image in [-1, 1]: a sum of random 2-D sinusoids."""
+    import torch
+
+    y = torch.linspace(0, 1, height)[:, None]
+    x = torch.linspace(0, 1, width)[None, :]
+    img = torch.zeros(3, height, width)
+    for c in range(3):
+        for _ in range(4):
+            fy, fx, ph = (torch.rand(3, generator=gen) * torch.tensor([6.0, 6.0, 6.28])).tolist()
+            img[c] += torch.sin(2 * math.pi * (fy * y + fx * x) + ph)
+    return (img / img.abs().max()).clamp(-1, 1)
+
+
+def phase_model():
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+    from perceiverio_pytorch_tpu_torch.ops import attention as attention_ops
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    model = _flow_model(dataclasses.replace(PARITY, attn_impl="auto"))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    frame = _smooth_frame(gen, 368, 496)
+    img1 = frame[None].cuda()
+    img2 = torch.roll(frame, shifts=(2, 3), dims=(1, 2))[None].cuda()
+    with torch.inference_mode():
+        fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        flow_kernel = model(img1, img2)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = fa.LAUNCHES
+        with mock.patch.object(attention_ops, "flash_attention",
+                               fa.flash_attention_reference):
+            t0 = time.perf_counter()
+            flow_plain = model(img1, img2)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+    if launches != 26:
+        raise AssertionError(f"expected 26 kernel launches, got {launches}")
+    if tuple(flow_kernel.shape) != (1, 2, 368, 496):
+        raise AssertionError(f"flow shape {tuple(flow_kernel.shape)}")
+    if not (torch.isfinite(flow_kernel).all() and torch.isfinite(flow_plain).all()):
+        raise AssertionError("non-finite flow")
+    peak = flow_plain.abs().max().item()
+    diff = (flow_kernel - flow_plain).abs().max().item()
+    if not peak > 0:
+        raise AssertionError("flow is identically zero")
+    if not diff <= MODEL_TOL * peak:
+        raise AssertionError(f"kernel vs plain flow: {diff} > {MODEL_TOL} * {peak}")
+    rec = dict(launches=launches, max_abs_diff=diff, max_abs_flow=peak,
+               kernel_forward_s=kernel_s, plain_forward_s=plain_s)
+    print(f"[model] fp32 full width: {json.dumps(rec)}", flush=True)
+    return model
+
+
+def phase_serve(fp32_model, n_requests: int = 3):
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowInference
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    model = _flow_model(PERFORMANCE)
+    model.load_state_dict(fp32_model.state_dict())
+    del fp32_model  # the caller keeps no reference: its memory is freed
+    infer = FlowInference(model, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    requests = []
+    for i in range(n_requests + 1):  # the first one warms up
+        frame = _smooth_frame(gen, 436, 1024)
+        shifted = torch.roll(frame, shifts=(i + 1, 2 * i + 1), dims=(1, 2))
+        requests.append((frame[None], shifted[None]))
+    infer(*requests[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    fa.LAUNCHES = 0
+    t_all = time.perf_counter()
+    for img1, img2 in requests[1:]:
+        t0 = time.perf_counter()
+        flow = infer(img1, img2)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        if tuple(flow.shape) != (1, 2, 436, 1024) or not torch.isfinite(flow).all():
+            raise AssertionError(f"bad flow: shape {tuple(flow.shape)}")
+    total = time.perf_counter() - t_all
+    launches = fa.LAUNCHES
+    if launches != 26 * n_requests:
+        raise AssertionError(
+            f"expected {26 * n_requests} kernel launches, got {launches}")
+    rec = dict(requests=n_requests, tiles_per_request=6,
+               latency_s=latencies, pairs_per_s=n_requests / total,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches)
+    print(f"[serve] bf16 FlowInference 436x1024: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def kernels_line(records, serve):
+    """One entry for K1: times summed over the 26 launches of one serving
+    forward (6 tiles, bf16), the largest error of every comparison, and the
+    launches of the serving run."""
+    per_forward = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    serving = [r for r in records if r["dtype"] == "bf16"
+               and r["site"] in SITE_LAUNCHES and r["shape"][0] == SERVE_TILES]
+    for rec in serving:
+        for key in per_forward:
+            per_forward[key] += SITE_LAUNCHES[rec["site"]] * rec[key]
+    entry = dict(
+        name="flash_attention_fwd",
+        route="cuda",
+        source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
+        launches=serve["launches"],
+        max_abs_err=max(rec["max_abs_err"] for rec in records),
+        bound_by=("operations" if all(r["bound_by"] == "operations" for r in serving)
+                  else "bytes"),
+        **per_forward,
+        sites=records,
+    )
+    return json.dumps({"kernels": [entry]})
+
+
+def main() -> int:
+    try:
+        import torch
+        import perceiverio_pytorch_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke.py: {exc}; run it from the repository root",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    records = phase_kernels()
+    serve = phase_serve(phase_model())
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(kernels_line(records, serve))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

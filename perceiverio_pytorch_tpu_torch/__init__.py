@@ -1,0 +1,23 @@
+"""perceiverio_pytorch_tpu_torch: the PyTorch/CUDA port of perceiverio_pytorch_tpu.
+
+A package beside the JAX one, module for module, that runs on an NVIDIA
+Hopper GPU.  Its torch modules carry the reference's state_dict names, so
+the JAX package's weights (``utils.weights.state_dict_from_flax``) and the
+converted DeepMind checkpoints load with ``load_state_dict(strict=True)``.
+Every Pallas kernel of the JAX package on a ported path is a hand-written
+CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.
+"""
+
+__version__ = "0.1.0"
+
+from perceiverio_pytorch_tpu_torch.config import (  # noqa: F401
+    DEFAULT,
+    PARITY,
+    PERFORMANCE,
+    Policy,
+)
+from perceiverio_pytorch_tpu_torch.models.flow import (  # noqa: F401
+    FlowInference,
+    FlowPerceiver,
+    compute_grid_indices,
+)

@@ -1,0 +1,91 @@
+"""Numerical policy for the PyTorch/CUDA port: compute dtype and attention path.
+
+Counterpart of ``perceiverio_pytorch_tpu/config.py``.  The attention
+selector values are ``"dense"`` (plain matmul + softmax, the JAX package's
+``"xla"``), ``"flash"`` (the hand-written CUDA kernel, or its plain PyTorch
+version on a CPU tensor) and ``"auto"``.
+
+Fields of the JAX policy that this port cannot honour yet (int8, the
+sequence/pipeline meshes, layer scan, selective remat and the multimodal
+query fold) are kept as fields so that a caller porting a configuration
+learns of them: setting any of them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+ATTN_DENSE = "dense"  # plain matmul + softmax, materialises [B,H,Tq,Tk]
+ATTN_FLASH = "flash"  # streaming-KV CUDA kernel (ops/flash_attention.py)
+ATTN_AUTO = "auto"  # flash on a CUDA tensor at long sequence lengths
+
+# (field, value that means "off") for the JAX policy's fields the port does
+# not implement yet.
+_NOT_PORTED = (
+    ("quant", None),
+    ("sp_mesh", None),
+    ("pp_mesh", None),
+    ("layer_scan", "off"),
+    ("remat_policy", None),
+    ("fold_query_pad", False),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Numerical policy for a model.
+
+    Attributes:
+      compute_dtype: dtype activations and matmuls run in (None = input dtype).
+      softmax_dtype: accumulation dtype of the dense path's softmax.
+      attn_impl: one of "dense" | "flash" | "auto".
+      flash_min_kv / flash_min_self / flash_long_q_min_kv: the thresholds of
+        the "auto" dispatch, the JAX package's values (ops/attention.py).
+      gelu_approximate: tanh-approximate GELU instead of the exact erf form.
+      quant, sp_mesh, pp_mesh, layer_scan, remat_policy, fold_query_pad:
+        not ported; any value other than the default raises.
+    """
+
+    compute_dtype: Optional[torch.dtype] = None
+    softmax_dtype: torch.dtype = torch.float32
+    attn_impl: str = ATTN_AUTO
+    flash_min_kv: int = 8192
+    flash_min_self: int = 2048
+    flash_long_q_min_kv: int = 1024
+    gelu_approximate: bool = False
+    quant: Optional[str] = None
+    sp_mesh: Any = None
+    pp_mesh: Any = None
+    layer_scan: str = "off"
+    remat_policy: Optional[str] = None
+    fold_query_pad: bool = False
+
+    def __post_init__(self):
+        if self.attn_impl not in (ATTN_DENSE, ATTN_FLASH, ATTN_AUTO):
+            raise ValueError(
+                "Policy.attn_impl must be 'dense', 'flash' or 'auto'; got"
+                f" {self.attn_impl!r}"
+            )
+        for name, off in _NOT_PORTED:
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"Policy.{name}={getattr(self, name)!r} is not ported to"
+                    " PyTorch yet (see ROADMAP.md)"
+                )
+
+
+# fp32 everywhere, dense attention: the parity policy.
+PARITY = Policy(compute_dtype=torch.float32, attn_impl=ATTN_DENSE)
+
+# bf16 compute with fp32 softmax and LayerNorm, tanh GELU.  The JAX preset
+# also sets fold_query_pad, which only changes the multimodal decoder.
+PERFORMANCE = Policy(
+    compute_dtype=torch.bfloat16,
+    attn_impl=ATTN_AUTO,
+    gelu_approximate=True,
+)
+
+DEFAULT = Policy()

@@ -1,0 +1,260 @@
+"""Transformer primitives: Attention, MLP, SelfAttention, CrossAttention.
+
+Counterpart of ``perceiverio_pytorch_tpu/core/attention.py``:
+  * ``Attention``: separate q/k/v projections with independently sized
+    qk / v / output widths; the attention itself goes through
+    ``ops.attention.multihead_attention``, so long sites take the flash
+    kernel;
+  * ``MLP``: Dense -> GELU (exact erf, or tanh under
+    ``Policy.gelu_approximate``) -> Dense;
+  * ``SelfAttention``: pre-LN residual block;
+  * ``CrossAttention``: separate q/kv LayerNorms, ``shape_for_attn``
+    choosing the qk width, optional query residual.
+
+LayerNorms run in fp32 with eps 1e-5 and their output is cast to the
+compute dtype.  Dropout, the int8 projections and the multimodal
+``FoldedQuery`` are not ported yet (inference-only slice).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
+from perceiverio_pytorch_tpu_torch.ops.attention import multihead_attention
+from perceiverio_pytorch_tpu_torch.utils.initializers import (
+    default_generator,
+    lecun_normal_,
+    variance_scaling_,
+)
+
+__all__ = ["Dense", "LayerNorm", "Attention", "MLP", "SelfAttention", "CrossAttention"]
+
+
+def zeros_(weight: torch.Tensor, generator: torch.Generator):
+    del generator
+    with torch.no_grad():
+        return weight.zero_()
+
+
+def _variance_scaling(scale: float) -> Callable:
+    return lambda w, g: variance_scaling_(w, scale, g)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with the JAX package's init and dtype promotion.
+
+    The weight is drawn by ``init(weight, generator)`` and the bias is 0.
+    With ``compute_dtype`` set, input, weight and bias are cast to it (flax
+    ``nn.Dense(dtype=...)``); otherwise they are promoted to a common dtype.
+    """
+
+    def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
+                 init: Callable = lecun_normal_,
+                 compute_dtype: Optional[torch.dtype] = None, generator=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+        init(self.weight.data, default_generator(generator))
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = self.bias.to(dtype) if self.bias is not None else None
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-5) computed and returned in fp32."""
+
+    def __init__(self, num_channels: int):
+        super().__init__(num_channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight.float(),
+            self.bias.float(), self.eps,
+        )
+
+
+class Attention(nn.Module):
+    """Multi-headed {cross, self}-attention."""
+
+    def __init__(
+        self,
+        q_in_channels: int,
+        k_in_channels: Optional[int] = None,
+        v_in_channels: Optional[int] = None,
+        num_heads: int = 8,
+        init_scale: float = 1.0,
+        with_final_bias: bool = True,
+        final_init_scale_multiplier: float = 1.0,
+        qk_out_channels: Optional[int] = None,
+        v_out_channels: Optional[int] = None,
+        output_channels: Optional[int] = None,
+        policy: Policy = DEFAULT,
+        *,
+        generator=None,
+    ):
+        super().__init__()
+        qk_out = qk_out_channels or q_in_channels
+        v_out = v_out_channels or qk_out
+        out = output_channels or v_out
+        if qk_out % num_heads != 0:
+            raise ValueError(
+                f"qk_out_channels ({qk_out}) must be divisible by"
+                f" num_heads ({num_heads})."
+            )
+        if v_out % num_heads != 0:
+            raise ValueError(
+                f"v_channels ({v_out}) must be divisible by num_heads ({num_heads})."
+            )
+        k_in = k_in_channels or q_in_channels
+        v_in = v_in_channels or k_in
+        self.num_heads = num_heads
+        self.policy = policy
+        self._qk_out, self._v_out = qk_out, v_out
+        g = default_generator(generator)
+        kw = dict(compute_dtype=policy.compute_dtype, generator=g)
+        init = _variance_scaling(init_scale)
+        self.proj_q = Dense(q_in_channels, qk_out, init=init, **kw)
+        self.proj_k = Dense(k_in, qk_out, init=init, **kw)
+        self.proj_v = Dense(v_in, v_out, init=init, **kw)
+        self.final = Dense(
+            v_out, out, bias=with_final_bias,
+            init=_variance_scaling(final_init_scale_multiplier * init_scale), **kw,
+        )
+
+    def forward(self, inputs_q, inputs_k, inputs_v, *, attention_mask=None,
+                q_mask=None, kv_mask=None, kv_logical_len: Optional[int] = None):
+        q = self.proj_q(inputs_q)
+        k = self.proj_k(inputs_k)
+        v = self.proj_v(inputs_v)
+        batch, q_time, _ = q.shape
+        kv_time = k.shape[1]
+        q = q.reshape(batch, q_time, self.num_heads, self._qk_out // self.num_heads)
+        k = k.reshape(batch, kv_time, self.num_heads, self._qk_out // self.num_heads)
+        v = v.reshape(batch, kv_time, self.num_heads, self._v_out // self.num_heads)
+        pol = self.policy
+        result = multihead_attention(
+            q, k, v,
+            q_mask=q_mask,
+            kv_mask=kv_mask,
+            attention_mask=attention_mask,
+            softmax_dtype=pol.softmax_dtype,
+            impl=pol.attn_impl,
+            flash_min_kv=pol.flash_min_kv,
+            flash_min_self=pol.flash_min_self,
+            flash_long_q_min_kv=pol.flash_long_q_min_kv,
+            kv_logical_len=kv_logical_len,
+        )
+        return self.final(result)
+
+
+class MLP(nn.Module):
+    """Dense -> GELU -> Dense."""
+
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 widening_factor: int = 4, init_scale: float = 1.0,
+                 policy: Policy = DEFAULT, *, generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        kw = dict(init=_variance_scaling(init_scale),
+                  compute_dtype=policy.compute_dtype, generator=g)
+        self.approximate = "tanh" if policy.gelu_approximate else "none"
+        self.fc1 = Dense(in_channels, widening_factor * in_channels, **kw)
+        self.fc2 = Dense(widening_factor * in_channels,
+                         out_channels or in_channels, **kw)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+class SelfAttention(nn.Module):
+    """Pre-LN self-attention block: x + Attn(LN1(x)); x + MLP(LN2(x))."""
+
+    def __init__(self, in_channels: int, widening_factor: int = 4,
+                 num_heads: int = 8, att_init_scale: float = 1.0,
+                 dense_init_scale: float = 1.0,
+                 qk_channels: Optional[int] = None,
+                 v_channels: Optional[int] = None,
+                 policy: Policy = DEFAULT, *, generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        qk_channels = qk_channels or in_channels
+        v_channels = v_channels or qk_channels
+        self.policy = policy
+        self.attention = Attention(
+            q_in_channels=in_channels, k_in_channels=in_channels,
+            v_in_channels=in_channels, num_heads=num_heads,
+            init_scale=att_init_scale, qk_out_channels=qk_channels,
+            v_out_channels=v_channels, policy=policy, generator=g,
+        )
+        self.mlp = MLP(in_channels=v_channels, widening_factor=widening_factor,
+                       init_scale=dense_init_scale, policy=policy, generator=g)
+        self.layer_norm1 = LayerNorm(in_channels)
+        self.layer_norm2 = LayerNorm(v_channels)
+
+    def forward(self, inputs, *, attention_mask=None, q_mask=None, kv_mask=None):
+        compute_dtype = self.policy.compute_dtype or inputs.dtype
+        qkv = self.layer_norm1(inputs).to(compute_dtype)
+        x = inputs + self.attention(qkv, qkv, qkv, attention_mask=attention_mask,
+                                    q_mask=q_mask, kv_mask=kv_mask)
+        return x + self.mlp(self.layer_norm2(x).to(compute_dtype))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention block with optional query residual."""
+
+    def __init__(self, q_in_channels: int, kv_in_channels: int,
+                 widening_factor: int = 1, num_heads: int = 8,
+                 attn_init_scale: float = 1.0, mlp_init_scale: float = 1.0,
+                 shape_for_attn: str = "kv", use_query_residual: bool = True,
+                 qk_channels: Optional[int] = None,
+                 v_channels: Optional[int] = None,
+                 policy: Policy = DEFAULT, *, generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        if qk_channels is None:
+            if shape_for_attn == "q":
+                qk_channels = q_in_channels
+            elif shape_for_attn == "kv":
+                qk_channels = kv_in_channels
+            else:
+                raise ValueError(
+                    f"Unknown value {shape_for_attn} for shape_for_attention."
+                )
+        v_channels = v_channels or qk_channels
+        self.policy = policy
+        self.use_query_residual = use_query_residual
+        self.attention = Attention(
+            q_in_channels=q_in_channels, k_in_channels=kv_in_channels,
+            v_in_channels=kv_in_channels, num_heads=num_heads,
+            init_scale=attn_init_scale, qk_out_channels=qk_channels,
+            v_out_channels=v_channels, output_channels=q_in_channels,
+            policy=policy, generator=g,
+        )
+        self.mlp = MLP(in_channels=q_in_channels, widening_factor=widening_factor,
+                       init_scale=mlp_init_scale, policy=policy, generator=g)
+        self.layer_norm_q = LayerNorm(q_in_channels)
+        self.layer_norm_kv = LayerNorm(kv_in_channels)
+        self.layer_norm2 = LayerNorm(q_in_channels)
+
+    def forward(self, inputs_q, inputs_kv, *, attention_mask=None, q_mask=None,
+                kv_mask=None, kv_logical_len: Optional[int] = None):
+        compute_dtype = self.policy.compute_dtype or inputs_q.dtype
+        kv = self.layer_norm_kv(inputs_kv).to(compute_dtype)
+        q = self.layer_norm_q(inputs_q).to(compute_dtype)
+        attention = self.attention(
+            q, kv, kv, attention_mask=attention_mask, q_mask=q_mask,
+            kv_mask=kv_mask, kv_logical_len=kv_logical_len,
+        )
+        # No residual when query and output semantics differ (e.g. queries
+        # are positions, outputs are pixels).
+        x = inputs_q + attention if self.use_query_residual else attention
+        return x + self.mlp(self.layer_norm2(x).to(compute_dtype))

@@ -1,0 +1,7 @@
+"""Task models of the PyTorch/CUDA port."""
+
+from perceiverio_pytorch_tpu_torch.models.flow import (  # noqa: F401
+    FlowInference,
+    FlowPerceiver,
+    compute_grid_indices,
+)

@@ -1,0 +1,119 @@
+"""The port's CUDA kernel on the card (skipped without a GPU).
+
+This file imports no JAX, so it also runs where JAX is absent: there, run
+it without the suite's conftest (which imports JAX):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+The kernel is held against its plain PyTorch version, which the CPU tests
+hold against the JAX package.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from perceiverio_pytorch_tpu_torch import config
+from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
+from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+SMALL = dict(img_size=(16, 24), num_latents=8, num_latent_channels=32,
+             num_self_attends_per_block=2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(b, tq, tk, h, d, dv, seed, device):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((b, tq, h, d), dtype=np.float32),
+              rng.standard_normal((b, tk, h, d), dtype=np.float32),
+              rng.standard_normal((b, tk, h, dv), dtype=np.float32),
+              rng.random((b, tk)) > 0.3, rng.random((b, tq)) > 0.2)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _check(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv", [(2, 100, 777, 2, 41, 64), (1, 130, 300, 1, 322, 322),
+                       (1, 70, 129, 1, 512, 512), (1, 256, 256, 16, 32, 32),
+                       (3, 65, 64, 3, 200, 100)],
+)
+def test_kernel_matches_reference(cuda, dtype, tol, b, tq, tk, h, d, dv):
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 1, cuda)
+    kv_mask[-1] = False  # every row of the last batch entry is all-masked
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 3, return_lse=True)
+    before = fa.LAUNCHES
+    got, got_lse = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == before + 1
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, tq, h * dv)
+    _check(got, want, tol)
+    assert torch.all(got.view(b, tq, -1)[~q_mask] == 0)
+    assert torch.all(got[-1] == 0)
+    assert torch.equal(torch.isinf(got_lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(got_lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_strided_inputs(cuda):
+    """[B, H, T, D] storage seen as [B, T, H, D]: strides, not copies."""
+    q, k, v, _, _ = _inputs(2, 90, 150, 3, 48, 48, 2, cuda)
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not qs.is_contiguous()
+    _check(fa.flash_attention(qs, ks, vs), fa.flash_attention_reference(q, k, v), 1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_gradients_and_bad_inputs(cuda):
+    q = torch.randn(1, 8, 1, 32, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K2/K3"):
+        fa.flash_attention(q, q, q)
+    x = torch.randn(1, 8, 1, 520, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x, x)
+    x = torch.randn(1, 8, 1, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x, x)
+
+
+@pytest.mark.cuda
+def test_small_flow_model_on_the_card(cuda):
+    """The whole model on the GPU, every site forced through the kernel,
+    against the dense path on the same card and weights."""
+    flash = FlowPerceiver(**SMALL, device=cuda, generator=torch.Generator().manual_seed(3),
+                          policy=dataclasses.replace(config.PARITY, attn_impl="flash"))
+    dense = FlowPerceiver(**SMALL, device=cuda, policy=config.PARITY)
+    dense.load_state_dict(flash.state_dict())
+    weight = flash.perceiver._decoder.final_layer.weight
+    with torch.no_grad():  # the zero-initialised projection would hide the decoder
+        weight.copy_(torch.randn(weight.shape, generator=torch.Generator().manual_seed(5)))
+        dense.perceiver._decoder.final_layer.weight.copy_(weight)
+    rng = np.random.default_rng(4)
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (1, 3, 20, 40)).astype(np.float32))
+                  for _ in range(2))
+    before = fa.LAUNCHES
+    got = FlowInference(flash, min_overlap=8, device=cuda)(img1, img2)
+    # one batched forward of the 4 tiles: encoder, 2 self-attends, decoder
+    assert fa.LAUNCHES == before + 4
+    want = FlowInference(dense, min_overlap=8, device=cuda)(img1, img2)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    _check(got, want, 1e-4)

@@ -1,0 +1,100 @@
+"""Import hygiene and device rules of the PyTorch/CUDA port.
+
+The port and chip_smoke.py import neither JAX/flax nor the JAX package
+(nor torchvision/timm), and its entry points never fall back to the CPU
+quietly.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = "perceiverio_pytorch_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "perceiverio_pytorch_tpu", "torchvision", "timm")
+
+
+def _port_files():
+    files = []
+    for dirpath, _, names in os.walk(os.path.join(ROOT, PACKAGE)):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _module_name(path):
+    rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+    return rel[: -len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_import_statements(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [_module_name(p) for p in _port_files()]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+
+
+SMALL = dict(img_size=(16, 24), num_latents=8, num_latent_channels=32,
+             num_self_attends_per_block=1)
+
+
+def test_flow_perceiver_defaults_to_cuda(no_cuda):
+    from perceiverio_pytorch_tpu_torch import FlowPerceiver
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FlowPerceiver(**SMALL)
+
+
+def test_flow_inference_defaults_to_cuda(no_cuda):
+    from perceiverio_pytorch_tpu_torch import FlowInference, FlowPerceiver
+
+    model = FlowPerceiver(**SMALL, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FlowInference(model, min_overlap=8)
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_flow_inference_runs_on_cpu_when_asked():
+    from perceiverio_pytorch_tpu_torch import FlowInference, FlowPerceiver
+
+    model = FlowPerceiver(**SMALL, device="cpu")
+    infer = FlowInference(model, min_overlap=8, device="cpu")
+    out = infer(torch.zeros(1, 3, 20, 30), torch.zeros(1, 3, 20, 30))
+    assert out.device.type == "cpu" and out.shape == (1, 2, 20, 30)
