@@ -7,19 +7,35 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (each raises on failure; nothing is caught):
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for the comparisons;
-  2. build: compiles the flash attention kernel from csrc/ with nvcc;
-  3. kernel: holds the kernel against its plain PyTorch version on the card
+  2. build: compiles the flash attention kernels from csrc/ with nvcc, one
+     process per source, all at once (K1 forward; K2 dK/dV and K3 dQ
+     backward);
+  3. kernel: holds K1 against its plain PyTorch version on the card
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
      serving forward's shapes (6 tiles, bf16), and at a small masked case (kv_mask, q_mask, ragged Tk, kv_logical_len, an
      all-masked row, lse); times kernel, plain version,
      F.scaled_dot_product_attention (a yardstick only) and the bound;
-  4. model: FlowPerceiver at full width (368x496 tiles, 2048x512 latents,
+  4. backward kernels: holds K2 and K3 against the plain backward at the
+     three flow sites (batch 1) in fp32 and bf16 and at the masked case
+     (exact zeros on wiped rows and tail keys); times each kernel, the
+     plain backward, SDPA's backward (forward+backward minus forward, a
+     yardstick only) and the bounds;
+  5. model: FlowPerceiver at full width (368x496 tiles, 2048x512 latents,
      24 self-attends), seeded random weights with a random decoder
      projection, fp32, once through the kernel (26 launches) and once with
      attention on the plain version; the two flows must agree;
-  5. serve: three synthetic 436x1024 frame pairs through FlowInference under
+  6. serve: three synthetic 436x1024 frame pairs through FlowInference under
      the PERFORMANCE policy (bf16), 6 tiles per request in one forward;
-  6. prints the kernels line and, last, {"ok": true, "device": {...}}.
+  7. gradients: the full-width fp32 model with remat, one endpoint-error
+     loss on a synthetic roll pair and its backward through the kernels
+     (per step: K1 26 + 24 recomputed, K2 26, K3 26), then with the flash
+     forward and backward patched to their plain versions; every
+     parameter's gradient must agree;
+  8. train: the port's examples/train_flow.py at --full-scale (bf16
+     PERFORMANCE, remat, batch 1, synthetic roll pairs) through its Trainer:
+     one warm-up step, then timed steps with finite losses and parameters
+     that move once the warmup's lr-0 step is past;
+  9. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -30,12 +46,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from unittest import mock
 
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): fp32 on the CUDA
 # cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -46,6 +64,14 @@ PEAK_BYTES = 3.35e12
 TOL = {"fp32": 1e-4, "bf16": 2e-2}
 # Full-width fp32 model, kernel vs plain attention, relative to max|flow|.
 MODEL_TOL = 1e-3
+# Full-width fp32 gradients, kernels vs plain attention, per parameter,
+# relative to that parameter's max|grad| (the worst measured on an H100 was
+# 4.9e-5, at the decoder's key projection).
+GRAD_TOL = 2e-4
+# Launches per training step of the flow model with remat: 26 attention
+# sites, the 24 self-attends' forward recomputed in the backward.
+STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26}
+TRAIN_STEPS = 6  # timed, after one warm-up step
 
 FLOW_SITES = {
     # name: (B, Tq, Tk, H, D, Dv) of the flow model's attention sites
@@ -99,9 +125,9 @@ def phase_build():
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    path = fa.build()
+    paths = fa.build()
     fa._load()
-    print(f"[build] {path} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] {paths} in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _case_inputs(b, tq, tk, h, d, dv, dtype, masked, gen):
@@ -230,15 +256,134 @@ def phase_kernels(reps: int = 3):
     return records
 
 
-def _flow_model(policy):
+def _bwd_flops_and_bytes(q, k, v, kw):
+    """Per kernel, the operations and bytes this call's data needs: valid
+    (query, key) pairs only, 4d + 4dv FLOP a pair and head for K2 (dK, dV)
+    and 4d + 2dv for K3 (dQ); q, k, v, dO, lse, delta and kv_mask read once,
+    each kernel's outputs written once."""
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[3]
+    pairs = _flops_and_bytes(q, k, v, kw)[0] / (2.0 * h * (d + dv))
+    size = q.element_size()
+    inputs = size * (q.numel() + k.numel() + v.numel() + b * tq * h * dv)
+    inputs += 2 * 4 * b * h * tq
+    if kw.get("kv_mask") is not None:
+        inputs += kw["kv_mask"].numel()
+    return {
+        "K2": ((4 * d + 4 * dv) * h * pairs, inputs + size * (k.numel() + v.numel())),
+        "K3": ((4 * d + 2 * dv) * h * pairs, inputs + size * q.numel()),
+    }
+
+
+def _library_backward_ms(q, k, v, grad, kw, reps):
+    """F.scaled_dot_product_attention forward+backward minus its forward, on
+    the same tensors: a yardstick for K2+K3 (the port never calls it)."""
+    import torch
+
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    fwd = _library_call(qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2), kw)
+    b, tq, h = q.shape[:3]
+    g = grad.view(b, tq, h, -1).transpose(1, 2)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), g)
+
+    with torch.enable_grad():
+        total = time_ms(fwd_bwd, reps)
+        forward = time_ms(fwd, reps)
+    return total - forward
+
+
+def check_backward_case(name, shape, dtype_name, masked, reps, gen):
+    """K2 and K3 vs the plain backward at one shape; returns one record per
+    kernel."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    q, k, v, kw = _case_inputs(*shape, dtype, masked, gen)
+    kw.pop("return_lse", None)
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        grad = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        args = (q, k, v, out, lse, grad)
+        kernels = fa.BackwardKernels(*args, q_mask=kw.get("q_mask"),
+                                     kv_mask=kw.get("kv_mask"), softmax_scale=None,
+                                     kv_logical_len=kw.get("kv_logical_len"))
+        kernels.dkv()
+        kernels.dq()
+        got = {"dq": kernels.grad_q, "dk": kernels.grad_k, "dv": kernels.grad_v}
+        want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_reference(
+            *(x.float() for x in args), **kw)))
+        torch.cuda.synchronize()
+        errs = {}
+        for key in got:
+            g = got[key].float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name}/{dtype_name}: non-finite {key}")
+            err = (g - want[key]).abs().max().item()
+            peak = want[key].abs().max().item()
+            if not err <= TOL[dtype_name] * peak:
+                raise AssertionError(
+                    f"{name}/{dtype_name}: {key} max abs err {err} > {TOL[dtype_name]} * {peak}")
+            errs[key] = (err, peak)
+        if masked:
+            tail = kw["kv_logical_len"]
+            wiped_rows = ~kw["q_mask"]
+            wiped_rows[-1] = True  # all keys masked
+            exact = (got["dq"][wiped_rows].abs().max().item(),
+                     got["dk"][:, tail:].abs().max().item(),
+                     got["dv"][:, tail:].abs().max().item(),
+                     got["dk"][-1].abs().max().item(), got["dv"][-1].abs().max().item())
+            if any(x != 0.0 for x in exact):
+                raise AssertionError(f"{name}/{dtype_name}: wiped gradients not 0: {exact}")
+
+        ms = {"K2": time_ms(kernels.dkv, reps), "K3": time_ms(kernels.dq, reps)}
+        plain_ms = time_ms(
+            lambda: fa.flash_attention_backward_reference(*args, **kw), reps)
+    library_ms = _library_backward_ms(q, k, v, grad, kw, reps)
+    records = []
+    for kernel, (flops, nbytes) in _bwd_flops_and_bytes(q, k, v, kw).items():
+        flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        keys = ("dk", "dv") if kernel == "K2" else ("dq",)
+        rec = dict(
+            kernel=kernel, site=name, dtype=dtype_name, shape=list(shape),
+            max_abs_err=max(errs[key][0] for key in keys),
+            max_abs_grad=max(errs[key][1] for key in keys),
+            ms=ms[kernel], plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(flops_ms, bytes_ms),
+            bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+            flops=flops, tflops=flops / ms[kernel] / 1e9,
+        )
+        print(f"[backward] {json.dumps(rec)}", flush=True)
+        records.append(rec)
+    return records
+
+
+def phase_backward(reps: int = 3):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    records = []
+    for dtype_name in ("fp32", "bf16"):
+        for name, shape in FLOW_SITES.items():
+            records += check_backward_case(name, shape, dtype_name, False, reps, gen)
+        records += check_backward_case(
+            "masked", (2, 100, 777, 2, 41, 64), dtype_name, True, reps, gen)
+    return records
+
+
+def _flow_model(policy, remat=False):
     import torch
 
     from perceiverio_pytorch_tpu_torch import FlowPerceiver
     from perceiverio_pytorch_tpu_torch.utils.initializers import lecun_normal_
 
     gen = torch.Generator().manual_seed(SEED)
-    model = FlowPerceiver(img_size=(368, 496), policy=policy, device="cuda",
-                          generator=gen)
+    model = FlowPerceiver(img_size=(368, 496), policy=policy, remat=remat,
+                          device="cuda", generator=gen)
     # The decoder projection is zero-initialised by design, which makes a
     # fresh model's flow exactly 0; draw it at random so the check sees
     # the whole path.
@@ -347,29 +492,184 @@ def phase_serve(fp32_model, n_requests: int = 3):
     return rec
 
 
-def kernels_line(records, serve):
-    """One entry for K1: times summed over the 26 launches of one serving
-    forward (6 tiles, bf16), the largest error of every comparison, and the
-    launches of the serving run."""
-    per_forward = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    serving = [r for r in records if r["dtype"] == "bf16"
-               and r["site"] in SITE_LAUNCHES and r["shape"][0] == SERVE_TILES]
-    for rec in serving:
-        for key in per_forward:
-            per_forward[key] += SITE_LAUNCHES[rec["site"]] * rec[key]
-    entry = dict(
+def _launch_counts():
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    return {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DKV, "K3": fa.LAUNCHES_BWD_DQ}
+
+
+def _reset_launch_counts():
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = 0
+
+
+def phase_gradients():
+    """Full-width fp32 gradients through K1/K2/K3 against the same step
+    with the flash forward and backward on their plain versions."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+    from perceiverio_pytorch_tpu_torch.examples.train_flow import synthetic_flow_pairs
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.training import flow_endpoint_error
+
+    model = _flow_model(dataclasses.replace(PARITY, attn_impl="auto"), remat=True).train()
+    img1, img2, flow = (torch.from_numpy(a).cuda()
+                        for a in synthetic_flow_pairs(1, (368, 496), seed=SEED + 4))
+
+    def gradients():
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = flow_endpoint_error(model(img1, img2), flow)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return loss.item(), grads, time.perf_counter() - t0
+
+    first_s = gradients()[2]  # warm-up: the process's first backward
+    _reset_launch_counts()
+    loss_k, grads_k, kernel_s = gradients()
+    launches = _launch_counts()
+    if launches != STEP_LAUNCHES:
+        raise AssertionError(f"launches per step {launches}, expected {STEP_LAUNCHES}")
+    with mock.patch.object(fa, "_flash_attention_cuda", fa.flash_attention_reference), \
+            mock.patch.object(fa, "_flash_attention_backward_cuda",
+                              fa.flash_attention_backward_reference):
+        loss_p, grads_p, plain_s = gradients()
+    if _launch_counts() != STEP_LAUNCHES:
+        raise AssertionError("the plain run launched a kernel")
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)):
+        raise AssertionError(f"loss through the kernels {loss_k}, plain {loss_p}")
+    if set(grads_k) != set(grads_p) or len(grads_k) < 100:
+        raise AssertionError("the two runs give gradients to different parameters")
+    worst, worst_name, key_bias = 0.0, None, 0.0
+    for name, want in grads_p.items():
+        got = grads_k[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"non-finite gradient of {name}")
+        if name.endswith("proj_k.bias"):
+            # Its exact gradient is 0 (softmax ignores a shift shared by a
+            # row's logits): both runs hold rounding noise, which must stay
+            # small against the same projection's weight gradient.
+            weight = grads_p[name[: -len("bias")] + "weight"].abs().max().item()
+            ratio = max(got.abs().max().item(), want.abs().max().item()) / weight
+            if not ratio <= GRAD_TOL:
+                raise AssertionError(f"{name}: |grad| {ratio} of its weight's")
+            key_bias = max(key_bias, ratio)
+            continue
+        peak = want.abs().max().item()
+        ratio = (got - want).abs().max().item() / peak if peak > 0 else 0.0
+        if not ratio <= GRAD_TOL:
+            raise AssertionError(f"{name}: max|dgrad| = {ratio} * max|grad| > {GRAD_TOL}")
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    rec = dict(launches=launches, loss_kernels=loss_k, loss_plain=loss_p,
+               params=len(grads_k), worst_rel_grad_diff=worst, worst_param=worst_name,
+               key_bias_grad_rel=key_bias, first_kernel_step_s=first_s,
+               kernel_step_s=kernel_s, plain_step_s=plain_s)
+    print(f"[gradients] fp32 full width, remat: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_train():
+    """The port's train_flow example at --full-scale, through its Trainer,
+    one step per fit() call so that each step is timed and counted."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples import train_flow
+
+    total = 1 + TRAIN_STEPS
+    metrics = os.path.join(ROOT, "build", "chip_smoke_train_metrics.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)  # the logger appends
+    trainer, state, batches = train_flow.setup(
+        total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
+    params = [p for g in state.optimizer.param_groups for p in g["params"] if p.numel()]
+    initial = [p.detach().clone() for p in params]
+    steps = []
+    for n in range(1, total + 1):
+        if n == 2:  # after the warm-up step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit(state, batches, num_steps=n)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        if state.step != n or launches != STEP_LAUNCHES:
+            raise AssertionError(f"step {state.step}: launches {launches}")
+        moved = max((p.detach() - p0).abs().max().item() for p, p0 in zip(params, initial))
+        with open(metrics) as f:
+            logged = json.loads(f.readlines()[-1])
+        if logged["step"] != n or not math.isfinite(logged["loss"]):
+            raise AssertionError(f"step {n}: logged {logged}")
+        steps.append(dict(step=n, seconds=seconds, loss=logged["loss"], moved=moved,
+                          launches=launches))
+        if n == 1 and moved != 0.0:
+            raise AssertionError("the warmup's first step (lr 0) moved the parameters")
+        if n == 2 and not moved > 0.0:
+            raise AssertionError("the parameters did not move at step 2")
+    timed = steps[1:]
+    step_s = [s["seconds"] for s in timed]
+    rec = dict(
+        steps=len(timed), loss=[s["loss"] for s in steps], step_s=step_s,
+        steps_per_s=len(timed) / sum(step_s), warmup_step_s=steps[0]["seconds"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_per_step=[s["launches"] for s in steps],
+        launches={k: sum(s["launches"][k] for s in steps) for k in STEP_LAUNCHES},
+    )
+    print(f"[train] bf16 full width, remat, batch 1: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def _site_sums(records, keep, per_site):
+    """Sums of the timed keys over the sites' launches (per_site: site ->
+    launches), the records picked by ``keep``."""
+    picked = [r for r in records if keep(r) and r["site"] in per_site]
+    sums = {key: sum(per_site[r["site"]] * r[key] for r in picked)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    sums["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in picked)
+                        else "bytes")
+    return sums
+
+
+def kernels_line(records, serve, backward, train):
+    """One entry each for K1, K2 and K3.  K1: times summed over the 26
+    launches of one serving forward (6 tiles, bf16), the launches of the
+    serving run (and, apart, of the training run).  K2 and K3: times summed
+    over the 26 launches of one training step (batch 1, bf16), the launches
+    of the training run; their plain and library times are the whole
+    backward (dq, dk and dv in one call), the same for both.  Each entry's
+    error is the largest of all its comparisons."""
+    entries = [dict(
         name="flash_attention_fwd",
         route="cuda",
         source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
         launches=serve["launches"],
+        launches_train=train["launches"]["K1"],
         max_abs_err=max(rec["max_abs_err"] for rec in records),
-        bound_by=("operations" if all(r["bound_by"] == "operations" for r in serving)
-                  else "bytes"),
-        **per_forward,
+        **_site_sums(records, lambda r: r["dtype"] == "bf16"
+                     and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
         sites=records,
-    )
-    return json.dumps({"kernels": [entry]})
+    )]
+    for kernel, name, line in (("K2", "flash_attention_bwd_dkv", 473),
+                               ("K3", "flash_attention_bwd_dq", 514)):
+        mine = [r for r in backward if r["kernel"] == kernel]
+        entries.append(dict(
+            name=name,
+            route="cuda",
+            source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}",
+            launches=train["launches"][kernel],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
+            sites=mine,
+        ))
+    return json.dumps({"kernels": entries})
 
 
 def main() -> int:
@@ -387,9 +687,12 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     records = phase_kernels()
+    backward = phase_backward()
     serve = phase_serve(phase_model())
+    phase_gradients()
+    train = phase_train()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(records, serve))
+    print(kernels_line(records, serve, backward, train))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

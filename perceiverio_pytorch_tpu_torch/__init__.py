@@ -5,7 +5,9 @@ Hopper GPU.  Its torch modules carry the reference's state_dict names, so
 the JAX package's weights (``utils.weights.state_dict_from_flax``) and the
 converted DeepMind checkpoints load with ``load_state_dict(strict=True)``.
 Every Pallas kernel of the JAX package on a ported path is a hand-written
-CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.
+CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.  The
+training stack is ``perceiverio_pytorch_tpu_torch.training``; a runnable
+flow training demo is ``perceiverio_pytorch_tpu_torch.examples.train_flow``.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@
 Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
   * ``PerceiverEncoder``: trainable latent array, one cross-attend, then
     ``num_blocks`` weight-shared passes over ``num_self_attends_per_block``
-    distinct self-attention layers, as a plain Python loop;
+    distinct self-attention layers, as a plain Python loop; with ``remat``
+    each pass is rematerialised in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``nn.remat``);
   * ``PerceiverDecoder``: one query cross-attend over the latents and an
     optional final projection ("lecun_normal" or "zeros" init);
   * ``MultimodalPreprocessor``: per-modality preprocess, trainable channel
@@ -12,8 +14,9 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
     ``decoder_query``.  A bare module is wrapped under the ``"__default"``
     modality, as in the reference.
 
-Not ported yet: layer scan, pipelining, remat, input sharding, token
-masking (``mask_probs``) and the multimodal query fold.
+Not ported yet: layer scan, pipelining, selective remat
+(``Policy.remat_policy``), input sharding, token masking (``mask_probs``)
+and the multimodal query fold.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
 from perceiverio_pytorch_tpu_torch.core import position_encoding
@@ -103,6 +107,7 @@ class PerceiverEncoder(nn.Module):
         cross_attention_shape_for_attn: str = "kv",
         use_query_residual: bool = True,
         policy: Policy = DEFAULT,
+        remat: bool = False,
         *,
         generator=None,
     ):
@@ -116,6 +121,9 @@ class PerceiverEncoder(nn.Module):
                 )
         g = default_generator(generator)
         self.num_blocks = num_blocks
+        # Rematerialise the self-attend stack in the backward: one more
+        # forward of the stack in FLOPs, O(1) instead of O(depth) activations.
+        self.remat = remat
         self.latent_pos_enc = position_encoding.TrainablePositionEncoding(
             index_dim=num_latents, num_channels=num_latent_channels,
             init_scale=latent_pos_enc_init_scale, generator=g,
@@ -142,7 +150,10 @@ class PerceiverEncoder(nn.Module):
         latents = self.cross_attend(latents, inputs, kv_mask=input_mask,
                                     kv_logical_len=kv_logical_len)
         for _ in range(self.num_blocks):  # weight-shared blocks
-            latents = self.self_attends(latents)
+            if self.remat and torch.is_grad_enabled():
+                latents = checkpoint(self.self_attends, latents, use_reentrant=False)
+            else:
+                latents = self.self_attends(latents)
         return latents
 
 
@@ -275,6 +286,7 @@ class PerceiverIO(nn.Module):
         input_channels: Union[None, int, Mapping[str, int]] = None,
         input_mask_probs: Optional[Mapping[str, float]] = None,
         policy: Policy = DEFAULT,
+        remat: bool = False,
         *,
         generator=None,
     ):
@@ -315,6 +327,7 @@ class PerceiverIO(nn.Module):
             num_latents=num_latents,
             num_latent_channels=num_latent_channels,
             policy=policy,
+            remat=remat,
             generator=g,
             **(perceiver_encoder_kwargs or {}),
         )

@@ -4,7 +4,9 @@ Counterpart of ``perceiverio_pytorch_tpu/models/flow.py``:
   * ``FlowPerceiver``: 3x3 patch features over 2 stacked frames, 2048
     latents x 512 channels, 24 self-attends with 16 heads, a zero-initialised
     decoder projection, flow scale 0.2.  At the published width every one of
-    its 26 attention sites takes the flash kernel on a GPU.
+    its 26 attention sites takes the flash kernel on a GPU, forward and
+    backward.  ``remat`` rematerialises the self-attend stack in the
+    backward, as in the JAX package's training configuration.
   * ``compute_grid_indices``: train-size tiles covering an image, every
     origin clamped inside the image (the JAX package's fix).
   * ``FlowInference``: tiles an arbitrary-size frame pair, runs all tiles
@@ -56,6 +58,7 @@ class FlowPerceiver(nn.Module):
         num_self_attends_per_block: int = 24,
         num_blocks: int = 1,
         policy: Policy = DEFAULT,
+        remat: bool = False,
         *,
         device="cuda",
         generator=None,
@@ -100,6 +103,7 @@ class FlowPerceiver(nn.Module):
             input_preprocessors=preprocessor,
             output_postprocessors=postprocessor,
             policy=policy,
+            remat=remat,
             generator=g,
         )
         self.to(device)

@@ -1,12 +1,12 @@
-"""The port's CUDA kernel on the card (skipped without a GPU).
+"""The port's CUDA kernels on the card (skipped without a GPU).
 
 This file imports no JAX, so it also runs where JAX is absent: there, run
 it without the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The kernel is held against its plain PyTorch version, which the CPU tests
-hold against the JAX package.
+The kernels (K1 forward, K2 and K3 backward) are held against their plain
+PyTorch versions, which the CPU tests hold against the JAX package.
 """
 
 import dataclasses
@@ -18,6 +18,7 @@ import torch
 from perceiverio_pytorch_tpu_torch import config
 from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+from perceiverio_pytorch_tpu_torch.training import flow_endpoint_error
 
 torch.set_num_threads(1)
 SMALL = dict(img_size=(16, 24), num_latents=8, num_latent_channels=32,
@@ -83,16 +84,111 @@ def test_kernel_takes_strided_inputs(cuda):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_gradients_and_bad_inputs(cuda):
-    q = torch.randn(1, 8, 1, 32, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        fa.flash_attention(q, q, q)
+def test_kernel_refuses_bad_inputs(cuda):
     x = torch.randn(1, 8, 1, 520, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(x, x, x)
     x = torch.randn(1, 8, 1, 32, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.flash_attention(x, x, x)
+    q = torch.randn(1, 8, 1, 32, device=cuda)
+    out, lse = fa.flash_attention(q, q, q, return_lse=True)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        fa.flash_attention_backward(q, q, q, out, lse[:, :, :4], out)
+    with pytest.raises(ValueError):  # a gradient on another device
+        fa.flash_attention_backward(q, q, q, out, lse, out.cpu())
+
+
+def _backward_case(b, tq, tk, h, d, dv, dtype, device, strided=False):
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 5, device)
+    kv_mask[-1] = False  # every row of the last batch entry is all-masked
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    if strided:  # [B, H, T, D] storage seen as [B, T, H, D]
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 3)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(device, dtype)
+    return (q, k, v, out, lse, grad), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv", [(2, 100, 777, 2, 41, 64), (2, 130, 300, 1, 322, 322),
+                       (2, 70, 129, 1, 512, 512), (2, 256, 256, 16, 32, 32),
+                       (3, 65, 64, 3, 200, 100), (3, 50, 333, 2, 41, 24)],
+)
+def test_backward_kernels_match_reference(cuda, dtype, tol, b, tq, tk, h, d, dv):
+    """K2 (dK, dV) and K3 (dQ) against the plain backward, with masks, a
+    ragged Tk, kv_logical_len and an all-masked batch entry."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, dtype, cuda)
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    got = fa.flash_attention_backward(*args, **kw)
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    for x, y, x_like in zip(got, want, args[:3]):
+        assert x.dtype == dtype and x.shape == x_like.shape
+        _check(x, y, tol)
+    dq, dk, dv_ = got
+    assert torch.all(dq[-1] == 0) and torch.all(dq[~kw["q_mask"]] == 0)
+    assert torch.all(dk[:, tk - 3:] == 0) and torch.all(dv_[:, tk - 3:] == 0)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_take_strided_inputs(cuda):
+    args, kw = _backward_case(2, 90, 150, 3, 48, 48, torch.float32, cuda, strided=True)
+    assert not args[0].is_contiguous()
+    got = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_reference(*args, **kw)
+    for x, y in zip(got, want):
+        _check(x, y, 1e-4)
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_three_kernels(cuda):
+    args, kw = _backward_case(2, 64, 200, 2, 32, 32, torch.float32, cuda)
+    q, k, v = (x.detach().requires_grad_() for x in args[:3])
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    out = fa.flash_attention(q, k, v, **kw)
+    out.backward(args[5])
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == tuple(
+        n + 1 for n in before)
+    want = fa.flash_attention_backward_reference(*args, **kw)
+    for x, y in zip((q.grad, k.grad, v.grad), want):
+        _check(x, y, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_small_flow_gradients_on_the_card(cuda, remat):
+    """Every site through K1/K2/K3 against the dense path's autograd, same
+    card and weights."""
+    models = {}
+    for impl in ("flash", "dense"):
+        models[impl] = FlowPerceiver(
+            **SMALL, device=cuda, remat=remat, generator=torch.Generator().manual_seed(7),
+            policy=dataclasses.replace(config.PARITY, attn_impl=impl))
+        weight = models[impl].perceiver._decoder.final_layer.weight
+        with torch.no_grad():
+            weight.copy_(torch.randn(weight.shape, generator=torch.Generator().manual_seed(8)))
+    rng = np.random.default_rng(9)
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (2, 3, 16, 24)).astype(np.float32)).to(cuda)
+                  for _ in range(2))
+    gt = torch.from_numpy(rng.uniform(-2, 2, (2, 2, 16, 24)).astype(np.float32)).to(cuda)
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    grads = {}
+    for impl, model in models.items():
+        flow_endpoint_error(model(img1, img2), gt).backward()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    # 4 sites forward (+2 self-attends recomputed under remat), 4 backward
+    assert (fa.LAUNCHES - before[0], fa.LAUNCHES_BWD_DKV - before[1],
+            fa.LAUNCHES_BWD_DQ - before[2]) == (6 if remat else 4, 4, 4)
+    assert set(grads["flash"]) == set(grads["dense"])
+    for name, want in grads["dense"].items():
+        if name.endswith("proj_k.bias"):  # exact gradient 0: rounding noise
+            continue
+        _check(grads["flash"][name], want, 1e-4)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,12 @@
-"""The port's flash attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
-On the CPU, ``flash_attention`` runs its plain PyTorch version; it is held
-against the Pallas kernel in interpreter mode.  The CUDA kernel itself is
-held against that plain version by tests/test_torch_cuda.py (skipped
-without a GPU) and by ``chip_smoke.py``.
+On the CPU, ``flash_attention`` runs its plain PyTorch versions (of K1
+forward, of K2 and K3 backward); they are held against the Pallas kernels
+in interpreter mode, the gradients through ``jax.grad`` with
+``pallas_backward=True``.  The CUDA kernels themselves are held against
+those plain versions by tests/test_torch_cuda.py (skipped without a GPU)
+and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -13,7 +16,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from perceiverio_pytorch_tpu.ops.pallas.flash_attention import _flash_impl
+from perceiverio_pytorch_tpu.ops.pallas.flash_attention import (
+    _flash_impl,
+    flash_attention as jax_flash_attention,
+)
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(1)
@@ -106,3 +112,99 @@ def test_shape_checks_raise():
         fa.flash_attention(q, torch.zeros(1, 5, 2, 8), torch.zeros(1, 6, 2, 8))
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, kv_mask=torch.ones(1, 3, dtype=torch.bool))
+
+
+# (B, Tq, Tk, H, D, Dv, kv_logical_len): the flow widths (32, 322, 512) and
+# a ragged one (41 with Dv 24), at short lengths.
+GRAD_CASES = [
+    (2, 64, 300, 2, 32, 32, None),
+    (3, 50, 333, 2, 41, 24, 300),
+    (2, 40, 150, 1, 322, 322, 140),
+    (2, 70, 64, 1, 512, 512, None),
+]
+
+
+def _jax_grads(q, k, v, g, kv_mask, q_mask, kv_logical_len):
+    def loss(q, k, v):
+        out = jax_flash_attention(
+            q, k, v, kv_mask=jnp.asarray(kv_mask), q_mask=jnp.asarray(q_mask),
+            block_q=32, block_k=64, interpret=True, pallas_backward=True,
+            kv_logical_len=kv_logical_len,
+        )
+        return jnp.sum(out * g)
+
+    return [np.asarray(x) for x in jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(q, k, v)]
+
+
+def _port_grads(q, k, v, g, fn=fa.flash_attention, **kw):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, **kw)
+    out.backward(torch.from_numpy(g))
+    return [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,dv,kv_logical_len", GRAD_CASES)
+def test_backward_matches_pallas(b, tq, tk, h, d, dv, kv_logical_len):
+    """The autograd Function's backward (the plain version of K2 and K3 on
+    the CPU) against jax.grad through the Pallas dKV/dQ sweeps, with masks,
+    kv_logical_len and a batch entry whose keys are all masked."""
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, seed=d + tk)
+    kv_mask[-1] = False
+    g = np.random.default_rng(d).standard_normal((b, tq, h * dv), dtype=np.float32)
+    want = _jax_grads(q, k, v, g, kv_mask, q_mask, kv_logical_len)
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    got = _port_grads(q, k, v, g, kv_mask=torch.from_numpy(kv_mask),
+                      q_mask=torch.from_numpy(q_mask), kv_logical_len=kv_logical_len)
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x, y, err_msg=name, **TOL)
+        assert np.abs(y).max() > 0, name
+    dq, dk, dv_ = got
+    assert np.all(dq[-1] == 0.0) and np.all(dq[~q_mask] == 0.0)
+    if kv_logical_len is not None:
+        assert np.all(dk[:, kv_logical_len:] == 0.0)
+        assert np.all(dv_[:, kv_logical_len:] == 0.0)
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv,masked",
+    [(2, 37, 90, 3, 16, 8, True), (1, 64, 700, 1, 322, 322, False)],
+)
+def test_backward_reference_matches_autograd(b, tq, tk, h, d, dv, masked):
+    """The plain backward against torch.autograd through the plain forward."""
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, seed=tq)
+    g = np.random.default_rng(1).standard_normal((b, tq, h * dv), dtype=np.float32)
+    kw = {}
+    if masked:
+        kv_mask[0] = False
+        kw = dict(kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+                  kv_logical_len=tk - 7)
+    want = _port_grads(q, k, v, g, fn=fa.flash_attention_reference, **kw)
+    got = _port_grads(q, k, v, g, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_backward_reference_chunking():
+    """Chunking over query rows changes only the order of the dk/dv sums."""
+    q, k, v, kv_mask, q_mask = _inputs(2, 37, 90, 3, 16, 8, seed=5)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    kw = dict(kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask))
+    out, lse = fa.flash_attention_reference(*args, return_lse=True, **kw)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    whole = fa.flash_attention_backward_reference(*args, out, lse, g, **kw)
+    chunked = fa.flash_attention_backward_reference(
+        *args, out, lse, g, max_chunk_elems=2 * 3 * 90 * 5, **kw)
+    for a, b in zip(whole, chunked):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_lse_under_gradient_is_not_differentiable():
+    q, k, v, _, _ = _inputs(1, 8, 16, 2, 8, 8, seed=0)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert out.requires_grad and not lse.requires_grad
+    want = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(),
+                                        return_lse=True)
+    torch.testing.assert_close(out.detach(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(lse, want[1], rtol=0, atol=0)

@@ -1,0 +1,322 @@
+"""The port's flow training path against the JAX package's.
+
+Gradients of the tiny flow model through the flash path (the plain
+versions of K1, K2 and K3 on the CPU, the Pallas kernels in interpreter mode
+in JAX), with remat on and off; the schedule and AdamW with its clip against
+optax; the batch order; three Trainer steps; and the example's tiny
+configuration.
+"""
+
+import importlib.util
+import json
+import os
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from perceiverio_pytorch_tpu import config as jax_config
+from perceiverio_pytorch_tpu.models import flow as jax_flow
+from perceiverio_pytorch_tpu.training import Trainer as JaxTrainer
+from perceiverio_pytorch_tpu.training import batch_iterator as jax_batch_iterator
+from perceiverio_pytorch_tpu.training import build_optimizer as jax_build_optimizer
+from perceiverio_pytorch_tpu.training import build_schedule as jax_build_schedule
+from perceiverio_pytorch_tpu.training import flow_endpoint_error as jax_epe
+from perceiverio_pytorch_tpu_torch import config as port_config
+from perceiverio_pytorch_tpu_torch.examples import train_flow
+from perceiverio_pytorch_tpu_torch.models import flow as port_flow
+from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+from perceiverio_pytorch_tpu_torch.training import (
+    Trainer,
+    batch_iterator,
+    build_optimizer,
+    build_schedule,
+    flow_endpoint_error,
+    global_norm,
+    make_train_step,
+)
+from perceiverio_pytorch_tpu_torch.utils.weights import state_dict_from_flax
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = dict(rtol=2e-4, atol=2e-5)
+SMALL = dict(img_size=(16, 24), num_latents=8, num_latent_channels=32,
+             num_self_attends_per_block=2)
+
+
+def _jax_variables(model, seed):
+    """Initial variables with a random decoder projection (it is
+    zero-initialised by design, which would hide the decoder's gradient)."""
+    zeros = jnp.zeros((1, 3) + SMALL["img_size"])
+    variables = jax.jit(model.init)(jax.random.PRNGKey(seed), zeros, zeros)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    final = params["perceiver"]["decoder"]["final_layer"]
+    final["kernel"] = np.random.default_rng(seed).standard_normal(
+        final["kernel"].shape).astype(np.float32) * 0.1
+    return {**variables, "params": params}
+
+
+def _flow_data(n, seed):
+    rng = np.random.default_rng(seed)
+    shape = (n, 3) + SMALL["img_size"]
+    return (rng.uniform(-1, 1, shape).astype(np.float32),
+            rng.uniform(-1, 1, shape).astype(np.float32),
+            rng.uniform(-2, 2, (n, 2) + SMALL["img_size"]).astype(np.float32))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_flow_gradients_through_flash_match_jax(remat):
+    """Per-parameter gradients of the endpoint error, every attention site
+    on the flash path: K1/K2/K3's plain versions against the Pallas kernels
+    in interpreter mode under jax.grad."""
+    jax_pol = jax_config.Policy(compute_dtype=jnp.float32, attn_impl="flash",
+                                interpret=True)
+    jm = jax_flow.FlowPerceiver(**SMALL, policy=jax_pol, remat=remat)
+    variables = _jax_variables(jm, seed=0)
+    img1, img2, gt = _flow_data(2, seed=1)
+
+    def loss(params):
+        out = jm.apply({**variables, "params": params}, img1, img2)
+        return jax_epe(out, gt)
+
+    want_loss, grads = jax.jit(jax.value_and_grad(loss))(variables["params"])
+    want = state_dict_from_flax({"params": grads})
+
+    pm = port_flow.FlowPerceiver(
+        **SMALL, remat=remat, device="cpu",
+        policy=port_config.Policy(compute_dtype=torch.float32, attn_impl="flash"))
+    pm.load_state_dict(state_dict_from_flax(variables), strict=True)
+    pm.train()
+    got_loss = flow_endpoint_error(
+        pm(torch.from_numpy(img1), torch.from_numpy(img2)), torch.from_numpy(gt))
+    got_loss.backward()
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), **TOL)
+    names = dict(pm.named_parameters())
+    assert set(names) == set(want)
+    for name, param in names.items():
+        grad = (torch.zeros_like(param) if param.grad is None else param.grad).numpy()
+        np.testing.assert_allclose(grad, want[name].numpy(), err_msg=name, **TOL)
+    decoder = names["perceiver._decoder.decoding_cross_attn.attention.proj_q.weight"]
+    assert decoder.grad.abs().max() > 0
+
+
+def test_flow_endpoint_error_matches_jax():
+    rng = np.random.default_rng(0)
+    pred, gt = (rng.standard_normal((2, 2, 5, 7)).astype(np.float32) for _ in range(2))
+    valid = rng.random((2, 5, 7)) > 0.5
+    for kw in ({}, {"valid": valid}):
+        want = float(jax_epe(pred, gt, **kw))
+        got = flow_endpoint_error(torch.from_numpy(pred), torch.from_numpy(gt),
+                                  **{k: torch.from_numpy(v) for k, v in kw.items()})
+        np.testing.assert_allclose(got.item(), want, rtol=1e-6)
+    zero = flow_endpoint_error(torch.from_numpy(pred), torch.from_numpy(gt),
+                               valid=torch.zeros(2, 5, 7))
+    assert zero.item() == 0.0
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine", "linear"])
+@pytest.mark.parametrize("warmup", [0, 3])
+def test_schedule_matches_optax(schedule, warmup):
+    kw = dict(schedule=schedule, total_steps=10, warmup_steps=warmup, end_lr_ratio=0.1)
+    want = jax_build_schedule(2e-3, **kw)
+    got = build_schedule(2e-3, **kw)
+    for step in range(14):
+        np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6, atol=1e-12)
+    if warmup:
+        assert got(0) == 0.0
+
+
+@pytest.mark.parametrize("weight_decay_mask", [None, "non_1d"])
+def test_adamw_with_clip_matches_optax(weight_decay_mask):
+    """Several AdamW updates with a warmup+cosine schedule and a global-norm
+    clip that binds on some steps and not on others."""
+    rng = np.random.default_rng(0)
+    init = {"w": rng.standard_normal((4, 3)).astype(np.float32),
+            "b": rng.standard_normal((3,)).astype(np.float32)}
+    scales = [0.05, 3.0, 0.2, 10.0, 0.01, 1.0]
+    grads = [{k: (rng.standard_normal(v.shape) * s).astype(np.float32)
+              for k, v in init.items()} for s in scales]
+    kw = dict(schedule="cosine", total_steps=len(scales), warmup_steps=2,
+              weight_decay=0.1, weight_decay_mask=weight_decay_mask, clip_norm=1.0)
+
+    tx = jax_build_optimizer(1e-2, **kw)
+    params = jax.tree_util.tree_map(jnp.asarray, init)
+    opt_state = tx.init(params)
+    want = []
+    for g in grads:
+        updates, opt_state = tx.update(jax.tree_util.tree_map(jnp.asarray, g),
+                                       opt_state, params)
+        params = optax.apply_updates(params, updates)
+        want.append({k: np.asarray(v) for k, v in params.items()})
+
+    spec = build_optimizer(1e-2, **kw)
+    tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in init.items()}
+    opt = spec.create(tparams.values())
+    for step, (g, w) in enumerate(zip(grads, want)):
+        for k, p in tparams.items():
+            p.grad = torch.from_numpy(g[k].copy())  # the clip scales it in place
+        norm = spec.update(opt, step)
+        want_norm = float(optax.global_norm(g))
+        np.testing.assert_allclose(norm.item(), want_norm, rtol=1e-6)
+        for k, p in tparams.items():
+            np.testing.assert_allclose(p.detach().numpy(), w[k], rtol=1e-5, atol=1e-7,
+                                       err_msg=f"{k} after step {step}")
+
+
+def test_unported_optimizer_and_trainer_options_raise():
+    for kw in (dict(optimizer="lion"), dict(optimizer="adafactor"), dict(optimizer="sgd"),
+               dict(accum_steps=2), dict(skip_nonfinite_updates=3),
+               dict(trainable_mask=lambda p: p)):
+        with pytest.raises(NotImplementedError):
+            build_optimizer(1e-3, **kw)
+    with pytest.raises(ValueError):
+        build_optimizer(1e-3, optimizer="adam")
+    tx = build_optimizer(1e-3)
+    for kw in (dict(mesh=object()), dict(fsdp=True), dict(checkpoint_dir="x"),
+               dict(eval_fn=len), dict(ema_decay=0.999), dict(steps_per_call=4),
+               dict(prefetch=2)):
+        with pytest.raises(NotImplementedError):
+            Trainer(lambda m: m, tx, **kw)
+    with pytest.raises(TypeError):
+        Trainer(lambda m: m, tx, mesh_shape=(2, 2))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(shuffle=True, seed=4, epochs=None, start_batch=5),
+     dict(shuffle=True, seed=1, epochs=2, drop_remainder=False),
+     dict(shuffle=False, epochs=1, start_batch=1)],
+)
+def test_batch_iterator_order_matches_jax(kw):
+    arrays = (np.arange(10), np.arange(10) * 10)
+    want = jax_batch_iterator(arrays, 3, **kw)
+    got = batch_iterator(arrays, 3, **kw)
+    for _ in range(8):
+        w, g = next(want, None), next(got, None)
+        if w is None:
+            assert g is None
+            break
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_trainer_steps_match_jax_trainer(tmp_path):
+    """Three steps of the tiny flow model on the dense path, warmup+cosine
+    AdamW with the clip: per-step losses and the final parameters."""
+    jm = jax_flow.FlowPerceiver(**SMALL, policy=jax_config.PARITY)
+    variables = _jax_variables(jm, seed=3)
+    data = _flow_data(6, seed=4)
+    kw = dict(schedule="cosine", total_steps=3, warmup_steps=1, clip_norm=1.0)
+
+    def jax_loss(params, model_state, a, b, gt):
+        out = jm.apply({"params": params, **model_state}, a, b)
+        return jax_epe(out, gt), model_state
+
+    jax_trainer = JaxTrainer(jax_loss, jax_build_optimizer(1e-3, **kw),
+                             with_model_state=True, log_every=1,
+                             metrics_path=str(tmp_path / "jax.jsonl"))
+    consts = {k: v for k, v in variables.items() if k != "params"}
+    state = jax_trainer.init_state(variables["params"], model_state=consts)
+    state = jax_trainer.fit(
+        state, lambda s: jax_batch_iterator(data, 2, shuffle=True, epochs=None,
+                                            start_batch=s), num_steps=3)
+    want_params = state_dict_from_flax({"params": state.params})
+
+    pm = port_flow.FlowPerceiver(**SMALL, policy=port_config.PARITY, device="cpu")
+    pm.load_state_dict(state_dict_from_flax(variables), strict=True)
+    trainer = Trainer(train_flow.loss_fn, build_optimizer(1e-3, **kw), log_every=1,
+                      metrics_path=str(tmp_path / "port.jsonl"))
+
+    def batches(start):
+        for batch in batch_iterator(data, 2, shuffle=True, epochs=None, start_batch=start):
+            yield tuple(torch.from_numpy(a) for a in batch)
+
+    port_state = trainer.init_state(pm)
+    port_state = trainer.fit(port_state, batches, num_steps=2)
+    port_state = trainer.fit(port_state, batches, num_steps=3)  # resumes the order
+    assert port_state.step == 3
+
+    def losses(name):
+        with open(tmp_path / name) as f:
+            return [json.loads(line)["loss"] for line in f]
+
+    want_losses, got_losses = losses("jax.jsonl"), losses("port.jsonl")
+    assert len(got_losses) == len(want_losses) == 3
+    np.testing.assert_allclose(got_losses, want_losses, **TOL)
+    initial = state_dict_from_flax(variables)
+    moved = 0.0
+    for name, param in pm.named_parameters():
+        if name.endswith("proj_k.bias"):
+            # Its exact gradient is 0 (softmax ignores a shift shared by a
+            # row's logits): both sides hold rounding noise, which AdamW
+            # scales up to steps of up to lr, with either sign.
+            assert (param.detach() - initial[name]).abs().max() <= 2e-3
+            continue
+        np.testing.assert_allclose(param.detach().numpy(), want_params[name].numpy(),
+                                   err_msg=name, **TOL)
+        if param.numel():
+            moved = max(moved, (param.detach() - initial[name]).abs().max().item())
+    assert moved > 1e-4
+
+
+def test_train_step_metrics_and_buffers():
+    """with_metrics gives the pre-clip gradient norm and the parameter norm;
+    the Fourier tables are buffers with no optimizer state."""
+    model = port_flow.FlowPerceiver(**SMALL, device="cpu")
+    trainer = Trainer(train_flow.loss_fn, build_optimizer(1e-3, clip_norm=0.01),
+                      log_every=0, log_grad_norm=True)
+    state = trainer.init_state(model)
+    optimized = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
+    assert optimized == {id(p) for p in model.parameters()}
+    assert all(id(b) not in optimized for b in model.buffers())
+    assert any("fourier" in name for name, _ in model.named_buffers())
+    step = make_train_step(train_flow.loss_fn, trainer.tx, with_metrics=True)
+    img1, img2, gt = (torch.from_numpy(a) for a in _flow_data(2, seed=5))
+    state, metrics = step(state, img1, img2, gt)
+    assert state.step == 1 and set(metrics) == {"loss", "grad_norm", "param_norm"}
+    params = [p for p in model.parameters()]
+    # the logged norm is the one before the clip; the gradients were clipped
+    assert metrics["grad_norm"].item() > 0.01
+    np.testing.assert_allclose(global_norm([p.grad for p in params]).item(), 0.01,
+                               rtol=1e-5)
+    np.testing.assert_allclose(
+        metrics["param_norm"].item(),
+        float(torch.sqrt(sum((p.detach() ** 2).sum() for p in params))), rtol=1e-5)
+
+
+def test_train_flow_example_tiny_on_cpu(tmp_path):
+    path = tmp_path / "flow_metrics.jsonl"
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    state = train_flow.main(steps=3, device="cpu", metrics_path=str(path))
+    assert state.step == 3
+    with open(path) as f:
+        logged = [json.loads(line) for line in f]
+    assert logged[-1]["step"] == 3 and np.isfinite(logged[-1]["loss"])
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
+
+
+def test_synthetic_flow_pairs_match_jax_example():
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_flow", os.path.join(ROOT, "examples", "train_flow.py"))
+    jax_example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_example)
+    for n, hw in ((16, (32, 48)), (3, (10, 13))):
+        want = jax_example.synthetic_flow_pairs(n, hw)
+        got = train_flow.synthetic_flow_pairs(n, hw)
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+
+
+def test_train_flow_example_defaults_to_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_flow.main(steps=1, metrics_path=str(tmp_path / "m.jsonl"))
