@@ -8,13 +8,18 @@ Phases (each raises on failure; nothing is caught):
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for the comparisons;
   2. build: compiles the flash attention kernels from csrc/ with nvcc, one
-     process per source, all at once (K1 forward; K2 dK/dV and K3 dQ
+     process per source, all at once (K1 forward: the bf16 wgmma kernel and
+     the fp32 CUDA-core kernel with the split-KV merge; K2 dK/dV and K3 dQ
      backward);
   3. kernel: holds K1 against its plain PyTorch version on the card
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
-     serving forward's shapes (6 tiles, bf16), and at a small masked case (kv_mask, q_mask, ragged Tk, kv_logical_len, an
-     all-masked row, lse); times kernel, plain version,
-     F.scaled_dot_product_attention (a yardstick only) and the bound;
+     serving forward's shapes (6 tiles, bf16), and at a small masked case
+     (kv_mask, q_mask, ragged Tk, kv_logical_len, an all-masked row, lse);
+     records each call's route, key splits, blocks and CUDA launches; times
+     kernel, plain version, F.scaled_dot_product_attention (a yardstick
+     only) and the bound; then, at the bf16 encoder at batch 1, holds the
+     planned split count against a single split and two calls against each
+     other bit for bit;
   4. backward kernels: holds K2 and K3 against the plain backward at the
      three flow sites (batch 1) in fp32 and bf16 and at the masked case
      (exact zeros on wiped rows and tail keys); times each kernel, the
@@ -69,8 +74,9 @@ MODEL_TOL = 1e-3
 # 4.9e-5, at the decoder's key projection).
 GRAD_TOL = 2e-4
 # Launches per training step of the flow model with remat: 26 attention
-# sites, the 24 self-attends' forward recomputed in the backward.
-STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26}
+# sites, the 24 self-attends' forward recomputed in the backward; the
+# encoder's K1 splits its keys at batch 1 and merges them once.
+STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26, "merge": 1}
 TRAIN_STEPS = 6  # timed, after one warm-up step
 
 FLOW_SITES = {
@@ -197,8 +203,14 @@ def check_case(name, shape, dtype_name, masked, reps, gen):
 
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
     q, k, v, kw = _case_inputs(*shape, dtype, masked, gen)
+    plan = fa.launch_plan(q, k, v, kv_logical_len=kw.get("kv_logical_len"))
     with torch.inference_mode():
+        before = fa.LAUNCHES + fa.LAUNCHES_MERGE
         got = fa.flash_attention(q, k, v, **kw)
+        cuda_launches = fa.LAUNCHES + fa.LAUNCHES_MERGE - before
+        if cuda_launches != plan["cuda_launches"]:
+            raise AssertionError(f"{name}/{dtype_name}: {cuda_launches} CUDA launches, "
+                                 f"planned {plan}")
         want = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         if masked:
@@ -230,8 +242,9 @@ def check_case(name, shape, dtype_name, masked, reps, gen):
     flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     rec = dict(
-        site=name, dtype=dtype_name, shape=list(shape), max_abs_err=err,
-        max_abs_out=scale, ms=kernel_ms, plain_ms=plain_ms,
+        site=name, dtype=dtype_name, shape=list(shape), route=plan["route"],
+        splits=plan["splits"], blocks=plan["blocks"], cuda_launches=cuda_launches,
+        max_abs_err=err, max_abs_out=scale, ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=max(flops_ms, bytes_ms),
         bound_by="operations" if flops_ms >= bytes_ms else "bytes",
         flops=flops, tflops=flops / kernel_ms / 1e9,
@@ -253,7 +266,38 @@ def phase_kernels(reps: int = 3):
     for name, shape in FLOW_SITES.items():  # the serving forward's shapes
         records.append(check_case(
             name, (SERVE_TILES,) + shape[1:], "bf16", False, reps, gen))
+    check_splits(gen)
     return records
+
+
+def check_splits(gen):
+    """At the bf16 encoder at batch 1: the planned split count against one
+    split (within the bf16 tolerance), and two calls bit for bit."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _case_inputs(*FLOW_SITES["encoder"], torch.bfloat16, False, gen)
+    with torch.inference_mode():
+        planned, planned_lse = fa.flash_attention(q, k, v, return_lse=True)
+        again, again_lse = fa.flash_attention(q, k, v, return_lse=True)
+        one, one_lse = fa._flash_attention_cuda(
+            q, k, v, q_mask=None, kv_mask=None, softmax_scale=None, kv_logical_len=None,
+            return_lse=True, num_splits=1)
+        torch.cuda.synchronize()
+    splits = fa.launch_plan(q, k, v)["splits"]
+    if splits < 2:
+        raise AssertionError(f"the encoder at batch 1 should split its keys, plan {splits}")
+    if not (torch.equal(planned, again) and torch.equal(planned_lse, again_lse)):
+        raise AssertionError("two K1 calls on the same inputs differ")
+    err = (planned.float() - one.float()).abs().max().item()
+    scale = one.float().abs().max().item()
+    lse_err = (planned_lse - one_lse).abs().max().item()
+    if not (err <= TOL["bf16"] * scale and lse_err <= 1e-4 * (1 + one_lse.abs().max().item())):
+        raise AssertionError(f"{splits} splits vs 1: out {err} (max {scale}), lse {lse_err}")
+    rec = dict(site="encoder", dtype="bf16", splits=splits, max_abs_diff_vs_1_split=err,
+               max_abs_out=scale, lse_diff_vs_1_split=lse_err, bitwise_repeat=True)
+    print(f"[kernel] splits: {json.dumps(rec)}", flush=True)
 
 
 def _bwd_flops_and_bytes(q, k, v, kw):
@@ -470,7 +514,7 @@ def phase_serve(fp32_model, n_requests: int = 3):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     latencies = []
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_MERGE = 0
     t_all = time.perf_counter()
     for img1, img2 in requests[1:]:
         t0 = time.perf_counter()
@@ -487,7 +531,7 @@ def phase_serve(fp32_model, n_requests: int = 3):
     rec = dict(requests=n_requests, tiles_per_request=6,
                latency_s=latencies, pairs_per_s=n_requests / total,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=launches)
+               launches=launches, merge_launches=fa.LAUNCHES_MERGE)
     print(f"[serve] bf16 FlowInference 436x1024: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -495,13 +539,14 @@ def phase_serve(fp32_model, n_requests: int = 3):
 def _launch_counts():
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
-    return {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DKV, "K3": fa.LAUNCHES_BWD_DQ}
+    return {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DKV, "K3": fa.LAUNCHES_BWD_DQ,
+            "merge": fa.LAUNCHES_MERGE}
 
 
 def _reset_launch_counts():
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
-    fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = 0
+    fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_MERGE = 0
 
 
 def phase_gradients():
@@ -637,9 +682,11 @@ def _site_sums(records, keep, per_site):
 
 
 def kernels_line(records, serve, backward, train):
-    """One entry each for K1, K2 and K3.  K1: times summed over the 26
-    launches of one serving forward (6 tiles, bf16), the launches of the
-    serving run (and, apart, of the training run).  K2 and K3: times summed
+    """One entry each for K1, K2 and K3.  K1 (two sources: the bf16 wgmma
+    kernel, which the serving forward runs, and the fp32 CUDA-core kernel
+    with the split-KV merge): times summed over the 26 launches of one
+    serving forward (6 tiles, bf16), the launches of the serving run (and,
+    apart, of the training run), merges counted apart.  K2 and K3: times summed
     over the 26 launches of one training step (batch 1, bf16), the launches
     of the training run; their plain and library times are the whole
     backward (dq, dk and dv in one call), the same for both.  Each entry's
@@ -647,10 +694,17 @@ def kernels_line(records, serve, backward, train):
     entries = [dict(
         name="flash_attention_fwd",
         route="cuda",
-        source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
+        source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+        sources={
+            "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+            "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
+        },
+        routes={"bf16": "sm90_wgmma", "fp32": "cuda_cores"},
         replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
         launches=serve["launches"],
+        merge_launches=serve["merge_launches"],
         launches_train=train["launches"]["K1"],
+        merge_launches_train=train["launches"]["merge"],
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),

@@ -1,15 +1,18 @@
-// Flash attention forward for Hopper (sm_90a): one hand-written kernel.
+// Flash attention forward for fp32 inputs on Hopper (sm_90a), and the merge
+// of split-KV partials for both forward kernels.
 //
 // Replaces `_flash_kernel` (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py,
-// launched by `_flash_forward` through `pl.pallas_call`).  Same semantics:
+// launched by `_flash_forward` through `pl.pallas_call`) for fp32 q, k, v;
+// bf16 inputs take the wgmma kernel in flash_attention_fwd_sm90.cu.  Same
+// semantics:
 //   out = softmax(scale * Q K^T) V per (batch, head), online softmax over key
 //   tiles with an fp32 running max m, sum l and accumulator; the scale is
 //   applied after the QK^T product; keys at or beyond kv_len and keys whose
 //   kv_mask byte is 0 get probability 0; a row whose keys are all masked
 //   gives exactly 0; rows whose q_mask byte is 0 are written as 0; the
 //   optional lse is m + log(l), +inf where l == 0 (q_mask does not touch it).
-//   Inputs fp32 or bf16, all arithmetic in IEEE fp32 on the CUDA cores: no
-//   TF32, no tensor cores, and no fast-math intrinsics.
+//   All arithmetic in IEEE fp32 on the CUDA cores: no TF32, no tensor cores,
+//   and no fast-math intrinsics, so that fp32 callers get fp32 results.
 //
 // What bounds it on an H100.  Every flow site is compute-bound.  Per 368x496
 // tile: the encoder cross-attend (2048 queries x 182,528 keys, d = 322) is
@@ -19,10 +22,10 @@
 // encoder's K and V in fp32): far above the card's FLOP-per-byte balance.
 //
 // Design.  One block of 256 threads (16 x 16) owns 64 query rows of one
-// (batch, head) and walks all key tiles of 64 keys in a loop (the Pallas
-// grid's sequential K axis).  The block's Q rows stay in shared memory for
-// the whole walk, transposed and in fp32 (64 x 512 x 4 B = 128 KB at d = 512),
-// so Q is read from device memory once.  Per key tile:
+// (batch, head) and walks the key tiles of 64 keys of its split in a loop
+// (the Pallas grid's sequential K axis).  The block's Q rows stay in shared
+// memory for the whole walk, transposed and in fp32 (64 x 512 x 4 B = 128 KB
+// at d = 512), so Q is read from device memory once.  Per key tile:
 //   1. S = Q K^T: K is staged 32 head dims at a time; each thread holds a
 //      4 x 4 register tile of S (rows ty*4.., keys tx*4..).  A ragged head
 //      width (322, 41) is zero-padded inside shared memory to a multiple
@@ -38,18 +41,22 @@
 // Ragged Tk is handled by masking keys at or past kv_len and zero-filling the
 // staged K and V rows.
 //
-// What it does not do yet.  It uses neither wgmma nor TMA, and stages tiles
-// with plain loads and no double buffering, so it reaches a fraction of the
-// fp32 CUDA-core peak and none of the tensor-core rate that bf16 allows.  Its
-// grid is one block per 64 query rows: the encoder site at batch 1 (one head,
-// 2048 queries) launches 32 blocks on 132 SMs.  Splitting the key walk over
-// blocks (split-KV, with a merge of the partial m/l/O) is later work, as are
-// head widths above 512 (multimodal's 704).
+// Split-KV.  The grid is (q blocks x splits, heads, batch): a block walks
+// only the key tiles of its split, so a grid that is short of query blocks
+// (the encoder at batch 1: 32) still fills the card.  With more than one
+// split a block writes its unnormalised O, m and l in fp32 to a workspace,
+// and `merge_kernel` below combines the splits of each row in split order
+// (deterministic, no atomics), divides by l, applies q_mask and writes the
+// lse.  The wrapper (ops/flash_attention.py `_split_plan`) picks the split
+// count; the bf16 kernel writes the same partials and uses the same merge.
 //
-// Interface: a plain C function, built with
+// What it does not do yet: it stages tiles with plain loads and no double
+// buffering, and reaches a fraction of the fp32 CUDA-core peak.
+//
+// Interface: plain C functions, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through ctypes.  It launches on the given stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// and called through ctypes.  They launch on the given stream, do not
+// synchronise, allocate nothing, and return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,9 +73,6 @@ constexpr int THREADS = 256;   // 16 x 16
 constexpr int KT_LD = BK + 4;  // row length of the transposed K chunk
 constexpr int PT_LD = BQ + 4;  // row length of the transposed P tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -79,14 +83,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const uint8_t* kv_mask;  // [B, Tk] or null
   const uint8_t* q_mask;   // [B, Tq] or null
-  void* out;               // [B, Tq, H, Dv], contiguous
-  float* lse;              // [B, H, Tq] or null
-  int H, Tq, Tk, kv_len, D, Dv, Dp;
+  float* out;              // [B, Tq, H, Dv], contiguous (one split)
+  float* lse;              // [B, H, Tq] or null (one split)
+  float* part_o;           // [S, B, H, Tq, Dv] (splits > 1)
+  float* part_m;           // [S, B, H, Tq]
+  float* part_l;           // [S, B, H, Tq]
+  int B, H, Tq, Tk, kv_len, D, Dv, Dp;
+  int n_qblocks, n_tiles, tiles_per_split, splits;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
 };
@@ -96,7 +104,7 @@ size_t smem_bytes(int Dp) {
          ((size_t)Dp * BQ + (size_t)DC * KT_LD + (size_t)BK * PT_LD + (size_t)BK * VC);
 }
 
-template <typename T, int NV>
+template <int NV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [Dp][BQ]
@@ -107,13 +115,17 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
+  const int qb = blockIdx.x % p.n_qblocks;
+  const int split = blockIdx.x / p.n_qblocks;
+  const int q0 = qb * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int t_begin = split * p.tiles_per_split;
+  const int t_end = min(p.n_tiles, t_begin + p.tiles_per_split);
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)b * p.Tk : nullptr;
 
   // The block's Q rows, transposed to [d][row], fp32, zero-padded.
@@ -121,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int i = idx / p.Dp;
     const int d = idx - i * p.Dp;
     float val = 0.f;
-    if (q0 + i < p.Tq && d < p.D) val = to_f(qg[(long long)(q0 + i) * p.q_st + d]);
+    if (q0 + i < p.Tq && d < p.D) val = qg[(long long)(q0 + i) * p.q_st + d];
     Qt[d * BQ + i] = val;
   }
 
@@ -139,8 +151,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mv][r][c] = 0.f;
 
-  const int n_tiles = (p.kv_len + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BK;
 
     // 1. S = Q K^T over head-dim chunks.
@@ -158,7 +169,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
         const int key = k0 + j;
         const int d = d0 + dd;
         float val = 0.f;
-        if (key < p.kv_len && d < p.D) val = to_f(kg[(long long)key * p.k_st + d]);
+        if (key < p.kv_len && d < p.D) val = kg[(long long)key * p.k_st + d];
         Kt[dd * KT_LD + j] = val;
       }
       __syncthreads();
@@ -230,7 +241,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
           const int key = k0 + j;
           const int col = c0 + cc;
           float val = 0.f;
-          if (key < p.kv_len && col < p.Dv) val = to_f(vg[(long long)key * p.v_st + col]);
+          if (key < p.kv_len && col < p.Dv) val = vg[(long long)key * p.v_st + col];
           Vs[j * VC + cc] = val;
         }
         __syncthreads();
@@ -249,72 +260,116 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     }
   }
 
-  // Finalise: divide by l, wipe empty and q-masked rows, write lse.
+  // Finalise.  One split: divide by l, wipe empty and q-masked rows, write
+  // lse.  Several: write this split's unnormalised O, m and l.
+  const long long bh = (long long)b * p.H + h;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + ty * 4 + r;
     if (i >= p.Tq) continue;
-    const bool keep = p.q_mask == nullptr || p.q_mask[(long long)b * p.Tq + i] != 0;
     const float l = l_i[r];
+    if (p.splits > 1) {
+      const long long row = ((long long)split * p.B * p.H + bh) * p.Tq + i;
+      float* po = p.part_o + row * p.Dv;
+#pragma unroll
+      for (int mv = 0; mv < NV; ++mv)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = mv * VC + tx * 4 + c;
+          if (col < p.Dv) po[col] = acc[mv][r][c];
+        }
+      if (tx == 0) {
+        p.part_m[row] = (l == 0.f) ? -INFINITY : m_i[r];
+        p.part_l[row] = l;
+      }
+      continue;
+    }
+    const bool keep = p.q_mask == nullptr || p.q_mask[(long long)b * p.Tq + i] != 0;
     const float l_safe = (l == 0.f) ? 1.f : l;
-    T* og = static_cast<T*>(p.out) + ((long long)b * p.Tq + i) * p.H * p.Dv +
-            (long long)h * p.Dv;
+    float* og = p.out + ((long long)b * p.Tq + i) * p.H * p.Dv + (long long)h * p.Dv;
 #pragma unroll
     for (int mv = 0; mv < NV; ++mv)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = mv * VC + tx * 4 + c;
-        if (col < p.Dv) og[col] = from_f<T>(keep ? acc[mv][r][c] / l_safe : 0.f);
+        if (col < p.Dv) og[col] = keep ? acc[mv][r][c] / l_safe : 0.f;
       }
     if (p.lse != nullptr && tx == 0)
-      p.lse[((long long)b * p.H + h) * p.Tq + i] =
-          (l == 0.f) ? INFINITY : m_i[r] + logf(l_safe);
+      p.lse[bh * p.Tq + i] = (l == 0.f) ? INFINITY : m_i[r] + logf(l_safe);
   }
 }
 
-template <typename T, int NV>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+template <int NV>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.Dp);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + BQ - 1) / BQ, p.H, batch);
-  flash_fwd_kernel<T, NV><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid(p.n_qblocks * p.splits, p.H, p.B);
+  flash_fwd_kernel<NV><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Combines the splits of one (batch, head, query) row per block, in split
+// order: M = max m_s, L = sum l_s exp(m_s - M), out = sum O_s exp(m_s - M) / L
+// (0 on q-masked rows and where L = 0), lse = M + log L (+inf where L = 0).
+// A split whose keys were all masked (l_s = 0, m_s = -inf) drops out.
 template <typename T>
-cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
-  const int nv = (p.Dv + VC - 1) / VC;
-  if (nv <= 1) return launch<T, 1>(p, batch, stream);
-  if (nv <= 2) return launch<T, 2>(p, batch, stream);
-  if (nv <= 3) return launch<T, 3>(p, batch, stream);
-  if (nv <= 4) return launch<T, 4>(p, batch, stream);
-  if (nv <= 6) return launch<T, 6>(p, batch, stream);
-  if (nv <= 8) return launch<T, 8>(p, batch, stream);
-  return cudaErrorInvalidValue;
+__global__ void merge_kernel(const float* part_o, const float* part_m, const float* part_l,
+                             const uint8_t* q_mask, T* out, float* lse, int splits, int B,
+                             int H, int Tq, int Dv) {
+  const long long rows = (long long)B * H * Tq;
+  const long long row = blockIdx.x;  // (b * H + h) * Tq + i
+  const int i = (int)(row % Tq);
+  const long long bh = row / Tq;
+  const int h = (int)(bh % H);
+  const int b = (int)(bh / H);
+  float m_max = -INFINITY;
+  for (int s = 0; s < splits; ++s)
+    if (part_l[s * rows + row] > 0.f) m_max = fmaxf(m_max, part_m[s * rows + row]);
+  float total = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float l = part_l[s * rows + row];
+    if (l > 0.f) total += l * expf(part_m[s * rows + row] - m_max);
+  }
+  const bool keep = q_mask == nullptr || q_mask[(long long)b * Tq + i] != 0;
+  T* og = out + ((long long)b * Tq + i) * H * Dv + (long long)h * Dv;
+  for (int col = threadIdx.x; col < Dv; col += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float l = part_l[s * rows + row];
+      if (l > 0.f) acc += part_o[(s * rows + row) * Dv + col] * expf(part_m[s * rows + row] - m_max);
+    }
+    og[col] = from_f<T>((keep && total > 0.f) ? acc / total : 0.f);
+  }
+  if (lse != nullptr && threadIdx.x == 0) lse[row] = (total > 0.f) ? m_max + logf(total) : INFINITY;
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16.  Strides are in elements; the head dim of q, k
-// and v must be contiguous.  Returns a cudaError_t (0 on success).
+// fp32 q, k, v.  Strides are in elements; the head dim of q, k and v must be
+// contiguous.  splits > 1 writes the partials (part_o, part_m, part_l)
+// instead of out and lse.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask, const void* q_mask,
-    void* out, void* lse, int dtype, int batch, int heads, int tq, int tk, int kv_len,
-    int d, int dv, long long q_sb, long long q_st, long long q_sh, long long k_sb,
-    long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    float scale, void* stream) {
-  if (d < 1 || d > 512 || dv < 1 || dv > 512 || kv_len < 0 || kv_len > tk)
+    void* out, void* lse, void* part_o, void* part_m, void* part_l, int batch, int heads,
+    int tq, int tk, int kv_len, int d, int dv, int splits, int tiles_per_split, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, float scale, void* stream) {
+  if (d < 1 || d > 512 || dv < 1 || dv > 512 || kv_len < 0 || kv_len > tk || splits < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
   p.kv_mask = static_cast<const uint8_t*>(kv_mask);
   p.q_mask = static_cast<const uint8_t*>(q_mask);
-  p.out = out;
+  p.out = static_cast<float*>(out);
   p.lse = static_cast<float*>(lse);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_m = static_cast<float*>(part_m);
+  p.part_l = static_cast<float*>(part_l);
+  p.B = batch;
   p.H = heads;
   p.Tq = tq;
   p.Tk = tk;
@@ -322,6 +377,10 @@ extern "C" int flash_attention_fwd(
   p.D = d;
   p.Dv = dv;
   p.Dp = (d + DC - 1) / DC * DC;
+  p.n_qblocks = (tq + BQ - 1) / BQ;
+  p.n_tiles = (kv_len + BK - 1) / BK;
+  p.tiles_per_split = tiles_per_split;
+  p.splits = splits;
   p.q_sb = q_sb;
   p.q_st = q_st;
   p.q_sh = q_sh;
@@ -333,8 +392,39 @@ extern "C" int flash_attention_fwd(
   p.v_sh = v_sh;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? dispatch<float>(p, batch, s)
-                  : dtype == 1 ? dispatch<__nv_bfloat16>(p, batch, s)
-                               : cudaErrorInvalidValue;
+  const int nv = (dv + VC - 1) / VC;
+  cudaError_t err = nv <= 1   ? launch<1>(p, s)
+                    : nv <= 2 ? launch<2>(p, s)
+                    : nv <= 3 ? launch<3>(p, s)
+                    : nv <= 4 ? launch<4>(p, s)
+                    : nv <= 6 ? launch<6>(p, s)
+                              : launch<8>(p, s);
   return (int)err;
+}
+
+// Merge of split-KV partials (either forward kernel) into out [B, Tq, H, Dv]
+// (dtype 0 = fp32, 1 = bf16) and the optional lse [B, H, Tq].
+extern "C" int flash_attention_fwd_merge(const void* part_o, const void* part_m,
+                                         const void* part_l, const void* q_mask, void* out,
+                                         void* lse, int dtype, int splits, int batch, int heads,
+                                         int tq, int dv, void* stream) {
+  const long long rows = (long long)batch * heads * tq;
+  if (rows == 0) return 0;
+  const unsigned threads = dv >= 256 ? 256 : dv >= 128 ? 128 : 64;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* po = static_cast<const float*>(part_o);
+  const float* pm = static_cast<const float*>(part_m);
+  const float* pl = static_cast<const float*>(part_l);
+  const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
+  if (dtype == 0)
+    merge_kernel<float><<<(unsigned)rows, threads, 0, s>>>(
+        po, pm, pl, qm, static_cast<float*>(out), static_cast<float*>(lse), splits, batch,
+        heads, tq, dv);
+  else if (dtype == 1)
+    merge_kernel<__nv_bfloat16><<<(unsigned)rows, threads, 0, s>>>(
+        po, pm, pl, qm, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), splits,
+        batch, heads, tq, dv);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

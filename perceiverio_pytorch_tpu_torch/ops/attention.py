@@ -12,7 +12,9 @@ rule and thresholds.  Every attention site of a Perceiver goes through
     the JAX rule asks "is this a TPU", this one asks "is q on a CUDA device".
 
 Masks travel in factored [B,Tq] x [B,Tk] form; a pre-built rank-3
-``attention_mask`` (or a bias, or ``return_matrix``) forces the dense path.
+``attention_mask`` (or a bias, a ``dropout_rate`` above 0, or
+``return_matrix``) forces the dense path.  Attention dropout itself is not
+ported yet: a site with ``dropout_rate > 0`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def attention_path(
     flash_long_q_min_kv: int = 1024,
     attention_mask=None,
     attention_bias=None,
+    dropout_rate: float = 0.0,
     return_matrix: bool = False,
 ) -> str:
     """Which implementation ``multihead_attention`` dispatches to:
@@ -53,6 +56,7 @@ def attention_path(
         flash_long_q_min_kv=flash_long_q_min_kv,
         attention_mask=attention_mask,
         attention_bias=attention_bias,
+        dropout_rate=dropout_rate,
         return_matrix=return_matrix,
     ):
         return "flash"
@@ -70,13 +74,14 @@ def _flash_eligible(
     flash_long_q_min_kv: int,
     attention_mask,
     attention_bias,
+    dropout_rate: float,
     return_matrix: bool,
 ) -> bool:
     if impl == "dense":
         return False
     if attention_mask is not None or attention_bias is not None:
         return False
-    if return_matrix:
+    if dropout_rate > 0.0 or return_matrix:
         return False
     if impl == "flash":
         return True
@@ -106,6 +111,7 @@ def multihead_attention(
     flash_min_kv: int = 8192,
     flash_min_self: int = 2048,
     flash_long_q_min_kv: int = 1024,
+    dropout_rate: float = 0.0,
     return_matrix: bool = False,
     softmax_scale: Optional[float] = None,
     kv_logical_len: Optional[int] = None,
@@ -117,6 +123,8 @@ def multihead_attention(
       q_mask: optional [B,Tq] bool; invalid query rows are wiped to zero.
       kv_mask: optional [B,Tk] bool; invalid keys are excluded from softmax.
       attention_mask: optional pre-built [B,Tq,Tk] mask (forces dense).
+      dropout_rate: post-softmax dropout; above 0 it forces the dense
+        path, which has no dropout yet and raises.
       kv_logical_len: keys at or beyond this index are masked.
 
     Returns:
@@ -133,6 +141,7 @@ def multihead_attention(
         flash_long_q_min_kv=flash_long_q_min_kv,
         attention_mask=attention_mask,
         attention_bias=attention_bias,
+        dropout_rate=dropout_rate,
         return_matrix=return_matrix,
     )
     if path == "flash":
@@ -140,6 +149,9 @@ def multihead_attention(
             q, k, v, q_mask=q_mask, kv_mask=kv_mask,
             softmax_scale=softmax_scale, kv_logical_len=kv_logical_len,
         )
+
+    if dropout_rate > 0.0:
+        raise NotImplementedError("attention dropout is not ported yet")
 
     if kv_logical_len is not None and kv_logical_len < kv_len:
         tail = torch.arange(kv_len, device=k.device) < kv_logical_len

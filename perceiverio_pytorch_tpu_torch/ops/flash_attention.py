@@ -2,10 +2,13 @@
 their plain versions.
 
 Counterpart of ``perceiverio_pytorch_tpu/ops/pallas/flash_attention.py``:
-``_flash_kernel`` (K1) is ``csrc/flash_attention_fwd.cu``; ``_bwd_dkv_kernel``
-(K2) and ``_bwd_dq_kernel`` (K3) are ``csrc/flash_attention_bwd.cu``.  The
-source note at the head of each says what bounds it on an H100 and what its
-design does about that.
+``_flash_kernel`` (K1) is ``csrc/flash_attention_fwd_sm90.cu`` for bf16
+inputs (wgmma on the tensor cores, route ``sm90_wgmma``) and
+``csrc/flash_attention_fwd.cu`` for fp32 ones (IEEE fp32 on the CUDA cores,
+route ``cuda_cores``), which also holds the merge of split-KV partials;
+``_bwd_dkv_kernel`` (K2) and ``_bwd_dq_kernel`` (K3) are
+``csrc/flash_attention_bwd.cu``.  The source note at the head of each says
+what bounds it on an H100 and what its design does about that.
 
   * ``flash_attention`` keeps the JAX signature and layout: q [B,Tq,H,Dqk],
     k [B,Tk,H,Dqk], v [B,Tk,H,Dv] -> [B,Tq,H*Dv] (and lse [B,H,Tq]).
@@ -19,7 +22,11 @@ design does about that.
     over query rows so that a flow-size call never holds the whole
     [Tq, Tk] logit matrix.
   * ``LAUNCHES``, ``LAUNCHES_BWD_DKV`` and ``LAUNCHES_BWD_DQ`` count kernel
-    launches of K1, K2 and K3 (never plain-version calls).
+    launches of K1, K2 and K3 (never plain-version calls): one per call,
+    however many CUDA launches it makes.  ``LAUNCHES_MERGE`` counts the
+    merge kernel's launches (K1 calls with more than one key split).
+  * ``launch_plan`` says what a K1 call on given tensors launches: route,
+    key splits (``_split_plan``), blocks and CUDA launches.
 
 The kernels are built with ``nvcc`` at first use, from the sources in this
 package, into ``build/kernels/`` under the repository root (one ``nvcc``
@@ -41,17 +48,26 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
-_SOURCES = {"fwd": "flash_attention_fwd.cu", "bwd": "flash_attention_bwd.cu"}
+_SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
+            "bwd": "flash_attention_bwd.cu"}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
 # Limits of the kernels' shared-memory plans (see the .cu source notes).
 MAX_HEAD_DIM = 512
+# K1's blocks: query rows per block and keys per tile (both kernels).
+BLOCK_Q = 64
+BLOCK_K = 64
+# The split-KV plan: SMs of an H100, the card the kernels are built for, and
+# the fewest key tiles worth a split of their own.
+NUM_SMS = 132
+MIN_SPLIT_TILES = 8
 
 # Kernel launches since import (or since the caller last reset them): K1,
-# K2 and K3.
+# K2 and K3, and the merge of K1's split-KV partials.
 LAUNCHES = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
+LAUNCHES_MERGE = 0
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
@@ -70,18 +86,32 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Dict[str, str]:
-    """Compile each kernel source whose library is missing (the library's
-    name carries its source's hash), one ``nvcc`` per source, all started
-    together; return the .so paths by name ("fwd", "bwd")."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    paths, jobs = {}, []
+def library_paths() -> Dict[str, str]:
+    """The .so path of each kernel source by name ("fwd", "fwd_sm90",
+    "bwd"): the name carries the hash of the source and of every
+    ``csrc/*.cuh`` header, so an edit to either builds a new library."""
+    headers = b""
+    for name in sorted(os.listdir(_CSRC)):
+        if name.endswith(".cuh"):
+            with open(os.path.join(_CSRC, name), "rb") as f:
+                headers += name.encode() + f.read()
+    paths = {}
     for name, filename in _SOURCES.items():
-        source = os.path.join(_CSRC, filename)
-        with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        with open(os.path.join(_CSRC, filename), "rb") as f:
+            digest = hashlib.sha256(f.read() + headers).hexdigest()[:16]
         stem = os.path.splitext(filename)[0]
         paths[name] = os.path.join(_BUILD_DIR, f"{stem}_{digest}.so")
+    return paths
+
+
+def build() -> Dict[str, str]:
+    """Compile each kernel source whose library (``library_paths``) is
+    missing, one ``nvcc`` per source, all started together; return the .so
+    paths by name."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    paths, jobs = library_paths(), []
+    for name, filename in _SOURCES.items():
+        source = os.path.join(_CSRC, filename)
         if os.path.exists(paths[name]):
             continue
         tmp = f"{paths[name]}.{os.getpid()}.tmp"
@@ -110,13 +140,23 @@ def _load() -> Dict[str, ctypes.CDLL]:
         if _libs is None:
             paths = build()
             fwd = ctypes.CDLL(paths["fwd"])
-            fwd.flash_attention_fwd.argtypes = (
-                [ctypes.c_void_p] * 7  # q, k, v, kv_mask, q_mask, out, lse
-                + [ctypes.c_int] * 8  # dtype, B, H, Tq, Tk, kv_len, D, Dv
-                + _STRIDES * 3  # q, k, v
-                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            fwd_sm90 = ctypes.CDLL(paths["fwd_sm90"])
+            for fn in (fwd.flash_attention_fwd, fwd_sm90.flash_attention_fwd_sm90):
+                fn.argtypes = (
+                    # q, k, v, kv_mask, q_mask, out, lse, part_o, part_m, part_l
+                    [ctypes.c_void_p] * 10
+                    # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split
+                    + [ctypes.c_int] * 9
+                    + _STRIDES * 3  # q, k, v
+                    + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+                )
+                fn.restype = ctypes.c_int
+            fwd.flash_attention_fwd_merge.argtypes = (
+                [ctypes.c_void_p] * 6  # part_o, part_m, part_l, q_mask, out, lse
+                + [ctypes.c_int] * 6  # dtype, splits, B, H, Tq, Dv
+                + [ctypes.c_void_p]  # stream
             )
-            fwd.flash_attention_fwd.restype = ctypes.c_int
+            fwd.flash_attention_fwd_merge.restype = ctypes.c_int
             bwd = ctypes.CDLL(paths["bwd"])
             for fn in (bwd.flash_attention_bwd_dkv, bwd.flash_attention_bwd_dq):
                 fn.argtypes = (
@@ -127,7 +167,7 @@ def _load() -> Dict[str, ctypes.CDLL]:
                     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
                 )
                 fn.restype = ctypes.c_int
-            _libs = {"fwd": fwd, "bwd": bwd}
+            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "bwd": bwd}
     return _libs
 
 
@@ -281,14 +321,75 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _split_bounds(kv_len: int, splits: int):
+    """(splits, tiles_per_split) for at most ``splits`` ranges of whole key
+    tiles over [0, kv_len), none of them empty.  Split s walks tiles
+    [s * tiles_per_split, (s + 1) * tiles_per_split)."""
+    tiles = -(-kv_len // BLOCK_K)
+    if tiles == 0:
+        return 1, 0
+    per = -(-tiles // max(1, min(splits, tiles)))
+    return -(-tiles // per), per
+
+
+def _split_plan(b: int, tq: int, h: int, tk: int):
+    """K1's split-KV plan: (splits, tiles_per_split) for B, Tq, H and the
+    keys' length.
+
+    A grid of at least two blocks per SM takes one split.  A shorter one
+    (the flow encoder: 32 query blocks a batch entry) starts from enough
+    splits for two blocks per SM, at least MIN_SPLIT_TILES tiles each, and
+    drops splits while that does not lengthen the kernel, counted as waves
+    of one block per SM times the tiles a block walks: 8 splits (256
+    blocks) at batch 1, 2 at the 6-tile serving batch.
+    """
+    blocks = -(-tq // BLOCK_Q) * h * b
+    tiles = -(-tk // BLOCK_K)
+    if blocks == 0 or blocks >= 2 * NUM_SMS:
+        return _split_bounds(tk, 1)
+
+    def cost(splits):
+        n, per = _split_bounds(tk, splits)
+        return -(-blocks * n // NUM_SMS) * per
+
+    splits = min(-(-2 * NUM_SMS // blocks), max(1, tiles // MIN_SPLIT_TILES))
+    while splits > 1 and cost(splits - 1) <= cost(splits):
+        splits -= 1
+    return _split_bounds(tk, splits)
+
+
+def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
+    """What a K1 call on these tensors launches: ``route`` ("sm90_wgmma"
+    for bf16 on CUDA, "cuda_cores" for fp32), ``splits`` and
+    ``tiles_per_split`` (``_split_plan``, or ``num_splits`` ranges when
+    given), ``blocks`` of the main kernel's grid and ``cuda_launches`` (the
+    kernel, and the merge when there is more than one split)."""
+    b, tq, h = q.shape[:3]
+    _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
+    splits, per = (_split_plan(b, tq, h, kv_len) if num_splits is None
+                   else _split_bounds(kv_len, num_splits))
+    return dict(
+        route="sm90_wgmma" if q.dtype == torch.bfloat16 else "cuda_cores",
+        splits=splits, tiles_per_split=per,
+        blocks=-(-tq // BLOCK_Q) * h * b * splits,
+        cuda_launches=1 + (splits > 1),
+    )
+
+
 def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
-                          kv_logical_len, return_lse):
-    global LAUNCHES
+                          kv_logical_len, return_lse, num_splits=None):
+    """K1 on CUDA tensors: the sm90 kernel for bf16, the CUDA-core kernel
+    for fp32, then the merge when the plan splits the keys.  ``num_splits``
+    overrides the plan (for tests that hold split counts against each
+    other)."""
+    global LAUNCHES, LAUNCHES_MERGE
     kv_mask_c, q_mask_c = _check_cuda(
         q, (("q", q), ("k", k), ("v", v)), (("kv_mask", kv_mask), ("q_mask", q_mask)))
     b, tq, h, d = q.shape
     tk, dv = k.shape[1], v.shape[3]
     scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
+    plan = launch_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
+    splits = plan["splits"]
 
     out = torch.empty((b, tq, h * dv), dtype=q.dtype, device=q.device)
     lse = (
@@ -297,19 +398,36 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
     )
     if b * tq * h == 0:
         return (out, lse) if return_lse else out
+    part_o = part_ml = None
+    if splits > 1:
+        part_o = torch.empty((splits, b, h, tq, dv), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((2, splits, b, h, tq), dtype=torch.float32, device=q.device)
 
-    lib = _load()["fwd"]
+    libs = _load()
+    kernel = (libs["fwd_sm90"].flash_attention_fwd_sm90 if plan["route"] == "sm90_wgmma"
+              else libs["fwd"].flash_attention_fwd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
+        err = kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_mask_c), _ptr(q_mask_c), out.data_ptr(), _ptr(lse),
-            _DTYPE_CODES[q.dtype], b, h, tq, tk, kv_len, d, dv,
+            _ptr(part_o), _ptr(None if part_ml is None else part_ml[0]),
+            _ptr(None if part_ml is None else part_ml[1]),
+            b, h, tq, tk, kv_len, d, dv, splits, plan["tiles_per_split"],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             scale, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+        if err != 0:
+            raise RuntimeError(f"K1 ({plan['route']}) launch failed: CUDA error {err}")
+        if splits > 1:
+            err = libs["fwd"].flash_attention_fwd_merge(
+                part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+                _ptr(q_mask_c), out.data_ptr(), _ptr(lse), _DTYPE_CODES[q.dtype],
+                splits, b, h, tq, dv, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"flash_attention_fwd_merge launch failed: CUDA error {err}")
+            LAUNCHES_MERGE += 1
     LAUNCHES += 1
     return (out, lse) if return_lse else out
 
@@ -416,17 +534,24 @@ def flash_attention_reference(
     kv_logical_len: Optional[int] = None,
     return_lse: bool = False,
     max_chunk_elems: int = 1 << 26,
+    num_splits: int = 1,
 ):
     """Plain PyTorch version of K1: same signature and semantics.
 
     Runs in fp32, ``max_chunk_elems`` logits at a time (256 MB in fp32),
     chunked over query rows.  Returns the output in q's dtype.
+    ``num_splits`` > 1 walks the keys in that many ranges of whole key
+    tiles, as the kernels' split-KV grid does (``_split_bounds``), and
+    combines the partial (O, m, l) with ``merge_partials``, the plain
+    version of the merge kernel; the tests set it, the wrappers never do.
     """
     _check_inputs(q, k, v, q_mask, kv_mask)
     b, tq, h, d = q.shape
     tk, dv = k.shape[1], v.shape[3]
     scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
     valid = _valid_keys(q, k, kv_mask, kv_len)
+    splits, per = _split_bounds(kv_len, num_splits)
+    edges = [s * per * BLOCK_K for s in range(splits)] + [tk]
 
     kf = k.float().permute(0, 2, 3, 1)  # [B, H, D, Tk]
     vf = v.float().permute(0, 2, 1, 3)  # [B, H, Tk, Dv]
@@ -435,22 +560,39 @@ def flash_attention_reference(
     chunk = max(1, max_chunk_elems // max(1, b * h * tk))
     for t0 in range(0, tq, chunk):
         qc = q[:, t0:t0 + chunk].float().permute(0, 2, 1, 3)  # [B, H, c, D]
-        s = torch.matmul(qc, kf) * scale
-        s = s.masked_fill(~valid, -math.inf)
-        m = s.amax(dim=-1, keepdim=True)
-        m = torch.where(m == -math.inf, torch.zeros_like(m), m)
-        p = torch.exp(s - m)
-        l = p.sum(dim=-1, keepdim=True)
-        l_safe = torch.where(l == 0, torch.ones_like(l), l)
-        out[:, :, t0:t0 + chunk] = torch.matmul(p, vf) / l_safe
-        lse[:, :, t0:t0 + chunk] = torch.where(
-            l == 0, torch.full_like(l, math.inf), m + torch.log(l_safe)
-        )[..., 0]
+        parts = []
+        for k0, k1 in zip(edges[:-1], edges[1:]):
+            s = torch.matmul(qc, kf[..., k0:k1]) * scale
+            s = s.masked_fill(~valid[..., k0:k1], -math.inf)
+            m = s.amax(dim=-1, keepdim=True)
+            m_safe = torch.where(m == -math.inf, torch.zeros_like(m), m)
+            p = torch.exp(s - m_safe)
+            parts.append((torch.matmul(p, vf[:, :, k0:k1]), m, p.sum(dim=-1, keepdim=True)))
+        o, m, l = (torch.stack(x) for x in zip(*parts))
+        out[:, :, t0:t0 + chunk], lse[:, :, t0:t0 + chunk] = merge_partials(o, m, l)
     out = out.permute(0, 2, 1, 3)  # [B, Tq, H, Dv]
     if q_mask is not None:
         out = out.masked_fill(~q_mask.to(torch.bool)[:, :, None, None], 0.0)
     out = out.reshape(b, tq, h * dv).to(q.dtype)
     return (out, lse) if return_lse else out
+
+
+def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """Plain version of the merge kernel: the splits' unnormalised outputs
+    o [S, ..., Dv], maxima m and sums l [S, ..., 1] to (out [..., Dv], lse
+    [...]).  out = sum_s o_s exp(m_s - M) / L with M = max m_s and L = sum_s
+    l_s exp(m_s - M); a split with l_s = 0 (all its keys masked) drops out;
+    where L = 0, out is 0 and lse is +inf."""
+    live = l > 0
+    m_max = torch.where(live, m, torch.full_like(m, -math.inf)).amax(dim=0)
+    m_max = torch.where(m_max == -math.inf, torch.zeros_like(m_max), m_max)
+    w = torch.where(live, torch.exp(m - m_max), torch.zeros_like(m))
+    total = (l * w).sum(dim=0)
+    total_safe = torch.where(total == 0, torch.ones_like(total), total)
+    out = (o * w).sum(dim=0) / total_safe
+    lse = torch.where(total == 0, torch.full_like(total, math.inf),
+                      m_max + torch.log(total_safe))
+    return out, lse[..., 0]
 
 
 def flash_attention_backward_reference(

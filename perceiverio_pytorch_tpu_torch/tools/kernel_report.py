@@ -5,13 +5,17 @@ On a machine with an NVIDIA GPU, from the repository root:
     python -m perceiverio_pytorch_tpu_torch.tools.kernel_report
 
   1. compiles each ``csrc/*.cu`` source with ``nvcc -Xptxas -v`` and prints
-     every kernel's registers, spills and stack;
-  2. holds the backward (K2 then K3, through ``flash_attention_backward``)
-     against its plain version at small shapes, fp32 and bf16, with masks,
-     strided inputs and ragged widths, printing the errors relative to
-     max|grad| and the exact zeros of wiped rows and tail keys;
-  3. times the backward (K2 + K3 together, CUDA events) at the three flow
-     sites in fp32 at batch 1.
+     every kernel instantiation's registers, spills, stack and shared memory
+     (static; the dynamic size of K1's instantiations is printed beside);
+  2. counts the ``HGMMA`` (wgmma) instructions per kernel in
+     ``cuobjdump -sass`` of the built libraries, which shows that the bf16
+     forward runs on the tensor cores;
+  3. holds K1 against its plain version at small shapes, fp32 and bf16,
+     with masks, strided inputs, ragged widths and forced split counts;
+  4. holds the backward (K2 then K3, through ``flash_attention_backward``)
+     against its plain version at the same kind of shapes;
+  5. times K1 in both dtypes and the backward (K2 + K3, fp32) at the three
+     flow sites at batch 1 (CUDA events).
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -32,7 +36,8 @@ FLOW_SITES = ((1, 2048, 2048, 16, 32, 32), (1, 2048, 182528, 1, 322, 322),
 SMALL_CASES = ((2, 100, 777, 2, 41, 64, True, False), (3, 50, 333, 2, 41, 24, True, False),
                (1, 130, 300, 1, 322, 322, False, False), (2, 70, 129, 1, 512, 512, True, False),
                (1, 256, 256, 16, 32, 32, False, False), (2, 90, 150, 3, 48, 48, False, True),
-               (3, 65, 64, 3, 200, 100, True, False))
+               (3, 65, 64, 3, 200, 100, True, False), (2, 90, 700, 3, 41, 41, True, True),
+               (2, 70, 300, 1, 512, 300, True, False))
 
 
 def ptxas_report():
@@ -51,8 +56,28 @@ def ptxas_report():
                 entry = re.search(r"Compiling entry function '(\w+)'", line)
                 if entry:
                     kernel = entry.group(1)
-                elif "Used" in line or "spill" in line or "error" in line:
+                elif ("Used" in line or "spill" in line or "error" in line
+                      or "warning" in line or "C75" in line):
                     print(f"  {kernel}: {line.strip()}")
+    for nv, bk, d in ((16, 128, 32), (168, 128, 322), (256, 64, 512)):  # the flow sites
+        dp = -(-d // 16) * 16
+        smem = ((64 + bk) * dp + bk * 2 * nv + 64 * bk) * 2 + 4 * 64 * 4
+        print(f"[smem] flash_fwd_sm90_kernel<{nv}, {bk}> at d = dv = {d}: {smem} bytes dynamic")
+
+
+def sass_report(paths):
+    cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
+    for name, path in sorted(paths.items()):
+        proc = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True)
+        counts, kernel = {}, None
+        for line in proc.stdout.splitlines():
+            func = re.search(r"Function : (\S+)", line)
+            if func:
+                kernel = func.group(1)
+            elif "HGMMA" in line:
+                counts[kernel] = counts.get(kernel, 0) + 1
+        print(f"[sass] {name}: cuobjdump exit {proc.returncode}, HGMMA per kernel: "
+              f"{counts or 'none'}", flush=True)
 
 
 def _case(b, tq, tk, h, d, dv, dtype, masked, strided, gen):
@@ -68,14 +93,41 @@ def _case(b, tq, tk, h, d, dv, dtype, masked, strided, gen):
         kv_mask[-1] = False  # every key of the last batch entry
         kw = dict(kv_mask=kv_mask, kv_logical_len=tk - 50,
                   q_mask=torch.rand(b, tq, generator=gen, device="cuda") > 0.2)
-    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-    return (q, k, v, out, lse, randn(b, tq, h * dv)), kw
+    return (q, k, v), kw
 
 
-def check_small(gen):
+def check_forward(gen):
     for dtype in (torch.float32, torch.bfloat16):
         for *shape, masked, strided in SMALL_CASES:
-            args, kw = _case(*shape, dtype, masked, strided, gen)
+            (q, k, v), kw = _case(*shape, dtype, masked, strided, gen)
+            want, want_lse = fa.flash_attention_reference(
+                q.float(), k.float(), v.float(), return_lse=True, **kw)
+            parts = []
+            for splits in (None, 1, 2, 64):
+                out, lse = fa._flash_attention_cuda(
+                    q, k, v, q_mask=kw.get("q_mask"), kv_mask=kw.get("kv_mask"),
+                    softmax_scale=None, kv_logical_len=kw.get("kv_logical_len"),
+                    return_lse=True, num_splits=splits)
+                torch.cuda.synchronize()
+                finite = torch.isfinite(want_lse)
+                err = (out.float() - want).abs().max().item() / want.abs().max().item()
+                lse_err = (lse[finite] - want_lse[finite]).abs().max().item()
+                same_inf = torch.equal(finite, torch.isfinite(lse))
+                plan = fa.launch_plan(q, k, v, kv_logical_len=kw.get("kv_logical_len"),
+                                      num_splits=splits)
+                parts.append(f"splits {plan['splits']}: out {err:.2g} lse {lse_err:.2g}"
+                             f"{'' if same_inf else ' INF ROWS DIFFER'}")
+            print(f"[check K1] {tuple(shape)} {dtype} masked={masked} strided={strided} "
+                  f"route {plan['route']}: " + "; ".join(parts), flush=True)
+
+
+def check_backward(gen):
+    for dtype in (torch.float32, torch.bfloat16):
+        for *shape, masked, strided in SMALL_CASES:
+            (q, k, v), kw = _case(*shape, dtype, masked, strided, gen)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            args = (q, k, v, out, lse, torch.randn(out.shape, generator=gen,
+                                                   device="cuda").to(dtype))
             got = fa.flash_attention_backward(*args, **kw)
             want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
             torch.cuda.synchronize()
@@ -88,22 +140,34 @@ def check_small(gen):
                 parts.append("wiped max " + str(max(
                     got[0][-1].abs().max().item(), got[0][~kw["q_mask"]].abs().max().item(),
                     got[1][:, tail:].abs().max().item(), got[2][:, tail:].abs().max().item())))
-            print(f"[check] {tuple(shape)} {dtype} masked={masked} strided={strided}: "
+            print(f"[check K2/K3] {tuple(shape)} {dtype} masked={masked} strided={strided}: "
                   + ", ".join(parts), flush=True)
+
+
+def _time(fn, reps):
+    fn()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_flow_sites(gen, reps=2):
     for shape in FLOW_SITES:
-        args, kw = _case(*shape, torch.float32, False, False, gen)
-        fa.flash_attention_backward(*args)  # warm-up
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fa.flash_attention_backward(*args)
-        end.record()
-        torch.cuda.synchronize()
-        print(f"[time] {shape} fp32: K2+K3 {start.elapsed_time(end) / reps:.3f} ms", flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v), _ = _case(*shape, dtype, False, False, gen)
+            plan = fa.launch_plan(q, k, v)
+            ms = _time(lambda: fa.flash_attention(q, k, v), reps)
+            print(f"[time] {shape} {dtype}: K1 {ms:.3f} ms ({plan})", flush=True)
+        (q, k, v), _ = _case(*shape, torch.float32, False, False, gen)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        args = (q, k, v, out, lse, torch.randn(out.shape, generator=gen, device="cuda"))
+        ms = _time(lambda: fa.flash_attention_backward(*args), reps)
+        print(f"[time] {shape} fp32: K2+K3 {ms:.3f} ms", flush=True)
 
 
 def main():
@@ -111,9 +175,12 @@ def main():
         raise SystemExit("kernel_report needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     ptxas_report()
-    print(f"[build] {fa.build()}", flush=True)
+    paths = fa.build()
+    print(f"[build] {paths}", flush=True)
+    sass_report(paths)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_small(gen)
+    check_forward(gen)
+    check_backward(gen)
     time_flow_sites(gen)
 
 

@@ -48,6 +48,35 @@ def test_attention_path_matches_jax(site, impl, on_device):
     assert got == {"xla": "dense"}.get(want, want)
 
 
+@pytest.mark.parametrize("impl", ["auto", "flash", "dense"])
+@pytest.mark.parametrize("lengths", [(2048, 182528), (2048, 2048), (182528, 2048), (256, 2048),
+                                     (512, 512)])
+@pytest.mark.parametrize("dropout_rate", [0.0, 0.1])
+@pytest.mark.parametrize("masks", ["none", "mask", "bias"])
+@pytest.mark.parametrize("on_device", [True, False])
+def test_attention_path_grid_matches_jax(impl, lengths, dropout_rate, masks, on_device):
+    """The port's rule against the JAX one over impl, lengths, dropout and
+    masks: any dropout_rate > 0 takes the dense path, as in JAX."""
+    q_len, kv_len = lengths
+    kw = dict(q_len=q_len, kv_len=kv_len, dropout_rate=dropout_rate,
+              attention_mask=object() if masks == "mask" else None,
+              attention_bias=object() if masks == "bias" else None)
+    want = jax_ops.attention_path({"dense": "xla"}.get(impl, impl),
+                                  backend="tpu" if on_device else "cpu", **kw)
+    got = port_ops.attention_path(impl, on_cuda=on_device, **kw)
+    assert got == {"xla": "dense"}.get(want, want)
+    if dropout_rate > 0:
+        assert got == "dense"
+
+
+def test_dropout_site_raises_on_the_dense_path():
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(NotImplementedError):
+        port_ops.multihead_attention(q, q, q, impl="flash", dropout_rate=0.1)
+    out = port_ops.multihead_attention(q, q, q, impl="flash", dropout_rate=0.0)
+    assert out.shape == (1, 4, 8)
+
+
 def test_attention_path_masks_force_dense():
     kw = dict(q_len=2048, kv_len=182528, on_cuda=True)
     assert port_ops.attention_path("auto", **kw) == "flash"

@@ -5,8 +5,10 @@ it without the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The kernels (K1 forward, K2 and K3 backward) are held against their plain
-PyTorch versions, which the CPU tests hold against the JAX package.
+The kernels (K1 forward on both routes, the bf16 wgmma kernel and the fp32
+CUDA-core kernel, with its split-KV merge; K2 and K3 backward) are held
+against their plain PyTorch versions, which the CPU tests hold against the
+JAX package.
 """
 
 import dataclasses
@@ -53,7 +55,7 @@ def _check(got, want, tol):
 @pytest.mark.parametrize(
     "b,tq,tk,h,d,dv", [(2, 100, 777, 2, 41, 64), (1, 130, 300, 1, 322, 322),
                        (1, 70, 129, 1, 512, 512), (1, 256, 256, 16, 32, 32),
-                       (3, 65, 64, 3, 200, 100)],
+                       (3, 65, 64, 3, 200, 100), (2, 70, 300, 1, 512, 300)],
 )
 def test_kernel_matches_reference(cuda, dtype, tol, b, tq, tk, h, d, dv):
     q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 1, cuda)
@@ -81,6 +83,78 @@ def test_kernel_takes_strided_inputs(cuda):
     qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
     assert not qs.is_contiguous()
     _check(fa.flash_attention(qs, ks, vs), fa.flash_attention_reference(q, k, v), 1e-4)
+
+
+def _split_call(q, k, v, kw, num_splits):
+    return fa._flash_attention_cuda(
+        q, k, v, q_mask=kw.get("q_mask"), kv_mask=kw.get("kv_mask"), softmax_scale=None,
+        kv_logical_len=kw.get("kv_logical_len"), return_lse=True, num_splits=num_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_forced_split_counts_agree(cuda, dtype, tol):
+    """1, 2 and the most splits (one key tile each) against each other and
+    the plain version, with masks, a ragged Tk and an all-masked entry."""
+    b, tq, tk = 2, 100, 777
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, 2, 41, 64, 3, cuda)
+    kv_mask[-1] = False
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 50)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                  return_lse=True, **kw)
+    results = {}
+    for splits in (1, 2, 64):
+        merges = fa.LAUNCHES_MERGE
+        results[splits] = _split_call(q, k, v, kw, splits)
+        assert fa.LAUNCHES_MERGE == merges + (splits > 1)
+    torch.cuda.synchronize()
+    assert fa.launch_plan(q, k, v, kv_logical_len=tk - 50, num_splits=64)["splits"] == 12
+    for splits, (out, lse) in results.items():
+        _check(out, results[1][0], tol)
+        _check(out, want, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        finite = torch.isfinite(want_lse)
+        torch.testing.assert_close(lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
+        assert torch.all(out[-1] == 0) and torch.all(out.view(b, tq, -1)[~q_mask] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs are equal bit for bit, split or not."""
+    q, k, v, kv_mask, q_mask = _inputs(1, 130, 2000, 1, 322, 322, 4, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask)
+    for splits in (None, 1, 5):
+        first = _split_call(q, k, v, kw, splits)
+        second = _split_call(q, k, v, kw, splits)
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_takes_unaligned_strided_inputs(cuda):
+    """d = 41 in [B, H, T, D] storage seen as [B, T, H, D]: rows 82 bytes
+    apart, not 16-byte aligned, read by the sm90 kernel as they are."""
+    q, k, v, _, _ = _inputs(2, 90, 300, 3, 41, 41, 6, cuda)
+    q, k, v = (x.to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+               for x in (q, k, v))
+    assert not q.is_contiguous() and q.stride(1) * 2 % 16 != 0
+    _check(fa.flash_attention(q, k, v),
+           fa.flash_attention_reference(q.float(), k.float(), v.float()), 2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_takes_the_wgmma_route(cuda):
+    q, k, v, _, _ = _inputs(1, 2048, 4096, 1, 322, 322, 7, cuda)
+    plan = fa.launch_plan(q.to(torch.bfloat16), k, v)
+    assert plan["route"] == "sm90_wgmma" and plan["splits"] > 1
+    assert fa.launch_plan(q, k, v)["route"] == "cuda_cores"
+    before = (fa.LAUNCHES, fa.LAUNCHES_MERGE)
+    out = fa.flash_attention(*(x.to(torch.bfloat16) for x in (q, k, v)))
+    assert (fa.LAUNCHES, fa.LAUNCHES_MERGE) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    _check(out, fa.flash_attention_reference(q, k, v), 2e-2)
 
 
 @pytest.mark.cuda

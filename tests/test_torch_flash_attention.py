@@ -9,6 +9,10 @@ those plain versions by tests/test_torch_cuda.py (skipped without a GPU)
 and by ``chip_smoke.py``.
 """
 
+import math
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -112,6 +116,112 @@ def test_shape_checks_raise():
         fa.flash_attention(q, torch.zeros(1, 5, 2, 8), torch.zeros(1, 6, 2, 8))
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, kv_mask=torch.ones(1, 3, dtype=torch.bool))
+
+
+# The split-KV path: 3 batch entries, 430 keys of which the first 420 count
+# (7 tiles of 64, the last one ragged), tile 1 (keys 64..127) masked
+# everywhere, and every key of the last entry masked.
+SPLIT_CASE = dict(b=3, tq=50, tk=430, h=2, d=41, dv=24, kv_logical_len=420)
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    c = SPLIT_CASE
+    q, k, v, kv_mask, q_mask = _inputs(c["b"], c["tq"], c["tk"], c["h"], c["d"], c["dv"], 17)
+    kv_mask[:, 64:128] = False
+    kv_mask[-1] = False
+    want = _jax_flash(q, k, v, kv_mask, q_mask, kv_logical_len=c["kv_logical_len"])
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    kw = dict(kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+              kv_logical_len=c["kv_logical_len"], return_lse=True)
+    return args, kw, want
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 7])
+def test_split_reference_matches_pallas(split_case, num_splits):
+    """The plain K1 walking the keys in 1, 2, 3 or 7 tile ranges and merging
+    the partials, against the Pallas kernel in interpreter mode and against
+    the unsplit plain version; split 1 of 7 has every key masked."""
+    args, kw, (want, want_lse) = split_case
+    assert fa._split_bounds(SPLIT_CASE["kv_logical_len"], num_splits)[0] == num_splits
+    got, got_lse = fa.flash_attention_reference(*args, num_splits=num_splits, **kw)
+    whole, whole_lse = fa.flash_attention_reference(*args, **kw)
+    for out, lse in ((want, want_lse), (whole.numpy(), whole_lse.numpy())):
+        np.testing.assert_allclose(got.numpy(), out, **TOL)
+        assert np.array_equal(np.isinf(got_lse.numpy()), np.isinf(lse))
+        finite = np.isfinite(lse)
+        np.testing.assert_allclose(got_lse.numpy()[finite], lse[finite], **TOL)
+    assert np.all(got.numpy()[-1] == 0.0) and np.all(np.isinf(got_lse.numpy()[-1]))
+    assert np.all(got.numpy()[~kw["q_mask"].numpy()] == 0.0)
+
+
+def test_merge_partials_drops_masked_splits():
+    """A split with l = 0 (m = -inf) leaves the merge unchanged; a row with
+    every split masked gives 0 and lse +inf."""
+    rng = np.random.default_rng(3)
+    o = torch.from_numpy(rng.standard_normal((3, 4, 5), dtype=np.float32))
+    m = torch.from_numpy(rng.standard_normal((3, 4, 1), dtype=np.float32))
+    l = torch.from_numpy(rng.uniform(0.5, 2.0, (3, 4, 1)).astype(np.float32))
+    out, lse = fa.merge_partials(o, m, l)
+    o2 = torch.cat([o, torch.full((1, 4, 5), 7.0)])
+    m2 = torch.cat([m, torch.full((1, 4, 1), -math.inf)])
+    l2 = torch.cat([l, torch.zeros(1, 4, 1)])
+    out2, lse2 = fa.merge_partials(o2, m2, l2)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
+    want = (o * torch.exp(m)).sum(0) / (l * torch.exp(m)).sum(0)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    dead, dead_lse = fa.merge_partials(o2[3:], m2[3:], l2[3:])
+    assert torch.all(dead == 0) and torch.all(torch.isinf(dead_lse))
+
+
+@pytest.mark.parametrize(
+    "b,tq,h,tk,want_splits",
+    [(1, 2048, 1, 182528, 8), (6, 2048, 1, 182528, 2), (1, 182528, 1, 2048, 1),
+     (6, 182528, 1, 2048, 1), (1, 2048, 16, 2048, 1), (6, 2048, 16, 2048, 1),
+     (2, 100, 2, 777, 1), (1, 64, 1, 0, 1)],
+)
+def test_split_plan(b, tq, h, tk, want_splits):
+    """The flow sites: the encoder's short grid splits its keys (at least
+    about two blocks per SM at batch 1), the full grids do not; no split is
+    empty and the ranges cover every key tile."""
+    splits, per = fa._split_plan(b, tq, h, tk)
+    assert splits == want_splits and splits >= 1
+    tiles = -(-tk // fa.BLOCK_K)
+    assert (splits - 1) * per < tiles <= splits * per or tiles == 0
+    blocks = -(-tq // fa.BLOCK_Q) * h * b * splits
+    if (b, tk) == (1, 182528):
+        assert blocks >= 256 >= fa.NUM_SMS
+    if splits == 1:
+        assert blocks >= 2 * fa.NUM_SMS or tiles < 2 * fa.MIN_SPLIT_TILES
+
+
+def test_launch_plan_routes_by_dtype():
+    q = torch.zeros(1, 2048, 1, 322, dtype=torch.bfloat16)
+    k = torch.zeros(1, 182528, 1, 322, dtype=torch.bfloat16)
+    plan = fa.launch_plan(q, k, k)
+    assert plan == dict(route="sm90_wgmma", splits=8, tiles_per_split=357, blocks=256,
+                        cuda_launches=2)
+    plan = fa.launch_plan(q.float(), k.float(), k.float(), num_splits=1)
+    assert (plan["route"], plan["splits"], plan["cuda_launches"]) == ("cuda_cores", 1, 1)
+
+
+def test_library_names_hash_the_headers(tmp_path, monkeypatch):
+    """Each kernel library's name changes with its source and with any
+    csrc/*.cuh header, so a header edit never leaves a stale library."""
+    for name in os.listdir(fa._CSRC):
+        shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
+    monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
+    before = fa.library_paths()
+    assert set(before) == {"fwd", "fwd_sm90", "bwd"}
+    with open(tmp_path / "sm90.cuh", "a") as f:
+        f.write("// edited\n")
+    after = fa.library_paths()
+    assert all(after[name] != before[name] for name in before)
+    with open(tmp_path / "flash_attention_bwd.cu", "a") as f:
+        f.write("// edited\n")
+    again = fa.library_paths()
+    assert again["bwd"] != after["bwd"] and again["fwd"] == after["fwd"]
 
 
 # (B, Tq, Tk, H, D, Dv, kv_logical_len): the flow widths (32, 322, 512) and
