@@ -1,7 +1,9 @@
-// Flash attention backward for Hopper (sm_90a): two hand-written kernels.
+// Flash attention backward for fp32 inputs on Hopper (sm_90a): two
+// hand-written kernels on the CUDA cores.
 //
 // Replaces the two Pallas sweeps of `_pallas_attention_bwd`
-// (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py):
+// (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py) for fp32 q, k, v;
+// bf16 inputs take the wgmma kernels of flash_attention_bwd_sm90.cu:
 //   * `_bwd_dkv_kernel` (K2): dK and dV, one key block at a time, walking
 //     every query block;
 //   * `_bwd_dq_kernel` (K3): dQ, one query block at a time, walking every
@@ -12,11 +14,9 @@
 // caller computes delta = rowsum(do * out) and zeroes do on q-masked rows.
 // Then K2 accumulates dv += p^T do and dk += scale * ds^T q, and K3
 // dq += scale * ds k.  Keys at or beyond kv_len and keys whose kv_mask byte
-// is 0 get p = 0, so their dk and dv come out exactly 0.  Inputs fp32 or
-// bf16; p and ds stay in fp32 (the Pallas kernel rounds them to the input
-// dtype before its bf16 products); every sum is IEEE fp32 on the CUDA cores,
-// with no TF32, no tensor cores and no fast-math intrinsics; outputs are
-// written in the input dtype.
+// is 0 get p = 0, so their dk and dv come out exactly 0.  Every sum is IEEE
+// fp32 on the CUDA cores, with no TF32, no tensor cores and no fast-math
+// intrinsics.
 //
 // What bounds them on an H100.  Per (query, key) pair and head, K2 does
 // 4 d + 4 dv FLOP and K3 4 d + 2 dv.  Per 368x496 flow tile that is
@@ -55,20 +55,18 @@
 // handled by masking rows at or past Tq (lse = +inf, do = 0) and keys at or
 // past kv_len, and by zero-filling the staged rows.
 //
-// What they do not do yet.  No wgmma and no TMA, plain staged loads with no
-// double buffering, so they reach a fraction of the fp32 CUDA-core peak and
-// none of the tensor-core rate that bf16 allows.  Each grid is one block per
-// outer tile: at batch 1, K3 at the encoder (2048 queries) has 32 blocks and
-// K2 at the decoder (2048 keys) 64, on 132 SMs.  Splitting the long inner
-// walk over blocks (a second pass, or fp32 atomics) is later work, as are
-// head widths above 512 (multimodal's 704).
+// What they do not do yet.  No TMA, plain staged loads with no double
+// buffering, so they reach a fraction of the fp32 CUDA-core peak.  Each grid
+// is one block per outer tile: at batch 1, K3 at the encoder (2048 queries)
+// has 32 blocks and K2 at the decoder (2048 keys) 64, on 132 SMs (the bf16
+// kernels split those walks).  Head widths above 512 (multimodal's 704) are
+// later work.
 //
 // Interface: two plain C functions with one argument list, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes.  Each launches one kernel on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -89,18 +87,6 @@ constexpr int K2K = 32;
 constexpr int K2Q = 64;
 constexpr int LD2Q = K2Q + 4;  // row length of the transposed Q/dO chunk
 constexpr int LD2K = K2K + 4;  // row length of the P and dS tiles
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;
@@ -130,7 +116,7 @@ size_t dkv_smem_bytes(const Params& p) {
 
 // ---------------------------------------------------------------------------
 // K3: dQ.
-template <typename T, int NK>
+template <int NK>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [Dp][Q3]
@@ -146,10 +132,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)b * p.Tk : nullptr;
   const long long row0 = ((long long)b * p.H + h) * p.Tq;
 
@@ -158,7 +144,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
     const int i = idx / p.Dp;
     const int d = idx - i * p.Dp;
     float val = 0.f;
-    if (q0 + i < p.Tq && d < p.D) val = to_f(qg[(long long)(q0 + i) * p.q_st + d]);
+    if (q0 + i < p.Tq && d < p.D) val = qg[(long long)(q0 + i) * p.q_st + d];
     Qt[d * Q3 + i] = val;
   }
 
@@ -197,7 +183,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
         const int key = k0 + j;
         const int d = d0 + dd;
         float val = 0.f;
-        if (key < p.kv_len && d < p.D) val = to_f(kg[(long long)key * p.k_st + d]);
+        if (key < p.kv_len && d < p.D) val = kg[(long long)key * p.k_st + d];
         Ct[dd * LD3 + j] = val;
       }
       __syncthreads();
@@ -237,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
         const int key = k0 + j;
         const int col = d0 + dd;
         float val = 0.f;
-        if (key < p.kv_len && col < p.Dv) val = to_f(vg[(long long)key * p.v_st + col]);
+        if (key < p.kv_len && col < p.Dv) val = vg[(long long)key * p.v_st + col];
         Ct[dd * LD3 + j] = val;
       }
       for (int idx = tid; idx < Q3 * DC; idx += THREADS) {
@@ -245,7 +231,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
         const int dd = idx - i * DC;
         const int col = d0 + dd;
         float val = 0.f;
-        if (q0 + i < p.Tq && col < p.Dv) val = to_f(og[(long long)(q0 + i) * p.o_st + col]);
+        if (q0 + i < p.Tq && col < p.Dv) val = og[(long long)(q0 + i) * p.o_st + col];
         Ot[dd * Q3 + i] = val;
       }
       __syncthreads();
@@ -286,7 +272,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
           const int key = k0 + j;
           const int col = c0 + cc;
           float val = 0.f;
-          if (key < p.kv_len && col < p.D) val = to_f(kg[(long long)key * p.k_st + col]);
+          if (key < p.kv_len && col < p.D) val = kg[(long long)key * p.k_st + col];
           Ks[j * VC + cc] = val;
         }
         __syncthreads();
@@ -309,21 +295,21 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + ty * 4 + r;
     if (i >= p.Tq) continue;
-    T* dqg = static_cast<T*>(p.dq) + ((long long)b * p.Tq + i) * p.H * p.D +
+    float* dqg = static_cast<float*>(p.dq) + ((long long)b * p.Tq + i) * p.H * p.D +
              (long long)h * p.D;
 #pragma unroll
     for (int mk = 0; mk < NK; ++mk)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = mk * VC + tx * 4 + c;
-        if (col < p.D) dqg[col] = from_f<T>(acc[mk][r][c] * p.scale);
+        if (col < p.D) dqg[col] = acc[mk][r][c] * p.scale;
       }
   }
 }
 
 // ---------------------------------------------------------------------------
 // K2: dK and dV.
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // [Dp][K2K]
@@ -342,10 +328,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const long long row0 = ((long long)b * p.H + h) * p.Tq;
 
   // The block's K and V rows, transposed to [d][key], fp32, zero-padded.
@@ -353,14 +339,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
     const int j = idx / p.Dp;
     const int d = idx - j * p.Dp;
     float val = 0.f;
-    if (k0 + j < p.kv_len && d < p.D) val = to_f(kg[(long long)(k0 + j) * p.k_st + d]);
+    if (k0 + j < p.kv_len && d < p.D) val = kg[(long long)(k0 + j) * p.k_st + d];
     Kt[d * K2K + j] = val;
   }
   for (int idx = tid; idx < K2K * p.Dvp; idx += THREADS) {
     const int j = idx / p.Dvp;
     const int d = idx - j * p.Dvp;
     float val = 0.f;
-    if (k0 + j < p.kv_len && d < p.Dv) val = to_f(vg[(long long)(k0 + j) * p.v_st + d]);
+    if (k0 + j < p.kv_len && d < p.Dv) val = vg[(long long)(k0 + j) * p.v_st + d];
     Vt[d * K2K + j] = val;
   }
 
@@ -405,7 +391,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
         const int dd = idx - i * DC;
         const int d = d0 + dd;
         float val = 0.f;
-        if (q0 + i < p.Tq && d < p.D) val = to_f(qg[(long long)(q0 + i) * p.q_st + d]);
+        if (q0 + i < p.Tq && d < p.D) val = qg[(long long)(q0 + i) * p.q_st + d];
         Ct[dd * LD2Q + i] = val;
       }
       __syncthreads();
@@ -433,7 +419,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
         const int dd = idx - i * DC;
         const int col = d0 + dd;
         float val = 0.f;
-        if (q0 + i < p.Tq && col < p.Dv) val = to_f(og[(long long)(q0 + i) * p.o_st + col]);
+        if (q0 + i < p.Tq && col < p.Dv) val = og[(long long)(q0 + i) * p.o_st + col];
         Ct[dd * LD2Q + i] = val;
       }
       __syncthreads();
@@ -480,7 +466,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
           const int cc = idx - i * VC;
           const int col = c0 + cc;
           float val = 0.f;
-          if (q0 + i < p.Tq && col < p.Dv) val = to_f(og[(long long)(q0 + i) * p.o_st + col]);
+          if (q0 + i < p.Tq && col < p.Dv) val = og[(long long)(q0 + i) * p.o_st + col];
           Rs[i * VC + cc] = val;
         }
         __syncthreads();
@@ -503,7 +489,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
           const int cc = idx - i * VC;
           const int col = c0 + cc;
           float val = 0.f;
-          if (q0 + i < p.Tq && col < p.D) val = to_f(qg[(long long)(q0 + i) * p.q_st + col]);
+          if (q0 + i < p.Tq && col < p.D) val = qg[(long long)(q0 + i) * p.q_st + col];
           Rs[i * VC + cc] = val;
         }
         __syncthreads();
@@ -527,51 +513,51 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
   for (int r = 0; r < 4; ++r) {
     const int key = k0 + warp * 4 + r;
     if (key >= p.Tk) continue;
-    T* dkg = static_cast<T*>(p.dk) + ((long long)b * p.Tk + key) * p.H * p.D +
+    float* dkg = static_cast<float*>(p.dk) + ((long long)b * p.Tk + key) * p.H * p.D +
              (long long)h * p.D;
-    T* dvg = static_cast<T*>(p.dv) + ((long long)b * p.Tk + key) * p.H * p.Dv +
+    float* dvg = static_cast<float*>(p.dv) + ((long long)b * p.Tk + key) * p.H * p.Dv +
              (long long)h * p.Dv;
 #pragma unroll
     for (int mc = 0; mc < NC; ++mc)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = mc * VC + lane * 2 + c;
-        if (col < p.D) dkg[col] = from_f<T>(acc_k[mc][r][c] * p.scale);
-        if (col < p.Dv) dvg[col] = from_f<T>(acc_v[mc][r][c]);
+        if (col < p.D) dkg[col] = acc_k[mc][r][c] * p.scale;
+        if (col < p.Dv) dvg[col] = acc_v[mc][r][c];
       }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Launch helpers.
-template <typename T, int N>
+template <int N>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes(p);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Tq + Q3 - 1) / Q3, p.H, batch);
-  flash_bwd_dq_kernel<T, N><<<grid, THREADS, smem, stream>>>(p);
+  flash_bwd_dq_kernel<N><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int N>
+template <int N>
 cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes(p);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Tk + K2K - 1) / K2K, p.H, batch);
-  flash_bwd_dkv_kernel<T, N><<<grid, THREADS, smem, stream>>>(p);
+  flash_bwd_dkv_kernel<N><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The accumulators hold `width` columns in chunks of 64: 1, 2, 3, 4, 6 or 8.
-template <typename T, bool DQ>
+template <bool DQ>
 cudaError_t dispatch(const Params& p, int width, int batch, cudaStream_t stream) {
   const int n = (width + VC - 1) / VC;
 #define PERCEIVER_LAUNCH(N) \
-  return DQ ? launch_dq<T, N>(p, batch, stream) : launch_dkv<T, N>(p, batch, stream)
+  return DQ ? launch_dq<N>(p, batch, stream) : launch_dkv<N>(p, batch, stream)
   if (n <= 1) PERCEIVER_LAUNCH(1);
   if (n <= 2) PERCEIVER_LAUNCH(2);
   if (n <= 3) PERCEIVER_LAUNCH(3);
@@ -584,7 +570,7 @@ cudaError_t dispatch(const Params& p, int width, int batch, cudaStream_t stream)
 
 int run(bool dq_pass, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* kv_mask, void* dq, void* dk,
-        void* dv, int dtype, int batch, int heads, int tq, int tk, int kv_len, int d,
+        void* dv, int batch, int heads, int tq, int tk, int kv_len, int d,
         int dv_width, long long q_sb, long long q_st, long long q_sh, long long k_sb,
         long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
         long long o_sb, long long o_st, long long o_sh, float scale, void* stream) {
@@ -624,34 +610,25 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int width = dq_pass ? d : (d > dv_width ? d : dv_width);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dq_pass ? dispatch<float, true>(p, width, batch, s)
-                  : dispatch<float, false>(p, width, batch, s);
-  else if (dtype == 1)
-    err = dq_pass ? dispatch<__nv_bfloat16, true>(p, width, batch, s)
-                  : dispatch<__nv_bfloat16, false>(p, width, batch, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)(dq_pass ? dispatch<true>(p, width, batch, s) : dispatch<false>(p, width, batch, s));
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16.  Strides are in elements; the head dim of q, k,
+// fp32 inputs and outputs.  Strides are in elements; the head dim of q, k,
 // v and dout must be contiguous; lse and delta are [B, H, Tq] fp32; dq, dk and
 // dv are contiguous.  flash_attention_bwd_dkv (K2) writes dk and dv and
 // ignores dq; flash_attention_bwd_dq (K3) writes dq and ignores dk and dv.
 // Each returns a cudaError_t (0 on success).
 #define PERCEIVER_BWD_ARGS                                                              \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,       \
-      const void *delta, const void *kv_mask, void *dq, void *dk, void *dv, int dtype,  \
+      const void *delta, const void *kv_mask, void *dq, void *dk, void *dv,             \
       int batch, int heads, int tq, int tk, int kv_len, int d, int dv_width,            \
       long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,   \
       long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,   \
       long long o_st, long long o_sh, float scale, void *stream
 #define PERCEIVER_BWD_PASS                                                          \
-  q, k, v, dout, lse, delta, kv_mask, dq, dk, dv, dtype, batch, heads, tq, tk, kv_len, \
+  q, k, v, dout, lse, delta, kv_mask, dq, dk, dv, batch, heads, tq, tk, kv_len, \
       d, dv_width, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st,   \
       o_sh, scale, stream
 

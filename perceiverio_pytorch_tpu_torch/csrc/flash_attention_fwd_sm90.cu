@@ -110,39 +110,9 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// Copies rows [0, rows) x columns [0, cols) of a bf16 matrix with row stride
-// `ld` (elements) into a tile with C columns in the core-matrix layout, in
-// units of E = VEC / 2 elements.  Thread tid takes row 8 i + tid % 8 and
-// units tid / 8, tid / 8 + 32, ...: eight threads fill one core matrix.
-template <int VEC>
-__device__ __forceinline__ void copy_rows(char* tile, const bf16* g, long long ld, int rows,
-                                          int cols, int C, int tid) {
-  constexpr int E = VEC / 2;
-  const int units = cols / E;
-  const int r8 = tid & 7;
-#pragma unroll 1
-  for (int r = r8; r < rows; r += 8) {
-    const bf16* src = g + (long long)r * ld;
-    for (int u = tid >> 3; u < units; u += THREADS / 8) {
-      const int c = u * E;
-      char* dst = tile + sm90::cm_offset(r, c, C);
-      if constexpr (VEC == 2) {
-        *reinterpret_cast<bf16*>(dst) = src[c];
-      } else {
-        sm90::cp_async<VEC>(sm90::smem_addr(dst), src + c);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void load_rows(char* tile, const bf16* g, long long ld, int rows,
                                           int cols, int C, int vec, int tid) {
-  switch (vec) {
-    case 16: copy_rows<16>(tile, g, ld, rows, cols, C, tid); break;
-    case 8: copy_rows<8>(tile, g, ld, rows, cols, C, tid); break;
-    case 4: copy_rows<4>(tile, g, ld, rows, cols, C, tid); break;
-    default: copy_rows<2>(tile, g, ld, rows, cols, C, tid); break;
-  }
+  sm90::load_rows<THREADS>(tile, g, ld, rows, cols, C, vec, tid);
 }
 
 // Blocks per SM that an instantiation asks the register allocator to make
@@ -230,8 +200,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     float s[NS];
     sm90::wgmma_fence();
     for (int ks = 0; ks < Dp / 16; ++ks)
-      sm90::wgmma_m64k16<HALF_K, 0>(s, sm90::desc_add(desc_q, ks * 256),
-                                    sm90::desc_add(desc_k, ks * 256), ks > 0);
+      sm90::wgmma_m64k16<HALF_K, 0, 0>(s, sm90::desc_add(desc_q, ks * 256),
+                                       sm90::desc_add(desc_k, ks * 256), ks > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operands<NS>(s);
@@ -293,8 +263,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     sm90::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks)
-      sm90::wgmma_cols<NV, 1>(o, sm90::desc_add(desc_p, ks * 256),
-                              sm90::desc_add(desc_v, ks * 2 * 16 * CV), 128, 1);
+      sm90::wgmma_cols<NV, 0, 1>(o, sm90::desc_add(desc_p, ks * 256),
+                                 sm90::desc_add(desc_v, ks * 2 * 16 * CV), 128, 1);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operands<NV / 2>(o);
@@ -363,18 +333,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return launch_tiles<NV, 64>(p, stream);
 }
 
-// Largest copy granularity (bytes) that the base address, the strides and
-// the row width all allow.
-int copy_vec(const void* ptr, long long sb, long long st, long long sh, int width) {
-  const unsigned long long a = reinterpret_cast<unsigned long long>(ptr);
-  for (int vec = 16; vec > 2; vec /= 2) {
-    const long long bytes[4] = {sb * 2, st * 2, sh * 2, (long long)width * 2};
-    bool ok = a % vec == 0;
-    for (long long x : bytes) ok = ok && x % vec == 0;
-    if (ok) return vec;
-  }
-  return 2;
-}
+using sm90::copy_vec;
 
 }  // namespace
 

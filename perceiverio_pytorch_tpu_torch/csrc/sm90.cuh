@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels:
-// cp.async copies, proxy and barrier fences, the core-matrix shared-memory
-// layout that wgmma reads without a swizzle, wgmma descriptors, and the
-// wgmma.mma_async products (bf16 x bf16 -> fp32) at every N of 8 to 256.
+// cp.async copies and the loaders built on them, proxy and barrier fences,
+// the core-matrix shared-memory layout that wgmma reads without a swizzle,
+// wgmma descriptors, and the wgmma.mma_async products (bf16 x bf16 -> fp32)
+// at every N of 8 to 256, each operand K-major or MN-major.
 //
 // Shared-memory layout.  A tile of R rows by C columns of bf16 (C a multiple
 // of 8) is stored as 8 x 8 "core matrices" of 128 contiguous bytes (8 rows of
@@ -10,13 +11,15 @@
 // ("interleave"), and it takes any C that is a multiple of 8, so a ragged
 // head width pads to the next multiple of 16 (322 -> 336) rather than to a
 // whole 64-column swizzle atom (322 -> 384).  One loader serves every
-// operand, and the descriptor says how the operand is read:
+// operand, and the descriptor says how the operand is read; in both cases
+// LBO is the step between core matrices along K and SBO the step along M or
+// N:
 //   * K-major (the reduction dimension runs along the columns: Q, P, and K
-//     as the B of S = Q K^T): core matrices 128 bytes apart along K (LBO)
-//     and 16 C bytes apart along M or N (SBO);
-//   * MN-major (the reduction dimension runs along the rows: V as the B of
-//     O = P V, with the transpose flag): 128 bytes apart along N and 16 C
-//     bytes apart along K.
+//     as the B of S = Q K^T): LBO = 128 bytes, SBO = 16 C bytes;
+//   * MN-major (the reduction dimension runs along the rows, with the
+//     transpose flag TRANS_A or TRANS_B: V as the B of O = P V; a Q or dO
+//     tile as the A of dK^T = Q^T dS or dV^T = dO^T P): LBO = 16 C bytes,
+//     SBO = 128 bytes.
 // Eight threads that copy 16 bytes each into rows 0..7 of one core matrix
 // write 128 contiguous bytes, so the loaders walk rows fastest.
 //
@@ -114,59 +117,59 @@ __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
 }
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], A and B from shared memory, fp32
-// accumulator d[N / 2]; TRANS_B = 1 reads B MN-major.  scale_d = 0 ignores
-// the old accumulator.
+// accumulator d[N / 2]; TRANS_A = 1 reads A MN-major, TRANS_B = 1 reads B
+// MN-major.  scale_d = 0 ignores the old accumulator.
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n8k16(float* d, uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, %7;\n}\n"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n16k16(float* d, uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n32k16(float* d, uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -175,7 +178,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t a, uint64_t 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -184,10 +187,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t a, uint64_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -200,7 +203,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a, uint64_t 
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -217,17 +220,17 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a, uint64_t 
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int N, int TRANS_B>
+template <int N, int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 8) wgmma_m64n8k16<TRANS_B>(d, a, b, scale_d);
-  else if constexpr (N == 16) wgmma_m64n16k16<TRANS_B>(d, a, b, scale_d);
-  else if constexpr (N == 32) wgmma_m64n32k16<TRANS_B>(d, a, b, scale_d);
-  else if constexpr (N == 64) wgmma_m64n64k16<TRANS_B>(d, a, b, scale_d);
-  else if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b, scale_d);
-  else if constexpr (N == 256) wgmma_m64n256k16<TRANS_B>(d, a, b, scale_d);
+  if constexpr (N == 8) wgmma_m64n8k16<TRANS_A, TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 16) wgmma_m64n16k16<TRANS_A, TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k16<TRANS_A, TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16<TRANS_A, TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_m64n128k16<TRANS_A, TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 256) wgmma_m64n256k16<TRANS_A, TRANS_B>(d, a, b, scale_d);
   else static_assert(N == 8, "wgmma_m64k16: N must be 8, 16, 32, 64, 128 or 256");
 }
 
@@ -235,16 +238,81 @@ __device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t a, uint64_t b, i
 // as products of 256, 128, ..., 8 columns from column OFF on: the product
 // of columns c.. reads B from `b` moved on by (c / 8) * n8_bytes and
 // accumulates into d[c / 2 ..].
-template <int N, int TRANS_B, int OFF = 0>
+template <int N, int TRANS_A, int TRANS_B, int OFF = 0>
 __device__ __forceinline__ void wgmma_cols(float* d, uint64_t a, uint64_t b, uint32_t n8_bytes,
                                            int scale_d) {
   static_assert(N % 8 == 0, "wgmma_cols: N must be a multiple of 8");
   if constexpr (N > 0) {
     constexpr int n = N >= 256 ? 256 : N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32
                     : N >= 16 ? 16 : 8;
-    wgmma_m64k16<n, TRANS_B>(d + OFF / 2, a, desc_add(b, (OFF / 8) * n8_bytes), scale_d);
-    wgmma_cols<N - n, TRANS_B, OFF + n>(d, a, b, n8_bytes, scale_d);
+    wgmma_m64k16<n, TRANS_A, TRANS_B>(d + OFF / 2, a, desc_add(b, (OFF / 8) * n8_bytes), scale_d);
+    wgmma_cols<N - n, TRANS_A, TRANS_B, OFF + n>(d, a, b, n8_bytes, scale_d);
   }
+}
+
+// ---- barriers ----------------------------------------------------------------
+
+// Barrier ID (1..15; 0 is __syncthreads) over the 128 threads of one
+// warpgroup.  The id is an immediate: with a register id ptxas reserves all
+// 16 of the block's barriers.
+template <int ID>
+__device__ __forceinline__ void warpgroup_sync() {
+  static_assert(ID >= 1 && ID <= 15, "barrier 0 is __syncthreads");
+  asm volatile("bar.sync %0, 128;\n" ::"n"(ID) : "memory");
+}
+
+// ---- loaders ---------------------------------------------------------------
+
+// Copies rows [0, rows) x columns [0, cols) of a bf16 matrix with row stride
+// `ld` (elements) into a tile with C columns in the core-matrix layout, in
+// units of E = VEC / 2 elements, with THREADS threads.  Thread tid takes row
+// 8 i + tid % 8 and units tid / 8, tid / 8 + THREADS / 8, ...: eight threads
+// fill one core matrix.  VEC = 2 copies through registers; the others are
+// cp.async copies that the caller commits and waits for.
+template <int THREADS, int VEC>
+__device__ __forceinline__ void copy_rows(char* tile, const __nv_bfloat16* g, long long ld,
+                                          int rows, int cols, int C, int tid) {
+  constexpr int E = VEC / 2;
+  const int units = cols / E;
+  const int r8 = tid & 7;
+#pragma unroll 1
+  for (int r = r8; r < rows; r += 8) {
+    const __nv_bfloat16* src = g + (long long)r * ld;
+    for (int u = tid >> 3; u < units; u += THREADS / 8) {
+      const int c = u * E;
+      char* dst = tile + cm_offset(r, c, C);
+      if constexpr (VEC == 2) {
+        *reinterpret_cast<__nv_bfloat16*>(dst) = src[c];
+      } else {
+        cp_async<VEC>(smem_addr(dst), src + c);
+      }
+    }
+  }
+}
+
+// copy_rows at the granularity `vec` (copy_vec) picked for the source.
+template <int THREADS>
+__device__ __forceinline__ void load_rows(char* tile, const __nv_bfloat16* g, long long ld,
+                                          int rows, int cols, int C, int vec, int tid) {
+  switch (vec) {
+    case 16: copy_rows<THREADS, 16>(tile, g, ld, rows, cols, C, tid); break;
+    case 8: copy_rows<THREADS, 8>(tile, g, ld, rows, cols, C, tid); break;
+    case 4: copy_rows<THREADS, 4>(tile, g, ld, rows, cols, C, tid); break;
+    default: copy_rows<THREADS, 2>(tile, g, ld, rows, cols, C, tid); break;
+  }
+}
+
+// Largest copy granularity (bytes) that the base address, the batch, token
+// and head strides (elements) and the row width all allow.
+inline int copy_vec(const void* ptr, long long sb, long long st, long long sh, int width) {
+  const unsigned long long a = reinterpret_cast<unsigned long long>(ptr);
+  for (int vec = 16; vec > 2; vec /= 2) {
+    const long long bytes[4] = {sb * 2, st * 2, sh * 2, (long long)width * 2};
+    bool ok = a % vec == 0;
+    for (long long x : bytes) ok = ok && x % vec == 0;
+    if (ok) return vec;
+  }
+  return 2;
 }
 
 }  // namespace sm90

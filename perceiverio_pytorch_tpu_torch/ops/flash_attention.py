@@ -7,8 +7,11 @@ inputs (wgmma on the tensor cores, route ``sm90_wgmma``) and
 ``csrc/flash_attention_fwd.cu`` for fp32 ones (IEEE fp32 on the CUDA cores,
 route ``cuda_cores``), which also holds the merge of split-KV partials;
 ``_bwd_dkv_kernel`` (K2) and ``_bwd_dq_kernel`` (K3) are
-``csrc/flash_attention_bwd.cu``.  The source note at the head of each says
-what bounds it on an H100 and what its design does about that.
+``csrc/flash_attention_bwd_sm90.cu`` for bf16 inputs (wgmma, route
+``sm90_wgmma``, with the ordered sum of their split partials) and
+``csrc/flash_attention_bwd.cu`` for fp32 ones (route ``cuda_cores``).  The
+source note at the head of each says what bounds it on an H100 and what its
+design does about that.
 
   * ``flash_attention`` keeps the JAX signature and layout: q [B,Tq,H,Dqk],
     k [B,Tk,H,Dqk], v [B,Tk,H,Dv] -> [B,Tq,H*Dv] (and lse [B,H,Tq]).
@@ -24,9 +27,13 @@ what bounds it on an H100 and what its design does about that.
   * ``LAUNCHES``, ``LAUNCHES_BWD_DKV`` and ``LAUNCHES_BWD_DQ`` count kernel
     launches of K1, K2 and K3 (never plain-version calls): one per call,
     however many CUDA launches it makes.  ``LAUNCHES_MERGE`` counts the
-    merge kernel's launches (K1 calls with more than one key split).
+    merge kernel's launches (K1 calls with more than one key split) and
+    ``LAUNCHES_BWD_SUM`` the sum kernel's (K2 or K3 calls with more than one
+    split).
   * ``launch_plan`` says what a K1 call on given tensors launches: route,
-    key splits (``_split_plan``), blocks and CUDA launches.
+    key splits (``_split_plan``), blocks and CUDA launches;
+    ``backward_plan`` the same for K2 (query splits, ``_dkv_split_plan``)
+    and K3 (key splits, ``_split_plan``).
 
 The kernels are built with ``nvcc`` at first use, from the sources in this
 package, into ``build/kernels/`` under the repository root (one ``nvcc``
@@ -49,12 +56,13 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
-            "bwd": "flash_attention_bwd.cu"}
+            "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu"}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
 # Limits of the kernels' shared-memory plans (see the .cu source notes).
 MAX_HEAD_DIM = 512
-# K1's blocks: query rows per block and keys per tile (both kernels).
+# K1's blocks: query rows per block and keys per tile (both kernels); the
+# tiles of every split plan (K2's query ranges, K1's and K3's key ranges).
 BLOCK_Q = 64
 BLOCK_K = 64
 # The split-KV plan: SMs of an H100, the card the kernels are built for, and
@@ -63,11 +71,13 @@ NUM_SMS = 132
 MIN_SPLIT_TILES = 8
 
 # Kernel launches since import (or since the caller last reset them): K1,
-# K2 and K3, and the merge of K1's split-KV partials.
+# K2 and K3, the merge of K1's split-KV partials and the sum of K2's or K3's
+# split partials.
 LAUNCHES = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_MERGE = 0
+LAUNCHES_BWD_SUM = 0
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
@@ -88,7 +98,7 @@ def _nvcc() -> str:
 
 def library_paths() -> Dict[str, str]:
     """The .so path of each kernel source by name ("fwd", "fwd_sm90",
-    "bwd"): the name carries the hash of the source and of every
+    "bwd", "bwd_sm90"): the name carries the hash of the source and of every
     ``csrc/*.cuh`` header, so an edit to either builds a new library."""
     headers = b""
     for name in sorted(os.listdir(_CSRC)):
@@ -162,12 +172,30 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 fn.argtypes = (
                     # q, k, v, dout, lse, delta, kv_mask, dq, dk, dv
                     [ctypes.c_void_p] * 10
-                    + [ctypes.c_int] * 8  # dtype, B, H, Tq, Tk, kv_len, D, Dv
+                    + [ctypes.c_int] * 7  # B, H, Tq, Tk, kv_len, D, Dv
                     + _STRIDES * 4  # q, k, v, dout
                     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
                 )
                 fn.restype = ctypes.c_int
-            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "bwd": bwd}
+            bwd_sm90 = ctypes.CDLL(paths["bwd_sm90"])
+            for fn in (bwd_sm90.flash_attention_bwd_dkv_sm90,
+                       bwd_sm90.flash_attention_bwd_dq_sm90):
+                fn.argtypes = (
+                    # q, k, v, dout, lse, delta, kv_mask, dq, dk, dv,
+                    # part_q, part_k, part_v
+                    [ctypes.c_void_p] * 13
+                    # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split
+                    + [ctypes.c_int] * 9
+                    + _STRIDES * 4  # q, k, v, dout
+                    + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+                )
+                fn.restype = ctypes.c_int
+            bwd_sm90.flash_attention_bwd_sum.argtypes = (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] * 2  # part, out, n
+                + [ctypes.c_int, ctypes.c_void_p]  # splits, stream
+            )
+            bwd_sm90.flash_attention_bwd_sum.restype = ctypes.c_int
+            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "bwd": bwd, "bwd_sm90": bwd_sm90}
     return _libs
 
 
@@ -321,11 +349,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _split_bounds(kv_len: int, splits: int):
-    """(splits, tiles_per_split) for at most ``splits`` ranges of whole key
-    tiles over [0, kv_len), none of them empty.  Split s walks tiles
-    [s * tiles_per_split, (s + 1) * tiles_per_split)."""
-    tiles = -(-kv_len // BLOCK_K)
+def _split_bounds(length: int, splits: int):
+    """(splits, tiles_per_split) for at most ``splits`` ranges of whole
+    tiles of 64 (keys, or K2's query rows) over [0, length), none of them
+    empty.  Split s walks tiles [s * tiles_per_split, (s + 1) *
+    tiles_per_split)."""
+    tiles = -(-length // BLOCK_K)
     if tiles == 0:
         return 1, 0
     per = -(-tiles // max(1, min(splits, tiles)))
@@ -374,6 +403,51 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
         blocks=-(-tq // BLOCK_Q) * h * b * splits,
         cuda_launches=1 + (splits > 1),
     )
+
+
+def _dkv_split_plan(b: int, tq: int, h: int, tk: int):
+    """K2's plan: (splits, tiles_per_split) over the query rows, for B, Tq,
+    H and Tk.  It is K1's plan with the roles of queries and keys swapped,
+    the keys counted in blocks of 64 as K1 counts query rows: the flow
+    decoder's 2048 keys at batch 1 take 8 query splits (512 blocks of 32
+    keys), as the encoder's 2048 queries take 8 key splits in K1 and K3;
+    the encoder (182,528 keys) and the self-attends (16 heads) take 1."""
+    return _split_plan(b, tk, h, tq)
+
+
+def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
+    """What a backward (K2, then K3) on these tensors launches: ``route``
+    ("sm90_wgmma" for bf16 on CUDA, "cuda_cores" for fp32) and, under
+    "dkv" (K2) and "dq" (K3), ``splits`` and ``tiles_per_split`` (K2's
+    query ranges by ``_dkv_split_plan``, K3's key ranges by ``_split_plan``,
+    or ``num_splits`` ranges for both when given), ``blocks`` of the
+    kernel's grid and ``cuda_launches`` (the kernel, and the sum of its
+    partials when there is more than one split).  The fp32 kernels never
+    split: one block walks all of its query (K2) or key (K3) tiles."""
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[3]
+    _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
+    q_blocks = -(-tq // BLOCK_Q) * h * b
+    if q.dtype != torch.bfloat16:  # the CUDA-core K2 takes 32 keys a block
+        return dict(
+            route="cuda_cores",
+            dkv=dict(splits=1, tiles_per_split=-(-tq // BLOCK_Q),
+                     blocks=-(-tk // 32) * h * b, cuda_launches=1),
+            dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), blocks=q_blocks,
+                    cuda_launches=1),
+        )
+    if num_splits is None:
+        plans = (_dkv_split_plan(b, tq, h, tk), _split_plan(b, tq, h, kv_len))
+    else:
+        plans = (_split_bounds(tq, num_splits), _split_bounds(kv_len, num_splits))
+    # K2's keys a block: 64 up to 256 columns, else 32 (the register wall).
+    k_blocks = -(-tk // (64 if max(d, dv) <= 256 else 32)) * h * b
+    return dict(route="sm90_wgmma", **{
+        name: dict(splits=splits, tiles_per_split=per, blocks=blocks * splits,
+                   cuda_launches=1 + (splits > 1))
+        for name, (splits, per), blocks in (("dkv", plans[0], k_blocks),
+                                            ("dq", plans[1], q_blocks))
+    })
 
 
 def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
@@ -444,8 +518,14 @@ def _prepare_grad(q, v, out, grad_out, q_mask):
     return do, delta
 
 
-def _flash_attention_backward_cuda(q, k, v, out, lse, grad_out, **kw):
-    launch = BackwardKernels(q, k, v, out, lse, grad_out, **kw)
+def _flash_attention_backward_cuda(q, k, v, out, lse, grad_out, *, q_mask=None, kv_mask=None,
+                                   softmax_scale=None, kv_logical_len=None, num_splits=None):
+    """K2 then K3 on CUDA tensors.  ``num_splits`` overrides the split plans
+    of the bf16 kernels (for tests that hold split counts against each
+    other)."""
+    launch = BackwardKernels(q, k, v, out, lse, grad_out, q_mask=q_mask, kv_mask=kv_mask,
+                             softmax_scale=softmax_scale, kv_logical_len=kv_logical_len,
+                             num_splits=num_splits)
     launch.dkv()
     launch.dq()
     return launch.grad_q, launch.grad_k, launch.grad_v
@@ -454,11 +534,13 @@ def _flash_attention_backward_cuda(q, k, v, out, lse, grad_out, **kw):
 class BackwardKernels:
     """K2 and K3 on one backward's inputs: the checks, ``do`` and ``delta``
     once, then ``dkv()`` launches K2 into ``grad_k``/``grad_v`` and ``dq()``
-    K3 into ``grad_q``; each launch counts one.  ``flash_attention_backward``
+    K3 into ``grad_q``, each on the route and splits of ``plan``
+    (``backward_plan``) and followed by the sum of its partials when it
+    splits; each kernel counts one launch.  ``flash_attention_backward``
     runs both; a caller that times the kernels apart calls them apart."""
 
     def __init__(self, q, k, v, out, lse, grad_out, *, q_mask, kv_mask,
-                 softmax_scale, kv_logical_len):
+                 softmax_scale, kv_logical_len, num_splits=None):
         b, tq, h, d = q.shape
         tk, dv = k.shape[1], v.shape[3]
         for name, t, shape in (("out", out, (b, tq, h * dv)), ("lse", lse, (b, h, tq)),
@@ -472,6 +554,10 @@ class BackwardKernels:
         (kv_mask_c,) = _check_cuda(
             q, (("q", q), ("k", k), ("v", v), ("grad_out", do)), (("kv_mask", kv_mask),))
         scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
+        self.plan = backward_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
+        self._sm90 = self.plan["route"] == "sm90_wgmma"
+        if not self._sm90 and num_splits not in (None, 1):
+            raise ValueError("the fp32 backward kernels do not split their walks")
         lse = lse.float().contiguous()
         delta = delta.contiguous()
         self._empty = b * h == 0 or tq == 0 or tk == 0
@@ -482,35 +568,58 @@ class BackwardKernels:
         self._device = q.device
         # The tensors stay referenced here while the kernels may read them.
         self._keep = (q, k, v, do, lse, delta, kv_mask_c)
-        self._args = (
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(kv_mask_c),
-            self.grad_q.data_ptr(), self.grad_k.data_ptr(), self.grad_v.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, tq, tk, kv_len, d, dv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            scale,
-        )
+        self._inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), _ptr(kv_mask_c),
+                        self.grad_q.data_ptr(), self.grad_k.data_ptr(),
+                        self.grad_v.data_ptr())
+        self._dims = (b, h, tq, tk, kv_len, d, dv)
+        self._strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+        self._scale = scale
 
-    def _launch(self, name):
+    def _run(self, kernel, grads):
+        """Launch ``kernel`` (K2 "dkv" or K3 "dq") into ``grads``, and the
+        sum of its partials when its plan splits; False when there is
+        nothing to do."""
+        global LAUNCHES_BWD_SUM
         if self._empty:
             return False
-        fn = getattr(_load()["bwd"], name)
+        libs = _load()
+        name = f"flash_attention_bwd_{kernel}"
+        splits, per = self.plan[kernel]["splits"], self.plan[kernel]["tiles_per_split"]
+        parts = [torch.empty((splits, *g.shape), dtype=torch.float32, device=self._device)
+                 if splits > 1 else None for g in grads]
         with torch.cuda.device(self._device):
-            err = fn(*self._args, torch.cuda.current_stream(self._device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+            stream = torch.cuda.current_stream(self._device).cuda_stream
+            if self._sm90:
+                part_q, part_k, part_v = ((parts[0], None, None) if kernel == "dq"
+                                          else (None, *parts))
+                err = getattr(libs["bwd_sm90"], name + "_sm90")(
+                    *self._inputs, _ptr(part_q), _ptr(part_k), _ptr(part_v), *self._dims,
+                    splits, per, *self._strides, self._scale, stream)
+            else:
+                err = getattr(libs["bwd"], name)(
+                    *self._inputs, *self._dims, *self._strides, self._scale, stream)
+            if err != 0:
+                raise RuntimeError(f"{name} ({self.plan['route']}) launch failed: CUDA error {err}")
+            if splits > 1:
+                pairs = [(_ptr(part), g.data_ptr(), g.numel()) for part, g in zip(parts, grads)]
+                pairs += [(None, None, 0)] * (2 - len(pairs))
+                err = libs["bwd_sm90"].flash_attention_bwd_sum(*pairs[0], *pairs[1], splits, stream)
+                if err != 0:
+                    raise RuntimeError(f"flash_attention_bwd_sum launch failed: CUDA error {err}")
+                LAUNCHES_BWD_SUM += 1
         return True
 
     def dkv(self):
         """K2: dk and dv."""
         global LAUNCHES_BWD_DKV
-        if self._launch("flash_attention_bwd_dkv"):
+        if self._run("dkv", (self.grad_k, self.grad_v)):
             LAUNCHES_BWD_DKV += 1
 
     def dq(self):
         """K3: dq."""
         global LAUNCHES_BWD_DQ
-        if self._launch("flash_attention_bwd_dq"):
+        if self._run("dq", (self.grad_q,)):
             LAUNCHES_BWD_DQ += 1
 
 
@@ -608,6 +717,7 @@ def flash_attention_backward_reference(
     softmax_scale: Optional[float] = None,
     kv_logical_len: Optional[int] = None,
     max_chunk_elems: int = 1 << 26,
+    num_splits: int = 1,
 ):
     """Plain PyTorch version of K2 and K3: same arguments as
     ``flash_attention_backward``, same semantics as the kernels.
@@ -617,7 +727,11 @@ def flash_attention_backward_reference(
     ``_chunked_attention_bwd``).  Rows whose keys are all masked (lse =
     +inf) and q-masked rows carry zero gradient; keys at or beyond
     ``kv_logical_len`` get dk = dv = 0 exactly.  Returns (dq, dk, dv) in q's
-    dtype.
+    dtype.  ``num_splits`` > 1 sums dk and dv over that many ranges of whole
+    query tiles and dq over that many ranges of whole key tiles
+    (``_split_bounds``), each range's partial added in order, as the bf16
+    kernels' split grids and their sum do; the tests set it, the wrappers
+    never do.
     """
     _check_inputs(q, k, v, q_mask, kv_mask)
     b, tq, h, d = q.shape
@@ -626,6 +740,10 @@ def flash_attention_backward_reference(
     valid = _valid_keys(q, k, kv_mask, kv_len)
     do, delta = _prepare_grad(q, v, out, grad_out, q_mask)
     do = do.float()
+    q_splits, q_per = _split_bounds(tq, num_splits)
+    q_edges = [s * q_per * BLOCK_Q for s in range(q_splits)] + [tq]
+    k_splits, k_per = _split_bounds(kv_len, num_splits)
+    k_edges = [s * k_per * BLOCK_K for s in range(k_splits)] + [tk]
 
     kf = k.float().permute(0, 2, 1, 3)  # [B, H, Tk, D]
     vf = v.float().permute(0, 2, 1, 3)  # [B, H, Tk, Dv]
@@ -634,18 +752,30 @@ def flash_attention_backward_reference(
     dk = torch.zeros((b, h, tk, d), dtype=torch.float32, device=q.device)
     dv_ = torch.zeros((b, h, tk, dv), dtype=torch.float32, device=q.device)
     chunk = max(1, max_chunk_elems // max(1, b * h * tk))
-    for t0 in range(0, tq, chunk):
-        rows = slice(t0, t0 + chunk)
-        qc = q[:, rows].float().permute(0, 2, 1, 3)  # [B, H, c, D]
-        doc = do[:, rows].permute(0, 2, 1, 3)  # [B, H, c, Dv]
-        s = torch.matmul(qc, kf.transpose(-1, -2)) * scale
-        s = s.masked_fill(~valid, -math.inf)
-        p = torch.exp(s - lse[:, :, rows, None])  # 0 on masked keys and rows
-        dp = torch.matmul(doc, vf.transpose(-1, -2))
-        ds = p * (dp - delta[:, :, rows, None])
-        dv_ += torch.matmul(p.transpose(-1, -2), doc)
-        dk += torch.matmul(ds.transpose(-1, -2), qc)
-        dq[:, :, rows] = torch.matmul(ds, kf)
+    for q0, q1 in zip(q_edges[:-1], q_edges[1:]):
+        # One range sums into dk and dv directly; more sum their partials.
+        whole = q_splits == 1
+        dk_part = dk if whole else torch.zeros_like(dk)
+        dv_part = dv_ if whole else torch.zeros_like(dv_)
+        for t0 in range(q0, q1, chunk):
+            rows = slice(t0, min(t0 + chunk, q1))
+            qc = q[:, rows].float().permute(0, 2, 1, 3)  # [B, H, c, D]
+            doc = do[:, rows].permute(0, 2, 1, 3)  # [B, H, c, Dv]
+            s = torch.matmul(qc, kf.transpose(-1, -2)) * scale
+            s = s.masked_fill(~valid, -math.inf)
+            p = torch.exp(s - lse[:, :, rows, None])  # 0 on masked keys and rows
+            dp = torch.matmul(doc, vf.transpose(-1, -2))
+            ds = p * (dp - delta[:, :, rows, None])
+            dv_part += torch.matmul(p.transpose(-1, -2), doc)
+            dk_part += torch.matmul(ds.transpose(-1, -2), qc)
+            k0, k1 = k_edges[:2]
+            dq_rows = torch.matmul(ds[..., k0:k1], kf[:, :, k0:k1])
+            for k0, k1 in zip(k_edges[1:-1], k_edges[2:]):
+                dq_rows += torch.matmul(ds[..., k0:k1], kf[:, :, k0:k1])
+            dq[:, :, rows] = dq_rows
+        if not whole:
+            dk += dk_part
+            dv_ += dv_part
     return (
         (dq * scale).permute(0, 2, 1, 3).to(q.dtype),
         (dk * scale).permute(0, 2, 1, 3).to(q.dtype),

@@ -6,16 +6,17 @@ On a machine with an NVIDIA GPU, from the repository root:
 
   1. compiles each ``csrc/*.cu`` source with ``nvcc -Xptxas -v`` and prints
      every kernel instantiation's registers, spills, stack and shared memory
-     (static; the dynamic size of K1's instantiations is printed beside);
+     (static; the dynamic size of the sm90 instantiations at the three flow
+     sites is printed beside);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
-     forward runs on the tensor cores;
+     forward and backward run on the tensor cores;
   3. holds K1 against its plain version at small shapes, fp32 and bf16,
      with masks, strided inputs, ragged widths and forced split counts;
-  4. holds the backward (K2 then K3, through ``flash_attention_backward``)
-     against its plain version at the same kind of shapes;
-  5. times K1 in both dtypes and the backward (K2 + K3, fp32) at the three
-     flow sites at batch 1 (CUDA events).
+  4. holds the backward (K2 then K3) against its plain version at the same
+     kind of shapes, the bf16 kernels also at forced split counts;
+  5. times K1 and K2, K3 apart, in both dtypes at the three flow sites at
+     batch 1 (CUDA events), with each call's plan.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -59,10 +60,20 @@ def ptxas_report():
                 elif ("Used" in line or "spill" in line or "error" in line
                       or "warning" in line or "C75" in line):
                     print(f"  {kernel}: {line.strip()}")
-    for nv, bk, d in ((16, 128, 32), (168, 128, 322), (256, 64, 512)):  # the flow sites
+    # The flow sites, d = dv: (d, K1 <NV, BK>, K2 <NKW, NM>, K3 <NH, BK>) as
+    # the launchers of the two sm90 sources pick them.
+    for d, (nv, bk), (nkw, nm), (nh, bk3) in ((32, (16, 128), (32, 1), (16, 128)),
+                                              (322, (168, 128), (16, 6), (168, 64)),
+                                              (512, (256, 64), (16, 8), (256, 32))):
         dp = -(-d // 16) * 16
         smem = ((64 + bk) * dp + bk * 2 * nv + 64 * bk) * 2 + 4 * 64 * 4
         print(f"[smem] flash_fwd_sm90_kernel<{nv}, {bk}> at d = dv = {d}: {smem} bytes dynamic")
+        smem = ((2 * 2 * nkw + 2 * 64) * 64 * nm + 2 * 64 * 2 * nkw) * 2
+        print(f"[smem] flash_bwd_dkv_sm90_kernel<{nkw}, {nm}> at d = dv = {d}: {smem} bytes"
+              " dynamic")
+        smem = ((64 + bk3) * (2 * nh + dp) + 64 * bk3) * 2
+        print(f"[smem] flash_bwd_dq_sm90_kernel<{nh}, {bk3}> at d = dv = {d}: {smem} bytes"
+              " dynamic")
 
 
 def sass_report(paths):
@@ -128,20 +139,28 @@ def check_backward(gen):
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
             args = (q, k, v, out, lse, torch.randn(out.shape, generator=gen,
                                                    device="cuda").to(dtype))
-            got = fa.flash_attention_backward(*args, **kw)
             want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
-            torch.cuda.synchronize()
-            parts = []
-            for name, x, y in zip(("dq", "dk", "dv"), got, want):
-                err = (x.float() - y).abs().max().item()
-                parts.append(f"{name} {err / max(y.abs().max().item(), 1e-30):.2g}")
-            if masked:
-                tail = kw["kv_logical_len"]
-                parts.append("wiped max " + str(max(
-                    got[0][-1].abs().max().item(), got[0][~kw["q_mask"]].abs().max().item(),
-                    got[1][:, tail:].abs().max().item(), got[2][:, tail:].abs().max().item())))
-            print(f"[check K2/K3] {tuple(shape)} {dtype} masked={masked} strided={strided}: "
-                  + ", ".join(parts), flush=True)
+            splits_list = (None, 1, 2, 64) if dtype == torch.bfloat16 else (None,)
+            for splits in splits_list:
+                got = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+                torch.cuda.synchronize()
+                plan = fa.backward_plan(q, k, v, kv_logical_len=kw.get("kv_logical_len"),
+                                        num_splits=splits)
+                parts = []
+                for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                    err = (x.float() - y).abs().max().item()
+                    parts.append(f"{name} {err / max(y.abs().max().item(), 1e-30):.2g}")
+                if masked:
+                    tail = kw["kv_logical_len"]
+                    parts.append("wiped max " + str(max(
+                        got[0][-1].abs().max().item(),
+                        got[0][~kw["q_mask"]].abs().max().item(),
+                        got[1][:, tail:].abs().max().item(),
+                        got[2][:, tail:].abs().max().item())))
+                print(f"[check K2/K3] {tuple(shape)} {dtype} masked={masked} "
+                      f"strided={strided} route {plan['route']} splits "
+                      f"{plan['dkv']['splits']}/{plan['dq']['splits']}: " + ", ".join(parts),
+                      flush=True)
 
 
 def _time(fn, reps):
@@ -163,11 +182,13 @@ def time_flow_sites(gen, reps=2):
             plan = fa.launch_plan(q, k, v)
             ms = _time(lambda: fa.flash_attention(q, k, v), reps)
             print(f"[time] {shape} {dtype}: K1 {ms:.3f} ms ({plan})", flush=True)
-        (q, k, v), _ = _case(*shape, torch.float32, False, False, gen)
-        out, lse = fa.flash_attention(q, k, v, return_lse=True)
-        args = (q, k, v, out, lse, torch.randn(out.shape, generator=gen, device="cuda"))
-        ms = _time(lambda: fa.flash_attention_backward(*args), reps)
-        print(f"[time] {shape} fp32: K2+K3 {ms:.3f} ms", flush=True)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            grad = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            kernels = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
+                                         softmax_scale=None, kv_logical_len=None)
+            ms2, ms3 = _time(kernels.dkv, reps), _time(kernels.dq, reps)
+            print(f"[time] {shape} {dtype}: K2 {ms2:.3f} ms, K3 {ms3:.3f} ms "
+                  f"({kernels.plan})", flush=True)
 
 
 def main():

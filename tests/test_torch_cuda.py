@@ -5,10 +5,10 @@ it without the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The kernels (K1 forward on both routes, the bf16 wgmma kernel and the fp32
-CUDA-core kernel, with its split-KV merge; K2 and K3 backward) are held
-against their plain PyTorch versions, which the CPU tests hold against the
-JAX package.
+The kernels (K1 forward and K2/K3 backward, each on both routes: the bf16
+wgmma kernels with their split grids, merge and sum, and the fp32 CUDA-core
+kernels) are held against their plain PyTorch versions, which the CPU tests
+hold against the JAX package.
 """
 
 import dataclasses
@@ -217,6 +217,86 @@ def test_backward_kernels_take_strided_inputs(cuda):
     want = fa.flash_attention_backward_reference(*args, **kw)
     for x, y in zip(got, want):
         _check(x, y, 1e-4)
+
+
+def _check_backward(got, want, kw, tol):
+    """Each gradient against the plain backward, and exact zeros on wiped
+    rows, keys past kv_len and the all-masked batch entry."""
+    for x, y in zip(got, want):
+        _check(x, y, tol)
+    dq, dk, dv_ = got
+    tail = kw["kv_logical_len"]
+    assert torch.all(dq[-1] == 0) and torch.all(dq[~kw["q_mask"]] == 0)
+    assert torch.all(dk[:, tail:] == 0) and torch.all(dv_[:, tail:] == 0)
+    assert torch.all(dk[-1] == 0) and torch.all(dv_[-1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv", [(2, 256, 256, 16, 32, 32), (2, 300, 777, 2, 41, 41),
+                       (2, 200, 700, 1, 322, 322), (2, 300, 200, 1, 512, 512)],
+)
+def test_bf16_backward_forced_splits_agree(cuda, b, tq, tk, h, d, dv):
+    """bf16 K2 and K3 at forced split counts 1, 2, 3 and the most (one tile
+    a range), each against the plain backward, with masks, a ragged Tk and an
+    all-masked entry; a split call launches the sum once per split kernel."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    for splits in (1, 2, 3, 64):
+        plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"],
+                                num_splits=splits)
+        before = fa.LAUNCHES_BWD_SUM
+        got = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES_BWD_SUM - before == sum(
+            plan[x]["cuda_launches"] - 1 for x in ("dkv", "dq"))
+        _check_backward(got, want, kw, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,d", [(2, 2048, 4096, 322), (2, 4096, 2048, 512)])
+def test_bf16_backward_is_deterministic(cuda, b, tq, tk, d):
+    """Two calls on the same inputs are equal bit for bit, at the planned
+    splits (K3's keys at the first shape, K2's query rows at the second)
+    and at one split, and the two agree."""
+    args, kw = _backward_case(b, tq, tk, 1, d, d, torch.bfloat16, cuda)
+    plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
+    assert max(plan["dkv"]["splits"], plan["dq"]["splits"]) > 1
+    results = {}
+    for splits in (None, 1):
+        first = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+        second = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+        results[splits] = first
+    for x, y in zip(results[None], results[1]):
+        _check(x, y, 2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_takes_unaligned_strided_inputs(cuda):
+    """d = 41 in [B, H, T, D] storage seen as [B, T, H, D]: rows 82 bytes
+    apart, read by the sm90 kernels as they are."""
+    args, kw = _backward_case(2, 90, 300, 3, 41, 41, torch.bfloat16, cuda, strided=True)
+    assert not args[0].is_contiguous() and args[0].stride(1) * 2 % 16 != 0
+    got = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    _check_backward(got, want, kw, 2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_takes_the_wgmma_route(cuda):
+    args, kw = _backward_case(2, 2048, 4096, 1, 322, 322, torch.bfloat16, cuda)
+    plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
+    assert plan["route"] == "sm90_wgmma" and plan["dq"]["splits"] > 1
+    assert fa.backward_plan(*(x.float() for x in args[:3]))["route"] == "cuda_cores"
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_SUM)
+    got = fa.flash_attention_backward(*args, **kw)
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_SUM) == (
+        before[0] + 1, before[1] + 1,
+        before[2] + sum(plan[x]["cuda_launches"] - 1 for x in ("dkv", "dq")))
+    assert all(x.dtype == torch.bfloat16 for x in got)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    _check_backward(got, want, kw, 2e-2)
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from perceiverio_pytorch_tpu.ops.pallas.flash_attention import (
     _flash_impl,
+    _pallas_attention_bwd,
     flash_attention as jax_flash_attention,
 )
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -213,7 +214,8 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
     monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
     before = fa.library_paths()
-    assert set(before) == {"fwd", "fwd_sm90", "bwd"}
+    assert set(before) == {"fwd", "fwd_sm90", "bwd", "bwd_sm90"}
+    assert os.path.basename(before["bwd_sm90"]).startswith("flash_attention_bwd_sm90_")
     with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
     after = fa.library_paths()
@@ -222,6 +224,7 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     again = fa.library_paths()
     assert again["bwd"] != after["bwd"] and again["fwd"] == after["fwd"]
+    assert again["bwd_sm90"] == after["bwd_sm90"]
 
 
 # (B, Tq, Tk, H, D, Dv, kv_logical_len): the flow widths (32, 322, 512) and
@@ -318,3 +321,97 @@ def test_lse_under_gradient_is_not_differentiable():
                                         return_lse=True)
     torch.testing.assert_close(out.detach(), want[0], rtol=0, atol=0)
     torch.testing.assert_close(lse, want[1], rtol=0, atol=0)
+
+
+# The split backward: 420 query rows and keys (7 tiles of 64 each, the last
+# ragged), 430 keys of which the first 420 count, key tile 1 masked
+# everywhere, and every key of the last batch entry masked.
+BWD_SPLIT_CASE = dict(b=2, tq=420, tk=430, h=2, d=41, dv=24, kv_logical_len=420)
+
+
+@pytest.fixture(scope="module")
+def bwd_split_case():
+    c = BWD_SPLIT_CASE
+    q, k, v, kv_mask, q_mask = _inputs(c["b"], c["tq"], c["tk"], c["h"], c["d"], c["dv"], 23)
+    kv_mask[:, 64:128] = False
+    kv_mask[-1] = False
+    out, lse = _jax_flash(q, k, v, kv_mask, q_mask, kv_logical_len=c["kv_logical_len"])
+    g = np.random.default_rng(24).standard_normal(out.shape, dtype=np.float32)
+    want = jax.jit(lambda *a: _pallas_attention_bwd(
+        *a, block_q=32, block_k=64, interpret=True,
+        kv_logical_len=c["kv_logical_len"]))(
+        q, k, v, jnp.asarray(kv_mask), jnp.asarray(q_mask), out, lse, g)
+    args = [torch.from_numpy(np.array(x)) for x in (q, k, v, out, lse, g)]
+    kw = dict(kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+              kv_logical_len=c["kv_logical_len"])
+    return args, kw, [np.asarray(x) for x in want]
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 7])
+def test_split_backward_reference_matches_pallas(bwd_split_case, num_splits):
+    """The plain backward summing dk/dv over 1, 2, 3 or 7 query ranges and
+    dq over as many key ranges, in order, against `_pallas_attention_bwd`
+    in interpreter mode and against the unsplit plain version; key range 1
+    of 7 is masked everywhere."""
+    args, kw, want = bwd_split_case
+    for length in (BWD_SPLIT_CASE["tq"], BWD_SPLIT_CASE["kv_logical_len"]):
+        assert fa._split_bounds(length, num_splits)[0] == num_splits
+    got = fa.flash_attention_backward_reference(*args, num_splits=num_splits, **kw)
+    whole = fa.flash_attention_backward_reference(*args, **kw)
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, want, whole):
+        np.testing.assert_allclose(x.numpy(), y, err_msg=name, **TOL)
+        np.testing.assert_allclose(x.numpy(), z.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+        assert np.abs(y).max() > 0, name
+    dq, dk, dv_ = (x.numpy() for x in got)
+    assert np.all(dq[-1] == 0.0) and np.all(dq[~kw["q_mask"].numpy()] == 0.0)
+    tail = BWD_SPLIT_CASE["kv_logical_len"]
+    assert np.all(dk[:, tail:] == 0.0) and np.all(dv_[:, tail:] == 0.0)
+    assert np.all(dk[:, 64:128] == 0.0) and np.all(dv_[:, 64:128] == 0.0)
+
+
+@pytest.mark.parametrize(
+    "site,b,tq,h,tk,d,dkv_splits,dkv_blocks,dq_splits,dq_blocks",
+    [("decoder", 1, 182528, 1, 2048, 512, 8, 512, 1, 2852),
+     ("encoder", 1, 2048, 1, 182528, 322, 1, 5704, 8, 256),
+     ("self", 1, 2048, 16, 2048, 32, 1, 512, 1, 512),
+     ("masked", 2, 100, 2, 777, 41, 1, 52, 1, 8)],
+)
+def test_backward_split_plan(site, b, tq, h, tk, d, dkv_splits, dkv_blocks, dq_splits,
+                             dq_blocks):
+    """The flow sites at batch 1: K2 splits the decoder's query rows (64
+    key blocks of 32 on 132 SMs), K3 the encoder's keys (K1's plan: 32
+    query blocks); the full grids take one split.  No range is empty and the
+    ranges cover every tile."""
+    q = torch.empty(b, tq, h, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, tk, h, d, dtype=torch.bfloat16, device="meta")
+    plan = fa.backward_plan(q, k, k)
+    assert plan["route"] == "sm90_wgmma"
+    assert fa._dkv_split_plan(b, tq, h, tk) == (plan["dkv"]["splits"],
+                                               plan["dkv"]["tiles_per_split"])
+    assert fa._split_plan(b, tq, h, tk) == (plan["dq"]["splits"], plan["dq"]["tiles_per_split"])
+    for kernel, splits, blocks, length in (("dkv", dkv_splits, dkv_blocks, tq),
+                                           ("dq", dq_splits, dq_blocks, tk)):
+        got = plan[kernel]
+        assert (got["splits"], got["blocks"]) == (splits, blocks), (kernel, got)
+        assert got["cuda_launches"] == 1 + (splits > 1)
+        tiles = -(-length // fa.BLOCK_K)
+        assert (splits - 1) * got["tiles_per_split"] < tiles <= splits * got["tiles_per_split"]
+
+
+def test_backward_plan_routes_by_dtype():
+    """bf16 takes the wgmma kernels and their split plans (or forced split
+    counts); fp32 the CUDA-core kernels, which never split."""
+    q = torch.empty(1, 182528, 1, 512, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(1, 2048, 1, 512, dtype=torch.bfloat16, device="meta")
+    plan = fa.backward_plan(q, k, k)
+    assert plan == dict(
+        route="sm90_wgmma",
+        dkv=dict(splits=8, tiles_per_split=357, blocks=512, cuda_launches=2),
+        dq=dict(splits=1, tiles_per_split=32, blocks=2852, cuda_launches=1))
+    forced = fa.backward_plan(q, k, k, num_splits=3)
+    assert (forced["dkv"]["splits"], forced["dq"]["splits"]) == (3, 3)
+    assert forced["dq"]["cuda_launches"] == 2
+    plan = fa.backward_plan(q.float(), k.float(), k.float())
+    assert plan["route"] == "cuda_cores"
+    assert all(plan[x]["splits"] == 1 and plan[x]["cuda_launches"] == 1 for x in ("dkv", "dq"))
+    assert (plan["dkv"]["blocks"], plan["dq"]["blocks"]) == (64, 2852)
