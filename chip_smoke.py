@@ -14,13 +14,16 @@ Phases (each raises on failure; nothing is caught):
      and the fp32 CUDA-core kernels);
   3. kernel: holds K1 against its plain PyTorch version on the card
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
-     serving forward's shapes (6 tiles, bf16), and at a small masked case
-     (kv_mask, q_mask, ragged Tk, kv_logical_len, an all-masked row, lse);
-     records each call's route, key splits, blocks and CUDA launches; times
-     kernel, plain version, F.scaled_dot_product_attention (a yardstick
-     only) and the bound; then, at the bf16 encoder at batch 1, holds the
-     planned split count against a single split and two calls against each
-     other bit for bit;
+     serving forward's shapes (6 tiles, bf16), at the multimodal encoder
+     (784 latents x 52,097 keys, one head of d = dv = 704: two value-column
+     chunks) in fp32 and bf16, and at small masked cases at widths 41 and
+     704 (kv_mask, q_mask, ragged Tk, kv_logical_len, an all-masked row,
+     lse); records each call's route, key splits, column chunks, blocks and
+     CUDA launches; times kernel, plain version,
+     F.scaled_dot_product_attention (a yardstick only; null where it does
+     not run) and the bound; then, at the bf16 flow encoder at batch 1 and
+     at the bf16 multimodal encoder, holds the planned split count against a
+     single split and two calls against each other bit for bit;
   4. backward kernels: holds K2 and K3 against the plain backward at the
      three flow sites (batch 1) in fp32 and bf16 and at the masked case
      (exact zeros on wiped rows and tail keys); records each call's route,
@@ -45,7 +48,17 @@ Phases (each raises on failure; nothing is caught):
      PERFORMANCE, remat, batch 1, synthetic roll pairs) through its Trainer:
      one warm-up step, then timed steps with finite losses and parameters
      that move once the warmup's lr-0 step is past;
-  9. prints the kernels line and, last, {"ok": true, "device": {...}}.
+  9. multimodal model: MultiModalPerceiver at full width (16 frames of
+     224x224, 30,720 audio samples, 700 classes, 784x512 latents, 8
+     self-attends), seeded random weights, fp32, one synthetic clip decoded
+     in 128 chunks, once through K1 (one launch and one merge: the encoder)
+     and once with attention on the plain version; image, audio and label
+     must agree;
+ 10. multimodal serve: three synthetic clips through the model under the
+     PERFORMANCE policy (bf16, query-pad fold), after a warm-up clip: per-clip
+     latency, clips/s, peak memory, K1 and merge launches per clip, and the
+     last clip against the fp32 model;
+ 11. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -101,6 +114,14 @@ FLOW_SITES = {
 SITE_LAUNCHES = {"encoder": 1, "self": 24, "decoder": 1}
 # Tiles of one 436x1024 request: the batch the serving forward gives K1.
 SERVE_TILES = 6
+# The multimodal model's one K1 site: its encoder cross-attend, (B, Tq, Tk,
+# H, D, Dv) for one clip (784 latents; 50,176 image + 1,920 audio + 1 label
+# tokens, padded to 700 + 4 channels).
+MM_SITE = (1, 784, 52097, 1, 704, 704)
+MM_CHUNKS = 128
+# The full-width bf16 model against the fp32 one on the same clip, relative
+# to each output's max |x|: bf16 GEMMs through 10 attention blocks.
+MM_BF16_TOL = 1e-1
 
 
 def smi_line() -> str:
@@ -194,6 +215,17 @@ def _flops_and_bytes(q, k, v, kw):
     return flops, nbytes
 
 
+def _library_ms(q, k, v, kw, reps):
+    """SDPA's time on the same tensors, or None where no SDPA backend takes
+    them (the yardstick is optional; the kernel is not)."""
+    try:
+        return time_ms(_library_call(q, k, v, kw), reps)
+    except RuntimeError as exc:
+        print(f"[kernel] no SDPA at {tuple(q.shape)} x {tuple(k.shape)}: {exc}"[:300],
+              flush=True)
+        return None
+
+
 def _library_call(q, k, v, kw):
     import torch
     import torch.nn.functional as F
@@ -250,13 +282,14 @@ def check_case(name, shape, dtype_name, masked, reps, gen):
         kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), reps)
         plain_ms = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, **kw), reps)
-        library_ms = time_ms(_library_call(q, k, v, kw), reps)
+        library_ms = _library_ms(q, k, v, kw, reps)
     flops, nbytes = _flops_and_bytes(q, k, v, kw)
     flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     rec = dict(
         site=name, dtype=dtype_name, shape=list(shape), route=plan["route"],
-        splits=plan["splits"], blocks=plan["blocks"], cuda_launches=cuda_launches,
+        splits=plan["splits"], col_chunks=plan["col_chunks"], blocks=plan["blocks"],
+        cuda_launches=cuda_launches,
         max_abs_err=err, max_abs_out=scale, ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=max(flops_ms, bytes_ms),
         bound_by="operations" if flops_ms >= bytes_ms else "bytes",
@@ -276,21 +309,26 @@ def phase_kernels(reps: int = 3):
             records.append(check_case(name, shape, dtype_name, False, reps, gen))
         records.append(check_case(
             "masked", (2, 100, 777, 2, 41, 64), dtype_name, True, reps, gen))
+        records.append(check_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen))
+        records.append(check_case(
+            "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen))
     for name, shape in FLOW_SITES.items():  # the serving forward's shapes
         records.append(check_case(
             name, (SERVE_TILES,) + shape[1:], "bf16", False, reps, gen))
-    check_splits(gen)
+    check_splits(gen, "encoder", FLOW_SITES["encoder"])
+    check_splits(gen, "mm_encoder", MM_SITE)
     return records
 
 
-def check_splits(gen):
-    """At the bf16 encoder at batch 1: the planned split count against one
-    split (within the bf16 tolerance), and two calls bit for bit."""
+def check_splits(gen, site, shape):
+    """At a bf16 site whose short grid splits the keys: the planned split
+    count against one split (within the bf16 tolerance), and two calls bit
+    for bit."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, _ = _case_inputs(*FLOW_SITES["encoder"], torch.bfloat16, False, gen)
+    q, k, v, _ = _case_inputs(*shape, torch.bfloat16, False, gen)
     with torch.inference_mode():
         planned, planned_lse = fa.flash_attention(q, k, v, return_lse=True)
         again, again_lse = fa.flash_attention(q, k, v, return_lse=True)
@@ -300,15 +338,16 @@ def check_splits(gen):
         torch.cuda.synchronize()
     splits = fa.launch_plan(q, k, v)["splits"]
     if splits < 2:
-        raise AssertionError(f"the encoder at batch 1 should split its keys, plan {splits}")
+        raise AssertionError(f"the {site} should split its keys, plan {splits}")
     if not (torch.equal(planned, again) and torch.equal(planned_lse, again_lse)):
-        raise AssertionError("two K1 calls on the same inputs differ")
+        raise AssertionError(f"{site}: two K1 calls on the same inputs differ")
     err = (planned.float() - one.float()).abs().max().item()
     scale = one.float().abs().max().item()
     lse_err = (planned_lse - one_lse).abs().max().item()
     if not (err <= TOL["bf16"] * scale and lse_err <= 1e-4 * (1 + one_lse.abs().max().item())):
-        raise AssertionError(f"{splits} splits vs 1: out {err} (max {scale}), lse {lse_err}")
-    rec = dict(site="encoder", dtype="bf16", splits=splits, max_abs_diff_vs_1_split=err,
+        raise AssertionError(
+            f"{site}: {splits} splits vs 1: out {err} (max {scale}), lse {lse_err}")
+    rec = dict(site=site, dtype="bf16", splits=splits, max_abs_diff_vs_1_split=err,
                max_abs_out=scale, lse_diff_vs_1_split=lse_err, bitwise_repeat=True)
     print(f"[kernel] splits: {json.dumps(rec)}", flush=True)
 
@@ -765,19 +804,154 @@ def phase_train():
     return rec
 
 
+def _mm_model(policy):
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import MultiModalPerceiver
+
+    return MultiModalPerceiver(policy=policy, device="cuda",
+                               generator=torch.Generator().manual_seed(SEED)).eval()
+
+
+def _smooth_clip(gen, frames=16, size=224, samples=30720):
+    """A seeded synthetic clip on the card: smooth video [1, T, 3, H, W] in
+    [0, 1] (sums of random space-time sinusoids) and audio [1, samples, 1]
+    in [-1, 1] (a sum of random tones)."""
+    import torch
+
+    t = torch.linspace(0, 1, frames)[:, None, None]
+    y = torch.linspace(0, 1, size)[None, :, None]
+    x = torch.linspace(0, 1, size)[None, None, :]
+    video = torch.zeros(frames, 3, size, size)
+    for c in range(3):
+        for _ in range(3):
+            ft, fy, fx, ph = (torch.rand(4, generator=gen)
+                              * torch.tensor([2.0, 4.0, 4.0, 6.28])).tolist()
+            video[:, c] += torch.sin(2 * math.pi * (ft * t + fy * y + fx * x) + ph)
+    video = (video - video.min()) / (video.max() - video.min())
+    s = torch.linspace(0, 1, samples)
+    audio = torch.zeros(samples)
+    for _ in range(4):  # 20 to 2020 cycles over the clip
+        f, ph = (torch.rand(2, generator=gen) * torch.tensor([2000.0, 6.28])).tolist()
+        audio += torch.sin(2 * math.pi * (20.0 + f) * s + ph)
+    audio = audio / audio.abs().max()
+    return video[None].cuda(), audio[None, :, None].cuda()
+
+
+def _check_mm_outputs(out, label):
+    import torch
+
+    want = {"image": (1, 16, 3, 224, 224), "audio": (1, 30720, 1), "label": (1, 700)}
+    for key, shape in want.items():
+        if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+            raise AssertionError(f"{label}: {key} of shape {tuple(out[key].shape)}, or not finite")
+
+
+def phase_mm_model():
+    """The full-width fp32 multimodal model, once through K1 (the encoder:
+    one launch and its merge) and once with attention on the plain
+    version; every output must agree."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+    from perceiverio_pytorch_tpu_torch.ops import attention as attention_ops
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    model = _mm_model(dataclasses.replace(PARITY, attn_impl="auto"))
+    images, audio = _smooth_clip(torch.Generator().manual_seed(SEED + 5))
+    with torch.inference_mode():
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out_kernel = model(images, audio, n_chunks=MM_CHUNKS)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        with mock.patch.object(attention_ops, "flash_attention",
+                               fa.flash_attention_reference):
+            t0 = time.perf_counter()
+            out_plain = model(images, audio, n_chunks=MM_CHUNKS)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+    if (launches["K1"], launches["merge"]) != (1, 1):
+        raise AssertionError(f"expected one K1 launch and one merge, got {launches}")
+    _check_mm_outputs(out_kernel, "kernel")
+    _check_mm_outputs(out_plain, "plain")
+    diffs = {}
+    for key in out_plain:
+        peak = out_plain[key].abs().max().item()
+        diff = (out_kernel[key] - out_plain[key]).abs().max().item()
+        if not (peak > 0 and diff <= MODEL_TOL * peak):
+            raise AssertionError(f"kernel vs plain {key}: {diff} > {MODEL_TOL} * {peak}")
+        diffs[key] = dict(max_abs_diff=diff, max_abs=peak)
+    rec = dict(launches=launches["K1"], merge_launches=launches["merge"], n_chunks=MM_CHUNKS,
+               outputs=diffs, tolerance=MODEL_TOL, first_kernel_forward_s=kernel_s,
+               plain_forward_s=plain_s)
+    print(f"[mm model] fp32 full width: {json.dumps(rec)}", flush=True)
+    return model
+
+
+def phase_mm_serve(fp32_model, n_clips: int = 3):
+    """Three synthetic clips through the bf16 model (PERFORMANCE: bf16
+    GEMMs, query-pad fold) after a warm-up clip, each on the card before
+    its timed call; the last one also through the fp32 model."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+
+    model = _mm_model(PERFORMANCE)
+    model.load_state_dict(fp32_model.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 6)
+    clips = [_smooth_clip(gen) for _ in range(n_clips + 1)]
+    with torch.inference_mode():
+        model(*clips[0], n_chunks=MM_CHUNKS)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        latencies = []
+        t_all = time.perf_counter()
+        for images, audio in clips[1:]:
+            t0 = time.perf_counter()
+            out = model(images, audio, n_chunks=MM_CHUNKS)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            _check_mm_outputs(out, "bf16 serve")
+        total = time.perf_counter() - t_all
+        launches = _launch_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        ref = fp32_model(*clips[-1], n_chunks=MM_CHUNKS)
+    if (launches["K1"], launches["merge"]) != (n_clips, n_clips):
+        raise AssertionError(f"expected one K1 launch and one merge a clip, got {launches}")
+    rel = {key: (out[key].float() - ref[key]).abs().max().item() / ref[key].abs().max().item()
+           for key in ref}
+    if not all(r <= MM_BF16_TOL for r in rel.values()):
+        raise AssertionError(f"bf16 vs fp32 outputs: {rel} (tolerance {MM_BF16_TOL})")
+    rec = dict(clips=n_clips, n_chunks=MM_CHUNKS, latency_s=latencies,
+               clips_per_s=n_clips / total, peak_mem_gb=peak_mem / 1e9,
+               launches=launches["K1"], merge_launches=launches["merge"],
+               k1_launches_per_clip=launches["K1"] / n_clips,
+               merge_launches_per_clip=launches["merge"] / n_clips,
+               bf16_vs_fp32_rel=rel, bf16_tolerance=MM_BF16_TOL)
+    print(f"[mm serve] bf16 MultiModalPerceiver 16x224x224 + 30720 samples: {json.dumps(rec)}",
+          flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
-    launches), the records picked by ``keep``."""
+    launches), the records picked by ``keep``; None where a site has no
+    time for a key (no SDPA backend took it)."""
     picked = [r for r in records if keep(r) and r["site"] in per_site]
-    sums = {key: sum(per_site[r["site"]] * r[key] for r in picked)
+    sums = {key: (None if any(r[key] is None for r in picked)
+                  else sum(per_site[r["site"]] * r[key] for r in picked))
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     sums["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in picked)
                         else "bytes")
     return sums
 
 
-def kernels_line(records, serve, backward, train):
-    """One entry each for K1, K2 and K3.  K1 (two sources: the bf16 wgmma
+def kernels_line(records, serve, backward, train, mm_serve):
+    """One entry each for K1 on the flow path, K1 on the multimodal path,
+    K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
     with the split-KV merge): times summed over the 26 launches of one
     serving forward (6 tiles, bf16), the launches of the serving run (and,
@@ -787,8 +961,17 @@ def kernels_line(records, serve, backward, train):
     launches of one training step (batch 1, bf16), the launches of the
     training run (the sums of both counted together); their plain and
     library times are the whole backward (dq, dk and dv in one call), the
-    same for both.  Each entry's
-    error is the largest of all its comparisons."""
+    same for both.  K1 on the multimodal path (``flash_attention_fwd_d704``,
+    the same sources at d = dv = 704, two value-column chunks): the bf16
+    encoder site's times, the launches of the multimodal serving run.  Each
+    entry's error is the largest of all its comparisons."""
+    mm = [r for r in records if r["site"].startswith("mm_")]
+    records = [r for r in records if not r["site"].startswith("mm_")]
+    mm_site = next(r for r in mm if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
+    k1_sources = {
+        "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+        "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
+    }
     entries = [dict(
         name="flash_attention_fwd",
         route="cuda",
@@ -807,6 +990,19 @@ def kernels_line(records, serve, backward, train):
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
         sites=records,
+    ), dict(
+        name="flash_attention_fwd_d704",
+        route="cuda",
+        source=k1_sources["sm90_wgmma"],
+        sources=k1_sources,
+        routes={"bf16": "sm90_wgmma", "fp32": "cuda_cores"},
+        replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
+        launches=mm_serve["launches"],
+        merge_launches=mm_serve["merge_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in mm),
+        **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by", "splits", "col_chunks")},
+        sites=mm,
     )]
     for kernel, name, line in (("K2", "flash_attention_bwd_dkv", 473),
                                ("K3", "flash_attention_bwd_dq", 514)):
@@ -849,8 +1045,10 @@ def main() -> int:
     serve = phase_serve(phase_model())
     phase_gradients()
     train = phase_train()
+    torch.cuda.empty_cache()
+    mm_serve = phase_mm_serve(phase_mm_model())
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(records, serve, backward, train))
+    print(kernels_line(records, serve, backward, train, mm_serve))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

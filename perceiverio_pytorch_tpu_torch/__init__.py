@@ -8,6 +8,8 @@ Every Pallas kernel of the JAX package on a ported path is a hand-written
 CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.  The
 training stack is ``perceiverio_pytorch_tpu_torch.training``; a runnable
 flow training demo is ``perceiverio_pytorch_tpu_torch.examples.train_flow``.
+Task models ported so far: ``FlowPerceiver`` (with ``FlowInference``) and
+``MultiModalPerceiver`` (serving).
 """
 
 __version__ = "0.1.0"
@@ -22,4 +24,7 @@ from perceiverio_pytorch_tpu_torch.models.flow import (  # noqa: F401
     FlowInference,
     FlowPerceiver,
     compute_grid_indices,
+)
+from perceiverio_pytorch_tpu_torch.models.multimodal import (  # noqa: F401
+    MultiModalPerceiver,
 )

@@ -6,9 +6,11 @@ selector values are ``"dense"`` (plain matmul + softmax, the JAX package's
 version on a CPU tensor) and ``"auto"``.
 
 Fields of the JAX policy that this port cannot honour yet (int8, the
-sequence/pipeline meshes, layer scan, selective remat and the multimodal
-query fold) are kept as fields so that a caller porting a configuration
-learns of them: setting any of them raises ``NotImplementedError``.
+sequence/pipeline meshes, layer scan and selective remat) are kept as
+fields so that a caller porting a configuration learns of them: setting any
+of them raises ``NotImplementedError``.  ``fold_query_pad`` is ported: the
+multimodal decoder folds its constant query-pad channels through the query
+LayerNorm and projection (``core.attention.FoldedQuery``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ _NOT_PORTED = (
     ("pp_mesh", None),
     ("layer_scan", "off"),
     ("remat_policy", None),
-    ("fold_query_pad", False),
 )
 
 
@@ -45,8 +46,11 @@ class Policy:
       flash_min_kv / flash_min_self / flash_long_q_min_kv: the thresholds of
         the "auto" dispatch, the JAX package's values (ops/attention.py).
       gelu_approximate: tanh-approximate GELU instead of the exact erf form.
-      quant, sp_mesh, pp_mesh, layer_scan, remat_policy, fold_query_pad:
-        not ported; any value other than the default raises.
+      fold_query_pad: pass a decoder query whose pad channels are constant
+        (the multimodal model's) in factored form, never materialising the
+        padded [B, Tq, C] concat; no effect where no query is padded.
+      quant, sp_mesh, pp_mesh, layer_scan, remat_policy: not ported; any
+        value other than the default raises.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -80,12 +84,13 @@ class Policy:
 # fp32 everywhere, dense attention: the parity policy.
 PARITY = Policy(compute_dtype=torch.float32, attn_impl=ATTN_DENSE)
 
-# bf16 compute with fp32 softmax and LayerNorm, tanh GELU.  The JAX preset
-# also sets fold_query_pad, which only changes the multimodal decoder.
+# bf16 compute with fp32 softmax and LayerNorm, tanh GELU, and the query-pad
+# fold (which only changes the multimodal decoder), as the JAX preset.
 PERFORMANCE = Policy(
     compute_dtype=torch.bfloat16,
     attn_impl=ATTN_AUTO,
     gelu_approximate=True,
+    fold_query_pad=True,
 )
 
 DEFAULT = Policy()

@@ -9,16 +9,18 @@ Counterpart of ``perceiverio_pytorch_tpu/core/attention.py``:
     ``Policy.gelu_approximate``) -> Dense;
   * ``SelfAttention``: pre-LN residual block;
   * ``CrossAttention``: separate q/kv LayerNorms, ``shape_for_attn``
-    choosing the qk width, optional query residual.
+    choosing the qk width, optional query residual;
+  * ``FoldedQuery``: a decoder query in factored (position features,
+    constant pad) form, whose pad channels ``Attention`` folds through the
+    query LayerNorm and projection (``_project_q_folded``).
 
 LayerNorms run in fp32 with eps 1e-5 and their output is cast to the
-compute dtype.  Dropout, the int8 projections and the multimodal
-``FoldedQuery`` are not ported yet (inference-only slice).
+compute dtype.  Dropout and the int8 projections are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +34,10 @@ from perceiverio_pytorch_tpu_torch.utils.initializers import (
     variance_scaling_,
 )
 
-__all__ = ["Dense", "LayerNorm", "Attention", "MLP", "SelfAttention", "CrossAttention"]
+__all__ = ["Dense", "LayerNorm", "FoldedQuery", "Attention", "MLP", "SelfAttention",
+           "CrossAttention"]
+
+_LN_EPS = 1e-5
 
 
 def zeros_(weight: torch.Tensor, generator: torch.Generator):
@@ -73,13 +78,37 @@ class LayerNorm(nn.LayerNorm):
     """LayerNorm (eps 1e-5) computed and returned in fp32."""
 
     def __init__(self, num_channels: int):
-        super().__init__(num_channels, eps=1e-5)
+        super().__init__(num_channels, eps=_LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(
             x.float(), self.normalized_shape, self.weight.float(),
             self.bias.float(), self.eps,
         )
+
+
+class FoldedQuery(NamedTuple):
+    """A decoder query in factored form: per modality, ``(pos [B, T, C_m],
+    pad [C - C_m])``, in the token order of the concatenated query (sorted
+    modality names); each token's channels are ``[pos, pad]``, the pad the
+    same for every token of a modality.  The padded [B, Tq, C] concat is
+    never built: ``Attention`` folds the pad through the query LayerNorm
+    (``ln_scale``, ``ln_bias``, filled in by ``CrossAttention``, which owns
+    it) and the Q projection, and runs the one per-token GEMM on the narrow
+    position features only."""
+
+    parts: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    ln_scale: Optional[torch.Tensor] = None
+    ln_bias: Optional[torch.Tensor] = None
+
+    @property
+    def num_tokens(self) -> int:
+        return sum(pos.shape[1] for pos, _ in self.parts)
+
+    @property
+    def num_channels(self) -> int:
+        pos, pad = self.parts[0]
+        return pos.shape[-1] + pad.shape[-1]
 
 
 class Attention(nn.Module):
@@ -130,9 +159,44 @@ class Attention(nn.Module):
             init=_variance_scaling(final_init_scale_multiplier * init_scale), **kw,
         )
 
+    def _project_q_folded(self, fq: FoldedQuery) -> torch.Tensor:
+        """LayerNorm + proj_q of a ``FoldedQuery``, the pad folded in.
+
+        For a token z = [x, p] (position features x, constant pad p) of C
+        channels, LN(z) W + b = ((x g1) W1 + (p g2) W2 - mu (g W)) / sigma +
+        beta W + b, with mu and sigma from x and the pad's sums: the mean
+        over all C channels and the two-pass variance, its pad half sum((p -
+        mu)^2) = sum(p^2) - 2 mu sum(p) + C2 mu^2 exactly.  Only (x g1) W1
+        touches per-token data, in the compute dtype; everything else is
+        fp32.
+        """
+        w32 = self.proj_q.weight.float().t()  # [C, qk_out]
+        gamma, beta = fq.ln_scale.float(), fq.ln_bias.float()
+        total_c = w32.shape[0]
+        u = gamma @ w32  # [qk_out], token-independent
+        const = beta @ w32 + self.proj_q.bias.float()
+        compute_dtype = self.policy.compute_dtype or fq.parts[0][0].dtype
+        outs = []
+        for pos, pad in fq.parts:
+            cm = pos.shape[-1]
+            x32, p32 = pos.float(), pad.float()
+            sum_p, sumsq_p = p32.sum(), (p32 * p32).sum()
+            mu = (x32.sum(-1) + sum_p) / total_c  # [B, T]
+            dx = x32 - mu[..., None]
+            pad_ss = sumsq_p - 2.0 * mu * sum_p + float(p32.shape[0]) * mu * mu
+            inv_sigma = torch.rsqrt(((dx * dx).sum(-1) + pad_ss) / total_c + _LN_EPS)
+            t1 = (x32 * gamma[:cm]).to(compute_dtype) @ w32[:cm].to(compute_dtype)
+            cp = (p32 * gamma[cm:]) @ w32[cm:]  # [qk_out], constant
+            q_m = (t1.float() + cp - mu[..., None] * u) * inv_sigma[..., None] + const
+            outs.append(q_m.to(compute_dtype))
+        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
     def forward(self, inputs_q, inputs_k, inputs_v, *, attention_mask=None,
                 q_mask=None, kv_mask=None, kv_logical_len: Optional[int] = None):
-        q = self.proj_q(inputs_q)
+        if isinstance(inputs_q, FoldedQuery):
+            q = self._project_q_folded(inputs_q)
+        else:
+            q = self.proj_q(inputs_q)
         k = self.proj_k(inputs_k)
         v = self.proj_v(inputs_v)
         batch, q_time, _ = q.shape
@@ -247,9 +311,21 @@ class CrossAttention(nn.Module):
 
     def forward(self, inputs_q, inputs_kv, *, attention_mask=None, q_mask=None,
                 kv_mask=None, kv_logical_len: Optional[int] = None):
-        compute_dtype = self.policy.compute_dtype or inputs_q.dtype
+        folded = isinstance(inputs_q, FoldedQuery)
+        compute_dtype = self.policy.compute_dtype or (
+            inputs_q.parts[0][0].dtype if folded else inputs_q.dtype)
         kv = self.layer_norm_kv(inputs_kv).to(compute_dtype)
-        q = self.layer_norm_q(inputs_q).to(compute_dtype)
+        if folded:
+            if self.use_query_residual:
+                raise ValueError(
+                    "FoldedQuery requires use_query_residual=False (the padded query is"
+                    " never materialised)."
+                )
+            # Attention folds the query LayerNorm through its Q projection.
+            q = inputs_q._replace(ln_scale=self.layer_norm_q.weight,
+                                  ln_bias=self.layer_norm_q.bias)
+        else:
+            q = self.layer_norm_q(inputs_q).to(compute_dtype)
         attention = self.attention(
             q, kv, kv, attention_mask=attention_mask, q_mask=q_mask,
             kv_mask=kv_mask, kv_logical_len=kv_logical_len,

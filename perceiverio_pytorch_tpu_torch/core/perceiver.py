@@ -9,14 +9,19 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
   * ``PerceiverDecoder``: one query cross-attend over the latents and an
     optional final projection ("lecun_normal" or "zeros" init);
   * ``MultimodalPreprocessor``: per-modality preprocess, trainable channel
-    padding, concat in sorted modality order (checkpoint-critical);
+    padding, token masking with a trainable mask token per modality
+    (``mask_probs`` of 0 or 1: deterministic), concat in sorted modality
+    order (checkpoint-critical);
   * ``PerceiverIO``: the orchestrator, with ``encode`` / ``decode`` /
     ``decoder_query``.  A bare module is wrapped under the ``"__default"``
-    modality, as in the reference.
+    modality, as in the reference.  Under ``Policy.fold_query_pad`` the
+    decoder query goes out as a ``FoldedQuery`` (per modality, its position
+    features and its raw pad vector), never as the padded concat.
 
 Not ported yet: layer scan, pipelining, selective remat
-(``Policy.remat_policy``), input sharding, token masking (``mask_probs``)
-and the multimodal query fold.
+(``Policy.remat_policy``), input sharding, and token masking with a
+probability strictly between 0 and 1 (it needs random draws: multimodal
+training).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from perceiverio_pytorch_tpu_torch.core import position_encoding
 from perceiverio_pytorch_tpu_torch.core.attention import (
     CrossAttention,
     Dense,
+    FoldedQuery,
     SelfAttention,
     zeros_,
 )
@@ -203,7 +209,8 @@ class PerceiverDecoder(nn.Module):
 
 
 class MultimodalPreprocessor(nn.Module):
-    """Per-modality preprocess and padding to common channels."""
+    """Per-modality preprocess, padding to common channels and token
+    masking."""
 
     def __init__(
         self,
@@ -215,9 +222,10 @@ class MultimodalPreprocessor(nn.Module):
         generator=None,
     ):
         super().__init__()
-        if mask_probs is not None:
+        if mask_probs is not None and any(0.0 < p < 1.0 for p in mask_probs.values()):
             raise NotImplementedError(
-                "token masking (mask_probs) is not ported yet (training slice)"
+                f"mask_probs {dict(mask_probs)}: a probability strictly between 0 and 1"
+                " needs random draws, which come with multimodal training (ROADMAP.md)"
             )
         if (input_preprocessors is None) == (input_channels is None):
             raise ValueError(
@@ -230,8 +238,18 @@ class MultimodalPreprocessor(nn.Module):
             self._preprocessors = None
             channels = dict(input_channels)
         self._common_channels = max(channels.values()) + min_padding_size
+        g = default_generator(generator)
+        # Masking replaces every token of a modality with probability 1 by
+        # its mask token, and none with probability 0.
+        self.mask_probs = None if mask_probs is None else dict(mask_probs)
+        if mask_probs is not None:
+            self.mask_tokens = nn.ModuleDict({
+                m: position_encoding.TrainablePositionEncoding(
+                    index_dim=1, num_channels=self._common_channels, init_scale=0.02,
+                    generator=g)
+                for m in channels
+            })
         if max(channels.values()) != min(channels.values()) or min_padding_size != 0:
-            g = default_generator(generator)
             self.padding_embeddings = nn.ModuleDict({
                 m: position_encoding.TrainablePositionEncoding(
                     index_dim=1, num_channels=self._common_channels - c,
@@ -262,6 +280,14 @@ class MultimodalPreprocessor(nn.Module):
                 padded[modality] = torch.cat([output, pad], dim=2)
             outputs = padded
         modality_sizes = {m: o.shape[1] for m, o in outputs.items()}
+
+        if self.mask_probs is not None:
+            for modality, output in outputs.items():
+                if self.mask_probs[modality] <= 0.0:
+                    continue
+                token = self.mask_tokens[modality](output.shape[0])
+                mask = output.new_ones((output.shape[0], output.shape[1], 1))
+                outputs[modality] = (1.0 - mask) * output + mask * token
         return _concat_sorted(outputs, 1), modality_sizes, inputs_without_pos
 
 
@@ -396,7 +422,16 @@ class PerceiverIO(nn.Module):
 
     def decoder_query(self, flat_inputs, modality_sizes, inputs_without_pos=None,
                       subsampled_points=None):
-        """The concatenated, channel-padded decoder query and its sizes."""
+        """The decoder query and its sizes: the concatenated, channel-padded
+        query, or under ``Policy.fold_query_pad`` (where a query is padded
+        and the decoder has no query residual) a ``FoldedQuery`` of each
+        modality's query and raw pad vector, in sorted modality order."""
+        fold = (
+            self.policy.fold_query_pad
+            and not self._decoder.use_query_residual
+            and any(self._query_channels > q.n_query_channels()
+                    for q in self._output_queries.values())
+        )
         inputs = restructure(modality_sizes, flat_inputs)
         subsampled_points = subsampled_points or {}
         dummy_input = None
@@ -416,10 +451,18 @@ class PerceiverIO(nn.Module):
             query = query.reshape(query.shape[0], math.prod(query.shape[1:-1]),
                                   query.shape[-1])
             width = self._query_channels - query.shape[2]
+            if fold:
+                # The raw [C - C_m] pad vector; the decoder folds it through
+                # its query LayerNorm and projection.
+                queries[modality] = (query, self.padding_embeddings[modality](1)[0, 0])
+                continue
             if width:
                 pad = self.padding_embeddings[modality](query.shape[0])
                 pad = pad.expand(query.shape[0], query.shape[1], width).to(query.dtype)
                 query = torch.cat([query, pad], dim=2)
             queries[modality] = query
+        if fold:
+            query_sizes = {m: q.shape[1] for m, (q, _) in queries.items()}
+            return FoldedQuery(parts=tuple(queries[m] for m in sorted(queries))), query_sizes
         query_sizes = {m: q.shape[1] for m, q in queries.items()}
         return _concat_sorted(queries, 1), query_sizes

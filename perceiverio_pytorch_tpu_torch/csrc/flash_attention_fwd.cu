@@ -41,9 +41,18 @@
 // Ragged Tk is handled by masking keys at or past kv_len and zero-filling the
 // staged K and V rows.
 //
-// Split-KV.  The grid is (q blocks x splits, heads, batch): a block walks
-// only the key tiles of its split, so a grid that is short of query blocks
-// (the encoder at batch 1: 32) still fills the card.  With more than one
+// Widths above 512 (the multimodal encoder: d = dv = 704).  The resident Q
+// takes 704 x 64 x 4 = 176 KB, 218 KB with the staged K, P and V tiles:
+// inside the 227 KB a block may use.  Eleven 64-column chunks of O would be
+// 176 accumulator registers a thread, so the value columns are split over a
+// grid axis of column chunks instead (the wrapper's `col_chunks`: 384 + 320
+// at 704, NV = 6): each block recomputes S at the full d and accumulates
+// only its columns.  The chunks compute S in the same order, so chunk 0
+// alone writes the row's m, l and lse.
+//
+// Split-KV.  The grid is (q blocks x column chunks x splits, heads, batch):
+// a block walks only the key tiles of its split, so a grid that is short of
+// query blocks (the encoder at batch 1: 32) still fills the card.  With more than one
 // split a block writes its unnormalised O, m and l in fp32 to a workspace,
 // and `merge_kernel` below combines the splits of each row in split order
 // (deterministic, no atomics), divides by l, applies q_mask and writes the
@@ -95,6 +104,7 @@ struct Params {
   float* part_l;           // [S, B, H, Tq]
   int B, H, Tq, Tk, kv_len, D, Dv, Dp;
   int n_qblocks, n_tiles, tiles_per_split, splits;
+  int col_chunks, CW;  // chunk c: value columns [c CW, min((c + 1) CW, Dv))
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
 };
@@ -104,7 +114,10 @@ size_t smem_bytes(int Dp) {
          ((size_t)Dp * BQ + (size_t)DC * KT_LD + (size_t)BK * PT_LD + (size_t)BK * VC);
 }
 
-template <int NV>
+// CHUNKED: the grid splits the value columns (col_chunks > 1, widths above
+// 512).  Without it the chunk is 0 and spans Dv at compile time, so the
+// kernels of the narrower widths compile as they did before the chunks.
+template <int NV, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [Dp][BQ]
@@ -116,16 +129,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int qb = blockIdx.x % p.n_qblocks;
-  const int split = blockIdx.x / p.n_qblocks;
+  const int chunk = CHUNKED ? (blockIdx.x / p.n_qblocks) % p.col_chunks : 0;
+  const int split = blockIdx.x / (CHUNKED ? p.n_qblocks * p.col_chunks : p.n_qblocks);
   const int q0 = qb * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int t_begin = split * p.tiles_per_split;
   const int t_end = min(p.n_tiles, t_begin + p.tiles_per_split);
+  const int cbase = chunk * p.CW;                            // this block's first value column
+  const int dv_blk = CHUNKED ? min(p.CW, p.Dv - cbase) : p.Dv;  // and its number of them
 
   const float* qg = p.q + b * p.q_sb + h * p.q_sh;
   const float* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh + cbase;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)b * p.Tk : nullptr;
 
   // The block's Q rows, transposed to [d][row], fp32, zero-padded.
@@ -233,7 +249,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int mv = 0; mv < NV; ++mv) {
       const int c0 = mv * VC;
-      if (c0 < p.Dv) {  // uniform over the block
+      if (c0 < dv_blk) {  // uniform over the block
         __syncthreads();  // Pt written / previous Vs reads done
         for (int idx = tid; idx < BK * VC; idx += THREADS) {
           const int j = idx / VC;
@@ -241,7 +257,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
           const int key = k0 + j;
           const int col = c0 + cc;
           float val = 0.f;
-          if (key < p.kv_len && col < p.Dv) val = vg[(long long)key * p.v_st + col];
+          if (key < p.kv_len && col < dv_blk) val = vg[(long long)key * p.v_st + col];
           Vs[j * VC + cc] = val;
         }
         __syncthreads();
@@ -268,17 +284,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int i = q0 + ty * 4 + r;
     if (i >= p.Tq) continue;
     const float l = l_i[r];
+    const bool row_writer = chunk == 0 && tx == 0;  // every chunk holds the same m, l
     if (p.splits > 1) {
       const long long row = ((long long)split * p.B * p.H + bh) * p.Tq + i;
-      float* po = p.part_o + row * p.Dv;
+      float* po = p.part_o + row * p.Dv + cbase;
 #pragma unroll
       for (int mv = 0; mv < NV; ++mv)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = mv * VC + tx * 4 + c;
-          if (col < p.Dv) po[col] = acc[mv][r][c];
+          if (col < dv_blk) po[col] = acc[mv][r][c];
         }
-      if (tx == 0) {
+      if (row_writer) {
         p.part_m[row] = (l == 0.f) ? -INFINITY : m_i[r];
         p.part_l[row] = l;
       }
@@ -286,27 +303,27 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     }
     const bool keep = p.q_mask == nullptr || p.q_mask[(long long)b * p.Tq + i] != 0;
     const float l_safe = (l == 0.f) ? 1.f : l;
-    float* og = p.out + ((long long)b * p.Tq + i) * p.H * p.Dv + (long long)h * p.Dv;
+    float* og = p.out + ((long long)b * p.Tq + i) * p.H * p.Dv + (long long)h * p.Dv + cbase;
 #pragma unroll
     for (int mv = 0; mv < NV; ++mv)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = mv * VC + tx * 4 + c;
-        if (col < p.Dv) og[col] = keep ? acc[mv][r][c] / l_safe : 0.f;
+        if (col < dv_blk) og[col] = keep ? acc[mv][r][c] / l_safe : 0.f;
       }
-    if (p.lse != nullptr && tx == 0)
+    if (p.lse != nullptr && row_writer)
       p.lse[bh * p.Tq + i] = (l == 0.f) ? INFINITY : m_i[r] + logf(l_safe);
   }
 }
 
-template <int NV>
+template <int NV, bool CHUNKED = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.Dp);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<NV, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.n_qblocks * p.splits, p.H, p.B);
-  flash_fwd_kernel<NV><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid(p.n_qblocks * p.col_chunks * p.splits, p.H, p.B);
+  flash_fwd_kernel<NV, CHUNKED><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -349,15 +366,23 @@ __global__ void merge_kernel(const float* part_o, const float* part_m, const flo
 
 // fp32 q, k, v.  Strides are in elements; the head dim of q, k and v must be
 // contiguous.  splits > 1 writes the partials (part_o, part_m, part_l)
-// instead of out and lse.  Returns a cudaError_t (0 on success).
+// instead of out and lse.  col_chunks splits the value columns over the
+// grid: 1 up to dv = 512, 2 above.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask, const void* q_mask,
     void* out, void* lse, void* part_o, void* part_m, void* part_l, int batch, int heads,
-    int tq, int tk, int kv_len, int d, int dv, int splits, int tiles_per_split, long long q_sb,
-    long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh, float scale, void* stream) {
-  if (d < 1 || d > 512 || dv < 1 || dv > 512 || kv_len < 0 || kv_len > tk || splits < 1)
+    int tq, int tk, int kv_len, int d, int dv, int splits, int tiles_per_split,
+    int col_chunks, long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
+    float scale, void* stream) {
+  if (d < 1 || d > 704 || dv < 1 || dv > 704 || kv_len < 0 || kv_len > tk || splits < 1 ||
+      col_chunks < 1)
     return (int)cudaErrorInvalidValue;
+  // Value columns per chunk, whole 64-column register tiles; each chunk
+  // holds some.
+  const int cw = (dv + col_chunks - 1) / col_chunks;
+  const int CW = (cw + VC - 1) / VC * VC;
+  if (CW > 8 * VC || (col_chunks - 1) * CW >= dv) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -381,6 +406,8 @@ extern "C" int flash_attention_fwd(
   p.n_tiles = (kv_len + BK - 1) / BK;
   p.tiles_per_split = tiles_per_split;
   p.splits = splits;
+  p.col_chunks = col_chunks;
+  p.CW = CW;
   p.q_sb = q_sb;
   p.q_st = q_st;
   p.q_sh = q_sh;
@@ -392,7 +419,9 @@ extern "C" int flash_attention_fwd(
   p.v_sh = v_sh;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nv = (dv + VC - 1) / VC;
+  const int nv = CW / VC;
+  // Up to dv = 704, two chunks hold at most 384 columns each: 6 tiles of 64.
+  if (col_chunks > 1) return nv <= 6 ? (int)launch<6, true>(p, s) : (int)cudaErrorInvalidValue;
   cudaError_t err = nv <= 1   ? launch<1>(p, s)
                     : nv <= 2 ? launch<2>(p, s)
                     : nv <= 3 ? launch<3>(p, s)

@@ -18,8 +18,10 @@
 // tile 4.8e11 FLOP at the encoder cross-attend (2048 queries x 182,528 keys,
 // d = 322), 8.6e9 at each latent self-attend (2048 x 2048, 16 heads of 32),
 // 7.7e11 at the decoder cross-attend (182,528 x 2048, d = 512), against at
-// most 0.24 GB of bf16 read per site.  bf16 on the tensor cores (989
-// TFLOP/s dense) is the only way near that bound.
+// most 0.24 GB of bf16 read per site.  So is the multimodal encoder
+// cross-attend: 1.15e11 FLOP per clip (784 latents x 52,097 keys, one head
+// of d = dv = 704) against 0.15 GB.  bf16 on the tensor cores (989 TFLOP/s
+// dense) is the only way near that bound.
 //
 // Design (the choices, in order of what forced them):
 //   * wgmma.  Two consumer warpgroups (256 threads) share 64 query rows.
@@ -55,15 +57,29 @@
 //     they take 4-byte copies; TMA would need 16-byte strides and is not
 //     used.  Rows of a tile past the end of its split are not loaded (their
 //     p is 0, and they hold finite stale data or the initial zeros).
-//   * Split-KV.  The grid is (q blocks x splits, heads, batch); a block
-//     walks the keys of its split only (whole 64-key tiles of the plan; a
-//     128-key tile masks keys past the split's end).  With more than one split it
-//     writes its unnormalised O, m (natural units) and l in fp32 to a
-//     workspace, and the merge kernel of flash_attention_fwd.cu combines
-//     them in split order.  The wrapper picks the splits
-//     (ops/flash_attention.py `_split_plan`): 8 at the encoder at batch 1
-//     (32 q blocks -> 256 blocks), 2 at 6 tiles, 1 at the decoder and the
-//     self-attends.
+//   * Split-KV.  The grid is (q blocks x column chunks x splits, heads,
+//     batch); a block walks the keys of its split only (whole 64-key tiles
+//     of the plan; a 128-key tile masks keys past the split's end).  With
+//     more than one split it writes its unnormalised O, m (natural units)
+//     and l in fp32 to a workspace, and the merge kernel of
+//     flash_attention_fwd.cu combines them in split order.  The wrapper
+//     picks the splits (ops/flash_attention.py `_split_plan`): 8 at the flow
+//     encoder at batch 1 (32 q blocks -> 256 blocks), 2 at 6 tiles, 1 at the
+//     decoder and the self-attends; 10 at the multimodal encoder.
+//   * Value widths above 512 (the multimodal encoder's single head of 704:
+//     d = dv = 704 over 52,097 keys, 784 queries).  Two walls: one
+//     warpgroup's half of 704 value columns is 352 fp32 registers a thread
+//     for O alone, past the cap of 255 and past wgmma's N <= 256; and Q, a
+//     64-key K tile and the V tile at 704 take 229 KB beside P, over the
+//     227 KB a block may use.  So the value columns are split over a grid
+//     axis of column chunks (the wrapper's `col_chunks`: 2 of 352 at 704):
+//     each block computes the whole S = Q K^T at d = 704 and accumulates P V
+//     for its chunk only, two warpgroups x 176 columns (88 registers).  S is
+//     computed once per chunk, 1.5x the FLOPs of one pass at d = dv; both
+//     chunks compute it in the same order, so their m, l and P agree bit for
+//     bit and chunk 0 alone writes m, l and the lse.  Tiles hold 32 keys
+//     there (Q 88 KB + K 44 KB + V 22 KB + P 4 KB = 159 KB), which is also
+//     what a 704-wide Q with dv = 512 takes.
 //
 // What it does not do yet: no warp specialisation or TMA producer, no
 // overlap of one warpgroup's softmax with the other's products, no swizzled
@@ -105,6 +121,7 @@ struct Params {
   float* part_l;           // [S, B, H, Tq]
   int B, H, Tq, Tk, kv_len, D, Dv, Dp;
   int n_qblocks, tiles_per_split, splits;  // split s: keys [s, s + 1) * tiles * SPLIT_K
+  int col_chunks, CW;       // chunk c: value columns [c CW, min((c + 1) CW, Dv))
   int vec_q, vec_k, vec_v;  // copy granularity in bytes
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale_log2;  // softmax scale * log2(e)
@@ -127,9 +144,9 @@ size_t smem_size(int Dp) {
   return (size_t)((BQ + BK) * Dp + BK * 2 * NV + BQ * BK) * 2 + 4 * BQ * sizeof(float);
 }
 
-// NV: value columns per warpgroup (the padded Dv / 2, a multiple of 8).
-// BK: keys per tile, 128 where the tiles fit in shared memory (fewer
-// barriers and wgmma round trips per key), else 64.
+// NV: value columns per warpgroup (the padded chunk width / 2, a multiple
+// of 8).  BK: keys per tile, 128 where the tiles fit in shared memory (fewer
+// barriers and wgmma round trips per key), else 64, else 32.
 template <int NV, int BK>
 __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel(const Params p) {
   constexpr int CV = 2 * NV;            // padded value width in shared memory
@@ -151,16 +168,19 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
   const int lane = tid & 31;
   const int row_lo = 16 * warp + (lane >> 2);  // this thread's rows: row_lo, row_lo + 8
   const int qb = blockIdx.x % p.n_qblocks;
-  const int split = blockIdx.x / p.n_qblocks;
+  const int chunk = (blockIdx.x / p.n_qblocks) % p.col_chunks;
+  const int split = blockIdx.x / (p.n_qblocks * p.col_chunks);
   const int q0 = qb * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int k_begin = split * p.tiles_per_split * SPLIT_K;
   const int k_end = min(p.kv_len, k_begin + p.tiles_per_split * SPLIT_K);
+  const int c0 = chunk * p.CW;               // this block's first value column
+  const int dv_blk = min(p.CW, p.Dv - c0);  // and its number of value columns
 
   const bf16* qg = p.q + b * p.q_sb + h * p.q_sh + (long long)q0 * p.q_st;
   const bf16* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const bf16* vg = p.v + b * p.v_sb + h * p.v_sh + c0;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)b * p.Tk : nullptr;
 
   // Zero the tiles once: the pad columns stay zero, rows past Tq as well.
@@ -193,7 +213,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     sm90::cp_async_wait<0>();
     sm90::fence_proxy_async();
     __syncthreads();
-    load_rows(sV, vg + (long long)k0 * p.v_st, p.v_st, rows, p.Dv, CV, p.vec_v, tid);
+    load_rows(sV, vg + (long long)k0 * p.v_st, p.v_st, rows, dv_blk, CV, p.vec_v, tid);
     sm90::cp_async_commit();
 
     // S = Q K^T for this warpgroup's half of the keys.
@@ -287,15 +307,17 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     const int i = q0 + row_lo + 8 * r;
     if (i >= p.Tq) continue;
     const float l = red_l[row_lo + 8 * r] + red_l[BQ + row_lo + 8 * r];
+    // Chunk 0 writes the row's m, l and lse (every chunk holds the same).
+    const bool row_writer = chunk == 0 && wg == 0 && (lane & 3) == 0;
     if (p.splits > 1) {
       const long long row = ((long long)split * p.B * p.H + bh) * p.Tq + i;
-      float* po = p.part_o + row * p.Dv;
+      float* po = p.part_o + row * p.Dv + c0;
 #pragma unroll
       for (int j = 0; j < NV / 2; ++j) {
         const int col = wg * NV + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-        if (((j >> 1) & 1) == r && col < p.Dv) po[col] = o[j];
+        if (((j >> 1) & 1) == r && col < dv_blk) po[col] = o[j];
       }
-      if (wg == 0 && (lane & 3) == 0) {
+      if (row_writer) {
         p.part_m[row] = (l == 0.f) ? -INFINITY : m_run[r] * LN2;
         p.part_l[row] = l;
       }
@@ -303,13 +325,13 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     }
     const bool keep = p.q_mask == nullptr || p.q_mask[(long long)b * p.Tq + i] != 0;
     const float inv = (keep && l > 0.f) ? 1.f / l : 0.f;
-    bf16* og = p.out + ((long long)b * p.Tq + i) * p.H * p.Dv + (long long)h * p.Dv;
+    bf16* og = p.out + ((long long)b * p.Tq + i) * p.H * p.Dv + (long long)h * p.Dv + c0;
 #pragma unroll
     for (int j = 0; j < NV / 2; ++j) {
       const int col = wg * NV + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-      if (((j >> 1) & 1) == r && col < p.Dv) og[col] = __float2bfloat16_rn(o[j] * inv);
+      if (((j >> 1) & 1) == r && col < dv_blk) og[col] = __float2bfloat16_rn(o[j] * inv);
     }
-    if (p.lse != nullptr && wg == 0 && (lane & 3) == 0)
+    if (p.lse != nullptr && row_writer)
       p.lse[bh * p.Tq + i] = (l == 0.f) ? INFINITY : m_run[r] * LN2 + logf(l);
   }
 }
@@ -320,15 +342,23 @@ cudaError_t launch_tiles(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<NV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.n_qblocks * p.splits, p.H, p.B);
+  const dim3 grid(p.n_qblocks * p.col_chunks * p.splits, p.H, p.B);
   flash_fwd_sm90_kernel<NV, BK><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The largest key tile whose shared memory fits: 128 keys up to 168 value
+// columns a warpgroup, else 64; 32 for the widest chunks (176 or 256
+// columns) beside a wide Q (704: the multimodal encoder).  Up to d = 704
+// every instantiation fits one of them; a launch that does not fit is
+// refused by cudaFuncSetAttribute, never run.
 template <int NV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if constexpr (NV <= 168) {
     if (smem_size<NV, 128>(p.Dp) <= MAX_SMEM) return launch_tiles<NV, 128>(p, stream);
+  }
+  if constexpr (NV >= 176) {
+    if (smem_size<NV, 64>(p.Dp) > MAX_SMEM) return launch_tiles<NV, 32>(p, stream);
   }
   return launch_tiles<NV, 64>(p, stream);
 }
@@ -339,15 +369,23 @@ using sm90::copy_vec;
 
 // Strides are in elements; the head dim of q, k and v must be contiguous.
 // splits > 1 writes the partials (part_o, part_m, part_l) instead of out and
-// lse.  Returns a cudaError_t (0 on success).
+// lse.  col_chunks splits the value columns over the grid: 1 up to dv = 512,
+// 2 above (at most 256 columns a warpgroup).  Returns a cudaError_t (0 on
+// success).
 extern "C" int flash_attention_fwd_sm90(
     const void* q, const void* k, const void* v, const void* kv_mask, const void* q_mask,
     void* out, void* lse, void* part_o, void* part_m, void* part_l, int batch, int heads,
-    int tq, int tk, int kv_len, int d, int dv, int splits, int tiles_per_split, long long q_sb,
-    long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
-    long long v_sb, long long v_st, long long v_sh, float scale, void* stream) {
-  if (d < 1 || d > 512 || dv < 1 || dv > 512 || kv_len < 0 || kv_len > tk || splits < 1)
+    int tq, int tk, int kv_len, int d, int dv, int splits, int tiles_per_split,
+    int col_chunks, long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
+    float scale, void* stream) {
+  if (d < 1 || d > 704 || dv < 1 || dv > 704 || kv_len < 0 || kv_len > tk || splits < 1 ||
+      col_chunks < 1)
     return (int)cudaErrorInvalidValue;
+  // Value columns per chunk, a multiple of 16; each chunk holds some.
+  const int cw = (dv + col_chunks - 1) / col_chunks;
+  const int CW = (cw + 15) / 16 * 16;
+  if (CW > 512 || (col_chunks - 1) * CW >= dv) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -370,6 +408,8 @@ extern "C" int flash_attention_fwd_sm90(
   p.n_qblocks = (tq + BQ - 1) / BQ;
   p.tiles_per_split = tiles_per_split;
   p.splits = splits;
+  p.col_chunks = col_chunks;
+  p.CW = CW;
   p.vec_q = copy_vec(q, q_sb, q_st, q_sh, d);
   p.vec_k = copy_vec(k, k_sb, k_st, k_sh, d);
   p.vec_v = copy_vec(v, v_sb, v_st, v_sh, dv);
@@ -385,14 +425,15 @@ extern "C" int flash_attention_fwd_sm90(
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Padded value columns per warpgroup: the smallest instantiation that
-  // holds half of Dv rounded up to 16.
-  const int half = (dv + 15) / 16 * 8;
+  // holds half of a chunk (176: the multimodal encoder's 704 in 2 x 2).
+  const int half = CW / 2;
   cudaError_t err = half <= 8     ? launch<8>(p, s)
                     : half <= 16  ? launch<16>(p, s)
                     : half <= 32  ? launch<32>(p, s)
                     : half <= 64  ? launch<64>(p, s)
                     : half <= 128 ? launch<128>(p, s)
                     : half <= 168 ? launch<168>(p, s)
+                    : half <= 176 ? launch<176>(p, s)
                                   : launch<256>(p, s);
   return (int)err;
 }

@@ -1,10 +1,12 @@
 """Input preprocessors.
 
-Counterpart of ``perceiverio_pytorch_tpu/io_processors/preprocessors.py``
-for the flow slice: ``ImagePreprocessor`` with ``prep_type="patches"``
-(optionally followed by a Dense, ``conv_after_patching``) and ``"pixels"``.
-The ``"conv"`` and ``"conv1x1"`` types and the extra position MLP come
-with the classification slice and raise until then.
+Counterpart of ``perceiverio_pytorch_tpu/io_processors/preprocessors.py``:
+``ImagePreprocessor`` with ``prep_type="patches"`` (optionally followed by
+a Dense, ``conv_after_patching``) and ``"pixels"``; ``OneHotPreprocessor``
+and ``AudioPreprocessor`` (``"patches"``) for the multimodal model.  The
+``"conv"`` and ``"conv1x1"`` types and the extra position MLP
+(``n_extra_pos_mlp > 0``) come with the classification slice and raise
+until then.
 
 Interface: ``forward(inputs, *, pos=None) -> (inputs_with_pos,
 inputs_without_pos)`` and ``n_output_channels()``.  Images arrive
@@ -140,3 +142,73 @@ class ImagePreprocessor(nn.Module):
             else:
                 raise ValueError("Unsupported data format for pixels.")
         return self._build_network_inputs(inputs, pos)
+
+
+class OneHotPreprocessor(nn.Module):
+    """Adds a dummy index dim: [B, C] -> [B, 1, C]."""
+
+    def __init__(self, input_channels: int):
+        super().__init__()
+        self.input_channels = input_channels
+
+    def n_output_channels(self) -> int:
+        return self.input_channels
+
+    def forward(self, inputs, *, pos=None):
+        inputs = inputs[:, None, :]
+        return inputs, inputs
+
+
+class AudioPreprocessor(nn.Module):
+    """Waveform -> patch tokens of ``samples_per_patch`` samples, with the
+    position encoding concatenated (or added)."""
+
+    def __init__(
+        self,
+        samples_per_batch: int,
+        prep_type: str = "patches",
+        samples_per_patch: int = 96,
+        position_encoding_type: PosEncodingType = PosEncodingType.FOURIER,
+        n_extra_pos_mlp: int = 0,
+        concat_or_add_pos: str = "concat",
+        project_pos_dim: int = -1,
+        trainable_position_encoding_kwargs: Optional[Mapping[str, Any]] = None,
+        fourier_position_encoding_kwargs: Optional[Mapping[str, Any]] = None,
+        *,
+        generator=None,
+    ):
+        super().__init__()
+        if prep_type != "patches":
+            raise ValueError("Invalid prep_type!")
+        if concat_or_add_pos not in ("concat", "add"):
+            raise ValueError(f"Invalid value {concat_or_add_pos} for concat_or_add_pos.")
+        if n_extra_pos_mlp > 0:
+            raise NotImplementedError(
+                "n_extra_pos_mlp > 0 is not ported yet (classification slice)"
+            )
+        self.samples_per_patch = samples_per_patch
+        self.concat_or_add_pos = concat_or_add_pos
+        self._positional_encoding = position_encoding.build_position_encoding(
+            position_encoding_type=position_encoding_type,
+            index_dims=[samples_per_batch // samples_per_patch],
+            project_pos_dim=project_pos_dim,
+            trainable_position_encoding_kwargs=trainable_position_encoding_kwargs,
+            fourier_position_encoding_kwargs=fourier_position_encoding_kwargs,
+            generator=default_generator(generator),
+        )
+
+    def n_output_channels(self) -> int:
+        out = self.samples_per_patch
+        if self.concat_or_add_pos == "concat":
+            out += self._positional_encoding.n_output_channels()
+        return out
+
+    def forward(self, inputs, *, pos=None):
+        """inputs: [B, samples, ...] waveform."""
+        inputs = inputs.reshape(inputs.shape[0], -1, self.samples_per_patch)
+        pos_enc = self._positional_encoding(inputs.shape[0], pos=pos).to(inputs.dtype)
+        if self.concat_or_add_pos == "concat":
+            with_pos = torch.cat([inputs, pos_enc], dim=-1)
+        else:
+            with_pos = inputs + pos_enc
+        return with_pos, inputs

@@ -5,3 +5,6 @@ from perceiverio_pytorch_tpu_torch.models.flow import (  # noqa: F401
     FlowPerceiver,
     compute_grid_indices,
 )
+from perceiverio_pytorch_tpu_torch.models.multimodal import (  # noqa: F401
+    MultiModalPerceiver,
+)

@@ -31,9 +31,14 @@ design does about that.
     ``LAUNCHES_BWD_SUM`` the sum kernel's (K2 or K3 calls with more than one
     split).
   * ``launch_plan`` says what a K1 call on given tensors launches: route,
-    key splits (``_split_plan``), blocks and CUDA launches;
-    ``backward_plan`` the same for K2 (query splits, ``_dkv_split_plan``)
-    and K3 (key splits, ``_split_plan``).
+    key splits (``_split_plan``), value-column chunks (``_col_chunks``),
+    blocks and CUDA launches; ``backward_plan`` the same for K2 (query
+    splits, ``_dkv_split_plan``) and K3 (key splits, ``_split_plan``).
+  * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
+    ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
+    512 its grid splits the value columns in two), K2 and K3 up to
+    ``MAX_HEAD_DIM_BWD`` = 512.  A CUDA call above a kernel's limit raises
+    ``ValueError`` before anything is launched.
 
 The kernels are built with ``nvcc`` at first use, from the sources in this
 package, into ``build/kernels/`` under the repository root (one ``nvcc``
@@ -59,8 +64,12 @@ _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm
             "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu"}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
-# Limits of the kernels' shared-memory plans (see the .cu source notes).
-MAX_HEAD_DIM = 512
+# Head-width limits (Dqk and Dv) of the kernels' shared-memory and register
+# plans (see the .cu source notes): K1 forward, K2/K3 backward.  K1's grid
+# splits the value columns into chunks of at most COL_CHUNK.
+MAX_HEAD_DIM_FWD = 704
+MAX_HEAD_DIM_BWD = 512
+COL_CHUNK = 512
 # K1's blocks: query rows per block and keys per tile (both kernels); the
 # tiles of every split plan (K2's query ranges, K1's and K3's key ranges).
 BLOCK_Q = 64
@@ -155,8 +164,9 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 fn.argtypes = (
                     # q, k, v, kv_mask, q_mask, out, lse, part_o, part_m, part_l
                     [ctypes.c_void_p] * 10
-                    # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split
-                    + [ctypes.c_int] * 9
+                    # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split,
+                    # col_chunks
+                    + [ctypes.c_int] * 10
                     + _STRIDES * 3  # q, k, v
                     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
                 )
@@ -319,8 +329,13 @@ def flash_attention_backward(
               softmax_scale=softmax_scale, kv_logical_len=kv_logical_len)
 
 
-def _check_cuda(q, tensors, masks):
-    """What every kernel wrapper checks before it hands pointers over."""
+def _check_cuda(q, tensors, masks, max_dim, kernel):
+    """What every kernel wrapper checks before it hands pointers over;
+    ``max_dim`` is the head-width limit of ``kernel`` (named in the
+    message)."""
+    d, dv = q.shape[3], tensors[2][1].shape[3]
+    if not (1 <= d <= max_dim and 1 <= dv <= max_dim):
+        raise ValueError(f"head widths Dqk={d}, Dv={dv}: {kernel} takes 1 to {max_dim}")
     if q.device.type != "cuda":
         raise ValueError(f"the flash attention kernels run on CUDA, not {q.device}")
     for name, t in tensors:
@@ -332,11 +347,6 @@ def _check_cuda(q, tensors, masks):
             raise ValueError(f"{name} must be contiguous in its last dim")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention takes fp32 or bf16, not {q.dtype}")
-    d, dv = q.shape[3], tensors[2][1].shape[3]
-    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(
-            f"head widths Dqk={d}, Dv={dv} exceed the kernels' {MAX_HEAD_DIM}"
-        )
     checked = []
     for name, m in masks:
         if m is not None and m.device != q.device:
@@ -361,18 +371,25 @@ def _split_bounds(length: int, splits: int):
     return -(-tiles // per), per
 
 
-def _split_plan(b: int, tq: int, h: int, tk: int):
-    """K1's split-KV plan: (splits, tiles_per_split) for B, Tq, H and the
-    keys' length.
+def _col_chunks(dv: int) -> int:
+    """Value-column chunks of K1's grid: 1 up to COL_CHUNK columns, 2 up to
+    MAX_HEAD_DIM_FWD (the multimodal encoder's 704 as 2 x 352)."""
+    return max(1, -(-dv // COL_CHUNK))
+
+
+def _split_plan(b: int, tq: int, h: int, tk: int, col_chunks: int = 1):
+    """K1's split-KV plan: (splits, tiles_per_split) for B, Tq, H, the
+    keys' length and the value-column chunks of the grid.
 
     A grid of at least two blocks per SM takes one split.  A shorter one
     (the flow encoder: 32 query blocks a batch entry) starts from enough
     splits for two blocks per SM, at least MIN_SPLIT_TILES tiles each, and
     drops splits while that does not lengthen the kernel, counted as waves
     of one block per SM times the tiles a block walks: 8 splits (256
-    blocks) at batch 1, 2 at the 6-tile serving batch.
+    blocks) at batch 1, 2 at the 6-tile serving batch; the multimodal
+    encoder (13 query blocks x 2 column chunks) takes 10 (260 blocks).
     """
-    blocks = -(-tq // BLOCK_Q) * h * b
+    blocks = -(-tq // BLOCK_Q) * h * b * col_chunks
     tiles = -(-tk // BLOCK_K)
     if blocks == 0 or blocks >= 2 * NUM_SMS:
         return _split_bounds(tk, 1)
@@ -391,16 +408,18 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     """What a K1 call on these tensors launches: ``route`` ("sm90_wgmma"
     for bf16 on CUDA, "cuda_cores" for fp32), ``splits`` and
     ``tiles_per_split`` (``_split_plan``, or ``num_splits`` ranges when
-    given), ``blocks`` of the main kernel's grid and ``cuda_launches`` (the
-    kernel, and the merge when there is more than one split)."""
+    given), ``col_chunks`` (``_col_chunks``: the grid's split of the value
+    columns), ``blocks`` of the main kernel's grid and ``cuda_launches``
+    (the kernel, and the merge when there is more than one split)."""
     b, tq, h = q.shape[:3]
     _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
-    splits, per = (_split_plan(b, tq, h, kv_len) if num_splits is None
+    chunks = _col_chunks(v.shape[3])
+    splits, per = (_split_plan(b, tq, h, kv_len, chunks) if num_splits is None
                    else _split_bounds(kv_len, num_splits))
     return dict(
         route="sm90_wgmma" if q.dtype == torch.bfloat16 else "cuda_cores",
-        splits=splits, tiles_per_split=per,
-        blocks=-(-tq // BLOCK_Q) * h * b * splits,
+        splits=splits, tiles_per_split=per, col_chunks=chunks,
+        blocks=-(-tq // BLOCK_Q) * h * b * chunks * splits,
         cuda_launches=1 + (splits > 1),
     )
 
@@ -458,7 +477,8 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
     other)."""
     global LAUNCHES, LAUNCHES_MERGE
     kv_mask_c, q_mask_c = _check_cuda(
-        q, (("q", q), ("k", k), ("v", v)), (("kv_mask", kv_mask), ("q_mask", q_mask)))
+        q, (("q", q), ("k", k), ("v", v)), (("kv_mask", kv_mask), ("q_mask", q_mask)),
+        MAX_HEAD_DIM_FWD, "K1 (flash attention forward)")
     b, tq, h, d = q.shape
     tk, dv = k.shape[1], v.shape[3]
     scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
@@ -487,7 +507,7 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
             _ptr(kv_mask_c), _ptr(q_mask_c), out.data_ptr(), _ptr(lse),
             _ptr(part_o), _ptr(None if part_ml is None else part_ml[0]),
             _ptr(None if part_ml is None else part_ml[1]),
-            b, h, tq, tk, kv_len, d, dv, splits, plan["tiles_per_split"],
+            b, h, tq, tk, kv_len, d, dv, splits, plan["tiles_per_split"], plan["col_chunks"],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             scale, stream,
         )
@@ -552,7 +572,9 @@ class BackwardKernels:
         if do.stride(-1) != 1:
             do = do.contiguous()
         (kv_mask_c,) = _check_cuda(
-            q, (("q", q), ("k", k), ("v", v), ("grad_out", do)), (("kv_mask", kv_mask),))
+            q, (("q", q), ("k", k), ("v", v), ("grad_out", do)), (("kv_mask", kv_mask),),
+            MAX_HEAD_DIM_BWD, "K2/K3 (flash attention backward; width 704 comes with"
+            " multimodal training, ROADMAP.md queue 2)")
         scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
         self.plan = backward_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
         self._sm90 = self.plan["route"] == "sm90_wgmma"

@@ -7,16 +7,24 @@ On a machine with an NVIDIA GPU, from the repository root:
   1. compiles each ``csrc/*.cu`` source with ``nvcc -Xptxas -v`` and prints
      every kernel instantiation's registers, spills, stack and shared memory
      (static; the dynamic size of the sm90 instantiations at the three flow
-     sites is printed beside);
+     sites and of K1's at the multimodal encoder is printed beside);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
   3. holds K1 against its plain version at small shapes, fp32 and bf16,
-     with masks, strided inputs, ragged widths and forced split counts;
+     with masks, strided inputs, ragged widths, widths above 512 (split
+     over two value-column chunks) and forced split counts;
   4. holds the backward (K2 then K3) against its plain version at the same
      kind of shapes, the bf16 kernels also at forced split counts;
   5. times K1 and K2, K3 apart, in both dtypes at the three flow sites at
-     batch 1 (CUDA events), with each call's plan.
+     batch 1, and K1 at the multimodal encoder (CUDA events), with each
+     call's plan;
+  6. the full-width bf16 multimodal model (PERFORMANCE, seeded random
+     weights, one random clip, 128 chunks): a clip's wall time and its
+     encode's (host clock ending in a synchronize), with the query-pad fold
+     and without; then one clip under ``torch.profiler``: device time by
+     kernel, its sum against the wall time (the device's busy share) and
+     the number of kernel launches.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -39,6 +47,11 @@ SMALL_CASES = ((2, 100, 777, 2, 41, 64, True, False), (3, 50, 333, 2, 41, 24, Tr
                (1, 256, 256, 16, 32, 32, False, False), (2, 90, 150, 3, 48, 48, False, True),
                (3, 65, 64, 3, 200, 100, True, False), (2, 90, 700, 3, 41, 41, True, True),
                (2, 70, 300, 1, 512, 300, True, False))
+# K1 only (K2/K3 stop at 512): the multimodal encoder's width, a ragged wide
+# one (unaligned when strided) and a 704-wide Q with Dv 512.
+WIDE_CASES = ((2, 100, 777, 1, 704, 704, True, False), (2, 90, 300, 2, 690, 690, True, True),
+              (2, 100, 257, 1, 704, 512, True, False))
+MULTIMODAL_SITE = (1, 784, 52097, 1, 704, 704)
 
 
 def ptxas_report():
@@ -74,6 +87,12 @@ def ptxas_report():
         smem = ((64 + bk3) * (2 * nh + dp) + 64 * bk3) * 2
         print(f"[smem] flash_bwd_dq_sm90_kernel<{nh}, {bk3}> at d = dv = {d}: {smem} bytes"
               " dynamic")
+    # K1 at the multimodal encoder, d = dv = 704 in two column chunks of 352:
+    # <176, 32> in bf16; the fp32 kernel's resident Q, K, P and V tiles.
+    smem = ((64 + 32) * 704 + 32 * 352 + 64 * 32) * 2 + 4 * 64 * 4
+    print(f"[smem] flash_fwd_sm90_kernel<176, 32> at d = dv = 704: {smem} bytes dynamic")
+    smem = 4 * (704 * 64 + 32 * 68 + 64 * 68 + 64 * 64)
+    print(f"[smem] flash_fwd_kernel<6> at d = dv = 704: {smem} bytes dynamic")
 
 
 def sass_report(paths):
@@ -109,7 +128,7 @@ def _case(b, tq, tk, h, d, dv, dtype, masked, strided, gen):
 
 def check_forward(gen):
     for dtype in (torch.float32, torch.bfloat16):
-        for *shape, masked, strided in SMALL_CASES:
+        for *shape, masked, strided in SMALL_CASES + WIDE_CASES:
             (q, k, v), kw = _case(*shape, dtype, masked, strided, gen)
             want, want_lse = fa.flash_attention_reference(
                 q.float(), k.float(), v.float(), return_lse=True, **kw)
@@ -189,6 +208,56 @@ def time_flow_sites(gen, reps=2):
             ms2, ms3 = _time(kernels.dkv, reps), _time(kernels.dq, reps)
             print(f"[time] {shape} {dtype}: K2 {ms2:.3f} ms, K3 {ms3:.3f} ms "
                   f"({kernels.plan})", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, k, v), _ = _case(*MULTIMODAL_SITE, dtype, False, False, gen)
+        ms = _time(lambda: fa.flash_attention(q, k, v), reps)
+        print(f"[time] {MULTIMODAL_SITE} {dtype}: K1 {ms:.3f} ms ({fa.launch_plan(q, k, v)})",
+              flush=True)
+
+
+def profile_multimodal(n_chunks=128, top=12):
+    import dataclasses
+    import time
+
+    from torch.autograd import DeviceType
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, MultiModalPerceiver
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    video = torch.rand(1, 16, 3, 224, 224, generator=gen, device="cuda")
+    audio = torch.rand(1, 30720, 1, generator=gen, device="cuda") * 2 - 1
+    inputs = {"image": video, "audio": audio, "label": video.new_zeros(1, 700)}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for fold in (False, True):  # the served policy last: it is profiled below
+        model = MultiModalPerceiver(
+            policy=dataclasses.replace(PERFORMANCE, fold_query_pad=fold),
+            generator=torch.Generator().manual_seed(0)).eval()
+        with torch.inference_mode():
+            model(video, audio, n_chunks)  # warm-up
+            clips = [wall(lambda: model(video, audio, n_chunks)) for _ in range(3)]
+            encode = wall(lambda: model.perceiver.encode(inputs))
+        print(f"[mm] bf16 fold_query_pad={fold}: clip {[round(c * 1e3, 2) for c in clips]} ms,"
+              f" encode {encode * 1e3:.2f} ms", flush=True)
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        seconds = wall(lambda: model(video, audio, n_chunks))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    print(f"[mm profile] fold_query_pad=True clip: wall {seconds * 1e3:.2f} ms, device"
+          f" {device_us / 1e3:.2f} ms ({device_us / 1e4 / seconds:.1f}% busy), {launches}"
+          f" kernel launches", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:110]}",
+              flush=True)
 
 
 def main():
@@ -203,6 +272,7 @@ def main():
     check_forward(gen)
     check_backward(gen)
     time_flow_sites(gen)
+    profile_multimodal()
 
 
 if __name__ == "__main__":

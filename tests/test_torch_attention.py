@@ -200,11 +200,19 @@ def test_attention_widths_and_gelu_tanh_match_jax():
 @pytest.mark.parametrize(
     "field,value",
     [("quant", "int8_dynamic"), ("sp_mesh", object()), ("pp_mesh", object()),
-     ("layer_scan", "on"), ("remat_policy", "dots_saveable"), ("fold_query_pad", True)],
+     ("layer_scan", "on"), ("remat_policy", "dots_saveable")],
 )
 def test_unported_policy_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
         port_config.Policy(**{field: value})
+
+
+def test_fold_query_pad_is_ported():
+    """The query-pad fold is a field the port honours; PERFORMANCE sets it,
+    as the JAX preset does."""
+    assert port_config.Policy(fold_query_pad=True).fold_query_pad
+    assert port_config.PERFORMANCE.fold_query_pad == jax_config.PERFORMANCE.fold_query_pad
+    assert not port_config.PARITY.fold_query_pad
 
 
 def test_policy_rejects_jax_attn_name():

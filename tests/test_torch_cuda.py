@@ -7,8 +7,8 @@ it without the suite's conftest (which imports JAX):
 
 The kernels (K1 forward and K2/K3 backward, each on both routes: the bf16
 wgmma kernels with their split grids, merge and sum, and the fp32 CUDA-core
-kernels) are held against their plain PyTorch versions, which the CPU tests
-hold against the JAX package.
+kernels; K1 also at head widths up to 704) are held against their plain
+PyTorch versions, which the CPU tests hold against the JAX package.
 """
 
 import dataclasses
@@ -19,6 +19,7 @@ import torch
 
 from perceiverio_pytorch_tpu_torch import config
 from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
+from perceiverio_pytorch_tpu_torch.models.multimodal import MultiModalPerceiver
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 from perceiverio_pytorch_tpu_torch.training import flow_endpoint_error
 
@@ -157,9 +158,91 @@ def test_bf16_takes_the_wgmma_route(cuda):
     _check(out, fa.flash_attention_reference(q, k, v), 2e-2)
 
 
+# Widths above 512 (the value columns split over two grid chunks): the
+# multimodal encoder's 704, a ragged 600 (chunks of 304 + 296 in bf16, 320 +
+# 280 in fp32), a 704-wide Q with Dv 512 (32-key tiles, one chunk) and with
+# Dv 64.
+WIDE_CASES = [(2, 70, 300, 1, 704, 704), (2, 130, 129, 1, 704, 704), (2, 65, 200, 2, 600, 600),
+              (2, 100, 257, 1, 704, 512), (2, 64, 100, 1, 704, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", WIDE_CASES)
+def test_wide_kernel_matches_reference(cuda, dtype, tol, b, tq, tk, h, d, dv):
+    """K1 at head widths up to 704 against its plain version, with masks, a
+    ragged Tk, kv_logical_len, an all-masked batch entry and the lse."""
+    test_kernel_matches_reference(cuda, dtype, tol, b, tq, tk, h, d, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_wide_forced_split_counts_agree(cuda, dtype, tol):
+    """d = dv = 704 at 1, 2, 3 and the most splits (one key tile each),
+    against each other and the plain version, with masks, a ragged Tk and an
+    all-masked entry: the merge takes both column chunks' partials."""
+    b, tq, tk = 2, 100, 777
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, 1, 704, 704, 11, cuda)
+    kv_mask[-1] = False
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 50)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                  return_lse=True, **kw)
+    results = {splits: _split_call(q, k, v, kw, splits) for splits in (1, 2, 3, 64)}
+    torch.cuda.synchronize()
+    for splits, (out, lse) in results.items():
+        _check(out, results[1][0], tol)
+        _check(out, want, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        finite = torch.isfinite(want_lse)
+        torch.testing.assert_close(lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
+        assert torch.all(out[-1] == 0) and torch.all(out.view(b, tq, -1)[~q_mask] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernel_is_deterministic(cuda, dtype):
+    """At d = dv = 704, two calls are equal bit for bit, at the planned
+    splits (which split the keys of this short grid), at 1 and at 5."""
+    q, k, v, kv_mask, q_mask = _inputs(1, 130, 3000, 1, 704, 704, 12, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    assert fa.launch_plan(q, k, v)["splits"] > 1
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask)
+    for splits in (None, 1, 5):
+        first = _split_call(q, k, v, kw, splits)
+        second = _split_call(q, k, v, kw, splits)
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [690, 704])
+def test_wide_kernel_takes_strided_inputs(cuda, dtype, tol, d):
+    """Wide heads in [B, H, T, D] storage seen as [B, T, H, D]; at 690 the
+    rows are 1380 bytes apart in bf16, not 16-byte aligned."""
+    q, k, v, kv_mask, _ = _inputs(2, 90, 300, 2, d, d, 13, cuda)
+    q, k, v = (x.to(dtype).transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not q.is_contiguous()
+    _check(fa.flash_attention(q, k, v, kv_mask=kv_mask),
+           fa.flash_attention_reference(q.float(), k.float(), v.float(), kv_mask=kv_mask), tol)
+
+
+@pytest.mark.cuda
+def test_backward_refuses_wide_heads(cuda):
+    """K1 runs at 704, but K2/K3 stop at 512: the backward of a 704-wide
+    call raises before it launches anything."""
+    q, k, v, _, _ = _inputs(1, 64, 100, 1, 704, 704, 14, cuda)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v)
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    with pytest.raises(ValueError, match="1 to 512"):
+        out.sum().backward()
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_bad_inputs(cuda):
-    x = torch.randn(1, 8, 1, 520, device=cuda)
+    x = torch.randn(1, 8, 1, 705, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(x, x, x)
     x = torch.randn(1, 8, 1, 32, device=cuda, dtype=torch.float16)
@@ -367,3 +450,34 @@ def test_small_flow_model_on_the_card(cuda):
     want = FlowInference(dense, min_overlap=8, device=cuda)(img1, img2)
     assert got.device.type == "cuda" and torch.isfinite(got).all()
     _check(got, want, 1e-4)
+
+
+# A small multimodal model whose input is padded to the published 704
+# channels (700 classes + 4): its encoder runs K1 at d = dv = 704.
+MM_SMALL = dict(img_size=(16, 16), num_frames=2, num_classes=700, audio_samples_per_frame=128,
+                audio_samples_per_patch=16, num_self_attends_per_block=1, num_blocks=1,
+                num_latents=8, num_latent_channels=512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,tol", [(config.PARITY, 1e-4), (config.PERFORMANCE, 2e-2)])
+def test_small_multimodal_model_on_the_card(cuda, policy, tol):
+    """Every site forced through K1 (the encoder at width 704, the
+    self-attend, 4 decoder chunks) against the dense path on the same card
+    and weights, in fp32 and in bf16 with the query-pad fold."""
+    flash = MultiModalPerceiver(**MM_SMALL, device=cuda, generator=torch.Generator().manual_seed(3),
+                                policy=dataclasses.replace(policy, attn_impl="flash"))
+    dense = MultiModalPerceiver(**MM_SMALL, device=cuda,
+                                policy=dataclasses.replace(policy, attn_impl="dense"))
+    dense.load_state_dict(flash.state_dict())
+    rng = np.random.default_rng(10)
+    images = torch.from_numpy(rng.random((1, 2, 3, 16, 16), dtype=np.float32)).to(cuda)
+    audio = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 1)).astype(np.float32)).to(cuda)
+    before = fa.LAUNCHES
+    with torch.no_grad():
+        got = flash(images, audio, n_chunks=4)
+        assert fa.LAUNCHES == before + 1 + 1 + 4
+        want = dense(images, audio, n_chunks=4)
+    for key in ("image", "audio", "label"):
+        assert torch.isfinite(got[key]).all()
+        _check(got[key], want[key], tol)

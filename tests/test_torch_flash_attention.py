@@ -59,6 +59,8 @@ def _jax_flash(q, k, v, kv_mask=None, q_mask=None, kv_logical_len=None):
         (1, 40, 200, 1, 41, 41),  # odd width
         (1, 64, 700, 1, 322, 322),  # flow encoder width
         (1, 300, 64, 1, 512, 512),  # flow decoder width, long Q
+        (1, 70, 300, 1, 704, 704),  # multimodal encoder width
+        (2, 40, 129, 1, 704, 512),  # a 704-wide Q with narrower values
     ],
 )
 def test_reference_matches_pallas(b, tq, tk, h, d, dv):
@@ -86,6 +88,27 @@ def test_reference_masks_and_lse_match_pallas():
     assert np.all(got.numpy()[~q_mask] == 0.0)
     assert np.array_equal(np.isinf(got_lse.numpy()), np.isinf(want_lse))
     assert np.all(np.isinf(got_lse.numpy()[1]))
+    finite = np.isfinite(want_lse)
+    np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
+
+
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_wide_reference_masks_and_lse_match_pallas(num_splits):
+    """K1's plain version at the multimodal encoder's head width (d = dv =
+    704) with kv_mask, q_mask, kv_logical_len, an all-masked batch entry and
+    the lse, unsplit and walking the keys in 3 ranges, against the Pallas
+    kernel in interpreter mode."""
+    q, k, v, kv_mask, q_mask = _inputs(2, 50, 333, 1, 704, 704, seed=704)
+    kv_mask[1] = False
+    want, want_lse = _jax_flash(q, k, v, kv_mask, q_mask, kv_logical_len=300)
+    got, got_lse = fa.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+        kv_logical_len=300, return_lse=True, num_splits=num_splits,
+    )
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.all(got.numpy()[1] == 0.0) and np.all(got.numpy()[~q_mask] == 0.0)
+    assert np.array_equal(np.isinf(got_lse.numpy()), np.isinf(want_lse))
     finite = np.isfinite(want_lse)
     np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
 
@@ -201,10 +224,62 @@ def test_launch_plan_routes_by_dtype():
     q = torch.zeros(1, 2048, 1, 322, dtype=torch.bfloat16)
     k = torch.zeros(1, 182528, 1, 322, dtype=torch.bfloat16)
     plan = fa.launch_plan(q, k, k)
-    assert plan == dict(route="sm90_wgmma", splits=8, tiles_per_split=357, blocks=256,
-                        cuda_launches=2)
+    assert plan == dict(route="sm90_wgmma", splits=8, tiles_per_split=357, col_chunks=1,
+                        blocks=256, cuda_launches=2)
     plan = fa.launch_plan(q.float(), k.float(), k.float(), num_splits=1)
     assert (plan["route"], plan["splits"], plan["cuda_launches"]) == ("cuda_cores", 1, 1)
+
+
+@pytest.mark.parametrize(
+    "dtype,b,tq,dv,want",
+    [(torch.bfloat16, 1, 784, 704, dict(splits=10, tiles_per_split=82, col_chunks=2,
+                                        blocks=260, cuda_launches=2)),
+     (torch.float32, 1, 784, 704, dict(splits=10, tiles_per_split=82, col_chunks=2,
+                                       blocks=260, cuda_launches=2)),
+     (torch.bfloat16, 2, 784, 704, dict(splits=5, tiles_per_split=163, col_chunks=2,
+                                        blocks=260, cuda_launches=2)),
+     (torch.bfloat16, 1, 784, 512, dict(splits=20, tiles_per_split=41, col_chunks=1,
+                                        blocks=260, cuda_launches=2)),
+     (torch.bfloat16, 16, 784, 704, dict(splits=1, tiles_per_split=815, col_chunks=2,
+                                         blocks=416, cuda_launches=1))],
+)
+def test_wide_launch_plan(dtype, b, tq, dv, want):
+    """The multimodal encoder (784 latents x 52,097 keys, one head of 704):
+    the value columns split in two chunks above 512, and the key splits
+    count the chunks' blocks (13 query blocks x 2 chunks at batch 1 take 10
+    key splits, 260 blocks on 132 SMs)."""
+    q = torch.empty(b, tq, 1, 704, dtype=dtype, device="meta")
+    k = torch.empty(b, 52097, 1, 704, dtype=dtype, device="meta")
+    v = torch.empty(b, 52097, 1, dv, dtype=dtype, device="meta")
+    plan = fa.launch_plan(q, k, v)
+    assert plan == dict(route="sm90_wgmma" if dtype == torch.bfloat16 else "cuda_cores",
+                        **want)
+    assert fa._split_plan(b, tq, 1, 52097, fa._col_chunks(dv)) == (
+        want["splits"], want["tiles_per_split"])
+    tiles = -(-52097 // fa.BLOCK_K)
+    assert (want["splits"] - 1) * want["tiles_per_split"] < tiles
+    assert tiles <= want["splits"] * want["tiles_per_split"]
+    assert [fa._col_chunks(w) for w in (1, 322, 512, 513, 704)] == [1, 1, 1, 2, 2]
+
+
+def test_kernel_width_limits_raise_before_a_launch():
+    """K1 takes head widths up to 704, K2/K3 up to 512: a call above a
+    kernel's own limit raises ValueError, naming it, before any launch (the
+    check comes first, so tensors on the meta device show it here)."""
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    assert (fa.MAX_HEAD_DIM_FWD, fa.MAX_HEAD_DIM_BWD) == (704, 512)
+    wide = torch.empty(1, 8, 1, 705, device="meta")
+    with pytest.raises(ValueError, match="K1.* 1 to 704"):
+        fa._flash_attention_cuda(wide, wide, wide, q_mask=None, kv_mask=None,
+                                 softmax_scale=None, kv_logical_len=None, return_lse=False)
+    x = torch.empty(1, 8, 1, 704, device="meta")
+    with pytest.raises(ValueError, match="run on CUDA"):  # 704 passes the width check
+        fa._flash_attention_cuda(x, x, x, q_mask=None, kv_mask=None, softmax_scale=None,
+                                 kv_logical_len=None, return_lse=False)
+    out, lse = torch.empty(1, 8, 704, device="meta"), torch.empty(1, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="K2/K3.*ROADMAP.* 1 to 512"):
+        fa._flash_attention_backward_cuda(x, x, x, out, lse, out)
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
 
 
 def test_library_names_hash_the_headers(tmp_path, monkeypatch):

@@ -265,18 +265,19 @@ def test_trainer_steps_match_jax_trainer(tmp_path):
 
 def test_train_step_metrics_and_buffers():
     """with_metrics gives the pre-clip gradient norm and the parameter norm;
-    the Fourier tables are buffers with no optimizer state."""
+    the Fourier tables are buffers (built at their first use) with no
+    optimizer state."""
     model = port_flow.FlowPerceiver(**SMALL, device="cpu")
     trainer = Trainer(train_flow.loss_fn, build_optimizer(1e-3, clip_norm=0.01),
                       log_every=0, log_grad_norm=True)
     state = trainer.init_state(model)
     optimized = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
     assert optimized == {id(p) for p in model.parameters()}
-    assert all(id(b) not in optimized for b in model.buffers())
-    assert any("fourier" in name for name, _ in model.named_buffers())
     step = make_train_step(train_flow.loss_fn, trainer.tx, with_metrics=True)
     img1, img2, gt = (torch.from_numpy(a) for a in _flow_data(2, seed=5))
     state, metrics = step(state, img1, img2, gt)
+    assert all(id(b) not in optimized for b in model.buffers())
+    assert any("fourier" in name for name, _ in model.named_buffers())
     assert state.step == 1 and set(metrics) == {"loss", "grad_norm", "param_norm"}
     params = [p for p in model.parameters()]
     # the logged norm is the one before the clip; the gradients were clipped
