@@ -25,13 +25,16 @@ Phases (each raises on failure; nothing is caught):
      at the bf16 multimodal encoder, holds the planned split count against a
      single split and two calls against each other bit for bit;
   4. backward kernels: holds K2 and K3 against the plain backward at the
-     three flow sites (batch 1) in fp32 and bf16 and at the masked case
-     (exact zeros on wiped rows and tail keys); records each call's route,
-     splits, blocks and CUDA launches (``backward_plan``); times each
-     kernel, the plain backward, SDPA's backward (forward+backward minus
-     forward, a yardstick only) and the bounds; then holds bf16 K2 at the
-     decoder and K3 at the encoder (batch 1) at their planned splits
-     against a single split, and two calls against each other bit for bit;
+     three flow sites (batch 1) in fp32 and bf16, at the multimodal encoder
+     (d = dv = 704) in fp32 and bf16 and at masked cases at widths 41 and
+     704 (exact zeros on wiped rows and tail keys); records each call's
+     route, splits, column chunks, blocks and CUDA launches
+     (``backward_plan``); times each kernel, the plain backward, SDPA's
+     backward (forward+backward minus forward, a yardstick only; null where
+     it does not run) and the bounds; then holds bf16 K2 at the flow decoder
+     and K3 at the flow and multimodal encoders (batch 1) at their planned
+     splits against a single split, and two calls of each (and of K2 at the
+     multimodal encoder) against each other bit for bit;
   5. model: FlowPerceiver at full width (368x496 tiles, 2048x512 latents,
      24 self-attends), seeded random weights with a random decoder
      projection, fp32, once through the kernel (26 launches) and once with
@@ -58,7 +61,19 @@ Phases (each raises on failure; nothing is caught):
      PERFORMANCE policy (bf16, query-pad fold), after a warm-up clip: per-clip
      latency, clips/s, peak memory, K1 and merge launches per clip, and the
      last clip against the fp32 model;
- 11. prints the kernels line and, last, {"ok": true, "device": {...}}.
+ 11. multimodal gradients: the full-width model with remat, 16 decoder
+     chunks, one synthetic clip with a label and the training example's
+     weighted loss, its backward through the kernels (per step: K1, its
+     merge, K2 and K3 once each at the encoder, and in bf16 the sum of K3's
+     key splits) and then with the flash forward and backward patched to
+     their plain versions; every parameter's gradient must agree, in fp32
+     and in bf16 (PERFORMANCE);
+ 12. multimodal train: the port's examples/train_multimodal.py at
+     --full-scale (bf16 PERFORMANCE, remat, 16 chunks, batch 1, synthetic
+     clips) through its Trainer: one warm-up step, then timed steps with
+     finite losses, parameters that move once the warmup's lr-0 step is
+     past, and the planned launches per step;
+ 13. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -122,6 +137,15 @@ MM_CHUNKS = 128
 # The full-width bf16 model against the fp32 one on the same clip, relative
 # to each output's max |x|: bf16 GEMMs through 10 attention blocks.
 MM_BF16_TOL = 1e-1
+# Multimodal training (examples/train_multimodal.py --full-scale): 16
+# decoder chunks, remat.  Per step the encoder's cross-attend is the one
+# flash site, outside every checkpoint: K1 once with its merge, K2 and K3
+# once; in bf16 K3 splits the keys and sums them once, K2 does not split.
+MM_TRAIN_CHUNKS = 16
+MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1}
+MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0)
+MM_TRAIN_STEPS = 3  # timed, after one warm-up step
+MM_LABEL = 123  # the synthetic clip's class in the gradient phase
 
 
 def smi_line() -> str:
@@ -373,7 +397,8 @@ def _bwd_flops_and_bytes(q, k, v, kw):
 
 def _library_backward_ms(q, k, v, grad, kw, reps):
     """F.scaled_dot_product_attention forward+backward minus its forward, on
-    the same tensors: a yardstick for K2+K3 (the port never calls it)."""
+    the same tensors: a yardstick for K2+K3 (the port never calls it), or
+    None where no SDPA backend takes them."""
     import torch
 
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
@@ -384,9 +409,14 @@ def _library_backward_ms(q, k, v, grad, kw, reps):
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qt, kt, vt), g)
 
-    with torch.enable_grad():
-        total = time_ms(fwd_bwd, reps)
-        forward = time_ms(fwd, reps)
+    try:
+        with torch.enable_grad():
+            total = time_ms(fwd_bwd, reps)
+            forward = time_ms(fwd, reps)
+    except RuntimeError as exc:
+        print(f"[backward] no SDPA backward at {tuple(q.shape)} x {tuple(k.shape)}: {exc}"[:300],
+              flush=True)
+        return None
     return total - forward
 
 
@@ -459,8 +489,8 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
         kplan = plan["dkv" if kernel == "K2" else "dq"]
         rec = dict(
             kernel=kernel, site=name, dtype=dtype_name, shape=list(shape),
-            route=plan["route"], splits=kplan["splits"], blocks=kplan["blocks"],
-            cuda_launches=cuda_launches[kernel],
+            route=plan["route"], splits=kplan["splits"], col_chunks=kplan["col_chunks"],
+            blocks=kplan["blocks"], cuda_launches=cuda_launches[kernel],
             max_abs_err=max(errs[key][0] for key in keys),
             max_abs_grad=max(errs[key][1] for key in keys),
             ms=ms[kernel], plain_ms=plain_ms, library_ms=library_ms,
@@ -483,20 +513,26 @@ def phase_backward(reps: int = 3):
             records += check_backward_case(name, shape, dtype_name, False, reps, gen)
         records += check_backward_case(
             "masked", (2, 100, 777, 2, 41, 64), dtype_name, True, reps, gen)
+        records += check_backward_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen)
+        records += check_backward_case(
+            "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen)
     check_backward_splits(gen)
     return records
 
 
 def check_backward_splits(gen):
-    """bf16 K2 at the decoder and K3 at the encoder (batch 1): the planned
-    split count against one split (within the bf16 tolerance), and two
-    calls bit for bit."""
+    """bf16 K2 at the flow decoder and K3 at the flow and multimodal
+    encoders (batch 1): the planned split count against one split (within
+    the bf16 tolerance), and two calls bit for bit; K2 at the multimodal
+    encoder, which does not split, two calls bit for bit."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
-    for kernel, site in (("K2", "decoder"), ("K3", "encoder")):
-        q, k, v, _ = _case_inputs(*FLOW_SITES[site], torch.bfloat16, False, gen)
+    for kernel, site, shape in (("K2", "decoder", FLOW_SITES["decoder"]),
+                                ("K3", "encoder", FLOW_SITES["encoder"]),
+                                ("K3", "mm_encoder", MM_SITE), ("K2", "mm_encoder", MM_SITE)):
+        q, k, v, _ = _case_inputs(*shape, torch.bfloat16, False, gen)
         with torch.no_grad():
             out, lse = fa.flash_attention(q, k, v, return_lse=True)
             grad = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -513,10 +549,11 @@ def check_backward_splits(gen):
                     results.append((kernels.grad_q,))
             torch.cuda.synchronize()
         planned = fa.backward_plan(q, k, v)["dkv" if kernel == "K2" else "dq"]["splits"]
-        if planned < 2:
-            raise AssertionError(f"{kernel} at the {site} should split, plan {planned}")
+        must_split = (kernel, site) != ("K2", "mm_encoder")
+        if (planned > 1) != must_split:
+            raise AssertionError(f"{kernel} at the {site}: unexpected plan of {planned} splits")
         if not all(torch.equal(x, y) for x, y in zip(results[0], results[1])):
-            raise AssertionError(f"two {kernel} calls on the same inputs differ")
+            raise AssertionError(f"two {kernel} calls at the {site} on the same inputs differ")
         diffs = [((x.float() - y.float()).abs().max().item(), y.float().abs().max().item())
                  for x, y in zip(results[0], results[2])]
         for err, peak in diffs:
@@ -719,6 +756,21 @@ def _gradient_pass(label, policy, expected_launches, tol):
         raise AssertionError(f"{label}: the plain run launched a kernel")
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= loss_tol * abs(loss_p)):
         raise AssertionError(f"{label}: loss through the kernels {loss_k}, plain {loss_p}")
+    worst, worst_name, key_bias = _compare_grads(label, grads_k, grads_p, tol)
+    rec = dict(launches=launches, loss_kernels=loss_k, loss_plain=loss_p,
+               params=len(grads_k), worst_rel_grad_diff=worst, worst_param=worst_name,
+               tolerance=tol, key_bias_grad_rel=key_bias, first_kernel_step_s=first_s,
+               kernel_step_s=kernel_s, plain_step_s=plain_s)
+    print(f"[gradients] {label} full width, remat: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def _compare_grads(label, grads_k, grads_p, tol):
+    """Every parameter's gradient through the kernels against the plain
+    run's, relative to that parameter's max |grad|; returns the worst ratio,
+    its parameter and the key biases' largest |grad| against their weights'."""
+    import torch
+
     if set(grads_k) != set(grads_p) or len(grads_k) < 100:
         raise AssertionError(f"{label}: the two runs give gradients to different parameters")
     worst, worst_name, key_bias = 0.0, None, 0.0
@@ -744,27 +796,37 @@ def _gradient_pass(label, policy, expected_launches, tol):
                 f"{label}: {name}: max|dgrad| = {ratio} * max|grad| > {tol}")
         if ratio > worst:
             worst, worst_name = ratio, name
-    rec = dict(launches=launches, loss_kernels=loss_k, loss_plain=loss_p,
-               params=len(grads_k), worst_rel_grad_diff=worst, worst_param=worst_name,
-               tolerance=tol, key_bias_grad_rel=key_bias, first_kernel_step_s=first_s,
-               kernel_step_s=kernel_s, plain_step_s=plain_s)
-    print(f"[gradients] {label} full width, remat: {json.dumps(rec)}", flush=True)
-    return rec
+    return worst, worst_name, key_bias
 
 
 def phase_train():
     """The port's train_flow example at --full-scale, through its Trainer,
     one step per fit() call so that each step is timed and counted."""
-    import torch
-
     from perceiverio_pytorch_tpu_torch.examples import train_flow
 
     total = 1 + TRAIN_STEPS
-    metrics = os.path.join(ROOT, "build", "chip_smoke_train_metrics.jsonl")
-    if os.path.exists(metrics):
-        os.remove(metrics)  # the logger appends
+    metrics = _metrics_path("chip_smoke_train_metrics.jsonl")
     trainer, state, batches = train_flow.setup(
         total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
+    rec = _train_steps(trainer, state, batches, total, metrics, STEP_LAUNCHES)
+    print(f"[train] bf16 full width, remat, batch 1: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def _metrics_path(name):
+    metrics = os.path.join(ROOT, "build", name)
+    if os.path.exists(metrics):
+        os.remove(metrics)  # the logger appends
+    return metrics
+
+
+def _train_steps(trainer, state, batches, total, metrics, expected_launches):
+    """``total`` steps of ``trainer``, one per fit() call, each timed on the
+    host clock and its kernel launches counted; the first (the warmup's lr-0
+    step) must leave the parameters where they were and the second move
+    them.  Returns the steps' record (the first one untimed)."""
+    import torch
+
     params = [p for g in state.optimizer.param_groups for p in g["params"] if p.numel()]
     initial = [p.detach().clone() for p in params]
     steps = []
@@ -778,8 +840,9 @@ def phase_train():
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _launch_counts()
-        if state.step != n or launches != STEP_LAUNCHES:
-            raise AssertionError(f"step {state.step}: launches {launches}")
+        if state.step != n or launches != expected_launches:
+            raise AssertionError(f"step {state.step}: launches {launches}, expected "
+                                 f"{expected_launches}")
         moved = max((p.detach() - p0).abs().max().item() for p, p0 in zip(params, initial))
         with open(metrics) as f:
             logged = json.loads(f.readlines()[-1])
@@ -793,23 +856,21 @@ def phase_train():
             raise AssertionError("the parameters did not move at step 2")
     timed = steps[1:]
     step_s = [s["seconds"] for s in timed]
-    rec = dict(
+    return dict(
         steps=len(timed), loss=[s["loss"] for s in steps], step_s=step_s,
         steps_per_s=len(timed) / sum(step_s), warmup_step_s=steps[0]["seconds"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches_per_step=[s["launches"] for s in steps],
-        launches={k: sum(s["launches"][k] for s in steps) for k in STEP_LAUNCHES},
+        launches={k: sum(s["launches"][k] for s in steps) for k in expected_launches},
     )
-    print(f"[train] bf16 full width, remat, batch 1: {json.dumps(rec)}", flush=True)
-    return rec
 
 
-def _mm_model(policy):
+def _mm_model(policy, remat=False):
     import torch
 
     from perceiverio_pytorch_tpu_torch import MultiModalPerceiver
 
-    return MultiModalPerceiver(policy=policy, device="cuda",
+    return MultiModalPerceiver(policy=policy, remat=remat, device="cuda",
                                generator=torch.Generator().manual_seed(SEED)).eval()
 
 
@@ -936,6 +997,99 @@ def phase_mm_serve(fp32_model, n_clips: int = 3):
     return rec
 
 
+def phase_mm_gradients():
+    """Full-width multimodal gradients (remat, 16 decoder chunks, one
+    synthetic clip with a label, the training example's weighted loss)
+    through K1/K2/K3 at the encoder's cross-attend against the same step
+    with the flash forward and backward on their plain versions: the fp32
+    model (PARITY) through the CUDA-core kernels, then the bf16 one
+    (PERFORMANCE, the query-pad fold) through the wgmma kernels."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+
+    images, audio = _smooth_clip(torch.Generator().manual_seed(SEED + 7))
+    records = {}
+    for label, policy, launches, tol in (
+            ("fp32", dataclasses.replace(PARITY, attn_impl="auto"), MM_FP32_STEP_LAUNCHES,
+             GRAD_TOL),
+            ("bf16", PERFORMANCE, MM_STEP_LAUNCHES, BF16_GRAD_TOL)):
+        records[label] = _mm_gradient_pass(label, policy, launches, tol, images, audio)
+        torch.cuda.empty_cache()
+    return records
+
+
+def _mm_gradient_pass(label, policy, expected_launches, tol, images, audio):
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples.train_multimodal import WEIGHTS
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.training import multimodal_autoencode_loss
+
+    model = _mm_model(policy, remat=True).train()
+    targets = {"image": images, "audio": audio,
+               "label": torch.tensor([MM_LABEL], device="cuda")}
+    loss_tol = 1e-4 if label == "fp32" else 1e-3  # as for flow (phase 7)
+
+    def gradients():
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        out = model(images, audio, n_chunks=MM_TRAIN_CHUNKS)
+        loss = multimodal_autoencode_loss(out, targets, weights=WEIGHTS)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return loss.item(), grads, time.perf_counter() - t0
+
+    first_s = gradients()[2]  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    loss_k, grads_k, kernel_s = gradients()
+    launches = _launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    if launches != expected_launches:
+        raise AssertionError(f"multimodal {label}: launches per step {launches}, expected "
+                             f"{expected_launches}")
+    with mock.patch.object(fa, "_flash_attention_cuda", fa.flash_attention_reference), \
+            mock.patch.object(fa, "_flash_attention_backward_cuda",
+                              fa.flash_attention_backward_reference):
+        loss_p, grads_p, plain_s = gradients()
+    if _launch_counts() != expected_launches:
+        raise AssertionError(f"multimodal {label}: the plain run launched a kernel")
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= loss_tol * abs(loss_p)):
+        raise AssertionError(f"multimodal {label}: loss through the kernels {loss_k}, "
+                             f"plain {loss_p}")
+    worst, worst_name, key_bias = _compare_grads(f"multimodal {label}", grads_k, grads_p, tol)
+    encoder_k = "perceiver._encoder.cross_attend.attention.proj_k.weight"
+    if not grads_k[encoder_k].abs().max().item() > 0:
+        raise AssertionError(f"multimodal {label}: no gradient reaches {encoder_k}")
+    rec = dict(launches=launches, loss_kernels=loss_k, loss_plain=loss_p,
+               params=len(grads_k), worst_rel_grad_diff=worst, worst_param=worst_name,
+               tolerance=tol, key_bias_grad_rel=key_bias, first_kernel_step_s=first_s,
+               kernel_step_s=kernel_s, plain_step_s=plain_s, peak_mem_gb=peak_mem / 1e9)
+    print(f"[mm gradients] {label} full width, remat, {MM_TRAIN_CHUNKS} chunks: "
+          f"{json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_mm_train():
+    """The port's train_multimodal example at --full-scale (bf16
+    PERFORMANCE, remat, 16 decoder chunks, batch 1, synthetic clips)
+    through its Trainer, one step per fit() call."""
+    from perceiverio_pytorch_tpu_torch.examples import train_multimodal
+
+    total = 1 + MM_TRAIN_STEPS
+    metrics = _metrics_path("chip_smoke_mm_train_metrics.jsonl")
+    trainer, state, batches = train_multimodal.setup(
+        total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
+    rec = _train_steps(trainer, state, batches, total, metrics, MM_STEP_LAUNCHES)
+    print(f"[mm train] bf16 full width, remat, {MM_TRAIN_CHUNKS} chunks, batch 1: "
+          f"{json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -949,7 +1103,7 @@ def _site_sums(records, keep, per_site):
     return sums
 
 
-def kernels_line(records, serve, backward, train, mm_serve):
+def kernels_line(records, serve, backward, train, mm_serve, mm_train):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -963,8 +1117,11 @@ def kernels_line(records, serve, backward, train, mm_serve):
     library times are the whole backward (dq, dk and dv in one call), the
     same for both.  K1 on the multimodal path (``flash_attention_fwd_d704``,
     the same sources at d = dv = 704, two value-column chunks): the bf16
-    encoder site's times, the launches of the multimodal serving run.  Each
-    entry's error is the largest of all its comparisons."""
+    encoder site's times, the launches of the multimodal serving run.  K2
+    and K3 on the multimodal path (``..._d704``, the same sources at d = dv
+    = 704): the bf16 encoder site's times, the launches of the multimodal
+    training run.  Each entry's error is the largest of all its
+    comparisons."""
     mm = [r for r in records if r["site"].startswith("mm_")]
     records = [r for r in records if not r["site"].startswith("mm_")]
     mm_site = next(r for r in mm if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
@@ -1004,24 +1161,36 @@ def kernels_line(records, serve, backward, train, mm_serve):
                                          "bound_by", "splits", "col_chunks")},
         sites=mm,
     )]
+    bwd_sources = {
+        "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+        "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
+    }
     for kernel, name, line in (("K2", "flash_attention_bwd_dkv", 473),
                                ("K3", "flash_attention_bwd_dq", 514)):
-        mine = [r for r in backward if r["kernel"] == kernel]
+        mine = [r for r in backward if r["kernel"] == kernel and not r["site"].startswith("mm_")]
+        mm_bwd = [r for r in backward if r["kernel"] == kernel and r["site"].startswith("mm_")]
+        mm_site = next(r for r in mm_bwd if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
+        common = dict(route="cuda", source=bwd_sources["sm90_wgmma"], sources=bwd_sources,
+                      routes={"bf16": "sm90_wgmma", "fp32": "cuda_cores"},
+                      replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}")
         entries.append(dict(
             name=name,
-            route="cuda",
-            source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
-            sources={
-                "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
-                "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
-            },
-            routes={"bf16": "sm90_wgmma", "fp32": "cuda_cores"},
-            replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}",
+            **common,
             launches=train["launches"][kernel],
             sum_launches_train=train["launches"]["sum"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
+        ))
+        entries.append(dict(
+            name=f"{name}_d704",
+            **common,
+            launches=mm_train["launches"][kernel],
+            sum_launches_train=mm_train["launches"]["sum"],
+            max_abs_err=max(r["max_abs_err"] for r in mm_bwd),
+            **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by", "splits", "col_chunks")},
+            sites=mm_bwd,
         ))
     return json.dumps({"kernels": entries})
 
@@ -1047,8 +1216,11 @@ def main() -> int:
     train = phase_train()
     torch.cuda.empty_cache()
     mm_serve = phase_mm_serve(phase_mm_model())
+    torch.cuda.empty_cache()
+    phase_mm_gradients()
+    mm_train = phase_mm_train()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(records, serve, backward, train, mm_serve))
+    print(kernels_line(records, serve, backward, train, mm_serve, mm_train))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

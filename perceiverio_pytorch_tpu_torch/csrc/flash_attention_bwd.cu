@@ -22,9 +22,10 @@
 // 4 d + 4 dv FLOP and K3 4 d + 2 dv.  Per 368x496 flow tile that is
 // 9.6e11 / 7.2e11 FLOP at the encoder cross-attend (2048 x 182,528 pairs,
 // d = 322), 1.7e10 / 1.3e10 at each of the 24 latent self-attends and
-// 1.5e12 / 1.15e12 at the decoder cross-attend (182,528 x 2048, d = 512),
-// against well under 1 GB of inputs and outputs per site: compute-bound at
-// every site, as the forward is.
+// 1.5e12 / 1.15e12 at the decoder cross-attend (182,528 x 2048, d = 512);
+// 2.3e11 / 1.7e11 per clip at the multimodal encoder (784 x 52,097, d = dv
+// = 704); against well under 1 GB of inputs and outputs per site:
+// compute-bound at every site, as the forward is.
 //
 // Design.  The Pallas grids walk their last axis in order, carrying the
 // accumulator in scratch memory; here that walk is a loop inside one block.
@@ -55,12 +56,27 @@
 // handled by masking rows at or past Tq (lse = +inf, do = 0) and keys at or
 // past kv_len, and by zero-filling the staged rows.
 //
+// Widths above 512 (the multimodal encoder: d = dv = 704 over 52,097 keys,
+// 784 queries).  Shared memory still fits: K3's resident Q is 704 x 64 x 4 =
+// 176 KB, 230,912 bytes with its staged tiles; K2's K and V rows 88 KB
+// each, 224,256 bytes in all, inside the 232,448 a block may use.  The
+// register accumulators do not: eleven 64-column tiles would be 176
+// registers a thread for dQ, and as many for dK and dV together.  So, as K1
+// does (flash_attention_fwd.cu), the output columns are split over a grid
+// axis of column chunks (the wrapper's `col_chunks`: 384 + 320 at 704, the
+// template's 6 tiles of 64, 96 registers as at d = 322): each block
+// recomputes S and dP at the full width and accumulates only its columns
+// (of dQ in K3, of dK and dV in K2).  The chunks compute S and dP in the
+// same order, so their P and dS agree bit for bit.  A CHUNKED template
+// switch keeps the narrower instantiations' code as it was.  It costs 1.5x
+// the useful FLOPs of K2 and 1.67x of K3 at 704.
+//
 // What they do not do yet.  No TMA, plain staged loads with no double
 // buffering, so they reach a fraction of the fp32 CUDA-core peak.  Each grid
-// is one block per outer tile: at batch 1, K3 at the encoder (2048 queries)
-// has 32 blocks and K2 at the decoder (2048 keys) 64, on 132 SMs (the bf16
-// kernels split those walks).  Head widths above 512 (multimodal's 704) are
-// later work.
+// is one block per outer tile and column chunk: at batch 1, K3 at the flow
+// encoder (2048 queries) has 32 blocks, at the multimodal encoder 26, and K2
+// at the flow decoder (2048 keys) 64, on 132 SMs (the bf16 kernels split
+// those walks).
 //
 // Interface: two plain C functions with one argument list, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -100,6 +116,8 @@ struct Params {
   void* dk;                // [B, Tk, H, D], contiguous
   void* dv;                // [B, Tk, H, Dv], contiguous
   int H, Tq, Tk, kv_len, D, Dv, Dp, Dvp;
+  int n_blocks;        // query blocks (K3) or key blocks (K2) of a (batch, head)
+  int col_chunks, CW;  // chunk c: output columns [c CW, (c + 1) CW)
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh;
   float scale;
 };
@@ -115,8 +133,10 @@ size_t dkv_smem_bytes(const Params& p) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: dQ.
-template <int NK>
+// K3: dQ.  CHUNKED: the grid splits the dQ columns (col_chunks > 1, widths
+// above 512); without it the chunk is 0 and spans D at compile time, so the
+// kernels of the narrower widths compile as they did before the chunks.
+template <int NK, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [Dp][Q3]
@@ -128,12 +148,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * Q3;
+  const int q0 = (CHUNKED ? blockIdx.x % p.n_blocks : blockIdx.x) * Q3;
+  const int cbase = CHUNKED ? (blockIdx.x / p.n_blocks) * p.CW : 0;  // first dQ column
+  const int d_blk = CHUNKED ? min(p.CW, p.D - cbase) : p.D;          // and their number
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* kgc = kg + cbase;  // the K columns of this block's dQ
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)b * p.Tk : nullptr;
@@ -264,7 +287,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
     for (int mk = 0; mk < NK; ++mk) {
       const int c0 = mk * VC;
-      if (c0 < p.D) {     // uniform over the block
+      if (c0 < d_blk) {   // uniform over the block
         __syncthreads();  // St written / previous Ks reads done
         for (int idx = tid; idx < K3 * VC; idx += THREADS) {
           const int j = idx / VC;
@@ -272,7 +295,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
           const int key = k0 + j;
           const int col = c0 + cc;
           float val = 0.f;
-          if (key < p.kv_len && col < p.D) val = kg[(long long)key * p.k_st + col];
+          if (key < p.kv_len && col < d_blk) val = kgc[(long long)key * p.k_st + col];
           Ks[j * VC + cc] = val;
         }
         __syncthreads();
@@ -296,20 +319,21 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
     const int i = q0 + ty * 4 + r;
     if (i >= p.Tq) continue;
     float* dqg = static_cast<float*>(p.dq) + ((long long)b * p.Tq + i) * p.H * p.D +
-             (long long)h * p.D;
+             (long long)h * p.D + cbase;
 #pragma unroll
     for (int mk = 0; mk < NK; ++mk)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = mk * VC + tx * 4 + c;
-        if (col < p.D) dqg[col] = acc[mk][r][c] * p.scale;
+        if (col < d_blk) dqg[col] = acc[mk][r][c] * p.scale;
       }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2: dK and dV.
-template <int NC>
+// K2: dK and dV.  CHUNKED: the grid splits the dK and dV columns, as K3's
+// splits dQ's.
+template <int NC, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // [Dp][K2K]
@@ -324,7 +348,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
   const int tid = threadIdx.x;
   const int lane = tid & 31;  // rows lane*2.. (S, dP) or columns lane*2.. (dK, dV)
   const int warp = tid >> 5;  // keys warp*4..
-  const int k0 = blockIdx.x * K2K;
+  const int k0 = (CHUNKED ? blockIdx.x % p.n_blocks : blockIdx.x) * K2K;
+  const int cbase = CHUNKED ? (blockIdx.x / p.n_blocks) * p.CW : 0;  // first output column
+  const int dk_blk = CHUNKED ? max(0, min(p.CW, p.D - cbase)) : p.D;   // dK columns
+  const int dv_blk = CHUNKED ? max(0, min(p.CW, p.Dv - cbase)) : p.Dv;  // dV columns
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
@@ -332,6 +359,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* qgc = qg + cbase;  // the Q and dO columns of this block's dK and dV
+  const float* ogc = og + cbase;
   const long long row0 = ((long long)b * p.H + h) * p.Tq;
 
   // The block's K and V rows, transposed to [d][key], fp32, zero-padded.
@@ -459,14 +488,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
 #pragma unroll
     for (int mc = 0; mc < NC; ++mc) {
       const int c0 = mc * VC;
-      if (c0 < p.Dv) {    // uniform over the block
+      if (c0 < dv_blk) {  // uniform over the block
         __syncthreads();  // Ps written / previous Rs reads done
         for (int idx = tid; idx < K2Q * VC; idx += THREADS) {
           const int i = idx / VC;
           const int cc = idx - i * VC;
           const int col = c0 + cc;
           float val = 0.f;
-          if (q0 + i < p.Tq && col < p.Dv) val = og[(long long)(q0 + i) * p.o_st + col];
+          if (q0 + i < p.Tq && col < dv_blk) val = ogc[(long long)(q0 + i) * p.o_st + col];
           Rs[i * VC + cc] = val;
         }
         __syncthreads();
@@ -482,14 +511,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
           }
         }
       }
-      if (c0 < p.D) {     // uniform over the block
+      if (c0 < dk_blk) {  // uniform over the block
         __syncthreads();  // Ss written / previous Rs reads done
         for (int idx = tid; idx < K2Q * VC; idx += THREADS) {
           const int i = idx / VC;
           const int cc = idx - i * VC;
           const int col = c0 + cc;
           float val = 0.f;
-          if (q0 + i < p.Tq && col < p.D) val = qg[(long long)(q0 + i) * p.q_st + col];
+          if (q0 + i < p.Tq && col < dk_blk) val = qgc[(long long)(q0 + i) * p.q_st + col];
           Rs[i * VC + cc] = val;
         }
         __syncthreads();
@@ -514,47 +543,56 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) 
     const int key = k0 + warp * 4 + r;
     if (key >= p.Tk) continue;
     float* dkg = static_cast<float*>(p.dk) + ((long long)b * p.Tk + key) * p.H * p.D +
-             (long long)h * p.D;
+             (long long)h * p.D + cbase;
     float* dvg = static_cast<float*>(p.dv) + ((long long)b * p.Tk + key) * p.H * p.Dv +
-             (long long)h * p.Dv;
+             (long long)h * p.Dv + cbase;
 #pragma unroll
     for (int mc = 0; mc < NC; ++mc)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = mc * VC + lane * 2 + c;
-        if (col < p.D) dkg[col] = acc_k[mc][r][c] * p.scale;
-        if (col < p.Dv) dvg[col] = acc_v[mc][r][c];
+        if (col < dk_blk) dkg[col] = acc_k[mc][r][c] * p.scale;
+        if (col < dv_blk) dvg[col] = acc_v[mc][r][c];
       }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Launch helpers.
-template <int N>
+template <int N, bool CHUNKED = false>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes(p);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<N, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + Q3 - 1) / Q3, p.H, batch);
-  flash_bwd_dq_kernel<N><<<grid, THREADS, smem, stream>>>(p);
+  Params q = p;
+  q.n_blocks = (p.Tq + Q3 - 1) / Q3;
+  const dim3 grid(q.n_blocks * p.col_chunks, p.H, batch);
+  flash_bwd_dq_kernel<N, CHUNKED><<<grid, THREADS, smem, stream>>>(q);
   return cudaGetLastError();
 }
 
-template <int N>
+template <int N, bool CHUNKED = false>
 cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes(p);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<N, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tk + K2K - 1) / K2K, p.H, batch);
-  flash_bwd_dkv_kernel<N><<<grid, THREADS, smem, stream>>>(p);
+  Params q = p;
+  q.n_blocks = (p.Tk + K2K - 1) / K2K;
+  const dim3 grid(q.n_blocks * p.col_chunks, p.H, batch);
+  flash_bwd_dkv_kernel<N, CHUNKED><<<grid, THREADS, smem, stream>>>(q);
   return cudaGetLastError();
 }
 
-// The accumulators hold `width` columns in chunks of 64: 1, 2, 3, 4, 6 or 8.
+// The accumulators hold `width` columns in chunks of 64: 1, 2, 3, 4, 6 or 8;
+// over column chunks (widths above 512), 6: two chunks of at most 384.
 template <bool DQ>
 cudaError_t dispatch(const Params& p, int width, int batch, cudaStream_t stream) {
+  if (p.col_chunks > 1) {
+    if (p.CW > 6 * VC) return cudaErrorInvalidValue;
+    return DQ ? launch_dq<6, true>(p, batch, stream) : launch_dkv<6, true>(p, batch, stream);
+  }
   const int n = (width + VC - 1) / VC;
 #define PERCEIVER_LAUNCH(N) \
   return DQ ? launch_dq<N>(p, batch, stream) : launch_dkv<N>(p, batch, stream)
@@ -571,10 +609,20 @@ cudaError_t dispatch(const Params& p, int width, int batch, cudaStream_t stream)
 int run(bool dq_pass, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* kv_mask, void* dq, void* dk,
         void* dv, int batch, int heads, int tq, int tk, int kv_len, int d,
-        int dv_width, long long q_sb, long long q_st, long long q_sh, long long k_sb,
-        long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,
-        long long o_sb, long long o_st, long long o_sh, float scale, void* stream) {
-  if (d < 1 || d > 512 || dv_width < 1 || dv_width > 512 || kv_len < 0 || kv_len > tk)
+        int dv_width, int col_chunks, long long q_sb, long long q_st, long long q_sh,
+        long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+        long long v_sh, long long o_sb, long long o_st, long long o_sh, float scale,
+        void* stream) {
+  if (d < 1 || d > 704 || dv_width < 1 || dv_width > 704 || kv_len < 0 || kv_len > tk ||
+      col_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  // The output columns (dQ's: d; dK's and dV's: the wider of d and dv) in
+  // col_chunks chunks of whole 64-column register tiles; each chunk holds
+  // some.
+  const int width = dq_pass ? d : (d > dv_width ? d : dv_width);
+  const int cw = (width + col_chunks - 1) / col_chunks;
+  const int CW = (cw + VC - 1) / VC * VC;
+  if ((col_chunks - 1) * CW >= width || (col_chunks == 1 && width > 8 * VC))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -595,6 +643,9 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   p.Dv = dv_width;
   p.Dp = (d + DC - 1) / DC * DC;
   p.Dvp = (dv_width + DC - 1) / DC * DC;
+  p.n_blocks = 0;
+  p.col_chunks = col_chunks;
+  p.CW = CW;
   p.q_sb = q_sb;
   p.q_st = q_st;
   p.q_sh = q_sh;
@@ -609,7 +660,6 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   p.o_sh = o_sh;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = dq_pass ? d : (d > dv_width ? d : dv_width);
   return (int)(dq_pass ? dispatch<true>(p, width, batch, s) : dispatch<false>(p, width, batch, s));
 }
 
@@ -619,18 +669,20 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
 // v and dout must be contiguous; lse and delta are [B, H, Tq] fp32; dq, dk and
 // dv are contiguous.  flash_attention_bwd_dkv (K2) writes dk and dv and
 // ignores dq; flash_attention_bwd_dq (K3) writes dq and ignores dk and dv.
-// Each returns a cudaError_t (0 on success).
+// col_chunks splits the kernel's output columns over the grid: 1 up to 512,
+// 2 at most (two chunks of at most 384 columns).  Each returns a cudaError_t
+// (0 on success).
 #define PERCEIVER_BWD_ARGS                                                              \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,       \
       const void *delta, const void *kv_mask, void *dq, void *dk, void *dv,             \
       int batch, int heads, int tq, int tk, int kv_len, int d, int dv_width,            \
-      long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,   \
-      long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,   \
-      long long o_st, long long o_sh, float scale, void *stream
+      int col_chunks, long long q_sb, long long q_st, long long q_sh, long long k_sb,   \
+      long long k_st, long long k_sh, long long v_sb, long long v_st, long long v_sh,   \
+      long long o_sb, long long o_st, long long o_sh, float scale, void *stream
 #define PERCEIVER_BWD_PASS                                                          \
   q, k, v, dout, lse, delta, kv_mask, dq, dk, dv, batch, heads, tq, tk, kv_len, \
-      d, dv_width, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st,   \
-      o_sh, scale, stream
+      d, dv_width, col_chunks, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, \
+      o_sb, o_st, o_sh, scale, stream
 
 extern "C" int flash_attention_bwd_dkv(PERCEIVER_BWD_ARGS) {
   return run(false, PERCEIVER_BWD_PASS);

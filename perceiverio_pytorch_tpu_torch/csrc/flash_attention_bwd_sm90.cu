@@ -21,9 +21,11 @@
 // 4 d + 4 dv FLOP and K3 4 d + 2 dv: per 368x496 flow tile 9.6e11 / 7.2e11
 // FLOP at the encoder cross-attend (2048 x 182,528 pairs, d = 322), 1.7e10
 // / 1.3e10 at each latent self-attend (16 heads of 32) and 1.5e12 / 1.15e12
-// at the decoder cross-attend (182,528 x 2048, d = 512), against well under
-// 1 GB of inputs and outputs: compute-bound at every site, so bf16 on the
-// tensor cores (989 TFLOP/s dense) is the only way near the bound.
+// at the decoder cross-attend (182,528 x 2048, d = 512), and 2.3e11 / 1.7e11
+// per clip at the multimodal encoder (784 x 52,097 pairs, d = dv = 704),
+// against well under 1 GB of inputs and outputs: compute-bound at every
+// site, so bf16 on the tensor cores (989 TFLOP/s dense) is the only way near
+// the bound.
 //
 // K2 design: the register wall.  wgmma's M is 64 rows a warpgroup.  With
 // keys as M, 64 keys' dK and dV at d = dv = 512 are 64 x 1024 fp32 = 256 KB,
@@ -56,6 +58,14 @@
 //     double-buffered (two Q/dO tiles do not fit at 512): dP runs on dO(t)
 //     while Q(t) lands, dO(t + 1) loads while dK^T(t) runs, Q(t + 1) while
 //     dP(t + 1) runs.
+//   * Widths above 512 (the multimodal encoder, d = dv = 704 = 11 x 64).
+//     NM = 11 with 16 keys a warpgroup would hold 176 accumulators a
+//     thread, and the tiles with 32 keys a block take 278,528 bytes (K and
+//     V rows 90,112, a Q and a dO tile 180,224, P and dS 8,192), over the
+//     232,448 a block may use.  With 8 keys a warpgroup (16 a block) they
+//     take 229,376 and the accumulators 88 registers: `<8, 11>`, S and dP
+//     as m64n8k16 products, no column chunks and no recomputation.  Its
+//     52,097 keys give 3,257 blocks, one per SM at a time.
 //   * The starved grid.  The decoder's 2048 keys give 64 blocks at batch 1
 //     on 132 SMs, each walking 2852 query tiles.  The wrapper splits the
 //     query range over blocks (ops/flash_attention.py `_dkv_split_plan`: 8
@@ -78,6 +88,21 @@
 // (`_split_plan`, 8 splits), each writing its fp32 partial dQ (scaled); the
 // same ordered sum adds them, with no rescaling.
 //
+// K3 above 512 columns of d or dv (the multimodal encoder, 704).  Each
+// warpgroup's half of dQ would be 352 columns, 176 accumulators a thread
+// beside S and dP, and Q and dO alone take 180,224 bytes.  So, as K1 does at
+// 704 (flash_attention_fwd_sm90.cu), the d columns are split over a grid
+// axis of column chunks of 352 (the wrapper's `col_chunks`, ceil(d / 352)):
+// each block holds Q, dO, K and V at the full width, computes S and dP over
+// all of it and accumulates only its chunk's dQ columns, two warpgroups x
+// 176 (88 registers, `<176, 16, chunked>`).  16 keys a tile: Q and dO
+// 180,224 bytes, K and V 45,056, dS 2,048, in all 227,328.  S and dP are
+// computed once per chunk (1.67x the useful FLOPs at 704), in the same
+// order, so both chunks form the same dS bit for bit.  The 13 query blocks x
+// 2 chunks of the multimodal encoder split the keys by K1's plan counted
+// with the chunks (10 splits, 260 blocks).  A template switch keeps the
+// narrower instantiations' code as it was.
+//
 // Both: wgmma's core-matrix layout without a swizzle (sm90.cuh), cp.async
 // loads at the widest granularity the base address and strides allow (the
 // encoder's 644-byte rows take 4-byte copies; no TMA), widths zero-padded,
@@ -87,7 +112,8 @@
 //
 // What they do not do yet: no warp specialisation or TMA producer, no
 // overlap of one warpgroup's elementwise work with the other's products,
-// the K tile of K3 is not double-buffered, d <= 512.
+// the K tile of K3 is not double-buffered; above 512 the tiles are narrow
+// (m64n8k16 products for S and dP) and K3 recomputes S and dP per chunk.
 //
 // Interface: plain C functions, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -129,6 +155,7 @@ struct Params {
   int D16, Dv16;           // D and Dv rounded up to 16: the reductions of S and dP
   int n_blocks;            // blocks a (batch, head) and split: of keys (K2), of queries (K3)
   int tiles_per_split, splits;  // split s: rows (K2) or keys (K3) [s, s + 1) * tiles * SPLIT_T
+  int col_chunks;          // K3 above 512: chunks of the d columns over the grid
   int vec_q, vec_k, vec_v, vec_o;  // copy granularity in bytes
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh;
   float scale;       // softmax scale
@@ -352,17 +379,25 @@ __global__ void __launch_bounds__(THREADS, NM <= 2 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// K3: dQ.  NH d columns a warpgroup, BK keys a tile.
+// K3: dQ.  NH d columns a warpgroup, BK keys a tile; with CHUNKED, the grid's
+// column chunk c accumulates d columns [2 NH c, 2 NH (c + 1)) only.
 
-template <int NH, int BK>
-__host__ __device__ size_t dq_smem(int Cv) {
-  return (size_t)((BQ + BK) * (2 * NH + Cv) + BQ * BK) * 2;
+template <int BK>
+__host__ __device__ size_t dq_smem(int C, int Cv) {
+  return (size_t)((BQ + BK) * (C + Cv) + BQ * BK) * 2;
 }
 
-template <int NH, int BK>
+// Columns of K3's Q and K tiles: 2 NH, or with CHUNKED every chunk's (the
+// chunks' columns, zero past d).
+template <int NH, bool CHUNKED>
+__host__ __device__ int dq_cols(const Params& p) {
+  return CHUNKED ? 2 * NH * p.col_chunks : 2 * NH;
+}
+
+template <int NH, int BK, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, NH <= 64 ? 2 : 1)
     flash_bwd_dq_sm90_kernel(const Params p) {
-  constexpr int C = 2 * NH;        // columns of the Q and K tiles
+  const int C = dq_cols<NH, CHUNKED>(p);  // columns of the Q and K tiles
   constexpr int HALF_K = BK / 2;   // keys of one warpgroup's S and dP
   constexpr int NS = HALF_K / 2;   // registers of one S or dP fragment
   const int Cv = p.Dv16;           // columns of the dO and V tiles
@@ -379,7 +414,9 @@ __global__ void __launch_bounds__(THREADS, NH <= 64 ? 2 : 1)
   const int lane = tid & 31;
   const int row_lo = 16 * warp + (lane >> 2);
   const int qb = blockIdx.x % p.n_blocks;
-  const int split = blockIdx.x / p.n_blocks;
+  const int chunk = CHUNKED ? (blockIdx.x / p.n_blocks) % p.col_chunks : 0;
+  const int split = blockIdx.x / (CHUNKED ? p.n_blocks * p.col_chunks : p.n_blocks);
+  const int c0 = chunk * 2 * NH;  // this block's first dQ column
   const int q0 = qb * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -396,7 +433,7 @@ __global__ void __launch_bounds__(THREADS, NH <= 64 ? 2 : 1)
     const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)b * p.Tk : nullptr;
     const long long bh = (long long)b * p.H + h;
 
-    zero_smem(smem, dq_smem<NH, BK>(Cv), tid);
+    zero_smem(smem, dq_smem<BK>(C, Cv), tid);
     __syncthreads();
     const int rows = min(BQ, p.Tq - q0);
     load_rows(sQ, p.q + b * p.q_sb + h * p.q_sh + (long long)q0 * p.q_st, p.q_st, rows, p.D, C,
@@ -423,7 +460,8 @@ __global__ void __launch_bounds__(THREADS, NH <= 64 ? 2 : 1)
     const uint64_t desc_v =
         sm90::make_desc(sm90::smem_addr(sV + wg * HALF_K * Cv * 2), 128, 16 * Cv);
     const uint64_t desc_s = sm90::make_desc(sm90::smem_addr(sS), 128, 16 * BK);
-    const uint64_t desc_kt = sm90::make_desc(sm90::smem_addr(sK + wg * NH * 16), 16 * C, 128);
+    const uint64_t desc_kt =
+        sm90::make_desc(sm90::smem_addr(sK + (c0 + wg * NH) * 16), 16 * C, 128);
 
     for (int k0 = k_begin; k0 < k_end; k0 += BK) {
       const bool more = k0 + BK < k_end;
@@ -472,7 +510,7 @@ __global__ void __launch_bounds__(THREADS, NH <= 64 ? 2 : 1)
         sm90::cp_async_commit();
       }
 
-      // dQ[:, NH wg ..] += dS K[:, NH wg ..].
+      // dQ[:, c0 + NH wg ..] += dS K[:, c0 + NH wg ..].
       sm90::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks)
@@ -499,7 +537,7 @@ __global__ void __launch_bounds__(THREADS, NH <= 64 ? 2 : 1)
     const long long row = ((long long)b * p.Tq + i) * p.H + h;
 #pragma unroll
     for (int j = 0; j < NH / 2; ++j) {
-      const int col = wg * NH + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      const int col = c0 + wg * NH + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
       if (((j >> 1) & 1) != r || col >= p.D) continue;
       const float dq = acc[j] * p.scale;
       if (p.splits > 1)
@@ -540,7 +578,7 @@ cudaError_t launch(Kernel kernel, const Params& p, int n_blocks, size_t smem,
   if (err != cudaSuccess) return err;
   Params q = p;
   q.n_blocks = n_blocks;
-  kernel<<<dim3(n_blocks * p.splits, p.H, p.B), THREADS, smem, stream>>>(q);
+  kernel<<<dim3(n_blocks * p.col_chunks * p.splits, p.H, p.B), THREADS, smem, stream>>>(q);
   return cudaGetLastError();
 }
 
@@ -555,14 +593,29 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
 template <int NH>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   const int n_blocks = (p.Tq + BQ - 1) / BQ;
+  const int C = 2 * NH;
   if constexpr (NH <= 64) {
-    if (dq_smem<NH, 128>(p.Dv16) <= MAX_SMEM)
-      return launch(flash_bwd_dq_sm90_kernel<NH, 128>, p, n_blocks, dq_smem<NH, 128>(p.Dv16),
-                    stream);
+    if (dq_smem<128>(C, p.Dv16) <= MAX_SMEM)
+      return launch(flash_bwd_dq_sm90_kernel<NH, 128, false>, p, n_blocks,
+                    dq_smem<128>(C, p.Dv16), stream);
   }
-  if (dq_smem<NH, 64>(p.Dv16) <= MAX_SMEM)
-    return launch(flash_bwd_dq_sm90_kernel<NH, 64>, p, n_blocks, dq_smem<NH, 64>(p.Dv16), stream);
-  return launch(flash_bwd_dq_sm90_kernel<NH, 32>, p, n_blocks, dq_smem<NH, 32>(p.Dv16), stream);
+  if (dq_smem<64>(C, p.Dv16) <= MAX_SMEM)
+    return launch(flash_bwd_dq_sm90_kernel<NH, 64, false>, p, n_blocks, dq_smem<64>(C, p.Dv16),
+                  stream);
+  return launch(flash_bwd_dq_sm90_kernel<NH, 32, false>, p, n_blocks, dq_smem<32>(C, p.Dv16),
+                stream);
+}
+
+// Above 512 columns of d or dv: the d columns in chunks of WIDE_CW over the
+// grid, 16 keys a tile (Q, dO, K and V at 704 take 227,328 bytes with them).
+constexpr int WIDE_NH = 176;
+constexpr int WIDE_CW = 2 * WIDE_NH;
+constexpr int WIDE_BK = 16;
+
+cudaError_t launch_dq_wide(const Params& p, cudaStream_t stream) {
+  const size_t smem = dq_smem<WIDE_BK>(dq_cols<WIDE_NH, true>(p), p.Dv16);
+  return launch(flash_bwd_dq_sm90_kernel<WIDE_NH, WIDE_BK, true>, p, (p.Tq + BQ - 1) / BQ, smem,
+                stream);
 }
 
 }  // namespace
@@ -573,19 +626,21 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
 // part_q (K3) or part_k and part_v (K2) instead, for flash_attention_bwd_sum.
 // flash_attention_bwd_dkv_sm90 (K2) splits the query rows, in ranges of
 // tiles_per_split tiles of 64; flash_attention_bwd_dq_sm90 (K3) the keys.
-// Each returns a cudaError_t (0 on success).
+// col_chunks is 1 for K2; for K3 it is 1 up to 512 columns of d and dv, and
+// above, ceil(d / 352): the d columns in chunks of 352 over the grid.  Each
+// returns a cudaError_t (0 on success).
 #define PERCEIVER_BWD_SM90_ARGS                                                         \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,       \
       const void *delta, const void *kv_mask, void *dq, void *dk, void *dv,             \
       void *part_q, void *part_k, void *part_v, int batch, int heads, int tq, int tk,   \
-      int kv_len, int d, int dv_width, int splits, int tiles_per_split, long long q_sb, \
-      long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,   \
-      long long v_sb, long long v_st, long long v_sh, long long o_sb, long long o_st,   \
-      long long o_sh, float scale, void *stream
+      int kv_len, int d, int dv_width, int splits, int tiles_per_split, int col_chunks, \
+      long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,   \
+      long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,   \
+      long long o_st, long long o_sh, float scale, void *stream
 
 static bool make_params(Params* p, PERCEIVER_BWD_SM90_ARGS) {
-  if (d < 1 || d > 512 || dv_width < 1 || dv_width > 512 || kv_len < 0 || kv_len > tk ||
-      splits < 1 || tiles_per_split < 0)
+  if (d < 1 || d > 704 || dv_width < 1 || dv_width > 704 || kv_len < 0 || kv_len > tk ||
+      splits < 1 || tiles_per_split < 0 || col_chunks < 1)
     return false;
   p->q = static_cast<const bf16*>(q);
   p->k = static_cast<const bf16*>(k);
@@ -612,6 +667,7 @@ static bool make_params(Params* p, PERCEIVER_BWD_SM90_ARGS) {
   p->n_blocks = 0;
   p->tiles_per_split = tiles_per_split;
   p->splits = splits;
+  p->col_chunks = col_chunks;
   p->vec_q = sm90::copy_vec(q, q_sb, q_st, q_sh, d);
   p->vec_k = sm90::copy_vec(k, k_sb, k_st, k_sh, d);
   p->vec_v = sm90::copy_vec(v, v_sb, v_st, v_sh, dv_width);
@@ -635,14 +691,15 @@ static bool make_params(Params* p, PERCEIVER_BWD_SM90_ARGS) {
 
 #define PERCEIVER_BWD_SM90_PASS                                                         \
   q, k, v, dout, lse, delta, kv_mask, dq, dk, dv, part_q, part_k, part_v, batch, heads, \
-      tq, tk, kv_len, d, dv_width, splits, tiles_per_split, q_sb, q_st, q_sh, k_sb,     \
-      k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, scale, stream
+      tq, tk, kv_len, d, dv_width, splits, tiles_per_split, col_chunks, q_sb, q_st,     \
+      q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, scale, stream
 
-// K2: NM tiles of 64 columns hold max(d, dv) (the smallest of 1, 2, 4, 6, 8);
-// 32 keys a warpgroup up to 256 columns, 16 above.
+// K2: NM tiles of 64 columns hold max(d, dv) (the smallest of 1, 2, 4, 6, 8,
+// 11); 32 keys a warpgroup up to 256 columns, 16 up to 512, 8 above.
 extern "C" int flash_attention_bwd_dkv_sm90(PERCEIVER_BWD_SM90_ARGS) {
   Params p;
-  if (!make_params(&p, PERCEIVER_BWD_SM90_PASS) || (splits > 1 && (!part_k || !part_v)))
+  if (!make_params(&p, PERCEIVER_BWD_SM90_PASS) || (splits > 1 && (!part_k || !part_v)) ||
+      col_chunks != 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nm = ((d > dv_width ? d : dv_width) + 63) / 64;
@@ -650,17 +707,22 @@ extern "C" int flash_attention_bwd_dkv_sm90(PERCEIVER_BWD_SM90_ARGS) {
                     : nm <= 2 ? launch_dkv<32, 2>(p, s)
                     : nm <= 4 ? launch_dkv<32, 4>(p, s)
                     : nm <= 6 ? launch_dkv<16, 6>(p, s)
-                              : launch_dkv<16, 8>(p, s);
+                    : nm <= 8 ? launch_dkv<16, 8>(p, s)
+                              : launch_dkv<8, 11>(p, s);
   return (int)err;
 }
 
-// K3: NH, the d columns of a warpgroup, is the smallest instantiation that
-// holds half of d rounded up to 16.
+// K3: up to 512 columns of d and dv, NH, the d columns of a warpgroup, is
+// the smallest instantiation that holds half of d rounded up to 16; above,
+// the column chunks of launch_dq_wide.
 extern "C" int flash_attention_bwd_dq_sm90(PERCEIVER_BWD_SM90_ARGS) {
   Params p;
-  if (!make_params(&p, PERCEIVER_BWD_SM90_PASS) || (splits > 1 && !part_q))
+  const bool wide = d > 512 || dv_width > 512;
+  if (!make_params(&p, PERCEIVER_BWD_SM90_PASS) || (splits > 1 && !part_q) ||
+      col_chunks != (wide ? (d + WIDE_CW - 1) / WIDE_CW : 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) return (int)launch_dq_wide(p, s);
   const int half = p.D16 / 2;
   cudaError_t err = half <= 16    ? launch_dq<16>(p, s)
                     : half <= 32  ? launch_dq<32>(p, s)

@@ -1,5 +1,5 @@
 """Multimodal (video + audio + label) autoencoding Perceiver: the port's
-Kinetics serving path.
+Kinetics serving and training path.
 
 Counterpart of ``perceiverio_pytorch_tpu/models/multimodal.py``.  At the
 published width (16 frames of 224x224x3 in 4x4 patches, 30,720 audio
@@ -13,12 +13,20 @@ in a Python loop over ``PerceiverIO.decode`` with the same subsampling
 indices as the JAX package, and stitched back: image [B, T, C, H, W], audio
 [B, samples, 1], label averaged over the chunks.  On a GPU the encoder's
 cross-attend (one head of width 704 over 52,097 keys) takes the flash
-kernel (K1); the self-attends (784 tokens) and the decoder chunks (6,288
-queries against 784 latents) take the dense path.
+kernels (K1, and K2 and K3 in the backward); the self-attends (784 tokens)
+and the decoder chunks (6,288 queries against 784 latents, or 50,297 at the
+training example's 16 chunks) take the dense path.
+
+With ``remat`` (training at the published width), the encoder's
+self-attend stack and each chunk's decode are rematerialised in the backward
+(``torch.utils.checkpoint``), as the JAX model's ``nn.remat`` does; the
+encoder's cross-attend stays outside every checkpoint, so its flash kernel
+runs once a step.  The port rematerialises in full where the JAX package's
+full-scale example keeps the dot products (``Policy.remat_policy`` raises in
+the port).
 
 Left out, each raising: ``chunk_mesh`` (chunk-parallel decoding across
-cards), ``remat`` (of the encoder and of each chunk's decode: multimodal
-training) and the int8 policies (``Policy.quant`` raises in the port).
+cards) and the int8 policies (``Policy.quant`` raises in the port).
 
 ``device`` is "cuda" by default; with no GPU the model raises unless the
 caller asks for ``device="cpu"``.  Weights are drawn from a
@@ -31,6 +39,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
 from perceiverio_pytorch_tpu_torch.core.perceiver import PerceiverIO
@@ -72,17 +81,13 @@ class MultiModalPerceiver(nn.Module):
         generator=None,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat of the multimodal encoder and decode comes with multimodal"
-                " training (ROADMAP.md)"
-            )
         device = resolve_device(device)
         g = default_generator(generator)
         h, w = img_size
         n_audio_samples = num_frames * audio_samples_per_frame
         self.num_classes = num_classes
         self.audio_samples_per_patch = audio_samples_per_patch
+        self.remat = remat
         input_preprocessors = {
             "audio": AudioPreprocessor(
                 samples_per_batch=n_audio_samples,
@@ -157,6 +162,7 @@ class MultiModalPerceiver(nn.Module):
             output_query_padding_channels=2,
             input_mask_probs={"image": 0.0, "audio": 0.0, "label": 1.0},
             policy=policy,
+            remat=remat,
             generator=g,
         )
         self.to(device)
@@ -204,8 +210,15 @@ class MultiModalPerceiver(nn.Module):
                 "audio": i * audio_chunk + torch.arange(audio_chunk),
                 "label": None,
             }
-            outs.append(self.perceiver.decode(latents, state,
-                                              subsampled_output_points=subsampling))
+            if self.remat and torch.is_grad_enabled():
+                # Recompute the chunk's decode in the backward: without it
+                # every chunk's decoder activations stay alive together.
+                outs.append(checkpoint(self.perceiver.decode, latents, state,
+                                       subsampled_output_points=subsampling,
+                                       use_reentrant=False))
+            else:
+                outs.append(self.perceiver.decode(latents, state,
+                                                  subsampled_output_points=subsampling))
         image = torch.stack([o["image"] for o in outs], dim=1)  # [B, n_chunks, chunk, C]
         image = torch.movedim(image.reshape(batch_size, t, h, w, c), -1, -3)
         audio_out = torch.stack([o["audio"] for o in outs], dim=1).reshape(audio.shape)

@@ -33,12 +33,15 @@ design does about that.
   * ``launch_plan`` says what a K1 call on given tensors launches: route,
     key splits (``_split_plan``), value-column chunks (``_col_chunks``),
     blocks and CUDA launches; ``backward_plan`` the same for K2 (query
-    splits, ``_dkv_split_plan``) and K3 (key splits, ``_split_plan``).
+    splits, ``_dkv_split_plan``) and K3 (key splits, ``_split_plan``), with
+    their output-column chunks.
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
     512 its grid splits the value columns in two), K2 and K3 up to
-    ``MAX_HEAD_DIM_BWD`` = 512.  A CUDA call above a kernel's limit raises
-    ``ValueError`` before anything is launched.
+    ``MAX_HEAD_DIM_BWD`` = 704 (above 512, K3's grid splits the dQ columns
+    in chunks of 352, the fp32 K2's the dK and dV columns in two, and the
+    bf16 K2 takes 16 keys a block).  A CUDA call above a kernel's limit
+    raises ``ValueError`` before anything is launched.
 
 The kernels are built with ``nvcc`` at first use, from the sources in this
 package, into ``build/kernels/`` under the repository root (one ``nvcc``
@@ -65,11 +68,15 @@ _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
 # Head-width limits (Dqk and Dv) of the kernels' shared-memory and register
-# plans (see the .cu source notes): K1 forward, K2/K3 backward.  K1's grid
-# splits the value columns into chunks of at most COL_CHUNK.
+# plans (see the .cu source notes): K1 forward, K2/K3 backward.  Above
+# COL_CHUNK columns the grids split output columns into chunks: K1's value
+# columns in at most COL_CHUNK, K3's dQ columns in WIDE_DQ_CHUNK (the bf16
+# kernel's; the fp32 one splits them as evenly), and the fp32 K2's dK and dV
+# columns as K1 splits its values.
 MAX_HEAD_DIM_FWD = 704
-MAX_HEAD_DIM_BWD = 512
+MAX_HEAD_DIM_BWD = 704
 COL_CHUNK = 512
+WIDE_DQ_CHUNK = 352
 # K1's blocks: query rows per block and keys per tile (both kernels); the
 # tiles of every split plan (K2's query ranges, K1's and K3's key ranges).
 BLOCK_Q = 64
@@ -182,7 +189,7 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 fn.argtypes = (
                     # q, k, v, dout, lse, delta, kv_mask, dq, dk, dv
                     [ctypes.c_void_p] * 10
-                    + [ctypes.c_int] * 7  # B, H, Tq, Tk, kv_len, D, Dv
+                    + [ctypes.c_int] * 8  # B, H, Tq, Tk, kv_len, D, Dv, col_chunks
                     + _STRIDES * 4  # q, k, v, dout
                     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
                 )
@@ -194,8 +201,9 @@ def _load() -> Dict[str, ctypes.CDLL]:
                     # q, k, v, dout, lse, delta, kv_mask, dq, dk, dv,
                     # part_q, part_k, part_v
                     [ctypes.c_void_p] * 13
-                    # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split
-                    + [ctypes.c_int] * 9
+                    # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split,
+                    # col_chunks
+                    + [ctypes.c_int] * 10
                     + _STRIDES * 4  # q, k, v, dout
                     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
                 )
@@ -372,7 +380,8 @@ def _split_bounds(length: int, splits: int):
 
 
 def _col_chunks(dv: int) -> int:
-    """Value-column chunks of K1's grid: 1 up to COL_CHUNK columns, 2 up to
+    """Value-column chunks of K1's grid (and dK/dV-column chunks of the fp32
+    K2's, for the wider of d and dv): 1 up to COL_CHUNK columns, 2 up to
     MAX_HEAD_DIM_FWD (the multimodal encoder's 704 as 2 x 352)."""
     return max(1, -(-dv // COL_CHUNK))
 
@@ -438,8 +447,12 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     """What a backward (K2, then K3) on these tensors launches: ``route``
     ("sm90_wgmma" for bf16 on CUDA, "cuda_cores" for fp32) and, under
     "dkv" (K2) and "dq" (K3), ``splits`` and ``tiles_per_split`` (K2's
-    query ranges by ``_dkv_split_plan``, K3's key ranges by ``_split_plan``,
-    or ``num_splits`` ranges for both when given), ``blocks`` of the
+    query ranges by ``_dkv_split_plan``, K3's key ranges by ``_split_plan``
+    counted with K3's column chunks, or ``num_splits`` ranges for both when
+    given), ``col_chunks`` (the grid's split of the kernel's output columns:
+    above COL_CHUNK columns of d or dv, K3 splits dQ's into ceil(d /
+    WIDE_DQ_CHUNK) on both routes and the fp32 K2 dK's and dV's in two; the
+    bf16 K2 takes 16 keys a block there instead), ``blocks`` of the
     kernel's grid and ``cuda_launches`` (the kernel, and the sum of its
     partials when there is more than one split).  The fp32 kernels never
     split: one block walks all of its query (K2) or key (K3) tiles."""
@@ -447,25 +460,30 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     tk, dv = k.shape[1], v.shape[3]
     _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
     q_blocks = -(-tq // BLOCK_Q) * h * b
+    width = max(d, dv)
+    dq_chunks = -(-d // WIDE_DQ_CHUNK) if width > COL_CHUNK else 1
     if q.dtype != torch.bfloat16:  # the CUDA-core K2 takes 32 keys a block
+        dkv_chunks = _col_chunks(width)
         return dict(
             route="cuda_cores",
-            dkv=dict(splits=1, tiles_per_split=-(-tq // BLOCK_Q),
-                     blocks=-(-tk // 32) * h * b, cuda_launches=1),
-            dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), blocks=q_blocks,
-                    cuda_launches=1),
+            dkv=dict(splits=1, tiles_per_split=-(-tq // BLOCK_Q), col_chunks=dkv_chunks,
+                     blocks=-(-tk // 32) * h * b * dkv_chunks, cuda_launches=1),
+            dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=dq_chunks,
+                    blocks=q_blocks * dq_chunks, cuda_launches=1),
         )
     if num_splits is None:
-        plans = (_dkv_split_plan(b, tq, h, tk), _split_plan(b, tq, h, kv_len))
+        plans = (_dkv_split_plan(b, tq, h, tk), _split_plan(b, tq, h, kv_len, dq_chunks))
     else:
         plans = (_split_bounds(tq, num_splits), _split_bounds(kv_len, num_splits))
-    # K2's keys a block: 64 up to 256 columns, else 32 (the register wall).
-    k_blocks = -(-tk // (64 if max(d, dv) <= 256 else 32)) * h * b
+    # K2's keys a block: 64 up to 256 columns, 32 up to 512, else 16 (the
+    # register and shared-memory walls).
+    keys = 64 if width <= 256 else 32 if width <= COL_CHUNK else 16
+    k_blocks = -(-tk // keys) * h * b
     return dict(route="sm90_wgmma", **{
-        name: dict(splits=splits, tiles_per_split=per, blocks=blocks * splits,
-                   cuda_launches=1 + (splits > 1))
-        for name, (splits, per), blocks in (("dkv", plans[0], k_blocks),
-                                            ("dq", plans[1], q_blocks))
+        name: dict(splits=splits, tiles_per_split=per, col_chunks=chunks,
+                   blocks=blocks * chunks * splits, cuda_launches=1 + (splits > 1))
+        for name, (splits, per), chunks, blocks in (("dkv", plans[0], 1, k_blocks),
+                                                    ("dq", plans[1], dq_chunks, q_blocks))
     })
 
 
@@ -573,8 +591,7 @@ class BackwardKernels:
             do = do.contiguous()
         (kv_mask_c,) = _check_cuda(
             q, (("q", q), ("k", k), ("v", v), ("grad_out", do)), (("kv_mask", kv_mask),),
-            MAX_HEAD_DIM_BWD, "K2/K3 (flash attention backward; width 704 comes with"
-            " multimodal training, ROADMAP.md queue 2)")
+            MAX_HEAD_DIM_BWD, "K2/K3 (flash attention backward)")
         scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
         self.plan = backward_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
         self._sm90 = self.plan["route"] == "sm90_wgmma"
@@ -607,7 +624,8 @@ class BackwardKernels:
             return False
         libs = _load()
         name = f"flash_attention_bwd_{kernel}"
-        splits, per = self.plan[kernel]["splits"], self.plan[kernel]["tiles_per_split"]
+        plan = self.plan[kernel]
+        splits, per, chunks = plan["splits"], plan["tiles_per_split"], plan["col_chunks"]
         parts = [torch.empty((splits, *g.shape), dtype=torch.float32, device=self._device)
                  if splits > 1 else None for g in grads]
         with torch.cuda.device(self._device):
@@ -617,10 +635,10 @@ class BackwardKernels:
                                           else (None, *parts))
                 err = getattr(libs["bwd_sm90"], name + "_sm90")(
                     *self._inputs, _ptr(part_q), _ptr(part_k), _ptr(part_v), *self._dims,
-                    splits, per, *self._strides, self._scale, stream)
+                    splits, per, chunks, *self._strides, self._scale, stream)
             else:
                 err = getattr(libs["bwd"], name)(
-                    *self._inputs, *self._dims, *self._strides, self._scale, stream)
+                    *self._inputs, *self._dims, chunks, *self._strides, self._scale, stream)
             if err != 0:
                 raise RuntimeError(f"{name} ({self.plan['route']}) launch failed: CUDA error {err}")
             if splits > 1:

@@ -7,7 +7,8 @@ On a machine with an NVIDIA GPU, from the repository root:
   1. compiles each ``csrc/*.cu`` source with ``nvcc -Xptxas -v`` and prints
      every kernel instantiation's registers, spills, stack and shared memory
      (static; the dynamic size of the sm90 instantiations at the three flow
-     sites and of K1's at the multimodal encoder is printed beside);
+     sites and of K1's, K2's and K3's at the multimodal encoder, in both
+     dtypes, is printed beside);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -15,16 +16,20 @@ On a machine with an NVIDIA GPU, from the repository root:
      with masks, strided inputs, ragged widths, widths above 512 (split
      over two value-column chunks) and forced split counts;
   4. holds the backward (K2 then K3) against its plain version at the same
-     kind of shapes, the bf16 kernels also at forced split counts;
+     kind of shapes (widths above 512 too), the bf16 kernels also at forced
+     split counts;
   5. times K1 and K2, K3 apart, in both dtypes at the three flow sites at
-     batch 1, and K1 at the multimodal encoder (CUDA events), with each
-     call's plan;
+     batch 1 and at the multimodal encoder (CUDA events), with each call's
+     plan;
   6. the full-width bf16 multimodal model (PERFORMANCE, seeded random
      weights, one random clip, 128 chunks): a clip's wall time and its
      encode's (host clock ending in a synchronize), with the query-pad fold
      and without; then one clip under ``torch.profiler``: device time by
      kernel, its sum against the wall time (the device's busy share) and
-     the number of kernel launches.
+     the number of kernel launches;
+  7. one full-scale bf16 training step of ``examples/train_multimodal.py``
+     (16 chunks, remat): forward with the loss, backward and optimizer
+     update timed apart, then one step under ``torch.profiler`` as in 6.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -47,8 +52,8 @@ SMALL_CASES = ((2, 100, 777, 2, 41, 64, True, False), (3, 50, 333, 2, 41, 24, Tr
                (1, 256, 256, 16, 32, 32, False, False), (2, 90, 150, 3, 48, 48, False, True),
                (3, 65, 64, 3, 200, 100, True, False), (2, 90, 700, 3, 41, 41, True, True),
                (2, 70, 300, 1, 512, 300, True, False))
-# K1 only (K2/K3 stop at 512): the multimodal encoder's width, a ragged wide
-# one (unaligned when strided) and a 704-wide Q with Dv 512.
+# Widths above 512: the multimodal encoder's, a ragged wide one (unaligned
+# when strided) and a 704-wide Q with Dv 512.
 WIDE_CASES = ((2, 100, 777, 1, 704, 704, True, False), (2, 90, 300, 2, 690, 690, True, True),
               (2, 100, 257, 1, 704, 512, True, False))
 MULTIMODAL_SITE = (1, 784, 52097, 1, 704, 704)
@@ -93,6 +98,18 @@ def ptxas_report():
     print(f"[smem] flash_fwd_sm90_kernel<176, 32> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_fwd_kernel<6> at d = dv = 704: {smem} bytes dynamic")
+    # K2 and K3 there: bf16 K2 <8, 11> (16 keys a block, 11 tiles of 64
+    # columns), K3 <176, 16, chunked> (Q, dO, K and V at 704, dQ in chunks of
+    # 352); fp32 K2 and K3 <6, chunked> (dK/dV or dQ in chunks of 384 + 320).
+    smem = ((2 * 2 * 8 + 2 * 64) * 64 * 11 + 2 * 64 * 2 * 8) * 2
+    print(f"[smem] flash_bwd_dkv_sm90_kernel<8, 11> at d = dv = 704: {smem} bytes dynamic")
+    smem = ((64 + 16) * (704 + 704) + 64 * 16) * 2
+    print(f"[smem] flash_bwd_dq_sm90_kernel<176, 16, chunked> at d = dv = 704: {smem} bytes"
+          " dynamic")
+    smem = 4 * (2 * 704 * 32 + 32 * 68 + 2 * 64 * 36 + 64 * 64 + 2 * 64)
+    print(f"[smem] flash_bwd_dkv_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
+    smem = 4 * (704 * 64 + 32 * 68 + 32 * 64 + 64 * 68 + 64 * 64)
+    print(f"[smem] flash_bwd_dq_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
 
 
 def sass_report(paths):
@@ -153,7 +170,7 @@ def check_forward(gen):
 
 def check_backward(gen):
     for dtype in (torch.float32, torch.bfloat16):
-        for *shape, masked, strided in SMALL_CASES:
+        for *shape, masked, strided in SMALL_CASES + WIDE_CASES:
             (q, k, v), kw = _case(*shape, dtype, masked, strided, gen)
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
             args = (q, k, v, out, lse, torch.randn(out.shape, generator=gen,
@@ -213,13 +230,18 @@ def time_flow_sites(gen, reps=2):
         ms = _time(lambda: fa.flash_attention(q, k, v), reps)
         print(f"[time] {MULTIMODAL_SITE} {dtype}: K1 {ms:.3f} ms ({fa.launch_plan(q, k, v)})",
               flush=True)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        grad = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        kernels = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
+                                     softmax_scale=None, kv_logical_len=None)
+        ms2, ms3 = _time(kernels.dkv, reps), _time(kernels.dq, reps)
+        print(f"[time] {MULTIMODAL_SITE} {dtype}: K2 {ms2:.3f} ms, K3 {ms3:.3f} ms "
+              f"({kernels.plan})", flush=True)
 
 
 def profile_multimodal(n_chunks=128, top=12):
     import dataclasses
     import time
-
-    from torch.autograd import DeviceType
 
     from perceiverio_pytorch_tpu_torch import PERFORMANCE, MultiModalPerceiver
 
@@ -249,15 +271,63 @@ def profile_multimodal(n_chunks=128, top=12):
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
         seconds = wall(lambda: model(video, audio, n_chunks))
+    _print_device_profile("mm profile", prof, seconds, top)
+
+
+def _print_device_profile(label, prof, seconds, top):
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"[mm profile] fold_query_pad=True clip: wall {seconds * 1e3:.2f} ms, device"
-          f" {device_us / 1e3:.2f} ms ({device_us / 1e4 / seconds:.1f}% busy), {launches}"
-          f" kernel launches", flush=True)
+    print(f"[{label}] wall {seconds * 1e3:.2f} ms, device {device_us / 1e3:.2f} ms"
+          f" ({device_us / 1e4 / seconds:.1f}% busy), {launches} kernel launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:110]}",
               flush=True)
+
+
+def profile_multimodal_training(top=15):
+    """One full-scale bf16 training step of the port's train_multimodal
+    example (16 chunks, remat): its forward with the loss, its backward and
+    its optimizer update timed apart (host clock ending in a synchronize,
+    after a warm-up step), then one whole step under ``torch.profiler``."""
+    import time
+
+    from perceiverio_pytorch_tpu_torch.examples import train_multimodal
+
+    trainer, state, batches = train_multimodal.setup(8, full_scale=True, metrics_path=None,
+                                                     log_every=0)
+    model, opt = state.model, state.optimizer
+    batch = next(iter(batches()))
+
+    def step():
+        parts = []
+        for phase in ("forward", "backward", "update"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if phase == "forward":
+                opt.zero_grad(set_to_none=True)
+                loss = trainer.loss_fn(model, *batch)
+            elif phase == "backward":
+                loss.backward()
+            else:
+                trainer.tx.update(opt, state.step)
+                state.step += 1
+            torch.cuda.synchronize()
+            parts.append(time.perf_counter() - t0)
+        return parts
+
+    model.train()
+    step()  # warm-up
+    for _ in range(2):
+        forward, backward, update = step()
+        print(f"[mm train] bf16 step: forward+loss {forward * 1e3:.2f} ms, backward"
+              f" {backward * 1e3:.2f} ms, update {update * 1e3:.2f} ms", flush=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        seconds = sum(step())
+    _print_device_profile("mm train profile", prof, seconds, top)
 
 
 def main():
@@ -273,6 +343,7 @@ def main():
     check_backward(gen)
     time_flow_sites(gen)
     profile_multimodal()
+    profile_multimodal_training()
 
 
 if __name__ == "__main__":

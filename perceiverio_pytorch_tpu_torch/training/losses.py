@@ -1,15 +1,17 @@
 """Training objectives of the ported slices.
 
-Counterpart of ``perceiverio_pytorch_tpu/training/losses.py``; the flow
-slice needs only ``flow_endpoint_error``.  The language, classification
-and multimodal losses come with their slices.
+Counterpart of ``perceiverio_pytorch_tpu/training/losses.py``: the flow
+slice's ``flow_endpoint_error`` and the multimodal slice's
+``multimodal_autoencode_loss``.  The language and classification losses
+come with their slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def flow_endpoint_error(pred_flow: torch.Tensor, gt_flow: torch.Tensor,
@@ -24,3 +26,30 @@ def flow_endpoint_error(pred_flow: torch.Tensor, gt_flow: torch.Tensor,
         return epe.mean()
     valid = valid.to(epe.dtype)
     return (epe * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def multimodal_autoencode_loss(outputs: Mapping[str, torch.Tensor],
+                               targets: Mapping[str, torch.Tensor],
+                               weights: Optional[Mapping[str, float]] = None) -> torch.Tensor:
+    """Weighted sum of the per-modality losses of the multimodal autoencoder.
+
+    The mean squared error of "image" and of "audio", and for "label" the
+    softmax cross-entropy (in fp32) of the logits [B, num_classes] against
+    integer targets [B], summed over the labelled examples (target >= 0; -1
+    means unlabelled) and divided by their count, at least one.  ``weights``
+    multiplies each term; a modality it does not name weighs 1.0.  Each term
+    is taken only for a modality that ``outputs`` holds.
+    """
+    weights = dict(weights or {})
+    total = 0.0
+    for modality in ("image", "audio"):
+        if modality in outputs:
+            err = (outputs[modality] - targets[modality]) ** 2
+            total = total + weights.get(modality, 1.0) * err.mean()
+    if "label" in outputs:
+        labels = targets["label"].long()
+        valid = labels >= 0
+        ce = F.cross_entropy(outputs["label"].float(), labels.clamp(min=0), reduction="none")
+        label_loss = torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)
+        total = total + weights.get("label", 1.0) * label_loss
+    return total

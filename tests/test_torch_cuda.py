@@ -7,8 +7,8 @@ it without the suite's conftest (which imports JAX):
 
 The kernels (K1 forward and K2/K3 backward, each on both routes: the bf16
 wgmma kernels with their split grids, merge and sum, and the fp32 CUDA-core
-kernels; K1 also at head widths up to 704) are held against their plain
-PyTorch versions, which the CPU tests hold against the JAX package.
+kernels; all three also at head widths up to 704) are held against their
+plain PyTorch versions, which the CPU tests hold against the JAX package.
 """
 
 import dataclasses
@@ -21,7 +21,10 @@ from perceiverio_pytorch_tpu_torch import config
 from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
 from perceiverio_pytorch_tpu_torch.models.multimodal import MultiModalPerceiver
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
-from perceiverio_pytorch_tpu_torch.training import flow_endpoint_error
+from perceiverio_pytorch_tpu_torch.training import (
+    flow_endpoint_error,
+    multimodal_autoencode_loss,
+)
 
 torch.set_num_threads(1)
 SMALL = dict(img_size=(16, 24), num_latents=8, num_latent_channels=32,
@@ -229,14 +232,14 @@ def test_wide_kernel_takes_strided_inputs(cuda, dtype, tol, d):
 
 @pytest.mark.cuda
 def test_backward_refuses_wide_heads(cuda):
-    """K1 runs at 704, but K2/K3 stop at 512: the backward of a 704-wide
-    call raises before it launches anything."""
-    q, k, v, _, _ = _inputs(1, 64, 100, 1, 704, 704, 14, cuda)
-    q, k, v = (x.requires_grad_() for x in (q, k, v))
-    out = fa.flash_attention(q, k, v)
+    """K2/K3 take head widths up to 704: a 705-wide backward raises before
+    it launches anything."""
+    q = torch.randn(1, 64, 1, 705, device=cuda)
+    out = torch.zeros(1, 64, 705, device=cuda)
+    lse = torch.zeros(1, 1, 64, device=cuda)
     before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
-    with pytest.raises(ValueError, match="1 to 512"):
-        out.sum().backward()
+    with pytest.raises(ValueError, match="1 to 704"):
+        fa.flash_attention_backward(q, q, q, out, lse, out)
     assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
 
 
@@ -382,6 +385,83 @@ def test_bf16_backward_takes_the_wgmma_route(cuda):
     _check_backward(got, want, kw, 2e-2)
 
 
+# K2/K3 above 512: the multimodal encoder's 704 (the bf16 K2 with 16 keys a
+# block, K3 over two dQ-column chunks of 352, the fp32 K2 over two chunks of
+# dK and dV columns), a ragged 600, a 704-wide Q with Dv 512, and narrower
+# Q with Dv 704 (K3 in one chunk of 352, and in two at d = 512).
+WIDE_BACKWARD_CASES = [(2, 70, 300, 1, 704, 704), (2, 130, 129, 1, 704, 704),
+                       (2, 65, 200, 2, 600, 600), (2, 100, 257, 1, 704, 512),
+                       (2, 64, 100, 1, 64, 704), (1, 200, 300, 1, 512, 704)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", WIDE_BACKWARD_CASES)
+def test_wide_backward_kernels_match_reference(cuda, dtype, tol, b, tq, tk, h, d, dv):
+    """K2 and K3 at head widths up to 704 against the plain backward, with
+    masks, a ragged Tk, kv_logical_len and an all-masked batch entry: exact
+    zeros on wiped rows, tail keys and the masked entry."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, dtype, cuda)
+    plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
+    assert plan["dq"]["col_chunks"] == (-(-d // 352) if max(d, dv) > 512 else 1)
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    got = fa.flash_attention_backward(*args, **kw)
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    for x, x_like in zip(got, args[:3]):
+        assert x.dtype == dtype and x.shape == x_like.shape
+    _check_backward(got, want, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_wide_backward_unmasked_matches_reference(cuda, dtype, tol):
+    """d = dv = 704, no mask, K3's keys split at batch 1 in bf16."""
+    q, k, v, _, _ = _inputs(1, 200, 3000, 1, 704, 704, 15, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(16)).to(cuda, dtype)
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad)
+    want = fa.flash_attention_backward_reference(
+        *(x.float() for x in (q, k, v, out, lse, grad)))
+    for x, y in zip(got, want):
+        _check(x, y, tol)
+
+
+@pytest.mark.cuda
+def test_wide_bf16_backward_forced_splits_agree(cuda):
+    """bf16 K2 and K3 at d = dv = 704 at forced split counts 1, 2, 3 and the
+    most, each against the plain backward: the sum takes both dQ-column
+    chunks' partials."""
+    args, kw = _backward_case(2, 300, 700, 1, 704, 704, torch.bfloat16, cuda)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    for splits in (1, 2, 3, 64):
+        plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"],
+                                num_splits=splits)
+        assert plan["dq"]["col_chunks"] == 2 and plan["dkv"]["col_chunks"] == 1
+        before = fa.LAUNCHES_BWD_SUM
+        got = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES_BWD_SUM - before == sum(
+            plan[x]["cuda_launches"] - 1 for x in ("dkv", "dq"))
+        _check_backward(got, want, kw, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_is_deterministic(cuda, dtype):
+    """At d = dv = 704, two calls are equal bit for bit, at the planned
+    splits (bf16: K3's keys split, 13 query blocks x 2 chunks) and at one."""
+    args, kw = _backward_case(1, 784, 5000, 1, 704, 704, dtype, cuda)
+    plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
+    assert plan["dq"]["splits"] > 1 if dtype == torch.bfloat16 else plan["dq"]["splits"] == 1
+    for splits in (None, 1):
+        first = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+        second = fa._flash_attention_backward_cuda(*args, num_splits=splits, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
 @pytest.mark.cuda
 def test_autograd_runs_the_three_kernels(cuda):
     args, kw = _backward_case(2, 64, 200, 2, 32, 32, torch.float32, cuda)
@@ -481,3 +561,35 @@ def test_small_multimodal_model_on_the_card(cuda, policy, tol):
     for key in ("image", "audio", "label"):
         assert torch.isfinite(got[key]).all()
         _check(got[key], want[key], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_small_multimodal_gradients_on_the_card(cuda, remat):
+    """The multimodal loss's gradients with every site forced through
+    K1/K2/K3 (the encoder's backward at width 704) against the dense path's
+    autograd on the same card and weights, with and without remat."""
+    models = {}
+    for impl in ("flash", "dense"):
+        models[impl] = MultiModalPerceiver(
+            **MM_SMALL, remat=remat, device=cuda, generator=torch.Generator().manual_seed(3),
+            policy=dataclasses.replace(config.PARITY, attn_impl=impl))
+    rng = np.random.default_rng(17)
+    images = torch.from_numpy(rng.random((1, 2, 3, 16, 16), dtype=np.float32)).to(cuda)
+    audio = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 1)).astype(np.float32)).to(cuda)
+    targets = {"image": images, "audio": audio, "label": torch.tensor([5], device=cuda)}
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    grads = {}
+    for impl, model in models.items():
+        out = model(images, audio, n_chunks=4)
+        multimodal_autoencode_loss(out, targets, weights={"label": 0.01}).backward()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    # 6 sites (encoder, self-attend, 4 decoder chunks); remat recomputes the
+    # self-attend and the 4 chunks' forward in the backward.
+    assert (fa.LAUNCHES - before[0], fa.LAUNCHES_BWD_DKV - before[1],
+            fa.LAUNCHES_BWD_DQ - before[2]) == (11 if remat else 6, 6, 6)
+    assert set(grads["flash"]) == set(grads["dense"])
+    for name, want in grads["dense"].items():
+        if name.endswith("proj_k.bias"):  # exact gradient 0: rounding noise
+            continue
+        _check(grads["flash"][name], want, 1e-4)

@@ -263,11 +263,11 @@ def test_wide_launch_plan(dtype, b, tq, dv, want):
 
 
 def test_kernel_width_limits_raise_before_a_launch():
-    """K1 takes head widths up to 704, K2/K3 up to 512: a call above a
-    kernel's own limit raises ValueError, naming it, before any launch (the
-    check comes first, so tensors on the meta device show it here)."""
+    """K1 and K2/K3 take head widths up to 704: a call above a kernel's own
+    limit raises ValueError, naming it, before any launch (the check comes
+    first, so tensors on the meta device show it here)."""
     before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
-    assert (fa.MAX_HEAD_DIM_FWD, fa.MAX_HEAD_DIM_BWD) == (704, 512)
+    assert (fa.MAX_HEAD_DIM_FWD, fa.MAX_HEAD_DIM_BWD) == (704, 704)
     wide = torch.empty(1, 8, 1, 705, device="meta")
     with pytest.raises(ValueError, match="K1.* 1 to 704"):
         fa._flash_attention_cuda(wide, wide, wide, q_mask=None, kv_mask=None,
@@ -276,8 +276,11 @@ def test_kernel_width_limits_raise_before_a_launch():
     with pytest.raises(ValueError, match="run on CUDA"):  # 704 passes the width check
         fa._flash_attention_cuda(x, x, x, q_mask=None, kv_mask=None, softmax_scale=None,
                                  kv_logical_len=None, return_lse=False)
-    out, lse = torch.empty(1, 8, 704, device="meta"), torch.empty(1, 1, 8, device="meta")
-    with pytest.raises(ValueError, match="K2/K3.*ROADMAP.* 1 to 512"):
+    out, lse = torch.empty(1, 8, 705, device="meta"), torch.empty(1, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="K2/K3.* 1 to 704"):
+        fa._flash_attention_backward_cuda(wide, wide, wide, out, lse, out)
+    out = torch.empty(1, 8, 704, device="meta")
+    with pytest.raises(ValueError, match="run on CUDA"):  # 704 passes the width check
         fa._flash_attention_backward_cuda(x, x, x, out, lse, out)
     assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
 
@@ -302,13 +305,17 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
     assert again["bwd_sm90"] == after["bwd_sm90"]
 
 
-# (B, Tq, Tk, H, D, Dv, kv_logical_len): the flow widths (32, 322, 512) and
-# a ragged one (41 with Dv 24), at short lengths.
+# (B, Tq, Tk, H, D, Dv, kv_logical_len): the flow widths (32, 322, 512), a
+# ragged one (41 with Dv 24) and the multimodal encoder's 704 (masked with
+# kv_logical_len, and a 704-wide Q with Dv 512), at short lengths.
 GRAD_CASES = [
     (2, 64, 300, 2, 32, 32, None),
     (3, 50, 333, 2, 41, 24, 300),
     (2, 40, 150, 1, 322, 322, 140),
     (2, 70, 64, 1, 512, 512, None),
+    (2, 70, 300, 1, 704, 704, None),
+    (2, 50, 333, 1, 704, 704, 300),
+    (2, 40, 129, 1, 704, 512, 120),
 ]
 
 
@@ -481,8 +488,8 @@ def test_backward_plan_routes_by_dtype():
     plan = fa.backward_plan(q, k, k)
     assert plan == dict(
         route="sm90_wgmma",
-        dkv=dict(splits=8, tiles_per_split=357, blocks=512, cuda_launches=2),
-        dq=dict(splits=1, tiles_per_split=32, blocks=2852, cuda_launches=1))
+        dkv=dict(splits=8, tiles_per_split=357, col_chunks=1, blocks=512, cuda_launches=2),
+        dq=dict(splits=1, tiles_per_split=32, col_chunks=1, blocks=2852, cuda_launches=1))
     forced = fa.backward_plan(q, k, k, num_splits=3)
     assert (forced["dkv"]["splits"], forced["dq"]["splits"]) == (3, 3)
     assert forced["dq"]["cuda_launches"] == 2
@@ -490,3 +497,61 @@ def test_backward_plan_routes_by_dtype():
     assert plan["route"] == "cuda_cores"
     assert all(plan[x]["splits"] == 1 and plan[x]["cuda_launches"] == 1 for x in ("dkv", "dq"))
     assert (plan["dkv"]["blocks"], plan["dq"]["blocks"]) == (64, 2852)
+
+
+# The multimodal encoder, (B, Tq, Tk, H, D, Dv) = (1, 784, 52097, 1, 704, 704).
+MM_SITE = (1, 784, 52097, 1, 704, 704)
+
+
+@pytest.mark.parametrize(
+    "dtype,dkv,dq",
+    [(torch.bfloat16,
+      dict(splits=1, tiles_per_split=13, col_chunks=1, blocks=3257, cuda_launches=1),
+      dict(splits=10, tiles_per_split=82, col_chunks=2, blocks=260, cuda_launches=2)),
+     (torch.float32,
+      dict(splits=1, tiles_per_split=13, col_chunks=2, blocks=3258, cuda_launches=1),
+      dict(splits=1, tiles_per_split=815, col_chunks=2, blocks=26, cuda_launches=1))],
+)
+def test_backward_plan_at_the_multimodal_encoder(dtype, dkv, dq):
+    """K2 and K3 at d = dv = 704: the bf16 K2 takes 16 keys a block (3,257
+    blocks, no split); K3 splits the dQ columns in two chunks of 352 and,
+    in bf16, the keys as K1 does at this site (13 query blocks x 2 chunks:
+    10 splits, 260 blocks, and the sum); the fp32 K2 splits the dK and dV
+    columns in two, and neither fp32 kernel splits its walk."""
+    b, tq, tk, h, d, dv = MM_SITE
+    q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
+    k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
+    v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
+    plan = fa.backward_plan(q, k, v)
+    assert plan == dict(route="sm90_wgmma" if dtype == torch.bfloat16 else "cuda_cores",
+                        dkv=dkv, dq=dq)
+    if dtype == torch.bfloat16:
+        assert fa._split_plan(b, tq, h, tk, 2) == (10, 82) == fa._split_plan(
+            b, tq, h, tk, fa._col_chunks(dv))
+        assert fa.launch_plan(q, k, v)["splits"] == plan["dq"]["splits"]
+    forced = fa.backward_plan(q, k, v, num_splits=1)
+    assert forced["dq"]["cuda_launches"] == 1 and forced["dq"]["col_chunks"] == 2
+
+
+@pytest.mark.parametrize(
+    "d,dv,dq_chunks,fp32_dkv_chunks,dkv_keys",
+    [(512, 512, 1, 1, 32), (704, 704, 2, 2, 16), (704, 512, 2, 2, 16),
+     (600, 600, 2, 2, 16), (512, 704, 2, 2, 16), (64, 704, 1, 2, 16), (256, 256, 1, 1, 64)],
+)
+def test_backward_column_chunks(d, dv, dq_chunks, fp32_dkv_chunks, dkv_keys):
+    """Up to 512 columns nothing is chunked; above, K3 takes ceil(d / 352)
+    dQ-column chunks on both routes, the fp32 K2 two chunks of dK and dV
+    columns, and the bf16 K2 16 keys a block."""
+    shape = dict(b=2, tq=100, tk=1000, h=1)
+    plans = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.empty(shape["b"], shape["tq"], 1, d, dtype=dtype, device="meta")
+        k = torch.empty(shape["b"], shape["tk"], 1, d, dtype=dtype, device="meta")
+        v = torch.empty(shape["b"], shape["tk"], 1, dv, dtype=dtype, device="meta")
+        plans[dtype] = fa.backward_plan(q, k, v, num_splits=1)
+    bf16, fp32 = plans[torch.bfloat16], plans[torch.float32]
+    assert bf16["dq"]["col_chunks"] == fp32["dq"]["col_chunks"] == dq_chunks
+    assert bf16["dkv"]["col_chunks"] == 1
+    assert fp32["dkv"]["col_chunks"] == fp32_dkv_chunks
+    assert bf16["dkv"]["blocks"] == -(-shape["tk"] // dkv_keys) * shape["b"]
+    assert bf16["dq"]["blocks"] == fp32["dq"]["blocks"] == 2 * 2 * dq_chunks

@@ -497,15 +497,16 @@ def test_multimodal_state_dict_from_flax_matches_export_state_dict(mm_variables)
 
 def test_multimodal_refusals():
     """n_chunks must divide both query counts (JAX's error); the parts left
-    out raise: chunk_mesh, remat, and a CUDA device where there is none."""
+    out raise: chunk_mesh, a remat policy (the port rematerialises in full)
+    and a CUDA device where there is none."""
     model = port_mm.MultiModalPerceiver(**SMALL, device="cpu")
     images, audio = (torch.from_numpy(x) for x in _clip(5))
     with pytest.raises(ValueError, match="must divide both the image query"):
         model(images, audio, n_chunks=3)
     with pytest.raises(NotImplementedError, match="chunk_mesh"):
         model(images, audio, n_chunks=4, chunk_mesh=object())
-    with pytest.raises(NotImplementedError, match="remat"):
-        port_mm.MultiModalPerceiver(**SMALL, remat=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        port_config.Policy(remat_policy="dots_saveable")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_mm.MultiModalPerceiver(**SMALL)
