@@ -16,10 +16,13 @@ Phases (each raises on failure; nothing is caught):
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
      serving forward's shapes (6 tiles, bf16), at the multimodal encoder
      (784 latents x 52,097 keys, one head of d = dv = 704: two value-column
-     chunks) in fp32 and bf16, and at small masked cases at widths 41 and
-     704 (kv_mask, q_mask, ragged Tk, kv_logical_len, an all-masked row,
-     lse); records each call's route, key splits, column chunks, blocks and
-     CUDA launches; times kernel, plain version,
+     chunks) in fp32 and bf16, at small masked cases at widths 41 and 704
+     (kv_mask, q_mask, ragged Tk, kv_logical_len, an all-masked row, lse),
+     and at the classification encoders at the served batch of 16 (512
+     latents x 50,176 keys, one head of d = dv = 261 for the pixel variant
+     and 512 for the 1x1-conv one) in fp32 and bf16, unmasked and masked;
+     records each call's route, key splits, column chunks, blocks and CUDA
+     launches; times kernel, plain version,
      F.scaled_dot_product_attention (a yardstick only; null where it does
      not run) and the bound; then, at the bf16 flow encoder at batch 1 and
      at the bf16 multimodal encoder, holds the planned split count against a
@@ -73,7 +76,25 @@ Phases (each raises on failure; nothing is caught):
      clips) through its Trainer: one warm-up step, then timed steps with
      finite losses, parameters that move once the warmup's lr-0 step is
      past, and the planned launches per step;
- 13. prints the kernels line and, last, {"ok": true, "device": {...}}.
+ 13. classification model: ClassificationPerceiver at full width (224x224,
+     512x1024 latents, 8 blocks of 6 self-attends, 1000 classes), one run
+     for each PrepType, seeded random weights (random BatchNorm statistics),
+     fp32 in eval mode, two synthetic images, once through K1 (the pixel
+     and 1x1-conv encoders: one launch and, at batch 2, one merge; the
+     convnet: none) and once with attention on the plain version; the
+     logits must agree;
+ 14. classification serve: each PrepType under PERFORMANCE (bf16) at batch
+     16, one warm-up request then three timed ones: images/s, request
+     latency, peak memory, K1 launches per request, and the last request's
+     logits and top-1 against the fp32 model's;
+ 15. language serve: LanguagePerceiver at full width (2,048 bytes, 768
+     channels, 256x1280 latents, 26 self-attends) at batch 32 on seeded
+     text, encoded with the byte tokenizer, with a masked span and right
+     padding (input masks): fp32 and bf16 (PERFORMANCE), the logits at a
+     set of positions by ``predict_positions`` against those rows of the
+     full decode, then three timed bf16 requests after a warm-up: sequences/s,
+     latency, peak memory; every site is dense, so no K1 launch;
+ 16. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -146,6 +167,27 @@ MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1}
 MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0)
 MM_TRAIN_STEPS = 3  # timed, after one warm-up step
 MM_LABEL = 123  # the synthetic clip's class in the gradient phase
+# The classification model's K1 sites: the pixel and 1x1-conv encoders'
+# cross-attends at the served batch (512 latents; 50,176 tokens of 3 + 258
+# Fourier channels, or of 256 conv + 256 projected position channels).
+CLS_SITES = {"cls_pixel": (16, 512, 50176, 1, 261, 261),
+             "cls_1x1conv": (16, 512, 50176, 1, 512, 512)}
+CLS_SITE_OF = {"FOURIER_POS_PIXEL": "cls_pixel", "LEARNED_POS_1X1CONV": "cls_1x1conv",
+               "FOURIER_POS_CONVNET": None}
+CLS_MODEL_BATCH = 2
+CLS_SERVE_BATCH = 16  # the JAX bench's ImageNet batch
+CLS_REQUESTS = 3  # timed, after one warm-up request
+# The bf16 logits against the fp32 ones on the same images, relative to
+# their max |x|: bf16 GEMMs through 49 attention blocks.
+CLS_BF16_TOL = 1e-1
+LM_BATCH = 32  # the JAX bench's MLM batch
+LM_REQUESTS = 3
+LM_SPAN = (200, 264)  # the masked bytes, predicted by predict_positions
+# Rows at predict_positions against the full decode, relative to its max
+# |logit|: the same attention rows, but cuBLAS may pick another GEMM
+# algorithm for fewer rows (fp32), and bf16 rounds differently there.
+LM_ROWS_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+LM_BF16_TOL = 1e-1  # bf16 logits against fp32, relative to max |logit|
 
 
 def smi_line() -> str:
@@ -336,6 +378,9 @@ def phase_kernels(reps: int = 3):
         records.append(check_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen))
         records.append(check_case(
             "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen))
+        for name, shape in CLS_SITES.items():
+            records.append(check_case(name, shape, dtype_name, False, reps, gen))
+            records.append(check_case(f"{name}_masked", shape, dtype_name, True, reps, gen))
     for name, shape in FLOW_SITES.items():  # the serving forward's shapes
         records.append(check_case(
             name, (SERVE_TILES,) + shape[1:], "bf16", False, reps, gen))
@@ -1090,6 +1135,255 @@ def phase_mm_train():
     return rec
 
 
+def _cls_images(gen, batch, size=224):
+    """A batch of seeded smooth images [B, 3, H, W] in [-1, 1] on the card."""
+    import torch
+
+    return torch.stack([_smooth_frame(gen, size, size) for _ in range(batch)]).cuda()
+
+
+def _cls_model(prep, policy):
+    """The full-width classifier of one PrepType, seeded random weights; the
+    convnet's BatchNorm gets random running statistics (a fresh module's
+    mean 0 and variance 1 would make it nearly the identity)."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import ClassificationPerceiver, PrepType
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = ClassificationPerceiver(prep_type=PrepType[prep], policy=policy, device="cuda",
+                                    generator=gen)
+    for module in model.modules():
+        if isinstance(module, torch.nn.BatchNorm2d):
+            with torch.no_grad():
+                module.running_mean.copy_(torch.randn(module.num_features, generator=gen) * 0.1)
+                module.running_var.copy_(torch.rand(module.num_features, generator=gen) + 0.5)
+    return model.eval()
+
+
+def _expected_k1(prep, batch, dtype):
+    """K1 launches and merges of one forward of the classifier: one K1 call
+    at the pixel and 1x1-conv encoders (with a merge when its plan splits
+    the keys), none in the convnet variant."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    site = CLS_SITE_OF[prep]
+    if site is None:
+        return 0, 0
+    _, tq, tk, h, d, dv = CLS_SITES[site]
+    q = torch.empty(batch, tq, h, d, device="meta", dtype=dtype)
+    k = torch.empty(batch, tk, h, d, device="meta", dtype=dtype)
+    v = torch.empty(batch, tk, h, dv, device="meta", dtype=dtype)
+    return 1, fa.launch_plan(q, k, v)["cuda_launches"] - 1
+
+
+def phase_cls_model(prep):
+    """The full-width fp32 classifier (eval mode), two images, once through
+    K1 and once with attention on the plain version; the logits must agree
+    and K1 must run as planned."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+    from perceiverio_pytorch_tpu_torch.ops import attention as attention_ops
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    model = _cls_model(prep, dataclasses.replace(PARITY, attn_impl="auto"))
+    img = _cls_images(torch.Generator().manual_seed(SEED + 8), CLS_MODEL_BATCH)
+    with torch.inference_mode():
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        logits_kernel = model(img)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        with mock.patch.object(attention_ops, "flash_attention", fa.flash_attention_reference):
+            t0 = time.perf_counter()
+            logits_plain = model(img)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+    want = _expected_k1(prep, CLS_MODEL_BATCH, torch.float32)
+    if (launches["K1"], launches["merge"]) != want:
+        raise AssertionError(f"{prep}: K1 and merge launches {launches}, expected {want}")
+    if tuple(logits_kernel.shape) != (CLS_MODEL_BATCH, 1000) or not (
+            torch.isfinite(logits_kernel).all() and torch.isfinite(logits_plain).all()):
+        raise AssertionError(f"{prep}: logits of shape {tuple(logits_kernel.shape)} or not finite")
+    peak = logits_plain.abs().max().item()
+    diff = (logits_kernel - logits_plain).abs().max().item()
+    if not (peak > 0 and diff <= MODEL_TOL * peak):
+        raise AssertionError(f"{prep}: kernel vs plain logits {diff} > {MODEL_TOL} * {peak}")
+    rec = dict(prep=prep, batch=CLS_MODEL_BATCH, launches=launches["K1"],
+               merge_launches=launches["merge"], max_abs_diff=diff, max_abs_logit=peak,
+               tolerance=MODEL_TOL, first_kernel_forward_s=kernel_s, plain_forward_s=plain_s)
+    print(f"[cls model] fp32 full width: {json.dumps(rec)}", flush=True)
+    return model
+
+
+def phase_cls_serve(prep, fp32_model):
+    """Bf16 serving (PERFORMANCE) of one PrepType at batch 16: one warm-up
+    request, then three timed ones on fresh seeded images; the last
+    request's logits and top-1 against the fp32 model's."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+
+    model = _cls_model(prep, PERFORMANCE)
+    model.load_state_dict(fp32_model.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 9)
+    requests = [_cls_images(gen, CLS_SERVE_BATCH) for _ in range(CLS_REQUESTS + 1)]
+    with torch.inference_mode():
+        model(requests[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        latencies = []
+        t_all = time.perf_counter()
+        for img in requests[1:]:
+            t0 = time.perf_counter()
+            logits = model(img)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            if tuple(logits.shape) != (CLS_SERVE_BATCH, 1000) or not torch.isfinite(logits).all():
+                raise AssertionError(f"{prep}: bf16 logits of shape {tuple(logits.shape)}")
+        total = time.perf_counter() - t_all
+        launches = _launch_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        ref = fp32_model(requests[-1])
+    k1, merges = _expected_k1(prep, CLS_SERVE_BATCH, torch.bfloat16)
+    if (launches["K1"], launches["merge"]) != (k1 * CLS_REQUESTS, merges * CLS_REQUESTS):
+        raise AssertionError(f"{prep}: launches {launches}, expected {k1} K1 and {merges}"
+                             " merges a request")
+    rel = (logits.float() - ref).abs().max().item() / ref.abs().max().item()
+    if not rel <= CLS_BF16_TOL:
+        raise AssertionError(f"{prep}: bf16 vs fp32 logits {rel} > {CLS_BF16_TOL}")
+    top1 = (logits.float().argmax(-1) == ref.argmax(-1)).float().mean().item()
+    rec = dict(prep=prep, requests=CLS_REQUESTS, batch=CLS_SERVE_BATCH, latency_s=latencies,
+               images_per_s=CLS_REQUESTS * CLS_SERVE_BATCH / total,
+               peak_mem_gb=peak_mem / 1e9, launches=launches["K1"],
+               merge_launches=launches["merge"], k1_launches_per_request=k1,
+               bf16_vs_fp32_rel=rel, bf16_tolerance=CLS_BF16_TOL, top1_agreement=top1)
+    print(f"[cls serve] bf16 ClassificationPerceiver 224x224: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_cls():
+    """Phases 13 and 14 for each PrepType in turn (one fp32 and one bf16
+    model on the card at a time)."""
+    import torch
+
+    serves = {}
+    for prep in CLS_SITE_OF:
+        fp32_model = phase_cls_model(prep)
+        serves[prep] = phase_cls_serve(prep, fp32_model)
+        del fp32_model
+        torch.cuda.empty_cache()
+    return serves
+
+
+def _lm_batch(seed):
+    """LM_BATCH sequences of seeded text (words of random lowercase letters,
+    1,500 to 2,048 bytes), byte-tokenized, the span LM_SPAN replaced by the
+    mask token, right-padded to 2,048: ids [B, 2048] and the input mask."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.utils import bytes_tokenizer as tok
+
+    rng = random.Random(seed)
+    rows, masks = [], []
+    for _ in range(LM_BATCH):
+        words, length = [], rng.randint(1500, 2048)
+        while sum(len(w) + 1 for w in words) < length:
+            words.append("".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                                 for _ in range(rng.randint(1, 10))))
+        ids = tok.encode(" ".join(words))[:length]
+        ids[LM_SPAN[0]:LM_SPAN[1]] = tok.BytesTokenizer.mask_token
+        rows.append(np.pad(ids, (0, 2048 - len(ids))))
+        masks.append(np.arange(2048) < len(ids))
+    ids, mask = tok.pad_sequence(2048, np.stack(rows), np.stack(masks))
+    return torch.from_numpy(ids).long().cuda(), torch.from_numpy(mask).cuda()
+
+
+def phase_lm():
+    """The full-width LanguagePerceiver: fp32 and bf16 (PERFORMANCE) on the
+    same weights and tokens, the masked span's rows by predict_positions
+    against the full decode, then three timed bf16 requests."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, LanguagePerceiver
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+
+    models = {label: LanguagePerceiver(policy=policy, device="cuda",
+                                       generator=torch.Generator().manual_seed(SEED)).eval()
+              for label, policy in (("fp32", dataclasses.replace(PARITY, attn_impl="auto")),
+                                    ("bf16", PERFORMANCE))}
+    ids, mask = _lm_batch(SEED + 10)
+    positions = torch.arange(*LM_SPAN, device="cuda")
+    full, rows = {}, {}
+    with torch.inference_mode():
+        _reset_launch_counts()
+        for label, model in models.items():
+            full[label] = model(ids, mask)
+            rows[label] = model(ids, mask, predict_positions=positions)
+        torch.cuda.synchronize()
+        checks = _launch_counts()
+        if any(checks.values()):
+            raise AssertionError(f"the language model launched a kernel: {checks}")
+        rows_rec = {}
+        for label in models:
+            out = full[label]
+            if (tuple(out.shape) != (LM_BATCH, 2048, 262) or out.dtype != torch.float32
+                    or not torch.isfinite(out).all()):
+                raise AssertionError(f"{label}: logits {tuple(out.shape)} {out.dtype}")
+            want = out[:, positions]
+            scale = out.abs().max().item()
+            diff = (rows[label] - want).abs().max().item()
+            if not diff <= LM_ROWS_TOL[label] * scale:
+                raise AssertionError(f"{label}: predict_positions rows {diff} off the full"
+                                     f" decode (max {scale})")
+            rows_rec[label] = dict(rows_max_abs_diff=diff,
+                                   rows_bitwise=torch.equal(rows[label], want),
+                                   max_abs_logit=scale)
+        rel = (full["bf16"] - full["fp32"]).abs().max().item() / full["fp32"].abs().max().item()
+        if not rel <= LM_BF16_TOL:
+            raise AssertionError(f"bf16 vs fp32 logits {rel} > {LM_BF16_TOL}")
+        model = models["bf16"]
+        del full, rows
+        requests = [_lm_batch(SEED + 11 + i) for i in range(LM_REQUESTS + 1)]
+        model(*requests[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        latencies = []
+        t_all = time.perf_counter()
+        for batch in requests[1:]:
+            t0 = time.perf_counter()
+            logits = model(*batch)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            if not torch.isfinite(logits).all():
+                raise AssertionError("non-finite bf16 logits")
+        total = time.perf_counter() - t_all
+        launches = _launch_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        model(*requests[-1], predict_positions=positions)
+        torch.cuda.synchronize()
+        span_s = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"the language model launched a kernel: {launches}")
+    rec = dict(requests=LM_REQUESTS, batch=LM_BATCH, latency_s=latencies,
+               sequences_per_s=LM_REQUESTS * LM_BATCH / total, peak_mem_gb=peak_mem / 1e9,
+               launches=launches["K1"], predict_positions=len(positions),
+               predict_positions_request_s=span_s, bf16_vs_fp32_rel=rel,
+               bf16_tolerance=LM_BF16_TOL, input_tokens=int(mask.sum()), **rows_rec)
+    print(f"[lm serve] LanguagePerceiver 2048 bytes: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -1103,7 +1397,7 @@ def _site_sums(records, keep, per_site):
     return sums
 
 
-def kernels_line(records, serve, backward, train, mm_serve, mm_train):
+def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -1120,10 +1414,14 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train):
     encoder site's times, the launches of the multimodal serving run.  K2
     and K3 on the multimodal path (``..._d704``, the same sources at d = dv
     = 704): the bf16 encoder site's times, the launches of the multimodal
-    training run.  Each entry's error is the largest of all its
+    training run.  K1 at the classification encoders (``..._d261``, the
+    pixel variant, and ``..._d512``, the 1x1-conv one; the same sources):
+    the bf16 site's times at the served batch of 16, the launches of that
+    variant's serving run.  Each entry's error is the largest of all its
     comparisons."""
     mm = [r for r in records if r["site"].startswith("mm_")]
-    records = [r for r in records if not r["site"].startswith("mm_")]
+    cls = [r for r in records if r["site"].startswith("cls_")]
+    records = [r for r in records if not r["site"].startswith(("mm_", "cls_"))]
     mm_site = next(r for r in mm if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
     k1_sources = {
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
@@ -1161,6 +1459,25 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train):
                                          "bound_by", "splits", "col_chunks")},
         sites=mm,
     )]
+    for prep, site in CLS_SITE_OF.items():
+        if site is None:
+            continue
+        mine = [r for r in cls if r["site"] in (site, f"{site}_masked")]
+        site_rec = next(r for r in mine if r["site"] == site and r["dtype"] == "bf16")
+        entries.append(dict(
+            name=f"flash_attention_fwd_d{CLS_SITES[site][4]}",
+            route="cuda",
+            source=k1_sources["sm90_wgmma"],
+            sources=k1_sources,
+            routes={"bf16": "sm90_wgmma", "fp32": "cuda_cores"},
+            replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
+            launches=cls_serve[prep]["launches"],
+            merge_launches=cls_serve[prep]["merge_launches"],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by", "splits", "col_chunks")},
+            sites=mine,
+        ))
     bwd_sources = {
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1210,6 +1527,9 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     records = phase_kernels()
+    # Release the classification cases' large blocks, so that the flow and
+    # multimodal phases start from the allocator state they had before them.
+    torch.cuda.empty_cache()
     backward = phase_backward()
     serve = phase_serve(phase_model())
     phase_gradients()
@@ -1219,8 +1539,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_mm_gradients()
     mm_train = phase_mm_train()
+    torch.cuda.empty_cache()
+    cls_serve = phase_cls()
+    phase_lm()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(records, serve, backward, train, mm_serve, mm_train))
+    print(kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,10 +6,12 @@ the JAX package's weights (``utils.weights.state_dict_from_flax``) and the
 converted DeepMind checkpoints load with ``load_state_dict(strict=True)``.
 Every Pallas kernel of the JAX package on a ported path is a hand-written
 CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.  The
-training stack is ``perceiverio_pytorch_tpu_torch.training``; a runnable
-flow training demo is ``perceiverio_pytorch_tpu_torch.examples.train_flow``.
-Task models ported so far: ``FlowPerceiver`` (with ``FlowInference``) and
-``MultiModalPerceiver`` (serving).
+training stack is ``perceiverio_pytorch_tpu_torch.training``; runnable
+training demos are ``perceiverio_pytorch_tpu_torch.examples.train_flow`` and
+``.train_multimodal``.  Task models: ``FlowPerceiver`` (with
+``FlowInference``) and ``MultiModalPerceiver`` (serving and training),
+``LanguagePerceiver`` (with the byte tokenizer, ``BytesTokenizer``) and
+``ClassificationPerceiver`` (its three ``PrepType``s) (serving).
 """
 
 __version__ = "0.1.0"
@@ -20,11 +22,17 @@ from perceiverio_pytorch_tpu_torch.config import (  # noqa: F401
     PERFORMANCE,
     Policy,
 )
+from perceiverio_pytorch_tpu_torch.models.classification import (  # noqa: F401
+    ClassificationPerceiver,
+    PrepType,
+)
 from perceiverio_pytorch_tpu_torch.models.flow import (  # noqa: F401
     FlowInference,
     FlowPerceiver,
     compute_grid_indices,
 )
+from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver  # noqa: F401
 from perceiverio_pytorch_tpu_torch.models.multimodal import (  # noqa: F401
     MultiModalPerceiver,
 )
+from perceiverio_pytorch_tpu_torch.utils.bytes_tokenizer import BytesTokenizer  # noqa: F401

@@ -1,23 +1,44 @@
 """Output postprocessors.
 
 Counterpart of ``perceiverio_pytorch_tpu/io_processors/postprocessors.py``:
-``FlowPostprocessor`` (flow) and the multimodal model's
-``AudioPostprocessor``, ``ClassificationPostprocessor`` and
-``ProjectionPostprocessor``, with ``IdentityPostprocessor``.  The image
-postprocessor's conv path (``Conv2D/3DUpsample``) comes with the
-classification slice.  Interface: ``forward(inputs, *, pos=None,
-modality_sizes=None)``.  Their Dense layers promote their input to fp32,
-as the JAX package's plain ``nn.Dense`` does.
+``EmbeddingPostprocessor`` (the language model's tied decode),
+``FlowPostprocessor`` (flow), ``ClassificationPostprocessor``
+(classification and the multimodal label) and the multimodal model's
+``AudioPostprocessor`` and ``ProjectionPostprocessor``, with
+``IdentityPostprocessor``.  ``ImagePostprocessor`` and its
+``Conv2D/3DUpsample`` are not ported yet: no shipped model decodes through
+them.  Interface: ``forward(inputs, *, pos=None, modality_sizes=None)``.
+Their Dense layers and the tied product promote their input to fp32, as
+the JAX package's plain ``nn.Dense`` and ``nn.Embed.attend`` do.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from perceiverio_pytorch_tpu_torch.core.attention import Dense
 from perceiverio_pytorch_tpu_torch.utils.initializers import default_generator
+
+
+class EmbeddingPostprocessor(nn.Module):
+    """Tied decode: ``inputs @ embedding.T + bias`` with the table of the
+    ``EmbeddingPreprocessor`` (the same ``nn.Embedding`` module, so the
+    model holds one parameter); the product runs in the promoted dtype of
+    the inputs and the table (fp32 for bf16 inputs and an fp32 table)."""
+
+    def __init__(self, embedding: nn.Embedding, vocab_size: int):
+        super().__init__()
+        self._embedding = embedding
+        self.bias = nn.Parameter(torch.zeros(vocab_size))
+
+    def forward(self, inputs, *, pos=None, modality_sizes=None):
+        table = self._embedding.weight
+        dtype = torch.promote_types(inputs.dtype, table.dtype)
+        return F.linear(inputs.to(dtype), table.to(dtype)) + self.bias
 
 
 class FlowPostprocessor(nn.Module):

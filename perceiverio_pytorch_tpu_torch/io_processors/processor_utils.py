@@ -5,7 +5,10 @@ Counterpart of ``perceiverio_pytorch_tpu/io_processors/processor_utils.py``:
     (dt, dh, dw, c) order, for rank-4 images and rank-5 video;
   * ``extract_patches``: VALID patch extraction, the flattened patch in
     (ph, pw, c) channel order;
-  * ``patches_for_flow``: pad 1 pixel and take 3x3 patches per frame.
+  * ``patches_for_flow``: pad 1 pixel and take 3x3 patches per frame;
+  * ``Conv2DDownsample``: per layer a TF-SAME padded 7x7 stride-2 conv
+    (no bias), BatchNorm, ReLU and a zero-padded 3x3 stride-2 max-pool, on
+    channel-first tensors (torch's conv layout).
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from perceiverio_pytorch_tpu_torch.utils.conv_shapes import conv_output_shape, same_padding
+from perceiverio_pytorch_tpu_torch.utils.initializers import default_generator, trunc_normal_
 
 
 def space_to_depth(frames: torch.Tensor, temporal_block_size: int = 1,
@@ -57,8 +64,7 @@ def extract_patches(images: torch.Tensor, size: Sequence[int],
     sh, sw = _pair(stride)
     dh, dw = _pair(dilation)
     _, h, w, _ = images.shape
-    out_h = (h - dh * (ph - 1) - 1) // sh + 1
-    out_w = (w - dw * (pw - 1) - 1) // sw + 1
+    out_h, out_w = conv_output_shape((h, w), (ph, pw), (sh, sw), 0, (dh, dw))
     pieces = []
     for i in range(ph):
         for j in range(pw):
@@ -75,3 +81,42 @@ def patches_for_flow(inputs: torch.Tensor) -> torch.Tensor:
     padded = F.pad(flat, (0, 0, 1, 1, 1, 1))
     patches = extract_patches(padded, size=(3, 3), stride=1, dilation=1)
     return patches.reshape((n, t) + tuple(patches.shape[1:]))
+
+
+class Conv2DDownsample(nn.Module):
+    """Downsample 4x per layer: TF-SAME pad, 7x7 stride-2 conv (no bias),
+    BatchNorm, ReLU, TF-SAME pad with zeros, 3x3 stride-2 max-pool.
+
+    Children ``convs.{i}`` and ``norms.{i}`` (the reference's state_dict
+    names).  The padding is explicit, ``F.pad`` then a conv and a pool with
+    ``padding=0``: SAME puts the odd pixel right and bottom, and the pool's
+    pad is 0, not -inf (after the ReLU no 0 can win wrongly).  BatchNorm
+    follows ``module.training`` (the JAX package's ``train`` flag): in eval
+    mode it uses the running averages, as the JAX package does by default.
+    """
+
+    def __init__(self, num_layers: int = 1, in_channels: int = 3, num_channels: int = 64,
+                 use_batchnorm: bool = True, *, generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        self.convs = nn.ModuleList()
+        for layer in range(num_layers):
+            conv = nn.Conv2d(in_channels if layer == 0 else num_channels, num_channels,
+                             kernel_size=7, stride=2, bias=False)
+            trunc_normal_(conv.weight.data, 0.01, g)
+            self.convs.append(conv)
+        # Flax's momentum 0.9 (the kept share of the average) is torch's 0.1.
+        self.norms = (nn.ModuleList(nn.BatchNorm2d(num_channels, eps=1e-5, momentum=0.1)
+                                    for _ in range(num_layers)) if use_batchnorm else None)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs: [B, C, H, W] channel-first."""
+        out = inputs
+        for layer, conv in enumerate(self.convs):
+            out = conv(F.pad(out, same_padding(out.shape[-2:], 7, 2)))
+            if self.norms is not None:
+                out = self.norms[layer](out)
+            out = F.relu(out)
+            out = F.pad(out, same_padding(out.shape[-2:], 3, 2), value=0.0)
+            out = F.max_pool2d(out, kernel_size=3, stride=2)
+        return out

@@ -7,8 +7,9 @@ On a machine with an NVIDIA GPU, from the repository root:
   1. compiles each ``csrc/*.cu`` source with ``nvcc -Xptxas -v`` and prints
      every kernel instantiation's registers, spills, stack and shared memory
      (static; the dynamic size of the sm90 instantiations at the three flow
-     sites and of K1's, K2's and K3's at the multimodal encoder, in both
-     dtypes, is printed beside);
+     sites, of K1's, K2's and K3's at the multimodal encoder, in both
+     dtypes, and of K1's at the two classification encoders is printed
+     beside);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -20,7 +21,9 @@ On a machine with an NVIDIA GPU, from the repository root:
      split counts;
   5. times K1 and K2, K3 apart, in both dtypes at the three flow sites at
      batch 1 and at the multimodal encoder (CUDA events), with each call's
-     plan;
+     plan; K1 alone at the classification encoders (batch 16: the pixel
+     variant's d = 261, the 1x1-conv variant's d = 512), with the width of
+     the loads its strides allow;
   6. the full-width bf16 multimodal model (PERFORMANCE, seeded random
      weights, one random clip, 128 chunks): a clip's wall time and its
      encode's (host clock ending in a synchronize), with the query-pad fold
@@ -29,7 +32,10 @@ On a machine with an NVIDIA GPU, from the repository root:
      the number of kernel launches;
   7. one full-scale bf16 training step of ``examples/train_multimodal.py``
      (16 chunks, remat): forward with the loss, backward and optimizer
-     update timed apart, then one step under ``torch.profiler`` as in 6.
+     update timed apart, then one step under ``torch.profiler`` as in 6;
+  8. one bf16 serving request of each full-width classifier (batch 16) and
+     of the language model (batch 32, right-padded masks) under
+     ``torch.profiler`` as in 6, after a warm-up request.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -57,6 +63,11 @@ SMALL_CASES = ((2, 100, 777, 2, 41, 64, True, False), (3, 50, 333, 2, 41, 24, Tr
 WIDE_CASES = ((2, 100, 777, 1, 704, 704, True, False), (2, 90, 300, 2, 690, 690, True, True),
               (2, 100, 257, 1, 704, 512, True, False))
 MULTIMODAL_SITE = (1, 784, 52097, 1, 704, 704)
+# The classification encoders at the served batch: pixel and 1x1-conv; and
+# the pixel site with its width padded to 264, a multiple of 8 (528-byte
+# bf16 rows, which allow 16-byte loads where 261's allow 2).
+CLASSIFICATION_SITES = ((16, 512, 50176, 1, 261, 261), (16, 512, 50176, 1, 512, 512),
+                        (16, 512, 50176, 1, 264, 264))
 
 
 def ptxas_report():
@@ -98,6 +109,12 @@ def ptxas_report():
     print(f"[smem] flash_fwd_sm90_kernel<176, 32> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_fwd_kernel<6> at d = dv = 704: {smem} bytes dynamic")
+    # K1 at the classification encoders: d = 261 (padded to 272) takes
+    # <168, 128>, d = 512 <256, 64> (the flow decoder's instantiation).
+    for d, nv, bk in ((261, 168, 128), (512, 256, 64)):
+        dp = -(-d // 16) * 16
+        smem = ((64 + bk) * dp + bk * 2 * nv + 64 * bk) * 2 + 4 * 64 * 4
+        print(f"[smem] flash_fwd_sm90_kernel<{nv}, {bk}> at d = dv = {d}: {smem} bytes dynamic")
     # K2 and K3 there: bf16 K2 <8, 11> (16 keys a block, 11 tiles of 64
     # columns), K3 <176, 16, chunked> (Q, dO, K and V at 704, dQ in chunks of
     # 352); fp32 K2 and K3 <6, chunked> (dK/dV or dQ in chunks of 384 + 320).
@@ -237,6 +254,23 @@ def time_flow_sites(gen, reps=2):
         ms2, ms3 = _time(kernels.dkv, reps), _time(kernels.dq, reps)
         print(f"[time] {MULTIMODAL_SITE} {dtype}: K2 {ms2:.3f} ms, K3 {ms3:.3f} ms "
               f"({kernels.plan})", flush=True)
+    for shape in CLASSIFICATION_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v), _ = _case(*shape, dtype, False, False, gen)
+            ms = _time(lambda: fa.flash_attention(q, k, v), reps)
+            b, tq, tk, h, d, dv = shape
+            tflops = 2 * b * tq * tk * h * (d + dv) / ms / 1e9
+            loads = f", loads of {_load_bytes(k)} bytes" if dtype == torch.bfloat16 else ""
+            print(f"[time] {shape} {dtype}: K1 {ms:.3f} ms, {tflops:.1f} TFLOP/s{loads} "
+                  f"({fa.launch_plan(q, k, v)})", flush=True)
+
+
+def _load_bytes(t):
+    """The widest cp.async granularity (16, 8, 4 or 2 bytes) that the bf16
+    kernel's loads of ``t`` may take: base address, strides and row width
+    in bytes must all be multiples of it (csrc/sm90.cuh ``copy_vec``)."""
+    sizes = [t.data_ptr(), 2 * t.shape[-1]] + [2 * st for st in t.stride()[:-1]]
+    return next(n for n in (16, 8, 4, 2) if all(x % n == 0 for x in sizes))
 
 
 def profile_multimodal(n_chunks=128, top=12):
@@ -330,6 +364,39 @@ def profile_multimodal_training(top=15):
     _print_device_profile("mm train profile", prof, seconds, top)
 
 
+def profile_serving(top=12):
+    """One bf16 request of each new served model under ``torch.profiler``,
+    after a warm-up request: the three classifiers at batch 16, the language
+    model at batch 32 (the second sequence of each pair right-padded)."""
+    import time
+
+    from perceiverio_pytorch_tpu_torch import (PERFORMANCE, ClassificationPerceiver,
+                                               LanguagePerceiver, PrepType)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    img = torch.rand(16, 3, 224, 224, generator=gen, device="cuda") * 2 - 1
+    ids = torch.randint(0, 262, (32, 2048), generator=gen, device="cuda")
+    mask = torch.arange(2048, device="cuda")[None] < torch.tensor([[2048], [1600]] * 16,
+                                                                  device="cuda")
+    cases = [(f"cls {prep.name}", ClassificationPerceiver(prep_type=prep, policy=PERFORMANCE),
+              (img,)) for prep in PrepType]
+    cases.append(("lm", LanguagePerceiver(policy=PERFORMANCE), (ids, mask)))
+    for label, model, args in cases:
+        model.eval()
+        with torch.inference_mode():
+            model(*args)  # warm-up
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(*args)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        _print_device_profile(f"{label} profile", prof, seconds, top)
+        del model
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_report needs a CUDA device")
@@ -344,6 +411,7 @@ def main():
     time_flow_sites(gen)
     profile_multimodal()
     profile_multimodal_training()
+    profile_serving()
 
 
 if __name__ == "__main__":

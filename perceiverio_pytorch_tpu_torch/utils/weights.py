@@ -14,6 +14,12 @@ torch attribute names and the converted DeepMind checkpoints load with
   embedding     -> weight                              (Embedding)
   mean / var    -> running_mean / running_var          (batch_stats)
 
+A BatchNorm's ``num_batches_tracked`` buffer, which flax has no counterpart
+of, is written as 0 beside its running averages.  ``overrides`` place flax
+parameters whose torch names the path translation does not give, and
+``tied`` writes a torch name a second time (the language model's shared
+token table: ``LANGUAGE_OVERRIDES``, ``LANGUAGE_TIED``).
+
 Derived buffers (the flax "consts" collection, e.g. Fourier tables) have no
 state_dict entry: the port keeps them as non-persistent buffers.
 """
@@ -21,7 +27,7 @@ state_dict entry: the port keeps them as non-persistent buffers.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,8 +97,15 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, value
 
 
-def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX variables (nested dicts of arrays) -> the port's fp32 state_dict."""
+def state_dict_from_flax(variables: Mapping, overrides: Optional[Mapping[str, str]] = None,
+                         tied: Optional[Mapping[str, str]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX variables (nested dicts of arrays) -> the port's fp32 state_dict.
+
+    ``overrides`` maps a flax path ("a/b/kernel") to its torch name; ``tied``
+    maps an extra torch name to the torch name whose value it repeats.
+    """
+    overrides = dict(overrides or {})
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
@@ -106,7 +119,24 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
                     raise ValueError(
                         f"unexpected kernel rank {value.ndim} at {path}"
                     )
-            out[translate_path(path, collection)] = torch.from_numpy(
-                np.ascontiguousarray(value)
-            )
+            name = overrides.get("/".join(path)) or translate_path(path, collection)
+            out[name] = torch.from_numpy(np.ascontiguousarray(value))
+            if collection == "batch_stats" and path[-1] == "mean":
+                out[name[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    for alias, source in (tied or {}).items():
+        out[alias] = out[source].clone()
     return out
+
+
+# The language model's token table lives at the task model's top level in
+# flax (one module shared by the preprocessor and the tied decode); the
+# reference's state_dict holds it under the preprocessor and again under the
+# postprocessor.
+LANGUAGE_OVERRIDES = {
+    "embed/embedding": "perceiver._multi_preprocessor._preprocessors.__default.embed.weight",
+}
+LANGUAGE_TIED = {
+    "perceiver._output_postprocessors.__default._embedding.weight": (
+        "perceiver._multi_preprocessor._preprocessors.__default.embed.weight"
+    ),
+}

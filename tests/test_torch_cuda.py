@@ -8,7 +8,10 @@ it without the suite's conftest (which imports JAX):
 The kernels (K1 forward and K2/K3 backward, each on both routes: the bf16
 wgmma kernels with their split grids, merge and sum, and the fp32 CUDA-core
 kernels; all three also at head widths up to 704) are held against their
-plain PyTorch versions, which the CPU tests hold against the JAX package.
+plain PyTorch versions, which the CPU tests hold against the JAX package;
+K1 also at the classification encoders' widths (261 and 512) over 50,176
+keys, and reduced-depth classification and language models on the card
+against the same models on the CPU.
 """
 
 import dataclasses
@@ -18,7 +21,9 @@ import pytest
 import torch
 
 from perceiverio_pytorch_tpu_torch import config
+from perceiverio_pytorch_tpu_torch.models.classification import ClassificationPerceiver, PrepType
 from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
+from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
 from perceiverio_pytorch_tpu_torch.models.multimodal import MultiModalPerceiver
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 from perceiverio_pytorch_tpu_torch.training import (
@@ -593,3 +598,91 @@ def test_small_multimodal_gradients_on_the_card(cuda, remat):
         if name.endswith("proj_k.bias"):  # exact gradient 0: rounding noise
             continue
         _check(grads["flash"][name], want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [261, 512])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_at_the_classification_widths(cuda, dtype, tol, d, masked):
+    """K1 at d = dv = 261 (the pixel encoder: 522-byte bf16 rows, 2-byte
+    loads) and 512 (the 1x1-conv encoder) over 50,176 keys, batch 2 (the key
+    splits and their merge), against the plain version."""
+    q, k, v, kv_mask, q_mask = _inputs(2, 512, 50176, 1, d, d, 21, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=50000) if masked else {}
+    plan = fa.launch_plan(q, k, v, kv_logical_len=kw.get("kv_logical_len"))
+    assert plan["splits"] > 1 and plan["col_chunks"] == 1
+    before = (fa.LAUNCHES, fa.LAUNCHES_MERGE)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert (fa.LAUNCHES - before[0], fa.LAUNCHES_MERGE - before[1]) == (1, 1)
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 512, d) and torch.isfinite(got).all()
+    _check(got, want, tol)
+    if masked:
+        assert torch.all(got[~q_mask] == 0)
+
+
+def _small_classifier(prep, policy, device):
+    model = ClassificationPerceiver(
+        num_classes=10, img_size=(64, 64), prep_type=prep, num_self_attends_per_block=2,
+        num_blocks=2, num_latents=64, num_latent_channels=128, policy=policy, device=device,
+        generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    for module in model.modules():  # non-trivial BatchNorm statistics
+        if isinstance(module, torch.nn.BatchNorm2d):
+            with torch.no_grad():
+                n = module.num_features
+                module.running_mean.copy_(torch.empty(n).uniform_(-0.3, 0.3, generator=gen))
+                module.running_var.copy_(torch.empty(n).uniform_(0.5, 1.5, generator=gen))
+    return model.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prep", list(PrepType))
+def test_small_classification_model_on_the_card(cuda, prep):
+    """A reduced-depth classifier of each PrepType (64x64 images: 4,096
+    pixel or 1x1-conv tokens at widths 261 and 512, 256 convnet tokens), its
+    encoder forced through K1, on the card against the same weights on the
+    CPU (the plain K1); fp32, and bf16 (PERFORMANCE) against the CPU fp32."""
+    flash = dataclasses.replace(config.PARITY, attn_impl="flash")
+    cpu = _small_classifier(prep, flash, "cpu")
+    img = torch.from_numpy(np.random.default_rng(22).standard_normal((2, 3, 64, 64),
+                                                                    dtype=np.float32))
+    with torch.no_grad():
+        want = cpu(img)
+        for policy, tol in ((flash, 1e-4),
+                            (dataclasses.replace(config.PERFORMANCE, attn_impl="flash"), 5e-2)):
+            model = _small_classifier(prep, policy, cuda)
+            model.load_state_dict(cpu.state_dict())
+            before = fa.LAUNCHES
+            got = model(img.to(cuda))
+            # the encoder, 2 blocks x 2 self-attends and the one-query decoder
+            assert fa.LAUNCHES == before + 6
+            assert got.shape == (2, 10) and torch.isfinite(got).all()
+            _check(got.cpu(), want, tol)
+
+
+@pytest.mark.cuda
+def test_small_language_model_on_the_card(cuda):
+    """The language model at its published widths with 2 self-attends, a
+    partial input mask and predict_positions, on the card (dense path, no
+    K1) against the same weights on the CPU."""
+    kw = dict(num_self_attends_per_block=2, policy=config.PARITY,
+              generator=torch.Generator().manual_seed(6))
+    cpu = LanguagePerceiver(**kw, device="cpu").eval()
+    card = LanguagePerceiver(**kw, device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(23)
+    ids = torch.from_numpy(rng.integers(0, 262, (2, 2048)))
+    mask = torch.from_numpy(np.arange(2048)[None] < np.array([[2048], [1700]]))
+    positions = torch.tensor([5, 1800, 100, 2047])
+    before = fa.LAUNCHES
+    with torch.no_grad():
+        want = cpu(ids, mask)
+        got = card(ids.to(cuda), mask.to(cuda))
+        rows = card(ids.to(cuda), mask.to(cuda), predict_positions=positions.to(cuda))
+    assert fa.LAUNCHES == before
+    _check(got.cpu(), want, 1e-4)
+    _check(rows.cpu(), want[:, positions], 1e-4)

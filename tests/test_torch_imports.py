@@ -98,3 +98,27 @@ def test_flow_inference_runs_on_cpu_when_asked():
     infer = FlowInference(model, min_overlap=8, device="cpu")
     out = infer(torch.zeros(1, 3, 20, 30), torch.zeros(1, 3, 20, 30))
     assert out.device.type == "cpu" and out.shape == (1, 2, 20, 30)
+
+
+def test_language_perceiver_defaults_to_cuda(no_cuda):
+    from perceiverio_pytorch_tpu_torch import LanguagePerceiver
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LanguagePerceiver(max_seq_len=16, embed_dim=8, num_self_attends_per_block=1,
+                          num_latents=4, num_latent_channels=16)
+
+
+@pytest.mark.parametrize("prep", ["FOURIER_POS_CONVNET", "LEARNED_POS_1X1CONV",
+                                  "FOURIER_POS_PIXEL"])
+def test_classification_perceiver_defaults_to_cuda(no_cuda, prep):
+    from perceiverio_pytorch_tpu_torch import ClassificationPerceiver, PrepType
+
+    kw = dict(num_classes=5, img_size=(16, 16), prep_type=PrepType[prep],
+              num_self_attends_per_block=1, num_blocks=1, num_latents=4,
+              num_latent_channels=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClassificationPerceiver(**kw)
+    model = ClassificationPerceiver(**kw, device="cpu").eval()
+    with torch.no_grad():
+        out = model(torch.zeros(1, 3, 16, 16))
+    assert out.device.type == "cpu" and out.shape == (1, 5)

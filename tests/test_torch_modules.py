@@ -157,8 +157,20 @@ def test_image_preprocessor_matches_jax(prep_type):
 
 @pytest.mark.parametrize("prep_type", ["conv", "conv1x1"])
 def test_image_preprocessor_conv_types_not_ported(prep_type):
-    with pytest.raises(NotImplementedError):
-        port_pre.ImagePreprocessor(img_size=(8, 8), prep_type=prep_type)
+    """The conv types are ported now (tests/test_torch_classification.py
+    holds them against JAX); what stays refused is what JAX refuses: a conv
+    stack whose downsampling is not a power of 4 in space and 1 in time,
+    and a 1x1 conv that would downsample in time."""
+    kw = dict(img_size=(8, 8), prep_type=prep_type,
+              fourier_position_encoding_kwargs=dict(num_bands=2))
+    pm = port_pre.ImagePreprocessor(**kw)
+    assert hasattr(pm, "convnet" if prep_type == "conv" else "convnet_1x1")
+    assert pm.n_output_channels() == 64 + 2 * 2 * 2 + 2
+    with pytest.raises(ValueError):
+        port_pre.ImagePreprocessor(**kw, temporal_downsample=2)
+    if prep_type == "conv":
+        with pytest.raises(ValueError, match="powers of 4"):
+            port_pre.ImagePreprocessor(**dict(kw, spatial_downsample=2))
 
 
 def test_initializer_statistics():

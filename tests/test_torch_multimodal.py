@@ -141,11 +141,14 @@ def test_audio_preprocessor_matches_jax(samples, patch, bands, atol):
 
 
 def test_audio_preprocessor_unported_options_raise():
+    """Only "patches" is a prep type of the audio preprocessor, as in JAX;
+    the extra position MLP is ported now (held against JAX in
+    tests/test_torch_classification.py)."""
     kw = dict(samples_per_batch=256, fourier_position_encoding_kwargs=dict(num_bands=4))
-    with pytest.raises(NotImplementedError):
-        port_pre.AudioPreprocessor(n_extra_pos_mlp=1, **kw)
     with pytest.raises(ValueError):
         port_pre.AudioPreprocessor(prep_type="conv", **kw)
+    pm = port_pre.AudioPreprocessor(n_extra_pos_mlp=2, **kw)
+    assert [name for name, _ in pm._extra_pos_mlps.named_children()] == ["0", "1"]
 
 
 # ---- postprocessors --------------------------------------------------------
