@@ -35,8 +35,8 @@ Phases (each raises on failure; nothing is caught):
      (``backward_plan``); times each kernel, the plain backward, SDPA's
      backward (forward+backward minus forward, a yardstick only; null where
      it does not run) and the bounds; then holds bf16 K2 at the flow decoder
-     and K3 at the flow and multimodal encoders (batch 1) at their planned
-     splits against a single split, and two calls of each (and of K2 at the
+     and K3 at the flow and multimodal encoders at their planned splits
+     against a single split, and two calls of each (and of K2 at the
      multimodal encoder) against each other bit for bit;
   5. model: FlowPerceiver at full width (368x496 tiles, 2048x512 latents,
      24 self-attends), seeded random weights with a random decoder
@@ -94,7 +94,35 @@ Phases (each raises on failure; nothing is caught):
      set of positions by ``predict_positions`` against those rows of the
      full decode, then three timed bf16 requests after a warm-up: sequences/s,
      latency, peak memory; every site is dense, so no K1 launch;
- 16. prints the kernels line and, last, {"ok": true, "device": {...}}.
+ 16. classification kernels, at the training batch of 8 (512 latents x
+     50,176 keys, d = dv = 261 and 512), after the flow and multimodal
+     phases so that their large blocks leave those phases' allocator state
+     alone: K1 with its lse, as training calls it, in fp32 and bf16,
+     unmasked and masked, against the plain version, its plan 4 key splits
+     and a merge; K2 and K3 against the plain backward in fp32 and bf16, as
+     in phase 4; bf16 K3 at the pixel encoder at its planned splits against
+     one split, and two calls bit for bit;
+ 17. classification gradients: the full-width pixel and 1x1-conv
+     classifiers with remat, two synthetic images with random labels and
+     the cross-entropy, the backward through the kernels (per step: K1 and
+     its merge, K2 and K3 once each at the encoder, d = 261 or 512, and in
+     bf16 the sum of K3's key splits) and then with the flash forward and
+     backward patched to their plain versions; every parameter's gradient
+     must agree, in fp32 and in bf16 (PERFORMANCE);
+ 18. classification train: the port's examples/train_classification.py at
+     --full-scale (bf16 PERFORMANCE, remat, batch 8, synthetic quadrant
+     images) for the convnet (train-mode BatchNorm), then through the same
+     setup for the pixel and 1x1-conv variants: one warm-up step, then
+     ten timed steps with finite losses, parameters that move once the
+     warmup's lr-0 step is past and the planned launches per step (none for
+     the convnet; K1 and its merge, K2, K3 and its sum for the others); for
+     the convnet, running averages that moved and that evaluation uses;
+ 19. language train: the port's examples/train_mlm.py at --full-scale
+     (bf16 PERFORMANCE, batch 8, 2,048 bytes): one warm-up step, then 11
+     timed steps with finite losses, parameters that move, evaluation lines
+     at the mid and final steps (timed apart, and left out of the steps'
+     times), and no kernel launch;
+ 20. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -180,6 +208,24 @@ CLS_REQUESTS = 3  # timed, after one warm-up request
 # The bf16 logits against the fp32 ones on the same images, relative to
 # their max |x|: bf16 GEMMs through 49 attention blocks.
 CLS_BF16_TOL = 1e-1
+# K2/K3 at the classification encoders at the training batch
+# (examples/train_classification.py --full-scale): (B, Tq, Tk, H, D, Dv).
+CLS_TRAIN_SITES = {"cls_pixel": (8, 512, 50176, 1, 261, 261),
+                   "cls_1x1conv": (8, 512, 50176, 1, 512, 512)}
+# K1's plan there, on both routes: 4 key splits and their merge.
+CLS_TRAIN_K1_PLAN = {"splits": 4, "cuda_launches": 2}
+# Launches per training step of the pixel or 1x1-conv classifier (remat of
+# the self-attend stack, batch 2 or 8): the encoder's cross-attend, outside
+# every checkpoint, is the one flash site: K1 with its merge, K2 and K3 once;
+# in bf16 K3 splits the keys and sums them once, K2 does not split.  The
+# convnet's sites are all dense.
+CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1}
+CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0)
+NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0}
+CLS_TRAIN_STEPS = 10  # timed, after one warm-up step
+# Timed, after one warm-up step: 12 steps in all, so that train_mlm's
+# eval_every (steps // 2) puts its evaluations at the mid and final steps.
+LM_TRAIN_STEPS = 11
 LM_BATCH = 32  # the JAX bench's MLM batch
 LM_REQUESTS = 3
 LM_SPAN = (200, 264)  # the masked bytes, predicted by predict_positions
@@ -297,7 +343,7 @@ def _library_call(q, k, v, kw):
     import torch.nn.functional as F
 
     mask = None
-    if kw:
+    if kw.get("kv_mask") is not None:
         tk = k.shape[1]
         keys = torch.arange(tk, device=q.device)[None] < kw["kv_logical_len"]
         mask = (keys & kw["kv_mask"])[:, None, None, :]
@@ -306,15 +352,21 @@ def _library_call(q, k, v, kw):
         qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(q.shape[-1]))
 
 
-def check_case(name, shape, dtype_name, masked, reps, gen):
-    """Kernel vs plain version at one shape; returns a result record."""
+def check_case(name, shape, dtype_name, masked, reps, gen, lse=False, want_plan=None):
+    """Kernel vs plain version at one shape (with ``lse``, the lse too, as a
+    masked case always has it; with ``want_plan``, these keys of the launch
+    plan must hold); returns a result record."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
     q, k, v, kw = _case_inputs(*shape, dtype, masked, gen)
+    if lse:
+        kw["return_lse"] = True
     plan = fa.launch_plan(q, k, v, kv_logical_len=kw.get("kv_logical_len"))
+    if want_plan and any(plan[key] != val for key, val in want_plan.items()):
+        raise AssertionError(f"{name}/{dtype_name}: plan {plan}, expected {want_plan}")
     with torch.inference_mode():
         before = fa.LAUNCHES + fa.LAUNCHES_MERGE
         got = fa.flash_attention(q, k, v, **kw)
@@ -324,7 +376,8 @@ def check_case(name, shape, dtype_name, masked, reps, gen):
                                  f"planned {plan}")
         want = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
-        if masked:
+        lse_err = None
+        if kw.get("return_lse"):
             (got, got_lse), (want, want_lse) = got, want
             finite = torch.isfinite(want_lse)
             if not torch.equal(finite, torch.isfinite(got_lse)):
@@ -332,6 +385,7 @@ def check_case(name, shape, dtype_name, masked, reps, gen):
             lse_err = (got_lse[finite] - want_lse[finite]).abs().max().item()
             if lse_err > 1e-4 * (1.0 + want_lse[finite].abs().max().item()):
                 raise AssertionError(f"{name}/{dtype_name}: lse error {lse_err}")
+        if masked:
             wiped = ~kw["q_mask"]
             wiped[-1] = True  # all keys masked
             if got.view(q.shape[0], q.shape[1], -1)[wiped].abs().max().item() != 0.0:
@@ -356,7 +410,7 @@ def check_case(name, shape, dtype_name, masked, reps, gen):
         site=name, dtype=dtype_name, shape=list(shape), route=plan["route"],
         splits=plan["splits"], col_chunks=plan["col_chunks"], blocks=plan["blocks"],
         cuda_launches=cuda_launches,
-        max_abs_err=err, max_abs_out=scale, ms=kernel_ms, plain_ms=plain_ms,
+        max_abs_err=err, max_abs_out=scale, lse_err=lse_err, ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=max(flops_ms, bytes_ms),
         bound_by="operations" if flops_ms >= bytes_ms else "bytes",
         flops=flops, tflops=flops / kernel_ms / 1e9,
@@ -561,22 +615,22 @@ def phase_backward(reps: int = 3):
         records += check_backward_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen)
         records += check_backward_case(
             "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen)
-    check_backward_splits(gen)
+    check_backward_splits(gen, (("K2", "decoder", FLOW_SITES["decoder"]),
+                                ("K3", "encoder", FLOW_SITES["encoder"]),
+                                ("K3", "mm_encoder", MM_SITE), ("K2", "mm_encoder", MM_SITE)))
     return records
 
 
-def check_backward_splits(gen):
-    """bf16 K2 at the flow decoder and K3 at the flow and multimodal
-    encoders (batch 1): the planned split count against one split (within
-    the bf16 tolerance), and two calls bit for bit; K2 at the multimodal
-    encoder, which does not split, two calls bit for bit."""
+def check_backward_splits(gen, cases):
+    """At each (kernel, site, shape) of ``cases``, bf16: the planned split
+    count against one split (within the bf16 tolerance), and two calls bit
+    for bit; K2 at the multimodal encoder, which does not split, two calls
+    bit for bit."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
-    for kernel, site, shape in (("K2", "decoder", FLOW_SITES["decoder"]),
-                                ("K3", "encoder", FLOW_SITES["encoder"]),
-                                ("K3", "mm_encoder", MM_SITE), ("K2", "mm_encoder", MM_SITE)):
+    for kernel, site, shape in cases:
         q, k, v, _ = _case_inputs(*shape, torch.bfloat16, False, gen)
         with torch.no_grad():
             out, lse = fa.flash_attention(q, k, v, return_lse=True)
@@ -608,6 +662,30 @@ def check_backward_splits(gen):
                    max_abs_diff_vs_1_split=max(d[0] for d in diffs),
                    max_abs_grad=max(d[1] for d in diffs), bitwise_repeat=True)
         print(f"[backward] splits: {json.dumps(rec)}", flush=True)
+
+
+def phase_cls_kernels(reps: int = 3):
+    """K1, K2 and K3 at the classification encoders at the training batch of
+    8, where training runs them (after the flow and multimodal phases, so
+    that their large blocks do not change the allocator state those phases
+    start from): K1 with its lse (as the autograd Function asks for it) in
+    fp32 and bf16, unmasked and masked, its plan 4 key splits and a merge;
+    K2 and K3 against the plain backward in fp32 and bf16; bf16 K3 at the
+    pixel encoder at its planned splits against one split, and two calls bit
+    for bit.  Returns the K1 and the K2/K3 records."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    forward, backward = [], []
+    for dtype_name in ("fp32", "bf16"):
+        for name, shape in CLS_TRAIN_SITES.items():
+            for masked in (False, True):
+                forward.append(check_case(
+                    f"{name}_train" + ("_masked" if masked else ""), shape, dtype_name,
+                    masked, reps, gen, lse=True, want_plan=CLS_TRAIN_K1_PLAN))
+            backward += check_backward_case(name, shape, dtype_name, False, reps, gen)
+    check_backward_splits(gen, (("K3", "cls_pixel", CLS_TRAIN_SITES["cls_pixel"]),))
+    return forward, backward
 
 
 def _flow_model(policy, remat=False):
@@ -865,36 +943,51 @@ def _metrics_path(name):
     return metrics
 
 
-def _train_steps(trainer, state, batches, total, metrics, expected_launches):
-    """``total`` steps of ``trainer``, one per fit() call, each timed on the
-    host clock and its kernel launches counted; the first (the warmup's lr-0
+def _train_steps(trainer, state, batches, total, metrics, expected_launches,
+                 eval_batches=None):
+    """``total`` steps of ``trainer``, one per fit() call (with
+    ``eval_batches``, evaluating at the trainer's cadence), each timed on the
+    host clock and its kernel launches counted; an evaluation is timed apart
+    and left out of its step's time.  The first step (the warmup's lr-0
     step) must leave the parameters where they were and the second move
     them.  Returns the steps' record (the first one untimed)."""
     import torch
 
     params = [p for g in state.optimizer.param_groups for p in g["params"] if p.numel()]
     initial = [p.detach().clone() for p in params]
+    evaluate, eval_s = trainer.evaluate, []
+
+    def timed_evaluate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = evaluate(*args, **kwargs)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t)
+        return result
+
     steps = []
     for n in range(1, total + 1):
         if n == 2:  # after the warm-up step
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         _reset_launch_counts()
+        evals_before = len(eval_s)
         t0 = time.perf_counter()
-        state = trainer.fit(state, batches, num_steps=n)
+        with mock.patch.object(trainer, "evaluate", timed_evaluate):
+            state = trainer.fit(state, batches, num_steps=n, eval_batches=eval_batches)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0 - sum(eval_s[evals_before:])
         launches = _launch_counts()
         if state.step != n or launches != expected_launches:
             raise AssertionError(f"step {state.step}: launches {launches}, expected "
                                  f"{expected_launches}")
         moved = max((p.detach() - p0).abs().max().item() for p, p0 in zip(params, initial))
-        with open(metrics) as f:
-            logged = json.loads(f.readlines()[-1])
+        with open(metrics) as f:  # the step's loss line (an evaluation line may follow)
+            logged = [x for x in map(json.loads, f) if "loss" in x][-1]
         if logged["step"] != n or not math.isfinite(logged["loss"]):
             raise AssertionError(f"step {n}: logged {logged}")
         steps.append(dict(step=n, seconds=seconds, loss=logged["loss"], moved=moved,
-                          launches=launches))
+                          launches=launches, logged_s=logged["elapsed_sec"]))
         if n == 1 and moved != 0.0:
             raise AssertionError("the warmup's first step (lr 0) moved the parameters")
         if n == 2 and not moved > 0.0:
@@ -903,7 +996,9 @@ def _train_steps(trainer, state, batches, total, metrics, expected_launches):
     step_s = [s["seconds"] for s in timed]
     return dict(
         steps=len(timed), loss=[s["loss"] for s in steps], step_s=step_s,
-        steps_per_s=len(timed) / sum(step_s), warmup_step_s=steps[0]["seconds"],
+        steps_per_s=len(timed) / sum(step_s), median_step_s=sorted(step_s)[len(step_s) // 2],
+        eval_s=eval_s, warmup_step_s=steps[0]["seconds"],
+        logged_step_s=[s["logged_s"] for s in timed],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches_per_step=[s["launches"] for s in steps],
         launches={k: sum(s["launches"][k] for s in steps) for k in expected_launches},
@@ -1142,7 +1237,7 @@ def _cls_images(gen, batch, size=224):
     return torch.stack([_smooth_frame(gen, size, size) for _ in range(batch)]).cuda()
 
 
-def _cls_model(prep, policy):
+def _cls_model(prep, policy, remat=False):
     """The full-width classifier of one PrepType, seeded random weights; the
     convnet's BatchNorm gets random running statistics (a fresh module's
     mean 0 and variance 1 would make it nearly the identity)."""
@@ -1151,8 +1246,8 @@ def _cls_model(prep, policy):
     from perceiverio_pytorch_tpu_torch import ClassificationPerceiver, PrepType
 
     gen = torch.Generator().manual_seed(SEED)
-    model = ClassificationPerceiver(prep_type=PrepType[prep], policy=policy, device="cuda",
-                                    generator=gen)
+    model = ClassificationPerceiver(prep_type=PrepType[prep], policy=policy, remat=remat,
+                                    device="cuda", generator=gen)
     for module in model.modules():
         if isinstance(module, torch.nn.BatchNorm2d):
             with torch.no_grad():
@@ -1384,6 +1479,171 @@ def phase_lm():
     return rec
 
 
+def phase_cls_gradients():
+    """Full-width classification gradients (remat, batch 2, random labels,
+    the cross-entropy) of the pixel and 1x1-conv variants through K1/K2/K3
+    at the encoder's cross-attend (d = 261, 512) against the same step with
+    the flash forward and backward on their plain versions: the fp32 model
+    (PARITY) through the CUDA-core kernels, then the bf16 one (PERFORMANCE)
+    through the wgmma kernels."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+
+    img = _cls_images(torch.Generator().manual_seed(SEED + 12), CLS_MODEL_BATCH)
+    labels = torch.randint(0, 1000, (CLS_MODEL_BATCH,),
+                           generator=torch.Generator().manual_seed(SEED + 13)).cuda()
+    records = {}
+    for prep in ("FOURIER_POS_PIXEL", "LEARNED_POS_1X1CONV"):
+        for label, policy, launches, tol in (
+                ("fp32", dataclasses.replace(PARITY, attn_impl="auto"), CLS_FP32_STEP_LAUNCHES,
+                 GRAD_TOL),
+                ("bf16", PERFORMANCE, CLS_STEP_LAUNCHES, BF16_GRAD_TOL)):
+            records[prep, label] = _cls_gradient_pass(prep, label, policy, launches, tol,
+                                                      img, labels)
+            torch.cuda.empty_cache()
+    return records
+
+
+def _cls_gradient_pass(prep, label, policy, expected_launches, tol, img, labels):
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.training import classification_cross_entropy
+
+    model = _cls_model(prep, policy, remat=True).train()
+    loss_tol = 1e-4 if label == "fp32" else 1e-3  # as for flow (phase 7)
+
+    def gradients():
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = classification_cross_entropy(model(img), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return loss.item(), grads, time.perf_counter() - t0
+
+    first_s = gradients()[2]  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    loss_k, grads_k, kernel_s = gradients()
+    launches = _launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    if launches != expected_launches:
+        raise AssertionError(f"{prep} {label}: launches per step {launches}, expected "
+                             f"{expected_launches}")
+    with mock.patch.object(fa, "_flash_attention_cuda", fa.flash_attention_reference), \
+            mock.patch.object(fa, "_flash_attention_backward_cuda",
+                              fa.flash_attention_backward_reference):
+        loss_p, grads_p, plain_s = gradients()
+    if _launch_counts() != expected_launches:
+        raise AssertionError(f"{prep} {label}: the plain run launched a kernel")
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= loss_tol * abs(loss_p)):
+        raise AssertionError(f"{prep} {label}: loss through the kernels {loss_k}, "
+                             f"plain {loss_p}")
+    worst, worst_name, key_bias = _compare_grads(f"{prep} {label}", grads_k, grads_p, tol)
+    encoder_k = "perceiver._encoder.cross_attend.attention.proj_k.weight"
+    if not grads_k[encoder_k].abs().max().item() > 0:
+        raise AssertionError(f"{prep} {label}: no gradient reaches {encoder_k}")
+    rec = dict(prep=prep, batch=CLS_MODEL_BATCH, launches=launches, loss_kernels=loss_k,
+               loss_plain=loss_p, params=len(grads_k), worst_rel_grad_diff=worst,
+               worst_param=worst_name, tolerance=tol, key_bias_grad_rel=key_bias,
+               first_kernel_step_s=first_s, kernel_step_s=kernel_s, plain_step_s=plain_s,
+               peak_mem_gb=peak_mem / 1e9)
+    print(f"[cls gradients] {label} full width, remat: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_cls_train():
+    """The port's train_classification example at --full-scale (bf16
+    PERFORMANCE, remat, batch 8) for the convnet, then through the same
+    setup for the pixel and 1x1-conv variants, one step per fit() call; for
+    the convnet, the running averages must have moved and evaluation
+    (``Trainer.evaluate``, eval mode) must read them."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PrepType
+    from perceiverio_pytorch_tpu_torch.examples import train_classification
+
+    total = 1 + CLS_TRAIN_STEPS
+    records = {}
+    for prep in CLS_SITE_OF:
+        metrics = _metrics_path(f"chip_smoke_cls_train_{prep.lower()}.jsonl")
+        trainer, state, batches, _ = train_classification.setup(
+            total, full_scale=True, prep_type=PrepType[prep], device="cuda",
+            metrics_path=metrics, log_every=1)
+        norms = [m for m in state.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        initial = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
+        expected = NO_LAUNCHES if CLS_SITE_OF[prep] is None else CLS_STEP_LAUNCHES
+        rec = _train_steps(trainer, state, batches, total, metrics, expected)
+        rec.update(prep=prep, batch=8, images_per_s=8 * rec["steps_per_s"])
+        if prep == "FOURIER_POS_CONVNET":
+            rec["batchnorm"] = _check_running_averages(trainer, state, batches, norms, initial,
+                                                       total)
+        print(f"[cls train] bf16 full width, remat, batch 8: {json.dumps(rec)}", flush=True)
+        records[prep] = rec
+        del trainer, state, batches
+        torch.cuda.empty_cache()
+    return records
+
+
+def _check_running_averages(trainer, state, batches, norms, initial, steps):
+    """The convnet's BatchNorm after ``steps`` train steps: the running
+    averages moved, one update a step, and evaluation reads them (the
+    evaluation loss changes when they are put back to their initial
+    values)."""
+    import torch
+
+    if not norms:
+        raise AssertionError("the convnet has no BatchNorm")
+    moved = max(max((bn.running_mean - m0).abs().max().item(),
+                    (bn.running_var - v0).abs().max().item())
+                for bn, (m0, v0) in zip(norms, initial))
+    tracked = [int(bn.num_batches_tracked) for bn in norms]
+    if not moved > 0 or tracked != [steps] * len(norms):
+        raise AssertionError(f"running averages moved by {moved}, updates {tracked}")
+    held = [next(iter(batches(steps)))]
+    evaluated = trainer.evaluate(state, held)
+    saved = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
+    for bn, (m0, v0) in zip(norms, initial):
+        bn.running_mean.copy_(m0)
+        bn.running_var.copy_(v0)
+    with_initial = trainer.evaluate(state, held)
+    for bn, (m, v) in zip(norms, saved):
+        bn.running_mean.copy_(m)
+        bn.running_var.copy_(v)
+    if not state.model.training or evaluated == with_initial:
+        raise AssertionError(f"evaluation ignores the running averages: {evaluated}")
+    if not all(math.isfinite(x) for x in evaluated.values()):
+        raise AssertionError(f"non-finite evaluation {evaluated}")
+    return dict(running_moved=moved, updates=tracked, eval=evaluated,
+                eval_with_initial_averages=with_initial)
+
+
+def phase_lm_train():
+    """The port's train_mlm example at --full-scale (bf16 PERFORMANCE, batch
+    8, 2,048 bytes), one step per fit() call, evaluating at the mid and
+    final steps (timed apart from the steps); no site reaches a kernel."""
+    from perceiverio_pytorch_tpu_torch.examples import train_mlm
+
+    total = 1 + LM_TRAIN_STEPS
+    metrics = _metrics_path("chip_smoke_lm_train_metrics.jsonl")
+    trainer, state, batches, eval_batches = train_mlm.setup(
+        total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
+    rec = _train_steps(trainer, state, batches, total, metrics, NO_LAUNCHES, eval_batches)
+    with open(metrics) as f:
+        evals = [x for x in map(json.loads, f) if "eval_loss" in x]
+    if [x["step"] for x in evals] != [total // 2, total] or not all(
+            math.isfinite(x["eval_loss"]) for x in evals):
+        raise AssertionError(f"evaluation lines {evals}")
+    rec.update(batch=8, sequences_per_s=8 * rec["steps_per_s"], evals=evals,
+               params=sum(p.numel() for p in state.model.parameters()))
+    print(f"[lm train] bf16 full width, batch 8, 2048 bytes: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -1397,7 +1657,8 @@ def _site_sums(records, keep, per_site):
     return sums
 
 
-def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve):
+def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
+                 cls_k1_train):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -1417,8 +1678,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve)
     training run.  K1 at the classification encoders (``..._d261``, the
     pixel variant, and ``..._d512``, the 1x1-conv one; the same sources):
     the bf16 site's times at the served batch of 16, the launches of that
-    variant's serving run.  Each entry's error is the largest of all its
-    comparisons."""
+    variant's serving run, and apart (``..._train``) the bf16 site's times
+    at the training batch of 8 and the launches of that variant's training
+    run.  K2 and K3 at the classification encoders
+    (``..._d261``, ``..._d512``; the same sources): the bf16 site's times at
+    the training batch of 8, the launches of that variant's training run.
+    Each entry's error is the largest of all its comparisons."""
     mm = [r for r in records if r["site"].startswith("mm_")]
     cls = [r for r in records if r["site"].startswith("cls_")]
     records = [r for r in records if not r["site"].startswith(("mm_", "cls_"))]
@@ -1464,6 +1729,9 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve)
             continue
         mine = [r for r in cls if r["site"] in (site, f"{site}_masked")]
         site_rec = next(r for r in mine if r["site"] == site and r["dtype"] == "bf16")
+        train_sites = [r for r in cls_k1_train if r["site"].startswith(f"{site}_train")]
+        train_rec = next(r for r in train_sites
+                         if r["site"] == f"{site}_train" and r["dtype"] == "bf16")
         entries.append(dict(
             name=f"flash_attention_fwd_d{CLS_SITES[site][4]}",
             route="cuda",
@@ -1473,10 +1741,14 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve)
             replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
             launches=cls_serve[prep]["launches"],
             merge_launches=cls_serve[prep]["merge_launches"],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches_train=cls_train[prep]["launches"]["K1"],
+            merge_launches_train=cls_train[prep]["launches"]["merge"],
+            max_abs_err=max(r["max_abs_err"] for r in mine + train_sites),
             **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                               "bound_by", "splits", "col_chunks")},
-            sites=mine,
+            **{f"{key}_train": train_rec[key] for key in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "bound_by", "splits")},
+            sites=mine + train_sites,
         ))
     bwd_sources = {
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
@@ -1484,7 +1756,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve)
     }
     for kernel, name, line in (("K2", "flash_attention_bwd_dkv", 473),
                                ("K3", "flash_attention_bwd_dq", 514)):
-        mine = [r for r in backward if r["kernel"] == kernel and not r["site"].startswith("mm_")]
+        mine = [r for r in backward
+                if r["kernel"] == kernel and not r["site"].startswith(("mm_", "cls_"))]
         mm_bwd = [r for r in backward if r["kernel"] == kernel and r["site"].startswith("mm_")]
         mm_site = next(r for r in mm_bwd if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
         common = dict(route="cuda", source=bwd_sources["sm90_wgmma"], sources=bwd_sources,
@@ -1509,6 +1782,21 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve)
                                              "bound_by", "splits", "col_chunks")},
             sites=mm_bwd,
         ))
+        for prep, site in CLS_SITE_OF.items():
+            if site is None:
+                continue
+            cls_bwd = [r for r in backward if r["kernel"] == kernel and r["site"] == site]
+            site_rec = next(r for r in cls_bwd if r["dtype"] == "bf16")
+            entries.append(dict(
+                name=f"{name}_d{CLS_TRAIN_SITES[site][4]}",
+                **common,
+                launches=cls_train[prep]["launches"][kernel],
+                sum_launches_train=cls_train[prep]["launches"]["sum"],
+                max_abs_err=max(r["max_abs_err"] for r in cls_bwd),
+                **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "splits", "col_chunks")},
+                sites=cls_bwd,
+            ))
     return json.dumps({"kernels": entries})
 
 
@@ -1531,6 +1819,7 @@ def main() -> int:
     # multimodal phases start from the allocator state they had before them.
     torch.cuda.empty_cache()
     backward = phase_backward()
+    torch.cuda.empty_cache()
     serve = phase_serve(phase_model())
     phase_gradients()
     train = phase_train()
@@ -1542,8 +1831,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     cls_serve = phase_cls()
     phase_lm()
+    torch.cuda.empty_cache()
+    cls_k1_train, cls_backward = phase_cls_kernels()
+    torch.cuda.empty_cache()
+    phase_cls_gradients()
+    cls_train = phase_cls_train()
+    phase_lm_train()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve))
+    print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
+                       cls_serve, cls_train, cls_k1_train))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,7 +8,8 @@ Counterpart of ``perceiverio_pytorch_tpu/io_processors/processor_utils.py``:
   * ``patches_for_flow``: pad 1 pixel and take 3x3 patches per frame;
   * ``Conv2DDownsample``: per layer a TF-SAME padded 7x7 stride-2 conv
     (no bias), BatchNorm, ReLU and a zero-padded 3x3 stride-2 max-pool, on
-    channel-first tensors (torch's conv layout).
+    channel-first tensors (torch's conv layout);
+  * ``BatchNorm2d``: ``nn.BatchNorm2d`` with flax's train-mode statistics.
 """
 
 from __future__ import annotations
@@ -83,6 +84,44 @@ def patches_for_flow(inputs: torch.Tensor) -> torch.Tensor:
     return patches.reshape((n, t) + tuple(patches.shape[1:]))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters, buffers and state_dict names) with
+    the statistics of flax's ``nn.BatchNorm(dtype=float32)``.
+
+    Train mode normalises with the batch's mean and biased variance, computed
+    in fp32 as flax does (E[x^2] - E[x]^2, clipped at 0), and moves the
+    running averages by ``momentum`` towards that mean and that biased
+    variance, where torch's own update takes the unbiased variance (a factor
+    N / (N - 1) over the N values a channel has in the batch).  Eval mode
+    normalises with the running averages.  Both return fp32, whatever the
+    input's dtype.  Only flax's configuration is taken: a float ``momentum``,
+    ``affine`` and ``track_running_stats``; anything else raises ValueError.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, track_running_stats: bool = True, **kwargs):
+        if not (isinstance(momentum, float) and affine and track_running_stats):
+            raise ValueError(
+                "BatchNorm2d takes a float momentum with affine=True and "
+                f"track_running_stats=True (got momentum={momentum!r}, affine={affine}, "
+                f"track_running_stats={track_running_stats})")
+        super().__init__(num_features, eps=eps, momentum=momentum, affine=affine,
+                         track_running_stats=track_running_stats, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+
+
 class Conv2DDownsample(nn.Module):
     """Downsample 4x per layer: TF-SAME pad, 7x7 stride-2 conv (no bias),
     BatchNorm, ReLU, TF-SAME pad with zeros, 3x3 stride-2 max-pool.
@@ -91,8 +130,10 @@ class Conv2DDownsample(nn.Module):
     names).  The padding is explicit, ``F.pad`` then a conv and a pool with
     ``padding=0``: SAME puts the odd pixel right and bottom, and the pool's
     pad is 0, not -inf (after the ReLU no 0 can win wrongly).  BatchNorm
-    follows ``module.training`` (the JAX package's ``train`` flag): in eval
-    mode it uses the running averages, as the JAX package does by default.
+    (``BatchNorm2d``: flax's statistics) follows ``module.training`` (the JAX
+    package's ``train`` flag): in train mode it normalises with the batch's
+    statistics and updates its running averages, in eval mode it uses them,
+    as the JAX package does by default.
     """
 
     def __init__(self, num_layers: int = 1, in_channels: int = 3, num_channels: int = 64,
@@ -106,7 +147,7 @@ class Conv2DDownsample(nn.Module):
             trunc_normal_(conv.weight.data, 0.01, g)
             self.convs.append(conv)
         # Flax's momentum 0.9 (the kept share of the average) is torch's 0.1.
-        self.norms = (nn.ModuleList(nn.BatchNorm2d(num_channels, eps=1e-5, momentum=0.1)
+        self.norms = (nn.ModuleList(BatchNorm2d(num_channels, eps=1e-5, momentum=0.1)
                                     for _ in range(num_layers)) if use_batchnorm else None)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:

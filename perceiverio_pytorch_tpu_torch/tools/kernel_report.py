@@ -35,7 +35,15 @@ On a machine with an NVIDIA GPU, from the repository root:
      update timed apart, then one step under ``torch.profiler`` as in 6;
   8. one bf16 serving request of each full-width classifier (batch 16) and
      of the language model (batch 32, right-padded masks) under
-     ``torch.profiler`` as in 6, after a warm-up request.
+     ``torch.profiler`` as in 6, after a warm-up request;
+  9. K2 and K3 at the classification encoders at the training batch of 8
+     (d = 261 and 512, and 261 padded to 264 for the load width), both
+     dtypes, with each call's plan and load width (the dynamic shared memory
+     of their sm90 instantiations is printed in 1);
+ 10. one full-scale bf16 training step each of
+     ``examples/train_classification.py`` with the 1x1-conv variant (batch
+     8, remat) and of ``examples/train_mlm.py`` (batch 8): timed in parts
+     as in 7, then under ``torch.profiler`` as in 6.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -68,6 +76,10 @@ MULTIMODAL_SITE = (1, 784, 52097, 1, 704, 704)
 # bf16 rows, which allow 16-byte loads where 261's allow 2).
 CLASSIFICATION_SITES = ((16, 512, 50176, 1, 261, 261), (16, 512, 50176, 1, 512, 512),
                         (16, 512, 50176, 1, 264, 264))
+# The same encoders at the training batch (examples/train_classification.py
+# --full-scale), for K2 and K3.
+CLASSIFICATION_TRAIN_SITES = ((8, 512, 50176, 1, 261, 261), (8, 512, 50176, 1, 512, 512),
+                              (8, 512, 50176, 1, 264, 264))
 
 
 def ptxas_report():
@@ -127,6 +139,18 @@ def ptxas_report():
     print(f"[smem] flash_bwd_dkv_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 32 * 64 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_bwd_dq_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
+    # K2 and K3 at the classification encoders: d = 261 takes the flow
+    # encoder's <16, 6> (6 tiles of 64 columns) and <168, 64> (Q and K tiles
+    # of 336 columns, dO and V of 272); d = 512 the flow decoder's <16, 8> and
+    # <256, 32>.
+    for d, (nkw, nm), (nh, bk3) in ((261, (16, 6), (168, 64)), (512, (16, 8), (256, 32))):
+        dp = -(-d // 16) * 16
+        smem = ((2 * 2 * nkw + 2 * 64) * 64 * nm + 2 * 64 * 2 * nkw) * 2
+        print(f"[smem] flash_bwd_dkv_sm90_kernel<{nkw}, {nm}> at d = dv = {d}: {smem} bytes"
+              " dynamic")
+        smem = ((64 + bk3) * (2 * nh + dp) + 64 * bk3) * 2
+        print(f"[smem] flash_bwd_dq_sm90_kernel<{nh}, {bk3}> at d = dv = {d}: {smem} bytes"
+              " dynamic")
 
 
 def sass_report(paths):
@@ -265,6 +289,28 @@ def time_flow_sites(gen, reps=2):
                   f"({fa.launch_plan(q, k, v)})", flush=True)
 
 
+def time_classification_backward(gen, reps=2):
+    """K2 and K3 per launch at the classification encoders at batch 8, with
+    the width of the loads their strides allow."""
+    for shape in CLASSIFICATION_TRAIN_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v), _ = _case(*shape, dtype, False, False, gen)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            grad = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            kernels = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
+                                         softmax_scale=None, kv_logical_len=None)
+            ms2, ms3 = _time(kernels.dkv, reps), _time(kernels.dq, reps)
+            b, tq, tk, h, d, dv = shape
+            pairs = b * tq * tk * h
+            tflops2 = (4 * d + 4 * dv) * pairs / ms2 / 1e9
+            tflops3 = (4 * d + 2 * dv) * pairs / ms3 / 1e9
+            loads = f", loads of {_load_bytes(k)} bytes" if dtype == torch.bfloat16 else ""
+            print(f"[time] {shape} {dtype}: K2 {ms2:.3f} ms ({tflops2:.1f} TFLOP/s), K3"
+                  f" {ms3:.3f} ms ({tflops3:.1f} TFLOP/s){loads} ({kernels.plan})", flush=True)
+            del q, k, v, out, lse, grad, kernels
+            torch.cuda.empty_cache()
+
+
 def _load_bytes(t):
     """The widest cp.async granularity (16, 8, 4 or 2 bytes) that the bf16
     kernel's loads of ``t`` may take: base address, strides and row width
@@ -323,17 +369,41 @@ def _print_device_profile(label, prof, seconds, top):
 
 def profile_multimodal_training(top=15):
     """One full-scale bf16 training step of the port's train_multimodal
-    example (16 chunks, remat): its forward with the loss, its backward and
-    its optimizer update timed apart (host clock ending in a synchronize,
-    after a warm-up step), then one whole step under ``torch.profiler``."""
-    import time
-
+    example (16 chunks, remat), as ``_profile_train_step`` takes it."""
     from perceiverio_pytorch_tpu_torch.examples import train_multimodal
 
     trainer, state, batches = train_multimodal.setup(8, full_scale=True, metrics_path=None,
                                                      log_every=0)
+    _profile_train_step("mm train", trainer, state, next(iter(batches())), top)
+
+
+def profile_training(top=15):
+    """One full-scale bf16 training step of the port's train_classification
+    example with the 1x1-conv variant (batch 8, remat: K1, K2 and K3 at the
+    encoder) and of its train_mlm example (batch 8, all sites dense), as
+    ``_profile_train_step`` takes it."""
+    from perceiverio_pytorch_tpu_torch import PrepType
+    from perceiverio_pytorch_tpu_torch.examples import train_classification, train_mlm
+
+    for label, make in (
+            ("cls LEARNED_POS_1X1CONV train", lambda: train_classification.setup(
+                8, full_scale=True, prep_type=PrepType.LEARNED_POS_1X1CONV, metrics_path=None,
+                log_every=0)),
+            ("lm train", lambda: train_mlm.setup(8, full_scale=True, metrics_path=None,
+                                                 log_every=0))):
+        trainer, state, batches, _ = make()
+        _profile_train_step(label, trainer, state, next(iter(batches())), top)
+        del trainer, state, batches
+        torch.cuda.empty_cache()
+
+
+def _profile_train_step(label, trainer, state, batch, top):
+    """A training step's forward with the loss, its backward and its
+    optimizer update timed apart (host clock ending in a synchronize, after
+    a warm-up step), twice, then one whole step under ``torch.profiler``."""
+    import time
+
     model, opt = state.model, state.optimizer
-    batch = next(iter(batches()))
 
     def step():
         parts = []
@@ -356,12 +426,12 @@ def profile_multimodal_training(top=15):
     step()  # warm-up
     for _ in range(2):
         forward, backward, update = step()
-        print(f"[mm train] bf16 step: forward+loss {forward * 1e3:.2f} ms, backward"
+        print(f"[{label}] bf16 step: forward+loss {forward * 1e3:.2f} ms, backward"
               f" {backward * 1e3:.2f} ms, update {update * 1e3:.2f} ms", flush=True)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         seconds = sum(step())
-    _print_device_profile("mm train profile", prof, seconds, top)
+    _print_device_profile(f"{label} profile", prof, seconds, top)
 
 
 def profile_serving(top=12):
@@ -412,6 +482,8 @@ def main():
     profile_multimodal()
     profile_multimodal_training()
     profile_serving()
+    time_classification_backward(gen)
+    profile_training()
 
 
 if __name__ == "__main__":

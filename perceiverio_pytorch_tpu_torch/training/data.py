@@ -1,8 +1,9 @@
 """Host-side batching: the epoch / shuffle / resume index stream.
 
 A numpy-only copy of ``_index_batches`` and ``batch_iterator`` from
-``perceiverio_pytorch_tpu/training/data.py``, so that the port sees the
-same data order as the JAX package for the same seed.  Multi-host sharding
+``perceiverio_pytorch_tpu/training/data.py`` and of ``epoch_batches`` from
+``perceiverio_pytorch_tpu/utils/data.py``, so that the port sees the same
+data order as the JAX package for the same seed.  Multi-host sharding
 (``shard_by_process``) and device prefetch are not ported.
 """
 
@@ -12,7 +13,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["batch_iterator"]
+__all__ = ["batch_iterator", "epoch_batches"]
 
 
 def _index_batches(
@@ -85,3 +86,16 @@ def batch_iterator(
         drop_remainder=drop_remainder, start_batch=start_batch,
     ):
         yield tuple(a[take] for a in arrays)
+
+
+def epoch_batches(
+    arrays: Sequence[np.ndarray],
+    batch_size: int,
+    *,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = True,
+) -> Iterator[tuple]:
+    """One epoch of batch tuples from same-length in-memory arrays."""
+    return batch_iterator(arrays, batch_size, shuffle=shuffle, seed=seed, epochs=1,
+                          drop_remainder=drop_remainder)

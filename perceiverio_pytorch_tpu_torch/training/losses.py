@@ -1,9 +1,11 @@
 """Training objectives of the ported slices.
 
-Counterpart of ``perceiverio_pytorch_tpu/training/losses.py``: the flow
-slice's ``flow_endpoint_error`` and the multimodal slice's
-``multimodal_autoencode_loss``.  The language and classification losses
-come with their slices.
+Counterpart of ``perceiverio_pytorch_tpu/training/losses.py``: the byte
+MLM's ``masked_token_cross_entropy``, ImageNet's
+``classification_cross_entropy``, flow's ``flow_endpoint_error`` and the
+multimodal autoencoder's ``multimodal_autoencode_loss``.  Every
+cross-entropy is taken in fp32, whatever the logits' dtype (the JAX package
+takes it in the logits' dtype).
 """
 
 from __future__ import annotations
@@ -12,6 +14,28 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def masked_token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                               loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Byte-MLM objective: the mean softmax cross-entropy of logits [B, T, V]
+    against integer targets [B, T], over the positions where ``loss_mask``
+    [B, T] is 1 (all of them without a mask), divided by their count, at
+    least one."""
+    ce = F.cross_entropy(logits.float().flatten(0, -2), targets.long().flatten(),
+                         reduction="none").view(targets.shape)
+    if loss_mask is None:
+        return ce.mean()
+    loss_mask = loss_mask.to(ce.dtype)
+    return (ce * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+
+
+def classification_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 label_smoothing: float = 0.0) -> torch.Tensor:
+    """ImageNet objective: the mean softmax cross-entropy of logits [B, C]
+    against integer labels [B], the one-hot targets smoothed to
+    ``(1 - label_smoothing) * onehot + label_smoothing / C``."""
+    return F.cross_entropy(logits.float(), labels.long(), label_smoothing=label_smoothing)
 
 
 def flow_endpoint_error(pred_flow: torch.Tensor, gt_flow: torch.Tensor,

@@ -10,23 +10,29 @@ wgmma kernels with their split grids, merge and sum, and the fp32 CUDA-core
 kernels; all three also at head widths up to 704) are held against their
 plain PyTorch versions, which the CPU tests hold against the JAX package;
 K1 also at the classification encoders' widths (261 and 512) over 50,176
-keys, and reduced-depth classification and language models on the card
-against the same models on the CPU.
+keys, K2 and K3 at those widths (masked small cases, and a few thousand
+keys), reduced-depth classification and language models on the card
+against the same models on the CPU, and one training step of each tiny
+classifier and of the tiny MLM on the card with its launches counted.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
 from perceiverio_pytorch_tpu_torch import config
+from perceiverio_pytorch_tpu_torch.examples import train_classification, train_mlm
 from perceiverio_pytorch_tpu_torch.models.classification import ClassificationPerceiver, PrepType
 from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
 from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
 from perceiverio_pytorch_tpu_torch.models.multimodal import MultiModalPerceiver
 from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 from perceiverio_pytorch_tpu_torch.training import (
+    Trainer,
+    build_optimizer,
     flow_endpoint_error,
     multimodal_autoencode_loss,
 )
@@ -686,3 +692,112 @@ def test_small_language_model_on_the_card(cuda):
     assert fa.LAUNCHES == before
     _check(got.cpu(), want, 1e-4)
     _check(rows.cpu(), want[:, positions], 1e-4)
+
+
+# K2/K3 at the classification encoders' widths: the pixel variant's 261
+# (522-byte bf16 rows: 2-byte loads; K2 <16, 6>, K3 <168>) with masks, a
+# ragged Tk, kv_logical_len and an all-masked entry, strided too; the
+# 1x1-conv variant's 512 unmasked over a few thousand keys.
+CLS_BACKWARD_CASES = [(2, 100, 777, 1, 261, 261), (2, 130, 300, 1, 261, 261),
+                      (3, 65, 129, 2, 261, 261)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", CLS_BACKWARD_CASES)
+@pytest.mark.parametrize("strided", [False, True])
+def test_backward_kernels_at_width_261(cuda, dtype, tol, b, tq, tk, h, d, dv, strided):
+    args, kw = _backward_case(b, tq, tk, h, d, dv, dtype, cuda, strided=strided)
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    got = fa.flash_attention_backward(*args, **kw)
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    for x, x_like in zip(got, args[:3]):
+        assert x.dtype == dtype and x.shape == x_like.shape
+    _check_backward(got, want, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [261, 512])
+def test_backward_kernels_at_the_classification_widths_unmasked(cuda, dtype, tol, d):
+    """512 latents over 4,096 keys at batch 2, no mask: K3 splits the keys
+    in bf16; the bf16 splits against one split."""
+    q, k, v, _, _ = _inputs(2, 512, 4096, 1, d, d, 24, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(25)).to(cuda, dtype)
+    plan = fa.backward_plan(q, k, v)
+    assert plan["dq"]["splits"] > 1 if dtype == torch.bfloat16 else plan["dq"]["splits"] == 1
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad)
+    want = fa.flash_attention_backward_reference(
+        *(x.float() for x in (q, k, v, out, lse, grad)))
+    for x, y in zip(got, want):
+        _check(x, y, tol)
+    if dtype == torch.bfloat16:
+        one = fa._flash_attention_backward_cuda(q, k, v, out, lse, grad, num_splits=1)
+        for x, y in zip(got, one):
+            _check(x, y, tol)
+
+
+def _tiny_classifier(prep, impl, device):
+    return ClassificationPerceiver(
+        num_classes=train_classification.TINY_CLASSES, prep_type=prep,
+        **train_classification.TINY, policy=dataclasses.replace(config.PARITY, attn_impl=impl),
+        device=device, generator=torch.Generator().manual_seed(5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prep", list(PrepType))
+def test_tiny_classifier_train_step_on_the_card(cuda, prep):
+    """The example's tiny classifier (32x32, one block of 2 self-attends)
+    with every site forced through the kernels: the loss's gradients on the
+    card against the dense path's on the same card and weights, the convnet's
+    running averages against the same step on the CPU, and one Trainer step
+    of K1, K2 and K3 at each of the 4 sites."""
+    img, labels = (torch.from_numpy(a[:2]) for a in train_classification.synthetic_quadrants(
+        2, (32, 32), train_classification.TINY_CLASSES))
+    models = {impl: _tiny_classifier(prep, impl, cuda).train() for impl in ("flash", "dense")}
+    cpu = _tiny_classifier(prep, "dense", "cpu").train()
+    grads = {}
+    for impl, model in models.items():
+        train_classification.loss_fn(model, img.to(cuda), labels.to(cuda)).backward()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    train_classification.loss_fn(cpu, img, labels).backward()
+    assert set(grads["flash"]) == set(grads["dense"])
+    for name, want in grads["dense"].items():
+        if not name.endswith("proj_k.bias"):  # exact gradient 0: rounding noise
+            _check(grads["flash"][name], want, 1e-4)
+    for name, buf in cpu.named_buffers():
+        if "running" in name:
+            _check(models["flash"].get_buffer(name).cpu(), buf, 1e-5)
+    trainer = Trainer(train_classification.loss_fn, build_optimizer(1e-3), log_every=0)
+    state = trainer.init_state(models["flash"])
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    state = trainer.fit(state, [(img.to(cuda), labels.to(cuda))], num_steps=1)
+    assert state.step == 1
+    assert (fa.LAUNCHES - before[0], fa.LAUNCHES_BWD_DKV - before[1],
+            fa.LAUNCHES_BWD_DQ - before[2]) == (4, 4, 4)
+
+
+@pytest.mark.cuda
+def test_tiny_mlm_train_step_on_the_card(cuda, tmp_path):
+    """Two steps of the example's tiny MLM on the card (dense path, no
+    launch) against the same steps on the CPU: the logged losses and the
+    evaluation."""
+    logged = {}
+    for device in ("cpu", cuda):
+        path = tmp_path / f"{torch.device(device).type}.jsonl"
+        trainer, state, batches, eval_batches = train_mlm.setup(
+            2, batch_size=2, device=device, metrics_path=str(path), log_every=1)
+        before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+        trainer.fit(state, batches, num_steps=2, eval_batches=eval_batches)
+        assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
+        with open(path) as f:
+            logged[device] = [json.loads(line) for line in f]
+    cpu_lines, card_lines = logged["cpu"], logged[cuda]
+    assert [x["step"] for x in card_lines] == [x["step"] for x in cpu_lines] == [1, 1, 2, 2]
+    for got, want in zip(card_lines, cpu_lines):
+        key = "loss" if "loss" in want else "eval_loss"
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4)

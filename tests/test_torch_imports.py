@@ -65,6 +65,26 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["train_mlm", "train_classification"])
+def test_training_examples_load_no_jax(module):
+    """Each language and classification training example, imported alone in
+    a fresh interpreter, is among the files checked above and loads no JAX,
+    flax or JAX package module."""
+    name = f"{PACKAGE}.examples.{module}"
+    assert name in [_module_name(p) for p in _port_files()]
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

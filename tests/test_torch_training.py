@@ -3,7 +3,8 @@
 Gradients of the tiny flow model through the flash path (the plain
 versions of K1, K2 and K3 on the CPU, the Pallas kernels in interpreter mode
 in JAX), with remat on and off; the schedule and AdamW with its clip against
-optax; the batch order; three Trainer steps; and the example's tiny
+optax; the batch order; three Trainer steps; the Trainer's evaluation
+against the JAX Trainer's and a hand loop; and the example's tiny
 configuration.
 """
 
@@ -26,6 +27,7 @@ from perceiverio_pytorch_tpu.training import batch_iterator as jax_batch_iterato
 from perceiverio_pytorch_tpu.training import build_optimizer as jax_build_optimizer
 from perceiverio_pytorch_tpu.training import build_schedule as jax_build_schedule
 from perceiverio_pytorch_tpu.training import flow_endpoint_error as jax_epe
+from perceiverio_pytorch_tpu.utils.data import epoch_batches as jax_epoch_batches
 from perceiverio_pytorch_tpu_torch import config as port_config
 from perceiverio_pytorch_tpu_torch.examples import train_flow
 from perceiverio_pytorch_tpu_torch.models import flow as port_flow
@@ -35,6 +37,7 @@ from perceiverio_pytorch_tpu_torch.training import (
     batch_iterator,
     build_optimizer,
     build_schedule,
+    epoch_batches,
     flow_endpoint_error,
     global_norm,
     make_train_step,
@@ -177,7 +180,7 @@ def test_unported_optimizer_and_trainer_options_raise():
         build_optimizer(1e-3, optimizer="adam")
     tx = build_optimizer(1e-3)
     for kw in (dict(mesh=object()), dict(fsdp=True), dict(checkpoint_dir="x"),
-               dict(eval_fn=len), dict(ema_decay=0.999), dict(steps_per_call=4),
+               dict(ema_decay=0.999), dict(steps_per_call=4),
                dict(prefetch=2)):
         with pytest.raises(NotImplementedError):
             Trainer(lambda m: m, tx, **kw)
@@ -200,6 +203,18 @@ def test_batch_iterator_order_matches_jax(kw):
         if w is None:
             assert g is None
             break
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(shuffle=False, drop_remainder=False),
+                                dict(seed=3, drop_remainder=False)])
+def test_epoch_batches_match_jax(kw):
+    arrays = (np.arange(11), np.arange(11) * 10)
+    want = list(jax_epoch_batches(arrays, 4, **kw))
+    got = list(epoch_batches(arrays, 4, **kw))
+    assert len(got) == len(want) == (2 if kw.get("drop_remainder", True) else 3)
+    for g, w in zip(got, want):
         for x, y in zip(g, w):
             np.testing.assert_array_equal(x, y)
 
@@ -261,6 +276,111 @@ def test_trainer_steps_match_jax_trainer(tmp_path):
         if param.numel():
             moved = max(moved, (param.detach() - initial[name]).abs().max().item())
     assert moved > 1e-4
+
+
+def _linear_problem():
+    rng = np.random.default_rng(7)
+    return (rng.standard_normal((12, 3)).astype(np.float32),
+            rng.standard_normal((12, 1)).astype(np.float32),
+            rng.standard_normal((3, 1)).astype(np.float32))
+
+
+def _linear_model(w):
+    model = torch.nn.Linear(3, 1, bias=False)
+    with torch.no_grad():
+        model.weight.copy_(torch.from_numpy(w.T))
+    return model
+
+
+def _mse(model, x, y):
+    return ((model(x) - y) ** 2).mean()
+
+
+@pytest.mark.parametrize("metrics", ["scalar", "dict"])
+def test_trainer_evaluation_matches_jax_trainer(tmp_path, metrics):
+    """fit with eval_fn and eval_every=2 over 5 AdamW steps of a linear
+    regression, the evaluation batches a generator: the JAX Trainer's
+    cadence (steps 2 and 4, each on a line of its own) and values, for a
+    scalar eval_fn (logged as eval_loss) and for a dict of metrics."""
+    x, y, w = _linear_problem()
+
+    def jax_eval(params, xb, yb):
+        err = xb @ params["w"] - yb
+        loss = jnp.mean(err ** 2)
+        return loss if metrics == "scalar" else {"eval_loss": loss,
+                                                 "eval_mae": jnp.mean(jnp.abs(err))}
+
+    def port_eval(model, xb, yb):
+        err = model(xb) - yb
+        loss = (err ** 2).mean()
+        return loss if metrics == "scalar" else {"eval_loss": loss, "eval_mae": err.abs().mean()}
+
+    jax_trainer = JaxTrainer(lambda p, xb, yb: jnp.mean((xb @ p["w"] - yb) ** 2),
+                             jax_build_optimizer(1e-2), log_every=1, eval_fn=jax_eval,
+                             eval_every=2, metrics_path=str(tmp_path / "jax.jsonl"))
+    state = jax_trainer.init_state({"w": jnp.asarray(w)})
+    jax_trainer.fit(state, jax_batch_iterator((x, y), 4, shuffle=True, epochs=None),
+                    num_steps=5, eval_batches=jax_batch_iterator((x, y), 6, epochs=1))
+    trainer = Trainer(_mse, build_optimizer(1e-2), log_every=1, eval_fn=port_eval,
+                      eval_every=2, metrics_path=str(tmp_path / "port.jsonl"))
+    port_state = trainer.init_state(_linear_model(w))
+    held_out = (tuple(torch.from_numpy(a) for a in b)
+                for b in batch_iterator((x, y), 6, epochs=1))
+    trainer.fit(port_state, (tuple(torch.from_numpy(a) for a in b)
+                             for b in batch_iterator((x, y), 4, shuffle=True, epochs=None)),
+                num_steps=5, eval_batches=held_out)
+
+    def evals(name):
+        with open(tmp_path / name) as f:
+            return [json.loads(line) for line in f if "eval_loss" in line]
+
+    want, got = evals("jax.jsonl"), evals("port.jsonl")
+    assert [e["step"] for e in got] == [e["step"] for e in want] == [2, 4]
+    for g, e in zip(got, want):
+        assert set(g) == set(e) == ({"step", "eval_loss"} | (
+            set() if metrics == "scalar" else {"eval_mae"}))
+        for key in g:
+            np.testing.assert_allclose(g[key], e[key], **TOL)
+
+
+def test_trainer_evaluate_against_a_hand_loop():
+    """``evaluate``: the mean of a scalar or of each metric over the
+    batches, in eval mode without gradients, the model put back in the mode
+    it was in; no batch gives 0.0; EMA and resuming still raise."""
+    x, y, w = _linear_problem()
+    model = _linear_model(w)
+    batches = [(torch.from_numpy(x[i:i + 4]), torch.from_numpy(y[i:i + 4]))
+               for i in range(0, 12, 4)]
+    seen = []
+
+    def eval_fn(m, xb, yb):
+        seen.append((m.training, torch.is_grad_enabled()))
+        return {"eval_loss": _mse(m, xb, yb), "eval_max": (m(xb) - yb).abs().max()}
+
+    trainer = Trainer(_mse, build_optimizer(1e-2), log_every=0, eval_fn=eval_fn)
+    state = trainer.init_state(model)
+    for training in (True, False):
+        model.train(training)
+        seen.clear()
+        got = trainer.evaluate(state, batches)
+        assert seen == [(False, False)] * 3 and model.training == training
+        with torch.no_grad():
+            np.testing.assert_allclose(
+                got["eval_loss"], np.mean([_mse(model, *b).item() for b in batches]), rtol=1e-6)
+            np.testing.assert_allclose(
+                got["eval_max"],
+                np.mean([(model(b[0]) - b[1]).abs().max().item() for b in batches]), rtol=1e-6)
+    trainer.eval_fn = _mse
+    with torch.no_grad():
+        want = np.mean([_mse(model, *b).item() for b in batches])
+    np.testing.assert_allclose(trainer.evaluate(state, iter(batches)), want, rtol=1e-6)
+    assert trainer.evaluate(state, []) == 0.0
+    with pytest.raises(NotImplementedError):
+        trainer.evaluate(state, batches, use_ema=True)
+    with pytest.raises(NotImplementedError):
+        Trainer(_mse, build_optimizer(1e-2), ema_decay=0.999)
+    with pytest.raises(NotImplementedError):
+        trainer.fit(state, batches, resume=True)
 
 
 def test_train_step_metrics_and_buffers():
