@@ -122,7 +122,36 @@ Phases (each raises on failure; nothing is caught):
      timed steps with finite losses, parameters that move, evaluation lines
      at the mid and final steps (timed apart, and left out of the steps'
      times), and no kernel launch;
- 20. prints the kernels line and, last, {"ok": true, "device": {...}}.
+ 20. server buckets: K1 at the classification encoders (d = 261 and 512,
+     50,176 keys) at batches 1, 2 and 4, bf16 with its lse, against the
+     plain version, each plan's splits (33, 16, 8) and merge asserted; K1's
+     torch.library op through torch.ops against the direct launch, bit for
+     bit;
+ 21. export: the full-width bf16 1x1-conv classifier (eval mode, weights
+     cast by cast_variables_for_inference) through export_apply(...,
+     batch_polymorphic=True) on the card: the graph holds K1's op once and
+     the artifact no parameter (its bytes against the weights' printed);
+     load_exported from the bytes at batches 1, 4 and 16 against the eager
+     model (EXPORT_TOL), K1 once a call; p50/p99 latency and images/s of
+     the artifact beside the eager model's.  The pixel variant goes through
+     export and one batch;
+ 22. server: the serving example's server_demo over the reloaded artifact,
+     24 clients in closed loop for 6 s against BatchingServer(max_batch=8,
+     max_wait_ms=3), pipeline off, on, off, on: every row against
+     batch-of-one calls (SERVE_TOL), K1 launches equal to the batches
+     dispatched and the warm-up's, req/s over the window, p50/p99 over
+     every request, occupancy, buckets; then 4 requests grouped into one
+     batch, bit for bit against a direct call of that batch;
+ 23. HTTP: the serving example's http_demo over the artifact, 12 clients in
+     closed loop for 6 s (half JSON, half npz, rates apart), every answer
+     against batch-of-one calls, /stats and /metrics; then its multi_demo:
+     the artifact as "imagenet" and the full-width LanguagePerceiver as
+     "mlm" behind one port (max_batch 2), and a 30 ms deadline shed as
+     HTTP 504;
+ 24. serving example: examples/serve.py --full-scale --server --http
+     --requests 5 --seconds 2 (the convnet: no kernel launch) into a
+     temporary directory;
+ 25. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -136,6 +165,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -234,6 +264,29 @@ LM_SPAN = (200, 264)  # the masked bytes, predicted by predict_positions
 # algorithm for fewer rows (fp32), and bf16 rounds differently there.
 LM_ROWS_TOL = {"fp32": 1e-5, "bf16": 2e-2}
 LM_BF16_TOL = 1e-1  # bf16 logits against fp32, relative to max |logit|
+# The serving stack (phases 20 to 24).  K1 at the classification encoders at
+# the server's buckets below 8 (8 and 16 are held in phases 16 and 3): (B,
+# Tq, Tk, H, D, Dv) for the pixel (d = 261) and 1x1-conv (d = 512) variants,
+# and the key splits each bucket's plan must take (a merge after each).
+BUCKET_SPLITS = {1: 33, 2: 16, 4: 8}
+BUCKET_SITES = {f"{site}_bucket{b}": (b,) + CLS_SITES[site][1:]
+                for site in CLS_SITES for b in BUCKET_SPLITS}
+EXPORT_BATCHES = (1, 4, 16)
+EXPORT_REQUESTS = 10  # timed per batch, after one warm-up call
+# The reloaded artifact against the eager model on the same bf16 weights and
+# images, relative to max |logit|: the same ATen ops and kernels, so equal
+# but for a GEMM algorithm cuBLAS might pick otherwise (measured: bit for
+# bit, see "bitwise" in the phase's line).
+EXPORT_TOL = 2e-2
+# A served row against a batch-of-one call of the artifact, relative to max
+# |logit|: K1's plan (key splits) and cuBLAS's GEMM tiling change with the
+# bucket, and bf16 rounds each of the 49 attention blocks' outputs, as
+# every bf16 comparison of the port with the JAX package (5%).
+SERVE_TOL = 5e-2
+SERVER_CLIENTS = 24
+SERVER_PIPELINES = (False, True, False, True)  # one closed-loop window each, alternated
+HTTP_CLIENTS = 12
+SERVE_WINDOW_S = 6.0  # each closed-loop window of the server and HTTP phases
 
 
 def smi_line() -> str:
@@ -1644,6 +1697,327 @@ def phase_lm_train():
     return rec
 
 
+def phase_bucket_kernels(reps: int = 3):
+    """K1 at the classification encoders at the server's buckets 1, 2 and 4
+    (bf16, with its lse, against the plain version, each plan's splits and
+    merge asserted); then K1's torch.library op through torch.ops against
+    the direct launch on the same tensors, bit for bit."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    records = [check_case(name, shape, "bf16", False, reps, gen, lse=True,
+                          want_plan=dict(splits=BUCKET_SPLITS[shape[0]], cuda_launches=2))
+               for name, shape in BUCKET_SITES.items()]
+    for name, shape in BUCKET_SITES.items():
+        q, k, v, _ = _case_inputs(*shape, torch.bfloat16, False, gen)
+        with torch.inference_mode():
+            out, lse = torch.ops.perceiverio_torch.flash_attention_fwd(
+                q, k, v, None, None, None, None, True)
+            want, want_lse = fa._flash_attention_cuda(
+                q, k, v, q_mask=None, kv_mask=None, softmax_scale=None, kv_logical_len=None,
+                return_lse=True)
+            torch.cuda.synchronize()
+        if not (torch.equal(out, want) and torch.equal(lse, want_lse)):
+            raise AssertionError(f"{name}: the op differs from the direct launch")
+    print(f"[buckets] op == direct launch bit for bit at {list(BUCKET_SITES)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
+def _artifact_contents(blob, model, weights):
+    """What the exported program holds: its K1 op nodes, its state (which
+    must hold no parameter), its constants (each must be one of the model's
+    non-persistent buffers) and their bytes."""
+    import io
+
+    import torch
+
+    ep = torch.export.load(io.BytesIO(blob))
+    op = torch.ops.perceiverio_torch.flash_attention_fwd.default
+    derived = [b for name, b in model.named_buffers() if name.endswith("fourier_table")]
+    for name, const in ep.constants.items():
+        if not any(const.shape == b.shape and torch.equal(const, b) for b in derived):
+            raise AssertionError(f"the artifact holds constant {name} {tuple(const.shape)},"
+                                 " no derived buffer")
+    if len(ep.state_dict):
+        raise AssertionError(f"the artifact holds parameters: {list(ep.state_dict)[:5]}")
+    return dict(k1_op_nodes=sum(n.target is op for n in ep.graph.nodes),
+                artifact_bytes=len(blob), artifact_state_tensors=len(ep.state_dict),
+                constant_bytes=sum(c.numel() * c.element_size() for c in ep.constants.values()),
+                weights_bytes=sum(t.numel() * t.element_size() for t in weights.values()))
+
+
+def _export_classifier(prep):
+    """The full-width bf16 classifier (eval mode, PERFORMANCE) of one
+    PrepType, its weights cast for inference, exported batch-polymorphic
+    on the card and reloaded from the bytes; checks the artifact's
+    contents."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, export_apply, load_exported
+    from perceiverio_pytorch_tpu_torch.utils.params import cast_variables_for_inference
+
+    model = _cls_model(prep, PERFORMANCE)
+    weights = cast_variables_for_inference(model)
+    example = torch.zeros((2, 3, 224, 224), device="cuda")
+    t0 = time.perf_counter()
+    blob = export_apply(model, weights, example, batch_polymorphic=True)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_exported(blob)
+    load_s = time.perf_counter() - t0
+    contents = _artifact_contents(blob, model, weights)
+    if contents["k1_op_nodes"] != 1:
+        raise AssertionError(f"{prep}: {contents['k1_op_nodes']} K1 op nodes in the graph")
+    return model, weights, blob, fn, dict(prep=prep, export_s=export_s, load_s=load_s,
+                                          **contents)
+
+
+def _check_artifact_call(prep, model, weights, fn, img):
+    """One call of the reloaded artifact against the eager model on the same
+    weights: K1 once (and its planned merges), logits within EXPORT_TOL."""
+    import torch
+
+    with torch.inference_mode():
+        _reset_launch_counts()
+        got = fn(weights, img)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        want = torch.func.functional_call(model, weights, (img,))
+        torch.cuda.synchronize()
+    expected = _expected_k1(prep, img.shape[0], torch.bfloat16)
+    if (launches["K1"], launches["merge"]) != expected:
+        raise AssertionError(f"{prep}: artifact launches {launches}, expected {expected}")
+    if tuple(got.shape) != (img.shape[0], 1000) or not torch.isfinite(got).all():
+        raise AssertionError(f"{prep}: artifact logits {tuple(got.shape)}")
+    scale = want.float().abs().max().item()
+    diff = (got.float() - want.float()).abs().max().item()
+    if not diff <= EXPORT_TOL * scale:
+        raise AssertionError(f"{prep}: artifact vs eager {diff} > {EXPORT_TOL} * {scale}")
+    return dict(batch=img.shape[0], launches=launches["K1"], merge_launches=launches["merge"],
+                max_abs_diff=diff, max_abs_logit=scale, bitwise=torch.equal(got, want))
+
+
+def _latency(call, img, requests):
+    """p50 and p99 host-clock latency of ``call(img)`` with the logits
+    fetched, over ``requests`` calls after one, and images/s."""
+    call(img).cpu()
+    times = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        call(img).cpu()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return dict(p50_ms=times[len(times) // 2] * 1e3, p99_ms=times[-1] * 1e3,
+                images_per_s=img.shape[0] * len(times) / sum(times))
+
+
+def phase_export(smi, out_dir):
+    """The full-width 1x1-conv classifier exported on the card: the graph
+    holds K1's op once and no parameter; the artifact, reloaded from its
+    bytes, at batches 1, 4 and 16 against the eager model (K1 once a call),
+    then p50/p99 latency and images/s beside the eager model's; the
+    artifact and the weights written to ``out_dir`` as the serving example
+    writes them.  The pixel variant goes through export and one batch of 4.
+    Returns the 1x1-conv model's weights and loaded artifact."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples import serve
+    from perceiverio_pytorch_tpu_torch.training.checkpoint import save_variables
+
+    t0 = time.perf_counter()
+    prep = "LEARNED_POS_1X1CONV"
+    model, weights, blob, fn, rec = _export_classifier(prep)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    calls, timing = [], {}
+    for b in EXPORT_BATCHES:
+        img = _cls_images(gen, b)
+        calls.append(_check_artifact_call(prep, model, weights, fn, img))
+        with torch.inference_mode():
+            timing[b] = dict(
+                artifact=_latency(lambda x: fn(weights, x), img, EXPORT_REQUESTS),
+                eager=_latency(lambda x: torch.func.functional_call(model, weights, (x,)),
+                               img, EXPORT_REQUESTS))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, serve.ARTIFACT), "wb") as f:
+        f.write(blob)
+    save_variables(os.path.join(out_dir, serve.WEIGHTS), weights, overwrite=True)
+    rec.update(calls=calls, timing=timing, card=smi, seconds=time.perf_counter() - t0)
+    print(f"[export] bf16 1x1-conv classifier, torch.export: {json.dumps(rec)}", flush=True)
+    del model
+
+    t0 = time.perf_counter()
+    pixel, pixel_weights, _, pixel_fn, pixel_rec = _export_classifier("FOURIER_POS_PIXEL")
+    pixel_rec.update(call=_check_artifact_call("FOURIER_POS_PIXEL", pixel, pixel_weights,
+                                               pixel_fn, _cls_images(gen, 4)),
+                     card=smi, seconds=time.perf_counter() - t0)
+    print(f"[export] bf16 pixel classifier, torch.export: {json.dumps(pixel_rec)}", flush=True)
+    del pixel, pixel_weights, pixel_fn
+    torch.cuda.empty_cache()
+    return weights, fn, dict(k1=rec, pixel=pixel_rec)
+
+
+def _direct_rows(fn, weights, images):
+    """The artifact's logits for each image alone (a batch of one)."""
+    import torch
+
+    with torch.inference_mode():
+        return [fn(weights, torch.from_numpy(img)[None].cuda())[0].float().cpu()
+                for img in images]
+
+
+def _check_rows(label, rows_by_client, direct):
+    """Every answer of client ``i`` against ``direct[i]`` (SERVE_TOL)."""
+    import torch
+
+    pairs = [(torch.as_tensor(r).float(), direct[i])
+             for i, rows in enumerate(rows_by_client) for r in rows]
+    scale = max(d.abs().max().item() for d in direct)
+    diff = max((r - d).abs().max().item() for r, d in pairs)
+    if not diff <= SERVE_TOL * scale:
+        raise AssertionError(f"{label}: served rows vs a batch of one {diff} > "
+                             f"{SERVE_TOL} * {scale}")
+    top1 = sum(int(r.argmax() == d.argmax()) for r, d in pairs) / len(pairs)
+    return dict(rows_checked=len(pairs), max_abs_diff_vs_batch_of_one=diff,
+                max_abs_logit=scale, top1_agreement=top1)
+
+
+def _check_stack_launches(label, launches, stats):
+    """K1 (and its merge: every bucket below 16 splits the keys) once per
+    batch the server dispatched, and once per bucket for its warm-up."""
+    want = stats["batches_dispatched"] + len(stats["bucket_dispatches"])
+    if launches["K1"] != want or launches["merge"] != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want} (batches "
+                             f"{stats['batches_dispatched']} + the warm-up's)")
+
+
+def phase_server(smi, weights, fn, out_dir):
+    """The serving example's server_demo over the reloaded 1x1-conv
+    artifact: 24 clients in closed loop for SERVE_WINDOW_S against
+    BatchingServer(max_batch=8, max_wait_ms=3), pipeline off and on,
+    alternated twice; every row against a batch-of-one call of the artifact
+    (SERVE_TOL); K1 once per dispatched batch and warm-up bucket (the
+    counts set to 0 before each window's server, read after it); req/s and
+    p50/p99 over every request, occupancy, buckets.  Then a known grouping:
+    4 requests that form one batch of 4, their rows bit for bit against a
+    direct call of that batch."""
+    import numpy as np
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import BatchingServer
+    from perceiverio_pytorch_tpu_torch.examples import serve
+
+    t0 = time.perf_counter()
+    images = [serve.image(i, 224) for i in range(SERVER_CLIENTS)]
+    direct = _direct_rows(fn, weights, images)
+    call = lambda x: fn(weights, x)  # noqa: E731
+    runs = []
+    for pipeline in SERVER_PIPELINES:
+        _reset_launch_counts()
+        res = serve.server_demo(out_dir, 224, clients=SERVER_CLIENTS, pipeline=pipeline,
+                                seconds=SERVE_WINDOW_S, call=call)
+        launches = _launch_counts()
+        stats = res["stats"]
+        _check_stack_launches(f"pipeline={pipeline}", launches, stats)
+        runs.append(dict(
+            pipeline=pipeline, clients=SERVER_CLIENTS, window_s=res["seconds"],
+            requests=res["requests"], requests_per_s=res["requests_per_s"],
+            p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
+            occupancy=stats.get("mean_batch_occupancy"), buckets=stats["bucket_dispatches"],
+            batches=stats["batches_dispatched"], launches=launches["K1"],
+            merge_launches=launches["merge"],
+            **_check_rows(f"pipeline={pipeline}", res["rows"], direct)))
+
+    server = BatchingServer(call, max_batch=4, max_wait_ms=5000.0, pipeline=True)
+    try:
+        futs = [server.submit(img) for img in images[:4]]
+        rows = [f.result(timeout=300) for f in futs]
+        stats = server.stats()
+    finally:
+        server.stop()
+    if stats["batches_dispatched"] != 1:
+        raise AssertionError(f"the 4 requests took {stats['batches_dispatched']} batches")
+    with torch.inference_mode():
+        want = fn(weights, torch.from_numpy(np.stack(images[:4])).cuda()).cpu()
+    if not all(torch.equal(r, w) for r, w in zip(rows, want)):
+        raise AssertionError("served rows differ from the direct call of the same batch")
+    rec = dict(runs=runs, grouped_rows_bitwise=True, card=smi,
+               seconds=time.perf_counter() - t0)
+    print(f"[server] BatchingServer over the 1x1-conv artifact: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_http(smi, weights, fn, out_dir):
+    """The serving example's http_demo over the reloaded 1x1-conv artifact:
+    HttpFrontend on 127.0.0.1:0 over a pipelined BatchingServer, 12 clients
+    in closed loop for SERVE_WINDOW_S, half JSON and half npz, each answer
+    against a batch-of-one call (SERVE_TOL); /stats and /metrics count
+    every request; K1 once per dispatched batch and warm-up bucket.  Then
+    its multi_demo: the artifact as "imagenet" and the full-width
+    LanguagePerceiver (2,048 bytes) as "mlm", max_batch 2, on one port, and
+    a 30 ms deadline shed as HTTP 504."""
+    import numpy as np
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples import serve
+
+    t0 = time.perf_counter()
+    call = lambda x: fn(weights, x)  # noqa: E731
+    direct = _direct_rows(fn, weights, [serve.image(i, 224) for i in range(HTTP_CLIENTS)])
+    _reset_launch_counts()
+    res = serve.http_demo(out_dir, 224, clients=HTTP_CLIENTS, seconds=SERVE_WINDOW_S, call=call)
+    launches = _launch_counts()
+    stats = res["stats"]
+    if stats["requests_served"] != res["requests"]:
+        raise AssertionError(f"/stats served {stats['requests_served']}, clients got "
+                             f"{res['requests']}")
+    _check_stack_launches("http", launches, stats)
+    if f'perceiver_requests_served{{model="default"}} {res["requests"]}' not in res["metrics"]:
+        raise AssertionError(f"/metrics lacks the served count:\n{res['metrics']}")
+    rec = dict(clients=HTTP_CLIENTS, window_s=res["seconds"], requests=res["requests"],
+               requests_per_s=res["requests_per_s"], p50_ms=res["p50_ms"],
+               p99_ms=res["p99_ms"], json=res["json"], npz=res["npz"],
+               server_p50_ms=stats["request_latency_ms"]["p50"],
+               server_p99_ms=stats["request_latency_ms"]["p99"],
+               occupancy=stats.get("mean_batch_occupancy"), buckets=stats["bucket_dispatches"],
+               batches=stats["batches_dispatched"], launches=launches["K1"],
+               merge_launches=launches["merge"], metrics_lines=len(res["metrics"].splitlines()),
+               **_check_rows("http", res["outputs"], direct))
+    t_multi = time.perf_counter()
+    multi = serve.multi_demo(out_dir, 224, device="cuda", full_scale=True, call=call)
+    if not np.isfinite(multi["mlm_logits"]).all() or multi["shed_status"] != 504:
+        raise AssertionError(f"multi_demo: {multi['shed_status']}, non-finite MLM logits")
+    rec.update(multi=dict(requests_served=multi["requests_served"],
+                          shed_status=multi["shed_status"],
+                          requests_expired=multi["requests_expired"],
+                          seconds=time.perf_counter() - t_multi),
+               card=smi, seconds=time.perf_counter() - t0)
+    print(f"[http] HttpFrontend over the 1x1-conv artifact: {json.dumps(rec)}", flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_example(smi, out_dir):
+    """The serving example as a user runs it: examples/serve.py --full-scale
+    --server --http --requests 5 --seconds 2 (the convnet, which runs no
+    kernel), into ``out_dir``.  Its multi-model demo ran in phase 23."""
+    from perceiverio_pytorch_tpu_torch.examples import serve
+
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    serve.main(["--full-scale", "--server", "--http", "--requests", "5", "--seconds", "2",
+                "--out", out_dir])
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the convnet's serving launched a kernel: {launches}")
+    rec = dict(seconds=time.perf_counter() - t0, launches=launches["K1"], card=smi)
+    print(f"[serve example] examples/serve.py --full-scale: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -1658,7 +2032,7 @@ def _site_sums(records, keep, per_site):
 
 
 def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
-                 cls_k1_train):
+                 cls_k1_train, buckets, serving):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -1680,7 +2054,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     the bf16 site's times at the served batch of 16, the launches of that
     variant's serving run, and apart (``..._train``) the bf16 site's times
     at the training batch of 8 and the launches of that variant's training
-    run.  K2 and K3 at the classification encoders
+    run.  The same two entries count K1's launches on the serving stack
+    apart: ``launches_export`` (the reloaded artifact's calls at batches 1,
+    4 and 16 for the 1x1-conv variant, its one call for the pixel one),
+    and for the 1x1-conv variant ``launches_server`` (the server windows'
+    traffic and warm-ups) and ``launches_http``; their ``sites`` add K1 at
+    the server's buckets 1, 2 and 4.  K2 and K3 at the classification encoders
     (``..._d261``, ``..._d512``; the same sources): the bf16 site's times at
     the training batch of 8, the launches of that variant's training run.
     Each entry's error is the largest of all its comparisons."""
@@ -1729,6 +2108,14 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             continue
         mine = [r for r in cls if r["site"] in (site, f"{site}_masked")]
         site_rec = next(r for r in mine if r["site"] == site and r["dtype"] == "bf16")
+        mine += [r for r in buckets if r["site"].startswith(f"{site}_bucket")]
+        if site == "cls_1x1conv":
+            stack = dict(
+                launches_export=sum(c["launches"] for c in serving["export"]["k1"]["calls"]),
+                launches_server=sum(r["launches"] for r in serving["server"]["runs"]),
+                launches_http=serving["http"]["launches"])
+        else:
+            stack = dict(launches_export=serving["export"]["pixel"]["call"]["launches"])
         train_sites = [r for r in cls_k1_train if r["site"].startswith(f"{site}_train")]
         train_rec = next(r for r in train_sites
                          if r["site"] == f"{site}_train" and r["dtype"] == "bf16")
@@ -1743,6 +2130,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             merge_launches=cls_serve[prep]["merge_launches"],
             launches_train=cls_train[prep]["launches"]["K1"],
             merge_launches_train=cls_train[prep]["launches"]["merge"],
+            **stack,
             max_abs_err=max(r["max_abs_err"] for r in mine + train_sites),
             **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                               "bound_by", "splits", "col_chunks")},
@@ -1837,9 +2225,19 @@ def main() -> int:
     phase_cls_gradients()
     cls_train = phase_cls_train()
     phase_lm_train()
+    torch.cuda.empty_cache()
+    buckets = phase_bucket_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        weights, artifact, exported = phase_export(smi, os.path.join(tmp, "imagenet"))
+        out_dir = os.path.join(tmp, "imagenet")
+        serving = dict(export=exported, server=phase_server(smi, weights, artifact, out_dir),
+                       http=phase_http(smi, weights, artifact, out_dir))
+        del weights, artifact
+        torch.cuda.empty_cache()
+        phase_serve_example(smi, os.path.join(tmp, "example"))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
-                       cls_serve, cls_train, cls_k1_train))
+                       cls_serve, cls_train, cls_k1_train, buckets, serving))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

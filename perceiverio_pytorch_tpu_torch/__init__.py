@@ -11,7 +11,11 @@ training demos are ``perceiverio_pytorch_tpu_torch.examples.train_flow`` and
 ``.train_multimodal``.  Task models: ``FlowPerceiver`` (with
 ``FlowInference``) and ``MultiModalPerceiver`` (serving and training),
 ``LanguagePerceiver`` (with the byte tokenizer, ``BytesTokenizer``) and
-``ClassificationPerceiver`` (its three ``PrepType``s) (serving).
+``ClassificationPerceiver`` (its three ``PrepType``s) (serving).  The
+serving stack: ``export_apply``/``load_exported`` (``torch.export``
+artifacts), ``BatchingServer`` (bucketed, pipelined micro-batching) and
+``HttpFrontend`` (JSON and npz over HTTP); the demo is
+``perceiverio_pytorch_tpu_torch.examples.serve``.
 """
 
 __version__ = "0.1.0"
@@ -35,4 +39,7 @@ from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver  # n
 from perceiverio_pytorch_tpu_torch.models.multimodal import (  # noqa: F401
     MultiModalPerceiver,
 )
+from perceiverio_pytorch_tpu_torch.serving import export_apply, load_exported  # noqa: F401
+from perceiverio_pytorch_tpu_torch.serving_http import HttpFrontend  # noqa: F401
+from perceiverio_pytorch_tpu_torch.serving_server import BatchingServer  # noqa: F401
 from perceiverio_pytorch_tpu_torch.utils.bytes_tokenizer import BytesTokenizer  # noqa: F401

@@ -32,6 +32,7 @@ from perceiverio_pytorch_tpu_torch.core import position_encoding
 from perceiverio_pytorch_tpu_torch.core.attention import Dense
 from perceiverio_pytorch_tpu_torch.core.position_encoding import PosEncodingType
 from perceiverio_pytorch_tpu_torch.io_processors.processor_utils import (
+    Conv2d,
     Conv2DDownsample,
     space_to_depth,
 )
@@ -144,8 +145,8 @@ class ImagePreprocessor(nn.Module):
         elif prep_type == "conv1x1":
             if temporal_downsample != 1:
                 raise ValueError("conv1x1 does not downsample in time.")
-            self.convnet_1x1 = nn.Conv2d(input_channels, num_channels, kernel_size=1,
-                                         stride=spatial_downsample)
+            self.convnet_1x1 = Conv2d(input_channels, num_channels, kernel_size=1,
+                                      stride=spatial_downsample)
             trunc_normal_(self.convnet_1x1.weight.data, 0.01, g)
             with torch.no_grad():
                 self.convnet_1x1.bias.zero_()

@@ -111,7 +111,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if not self.training:
-            return super().forward(x)
+            # fp32 scale and bias, whatever the parameters' dtype (flax's
+            # dtype=float32 promotes bf16 parameters).
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
+                                self.bias.float(), False, 0.0, self.eps)
         mean = x.mean(dim=(0, 2, 3))
         var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         with torch.no_grad():
@@ -120,6 +123,18 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         scale = self.weight * torch.rsqrt(var + self.eps)
         return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax ``nn.Conv``'s dtype promotion (no compute
+    dtype): input, weight and bias are cast to their common dtype, so bf16
+    weights (``utils.params.cast_variables_for_inference``) take an fp32
+    image and compute in fp32, as in the JAX package."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class Conv2DDownsample(nn.Module):
@@ -142,8 +157,8 @@ class Conv2DDownsample(nn.Module):
         g = default_generator(generator)
         self.convs = nn.ModuleList()
         for layer in range(num_layers):
-            conv = nn.Conv2d(in_channels if layer == 0 else num_channels, num_channels,
-                             kernel_size=7, stride=2, bias=False)
+            conv = Conv2d(in_channels if layer == 0 else num_channels, num_channels,
+                          kernel_size=7, stride=2, bias=False)
             trunc_normal_(conv.weight.data, 0.01, g)
             self.convs.append(conv)
         # Flax's momentum 0.9 (the kept share of the average) is torch's 0.1.

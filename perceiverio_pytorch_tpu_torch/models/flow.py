@@ -33,17 +33,8 @@ from perceiverio_pytorch_tpu_torch.core.queries import FlowQuery
 from perceiverio_pytorch_tpu_torch.io_processors.postprocessors import FlowPostprocessor
 from perceiverio_pytorch_tpu_torch.io_processors.preprocessors import ImagePreprocessor
 from perceiverio_pytorch_tpu_torch.io_processors.processor_utils import patches_for_flow
+from perceiverio_pytorch_tpu_torch.utils.device import resolve_device  # noqa: F401 (re-exported)
 from perceiverio_pytorch_tpu_torch.utils.initializers import default_generator
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, refusing a CUDA device when there is none."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class FlowPerceiver(nn.Module):

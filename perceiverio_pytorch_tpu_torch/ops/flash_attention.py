@@ -20,6 +20,9 @@ design does about that.
     whose forward saves the lse and whose backward runs K2 then K3.
     A CUDA tensor goes to the kernels, or the call raises; a CPU tensor goes
     to the plain versions, the counterpart of Pallas ``interpret=True``.
+    The forward goes through K1's ``torch.library`` op
+    (``flash_attention_fwd``, ``OP_NAME``) on both devices, so that
+    ``torch.export`` traces it into a graph (``serving.export_apply``).
   * ``flash_attention_reference`` is the plain version of K1 and
     ``flash_attention_backward_reference`` that of K2 and K3: fp32, chunked
     over query rows so that a flow-size call never holds the whole
@@ -57,7 +60,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -94,6 +97,10 @@ LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_MERGE = 0
 LAUNCHES_BWD_SUM = 0
+
+# K1's ``torch.library`` op (``flash_attention_fwd``), which the forward
+# calls on every device, so that an exported program holds it.
+OP_NAME = "perceiverio_torch::flash_attention_fwd"
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
@@ -278,10 +285,55 @@ def flash_attention(
                     return_lse=return_lse)
 
 
-def _forward(q, k, v, **kw):
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, **kw)
-    return _flash_attention_cuda(q, k, v, **kw)
+def _forward(q, k, v, *, q_mask, kv_mask, softmax_scale, kv_logical_len, return_lse):
+    out, lse = flash_attention_fwd(q, k, v, kv_mask, q_mask, softmax_scale, kv_logical_len,
+                                   return_lse)
+    return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cuda")
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    q_mask: Optional[torch.Tensor],
+    softmax_scale: Optional[float],
+    kv_logical_len: Optional[int],
+    return_lse: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a ``torch.library`` op, so that ``torch.export`` traces it: the
+    CUDA implementation launches the kernels (``_flash_attention_cuda``: the
+    plan reads the concrete batch at run time), the CPU one runs the plain
+    version.  Returns (out, lse); without ``return_lse`` the lse is empty
+    and no kernel writes one."""
+    return _with_lse(_flash_attention_cuda, q, k, v, kv_mask, q_mask, softmax_scale,
+                     kv_logical_len, return_lse)
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, kv_mask, q_mask, softmax_scale, kv_logical_len,
+                             return_lse):
+    return _with_lse(flash_attention_reference, q, k, v, kv_mask, q_mask, softmax_scale,
+                     kv_logical_len, return_lse)
+
+
+def _with_lse(fn, q, k, v, kv_mask, q_mask, softmax_scale, kv_logical_len, return_lse):
+    got = fn(q, k, v, q_mask=q_mask, kv_mask=kv_mask, softmax_scale=softmax_scale,
+             kv_logical_len=kv_logical_len, return_lse=return_lse)
+    return got if return_lse else (got, _no_lse(q))
+
+
+def _no_lse(q):
+    return torch.empty(0, dtype=torch.float32, device=q.device)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, kv_mask, q_mask, softmax_scale, kv_logical_len,
+                              return_lse):
+    b, tq, h = q.shape[:3]
+    out = q.new_empty((b, tq, h * v.shape[3]))
+    return out, q.new_empty((b, h, tq), dtype=torch.float32) if return_lse else _no_lse(q)
 
 
 class _FlashAttention(torch.autograd.Function):

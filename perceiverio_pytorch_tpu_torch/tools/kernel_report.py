@@ -43,7 +43,18 @@ On a machine with an NVIDIA GPU, from the repository root:
  10. one full-scale bf16 training step each of
      ``examples/train_classification.py`` with the 1x1-conv variant (batch
      8, remat) and of ``examples/train_mlm.py`` (batch 8): timed in parts
-     as in 7, then under ``torch.profiler`` as in 6.
+     as in 7, then under ``torch.profiler`` as in 6;
+ 11. one batch-1 bf16 request of the full-width 1x1-conv classifier through
+     its reloaded ``torch.export`` artifact beside the eager model: host
+     wall time of each, the ATen ops each dispatches, the artifact's host
+     time by Python function (``cProfile``: the input-spec pre-hook, the
+     pytree flatten, the graph's own Python, the op calls), and each under
+     ``torch.profiler`` as in 6 with the host time of its top ATen ops;
+ 12. the host time of decoding one 224x224 image request body as the HTTP
+     front end's handler threads do: JSON and npz.
+
+``python -m perceiverio_pytorch_tpu_torch.tools.kernel_report artifact``
+(or any of ``SECTIONS``' names) runs only those parts, after the build.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -467,23 +478,157 @@ def profile_serving(top=12):
         torch.cuda.empty_cache()
 
 
-def main():
+def _median_wall_ms(fn, calls):
+    import time
+
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[calls // 2] * 1e3
+
+
+def profile_artifact(top=10, calls=10):
+    """One batch-1 bf16 request of the full-width 1x1-conv classifier
+    through the artifact ``export_apply`` writes and ``load_exported``
+    reads back, beside the eager model on the same weights and image: the
+    median host wall time of ``calls`` requests each (after warm-up); the
+    ATen ops each dispatches, counted by a dispatch mode; the artifact's
+    host time by Python function under ``cProfile`` (``calls`` requests);
+    then one request of each under ``torch.profiler``: device time,
+    launches, and the host self time of the top ATen ops."""
+    import cProfile
+    import collections
+    import io
+    import pstats
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from perceiverio_pytorch_tpu_torch import (PERFORMANCE, ClassificationPerceiver, PrepType,
+                                               export_apply, load_exported)
+    from perceiverio_pytorch_tpu_torch.utils.params import cast_variables_for_inference
+
+    class _Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    model = ClassificationPerceiver(prep_type=PrepType.LEARNED_POS_1X1CONV, policy=PERFORMANCE,
+                                    generator=torch.Generator().manual_seed(0)).eval()
+    weights = cast_variables_for_inference(model)
+    fn = load_exported(export_apply(model, weights, torch.zeros(2, 3, 224, 224, device="cuda"),
+                                    batch_polymorphic=True))
+    img = torch.rand(1, 3, 224, 224, generator=torch.Generator().manual_seed(3)).cuda()
+    cases = (("artifact", lambda: fn(weights, img)),
+             ("eager", lambda: torch.func.functional_call(model, weights, (img,))))
+    with torch.inference_mode():
+        for label, call in cases:
+            for _ in range(3):
+                call()  # warm-up
+            wall = _median_wall_ms(call, calls)
+            with _Count() as count:
+                call()
+            torch.cuda.synchronize()
+            print(f"[artifact] {label} batch 1: median wall {wall:.2f} ms over {calls} calls,"
+                  f" {sum(count.ops.values())} ATen ops: {count.ops.most_common(6)}", flush=True)
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        for _ in range(calls):
+            cases[0][1]()
+        torch.cuda.synchronize()
+        prof.disable()
+        wall = (time.perf_counter() - t0) / calls
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(top)
+        print(f"[artifact] cProfile, {calls} artifact calls ({wall * 1e3:.2f} ms a call under"
+              f" the profiler), by own time:\n{text.getvalue()}", flush=True)
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(top)
+        print(f"[artifact] cProfile by cumulative time:\n{text.getvalue()}", flush=True)
+        for label, call in cases:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as p:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            _print_device_profile(f"artifact {label} profile", p, seconds, top)
+            ops = [e for e in p.key_averages() if e.device_type == DeviceType.CPU]
+            print(f"[artifact {label} host] ATen ops' host self time"
+                  f" {sum(e.self_cpu_time_total for e in ops) / 1e3:.2f} ms; top:", flush=True)
+            for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:top]:
+                print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}",
+                      flush=True)
+
+
+def time_codecs(calls=10):
+    """Median host time of decoding one [3, 224, 224] float32 request body
+    as ``HttpFrontend``'s handler does, ``calls`` times each: JSON
+    (``json.loads``, then ``decode_inputs``) and npz (``decode_npz``);
+    with the bodies' bytes."""
+    import json
+    import time
+
+    import numpy as np
+
+    from perceiverio_pytorch_tpu_torch.serving_http import (decode_inputs, decode_npz,
+                                                            encode_npz)
+
+    img = np.random.RandomState(0).uniform(-1, 1, (3, 224, 224)).astype(np.float32)
+    bodies = dict(json=json.dumps({"inputs": {"image": img.tolist()}}).encode(),
+                  npz=encode_npz({"image": img}))
+    decoders = dict(json=lambda b: decode_inputs(json.loads(b)["inputs"]), npz=decode_npz)
+    for name, body in bodies.items():
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            out = decoders[name](body)
+            times.append(time.perf_counter() - t0)
+        if not np.array_equal(out["image"], img):
+            raise AssertionError(f"{name}: the decoded image differs")
+        print(f"[codecs] {name}: {len(body)} bytes, decode median "
+              f"{sorted(times)[calls // 2] * 1e3:.2f} ms over {calls}", flush=True)
+
+
+SECTIONS = ("forward", "backward", "flow", "mm", "mm_train", "serving", "cls_backward",
+            "training", "artifact", "codecs")
+
+
+def main(argv=None):
+    import sys
+
     if not torch.cuda.is_available():
         raise SystemExit("kernel_report needs a CUDA device")
+    sections = list(sys.argv[1:] if argv is None else argv)
+    if any(name not in SECTIONS for name in sections):
+        raise SystemExit(f"unknown sections {sections}; choose from {SECTIONS}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    ptxas_report()
+    if not sections:
+        ptxas_report()
     paths = fa.build()
     print(f"[build] {paths}", flush=True)
-    sass_report(paths)
+    if not sections:
+        sass_report(paths)
+        sections = SECTIONS
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_forward(gen)
-    check_backward(gen)
-    time_flow_sites(gen)
-    profile_multimodal()
-    profile_multimodal_training()
-    profile_serving()
-    time_classification_backward(gen)
-    profile_training()
+    runs = dict(forward=lambda: check_forward(gen), backward=lambda: check_backward(gen),
+                flow=lambda: time_flow_sites(gen), mm=profile_multimodal,
+                mm_train=profile_multimodal_training, serving=profile_serving,
+                cls_backward=lambda: time_classification_backward(gen),
+                training=profile_training, artifact=profile_artifact, codecs=time_codecs)
+    for name in sections:
+        runs[name]()
 
 
 if __name__ == "__main__":

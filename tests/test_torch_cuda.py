@@ -14,6 +14,10 @@ keys, K2 and K3 at those widths (masked small cases, and a few thousand
 keys), reduced-depth classification and language models on the card
 against the same models on the CPU, and one training step of each tiny
 classifier and of the tiny MLM on the card with its launches counted.
+The serving stack on the card: K1's torch.library op bit for bit against
+the direct launch, an export of the tiny pixel classifier whose graph holds
+the op at every site, and K1 at the server's buckets 1, 2 and 4 over 50,176
+keys.
 """
 
 import dataclasses
@@ -801,3 +805,81 @@ def test_tiny_mlm_train_step_on_the_card(cuda, tmp_path):
     for got, want in zip(card_lines, cpu_lines):
         key = "loss" if "loss" in want else "eval_loss"
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("return_lse", [True, False])
+def test_op_matches_the_direct_launch_bit_for_bit(cuda, dtype, return_lse):
+    """K1's torch.library op, called through torch.ops, against the direct
+    launch (``_flash_attention_cuda``) on the same masked inputs: bit for
+    bit, one K1 launch each."""
+    q, k, v, kv_mask, q_mask = _inputs(2, 100, 777, 2, 41, 64, 31, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    before = fa.LAUNCHES
+    out, lse = torch.ops.perceiverio_torch.flash_attention_fwd(
+        q, k, v, kv_mask, q_mask, None, 700, return_lse)
+    assert fa.LAUNCHES - before == 1
+    want = fa._flash_attention_cuda(q, k, v, q_mask=q_mask, kv_mask=kv_mask,
+                                    softmax_scale=None, kv_logical_len=700,
+                                    return_lse=return_lse)
+    torch.cuda.synchronize()
+    if return_lse:
+        assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    else:
+        assert torch.equal(out, want) and lse.shape == (0,)
+
+
+@pytest.mark.cuda
+def test_export_on_the_card_holds_the_op(cuda):
+    """The tiny pixel classifier with every site through K1, exported on the
+    card batch-polymorphic: the graph holds the op at each of its 4 sites
+    and no parameter; the reloaded artifact launches K1 4 times a call at
+    batches 1 and 3 and gives the eager model's logits."""
+    import io
+
+    from perceiverio_pytorch_tpu_torch.serving import export_apply, load_exported
+
+    model = _tiny_classifier(PrepType.FOURIER_POS_PIXEL, "flash", cuda).eval()
+    weights = model.state_dict()
+    blob = export_apply(model, weights, torch.zeros(2, 3, 32, 32, device=cuda),
+                        batch_polymorphic=True)
+    ep = torch.export.load(io.BytesIO(blob))
+    op = torch.ops.perceiverio_torch.flash_attention_fwd.default
+    assert sum(n.target is op for n in ep.graph.nodes) == 4
+    assert len(ep.state_dict) == 0
+    serve = load_exported(blob)
+    rng = np.random.default_rng(32)
+    for b in (1, 3):
+        img = torch.from_numpy(rng.standard_normal((b, 3, 32, 32), dtype=np.float32)).to(cuda)
+        with torch.inference_mode():
+            before = fa.LAUNCHES
+            got = serve(weights, img)
+            assert fa.LAUNCHES - before == 4
+            want = model(img)
+        torch.cuda.synchronize()
+        _check(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [261, 512])
+@pytest.mark.parametrize("batch,splits", [(1, 33), (2, 16), (4, 8)])
+def test_kernel_at_the_server_buckets(cuda, dtype, tol, d, batch, splits):
+    """K1 at the classification encoders at the serving buckets 1, 2 and 4
+    (512 latents x 50,176 keys, d = 261 and 512), with its lse, against the
+    plain version; the plan's splits and merge as launched."""
+    q, k, v, _, _ = _inputs(batch, 512, 50176, 1, d, d, 33, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    plan = fa.launch_plan(q, k, v)
+    assert plan["splits"] == splits and plan["cuda_launches"] == 2
+    before = (fa.LAUNCHES, fa.LAUNCHES_MERGE)
+    got, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert (fa.LAUNCHES - before[0], fa.LAUNCHES_MERGE - before[1]) == (
+        1, plan["cuda_launches"] - 1)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 512, d) and torch.isfinite(got).all()
+    _check(got, want, tol)
+    assert (lse - want_lse).abs().max().item() <= 1e-4 * (1 + want_lse.abs().max().item())

@@ -85,6 +85,28 @@ def test_training_examples_load_no_jax(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["serving", "serving_server", "serving_http",
+                                    "examples.serve", "training.checkpoint", "utils.params",
+                                    "utils.device"])
+def test_serving_modules_load_no_jax(module):
+    """Each module of the serving stack, imported alone in a fresh
+    interpreter, is among the files checked above and loads no JAX, flax or
+    JAX package module."""
+    name = f"{PACKAGE}.{module}"
+    assert name in [_module_name(p) for p in _port_files()]
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -142,3 +164,25 @@ def test_classification_perceiver_defaults_to_cuda(no_cuda, prep):
     with torch.no_grad():
         out = model(torch.zeros(1, 3, 16, 16))
     assert out.device.type == "cpu" and out.shape == (1, 5)
+
+
+def test_serving_stack_defaults_to_cuda(no_cuda, tmp_path):
+    """The BatchingServer, restore_variables and the serving example's
+    entry points refuse a missing GPU unless asked for the CPU."""
+    from perceiverio_pytorch_tpu_torch import BatchingServer
+    from perceiverio_pytorch_tpu_torch.examples import serve
+    from perceiverio_pytorch_tpu_torch.training.checkpoint import (
+        restore_variables,
+        save_variables,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchingServer(lambda x: x)
+    save_variables(str(tmp_path / "w"), {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_variables(str(tmp_path / "w"))
+    assert restore_variables(str(tmp_path / "w"), device="cpu")["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="int8"):
+        serve.build(str(tmp_path), device="cpu", quant="dynamic")
