@@ -151,7 +151,38 @@ Phases (each raises on failure; nothing is caught):
  24. serving example: examples/serve.py --full-scale --server --http
      --requests 5 --seconds 2 (the convnet: no kernel launch) into a
      temporary directory;
- 25. prints the kernels line and, last, {"ok": true, "device": {...}}.
+ 25. flow from files: the port's tools/make_synthetic_data.py writes one
+     scene of 6 frames of 436x1024 with .flo ground truth; the port's
+     examples/train_flow.py --full-scale --data-dir (bf16, remat, batch 1,
+     random 368x496 crops, 3 pairs trained, 2 held out and evaluated by the
+     Trainer) runs 7 steps with checkpoints every 3 steps and at the end
+     (synchronous) and batches prefetched 2 ahead (run A); a model drawn
+     from another seed resumes from A's step 3 with fit(resume=True), async
+     checkpoints and no prefetch (run B): the restored module, AdamW
+     moments, step and learning rate equal A's at step 3 bit for bit, B's
+     batches equal A's (sha256 each), step 4's loss is equal, and the final
+     states are compared: where they differ, the largest difference is
+     printed with the parameters whose gradient identical backward passes do
+     not reproduce, by default and with cuDNN's deterministic algorithms;
+     every step launches K1/K2/K3 as phase 8, every evaluation K1 26 times
+     a pair;
+     then step times with prefetch 2 and 0 in alternating windows, the
+     decode ms of a batch, the seconds of each save, sync and async, the
+     step that overlaps an async write, the restore, and the train state's
+     bytes against the parameters;
+ 26. evaluate flow: examples/evaluate_flow.py over phase 25's 5 pairs at
+     436x1024 (6 tiles each) from its final checkpoint: the model that
+     restore_eval_variables gives equals the trained model in memory bit
+     for bit, the script's numbers equal flow_error_stats on
+     FlowInference's output, pairs/s, 26 K1 launches a pair;
+ 27. classification from files: the 1x1-conv classifier (d = 512) through
+     examples/train_classification.py --full-scale --data-dir on 3 classes
+     x 12 images of 224x224 at batch 8 (20 trained, 16 held out), 5 steps
+     with async checkpoints every 2 and at the end, prefetch 2, resumed
+     from step 2 with the checks of phase 25 and its timings (a synchronous
+     save timed apart); then examples/evaluate_classification.py from the
+     final checkpoint (top-1, top-5, images/s, K1 once a batch);
+ 28. prints the kernels line and, last, {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -287,6 +318,27 @@ SERVER_CLIENTS = 24
 SERVER_PIPELINES = (False, True, False, True)  # one closed-loop window each, alternated
 HTTP_CLIENTS = 12
 SERVE_WINDOW_S = 6.0  # each closed-loop window of the server and HTTP phases
+# The file-backed phases (25 to 27).  Flow: one scene of 6 frames of 436x1024
+# (5 pairs; the example trains on 3 and holds the last 2 * batch out), 7
+# steps with checkpoints every 3 and at the end, resumed from step 3.
+FILE_FLOW_HW = (436, 1024)
+FILE_FLOW_FRAMES = 6
+FILE_FLOW_STEPS = 7
+FILE_FLOW_EVERY = 3
+# Classification: 3 classes x 12 images of 224x224 at batch 8, 5 steps with
+# checkpoints (async) every 2 and at the end, resumed from 2.  The example
+# holds the last 2 * batch files out in sorted order: with 2 classes of 12
+# all 8 training images would be of one class; with 3, 20 images of two
+# classes train and 16 of two are held out.
+FILE_CLS_CLASSES = 3
+FILE_CLS_IMAGES = 12
+FILE_CLS_STEPS = 5
+FILE_CLS_EVERY = 2
+CLS_TRAIN_BATCH = 8
+DECODE_REPS = 3  # batches decoded on one thread for the decode time
+# Step times with and without prefetch: alternating windows of fits.
+PREFETCH_WINDOW = 5
+PREFETCH_ORDER = (2, 0, 0, 2)
 
 
 def smi_line() -> str:
@@ -982,7 +1034,7 @@ def phase_train():
 
     total = 1 + TRAIN_STEPS
     metrics = _metrics_path("chip_smoke_train_metrics.jsonl")
-    trainer, state, batches = train_flow.setup(
+    trainer, state, batches, _ = train_flow.setup(
         total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
     rec = _train_steps(trainer, state, batches, total, metrics, STEP_LAUNCHES)
     print(f"[train] bf16 full width, remat, batch 1: {json.dumps(rec)}", flush=True)
@@ -2018,6 +2070,514 @@ def phase_serve_example(smi, out_dir):
     return rec
 
 
+def _flow_eval_launches(batches):
+    """Launches of the flow model's evaluation forward at batch 1 (eval
+    mode): K1 at the 26 sites, the encoder's key splits merged once."""
+    return dict(NO_LAUNCHES, K1=26 * batches, merge=batches)
+
+
+def _cls_eval_launches(batches):
+    """Launches of the 1x1-conv classifier's evaluation forward at batch 8:
+    K1 once at the encoder, its 4 key splits merged once."""
+    return dict(NO_LAUNCHES, K1=batches, merge=batches)
+
+
+def _decode_ms(dataset, batch_size, reps=DECODE_REPS):
+    """Host milliseconds to read and decode one batch of ``dataset`` on one
+    thread (``dataset_iterator(num_workers=0)``), the mean of ``reps``."""
+    from perceiverio_pytorch_tpu_torch.training import dataset_iterator
+
+    stream = dataset_iterator(dataset, batch_size, shuffle=True, epochs=None, num_workers=0)
+    next(stream)  # warm-up: imports and first file reads
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        next(stream)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _hashed(batches, hashes, main_thread_s):
+    """``batches(start)`` with each batch's sha256 recorded under its
+    absolute index; a batch already on the card is copied to the host for
+    it, and that time (spent between two steps on the main thread) is kept
+    to be taken out of the step times."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    def wrapped(start):
+        for k, batch in enumerate(batches(start)):
+            t = time.perf_counter()
+            digest = hashlib.sha256()
+            for a in batch:
+                a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                digest.update(np.ascontiguousarray(a).tobytes())
+            hashes[start + k] = digest.hexdigest()
+            if isinstance(batch[0], torch.Tensor) and batch[0].is_cuda:
+                main_thread_s.append(time.perf_counter() - t)
+            yield batch
+
+    return wrapped
+
+
+def _host_state(state):
+    """The step, learning rate, module and optimizer tensors of ``state``,
+    copied to the host (the moments under their parameter's name)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    opt = state.optimizer.state_dict()
+    return dict(step=state.step, lr=state.optimizer.param_groups[0]["lr"],
+                model={k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+                moments={names[id(params[i])]: {k: v.detach().cpu().clone()
+                                                for k, v in e.items()}
+                         for i, e in opt["state"].items()})
+
+
+def _nondeterministic_grads(trainer, state, batch, pairs=3):
+    """The parameters (with their module's class) whose gradient differs
+    between backward passes of one batch from the same weights (up to
+    ``pairs`` pairs), with cuDNN's default algorithms and with
+    ``cudnn.deterministic``: the cause of a resumed run's final state that
+    is not bit for bit."""
+    import torch
+
+    model = state.model.train()
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        trainer.loss_fn(model, *batch).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    out = {}
+    for deterministic in (False, True):
+        differ = set()
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            for _ in range(pairs):
+                first, second = grads(), grads()
+                differ |= {n for n in first if not torch.equal(first[n], second[n])}
+                if differ:
+                    break
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["cudnn_deterministic" if deterministic else "default"] = sorted(
+            f"{n} ({type(model.get_submodule(n.rsplit('.', 1)[0])).__name__})"
+            for n in differ)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _state_diff(got, want):
+    """(the largest |difference| over the module and optimizer tensors, the
+    tensor it is at); (0.0, None) when they are equal bit for bit."""
+    import torch
+
+    worst, where = 0.0, None
+    pairs = [(f"model {k}", got["model"][k], v) for k, v in want["model"].items()]
+    pairs += [(f"optimizer {i} {k}", got["moments"][i][k], v)
+              for i, e in want["moments"].items() for k, v in e.items()]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max().item()
+            if diff >= worst:
+                worst, where = diff, name
+    return worst, where
+
+
+def _files_fit(trainer, state, batches, eval_batches, num_steps, expected, *, resume=False,
+               on_save=None, on_restore=None, hash_s=()):
+    """One ``fit`` (log_every=1) of a file-backed example: each step's time
+    (its logged window less the evaluations, saves and batch hashes in it)
+    and launches (less the evaluations'), every save's and evaluation's
+    seconds and launches, the restore's seconds and the logged losses.  The
+    first step of the fit includes its first batch's decode and is kept
+    apart."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    rec = dict(saves=[], evals=[], steps=[])
+    pending = dict(seconds=0.0, launches={k: 0 for k in expected})
+    mark = dict(t=None, counts={k: 0 for k in expected}, hashes=len(hash_s))
+    log, save, evaluate = trainer.logger.log, trainer._save_checkpoint, trainer.evaluate
+    restore = ckpt.restore_train_state
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        counts, t = _launch_counts(), time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: v - counts[k] for k, v in _launch_counts().items()}
+        pending["seconds"] += seconds
+        for k in pending["launches"]:
+            pending["launches"][k] += launches[k]
+        return out, seconds, launches
+
+    def timed_log(**metrics):
+        if "loss" in metrics:
+            now, counts = time.perf_counter(), _launch_counts()
+            launches = {k: counts[k] - mark["counts"][k] - pending["launches"][k]
+                        for k in expected}
+            if launches != expected:
+                raise AssertionError(f"step {metrics['step']}: launches {launches}, "
+                                     f"expected {expected}")
+            if mark["t"] is not None:
+                hashes = sum(hash_s[mark["hashes"]:])
+                rec["steps"].append(dict(step=metrics["step"], loss=metrics["loss"],
+                                         seconds=now - mark["t"] - pending["seconds"] - hashes))
+            else:
+                rec["first"] = dict(step=metrics["step"], loss=metrics["loss"])
+            mark.update(t=now, counts=counts, hashes=len(hash_s))
+            pending["seconds"], pending["launches"] = 0.0, {k: 0 for k in expected}
+        log(**metrics)
+
+    def timed_save(st, step):
+        _, seconds, _ = timed(save, st, step)
+        rec["saves"].append(dict(step=step, seconds=seconds, async_=trainer.checkpoint_async))
+        if on_save is not None:
+            on_save(st, step)
+
+    def timed_evaluate(*args, **kwargs):
+        out, seconds, launches = timed(evaluate, *args, **kwargs)
+        rec["evals"].append(dict(seconds=seconds, launches=launches, metrics=out))
+        return out
+
+    def timed_restore(path, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = restore(path, st)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t
+        if on_restore is not None:
+            on_restore(out)
+        return out
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer.logger, "log", timed_log), \
+            mock.patch.object(trainer, "_save_checkpoint", timed_save), \
+            mock.patch.object(trainer, "evaluate", timed_evaluate), \
+            mock.patch.object(ckpt, "restore_train_state", timed_restore):
+        state = trainer.fit(state, batches, num_steps=num_steps, eval_batches=eval_batches,
+                            resume=resume)
+    torch.cuda.synchronize()
+    rec["fit_s"] = time.perf_counter() - t0
+    if state.step != num_steps or len(rec["steps"]) + 1 != num_steps - (
+            rec["first"]["step"] - 1):
+        raise AssertionError(f"fit stopped at step {state.step}: {rec['steps']}")
+    if any(not math.isfinite(s["loss"]) for s in rec["steps"]):
+        raise AssertionError(f"non-finite loss: {rec['steps']}")
+    return state, rec
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def _resume_check(label, setup, total, every, expected, eval_expected, tmp):
+    """Run A (weights from seed 0, batches prefetched 2 ahead) for ``total``
+    steps, checkpointing every ``every`` and at the end; run B (weights from
+    seed 1, no prefetch) resumed from A's first checkpoint, copied into a
+    directory of its own, to ``total``.  Holds the restored state against
+    A's at that step (bit for bit: module, moments, step, learning rate),
+    B's batches against A's (sha256 each), the first resumed step's loss,
+    the launches of every step (``expected``) and evaluation
+    (``eval_expected(n_eval_batches)``), and compares the final states.
+    Returns (record, A's state, A's checkpoint directory)."""
+    import shutil
+
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.training import latest_checkpoint
+
+    ck_a, ck_b = os.path.join(tmp, f"{label}_a"), os.path.join(tmp, f"{label}_b")
+    hashes_a, hashes_b, hash_s = {}, {}, []
+    saved = {}
+
+    def on_save(state, step):
+        if step == every:
+            saved.update(_host_state(state))
+
+    trainer, state_a, batches, eval_batches = setup(seed=0, checkpoint_dir=ck_a, prefetch=2)
+    trainer.checkpoint_final = True
+    n_eval = len(eval_batches or [])
+    state_a, run_a = _files_fit(trainer, state_a, _hashed(batches, hashes_a, hash_s),
+                                eval_batches, total, expected, on_save=on_save)
+    final_a = _host_state(state_a)
+    shutil.copytree(os.path.join(ck_a, f"step_{every:08d}"),
+                    os.path.join(ck_b, f"step_{every:08d}"))
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    restored = {}
+    trainer, state_b, batches, eval_batches = setup(seed=1, checkpoint_dir=ck_b, prefetch=0)
+    other_weights = any(not torch.equal(v.cpu(), saved["model"][k])
+                        for k, v in state_b.model.state_dict().items())
+    state_b, run_b = _files_fit(
+        trainer, state_b, _hashed(batches, hashes_b, hash_s), eval_batches, total, expected,
+        resume=True, on_restore=lambda st: restored.update(_host_state(st)), hash_s=hash_s)
+    if not other_weights or not restored:
+        raise AssertionError(f"{label}: run B did not start from other weights and restore")
+    restore_diff = _state_diff(restored, saved)
+    if restore_diff != (0.0, None) or (restored["step"], restored["lr"]) != (
+            saved["step"], saved["lr"]):
+        raise AssertionError(f"{label}: restored state != saved state: {restore_diff}, "
+                             f"step/lr {restored['step']}/{restored['lr']} vs "
+                             f"{saved['step']}/{saved['lr']}")
+    differ = [k for k in range(every, total) if hashes_b.get(k) != hashes_a.get(k)]
+    if differ or len([k for k in range(every, total) if k in hashes_b]) != total - every:
+        raise AssertionError(f"{label}: run B's batches differ from run A's at {differ}")
+    losses_a = {s["step"]: s["loss"] for s in run_a["steps"]}
+    losses_a[run_a["first"]["step"]] = run_a["first"]["loss"]
+    if run_b["first"]["step"] != every + 1 or run_b["first"]["loss"] != losses_a[every + 1]:
+        raise AssertionError(f"{label}: step {every + 1} loss {run_b['first']} vs A's "
+                             f"{losses_a[every + 1]}")
+    for run in (run_a, run_b):
+        for ev in run["evals"]:
+            if ev["launches"] != eval_expected(n_eval):
+                raise AssertionError(f"{label}: evaluation launches {ev['launches']}, "
+                                     f"expected {eval_expected(n_eval)}")
+    final_diff, final_where = _state_diff(_host_state(state_b), final_a)
+    cause = None
+    if final_diff != 0.0:
+        # Not bit for bit, though the restored state, the batches and the
+        # first loss were: name the gradients that identical backward passes
+        # do not reproduce, by default and with cuDNN's deterministic
+        # algorithms.
+        cause = _nondeterministic_grads(trainer, state_b, next(iter(batches(0))))
+    latest = latest_checkpoint(ck_a)
+    if not latest.endswith(f"step_{total:08d}"):
+        raise AssertionError(f"{label}: A's newest checkpoint is {latest}")
+    size = os.path.getsize(os.path.join(latest, "train_state.pt"))
+    params = sum(p.numel() for p in state_a.model.parameters())
+    rec = dict(
+        steps=total, resumed_from=every, restored_bit_for_bit=True, batches_equal=True,
+        first_resumed_loss=run_b["first"]["loss"],
+        losses_a=[losses_a[k] for k in sorted(losses_a)],
+        losses_b=[run_b["first"]["loss"]] + [s["loss"] for s in run_b["steps"]],
+        final_bit_for_bit=final_diff == 0.0, final_max_abs_diff=final_diff,
+        final_worst_tensor=final_where, nondeterministic_grads=cause,
+        step_s_run_a=[s["seconds"] for s in run_a["steps"]],
+        step_s_run_b=[s["seconds"] for s in run_b["steps"]],
+        saves_a=run_a["saves"], saves_b=run_b["saves"], restore_s=run_b["restore_s"],
+        evals=[dict(seconds=e["seconds"], launches=e["launches"], metrics=e["metrics"])
+               for e in run_a["evals"] + run_b["evals"]],
+        hash_s=sum(hash_s), fit_s=[run_a["fit_s"], run_b["fit_s"]],
+        train_state_bytes=size, params=params, bytes_per_param=size / params,
+        launches_per_step=expected,
+        launches=dict(
+            train={k: v * (total + total - every) for k, v in expected.items()},
+            eval={k: sum(e["launches"][k] for e in run_a["evals"] + run_b["evals"])
+                  for k in expected}),
+    )
+    del trainer, batches, state_b
+    torch.cuda.empty_cache()
+    return rec, state_a, latest
+
+
+def _prefetch_windows(setup, expected):
+    """Step times of the example from files with its batches prefetched 2
+    ahead and with none, in alternating windows of PREFETCH_WINDOW steps
+    (2, 0, 0, 2; the first step of each window, which waits for its first
+    batch, left out), without evaluations or checkpoints."""
+    import torch
+
+    runs = {p: setup(seed=2, checkpoint_dir=None, prefetch=p) for p in (2, 0)}
+    times = {2: [], 0: []}
+    for prefetch in PREFETCH_ORDER:
+        trainer, state, batches, _ = runs[prefetch]
+        state, rec = _files_fit(trainer, state, batches, None, state.step + PREFETCH_WINDOW,
+                                expected)
+        times[prefetch] += [s["seconds"] for s in rec["steps"]]
+    del runs
+    torch.cuda.empty_cache()
+    return dict(window_step_s_prefetch2=times[2], window_step_s_prefetch0=times[0],
+                median_step_s_prefetch2=_median(times[2]),
+                median_step_s_prefetch0=_median(times[0]))
+
+
+def _stalls(rec, median_step_s):
+    """Each step that ran while an async save was written (the step after
+    the save), its time, and its time over ``median_step_s``."""
+    out = []
+    for run, saves, first in (("a", rec["saves_a"], 2), ("b", rec["saves_b"],
+                                                          rec["resumed_from"] + 2)):
+        times = dict(zip(range(first, rec["steps"] + 1), rec[f"step_s_run_{run}"]))
+        for save in saves:
+            if save["step"] + 1 in times and save["async_"]:
+                during = times[save["step"] + 1]
+                out.append(dict(run=run, step=save["step"] + 1, seconds=during,
+                                stall_s=during - median_step_s))
+    return out
+
+
+def phase_flow_files(tmp):
+    """The published flow model trained from files: the port's tool writes
+    one 436x1024 scene, train_flow --full-scale --data-dir trains 7 steps
+    with checkpoints (sync) every 3 and at the end and batches prefetched 2
+    ahead, then a model of other weights resumes from step 3 with async
+    checkpoints and no prefetch; see _resume_check."""
+    from perceiverio_pytorch_tpu_torch.examples import train_flow
+    from perceiverio_pytorch_tpu_torch.tools import make_synthetic_data
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "data")
+    make_synthetic_data.make_flow(root, hw=FILE_FLOW_HW,
+                                  scenes={"train": (1, FILE_FLOW_FRAMES)})
+    scene = os.path.join(root, "flow_synth", "train", "scene_00")
+    tree_s = time.perf_counter() - t0
+    train_ds, held_out = train_flow.flow_datasets(scene, train_flow.FULL_SCALE_HW, 1)
+    decode_ms = _decode_ms(train_ds, 1)
+
+    def setup(seed, checkpoint_dir, prefetch):
+        return train_flow.setup(
+            FILE_FLOW_STEPS, full_scale=True, device="cuda", log_every=1,
+            metrics_path=_metrics_path(f"chip_smoke_flow_files_{seed}.jsonl"), data_dir=scene,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=FILE_FLOW_EVERY,
+            checkpoint_async=seed == 1, prefetch=prefetch, seed=seed)
+
+    rec, state, latest = _resume_check(
+        "flow", setup, FILE_FLOW_STEPS, FILE_FLOW_EVERY, STEP_LAUNCHES,
+        _flow_eval_launches, tmp)
+    rec.update(_prefetch_windows(setup, STEP_LAUNCHES))
+    rec.update(async_steps=_stalls(rec, rec["median_step_s_prefetch0"]),
+               frames=FILE_FLOW_FRAMES, frame_hw=FILE_FLOW_HW, pairs_train=len(train_ds),
+               pairs_held_out=len(held_out), tree_s=tree_s, decode_ms_per_batch=decode_ms,
+               sync_save_s=[s["seconds"] for s in rec["saves_a"]],
+               async_save_s=[s["seconds"] for s in rec["saves_b"]],
+               seconds=time.perf_counter() - t0)
+    print(f"[flow files] bf16 full width, train_flow --data-dir, resume: {json.dumps(rec)}",
+          flush=True)
+    return dict(rec, model=state.model, checkpoint=latest, scene=scene)
+
+
+def phase_evaluate_flow(flow_files):
+    """examples/evaluate_flow.py over phase 25's scene (5 pairs of 436x1024,
+    6 tiles each) from its final checkpoint: the model restore_eval_variables
+    gives equals the trained model in memory bit for bit, the script's
+    numbers equal flow_error_stats on FlowInference's output, 26 K1 launches
+    a pair."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import FlowInference
+    from perceiverio_pytorch_tpu_torch.examples import evaluate_flow
+    from perceiverio_pytorch_tpu_torch.utils.flow_io import flow_error_stats, read_flo
+
+    t0 = time.perf_counter()
+    scene, ckpt = flow_files["scene"], flow_files["checkpoint"]
+    trained = FlowInference(flow_files["model"], device="cuda")
+    restored = FlowInference(evaluate_flow.build_model(checkpoint=ckpt, device="cuda"),
+                             device="cuda")
+    totals, pixels, pairs = {}, 0, 0
+    for f1, f2, gt in evaluate_flow.frame_pairs(scene):
+        a, b = evaluate_flow.load_frame(f1), evaluate_flow.load_frame(f2)
+        want, got = trained(a, b), restored(a, b)
+        if not torch.equal(got, want):
+            raise AssertionError(f"restored model != trained model at {f1}: "
+                                 f"{(got - want).abs().max().item()}")
+        stats = flow_error_stats(want[0].cpu().numpy(), read_flo(gt))
+        w = stats.pop("pixels")
+        pixels += w
+        pairs += 1
+        for k, v in stats.items():
+            totals[k] = totals.get(k, 0.0) + v * w
+    del trained, restored
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    t = time.perf_counter()
+    result = evaluate_flow.main(scene, checkpoint=ckpt, device="cuda")
+    seconds = time.perf_counter() - t
+    launches = _launch_counts()
+    mine = {k: round(v / pixels, 4) for k, v in totals.items()}
+    if result["pairs"] != pairs or any(result[k] != v for k, v in mine.items()):
+        raise AssertionError(f"evaluate_flow {result} vs flow_error_stats {mine}")
+    if launches["K1"] != _flow_eval_launches(pairs)["K1"] or launches["K2"] or launches["K3"]:
+        raise AssertionError(f"evaluate_flow launches {launches} for {pairs} pairs")
+    rec = dict(result=result, flow_error_stats=mine, pairs=pairs, tiles_per_pair=SERVE_TILES,
+               restored_bit_for_bit=True, launches=launches,
+               k1_launches_per_pair=launches["K1"] / pairs, script_s=seconds,
+               seconds=time.perf_counter() - t0)
+    print(f"[evaluate flow] 436x1024 from the checkpoint: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_cls_files(tmp):
+    """The 1x1-conv classifier (d = 512) trained from an image folder: 2
+    classes x 12 images of 224x224 (8 trained, 16 held out at batch 8), 5
+    steps with async checkpoints every 2 and at the end, resumed from step
+    2 as in phase 25 (_resume_check); a synchronous save timed apart; then
+    examples/evaluate_classification.py from the final checkpoint."""
+    from perceiverio_pytorch_tpu_torch import PrepType
+    from perceiverio_pytorch_tpu_torch.examples import (
+        evaluate_classification,
+        train_classification,
+    )
+    from perceiverio_pytorch_tpu_torch.tools import make_synthetic_data
+    from perceiverio_pytorch_tpu_torch.training import (
+        ImageFolderDataset,
+        Subset,
+        save_train_state,
+    )
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "data")
+    make_synthetic_data.make_gratings(root, "cls", n_classes=FILE_CLS_CLASSES, amplitude=40,
+                                      noise=48,
+                                      per_split={"train": FILE_CLS_IMAGES}, splits=("train",))
+    data = os.path.join(root, "cls", "train")
+    tree_s = time.perf_counter() - t0
+    full = ImageFolderDataset(data, image_size=(224, 224))
+    decode_ms = _decode_ms(Subset(full, range(len(full) - 2 * CLS_TRAIN_BATCH)),
+                           CLS_TRAIN_BATCH)
+    prep = PrepType.LEARNED_POS_1X1CONV
+
+    def setup(seed, checkpoint_dir, prefetch):
+        return train_classification.setup(
+            FILE_CLS_STEPS, batch_size=CLS_TRAIN_BATCH, full_scale=True, prep_type=prep,
+            device="cuda", log_every=1,
+            metrics_path=_metrics_path(f"chip_smoke_cls_files_{seed}.jsonl"), data_dir=data,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=FILE_CLS_EVERY,
+            checkpoint_async=True, prefetch=prefetch, seed=seed)
+
+    rec, state, latest = _resume_check(
+        "cls", setup, FILE_CLS_STEPS, FILE_CLS_EVERY, CLS_STEP_LAUNCHES,
+        _cls_eval_launches, tmp)
+    rec.update(_prefetch_windows(setup, CLS_STEP_LAUNCHES))
+    rec.update(async_steps=_stalls(rec, rec["median_step_s_prefetch2"]))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_train_state(os.path.join(tmp, "cls_sync"), state)
+    sync_s = time.perf_counter() - t
+    del state
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    t = time.perf_counter()
+    result = evaluate_classification.main(data_dir=data, checkpoint=latest,
+                                          batch_size=CLS_TRAIN_BATCH, full_scale=True,
+                                          prep_type=prep, device="cuda")
+    eval_s = time.perf_counter() - t
+    launches = _launch_counts()
+    n_batches = len(full) // CLS_TRAIN_BATCH
+    if result["images"] != n_batches * CLS_TRAIN_BATCH or not 0 <= result["top1"] <= 1:
+        raise AssertionError(f"evaluate_classification {result}")
+    if launches != _cls_eval_launches(n_batches):
+        raise AssertionError(f"evaluate_classification launches {launches}")
+    rec.update(images=len(full), classes=FILE_CLS_CLASSES, batch=CLS_TRAIN_BATCH, tree_s=tree_s,
+               decode_ms_per_batch=decode_ms, sync_save_s=[sync_s],
+               async_save_s=[s["seconds"] for s in rec["saves_a"] + rec["saves_b"]],
+               evaluate=dict(result=result, launches=launches, seconds=eval_s),
+               seconds=time.perf_counter() - t0)
+    print(f"[cls files] bf16 1x1-conv, train_classification --data-dir, resume, evaluate: "
+          f"{json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -2032,7 +2592,7 @@ def _site_sums(records, keep, per_site):
 
 
 def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
-                 cls_k1_train, buckets, serving):
+                 cls_k1_train, buckets, serving, files):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -2062,7 +2622,24 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     the server's buckets 1, 2 and 4.  K2 and K3 at the classification encoders
     (``..._d261``, ``..._d512``; the same sources): the bf16 site's times at
     the training batch of 8, the launches of that variant's training run.
-    Each entry's error is the largest of all its comparisons."""
+    The file-backed phases' launches are counted apart: on the flow entries
+    of K1, K2 and K3 ``launches_files_train`` (the training steps of phase
+    25's two runs, with their merges or sums) and on K1's
+    ``launches_files_eval`` (the Trainer's evaluations there) and
+    ``launches_evaluate_flow`` (phase 26); on the d = 512 entries the same
+    for phase 27 (``launches_evaluate_classification``).  Each entry's
+    error is the largest of all its comparisons."""
+    flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
+
+    def file_counts(kernel, extra, counts, evaluated=None, evaluate_key=None):
+        out = {"launches_files_train": counts["train"][kernel],
+               f"{extra}_launches_files_train": counts["train"][extra]}
+        if kernel == "K1":
+            out.update(launches_files_eval=counts["eval"]["K1"],
+                       merge_launches_files_eval=counts["eval"]["merge"])
+            out[evaluate_key] = evaluated
+        return out
+
     mm = [r for r in records if r["site"].startswith("mm_")]
     cls = [r for r in records if r["site"].startswith("cls_")]
     records = [r for r in records if not r["site"].startswith(("mm_", "cls_"))]
@@ -2085,6 +2662,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         merge_launches=serve["merge_launches"],
         launches_train=train["launches"]["K1"],
         merge_launches_train=train["launches"]["merge"],
+        **file_counts("K1", "merge", flow_files, files["evaluate_flow"]["launches"]["K1"],
+                      "launches_evaluate_flow"),
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -2113,7 +2692,10 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             stack = dict(
                 launches_export=sum(c["launches"] for c in serving["export"]["k1"]["calls"]),
                 launches_server=sum(r["launches"] for r in serving["server"]["runs"]),
-                launches_http=serving["http"]["launches"])
+                launches_http=serving["http"]["launches"],
+                **file_counts("K1", "merge", cls_files,
+                              files["cls"]["evaluate"]["launches"]["K1"],
+                              "launches_evaluate_classification"))
         else:
             stack = dict(launches_export=serving["export"]["pixel"]["call"]["launches"])
         train_sites = [r for r in cls_k1_train if r["site"].startswith(f"{site}_train")]
@@ -2156,6 +2738,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             **common,
             launches=train["launches"][kernel],
             sum_launches_train=train["launches"]["sum"],
+            **file_counts(kernel, "sum", flow_files),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
@@ -2180,6 +2763,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                 **common,
                 launches=cls_train[prep]["launches"][kernel],
                 sum_launches_train=cls_train[prep]["launches"]["sum"],
+                **(file_counts(kernel, "sum", cls_files) if site == "cls_1x1conv" else {}),
                 max_abs_err=max(r["max_abs_err"] for r in cls_bwd),
                 **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "splits", "col_chunks")},
@@ -2235,9 +2819,17 @@ def main() -> int:
         del weights, artifact
         torch.cuda.empty_cache()
         phase_serve_example(smi, os.path.join(tmp, "example"))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        flow_files = phase_flow_files(tmp)
+        evaluated = phase_evaluate_flow(flow_files)
+        del flow_files["model"]
+        torch.cuda.empty_cache()
+        cls_files = phase_cls_files(tmp)
+    files = dict(flow=flow_files, evaluate_flow=evaluated, cls=cls_files)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
-                       cls_serve, cls_train, cls_k1_train, buckets, serving))
+                       cls_serve, cls_train, cls_k1_train, buckets, serving, files))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,9 +6,12 @@ the JAX package's weights (``utils.weights.state_dict_from_flax``) and the
 converted DeepMind checkpoints load with ``load_state_dict(strict=True)``.
 Every Pallas kernel of the JAX package on a ported path is a hand-written
 CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.  The
-training stack is ``perceiverio_pytorch_tpu_torch.training``; runnable
-training demos are ``perceiverio_pytorch_tpu_torch.examples.train_flow`` and
-``.train_multimodal``.  Task models: ``FlowPerceiver`` (with
+training stack is ``perceiverio_pytorch_tpu_torch.training`` (with file-backed
+datasets, device prefetch, train-state checkpoints and exact resume); the
+examples ``perceiverio_pytorch_tpu_torch.examples.train_flow``,
+``.train_multimodal``, ``.train_mlm`` and ``.train_classification`` train
+from synthetic data or files, ``.evaluate_flow`` and
+``.evaluate_classification`` score a checkpoint.  Task models: ``FlowPerceiver`` (with
 ``FlowInference``) and ``MultiModalPerceiver`` (serving and training),
 ``LanguagePerceiver`` (with the byte tokenizer, ``BytesTokenizer``) and
 ``ClassificationPerceiver`` (its three ``PrepType``s) (serving).  The

@@ -21,11 +21,18 @@ pixel (``FOURIER_POS_PIXEL``) and 1x1-conv (``LEARNED_POS_1X1CONV``)
 variants run the encoder's cross-attend through the flash kernels, forward
 (K1) and backward (K2, K3), at head widths 261 and 512 over 50,176 tokens.
 
-    python -m perceiverio_pytorch_tpu_torch.examples.train_classification --steps 30 [--full-scale]
+``--data-dir`` trains on a ``root/<class>/*.png`` tree instead
+(``ImageFolderDataset``: as many classes as subdirectories, images decoded
+by a thread pool, shipped uint8 and normalised on the device); the last
+``2 * batch`` images are held out and scored by ``eval_fn``.
+``--checkpoint-dir`` saves the train state every ``steps // 2`` updates and
+``--resume`` goes on from the newest save there.
+
+    python -m perceiverio_pytorch_tpu_torch.examples.train_classification --steps 30 \
+        [--full-scale] [--data-dir DIR] [--checkpoint-dir DIR [--resume]]
 
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp``,
-``--checkpoint-dir``, ``--resume``, ``--quant`` and ``--data-dir``.
+``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp`` and ``--quant``.
 """
 
 from __future__ import annotations
@@ -42,11 +49,16 @@ from perceiverio_pytorch_tpu_torch.models.classification import (
 )
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
 from perceiverio_pytorch_tpu_torch.training import (
+    ImageFolderDataset,
+    Subset,
     Trainer,
     batch_iterator,
     build_optimizer,
     classification_cross_entropy,
+    dataset_iterator,
+    epoch_batches,
 )
+from perceiverio_pytorch_tpu_torch.utils.image import IMAGENET_MEAN_RGB, IMAGENET_STDDEV_RGB
 
 TINY = dict(img_size=(32, 32), num_latents=32, num_latent_channels=128,
             num_self_attends_per_block=2, num_blocks=1)
@@ -68,36 +80,73 @@ def synthetic_quadrants(n: int, hw, num_classes: int, seed: int = 0):
     return img, labels.astype(np.int32)
 
 
+def prep_images(img: torch.Tensor) -> torch.Tensor:
+    """uint8 images (files) -> ImageNet-normalised floats, on their device;
+    float images (the synthetic set) as they are."""
+    if img.dtype != torch.uint8:
+        return img
+    mean = torch.tensor(IMAGENET_MEAN_RGB, device=img.device)[:, None, None]
+    std = torch.tensor(IMAGENET_STDDEV_RGB, device=img.device)[:, None, None]
+    return (img.float() - mean) / std
+
+
 def loss_fn(model, img, labels):
-    return classification_cross_entropy(model(img), labels)
+    return classification_cross_entropy(model(prep_images(img)), labels)
 
 
 def eval_fn(model, img, labels):
     """The inference pathway: BatchNorm on its running averages."""
-    logits = model(img)
+    logits = model(prep_images(img))
     return {"eval_loss": classification_cross_entropy(logits, labels),
             "eval_top1": (logits.argmax(-1) == labels).float().mean()}
 
 
 def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIER_POS_CONVNET,
-          device="cuda", metrics_path="./classification_metrics.jsonl", log_every=10):
+          device="cuda", metrics_path="./classification_metrics.jsonl", log_every=10,
+          data_dir=None, checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False,
+          prefetch=0, seed=0):
     """The example's trainer, initial state, batch stream and evaluation
-    batches: ``(trainer, state, batches, eval_batches)``, where
-    ``batches(start_step)`` yields batches on ``device`` and
-    ``eval_batches`` is None (the synthetic set holds none out).  Weights
-    are drawn from seed 0."""
+    batches: ``(trainer, state, batches, eval_batches)``.
+
+    ``batches(start_step)`` yields batches on ``device``, or with
+    ``prefetch`` > 0 host batches that the Trainer copies there ahead of the
+    step.  ``eval_batches`` is a list of batches on ``device`` (the held-out
+    images of ``data_dir``), or None for the synthetic set, which holds none
+    out.  ``checkpoint_every`` defaults to ``steps // 2`` when
+    ``checkpoint_dir`` is given.  Weights are drawn from ``seed``.
+    """
     device = resolve_device(device)
-    generator = torch.Generator().manual_seed(0)
+    generator = torch.Generator().manual_seed(seed)
+    hw = FULL_SCALE_HW if full_scale else TINY["img_size"]
+
+    def on_device(batch):
+        return tuple(torch.from_numpy(a).to(device) for a in batch)
+
+    dataset = eval_batches = None
+    if data_dir is not None:
+        full = ImageFolderDataset(data_dir, image_size=hw)
+        num_classes = len(full.class_names)
+        n_eval = min(2 * batch_size, max(len(full) - batch_size, 0))
+        dataset = Subset(full, range(len(full) - n_eval))
+        print(f"{len(full)} images, {num_classes} classes from {data_dir}"
+              f" ({len(dataset)} train / {n_eval} eval)")
+        if n_eval:
+            fields = tuple(np.stack(f) for f in zip(*[full[i] for i in
+                                                      range(len(full) - n_eval, len(full))]))
+            eval_batches = [on_device(b) for b in epoch_batches(
+                fields, batch_size, shuffle=False, drop_remainder=False)]
+    else:
+        num_classes = FULL_SCALE_CLASSES if full_scale else TINY_CLASSES
+        img, labels = synthetic_quadrants(8 * batch_size, hw, num_classes)
     if full_scale:
-        hw, num_classes = FULL_SCALE_HW, FULL_SCALE_CLASSES
         model = ClassificationPerceiver(num_classes=num_classes, prep_type=prep_type,
                                         policy=PERFORMANCE, remat=True, device=device,
                                         generator=generator)
     else:
-        hw, num_classes = TINY["img_size"], TINY_CLASSES
         model = ClassificationPerceiver(num_classes=num_classes, prep_type=prep_type, **TINY,
                                         policy=DEFAULT, device=device, generator=generator)
-    img, labels = synthetic_quadrants(8 * batch_size, hw, num_classes)
+    if checkpoint_every is None:
+        checkpoint_every = 0 if checkpoint_dir is None else max(steps // 2, 1)
     trainer = Trainer(
         loss_fn,
         build_optimizer(1e-4 if full_scale else 1e-3, schedule="cosine", total_steps=steps,
@@ -106,22 +155,36 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
         log_every=log_every,
         eval_fn=eval_fn,
         eval_every=max(steps // 2, 1),
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
+        checkpoint_async=checkpoint_async,
+        prefetch=prefetch,
     )
 
+    # epochs=None reshuffles every epoch; start_batch puts a resumed run at
+    # the data position of an uninterrupted one
     def batches(start_step=0):
-        for batch in batch_iterator((img, labels), batch_size, shuffle=True, epochs=None,
-                                    start_batch=start_step):
-            yield tuple(torch.from_numpy(a).to(device) for a in batch)
+        if dataset is not None:
+            source = dataset_iterator(dataset, batch_size, shuffle=True, epochs=None,
+                                      start_batch=start_step, num_workers=4)
+        else:
+            source = batch_iterator((img, labels), batch_size, shuffle=True, epochs=None,
+                                    start_batch=start_step)
+        for batch in source:
+            yield batch if prefetch else on_device(batch)
 
-    return trainer, trainer.init_state(model), batches, None
+    return trainer, trainer.init_state(model), batches, eval_batches
 
 
 def main(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIER_POS_CONVNET,
-         device="cuda", metrics_path="./classification_metrics.jsonl"):
+         device="cuda", metrics_path="./classification_metrics.jsonl", data_dir=None,
+         checkpoint_dir=None, resume=False):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, prep_type=prep_type, device=device,
-        metrics_path=metrics_path)
-    state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches)
+        metrics_path=metrics_path, data_dir=data_dir, checkpoint_dir=checkpoint_dir,
+        prefetch=2)
+    state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
+                        resume=resume)
     print(f"finished at step {state.step}")
     return state
 
@@ -132,6 +195,15 @@ if __name__ == "__main__":
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--full-scale", action="store_true",
                         help="published ImageNet conv-prep config, remat + bf16")
+    parser.add_argument("--prep-type", default="FOURIER_POS_CONVNET",
+                        choices=[p.name for p in PrepType])
+    parser.add_argument("--data-dir", default=None,
+                        help="root/<class>/*.png image tree; default: synthetic quadrants")
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the newest checkpoint in --checkpoint-dir")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device)
+    main(args.steps, args.batch_size, full_scale=args.full_scale,
+         prep_type=PrepType[args.prep_type], device=args.device, data_dir=args.data_dir,
+         checkpoint_dir=args.checkpoint_dir, resume=args.resume)

@@ -15,13 +15,19 @@ the published model (2,048 bytes, 768-channel embedding, 256 latents x 1280,
 policy at batch 8.  Every attention site of the language model takes the
 dense path: no flash kernel runs.
 
-    python -m perceiverio_pytorch_tpu_torch.examples.train_mlm --steps 50 [--full-scale]
+``--text-file`` (a path or a glob) trains on byte-token windows of a real
+corpus instead (``TextFileDataset`` and ``MLMDataset``: fresh masks each
+epoch at ``--mask-rate``); the last ``2 * batch`` windows are held out,
+masked with seed 1.  ``--checkpoint-dir`` saves the train state every
+``steps // 2`` updates (by a thread with ``--async-checkpoint``) and
+``--resume`` goes on from the newest save there.
+
+    python -m perceiverio_pytorch_tpu_torch.examples.train_mlm --steps 50 [--full-scale] \
+        [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]]
 
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
 ``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp``,
-``--checkpoint-dir``, ``--resume``, ``--steps-per-call``, ``--quant``,
-``--lora``, ``--text-file`` (with ``--mask-rate``) and
-``--async-checkpoint``.
+``--steps-per-call``, ``--quant`` and ``--lora``.
 """
 
 from __future__ import annotations
@@ -35,9 +41,13 @@ from perceiverio_pytorch_tpu_torch.config import DEFAULT, PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
 from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
 from perceiverio_pytorch_tpu_torch.training import (
+    MLMDataset,
+    Subset,
+    TextFileDataset,
     Trainer,
     batch_iterator,
     build_optimizer,
+    dataset_iterator,
     epoch_batches,
     masked_token_cross_entropy,
 )
@@ -69,14 +79,34 @@ def loss_fn(model, corrupted, targets, mlm_mask):
     return masked_token_cross_entropy(logits, targets, mlm_mask)
 
 
+def text_datasets(text_file, seq_len, batch_size, mask_rate=0.15):
+    """The masked training windows of a corpus and the held-out batch
+    fields: the last ``2 * batch_size`` windows (fewer when the corpus is
+    small), masked with seed 1."""
+    windows = TextFileDataset(text_file, seq_len=seq_len)
+    n_eval = min(2 * batch_size, max(len(windows) - batch_size, 0))
+    train = MLMDataset(Subset(windows, range(len(windows) - n_eval)), mask_rate=mask_rate)
+    print(f"{len(windows)} windows of {seq_len} tokens from {text_file}"
+          f" ({len(train)} train / {n_eval} eval)")
+    if not n_eval:
+        return train, next(dataset_iterator(train, batch_size, num_workers=0))
+    held = MLMDataset(Subset(windows, range(len(windows) - n_eval, len(windows))),
+                      mask_rate=mask_rate, seed=1)
+    return train, tuple(np.stack(f) for f in zip(*[held[i] for i in range(n_eval)]))
+
+
 def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
-          metrics_path="./mlm_metrics.jsonl", log_every=10):
+          metrics_path="./mlm_metrics.jsonl", log_every=10, text_file=None, mask_rate=0.15,
+          checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``, where
-    ``batches(start_step)`` yields batches on ``device`` and
-    ``eval_batches`` is a list of them.  Weights are drawn from seed 0."""
+    ``batches(start_step)`` yields batches on ``device`` (with ``prefetch``
+    > 0, host batches that the Trainer copies there ahead of the step) and
+    ``eval_batches`` is a list of batches on ``device``.
+    ``checkpoint_every`` defaults to ``steps // 2`` when ``checkpoint_dir``
+    is given.  Weights are drawn from ``seed``."""
     device = resolve_device(device)
-    generator = torch.Generator().manual_seed(0)
+    generator = torch.Generator().manual_seed(seed)
     if full_scale:
         seq_len = FULL_SCALE_SEQ_LEN
         model = LanguagePerceiver(policy=PERFORMANCE, device=device, generator=generator)
@@ -84,12 +114,18 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
         seq_len = TINY_SEQ_LEN
         model = LanguagePerceiver(max_seq_len=seq_len, **TINY, policy=DEFAULT, device=device,
                                   generator=generator)
-    corpus = synthetic_corpus(1024, seq_len, VOCAB)
-    held_out = synthetic_corpus(2 * batch_size, seq_len, VOCAB, seed=1)
+    dataset = None
+    if text_file is not None:
+        dataset, held_out = text_datasets(text_file, seq_len, batch_size, mask_rate)
+    else:
+        corpus = synthetic_corpus(1024, seq_len, VOCAB)
+        held_out = synthetic_corpus(2 * batch_size, seq_len, VOCAB, seed=1)
 
     def on_device(batch):
         return tuple(torch.from_numpy(a).to(device) for a in batch)
 
+    if checkpoint_every is None:
+        checkpoint_every = 0 if checkpoint_dir is None else max(steps // 2, 1)
     trainer = Trainer(
         loss_fn,
         build_optimizer(3e-4, schedule="cosine", total_steps=steps,
@@ -98,22 +134,37 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
         log_every=log_every,
         eval_fn=loss_fn,
         eval_every=max(steps // 2, 1),
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
+        checkpoint_async=checkpoint_async,
+        prefetch=prefetch,
     )
     eval_batches = [on_device(b) for b in epoch_batches(held_out, batch_size)]
 
+    # epochs=None reshuffles every epoch; start_batch puts a resumed run at
+    # the data position of an uninterrupted one
     def batches(start_step=0):
-        for batch in batch_iterator(corpus, batch_size, shuffle=True, epochs=None,
-                                    start_batch=start_step):
-            yield on_device(batch)
+        if dataset is not None:
+            source = dataset_iterator(dataset, batch_size, shuffle=True, epochs=None,
+                                      start_batch=start_step, num_workers=4)
+        else:
+            source = batch_iterator(corpus, batch_size, shuffle=True, epochs=None,
+                                    start_batch=start_step)
+        for batch in source:
+            yield batch if prefetch else on_device(batch)
 
     return trainer, trainer.init_state(model), batches, eval_batches
 
 
 def main(steps=50, batch_size=8, full_scale=False, *, device="cuda",
-         metrics_path="./mlm_metrics.jsonl"):
-    trainer, state, batches, eval_batches = setup(steps, batch_size, full_scale,
-                                                  device=device, metrics_path=metrics_path)
-    state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches)
+         metrics_path="./mlm_metrics.jsonl", text_file=None, mask_rate=0.15,
+         checkpoint_dir=None, resume=False, async_checkpoint=False):
+    trainer, state, batches, eval_batches = setup(
+        steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
+        text_file=text_file, mask_rate=mask_rate, checkpoint_dir=checkpoint_dir,
+        checkpoint_async=async_checkpoint, prefetch=2)
+    state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
+                        resume=resume)
     print(f"finished at step {state.step}")
     return state
 
@@ -124,6 +175,18 @@ if __name__ == "__main__":
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--full-scale", action="store_true",
                         help="published 2048-byte config, bf16")
+    parser.add_argument("--text-file", default=None,
+                        help="corpus path or glob; default: the synthetic corpus")
+    parser.add_argument("--mask-rate", type=float, default=0.15,
+                        help="--text-file MLM corruption rate")
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the newest checkpoint in --checkpoint-dir")
+    parser.add_argument("--async-checkpoint", action="store_true",
+                        help="write checkpoints by a thread (Trainer(checkpoint_async=True))")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device)
+    main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
+         text_file=args.text_file, mask_rate=args.mask_rate,
+         checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+         async_checkpoint=args.async_checkpoint)

@@ -1,10 +1,31 @@
 """Training stack of the PyTorch/CUDA port: the losses of the four task
 models, AdamW with its schedules and clip, the train step, the Trainer with
-its evaluation, and the host-side batching."""
+its evaluation, checkpoints and resume, the file-backed datasets, and the
+host-side batching with device prefetch."""
 
+from perceiverio_pytorch_tpu_torch.training.checkpoint import (  # noqa: F401
+    AsyncCheckpointWriter,
+    latest_checkpoint,
+    prune_checkpoints,
+    restore_eval_variables,
+    restore_train_state,
+    restore_variables,
+    save_train_state,
+    save_variables,
+)
 from perceiverio_pytorch_tpu_torch.training.data import (  # noqa: F401
     batch_iterator,
     epoch_batches,
+    prefetch_to_device,
+)
+from perceiverio_pytorch_tpu_torch.training.datasets import (  # noqa: F401
+    FlowPairDataset,
+    ImageFolderDataset,
+    MLMDataset,
+    Subset,
+    TextFileDataset,
+    VideoClipDataset,
+    dataset_iterator,
 )
 from perceiverio_pytorch_tpu_torch.training.loop import (  # noqa: F401
     MetricsLogger,

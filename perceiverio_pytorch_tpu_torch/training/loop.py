@@ -1,21 +1,27 @@
-"""Training loop with JSONL metrics.
+"""Training loop with JSONL metrics, checkpoints and device prefetch.
 
 Counterpart of ``Trainer`` and ``MetricsLogger`` in
-``perceiverio_pytorch_tpu/training/loop.py``, on one device, with its
-evaluation (``eval_fn``, ``eval_every``, ``Trainer.evaluate``).  The JAX
-Trainer's mesh and FSDP, checkpoints, EMA, multi-step dispatch and device
-prefetch are not ported: setting any of them raises ``NotImplementedError``.
+``perceiverio_pytorch_tpu/training/loop.py``, on one device: the train step
+over a batch stream, its evaluation (``eval_fn``, ``eval_every``,
+``Trainer.evaluate``), periodic train-state checkpoints (synchronous or by
+a thread, pruned to the newest N), ``fit(resume=True)``, device prefetch
+and the SIGTERM guard.  The JAX Trainer's mesh and FSDP, EMA and multi-step
+dispatch are not ported: setting any of them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
+import threading
 import time
 from typing import Callable, Iterable, Optional
 
 import torch
 
+from perceiverio_pytorch_tpu_torch.training import checkpoint as ckpt
+from perceiverio_pytorch_tpu_torch.training.data import prefetch_to_device
 from perceiverio_pytorch_tpu_torch.training.optim import Optimizer
 from perceiverio_pytorch_tpu_torch.training.trainer import (
     TrainState,
@@ -50,12 +56,40 @@ class MetricsLogger:
             self._file = None
 
 
+class _PreemptionGuard:
+    """Turns SIGTERM into a stop flag while ``fit`` runs.
+
+    A preemptible machine gets SIGTERM some time before it goes away: the
+    step in flight finishes, a checkpoint is written and ``fit`` returns, so
+    that ``fit(resume=True)`` goes on from there.  A handler can only be
+    installed from the main thread; elsewhere the guard never stops.
+    """
+
+    def __init__(self):
+        self._installed = False
+        self._prev = None
+        self.requested = False
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            self._prev = signal.signal(signal.SIGTERM, self._handler)
+            self._installed = True
+        return self
+
+    def __exit__(self, *exc):
+        if self._installed:
+            # None: the previous handler was not installed from Python
+            signal.signal(signal.SIGTERM,
+                          signal.SIG_DFL if self._prev is None else self._prev)
+        return False
+
+
 # Trainer arguments of the JAX package that are not ported, with the value
 # that means "off".
-_NOT_PORTED = {
-    "mesh": None, "fsdp": False, "checkpoint_dir": None, "checkpoint_every": 0,
-    "ema_decay": None, "steps_per_call": 1, "prefetch": 0,
-}
+_NOT_PORTED = {"mesh": None, "fsdp": False, "ema_decay": None, "steps_per_call": 1}
 
 
 class Trainer:
@@ -76,15 +110,33 @@ class Trainer:
         counterpart: state such as BatchNorm's running averages lives in the
         module's buffers, which the train step updates in ``train()`` mode
         and ``evaluate`` reads in ``eval()`` mode.
-      mesh, fsdp, checkpoint_dir, checkpoint_every, ema_decay,
-        steps_per_call, prefetch: not ported; anything but the default
-        raises NotImplementedError.
+      checkpoint_dir: directory of the ``step_XXXXXXXX`` train-state
+        checkpoints (``training.checkpoint``); also what ``fit(resume=True)``
+        restores from.
+      checkpoint_every: save every this many updates (0: never).
+      checkpoint_keep: keep only the newest N finished checkpoints (pruned
+        after each save, with unfinished ones older than the newest
+        finished); 0 keeps all.
+      checkpoint_final: also save when ``fit`` ends off the
+        ``checkpoint_every`` grid (budget reached, stream exhausted).
+      checkpoint_async: write the saves by a thread
+        (``AsyncCheckpointWriter``): the copy to host memory is part of the
+        step, the disk write overlaps the following steps; ``fit`` waits
+        for the last one before it returns.
+      prefetch: keep this many batches copied to the model's device ahead of
+        the step (``training.data.prefetch_to_device``), so that decoding and
+        the copy overlap the steps; 0 takes the batches as they come.
+      mesh, fsdp, ema_decay, steps_per_call: not ported; anything but the
+        default raises NotImplementedError.
     """
 
     def __init__(self, loss_fn: Callable, tx: Optimizer, *,
                  metrics_path: Optional[str] = None, log_every: int = 10,
                  log_grad_norm: bool = False, eval_fn: Optional[Callable] = None,
-                 eval_every: int = 0, **not_ported):
+                 eval_every: int = 0, checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, checkpoint_keep: int = 0,
+                 checkpoint_final: bool = False, checkpoint_async: bool = False,
+                 prefetch: int = 0, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected argument {name!r}")
@@ -98,6 +150,13 @@ class Trainer:
         self.log_grad_norm = log_grad_norm
         self.eval_fn = eval_fn
         self.eval_every = eval_every
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_keep = int(checkpoint_keep)
+        self.checkpoint_final = checkpoint_final
+        self.checkpoint_async = bool(checkpoint_async)
+        self.prefetch = max(int(prefetch), 0)
+        self._async_writer: Optional[ckpt.AsyncCheckpointWriter] = None
 
     def init_state(self, model) -> TrainState:
         return create_train_state(model, self.tx)
@@ -139,28 +198,61 @@ class Trainer:
         those ``state`` has taken) or the end of ``batches``.
 
         ``batches`` is an iterable of batch tuples, or a callable
-        ``batches(start_step) -> iterable`` called with ``state.step``; pair it
-        with ``batch_iterator(..., start_batch=start_step)`` so that a second
-        ``fit`` on the same state continues the data order.
+        ``batches(start_step) -> iterable`` called with ``state.step`` after
+        the restore (if any); pair it with ``batch_iterator(...,
+        start_batch=start_step)`` or ``dataset_iterator`` so that a resumed
+        run, or a second ``fit`` on the same state, continues the data order
+        of an uninterrupted one.
+
+        ``resume=True`` restores the newest finished checkpoint under
+        ``checkpoint_dir`` (if any) into ``state`` and logs
+        ``resumed_from``; ``num_steps`` is the total budget, so a finished
+        run restarts as a no-op.  It needs ``checkpoint_dir``.
 
         ``eval_batches``: an iterable of batch tuples (materialised once, so
         that a generator serves every evaluation); with ``eval_fn`` set,
         ``evaluate`` runs over it every ``eval_every`` updates.
+
+        SIGTERM while the loop runs (on the main thread) finishes the step in
+        flight, saves it (with ``checkpoint_dir``), logs ``preempted=True``
+        and returns.
         """
-        if resume:
-            raise NotImplementedError(
-                "resuming from checkpoints is not ported to PyTorch yet (see ROADMAP.md)")
         if eval_batches is not None:
             eval_batches = list(eval_batches)
+        if resume:
+            if not self.checkpoint_dir:
+                raise ValueError(
+                    "fit(resume=True) needs Trainer(checkpoint_dir=...): without it"
+                    " there is nothing to resume from and training would restart at"
+                    " step 0")
+            latest = ckpt.latest_checkpoint(self.checkpoint_dir)
+            if latest is not None:
+                state = ckpt.restore_train_state(latest, state)
+                self.logger.log(step=state.step, resumed_from=os.path.basename(latest))
         if callable(batches):
             batches = batches(state.step)
+        if self.prefetch > 0:
+            device = next(iter(state.model.parameters())).device
+            batches = prefetch_to_device(batches, self.prefetch, device=device)
         step_fn = make_train_step(self.loss_fn, self.tx,
                                   with_metrics=self.log_grad_norm)
-        return self._fit_loop(state, batches, num_steps, step_fn, eval_batches)
+        try:
+            with _PreemptionGuard() as guard:
+                return self._fit_loop(state, batches, num_steps, step_fn, eval_batches,
+                                      guard)
+        finally:
+            if self.prefetch > 0:
+                batches.close()  # stops the prefetch thread
+            if self._async_writer is not None:
+                # The caller may exit or restore right after fit().
+                writer, self._async_writer = self._async_writer, None
+                writer.close()
 
-    def _fit_loop(self, state, batches: Iterable, num_steps, step_fn, eval_batches):
+    def _fit_loop(self, state, batches: Iterable, num_steps, step_fn, eval_batches, guard):
         t0 = time.perf_counter()
         window_start, window_step = t0, state.step
+        start_step = step_num = state.step
+        last_saved = -1
         for batch in batches:
             if num_steps is not None and state.step >= num_steps:
                 break
@@ -193,4 +285,33 @@ class Trainer:
                 if not isinstance(ev, dict):
                     ev = {"eval_loss": ev}
                 self.logger.log(step=step_num, **{k: round(v, 6) for k, v in ev.items()})
+            if (self.checkpoint_dir and self.checkpoint_every
+                    and step_num % self.checkpoint_every == 0):
+                self._save_checkpoint(state, step_num)
+                last_saved = step_num
+            if guard.requested:
+                # The step in flight has finished: save it and stop, so that
+                # fit(resume=True) goes on from exactly here.
+                if self.checkpoint_dir and last_saved != step_num:
+                    self._save_checkpoint(state, step_num)
+                    last_saved = step_num
+                self.logger.log(step=step_num, preempted=True)
+                break
+        if (self.checkpoint_final and self.checkpoint_dir and last_saved != step_num
+                and step_num > start_step):
+            self._save_checkpoint(state, step_num)
         return state
+
+    def _save_checkpoint(self, state: TrainState, step_num: int) -> None:
+        path = os.path.join(self.checkpoint_dir, f"step_{step_num:08d}")
+        # overwrite=True: a resumed run may reach this step again
+        if self.checkpoint_async:
+            if self._async_writer is None:
+                self._async_writer = ckpt.AsyncCheckpointWriter()
+            self._async_writer.save_train_state(path, state, overwrite=True)
+        else:
+            ckpt.save_train_state(path, state, overwrite=True)
+        # A save in flight has no marker yet and is newer than every finished
+        # one, so pruning leaves it alone.
+        if self.checkpoint_keep > 0:
+            ckpt.prune_checkpoints(self.checkpoint_dir, self.checkpoint_keep)

@@ -17,7 +17,11 @@ classifier and of the tiny MLM on the card with its launches counted.
 The serving stack on the card: K1's torch.library op bit for bit against
 the direct launch, an export of the tiny pixel classifier whose graph holds
 the op at every site, and K1 at the server's buckets 1, 2 and 4 over 50,176
-keys.
+keys.  The data path on the card: ``prefetch_to_device`` against direct
+copies while the consumer allocates and frees, an async save taken before an
+in-place update, the tiny flow model trained from files, interrupted and
+resumed, against the uninterrupted run, and the tiny multimodal model
+trained from a clip tree.
 """
 
 import dataclasses
@@ -883,3 +887,111 @@ def test_kernel_at_the_server_buckets(cuda, dtype, tol, d, batch, splits):
     assert got.shape == (batch, 512, d) and torch.isfinite(got).all()
     _check(got, want, tol)
     assert (lse - want_lse).abs().max().item() <= 1e-4 * (1 + want_lse.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_prefetch_matches_direct_copies_while_the_consumer_allocates(cuda):
+    """Batches copied on the side stream equal ``.to("cuda")`` copies of the
+    same arrays while the consumer allocates, writes and frees memory
+    between them (what would reuse a buffer whose copy is in flight)."""
+    from perceiverio_pytorch_tpu_torch.training import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.standard_normal((4, 1 << 18), dtype=np.float32),
+                rng.integers(0, 255, (4, 3, 64, 64), dtype=np.uint8)) for _ in range(24)]
+    got = []
+    for a, b in prefetch_to_device(iter(batches), 3, device=cuda):
+        assert a.device.type == b.device.type == "cuda"
+        for _ in range(3):
+            scratch = torch.empty((4, 1 << 18), device=cuda)
+            scratch.fill_(7.0)
+            del scratch
+        got.append(((a * 2 + 1).sum(dim=1).cpu(), b.float().mean(dim=(1, 2, 3)).cpu()))
+    assert len(got) == len(batches)
+    for (ga, gb), (a, b) in zip(got, batches):
+        a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+        assert torch.equal(ga, (a * 2 + 1).sum(dim=1).cpu())
+        assert torch.equal(gb, b.float().mean(dim=(1, 2, 3)).cpu())
+
+
+@pytest.mark.cuda
+def test_async_save_on_the_card_holds_the_values_before_an_update(cuda, tmp_path):
+    """``save`` returns once the card's tensors are copied: an in-place
+    update launched right after it (and a train step) does not reach the
+    file."""
+    from perceiverio_pytorch_tpu_torch.training import (
+        AsyncCheckpointWriter,
+        restore_train_state,
+    )
+
+    model = torch.nn.Sequential(torch.nn.Linear(256, 1024), torch.nn.Linear(1024, 8)).to(cuda)
+    trainer = Trainer(lambda m, x: m(x).square().mean(), build_optimizer(1e-2), log_every=0)
+    state = trainer.init_state(model)
+    x = torch.randn(64, 256, device=cuda)
+    state = trainer.fit(state, [(x,)] * 2, num_steps=2)
+    want = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    moments = {i: {k: v.cpu().clone() for k, v in e.items()}
+               for i, e in state.optimizer.state_dict()["state"].items()}
+    with AsyncCheckpointWriter() as writer:
+        writer.save_train_state(str(tmp_path / "c"), state)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(-3.0).add_(1.0)
+        state = trainer.fit(state, [(x,)], num_steps=3)
+    other = trainer.init_state(torch.nn.Sequential(torch.nn.Linear(256, 1024),
+                                                   torch.nn.Linear(1024, 8)).to(cuda))
+    restore_train_state(str(tmp_path / "c"), other)
+    assert other.step == 2 and next(other.model.parameters()).device.type == cuda.type
+    for k, v in other.model.state_dict().items():
+        assert torch.equal(v.cpu(), want[k]), k
+    for i, entry in other.optimizer.state_dict()["state"].items():
+        for k, v in entry.items():
+            assert torch.equal(v.cpu(), moments[i][k]), (i, k)
+
+
+@pytest.mark.cuda
+def test_tiny_flow_from_files_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
+    """The tiny flow example from a file tree on the card (random crops,
+    prefetched batches): 6 steps against 3, a checkpoint, and 3 more resumed
+    into a model of other weights."""
+    from perceiverio_pytorch_tpu_torch.examples import train_flow
+    from perceiverio_pytorch_tpu_torch.tools import make_synthetic_data
+
+    make_synthetic_data.make_flow(str(tmp_path), hw=(40, 56), scenes={"train": (2, 5)})
+    data = str(tmp_path / "flow_synth" / "train")
+    runs = []
+    for stop, seed in ((6, 0), (3, 0), (6, 1)):
+        trainer, state, batches, eval_batches = train_flow.setup(
+            6, device=cuda, metrics_path=None, log_every=0, data_dir=data, prefetch=2,
+            checkpoint_dir=None if len(runs) == 0 else str(tmp_path / "ck"),
+            checkpoint_every=3, seed=seed)
+        runs.append(trainer.fit(state, batches, num_steps=stop, eval_batches=eval_batches,
+                                resume=seed == 1))
+    want, got = runs[0].model.state_dict(), runs[2].model.state_dict()
+    assert runs[2].step == 6
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+def test_tiny_multimodal_from_clips_on_the_card(cuda, tmp_path):
+    """The tiny multimodal example from a clip tree (``VideoClipDataset``:
+    OpenCV decode, wav sidecars) on the card, prefetched, with a checkpoint."""
+    pytest.importorskip("cv2")
+    from perceiverio_pytorch_tpu_torch.examples import train_multimodal
+    from perceiverio_pytorch_tpu_torch.tools import make_synthetic_data
+    from perceiverio_pytorch_tpu_torch.training import latest_checkpoint
+
+    make_synthetic_data.make_clips(str(tmp_path), n_classes=2, num_frames=2, hw=(16, 16),
+                                   samples_per_frame=128, per_class={"train": 2})
+    path = tmp_path / "m.jsonl"
+    trainer, state, batches = train_multimodal.setup(
+        3, device=cuda, metrics_path=str(path), log_every=1, prefetch=2,
+        data_dir=str(tmp_path / "kinetics_synth" / "train"),
+        checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=3)
+    state = trainer.fit(state, batches, num_steps=3)
+    assert state.step == 3
+    logged = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [x["step"] for x in logged] == [1, 2, 3]
+    assert all(np.isfinite(x["loss"]) for x in logged)
+    assert latest_checkpoint(str(tmp_path / "ck")).endswith("step_00000003")

@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -107,6 +108,31 @@ def test_serving_modules_load_no_jax(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["training.data", "training.datasets", "training.loop",
+                                    "utils.flow_io", "utils.image", "utils.labels",
+                                    "tools.make_synthetic_data", "examples.evaluate_flow",
+                                    "examples.evaluate_classification"])
+def test_data_and_checkpoint_modules_load_no_jax(module):
+    """Each module of the file-backed data, checkpoint and evaluation path,
+    imported alone in a fresh interpreter, is among the files checked above
+    and loads no JAX, flax or JAX package module, nor PIL or OpenCV (they are
+    imported where a file is read or written)."""
+    name = f"{PACKAGE}.{module}"
+    assert name in [_module_name(p) for p in _port_files()]
+    forbidden = FORBIDDEN + ("PIL", "cv2")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -186,3 +212,22 @@ def test_serving_stack_defaults_to_cuda(no_cuda, tmp_path):
         serve.build(str(tmp_path))
     with pytest.raises(NotImplementedError, match="int8"):
         serve.build(str(tmp_path), device="cpu", quant="dynamic")
+
+
+def test_data_path_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """Device prefetch, the evaluation scripts and the examples' file-backed
+    setup refuse a missing GPU unless asked for the CPU."""
+    from perceiverio_pytorch_tpu_torch.examples import evaluate_classification, evaluate_flow
+    from perceiverio_pytorch_tpu_torch.examples import train_flow
+    from perceiverio_pytorch_tpu_torch.training import prefetch_to_device
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(prefetch_to_device(iter([(np.zeros(2),)]), 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_flow.main(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_classification.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_flow.setup(2, data_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="--mesh and --quant"):
+        evaluate_classification.main(quant="dynamic", device="cpu")

@@ -179,13 +179,17 @@ def test_unported_optimizer_and_trainer_options_raise():
     with pytest.raises(ValueError):
         build_optimizer(1e-3, optimizer="adam")
     tx = build_optimizer(1e-3)
-    for kw in (dict(mesh=object()), dict(fsdp=True), dict(checkpoint_dir="x"),
-               dict(ema_decay=0.999), dict(steps_per_call=4),
-               dict(prefetch=2)):
+    for kw in (dict(mesh=object()), dict(fsdp=True), dict(ema_decay=0.999),
+               dict(steps_per_call=4)):
         with pytest.raises(NotImplementedError):
             Trainer(lambda m: m, tx, **kw)
     with pytest.raises(TypeError):
         Trainer(lambda m: m, tx, mesh_shape=(2, 2))
+    # Checkpoints and prefetch are ported: the Trainer takes them.
+    trainer = Trainer(lambda m: m, tx, checkpoint_dir="x", checkpoint_every=2,
+                      checkpoint_keep=1, checkpoint_final=True, checkpoint_async=True,
+                      prefetch=2)
+    assert (trainer.checkpoint_dir, trainer.checkpoint_every, trainer.prefetch) == ("x", 2, 2)
 
 
 @pytest.mark.parametrize(
@@ -346,7 +350,8 @@ def test_trainer_evaluation_matches_jax_trainer(tmp_path, metrics):
 def test_trainer_evaluate_against_a_hand_loop():
     """``evaluate``: the mean of a scalar or of each metric over the
     batches, in eval mode without gradients, the model put back in the mode
-    it was in; no batch gives 0.0; EMA and resuming still raise."""
+    it was in; no batch gives 0.0; EMA still raises, and resuming needs a
+    checkpoint directory."""
     x, y, w = _linear_problem()
     model = _linear_model(w)
     batches = [(torch.from_numpy(x[i:i + 4]), torch.from_numpy(y[i:i + 4]))
@@ -379,8 +384,8 @@ def test_trainer_evaluate_against_a_hand_loop():
         trainer.evaluate(state, batches, use_ema=True)
     with pytest.raises(NotImplementedError):
         Trainer(_mse, build_optimizer(1e-2), ema_decay=0.999)
-    with pytest.raises(NotImplementedError):
-        trainer.fit(state, batches, resume=True)
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        trainer.fit(state, batches, resume=True)  # resuming is ported; it needs a directory
 
 
 def test_train_step_metrics_and_buffers():
