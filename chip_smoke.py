@@ -182,7 +182,42 @@ Phases (each raises on failure; nothing is caught):
      from step 2 with the checks of phase 25 and its timings (a synchronous
      save timed apart); then examples/evaluate_classification.py from the
      final checkpoint (top-1, top-5, images/s, K1 once a batch);
- 28. prints the kernels line and, last, {"ok": true, "device": {...}}.
+ 28. evaluate multimodal: the port's tools/make_synthetic_data.py writes the
+     val split of 36 labelled 16x224x224 clips with 48 kHz wav sidecars; a
+     seeded published Kinetics autoencoder is written as a reference .pth
+     and the port's convert.py turns it into a weights directory;
+     examples/evaluate_multimodal.py (bf16, 16 chunks) scores all 36 clips
+     (35 timed) from the directory and again from the .pth: the same
+     numbers, the first
+     clip's outputs equal to the in-memory model's on the arrays the script
+     decoded, bit for bit, K1 and its merge once a clip, clips/s and peak
+     memory;
+ 29. LoRA: examples/train_mlm.py --full-scale --lora 8 (bf16, batch 8), one
+     warm-up step and 5 timed ones through the Trainer (evaluations at steps
+     3 and 6, timed apart): the printed adapter count equals the sum of
+     rank * (in + out) over the attention and MLP projections, every base
+     weight is unchanged bit for bit, merge_lora's state_dict loads strictly
+     into a fresh LanguagePerceiver whose loss on a held-out batch equals the
+     wrapped model's; step time and peak memory beside phase 19's full
+     fine-tune; the merged weights are saved for phase 30;
+ 30. evaluate MLM: examples/evaluate_mlm.py --full-scale --checkpoint (the
+     merged weights) over 512 sequences of the port's synthetic text (63
+     timed batches of 8), the masked rows alone, --full-decode, again
+     --full-decode and the masked rows: the masked rows' logits against the
+     full decode's rows at the same positions (relative to the largest
+     logit, phase 15's tolerance), the same sequences and masked tokens, the
+     accuracy within 1e-6 and the cross-entropy within 2e-3 (the bf16 gap
+     reported, and both decodes held in fp32 where bf16 misses), sequences/s
+     of each run, no kernel launch;
+ 31. EMA: the published flow model (bf16, remat, batch 1, synthetic pairs)
+     through Trainer(ema_decay=0.99, lr_schedule=..., checkpoint_dir=...),
+     one warm-up step and 3 more: after each step the EMA equals a
+     recursion computed here from the step's parameters, bit for bit;
+     launches as phase 8; evaluate() runs on the EMA weights by default;
+     restore_eval_variables on the final checkpoint gives the EMA weights;
+     the logged lr equals the schedule's; step time beside phase 8's;
+ 32. prints the run's seconds, the kernels line and, last, {"ok": true,
+     "device": {...}}.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -339,6 +374,34 @@ DECODE_REPS = 3  # batches decoded on one thread for the decode time
 # Step times with and without prefetch: alternating windows of fits.
 PREFETCH_WINDOW = 5
 PREFETCH_ORDER = (2, 0, 0, 2)
+# The train -> evaluate phases (28 to 31).  Multimodal evaluation: the port's
+# tool writes the val split of 9 classes x 4 labelled 16x224x224 clips with
+# 48 kHz wav sidecars; evaluate_multimodal scores all MM_EVAL_CLIPS (16
+# decoder chunks, its default), the first one untimed.
+MM_EVAL_CLIPS = 36
+# LoRA: train_mlm --full-scale --lora LORA_RANK at batch 8, one warm-up step
+# then LORA_STEPS timed ones (evaluations at steps 3 and 6, timed apart).
+LORA_RANK = 8
+LORA_STEPS = 5
+# The attention and MLP projections' module names, which the adapter count
+# is held against (counted from the base model's Linear modules, apart from
+# the selection in training/lora.py).
+LORA_TARGETS = ("proj_q", "proj_k", "proj_v", "final", "fc1", "fc2")
+# The merged model's loss against the wrapped one's on one batch, relative:
+# the same bf16 forward on weights W + (a @ b)^T that the two sides form
+# with the same ops (measured: see "bitwise" in the phase's line).
+LORA_MERGE_TOL = 1e-3
+# MLM evaluation of the merged model: 512 sequences of 2,048 bytes of the
+# port's synthetic text (its train split: the val split holds 146), batch 8,
+# the first batch untimed; the masked rows alone against the full decode,
+# run in this order for the rates, at the JAX test's tolerances
+# (tests/test_evaluate_mlm.py).
+MLM_EVAL_LIMIT = 512
+MLM_EVAL_ORDER = ("partial", "full", "full", "partial")
+MLM_EVAL_TOL = {"masked_accuracy": 1e-6, "masked_ce": 2e-3}
+# EMA of the flow model's parameters over one warm-up and EMA_STEPS steps.
+EMA_DECAY = 0.99
+EMA_STEPS = 3
 
 
 def smi_line() -> str:
@@ -2578,6 +2641,359 @@ def phase_cls_files(tmp):
     return rec
 
 
+def phase_evaluate_multimodal(tmp):
+    """examples/evaluate_multimodal.py over the port's synthetic clips, from
+    a seeded published model written as a reference .pth and converted by
+    convert.py into a weights directory: the two runs (directory, .pth)
+    print the same numbers, the first clip's outputs equal the in-memory
+    model's on the same decoded arrays bit for bit, K1 once a clip."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, convert
+    from perceiverio_pytorch_tpu_torch.examples import evaluate_multimodal as em
+    from perceiverio_pytorch_tpu_torch.tools import make_synthetic_data
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "clips")
+    make_synthetic_data.make_clips(root, per_class={"val": MM_EVAL_CLIPS // 9})
+    data = os.path.join(root, "kinetics_synth", "val")
+    tree_s = time.perf_counter() - t0
+    model = _mm_model(PERFORMANCE)
+    pth = os.path.join(tmp, "video_autoencoding_checkpoint.pth")
+    torch.save({"model_state_dict": model.state_dict()}, pth)
+    ckpt = os.path.join(tmp, "mm_weights")
+    t = time.perf_counter()
+    convert.main([pth, ckpt, "--family", "multimodal"])
+    convert_s = time.perf_counter() - t
+
+    runs, first = {}, {}
+    build = em.build_model
+
+    def recording_build(*args, **kwargs):
+        built = build(*args, **kwargs)
+
+        def keep_first(module, inputs, out):
+            if not first:
+                first.update(inputs=[x.clone() for x in inputs],
+                             out={k: v.clone() for k, v in out.items()})
+
+        built.register_forward_hook(keep_first)
+        return built
+
+    for source, kw in (("checkpoint", dict(checkpoint=ckpt)),
+                       ("torch_checkpoint", dict(torch_checkpoint=pth))):
+        first.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t = time.perf_counter()
+        with mock.patch.object(em, "build_model", recording_build):
+            result = em.main(data, limit=MM_EVAL_CLIPS, device="cuda", **kw)
+        runs[source] = dict(result=result, seconds=time.perf_counter() - t,
+                            launches=_launch_counts(),
+                            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        # The first clip through the model in memory, on the arrays the
+        # script decoded and passed.
+        with torch.inference_mode():
+            want = model(*first["inputs"], n_chunks=16)
+        differ = [k for k in want if not torch.equal(want[k], first["out"][k])]
+        if differ:
+            raise AssertionError(f"evaluate_multimodal ({source}): the first clip's {differ}"
+                                 " differ from the in-memory model's")
+    a, b = (dict(r["result"]) for r in runs.values())
+    a.pop("clips_per_sec", None)
+    b.pop("clips_per_sec", None)
+    if a != b:
+        raise AssertionError(f"evaluate_multimodal: --checkpoint {a} vs --torch-checkpoint {b}")
+    for source, run in runs.items():
+        res, launches = run["result"], run["launches"]
+        if (res["clips"], res.get("labeled_clips")) != (MM_EVAL_CLIPS, MM_EVAL_CLIPS) or not (
+                math.isfinite(res["video_psnr"]) and math.isfinite(res["audio_psnr"])
+                and 0 <= res["top1"] <= res["top5"] <= 1):
+            raise AssertionError(f"evaluate_multimodal ({source}): {res}")
+        if launches != dict(NO_LAUNCHES, K1=MM_EVAL_CLIPS, merge=MM_EVAL_CLIPS):
+            raise AssertionError(f"evaluate_multimodal ({source}): launches {launches} for "
+                                 f"{MM_EVAL_CLIPS} clips")
+    rec = dict(clips_written=MM_EVAL_CLIPS, clips=MM_EVAL_CLIPS, n_chunks=16, tree_s=tree_s,
+               pth_bytes=os.path.getsize(pth), convert_s=convert_s,
+               first_clip_bit_for_bit=True, runs=runs,
+               k1_launches_per_clip=runs["checkpoint"]["launches"]["K1"] / MM_EVAL_CLIPS,
+               seconds=time.perf_counter() - t0)
+    print(f"[evaluate multimodal] bf16 16x224x224 clips, convert.py .pth -> directory: "
+          f"{json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_lora(lm_train, tmp):
+    """examples/train_mlm.py --full-scale --lora 8 (bf16, batch 8): one
+    warm-up step and LORA_STEPS timed ones through the Trainer; the printed
+    adapter count against the projections' shapes, the frozen base bit for
+    bit, merge_lora's state_dict strictly into a fresh model, its loss
+    against the wrapped model's.  Writes the merged weights for phase 30."""
+    import contextlib
+    import io
+
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, LanguagePerceiver
+    from perceiverio_pytorch_tpu_torch.examples import train_mlm
+    from perceiverio_pytorch_tpu_torch.training import lora, merge_lora, save_variables
+
+    total = 1 + LORA_STEPS
+    metrics = _metrics_path("chip_smoke_lora_metrics.jsonl")
+    recorded = {}
+
+    def recording_wrap(loss_fn, base, **kwargs):
+        recorded["base"] = base
+        return lora.wrap_loss(loss_fn, base, **kwargs)
+
+    printed = io.StringIO()
+    with mock.patch.object(train_mlm, "wrap_loss", recording_wrap), \
+            contextlib.redirect_stdout(printed):
+        trainer, state, batches, eval_batches = train_mlm.setup(
+            total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1,
+            lora_rank=LORA_RANK)
+    print(printed.getvalue(), end="", flush=True)
+    base = recorded["base"]
+    want = sum(LORA_RANK * (m.in_features + m.out_features) for name, m in base.named_modules()
+               if isinstance(m, torch.nn.Linear) and name.rsplit(".", 1)[-1] in LORA_TARGETS)
+    line = next(x for x in printed.getvalue().splitlines() if x.startswith("LoRA rank"))
+    count = int(line.split("training ")[1].split(" adapter")[0].replace(",", ""))
+    n_adapters = sum(p.numel() for p in state.model.parameters())
+    if not count == n_adapters == want:
+        raise AssertionError(f"adapter parameters: printed {count}, module {n_adapters}, "
+                             f"projections {want}")
+    base_before = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    if any(p.requires_grad for p in base.parameters()):
+        raise AssertionError("the base model has trainable parameters")
+    rec = _train_steps(trainer, state, batches, total, metrics, NO_LAUNCHES, eval_batches)
+    changed = [k for k, v in base.state_dict().items() if not torch.equal(v, base_before[k])]
+    if changed:
+        raise AssertionError(f"LoRA training changed base weights: {changed[:5]}")
+    merged = merge_lora(base.state_dict(), state.model)
+    fresh = LanguagePerceiver(policy=PERFORMANCE, device="cuda",
+                              generator=torch.Generator().manual_seed(SEED + 20))
+    fresh.load_state_dict(merged, strict=True)
+    fresh.eval()
+    state.model.eval()
+    batch = eval_batches[0]
+    with torch.no_grad():
+        loss_merged = train_mlm.loss_fn(fresh, *batch).item()
+        loss_wrapped = trainer.eval_fn(state.model, *batch).item()
+    if not (math.isfinite(loss_merged)
+            and abs(loss_merged - loss_wrapped) <= LORA_MERGE_TOL * abs(loss_wrapped)):
+        raise AssertionError(f"merged model's loss {loss_merged}, wrapped {loss_wrapped}")
+    weights = os.path.join(tmp, "mlm_lora_merged")
+    save_variables(weights, merged)
+    rec.update(rank=LORA_RANK, adapter_params=n_adapters, base_params=sum(
+        p.numel() for p in base.parameters()), base_bit_for_bit=True,
+        loss_merged=loss_merged, loss_wrapped=loss_wrapped,
+        merged_bitwise=loss_merged == loss_wrapped, merge_tolerance=LORA_MERGE_TOL,
+        full_fine_tune=dict(median_step_s=lm_train["median_step_s"],
+                            peak_mem_gb=lm_train["peak_mem_gb"]))
+    print(f"[lora] bf16 full-width MLM, rank {LORA_RANK}, batch 8: {json.dumps(rec)}",
+          flush=True)
+    del trainer, state, base, fresh, merged
+    torch.cuda.empty_cache()
+    return rec, weights
+
+
+def phase_evaluate_mlm(tmp, weights):
+    """examples/evaluate_mlm.py --full-scale --checkpoint (phase 29's merged
+    weights) over the port's synthetic text, in MLM_EVAL_ORDER: the masked
+    rows' logits of the first partial run against the first full run's rows
+    at the same positions, relative to the largest logit (LM_ROWS_TOL, as
+    phase 15); the same sequences and masked tokens in every run, accuracy
+    and cross-entropy within MLM_EVAL_TOL; where bf16 misses, the gap is
+    reported and the two decodes are held in fp32."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import LanguagePerceiver
+    from perceiverio_pytorch_tpu_torch.config import Policy
+    from perceiverio_pytorch_tpu_torch.examples import evaluate_mlm
+    from perceiverio_pytorch_tpu_torch.tools import make_synthetic_data
+
+    make_synthetic_data.make_text(tmp)
+    text = os.path.join(tmp, "text", "corpus_train.txt")
+
+    def both(label):
+        runs, rows = [], {}
+        for decode in MLM_EVAL_ORDER:
+            partial = decode == "partial"
+            keep = decode not in rows
+            calls = rows.setdefault(decode, dict(positions=[], rows=[], max_abs=[]))
+
+            def recording(*args, **kwargs):
+                model = LanguagePerceiver(*args, **kwargs)
+
+                def hook(module, args, kwargs, out):
+                    # the full decode's rows at the positions of the partial
+                    # run's call of the same index (one seeded draw a batch)
+                    if not keep:
+                        return
+                    if partial:
+                        calls["positions"].append(kwargs["predict_positions"].clone())
+                        calls["rows"].append(out.clone())
+                    else:
+                        where = rows["partial"]["positions"][len(calls["rows"])]
+                        calls["rows"].append(out[:, where].clone())
+                        calls["max_abs"].append(out.abs().amax())
+
+                model.register_forward_hook(hook, with_kwargs=True)
+                return model
+
+            _reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with mock.patch.object(evaluate_mlm, "LanguagePerceiver", recording):
+                result = evaluate_mlm.main(text_file=text, checkpoint=weights, full_scale=True,
+                                           limit=MLM_EVAL_LIMIT, partial_decode=partial,
+                                           device="cuda")
+            run = dict(decode=decode, result=result, seconds=time.perf_counter() - t,
+                       launches=_launch_counts())
+            if any(run["launches"].values()):
+                raise AssertionError(f"evaluate_mlm launched a kernel: {run}")
+            runs.append(run)
+        p, f = (rows[d]["rows"] for d in ("partial", "full"))
+        if len(p) != len(f) or len(p) != MLM_EVAL_LIMIT // 8:
+            raise AssertionError(f"evaluate_mlm {label}: {len(p)} partial, {len(f)} full calls")
+        diff = max((a - b).abs().max().item() for a, b in zip(p, f))
+        scale = torch.stack(rows["full"]["max_abs"]).max().item()
+        bitwise = all(torch.equal(a, b) for a, b in zip(p, f))
+        del rows, p, f
+        if not diff <= LM_ROWS_TOL[label] * scale:
+            raise AssertionError(f"evaluate_mlm {label}: predict_positions rows {diff} off the"
+                                 f" full decode's (max {scale})")
+        first = runs[0]["result"]
+        for run in runs:
+            r = run["result"]
+            if (r["sequences"], r["masked_tokens"]) != (first["sequences"],
+                                                        first["masked_tokens"]) or (
+                    r["sequences"] != MLM_EVAL_LIMIT or not math.isfinite(r["masked_ce"])):
+                raise AssertionError(f"evaluate_mlm {label}: {[x['result'] for x in runs]}")
+        gaps = {k: max(abs(a["result"][k] - b["result"][k]) for a in runs for b in runs)
+                for k in MLM_EVAL_TOL}
+        return dict(runs=runs, rows_max_abs_diff=diff, max_abs_logit=scale,
+                    rows_bitwise=bitwise, rows_tolerance=LM_ROWS_TOL[label], gaps=gaps,
+                    seq_per_sec={d: [r["result"]["seq_per_sec"] for r in runs
+                                     if r["decode"] == d] for d in ("partial", "full")},
+                    within=all(gaps[k] <= MLM_EVAL_TOL[k] for k in MLM_EVAL_TOL))
+
+    rec = dict(bf16=both("bf16"), tolerance=MLM_EVAL_TOL)
+    if not rec["bf16"]["within"]:
+        with mock.patch.object(evaluate_mlm, "PERFORMANCE", Policy()):
+            rec["fp32"] = both("fp32")
+        if not rec["fp32"]["within"]:
+            raise AssertionError(f"evaluate_mlm fp32: partial vs full gaps {rec['fp32']['gaps']}")
+    print(f"[evaluate mlm] full width, 2048 bytes, merged LoRA weights: {json.dumps(rec)}",
+          flush=True)
+    return rec
+
+
+def phase_ema(train, tmp):
+    """The published flow model (bf16, remat, batch 1, synthetic pairs)
+    through Trainer(ema_decay=EMA_DECAY, lr_schedule=..., checkpoint_dir=...)
+    for one warm-up step and EMA_STEPS more, one step a fit() call: the EMA
+    against a recursion computed here from each step's parameters, bit for
+    bit; launches as phase 8; evaluate() on the EMA by default; the final
+    checkpoint's restore_eval_variables gives the EMA; the logged lr equal
+    the schedule's."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowPerceiver
+    from perceiverio_pytorch_tpu_torch.examples import train_flow
+    from perceiverio_pytorch_tpu_torch.training import (
+        Trainer,
+        latest_checkpoint,
+        restore_eval_variables,
+    )
+
+    total = 1 + EMA_STEPS
+    metrics = _metrics_path("chip_smoke_ema_metrics.jsonl")
+    ck = os.path.join(tmp, "flow_ema")
+    example, state, batches, _ = train_flow.setup(total, full_scale=True, device="cuda")
+    schedule = example.tx.schedule
+    trainer = Trainer(example.loss_fn, example.tx, metrics_path=metrics, log_every=1,
+                      eval_fn=example.loss_fn, checkpoint_dir=ck, checkpoint_every=total,
+                      ema_decay=EMA_DECAY, lr_schedule=schedule)
+    state = trainer.init_state(state.model)
+    params = dict(state.model.named_parameters())
+    hand = {n: p.detach().clone() for n, p in params.items()}
+    if set(state.ema_params) != set(params) or any(
+            not torch.equal(state.ema_params[n], hand[n]) for n in params):
+        raise AssertionError("the EMA does not start as a copy of the parameters")
+    steps = []
+    for n in range(1, total + 1):
+        if n == 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t = time.perf_counter()
+        state = trainer.fit(state, batches, num_steps=n)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = _launch_counts()
+        if state.step != n or launches != STEP_LAUNCHES:
+            raise AssertionError(f"EMA step {state.step}: launches {launches}, expected "
+                                 f"{STEP_LAUNCHES}")
+        with torch.no_grad():
+            for name, p in params.items():
+                hand[name] = hand[name].mul(EMA_DECAY).add(p.detach().mul(1.0 - EMA_DECAY))
+        differ = [k for k in hand if not torch.equal(hand[k], state.ema_params[k])]
+        if differ:
+            worst = max((hand[k] - state.ema_params[k]).abs().max().item() for k in differ)
+            raise AssertionError(f"step {n}: the EMA differs from the recursion at "
+                                 f"{len(differ)} tensors, by up to {worst}")
+        with open(metrics) as f:
+            logged = [x for x in map(json.loads, f) if "loss" in x][-1]
+        if logged["step"] != n or logged["lr"] != round(schedule(n - 1), 8) or not (
+                math.isfinite(logged["loss"])):
+            raise AssertionError(f"step {n}: logged {logged}, schedule {schedule(n - 1)}")
+        steps.append(dict(step=n, seconds=seconds, logged_s=logged["elapsed_sec"],
+                          loss=logged["loss"], lr=logged["lr"], launches=launches))
+    peak_mem = torch.cuda.max_memory_allocated() / 1e9
+    moved = max((state.ema_params[k] - p.detach()).abs().max().item()
+                for k, p in params.items() if p.numel())
+    if not moved > 0:
+        raise AssertionError("the EMA equals the live parameters after the steps")
+    batch = next(iter(batches(0)))
+    ran_on = []
+    hook = state.model.register_forward_pre_hook(lambda m, args: ran_on.append(all(
+        p.data_ptr() == state.ema_params[k].data_ptr() for k, p in params.items())))
+    _reset_launch_counts()
+    default = trainer.evaluate(state, [batch])
+    with_ema = trainer.evaluate(state, [batch], use_ema=True)
+    live = trainer.evaluate(state, [batch], use_ema=False)
+    hook.remove()
+    if ran_on != [True, True, False] or default != with_ema:
+        raise AssertionError(f"evaluate(): on the EMA weights {ran_on}; default {default}, "
+                             f"EMA {with_ema}, live {live}")
+    if _launch_counts()["K1"] != 3 * 26:
+        raise AssertionError(f"evaluations launched {_launch_counts()}")
+    latest = latest_checkpoint(ck)
+    fresh = FlowPerceiver(policy=PERFORMANCE, remat=True, device="cuda",
+                          generator=torch.Generator().manual_seed(SEED + 30))
+    restore_eval_variables(fresh, checkpoint=latest)
+    differ = [n for n, p in fresh.named_parameters()
+              if not torch.equal(p, state.ema_params[n])]
+    if differ or not latest.endswith(f"step_{total:08d}"):
+        raise AssertionError(f"restore_eval_variables({latest}): not the EMA at {differ[:5]}")
+    timed = [s["logged_s"] for s in steps[1:]]
+    rec = dict(decay=EMA_DECAY, steps=steps, ema_bit_for_bit=True,
+               ema_vs_live_max_abs=moved, eval_default=default, eval_ema=with_ema,
+               eval_live=live, restored_ema_bit_for_bit=True, lr_logged=True,
+               peak_mem_gb=peak_mem, median_logged_step_s=_median(timed),
+               phase8_median_logged_step_s=_median(train["logged_step_s"]),
+               phase8_median_step_s=train["median_step_s"],
+               launches_per_step=[s["launches"] for s in steps],
+               launches={k: sum(s["launches"][k] for s in steps) for k in STEP_LAUNCHES})
+    print(f"[ema] bf16 full-width flow, remat, batch 1, decay {EMA_DECAY}: {json.dumps(rec)}",
+          flush=True)
+    del trainer, state, fresh
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -2627,9 +3043,14 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     25's two runs, with their merges or sums) and on K1's
     ``launches_files_eval`` (the Trainer's evaluations there) and
     ``launches_evaluate_flow`` (phase 26); on the d = 512 entries the same
-    for phase 27 (``launches_evaluate_classification``).  Each entry's
-    error is the largest of all its comparisons."""
+    for phase 27 (``launches_evaluate_classification``).  The train ->
+    evaluate phases' launches too: ``launches_evaluate_multimodal`` (phase
+    28's two runs, with their merges) on the d = 704 K1 entry, and
+    ``launches_ema_train`` (phase 31's steps, with their merges or sums) on
+    the flow entries of K1, K2 and K3.  Each entry's error is the largest of
+    all its comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
+    mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
     def file_counts(kernel, extra, counts, evaluated=None, evaluate_key=None):
         out = {"launches_files_train": counts["train"][kernel],
@@ -2664,6 +3085,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         merge_launches_train=train["launches"]["merge"],
         **file_counts("K1", "merge", flow_files, files["evaluate_flow"]["launches"]["K1"],
                       "launches_evaluate_flow"),
+        launches_ema_train=files["ema"]["launches"]["K1"],
+        merge_launches_ema_train=files["ema"]["launches"]["merge"],
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -2677,6 +3100,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
         launches=mm_serve["launches"],
         merge_launches=mm_serve["merge_launches"],
+        launches_evaluate_multimodal=sum(r["launches"]["K1"] for r in mm_eval_runs),
+        merge_launches_evaluate_multimodal=sum(r["launches"]["merge"] for r in mm_eval_runs),
         max_abs_err=max(r["max_abs_err"] for r in mm),
         **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                          "bound_by", "splits", "col_chunks")},
@@ -2739,6 +3164,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             launches=train["launches"][kernel],
             sum_launches_train=train["launches"]["sum"],
             **file_counts(kernel, "sum", flow_files),
+            launches_ema_train=files["ema"]["launches"][kernel],
+            sum_launches_ema_train=files["ema"]["launches"]["sum"],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
@@ -2808,7 +3235,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cls_gradients()
     cls_train = phase_cls_train()
-    phase_lm_train()
+    lm_train = phase_lm_train()
     torch.cuda.empty_cache()
     buckets = phase_bucket_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2826,7 +3253,16 @@ def main() -> int:
         del flow_files["model"]
         torch.cuda.empty_cache()
         cls_files = phase_cls_files(tmp)
-    files = dict(flow=flow_files, evaluate_flow=evaluated, cls=cls_files)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mm_eval = phase_evaluate_multimodal(tmp)
+        torch.cuda.empty_cache()
+        _, merged_weights = phase_lora(lm_train, tmp)
+        phase_evaluate_mlm(tmp, merged_weights)
+        torch.cuda.empty_cache()
+        ema = phase_ema(train, tmp)
+    files = dict(flow=flow_files, evaluate_flow=evaluated, cls=cls_files,
+                 evaluate_multimodal=mm_eval, ema=ema)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
                        cls_serve, cls_train, cls_k1_train, buckets, serving, files))

@@ -7,16 +7,19 @@ converted DeepMind checkpoints load with ``load_state_dict(strict=True)``.
 Every Pallas kernel of the JAX package on a ported path is a hand-written
 CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.  The
 training stack is ``perceiverio_pytorch_tpu_torch.training`` (with file-backed
-datasets, device prefetch, train-state checkpoints and exact resume); the
-examples ``perceiverio_pytorch_tpu_torch.examples.train_flow``,
-``.train_multimodal``, ``.train_mlm`` and ``.train_classification`` train
-from synthetic data or files, ``.evaluate_flow`` and
-``.evaluate_classification`` score a checkpoint.  Task models: ``FlowPerceiver`` (with
-``FlowInference``) and ``MultiModalPerceiver`` (serving and training),
+datasets, device prefetch, train-state checkpoints and exact resume, an EMA
+of the parameters and LoRA adapters); the examples
+``perceiverio_pytorch_tpu_torch.examples.train_flow``, ``.train_multimodal``,
+``.train_mlm`` (``--lora``) and ``.train_classification`` train from
+synthetic data or files, ``.evaluate_flow``, ``.evaluate_classification``,
+``.evaluate_mlm`` and ``.evaluate_multimodal`` score a checkpoint, and
+``perceiverio_pytorch_tpu_torch.convert`` converts between a reference
+``.pth`` and a weights directory.  Task models, each serving and training:
+``FlowPerceiver`` (with ``FlowInference``), ``MultiModalPerceiver``,
 ``LanguagePerceiver`` (with the byte tokenizer, ``BytesTokenizer``) and
-``ClassificationPerceiver`` (its three ``PrepType``s) (serving).  The
-serving stack: ``export_apply``/``load_exported`` (``torch.export``
-artifacts), ``BatchingServer`` (bucketed, pipelined micro-batching) and
+``ClassificationPerceiver`` (its three ``PrepType``s).  The serving stack:
+``export_apply``/``load_exported`` (``torch.export`` artifacts),
+``BatchingServer`` (bucketed, pipelined micro-batching) and
 ``HttpFrontend`` (JSON and npz over HTTP); the demo is
 ``perceiverio_pytorch_tpu_torch.examples.serve``.
 """

@@ -20,14 +20,17 @@ corpus instead (``TextFileDataset`` and ``MLMDataset``: fresh masks each
 epoch at ``--mask-rate``); the last ``2 * batch`` windows are held out,
 masked with seed 1.  ``--checkpoint-dir`` saves the train state every
 ``steps // 2`` updates (by a thread with ``--async-checkpoint``) and
-``--resume`` goes on from the newest save there.
+``--resume`` goes on from the newest save there.  ``--lora R`` freezes the
+model and trains rank-R adapters on its attention and MLP projections
+instead (``training.lora``: the ``LoRA`` module is the train state's model,
+the loss and the evaluation run the frozen model with the adapters merged).
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_mlm --steps 50 [--full-scale] \
-        [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]]
+        [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]] [--lora R]
 
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
 ``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp``,
-``--steps-per-call``, ``--quant`` and ``--lora``.
+``--steps-per-call`` and ``--quant``.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ from perceiverio_pytorch_tpu_torch.training import (
     build_optimizer,
     dataset_iterator,
     epoch_batches,
+    init_lora,
     masked_token_cross_entropy,
+    wrap_loss,
 )
 
 TINY = dict(embed_dim=64, num_self_attends_per_block=4, num_latents=64,
@@ -97,14 +102,18 @@ def text_datasets(text_file, seq_len, batch_size, mask_rate=0.15):
 
 def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
           metrics_path="./mlm_metrics.jsonl", log_every=10, text_file=None, mask_rate=0.15,
-          checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0):
+          checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0,
+          lora_rank=0):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``, where
     ``batches(start_step)`` yields batches on ``device`` (with ``prefetch``
     > 0, host batches that the Trainer copies there ahead of the step) and
     ``eval_batches`` is a list of batches on ``device``.
     ``checkpoint_every`` defaults to ``steps // 2`` when ``checkpoint_dir``
-    is given.  Weights are drawn from ``seed``."""
+    is given.  Weights are drawn from ``seed``.  With ``lora_rank`` the
+    state's model is the ``LoRA`` adapters of the frozen language model
+    (their ``a`` drawn from ``seed + 1``), which the loss and evaluation
+    functions take."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     if full_scale:
@@ -126,13 +135,23 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
 
     if checkpoint_every is None:
         checkpoint_every = 0 if checkpoint_dir is None else max(steps // 2, 1)
+    train_fn = eval_fn = loss_fn
+    trained = model
+    if lora_rank:
+        trained = init_lora(model.state_dict(), lora_rank,
+                            generator=torch.Generator().manual_seed(seed + 1))
+        train_fn = eval_fn = wrap_loss(loss_fn, model)
+        n = sum(p.numel() for p in trained.parameters())
+        n_base = sum(p.numel() for p in model.parameters())
+        print(f"LoRA rank {lora_rank}: training {n:,} adapter params"
+              f" ({100.0 * n / n_base:.2f}% of {n_base:,})")
     trainer = Trainer(
-        loss_fn,
+        train_fn,
         build_optimizer(3e-4, schedule="cosine", total_steps=steps,
                         warmup_steps=max(steps // 10, 1), clip_norm=1.0),
         metrics_path=metrics_path,
         log_every=log_every,
-        eval_fn=loss_fn,
+        eval_fn=eval_fn,
         eval_every=max(steps // 2, 1),
         checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every,
@@ -153,16 +172,16 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
         for batch in source:
             yield batch if prefetch else on_device(batch)
 
-    return trainer, trainer.init_state(model), batches, eval_batches
+    return trainer, trainer.init_state(trained), batches, eval_batches
 
 
 def main(steps=50, batch_size=8, full_scale=False, *, device="cuda",
          metrics_path="./mlm_metrics.jsonl", text_file=None, mask_rate=0.15,
-         checkpoint_dir=None, resume=False, async_checkpoint=False):
+         checkpoint_dir=None, resume=False, async_checkpoint=False, lora_rank=0):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
         text_file=text_file, mask_rate=mask_rate, checkpoint_dir=checkpoint_dir,
-        checkpoint_async=async_checkpoint, prefetch=2)
+        checkpoint_async=async_checkpoint, prefetch=2, lora_rank=lora_rank)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -184,9 +203,12 @@ if __name__ == "__main__":
                         help="continue from the newest checkpoint in --checkpoint-dir")
     parser.add_argument("--async-checkpoint", action="store_true",
                         help="write checkpoints by a thread (Trainer(checkpoint_async=True))")
+    parser.add_argument("--lora", type=int, default=0, metavar="RANK",
+                        help="freeze the model; train rank-R LoRA adapters on the attention"
+                             " and MLP projections instead")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
          text_file=args.text_file, mask_rate=args.mask_rate,
          checkpoint_dir=args.checkpoint_dir, resume=args.resume,
-         async_checkpoint=args.async_checkpoint)
+         async_checkpoint=args.async_checkpoint, lora_rank=args.lora)

@@ -85,7 +85,10 @@ class MultiModalPerceiver(nn.Module):
         g = default_generator(generator)
         h, w = img_size
         n_audio_samples = num_frames * audio_samples_per_frame
+        self.img_size = (h, w)
+        self.num_frames = num_frames
         self.num_classes = num_classes
+        self.audio_samples_per_frame = audio_samples_per_frame
         self.audio_samples_per_patch = audio_samples_per_patch
         self.remat = remat
         input_preprocessors = {

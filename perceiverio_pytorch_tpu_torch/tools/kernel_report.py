@@ -51,7 +51,16 @@ On a machine with an NVIDIA GPU, from the repository root:
      pytree flatten, the graph's own Python, the op calls), and each under
      ``torch.profiler`` as in 6 with the host time of its top ATen ops;
  12. the host time of decoding one 224x224 image request body as the HTTP
-     front end's handler threads do: JSON and npz.
+     front end's handler threads do: JSON and npz;
+ 13. one full-scale bf16 step of ``examples/train_mlm.py --lora 8`` beside
+     the full fine-tune's (full, LoRA, LoRA, full), each timed in parts as
+     in 7, then under ``torch.profiler`` as in 6;
+ 14. ``examples/evaluate_mlm.py --full-scale``'s batch (8 sequences, 307
+     masked positions) through the masked rows alone and the full decode
+     (partial, full, full, partial): the median wall of a call, and of a
+     call with the copy of the rows to the host, a call's host enqueue,
+     wait, device time (CUDA events) and copy apart, then each under
+     ``torch.profiler`` as in 6.
 
 ``python -m perceiverio_pytorch_tpu_torch.tools.kernel_report artifact``
 (or any of ``SECTIONS``' names) runs only those parts, after the build.
@@ -408,6 +417,80 @@ def profile_training(top=15):
         torch.cuda.empty_cache()
 
 
+def profile_lora(top=15):
+    """One full-scale bf16 step of train_mlm with rank-8 LoRA adapters over
+    the frozen model, beside the full fine-tune's, each as
+    ``_profile_train_step`` takes it (full, LoRA, LoRA, full)."""
+    from perceiverio_pytorch_tpu_torch.examples import train_mlm
+
+    runs = {rank: train_mlm.setup(8, full_scale=True, metrics_path=None, log_every=0,
+                                  lora_rank=rank) for rank in (0, 8)}
+    for rank in (0, 8, 8, 0):
+        trainer, state, batches, _ = runs[rank]
+        _profile_train_step("lm train" if rank == 0 else f"lm lora {rank} train", trainer,
+                            state, next(iter(batches())), top)
+
+
+def _call_parts(fn):
+    """One call of ``fn`` in parts, ms: (wall, host enqueue until it
+    returns, the wait for the device after that, device time between CUDA
+    events around it, the copy of its finished output to the host)."""
+    import time
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out.float().cpu()
+    t3 = time.perf_counter()
+    return ((t2 - t0) * 1e3, (t1 - t0) * 1e3, (t2 - t1) * 1e3, start.elapsed_time(end),
+            (t3 - t2) * 1e3)
+
+
+def profile_mlm_eval(top=12, calls=20):
+    """``examples/evaluate_mlm.py --full-scale``'s batch (bf16, 8 sequences
+    of 2,048 bytes, 307 masked positions) through the masked rows alone
+    (``predict_positions``) and the full decode, in the order partial, full,
+    full, partial: the median host wall of ``calls`` model calls, each ending
+    in a synchronize, and of as many calls with the copy of the scored rows
+    to the host, as the script makes it; then one call of each under
+    ``torch.profiler``."""
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, LanguagePerceiver
+    from perceiverio_pytorch_tpu_torch.examples.evaluate_mlm import MASK_TOKEN
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = LanguagePerceiver(policy=PERFORMANCE, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    tokens = torch.randint(0, 262, (8, 2048), generator=gen, device="cuda")
+    positions = torch.randperm(2048, generator=gen, device="cuda")[:307].sort().values
+    tokens[:, positions] = MASK_TOKEN
+    valid = torch.ones_like(tokens, dtype=torch.bool)
+    decodes = {"partial": lambda: model(tokens, valid, predict_positions=positions),
+               "full": lambda: model(tokens, valid)[:, positions]}
+    with torch.inference_mode():
+        for fn in decodes.values():
+            fn()  # warm-up
+        for name in ("partial", "full", "full", "partial"):
+            fn = decodes[name]
+            call = _median_wall_ms(fn, calls)
+            copied = _median_wall_ms(lambda: fn().float().cpu(), calls)
+            parts = sorted(_call_parts(fn) for _ in range(calls))[calls // 2]
+            print(f"[mlm eval] {name}: call {call:.2f} ms, with the copy to the host"
+                  f" {copied:.2f} ms; the median call's parts: enqueue {parts[1]:.2f},"
+                  f" wait {parts[2]:.2f}, device {parts[3]:.2f}, copy of the finished"
+                  f" rows {parts[4]:.2f} ms (of {calls})", flush=True)
+        for name, fn in decodes.items():
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                seconds = _median_wall_ms(fn, 1) / 1e3
+            _print_device_profile(f"mlm eval {name} profile", prof, seconds, top)
+
+
 def _profile_train_step(label, trainer, state, batch, top):
     """A training step's forward with the loss, its backward and its
     optimizer update timed apart (host clock ending in a synchronize, after
@@ -602,7 +685,7 @@ def time_codecs(calls=10):
 
 
 SECTIONS = ("forward", "backward", "flow", "mm", "mm_train", "serving", "cls_backward",
-            "training", "artifact", "codecs")
+            "training", "artifact", "codecs", "lora", "mlm_eval")
 
 
 def main(argv=None):
@@ -626,7 +709,8 @@ def main(argv=None):
                 flow=lambda: time_flow_sites(gen), mm=profile_multimodal,
                 mm_train=profile_multimodal_training, serving=profile_serving,
                 cls_backward=lambda: time_classification_backward(gen),
-                training=profile_training, artifact=profile_artifact, codecs=time_codecs)
+                training=profile_training, artifact=profile_artifact, codecs=time_codecs,
+                lora=profile_lora, mlm_eval=profile_mlm_eval)
     for name in sections:
         runs[name]()
 

@@ -1,7 +1,7 @@
 """Training stack of the PyTorch/CUDA port: the losses of the four task
-models, AdamW with its schedules and clip, the train step, the Trainer with
-its evaluation, checkpoints and resume, the file-backed datasets, and the
-host-side batching with device prefetch."""
+models, AdamW with its schedules and clip, the train step with its EMA, the
+Trainer with its evaluation, checkpoints and resume, LoRA adapters, the
+file-backed datasets, and the host-side batching with device prefetch."""
 
 from perceiverio_pytorch_tpu_torch.training.checkpoint import (  # noqa: F401
     AsyncCheckpointWriter,
@@ -26,6 +26,15 @@ from perceiverio_pytorch_tpu_torch.training.datasets import (  # noqa: F401
     TextFileDataset,
     VideoClipDataset,
     dataset_iterator,
+)
+from perceiverio_pytorch_tpu_torch.training.lora import (  # noqa: F401
+    DEFAULT_TARGETS,
+    LoRA,
+    default_match,
+    init_lora,
+    lora_paths,
+    merge_lora,
+    wrap_loss,
 )
 from perceiverio_pytorch_tpu_torch.training.loop import (  # noqa: F401
     MetricsLogger,

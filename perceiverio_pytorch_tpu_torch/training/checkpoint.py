@@ -11,14 +11,16 @@ a save counts as finished only once its marker exists, as Orbax's
 - ``save_train_state``/``restore_train_state``: the module's ``state_dict``
   (BatchNorm's running averages and ``num_batches_tracked`` included; the
   non-persistent Fourier tables are derived, not saved), the optimizer's
-  ``state_dict`` and ``step``.  The learning rate is a function of ``step``
+  ``state_dict``, ``step`` and, when the state keeps one, the EMA of the
+  parameters.  The learning rate is a function of ``step``
   (``training/optim.py``), so ``step`` restores it.
 - ``AsyncCheckpointWriter``: the same saves written by a thread while the
   training goes on.
 - ``latest_checkpoint``/``prune_checkpoints``: the Trainer's
   ``step_XXXXXXXX`` directories.
 - ``restore_eval_variables``: weights for evaluation from either kind of
-  directory or from a reference-convention ``.pth``.
+  directory (a train state's EMA weights where it has them) or from a
+  reference-convention ``.pth``.
 
 Every tensor is copied to host memory before ``torch.save`` sees it: a
 ``state_dict`` holds live references, and AdamW updates the parameters in
@@ -82,8 +84,11 @@ def _host_copy(tree: Any) -> Any:
 
 
 def _train_state_tree(state: TrainState) -> Dict[str, Any]:
-    return {"step": int(state.step), "model": state.model.state_dict(),
+    tree = {"step": int(state.step), "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict()}
+    if state.ema_params is not None:
+        tree["ema"] = dict(state.ema_params)
+    return tree
 
 
 def _prepare(path: str, overwrite: bool) -> str:
@@ -130,7 +135,7 @@ def restore_variables(path: str, device="cuda") -> Dict[str, torch.Tensor]:
 
 
 def save_train_state(path: str, state: TrainState, overwrite: bool = False) -> None:
-    """Save ``state`` (module, optimizer, step) into the new directory ``path``."""
+    """Save ``state`` (module, optimizer, step, EMA) into the new directory ``path``."""
     path = _prepare(path, overwrite)
     _write(path, _STATE_FILE, _host_copy(_train_state_tree(state)), "train_state")
 
@@ -141,13 +146,14 @@ def _load_train_state(path: str) -> Dict[str, Any]:
 
 
 def restore_train_state(path: str, state: TrainState) -> TrainState:
-    """Restore the checkpoint at ``path`` into ``state``'s module and
-    optimizer, in place and on their device, and set its step; returns
-    ``state``.
+    """Restore the checkpoint at ``path`` into ``state``'s module,
+    optimizer and EMA, in place and on their device, and set its step;
+    returns ``state``.
 
-    A checkpoint whose module entries (names or shapes) or optimizer groups
-    do not match ``state`` is refused with ValueError before anything is
-    changed, as the JAX package refuses a template that does not match.
+    A checkpoint whose module entries (names or shapes), optimizer groups or
+    EMA (present or not, names) do not match ``state`` is refused with
+    ValueError before anything is changed, as the JAX package refuses a
+    template that does not match.
     """
     tree = _load_train_state(path)
     have = state.model.state_dict()
@@ -164,8 +170,17 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
     if groups != saved_groups:
         raise ValueError(f"checkpoint at {path} has optimizer groups of {saved_groups}"
                          f" parameters, the optimizer {groups}")
+    saved_ema = tree.get("ema")
+    if (None if saved_ema is None else set(saved_ema)) != (
+            None if state.ema_params is None else set(state.ema_params)):
+        raise ValueError(f"checkpoint at {path} has an EMA of other parameters than the"
+                         " state's, or one where the state has none, or none where it has one")
     state.model.load_state_dict(saved, strict=True)
     state.optimizer.load_state_dict(tree["optimizer"])
+    if saved_ema is not None:
+        with torch.no_grad():
+            for name, value in saved_ema.items():
+                state.ema_params[name].copy_(value)
     state.step = int(tree["step"])
     return state
 
@@ -292,16 +307,20 @@ def restore_eval_variables(model: nn.Module, checkpoint: Optional[str] = None,
     returns ``model``.
 
     ``checkpoint`` is a ``save_variables`` directory or a Trainer
-    checkpoint (``save_train_state``: its module entries).
+    checkpoint (``save_train_state``: its module entries, with the EMA
+    weights in place of the trained parameters where it has them, as the
+    JAX package prefers ``ema_params``).
     ``torch_checkpoint`` is a reference-convention ``.pth``
     (``{"model_state_dict": ...}``, or a bare state_dict), which loads with
     ``strict=True`` because the port carries the reference's names.  With
     neither, ``model`` is returned unchanged.
     """
+    ema = None
     if checkpoint:
         path = os.path.abspath(checkpoint)
         if os.path.exists(os.path.join(path, _STATE_FILE)):
-            state_dict = _load_train_state(path)["model"]
+            tree = _load_train_state(path)
+            state_dict, ema = tree["model"], tree.get("ema")
         else:
             state_dict = restore_variables(path, device="cpu")
     elif torch_checkpoint:
@@ -313,4 +332,11 @@ def restore_eval_variables(model: nn.Module, checkpoint: Optional[str] = None,
     else:
         return model
     model.load_state_dict(state_dict, strict=True)
+    if ema is not None:
+        # By parameter: a module registered under two names (the language
+        # model's token table) has two state_dict entries but one parameter.
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, value in ema.items():
+                params[name].copy_(value)
     return model

@@ -4,13 +4,16 @@ Counterpart of ``Trainer`` and ``MetricsLogger`` in
 ``perceiverio_pytorch_tpu/training/loop.py``, on one device: the train step
 over a batch stream, its evaluation (``eval_fn``, ``eval_every``,
 ``Trainer.evaluate``), periodic train-state checkpoints (synchronous or by
-a thread, pruned to the newest N), ``fit(resume=True)``, device prefetch
-and the SIGTERM guard.  The JAX Trainer's mesh and FSDP, EMA and multi-step
-dispatch are not ported: setting any of them raises ``NotImplementedError``.
+a thread, pruned to the newest N), ``fit(resume=True)``, device prefetch,
+the SIGTERM guard, an EMA of the parameters (``ema_decay``) and the logged
+learning rate (``lr_schedule``).  The JAX Trainer's mesh and FSDP and
+multi-step dispatch are not ported: setting any of them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -26,6 +29,7 @@ from perceiverio_pytorch_tpu_torch.training.optim import Optimizer
 from perceiverio_pytorch_tpu_torch.training.trainer import (
     TrainState,
     create_train_state,
+    ema_weights,
     make_train_step,
 )
 
@@ -89,7 +93,7 @@ class _PreemptionGuard:
 
 # Trainer arguments of the JAX package that are not ported, with the value
 # that means "off".
-_NOT_PORTED = {"mesh": None, "fsdp": False, "ema_decay": None, "steps_per_call": 1}
+_NOT_PORTED = {"mesh": None, "fsdp": False, "steps_per_call": 1}
 
 
 class Trainer:
@@ -126,8 +130,16 @@ class Trainer:
       prefetch: keep this many batches copied to the model's device ahead of
         the step (``training.data.prefetch_to_device``), so that decoding and
         the copy overlap the steps; 0 takes the batches as they come.
-      mesh, fsdp, ema_decay, steps_per_call: not ported; anything but the
-        default raises NotImplementedError.
+      ema_decay: keep an exponential moving average of the trainable
+        parameters in ``state.ema_params``, updated after each optimizer
+        step; ``evaluate`` uses it by default and the checkpoints carry it.
+      lr_schedule: ``tx.schedule``, to log the learning rate of each logged
+        step as ``lr`` (``tx.schedule(step - 1)``, the rate the logged update
+        took), outside the ``steps_per_sec`` window.  The JAX Trainer takes
+        the schedule because optax hides it; here ``tx`` carries it, so any
+        other callable raises ValueError: the logged rate is the applied one.
+      mesh, fsdp, steps_per_call: not ported; anything but the default
+        raises NotImplementedError.
     """
 
     def __init__(self, loss_fn: Callable, tx: Optimizer, *,
@@ -136,7 +148,8 @@ class Trainer:
                  eval_every: int = 0, checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0, checkpoint_keep: int = 0,
                  checkpoint_final: bool = False, checkpoint_async: bool = False,
-                 prefetch: int = 0, **not_ported):
+                 prefetch: int = 0, ema_decay: Optional[float] = None,
+                 lr_schedule: Optional[Callable[[int], float]] = None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected argument {name!r}")
@@ -156,26 +169,37 @@ class Trainer:
         self.checkpoint_final = checkpoint_final
         self.checkpoint_async = bool(checkpoint_async)
         self.prefetch = max(int(prefetch), 0)
+        self.ema_decay = ema_decay
+        if lr_schedule is not None and lr_schedule is not tx.schedule:
+            raise ValueError("lr_schedule must be tx.schedule, the schedule the updates apply")
+        self.lr_schedule = lr_schedule
         self._async_writer: Optional[ckpt.AsyncCheckpointWriter] = None
 
     def init_state(self, model) -> TrainState:
-        return create_train_state(model, self.tx)
+        return create_train_state(model, self.tx, ema_decay=self.ema_decay)
 
     def evaluate(self, state: TrainState, eval_batches, use_ema: Optional[bool] = None):
         """The mean of ``eval_fn`` over ``eval_batches``: a float for a scalar
         ``eval_fn``, a dict of floats for a dict of metrics, 0.0 when there is
         no batch.  The model runs in eval mode without gradients and is put
-        back in the mode it was in.  ``use_ema=True`` raises: EMA is not
-        ported."""
-        if use_ema:
-            raise NotImplementedError(
-                "evaluate(use_ema=True): EMA is not ported to PyTorch yet (see ROADMAP.md)")
+        back in the mode it was in.
+
+        ``use_ema``: evaluate with ``state.ema_params`` in place of the live
+        parameters.  None (the default) uses them whenever the state has
+        them; True without them raises ValueError.
+        """
+        if use_ema is None:
+            use_ema = state.ema_params is not None
+        if use_ema and state.ema_params is None:
+            raise ValueError("evaluate(use_ema=True) needs state.ema_params; build the"
+                             " state with ema_decay")
         model = state.model
         was_training = model.training
         totals, n = {}, 0
         model.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), (ema_weights(state) if use_ema
+                                   else contextlib.nullcontext()):
                 for batch in eval_batches:
                     if not isinstance(batch, (tuple, list)):
                         batch = (batch,)
@@ -210,14 +234,16 @@ class Trainer:
         run restarts as a no-op.  It needs ``checkpoint_dir``.
 
         ``eval_batches``: an iterable of batch tuples (materialised once, so
-        that a generator serves every evaluation); with ``eval_fn`` set,
-        ``evaluate`` runs over it every ``eval_every`` updates.
+        that a generator serves every evaluation), or a callable
+        ``eval_batches() -> iterable`` called anew before each evaluation
+        (batches made lazily); with ``eval_fn`` set, ``evaluate`` runs over
+        it every ``eval_every`` updates.
 
         SIGTERM while the loop runs (on the main thread) finishes the step in
         flight, saves it (with ``checkpoint_dir``), logs ``preempted=True``
         and returns.
         """
-        if eval_batches is not None:
+        if eval_batches is not None and not callable(eval_batches):
             eval_batches = list(eval_batches)
         if resume:
             if not self.checkpoint_dir:
@@ -234,8 +260,8 @@ class Trainer:
         if self.prefetch > 0:
             device = next(iter(state.model.parameters())).device
             batches = prefetch_to_device(batches, self.prefetch, device=device)
-        step_fn = make_train_step(self.loss_fn, self.tx,
-                                  with_metrics=self.log_grad_norm)
+        step_fn = make_train_step(self.loss_fn, self.tx, with_metrics=self.log_grad_norm,
+                                  ema_decay=self.ema_decay)
         try:
             with _PreemptionGuard() as guard:
                 return self._fit_loop(state, batches, num_steps, step_fn, eval_batches,
@@ -270,6 +296,9 @@ class Trainer:
                     loss = loss["loss"]
                 loss_val = float(loss)  # waits for the step: ends the window
                 now = time.perf_counter()
+                if self.lr_schedule is not None:
+                    # the rate the logged update took (optimizer steps count from 0)
+                    extra["lr"] = round(float(self.tx.schedule(step_num - 1)), 8)
                 self.logger.log(
                     step=step_num,
                     loss=loss_val,
@@ -281,7 +310,8 @@ class Trainer:
                 window_start, window_step = now, step_num
             if (self.eval_fn is not None and eval_batches is not None
                     and self.eval_every and step_num % self.eval_every == 0):
-                ev = self.evaluate(state, eval_batches)
+                ev = self.evaluate(
+                    state, eval_batches() if callable(eval_batches) else eval_batches)
                 if not isinstance(ev, dict):
                     ev = {"eval_loss": ev}
                 self.logger.log(step=step_num, **{k: round(v, 6) for k, v in ev.items()})

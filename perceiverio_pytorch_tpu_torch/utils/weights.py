@@ -22,6 +22,11 @@ token table: ``LANGUAGE_OVERRIDES``, ``LANGUAGE_TIED``).
 
 Derived buffers (the flax "consts" collection, e.g. Fourier tables) have no
 state_dict entry: the port keeps them as non-persistent buffers.
+
+``lora_state_dict_from_flax`` carries a JAX LoRA adapter tree
+(``training/lora.py``'s ``init_lora``) into the ``state_dict`` of the
+port's ``LoRA`` module: the kernel's path translated as above, ``a`` and
+``b`` kept in the flax layout ([in, rank], [rank, out]).
 """
 
 from __future__ import annotations
@@ -125,6 +130,18 @@ def state_dict_from_flax(variables: Mapping, overrides: Optional[Mapping[str, st
                 out[name[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     for alias, source in (tied or {}).items():
         out[alias] = out[source].clone()
+    return out
+
+
+def lora_state_dict_from_flax(lora: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX adapter tree ({..., kernel: {"a", "b"}}) -> the port's ``LoRA``
+    state_dict: ``<torch weight name>.a`` and ``.b``, fp32, untransposed."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(lora):
+        if path[-1] not in ("a", "b") or len(path) < 2 or path[-2] != "kernel":
+            raise ValueError(f"not a LoRA tree: unexpected leaf at {'/'.join(path)}")
+        name = translate_path(path[:-1], "params")
+        out[f"{name}.{path[-1]}"] = torch.from_numpy(np.array(value, dtype=np.float32))
     return out
 
 

@@ -373,3 +373,79 @@ def test_restore_eval_variables_from_a_jax_pth_with_batchnorm(tmp_path):
     torch.save({"model_state_dict": {"bogus": torch.ones(1)}}, str(tmp_path / "bad.pth"))
     with pytest.raises(RuntimeError):
         restore_eval_variables(model, torch_checkpoint=str(tmp_path / "bad.pth"))
+
+
+def test_ema_checkpoint_resume_and_eval_weights_match_jax(tmp_path):
+    """A Trainer with ``ema_decay`` saves its EMA; a model of other weights
+    resumed from step 2 ends at step 4 with the uninterrupted run's weights,
+    moments and EMA bit for bit; ``restore_eval_variables`` on the step-4
+    checkpoint gives the EMA weights, which equal those the JAX package's
+    ``restore_eval_variables`` gives from the JAX Trainer's checkpoint."""
+    import shutil
+
+    from perceiverio_pytorch_tpu.training import Trainer as JaxTrainer
+    from perceiverio_pytorch_tpu.training import batch_iterator as jax_batch_iterator
+    from perceiverio_pytorch_tpu.training import build_optimizer as jax_build_optimizer
+    from perceiverio_pytorch_tpu.training.checkpoint import (
+        restore_eval_variables as jax_restore_eval_variables,
+    )
+
+    data = _data()
+    rng = np.random.default_rng(3)
+    w0 = rng.normal(size=(4, 2)).astype(np.float32)
+    b0 = rng.normal(size=(2,)).astype(np.float32)
+    kw = dict(schedule="cosine", total_steps=4, warmup_steps=1)
+
+    def jax_loss(p, xb, yb):
+        return jnp.mean((xb @ p["w"] + p["b"] - yb) ** 2)
+
+    jax_trainer = JaxTrainer(jax_loss, jax_build_optimizer(5e-2, **kw), log_every=0,
+                             ema_decay=0.7, checkpoint_dir=str(tmp_path / "jax"),
+                             checkpoint_every=2)
+    jax_trainer.fit(jax_trainer.init_state({"w": jnp.asarray(w0), "b": jnp.asarray(b0)}),
+                    lambda s: jax_batch_iterator(data, 4, shuffle=True, epochs=None,
+                                                 start_batch=s), num_steps=4)
+    want = jax_restore_eval_variables(
+        {"params": {"w": jnp.zeros((4, 2)), "b": jnp.zeros((2,))}},
+        checkpoint=str(tmp_path / "jax" / "step_00000004"))["params"]
+
+    def linear(seed):
+        model = torch.nn.Linear(4, 2)
+        with torch.no_grad():
+            if seed is None:
+                model.weight.copy_(torch.from_numpy(w0.T))
+                model.bias.copy_(torch.from_numpy(b0))
+            else:
+                gen = torch.Generator().manual_seed(seed)
+                for p in model.parameters():
+                    p.copy_(torch.randn(p.shape, generator=gen))
+        return model
+
+    def trainer(root):
+        return Trainer(_mse, build_optimizer(5e-2, **kw), log_every=0, ema_decay=0.7,
+                       checkpoint_dir=str(root), checkpoint_every=2)
+
+    run_a = trainer(tmp_path / "a")
+    state_a = run_a.fit(run_a.init_state(linear(None)), _batches(data), num_steps=4)
+    saved = torch.load(str(tmp_path / "a" / "step_00000004" / "train_state.pt"),
+                       weights_only=True)
+    assert set(saved["ema"]) == {"weight", "bias"}
+    shutil.copytree(tmp_path / "a" / "step_00000002", tmp_path / "b" / "step_00000002")
+    run_b = trainer(tmp_path / "b")
+    state_b = run_b.fit(run_b.init_state(linear(5)), _batches(data), num_steps=4, resume=True)
+    assert state_b.step == 4
+    _assert_same(state_b, _snapshot(state_a))
+    for name in ("weight", "bias"):
+        assert torch.equal(state_b.ema_params[name], state_a.ema_params[name]), name
+    model = restore_eval_variables(linear(7), checkpoint=str(tmp_path / "a" / "step_00000004"))
+    assert torch.equal(model.weight, state_a.ema_params["weight"])
+    assert torch.equal(model.bias, state_a.ema_params["bias"])
+    assert not torch.equal(model.weight, state_a.model.weight)
+    np.testing.assert_allclose(model.weight.detach().numpy(), np.asarray(want["w"]).T, **TOL)
+    np.testing.assert_allclose(model.bias.detach().numpy(), np.asarray(want["b"]), **TOL)
+    plain = Trainer(_mse, build_optimizer(5e-2, **kw)).init_state(linear(7))
+    with pytest.raises(ValueError, match="EMA"):
+        restore_train_state(str(tmp_path / "a" / "step_00000004"), plain)
+    save_train_state(str(tmp_path / "plain"), plain)
+    with pytest.raises(ValueError, match="EMA"):
+        restore_train_state(str(tmp_path / "plain"), state_a)

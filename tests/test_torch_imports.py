@@ -231,3 +231,43 @@ def test_data_path_entry_points_default_to_cuda(no_cuda, tmp_path):
         train_flow.setup(2, data_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="--mesh and --quant"):
         evaluate_classification.main(quant="dynamic", device="cpu")
+
+
+@pytest.mark.parametrize("module", ["convert", "training.lora", "training.trainer",
+                                    "utils.data", "utils.flow_viz", "utils.weights",
+                                    "examples.evaluate_mlm", "examples.evaluate_multimodal",
+                                    "examples.train_mlm"])
+def test_train_evaluate_loop_modules_load_no_jax(module):
+    """Each module of the train -> evaluate loop (the evaluation scripts,
+    convert.py, LoRA, the EMA's train step, the data shim, flow_viz),
+    imported alone in a fresh interpreter, is among the files checked above
+    and loads no JAX, flax or JAX package module, nor PIL, OpenCV or
+    matplotlib (imported where an image is read, written or shown)."""
+    name = f"{PACKAGE}.{module}"
+    assert name in [_module_name(p) for p in _port_files()]
+    forbidden = FORBIDDEN + ("PIL", "cv2", "matplotlib")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_evaluation_scripts_default_to_cuda(no_cuda, tmp_path):
+    """evaluate_mlm and evaluate_multimodal refuse a missing GPU unless asked
+    for the CPU; convert.py needs no device (a host job)."""
+    from perceiverio_pytorch_tpu_torch import convert
+    from perceiverio_pytorch_tpu_torch.examples import evaluate_mlm, evaluate_multimodal
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_mlm.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_multimodal.main(str(tmp_path))
+    template = convert.build_family_template("multimodal")
+    assert {t.device.type for t in template.state_dict().values()} == {"meta"}

@@ -179,17 +179,20 @@ def test_unported_optimizer_and_trainer_options_raise():
     with pytest.raises(ValueError):
         build_optimizer(1e-3, optimizer="adam")
     tx = build_optimizer(1e-3)
-    for kw in (dict(mesh=object()), dict(fsdp=True), dict(ema_decay=0.999),
-               dict(steps_per_call=4)):
+    for kw in (dict(mesh=object()), dict(fsdp=True), dict(steps_per_call=4)):
         with pytest.raises(NotImplementedError):
             Trainer(lambda m: m, tx, **kw)
     with pytest.raises(TypeError):
         Trainer(lambda m: m, tx, mesh_shape=(2, 2))
-    # Checkpoints and prefetch are ported: the Trainer takes them.
+    # Checkpoints, prefetch, EMA and the logged lr are ported: the Trainer takes them.
     trainer = Trainer(lambda m: m, tx, checkpoint_dir="x", checkpoint_every=2,
                       checkpoint_keep=1, checkpoint_final=True, checkpoint_async=True,
-                      prefetch=2)
+                      prefetch=2, ema_decay=0.999, lr_schedule=tx.schedule)
     assert (trainer.checkpoint_dir, trainer.checkpoint_every, trainer.prefetch) == ("x", 2, 2)
+    assert (trainer.ema_decay, trainer.lr_schedule) == (0.999, tx.schedule)
+    # The logged lr is the applied one: a schedule other than tx's is refused.
+    with pytest.raises(ValueError, match="tx.schedule"):
+        Trainer(lambda m: m, tx, lr_schedule=build_schedule(1e-3))
 
 
 @pytest.mark.parametrize(
@@ -350,8 +353,8 @@ def test_trainer_evaluation_matches_jax_trainer(tmp_path, metrics):
 def test_trainer_evaluate_against_a_hand_loop():
     """``evaluate``: the mean of a scalar or of each metric over the
     batches, in eval mode without gradients, the model put back in the mode
-    it was in; no batch gives 0.0; EMA still raises, and resuming needs a
-    checkpoint directory."""
+    it was in; no batch gives 0.0; EMA asked of a state without it raises,
+    and resuming needs a checkpoint directory."""
     x, y, w = _linear_problem()
     model = _linear_model(w)
     batches = [(torch.from_numpy(x[i:i + 4]), torch.from_numpy(y[i:i + 4]))
@@ -380,12 +383,130 @@ def test_trainer_evaluate_against_a_hand_loop():
         want = np.mean([_mse(model, *b).item() for b in batches])
     np.testing.assert_allclose(trainer.evaluate(state, iter(batches)), want, rtol=1e-6)
     assert trainer.evaluate(state, []) == 0.0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ema_params"):
         trainer.evaluate(state, batches, use_ema=True)
-    with pytest.raises(NotImplementedError):
-        Trainer(_mse, build_optimizer(1e-2), ema_decay=0.999)
+    assert Trainer(_mse, build_optimizer(1e-2), ema_decay=0.999).init_state(
+        model).ema_params is not None
     with pytest.raises(ValueError, match="checkpoint_dir"):
         trainer.fit(state, batches, resume=True)  # resuming is ported; it needs a directory
+
+
+def test_fit_takes_a_callable_eval_batches(tmp_path):
+    """``fit(eval_batches=callable)`` calls it before each evaluation and
+    logs the same ``eval_loss`` lines as with the list of its batches, and
+    as the JAX Trainer given the same callable."""
+    x, y, w = _linear_problem()
+    held_out = [(x[i:i + 6], y[i:i + 6]) for i in (0, 6)]
+    calls = []
+
+    def port_batches():
+        calls.append(1)
+        return [tuple(torch.from_numpy(a) for a in b) for b in held_out]
+
+    def fit(name, eval_batches):
+        trainer = Trainer(_mse, build_optimizer(1e-2), log_every=0, eval_fn=_mse, eval_every=2,
+                          metrics_path=str(tmp_path / name))
+        trainer.fit(trainer.init_state(_linear_model(w)),
+                    (tuple(torch.from_numpy(a) for a in b)
+                     for b in batch_iterator((x, y), 4, shuffle=True, epochs=None)),
+                    num_steps=5, eval_batches=eval_batches)
+
+    fit("list.jsonl", port_batches())
+    calls.clear()
+    fit("callable.jsonl", port_batches)
+    assert len(calls) == 2  # once before each evaluation (steps 2 and 4)
+    jax_trainer = JaxTrainer(lambda p, xb, yb: jnp.mean((xb @ p["w"] - yb) ** 2),
+                             jax_build_optimizer(1e-2), log_every=0,
+                             eval_fn=lambda p, xb, yb: jnp.mean((xb @ p["w"] - yb) ** 2),
+                             eval_every=2, metrics_path=str(tmp_path / "jax.jsonl"))
+    jax_trainer.fit(jax_trainer.init_state({"w": jnp.asarray(w)}),
+                    jax_batch_iterator((x, y), 4, shuffle=True, epochs=None), num_steps=5,
+                    eval_batches=lambda: list(held_out))
+
+    def evals(name):
+        with open(tmp_path / name) as f:
+            return [json.loads(line) for line in f if "eval_loss" in line]
+
+    got, listed, want = evals("callable.jsonl"), evals("list.jsonl"), evals("jax.jsonl")
+    assert got == listed
+    assert [e["step"] for e in got] == [e["step"] for e in want] == [2, 4]
+    np.testing.assert_allclose([e["eval_loss"] for e in got], [e["eval_loss"] for e in want],
+                               **TOL)
+
+
+def test_trainer_ema_and_lr_match_jax_trainer(tmp_path):
+    """``Trainer(ema_decay, lr_schedule)`` against the JAX Trainer over five
+    AdamW steps (warmup and cosine) of a linear regression: the live and the
+    EMA parameters, ``evaluate`` on the EMA by default and on the live
+    parameters when asked, and the logged ``lr`` of every step."""
+    x, y, w = _linear_problem()
+    kw = dict(schedule="cosine", total_steps=5, warmup_steps=2)
+
+    def jax_loss(p, xb, yb):
+        return jnp.mean((xb @ p["w"] - yb) ** 2)
+
+    jax_trainer = JaxTrainer(jax_loss, jax_build_optimizer(1e-1, **kw), log_every=1,
+                             eval_fn=jax_loss, ema_decay=0.8,
+                             lr_schedule=jax_build_schedule(1e-1, **kw),
+                             metrics_path=str(tmp_path / "jax.jsonl"))
+    jax_state = jax_trainer.fit(jax_trainer.init_state({"w": jnp.asarray(w)}),
+                                jax_batch_iterator((x, y), 4, shuffle=True, epochs=None),
+                                num_steps=5)
+    tx = build_optimizer(1e-1, **kw)
+    trainer = Trainer(_mse, tx, log_every=1, eval_fn=_mse, ema_decay=0.8,
+                      lr_schedule=tx.schedule, metrics_path=str(tmp_path / "port.jsonl"))
+    model = _linear_model(w)
+    state = trainer.init_state(model)
+    assert set(state.ema_params) == {"weight"}
+    assert state.ema_params["weight"] is not model.weight
+    state = trainer.fit(state, (tuple(torch.from_numpy(a) for a in b)
+                                for b in batch_iterator((x, y), 4, shuffle=True, epochs=None)),
+                        num_steps=5)
+    np.testing.assert_allclose(model.weight.detach().numpy(),
+                               np.asarray(jax_state.params["w"]).T, **TOL)
+    ema = state.ema_params["weight"].numpy()
+    np.testing.assert_allclose(ema, np.asarray(jax_state.ema_params["w"]).T, **TOL)
+    assert np.abs(ema - model.weight.detach().numpy()).max() > 1e-3
+    held_out = [(x, y)]
+    port_held_out = [(torch.from_numpy(x), torch.from_numpy(y))]
+    for use_ema in (None, True, False):
+        np.testing.assert_allclose(
+            trainer.evaluate(state, port_held_out, use_ema=use_ema),
+            jax_trainer.evaluate(jax_state, held_out, use_ema=use_ema), **TOL)
+    assert trainer.evaluate(state, port_held_out) != trainer.evaluate(
+        state, port_held_out, use_ema=False)
+    live = model.weight.detach().clone()
+    trainer.evaluate(state, port_held_out)
+    assert torch.equal(model.weight.detach(), live)  # the live weights are back
+
+    def lines(name):
+        with open(tmp_path / name) as f:
+            return [json.loads(line) for line in f]
+
+    got, want = lines("port.jsonl"), lines("jax.jsonl")
+    assert [g["step"] for g in got] == [e["step"] for e in want] == [1, 2, 3, 4, 5]
+    np.testing.assert_allclose([g["lr"] for g in got], [e["lr"] for e in want],
+                               rtol=1e-6, atol=1e-9)
+    assert got[0]["lr"] == 0.0 and got[2]["lr"] == tx.schedule(2)
+
+
+def test_utils_data_shim_matches_jax():
+    """``utils.data``: the JAX package's module path, the same names; its
+    one-epoch ``epoch_batches`` gives the JAX shim's batches."""
+    from perceiverio_pytorch_tpu.utils import data as jax_data
+    from perceiverio_pytorch_tpu_torch.training import data as port_training_data
+    from perceiverio_pytorch_tpu_torch.utils import data as port_data
+
+    assert set(port_data.__all__) == {"batch_iterator", "epoch_batches", "prefetch_to_device"}
+    assert port_data.prefetch_to_device is port_training_data.prefetch_to_device
+    arrays = (np.arange(13), np.arange(13) * 10)
+    for kw in (dict(), dict(seed=5, shuffle=True, drop_remainder=False)):
+        got = list(port_data.epoch_batches(arrays, 4, **kw))
+        want = list(jax_data.epoch_batches(arrays, 4, **kw))
+        assert len(got) == len(want) > 0
+        for g, e in zip(got, want):
+            for a, b in zip(g, e):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_train_step_metrics_and_buffers():
