@@ -72,10 +72,12 @@ Phases (each raises on failure; nothing is caught):
      their plain versions; every parameter's gradient must agree, in fp32
      and in bf16 (PERFORMANCE);
  12. multimodal train: the port's examples/train_multimodal.py at
-     --full-scale (bf16 PERFORMANCE, remat, 16 chunks, batch 1, synthetic
-     clips) through its Trainer: one warm-up step, then timed steps with
-     finite losses, parameters that move once the warmup's lr-0 step is
-     past, and the planned launches per step;
+     --full-scale (bf16 PERFORMANCE, remat under its remat_policy
+     "dots_saveable", 16 chunks, batch 1, synthetic clips) through its
+     Trainer: one warm-up step, then timed steps with finite losses,
+     parameters that move once the warmup's lr-0 step is past, and the
+     planned launches per step; then the same with full remat
+     (--remat-policy nothing_saveable) beside it;
  13. classification model: ClassificationPerceiver at full width (224x224,
      512x1024 latents, 8 blocks of 6 self-attends, 1000 classes), one run
      for each PrepType, seeded random weights (random BatchNorm statistics),
@@ -219,12 +221,45 @@ Phases (each raises on failure; nothing is caught):
  32. prints the run's seconds, the kernels line and, last, {"ok": true,
      "device": {...}}.
 
+The rest of training runs in phases A to E, each where its inputs are
+warm: B after phase 8, A after phase 12, C to E after phase 19.
+  A. the multimodal step under dots_saveable: the published Kinetics
+     autoencoder (bf16, remat, 16 chunks, one clip with a label), one step's
+     gradients against full remat's bit for bit, K1/K2/K3 once a step each,
+     step time and peak memory of both;
+  B. the flow step under dots_saveable: the published flow model (bf16,
+     remat, one roll pair), gradients against full remat's bit for bit, K1
+     50 a step under both (26 forward, the 24 self-attends recomputed: the
+     policy keeps products, not K1's output), K2 and K3 26;
+  C. the published MLM (bf16, batch 8) through build_optimizer's Adafactor,
+     Lion, SGD (momentum 0.9), accum_steps=2, skip_nonfinite_updates=2 and a
+     decoder-only trainable mask beside AdamW, 1 + 3 steps each from the
+     same weights: a NaN gradient leaves parameters, moments and the count
+     bit for bit while the step counter moves, non-boundary micro-steps
+     leave the parameters bit for bit, frozen weights stay bit for bit,
+     Adafactor's state below AdamW's; step times, state bytes, the skip's
+     host read;
+  D. train_mlm --full-scale --steps-per-call 3 for 6 steps against
+     --steps-per-call 1, both under torch.use_deterministic_algorithms (the
+     token table's gradient, nn.Embedding's backward, differs between two
+     backward passes of one batch otherwise, which the phase measures
+     first): every loss and the final weights bit for bit, the log and
+     evaluation lines at the same steps, the seconds of each;
+  E. dropout 0.1 in every site of an encoder at the MLM's latent widths
+     (26 self-attends, batch 8) with a CUDA generator: the kept share
+     within 4 sigma of 0.9, eval mode equal to no dropout bit for bit, the
+     gradients with remat (full and dots_saveable) equal to those without,
+     bit for bit, under one seed; the Kinetics inputs' preprocessor with
+     mask_probs 0.15 (image, audio) and 1 (label): masked shares within 4
+     sigma, the same seed the same mask.
+
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -402,6 +437,28 @@ MLM_EVAL_TOL = {"masked_accuracy": 1e-6, "masked_ce": 2e-3}
 # EMA of the flow model's parameters over one warm-up and EMA_STEPS steps.
 EMA_DECAY = 0.99
 EMA_STEPS = 3
+# The rest of training (phases A to E).  Remat policies: the multimodal
+# training example's (the JAX example's) against full remat.
+SAC_POLICY = "dots_saveable"
+FULL_REMAT = "nothing_saveable"
+# build_optimizer's variants on the published MLM (batch 8), each for one
+# step and OPT_STEPS more at a constant OPT_LR with the clip, beside AdamW;
+# the skip variant's gradient is NaN at step OPT_NAN_STEP.
+OPT_LR = 3e-4
+OPT_STEPS = 3
+OPT_NAN_STEP = 2
+OPT_VARIANTS = ("adamw", "adafactor", "lion", "sgd", "accum", "skip", "trainable")
+FINITE_READS = 20  # timed reads of the skip's finiteness flag
+# train_mlm --full-scale --steps-per-call SPC for SPC_STEPS steps (log and
+# evaluation every SPC) against --steps-per-call 1.
+SPC = 3
+SPC_STEPS = 6
+# Dropout on an encoder at the byte MLM's widths (2,048 inputs of 768
+# channels, 256 x 1280 latents, 26 self-attends of 8 heads, qk width 256),
+# batch 8, and stochastic masking of the Kinetics inputs.
+DROPOUT = 0.1
+MASK_PROB = 0.15
+SIGMAS = 4.0
 
 
 def smi_line() -> str:
@@ -1384,17 +1441,29 @@ def _mm_gradient_pass(label, policy, expected_launches, tol, images, audio):
 
 def phase_mm_train():
     """The port's train_multimodal example at --full-scale (bf16
-    PERFORMANCE, remat, 16 decoder chunks, batch 1, synthetic clips)
-    through its Trainer, one step per fit() call."""
+    PERFORMANCE, remat under its dots_saveable, 16 decoder chunks, batch 1,
+    synthetic clips) through its Trainer, one step per fit() call; then the
+    same with full remat (--remat-policy nothing_saveable) beside it."""
+    import torch
+
     from perceiverio_pytorch_tpu_torch.examples import train_multimodal
 
     total = 1 + MM_TRAIN_STEPS
-    metrics = _metrics_path("chip_smoke_mm_train_metrics.jsonl")
-    trainer, state, batches = train_multimodal.setup(
-        total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
-    rec = _train_steps(trainer, state, batches, total, metrics, MM_STEP_LAUNCHES)
-    print(f"[mm train] bf16 full width, remat, {MM_TRAIN_CHUNKS} chunks, batch 1: "
-          f"{json.dumps(rec)}", flush=True)
+    recs = {}
+    for policy in (None, FULL_REMAT):  # None: the example's own
+        metrics = _metrics_path(f"chip_smoke_mm_train_metrics_{policy or 'default'}.jsonl")
+        trainer, state, batches = train_multimodal.setup(
+            total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1,
+            remat_policy=policy)
+        name = state.model.perceiver.policy.remat_policy
+        if name != (policy or SAC_POLICY):
+            raise AssertionError(f"train_multimodal --full-scale runs remat_policy {name}")
+        recs[name] = _train_steps(trainer, state, batches, total, metrics, MM_STEP_LAUNCHES)
+        del trainer, state
+        torch.cuda.empty_cache()
+    rec = dict(recs[SAC_POLICY], remat_policy=SAC_POLICY, full_remat=recs[FULL_REMAT])
+    print(f"[mm train] bf16 full width, remat ({SAC_POLICY}; full remat beside it), "
+          f"{MM_TRAIN_CHUNKS} chunks, batch 1: {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -2994,6 +3063,487 @@ def phase_ema(train, tmp):
     return rec
 
 
+def _bitwise(label, grads, want):
+    """Every gradient of ``grads`` against ``want``'s, bit for bit; raises
+    with the largest difference and its parameter."""
+    import torch
+
+    if set(grads) != set(want) or len(want) < 100:
+        raise AssertionError(f"{label}: the two runs give gradients to different parameters")
+    differ = [n for n in want if not torch.equal(grads[n], want[n])]
+    if differ:
+        worst, where = max(((grads[n].float() - want[n].float()).abs().max().item(), n)
+                           for n in differ)
+        raise AssertionError(f"{label}: {len(differ)} gradients differ, the largest by "
+                             f"{worst} at {where}")
+
+
+def _policy_step(label, model, loss_fn, expected_launches):
+    """One warm-up step, then one step of ``model`` timed (host clock ending
+    in a synchronize), its launches counted and its peak memory read from a
+    reset; returns the record and the step's gradients."""
+    import torch
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(model)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), time.perf_counter() - t0
+
+    first_s = step()[1]
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    loss, seconds = step()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != expected_launches or not math.isfinite(loss):
+        raise AssertionError(f"{label}: launches {launches}, expected {expected_launches};"
+                             f" loss {loss}")
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return dict(loss=loss, step_s=seconds, first_step_s=first_s, launches=launches,
+                peak_mem_gb=peak / 1e9, step_mem_gb=(peak - before) / 1e9), grads
+
+
+def _policy_pair(label, build, loss_fn, expected_launches):
+    """The same step under SAC_POLICY and under full remat, on models built
+    alike (the same seeded weights): gradients bit for bit, launches, step
+    time and peak memory of each."""
+    import torch
+
+    recs, grads = {}, {}
+    for name in (SAC_POLICY, FULL_REMAT):
+        model = build(name)
+        recs[name], grads[name] = _policy_step(f"{label} {name}", model, loss_fn,
+                                               expected_launches)
+        del model
+        torch.cuda.empty_cache()
+    _bitwise(f"{label}: {SAC_POLICY} against full remat", grads[SAC_POLICY],
+             grads[FULL_REMAT])
+    rec = dict(recs, gradients_bit_for_bit=True, params=len(grads[FULL_REMAT]),
+               peak_mem_gb_delta=recs[SAC_POLICY]["peak_mem_gb"]
+               - recs[FULL_REMAT]["peak_mem_gb"],
+               step_s_ratio=recs[SAC_POLICY]["step_s"] / recs[FULL_REMAT]["step_s"])
+    print(f"[{label}] {SAC_POLICY} against full remat: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_mm_sac():
+    """A: the published Kinetics autoencoder (bf16 PERFORMANCE, remat, 16
+    decoder chunks, batch 1, one synthetic clip with a label) under
+    dots_saveable against full remat: one step's gradients bit for bit (the
+    same kernels on the same operands: the saved products are the ones full
+    remat recomputes), K1, K2 and K3 once a step each (the encoder's
+    cross-attend is outside both regions), step time and peak memory."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.examples.train_multimodal import WEIGHTS
+    from perceiverio_pytorch_tpu_torch.training import multimodal_autoencode_loss
+
+    images, audio = _smooth_clip(torch.Generator().manual_seed(SEED + 7))
+    targets = {"image": images, "audio": audio,
+               "label": torch.tensor([MM_LABEL], device="cuda")}
+
+    def build(name):
+        return _mm_model(dataclasses.replace(PERFORMANCE, remat_policy=name),
+                         remat=True).train()
+
+    def loss_fn(model):
+        out = model(images, audio, n_chunks=MM_TRAIN_CHUNKS)
+        return multimodal_autoencode_loss(out, targets, weights=WEIGHTS)
+
+    return _policy_pair("A mm sac", build, loss_fn, MM_STEP_LAUNCHES)
+
+
+def phase_flow_sac():
+    """B: the published flow model (bf16 PERFORMANCE, remat, batch 1, one
+    synthetic roll pair) under dots_saveable against full remat: gradients
+    bit for bit, and K1 50 times a step under both (26 forward, 24
+    recomputed: the policy keeps products, not the flash op's output, as JAX
+    recomputes a pallas_call), K2 and K3 26."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.examples.train_flow import synthetic_flow_pairs
+    from perceiverio_pytorch_tpu_torch.training import flow_endpoint_error
+
+    img1, img2, flow = (torch.from_numpy(a).cuda()
+                        for a in synthetic_flow_pairs(1, (368, 496), seed=SEED + 4))
+
+    def build(name):
+        return _flow_model(dataclasses.replace(PERFORMANCE, remat_policy=name),
+                           remat=True).train()
+
+    def loss_fn(model):
+        return flow_endpoint_error(model(img1, img2), flow)
+
+    return _policy_pair("B flow sac", build, loss_fn, STEP_LAUNCHES)
+
+
+def _opt_state_bytes(opt):
+    return sum(t.numel() * t.element_size() for entry in opt.state.values()
+               for t in entry.values() if hasattr(t, "element_size"))
+
+
+def _snapshot_state(state):
+    params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    opt = {id(p): {k: v.clone() for k, v in entry.items()}
+           for p, entry in state.optimizer.state.items()}
+    return params, opt, dict(state.optimizer.chain)
+
+
+def _unchanged(label, state, snapshot, names=None):
+    """Parameters (all, or ``names``) and, without ``names``, the optimizer
+    state and counts equal ``snapshot`` bit for bit."""
+    import torch
+
+    params, opt, chain = snapshot
+    live = dict(state.model.named_parameters())
+    moved = [n for n in (names or params) if not torch.equal(live[n], params[n])]
+    if moved:
+        raise AssertionError(f"{label}: {len(moved)} parameters moved, e.g. {moved[:3]}")
+    if names is None:
+        now = {id(p): e for p, e in state.optimizer.state.items()}
+        if set(now) != set(opt) or any(not torch.equal(now[i][k], v)
+                                       for i, e in opt.items() for k, v in e.items()):
+            raise AssertionError(f"{label}: the optimizer state changed")
+        if state.optimizer.chain["count"] != chain["count"]:
+            raise AssertionError(f"{label}: the count moved {chain} -> "
+                                 f"{state.optimizer.chain}")
+
+
+def phase_optimizers():
+    """C: the published MLM (201,108,230 parameters, bf16, batch 8) through
+    build_optimizer's variants, each from the same initial weights for one
+    step and OPT_STEPS more (constant lr, clip 1.0): Adafactor, Lion, SGD
+    (momentum 0.9), accum_steps=2, skip_nonfinite_updates=2 and the
+    trainable mask with only the decoder trainable, beside AdamW.  Held: a
+    NaN gradient leaves parameters, moments and the count bit for bit while
+    the step counter moves; the non-boundary micro-steps leave the
+    parameters bit for bit; frozen weights stay bit for bit; Adafactor's
+    state is smaller than AdamW's.  Measured: each variant's step time and
+    state bytes, and the skip's host read of its finiteness flag."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples import train_mlm
+    from perceiverio_pytorch_tpu_torch.training import Trainer, build_optimizer
+
+    total = 1 + OPT_STEPS
+    _, state0, batches, _ = train_mlm.setup(
+        total, full_scale=True, device="cuda",
+        metrics_path=_metrics_path("chip_smoke_opt_setup.jsonl"))
+    model = state0.model
+    del state0
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    names = [n for n, _ in model.named_parameters()]
+    decoder = {n: n.startswith("perceiver._decoder.") for n in names}
+    kwargs = {"adamw": {}, "adafactor": dict(optimizer="adafactor"),
+              "lion": dict(optimizer="lion"), "sgd": dict(optimizer="sgd", momentum=0.9),
+              "accum": dict(accum_steps=2), "skip": dict(skip_nonfinite_updates=2),
+              "trainable": dict(trainable_mask=lambda m: decoder)}
+    poison = {"on": False}
+
+    def loss_fn(m, *batch):
+        loss = train_mlm.loss_fn(m, *batch)
+        return loss * float("nan") if poison["on"] else loss
+
+    recs = {}
+    for name in OPT_VARIANTS:
+        model.load_state_dict(initial)
+        trainer = Trainer(loss_fn, build_optimizer(OPT_LR, clip_norm=1.0, **kwargs[name]),
+                          log_every=0, metrics_path=_metrics_path(f"chip_smoke_opt_{name}.jsonl"))
+        state = trainer.init_state(model)
+        steps, checks = [], []
+        for n in range(1, total + 1):
+            poison["on"] = name == "skip" and n == OPT_NAN_STEP
+            quiet = poison["on"] or (name == "accum" and n % 2)
+            snapshot = _snapshot_state(state) if quiet else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit(state, batches, num_steps=n)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            if state.step != n:
+                raise AssertionError(f"{name}: step {state.step} after fit to {n}")
+            if quiet:
+                _unchanged(f"{name} step {n}", state, snapshot,
+                           names=None if poison["on"] else names)
+                checks.append(f"step {n} unchanged bit for bit")
+        poison["on"] = False
+        params = dict(model.named_parameters())
+        frozen = [n for n in names if not decoder[n]] if name == "trainable" else []
+        if frozen:
+            moved = [n for n in frozen if not torch.equal(params[n], initial[n])]
+            if moved:
+                raise AssertionError(f"trainable: frozen weights moved: {moved[:3]}")
+            checks.append(f"{len(frozen)} frozen weights bit for bit")
+        trained = [n for n in names if name != "trainable" or decoder[n]]
+        if not any(not torch.equal(params[n], initial[n]) for n in trained) or not all(
+                torch.isfinite(params[n]).all() for n in trained):
+            raise AssertionError(f"{name}: the trained weights did not move, or not finite")
+        chain = dict(state.optimizer.chain)
+        rec = dict(step_s=steps[1:], median_step_s=_median(steps[1:]), first_step_s=steps[0],
+                   state_bytes=_opt_state_bytes(state.optimizer), chain=chain, checks=checks)
+        if name == "skip":
+            if chain["total_notfinite"] != 1 or chain["count"] != total - 1:
+                raise AssertionError(f"skip: counts {chain}")
+            rec["poisoned_step_s"] = steps[OPT_NAN_STEP - 1]
+            opt = state.optimizer
+            opt.grads_finite()  # the same read the step takes, grads left by the last step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FINITE_READS):
+                opt.grads_finite()
+            rec["finite_read_ms"] = (time.perf_counter() - t0) / FINITE_READS * 1e3
+        recs[name] = rec
+        print(f"[C optimizer {name}] {json.dumps(rec)}", flush=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+    if not recs["adafactor"]["state_bytes"] < recs["adamw"]["state_bytes"]:
+        raise AssertionError("Adafactor's state is not smaller than AdamW's")
+    summary = {name: dict(median_step_s=r["median_step_s"], state_bytes=r["state_bytes"])
+               for name, r in recs.items()}
+    rec = dict(params=len(names), numel=sum(v.numel() for v in model.parameters()),
+               variants=summary, finite_read_ms=recs["skip"]["finite_read_ms"])
+    print(f"[C optimizers] MLM bf16 batch 8: {json.dumps(rec)}", flush=True)
+    del model, initial
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms():
+    """torch.use_deterministic_algorithms for the block (warn_only: cuBLAS's
+    GEMMs are already reproducible on one stream; the warnings are muted)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def _repeat_differs(loss_fn, model, batch):
+    """The parameters whose gradient differs between two backward passes of
+    one batch from the same weights, with the default algorithms and with
+    deterministic ones, and the largest difference of each."""
+    import torch
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, *batch).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    out = {}
+    for mode in ("default", "deterministic_algorithms"):
+        with (_deterministic_algorithms() if mode != "default" else contextlib.nullcontext()):
+            first, second = grads(), grads()
+        out[mode] = {n: (first[n].float() - second[n].float()).abs().max().item()
+                     for n in first if not torch.equal(first[n], second[n])}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_steps_per_call():
+    """D: train_mlm --full-scale --steps-per-call SPC for SPC_STEPS steps
+    against --steps-per-call 1 (each from the same seeded weights and
+    batches): every step's loss and the final weights bit for bit, the log
+    and evaluation lines at the same steps; the seconds of each run, the
+    evaluations timed apart.  Both run under deterministic algorithms: the
+    token table's gradient (nn.Embedding's backward) is not reproducible
+    otherwise, between two backward passes of one batch, which the phase
+    measures first."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples import train_mlm
+
+    runs, repeats = {}, None
+    for k in (1, SPC):
+        metrics = _metrics_path(f"chip_smoke_spc{k}.jsonl")
+        trainer, state, batches, eval_batches = train_mlm.setup(
+            SPC_STEPS, full_scale=True, device="cuda", metrics_path=metrics, log_every=SPC,
+            steps_per_call=k)
+        if repeats is None:
+            repeats = _repeat_differs(trainer.loss_fn, state.model.train(),
+                                      next(iter(batches(0))))
+        losses, eval_s = [], []
+        inner, evaluate = trainer.loss_fn, trainer.evaluate
+
+        def recorded(m, *batch, inner=inner, losses=losses):
+            loss = inner(m, *batch)
+            losses.append(loss.detach())
+            return loss
+
+        def timed_evaluate(*args, evaluate=evaluate, eval_s=eval_s, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = evaluate(*args, **kwargs)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t)
+            return out
+
+        trainer.loss_fn = recorded
+        with _deterministic_algorithms(), mock.patch.object(trainer, "evaluate",
+                                                            timed_evaluate):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit(state, batches, num_steps=SPC_STEPS, eval_batches=eval_batches)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0 - sum(eval_s)
+        with open(metrics) as f:
+            lines = [json.loads(x) for x in f]
+        runs[k] = dict(step=state.step, losses=[float(x) for x in losses],
+                       log_steps=[x["step"] for x in lines if "loss" in x],
+                       eval_steps=[x["step"] for x in lines if "eval_loss" in x],
+                       seconds=seconds, step_s=seconds / state.step,
+                       weights={n: p.detach().clone() for n, p in state.model.named_parameters()})
+        del trainer, state
+        torch.cuda.empty_cache()
+    if repeats["deterministic_algorithms"]:
+        raise AssertionError(f"two backward passes differ under deterministic algorithms: "
+                             f"{repeats}")
+    one, many = runs[1], runs[SPC]
+    for key in ("step", "losses", "log_steps", "eval_steps"):
+        if one[key] != many[key]:
+            raise AssertionError(f"steps_per_call {SPC} against 1: {key} {many[key]} vs "
+                                 f"{one[key]}")
+    _bitwise(f"steps_per_call {SPC} against 1 (final weights)", many["weights"],
+             one["weights"])
+    rec = {f"steps_per_call_{k}": {key: v for key, v in r.items() if key != "weights"}
+           for k, r in runs.items()}
+    rec.update(losses_bit_for_bit=True, weights_bit_for_bit=True,
+               deterministic_algorithms=True, repeat_backward_differs=repeats,
+               step_s_ratio=many["step_s"] / one["step_s"])
+    print(f"[D steps_per_call] MLM bf16 batch 8: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def _within_sigmas(share, prob, n):
+    sigma = (prob * (1.0 - prob) / n) ** 0.5
+    return abs(share - prob) <= SIGMAS * sigma, sigma
+
+
+def phase_dropout():
+    """E: an encoder at the byte MLM's published latent widths with
+    dropout_prob = dropout_attn_prob = DROPOUT in train mode, its draws from
+    a CUDA torch.Generator (every site dense: no kernel launch): the kept
+    share of all masks within SIGMAS sigma of 1 - DROPOUT; eval mode equal to
+    the encoder without dropout, bit for bit; with remat (full and
+    dots_saveable) the gradients of the encoder without remat, bit for bit,
+    under one seed.  Then the Kinetics inputs' preprocessor with mask_probs
+    {image, audio: MASK_PROB, label: 1}: the masked shares within SIGMAS
+    sigma, the same seed the same mask."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.core.perceiver import (
+        MultimodalPreprocessor,
+        PerceiverEncoder,
+    )
+    from perceiverio_pytorch_tpu_torch.ops import attention_dense
+
+    def encoder(drop, remat=False, name=None):
+        return PerceiverEncoder(
+            num_input_channels=768, num_self_attends_per_block=26, num_blocks=1,
+            num_latents=256, num_latent_channels=1280, num_cross_attend_heads=8,
+            num_self_attend_heads=8, qk_channels=256, v_channels=1280,
+            policy=dataclasses.replace(PERFORMANCE, remat_policy=name), remat=remat,
+            dropout_prob=drop, dropout_attn_prob=drop,
+            generator=torch.Generator().manual_seed(SEED + 40)).cuda()
+
+    inputs = torch.randn(8, 2048, 768, generator=torch.Generator().manual_seed(SEED + 41))
+    inputs = inputs.cuda()
+
+    def run(model, seed):
+        gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+        return model(inputs, model.latents(inputs), generator=gen)
+
+    kept, drawn = [], []
+    real = attention_dense.keep_mask
+
+    def counted(*args, **kwargs):
+        mask = real(*args, **kwargs)
+        kept.append(mask.sum())
+        drawn.append(mask.numel())
+        return mask
+
+    model = encoder(DROPOUT).train()
+    _reset_launch_counts()
+    with torch.no_grad(), mock.patch.object(attention_dense, "keep_mask", counted):
+        run(model, 1)
+    share = float(torch.stack(kept).sum().item()) / sum(drawn)
+    ok, sigma = _within_sigmas(share, 1.0 - DROPOUT, sum(drawn))
+    if not ok or len(drawn) != 3 * 27:
+        raise AssertionError(f"kept share {share} over {len(drawn)} masks ({sum(drawn)} draws),"
+                             f" sigma {sigma}")
+    with torch.no_grad():
+        evaluated = run(model.eval(), None)
+        plain = run(encoder(0.0).eval(), None)
+    if not torch.equal(evaluated, plain):
+        raise AssertionError("eval mode with dropout differs from the encoder without it")
+    grads = {}
+    for remat, name in ((False, None), (True, None), (True, SAC_POLICY)):
+        model = encoder(DROPOUT, remat=remat, name=name).train()
+        run(model, 2).float().square().mean().backward()
+        grads[remat, name] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model
+    for key in ((True, None), (True, SAC_POLICY)):
+        _bitwise(f"dropout encoder, remat {key[1] or FULL_REMAT} against none", grads[key],
+                 grads[False, None])
+    if _launch_counts() != NO_LAUNCHES:
+        raise AssertionError(f"a dropout site launched a kernel: {_launch_counts()}")
+    del grads
+    torch.cuda.empty_cache()
+
+    mm = _mm_model(PERFORMANCE)
+    pre = MultimodalPreprocessor(
+        input_preprocessors=dict(mm.perceiver._multi_preprocessor._preprocessors),
+        mask_probs={"image": MASK_PROB, "audio": MASK_PROB, "label": 1.0},
+        min_padding_size=4).cuda()
+    images, audio = _smooth_clip(torch.Generator().manual_seed(SEED + 42))
+    clip = {"image": images, "audio": audio, "label": torch.zeros(1, 700, device="cuda")}
+    outs = []
+    with torch.no_grad():
+        for seed in (3, 3, 4):
+            out, sizes, _ = pre(clip, generator=torch.Generator(device="cuda").manual_seed(seed))
+            outs.append(out)
+    start, shares = 0, {}
+    for modality in sorted(sizes):
+        rows = outs[0][0, start:start + sizes[modality]]
+        token = pre.mask_tokens[modality].pos_embs[0].to(rows.dtype)
+        masked = (rows == token).all(-1).float().mean().item()
+        shares[modality] = masked
+        prob = {"label": 1.0}.get(modality, MASK_PROB)
+        ok = masked == 1.0 if prob == 1.0 else _within_sigmas(masked, prob, sizes[modality])[0]
+        if not ok:
+            raise AssertionError(f"{modality}: masked share {masked} of {sizes[modality]}")
+        start += sizes[modality]
+    if not torch.equal(outs[0], outs[1]) or torch.equal(outs[0], outs[2]):
+        raise AssertionError("the same seed gave another mask, or another seed the same")
+    rec = dict(dropout=DROPOUT, kept_share=share, kept_sigma=sigma, masks=len(drawn),
+               draws=sum(drawn), eval_bit_for_bit=True, remat_grads_bit_for_bit=True,
+               mask_prob=MASK_PROB, masked_shares=shares, tokens=sizes,
+               same_seed_same_mask=True)
+    print(f"[E dropout and masking] {json.dumps(rec)}", flush=True)
+    del mm, pre
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -3047,10 +3597,24 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     evaluate phases' launches too: ``launches_evaluate_multimodal`` (phase
     28's two runs, with their merges) on the d = 704 K1 entry, and
     ``launches_ema_train`` (phase 31's steps, with their merges or sums) on
-    the flow entries of K1, K2 and K3.  Each entry's error is the largest of
+    the flow entries of K1, K2 and K3.  The rest of training's: phase B's
+    one flow step under each remat policy (``launches_dots_saveable_step``,
+    ``launches_nothing_saveable_step``) on the flow entries, and on the d =
+    704 K2/K3 entries the multimodal training run's launches under its
+    dots_saveable (``launches``) and under full remat
+    (``launches_full_remat_train``).  Each entry's error is the largest of
     all its comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
+
+    def sac_counts(kernel, extra):
+        """Phase B's launches: one flow step under each remat policy."""
+        out = {}
+        for policy, rec in files["flow_sac"].items():
+            if isinstance(rec, dict) and "launches" in rec:
+                out[f"launches_{policy}_step"] = rec["launches"][kernel]
+                out[f"{extra}_launches_{policy}_step"] = rec["launches"][extra]
+        return out
 
     def file_counts(kernel, extra, counts, evaluated=None, evaluate_key=None):
         out = {"launches_files_train": counts["train"][kernel],
@@ -3087,6 +3651,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                       "launches_evaluate_flow"),
         launches_ema_train=files["ema"]["launches"]["K1"],
         merge_launches_ema_train=files["ema"]["launches"]["merge"],
+        **sac_counts("K1", "merge"),
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -3100,6 +3665,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
         launches=mm_serve["launches"],
         merge_launches=mm_serve["merge_launches"],
+        launches_train=mm_train["launches"]["K1"],
+        launches_full_remat_train=mm_train["full_remat"]["launches"]["K1"],
         launches_evaluate_multimodal=sum(r["launches"]["K1"] for r in mm_eval_runs),
         merge_launches_evaluate_multimodal=sum(r["launches"]["merge"] for r in mm_eval_runs),
         max_abs_err=max(r["max_abs_err"] for r in mm),
@@ -3166,6 +3733,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             **file_counts(kernel, "sum", flow_files),
             launches_ema_train=files["ema"]["launches"][kernel],
             sum_launches_ema_train=files["ema"]["launches"]["sum"],
+            **sac_counts(kernel, "sum"),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
@@ -3175,6 +3743,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             **common,
             launches=mm_train["launches"][kernel],
             sum_launches_train=mm_train["launches"]["sum"],
+            launches_full_remat_train=mm_train["full_remat"]["launches"][kernel],
             max_abs_err=max(r["max_abs_err"] for r in mm_bwd),
             **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by", "splits", "col_chunks")},
@@ -3223,10 +3792,14 @@ def main() -> int:
     phase_gradients()
     train = phase_train()
     torch.cuda.empty_cache()
+    flow_sac = phase_flow_sac()
+    torch.cuda.empty_cache()
     mm_serve = phase_mm_serve(phase_mm_model())
     torch.cuda.empty_cache()
     phase_mm_gradients()
     mm_train = phase_mm_train()
+    torch.cuda.empty_cache()
+    phase_mm_sac()
     torch.cuda.empty_cache()
     cls_serve = phase_cls()
     phase_lm()
@@ -3236,6 +3809,10 @@ def main() -> int:
     phase_cls_gradients()
     cls_train = phase_cls_train()
     lm_train = phase_lm_train()
+    torch.cuda.empty_cache()
+    phase_optimizers()
+    phase_steps_per_call()
+    phase_dropout()
     torch.cuda.empty_cache()
     buckets = phase_bucket_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3262,7 +3839,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         ema = phase_ema(train, tmp)
     files = dict(flow=flow_files, evaluate_flow=evaluated, cls=cls_files,
-                 evaluate_multimodal=mm_eval, ema=ema)
+                 evaluate_multimodal=mm_eval, ema=ema, flow_sac=flow_sac)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
                        cls_serve, cls_train, cls_k1_train, buckets, serving, files))

@@ -6,9 +6,11 @@ the JAX package's weights (``utils.weights.state_dict_from_flax``) and the
 converted DeepMind checkpoints load with ``load_state_dict(strict=True)``.
 Every Pallas kernel of the JAX package on a ported path is a hand-written
 CUDA kernel here (``csrc/``), with a plain PyTorch version beside it.  The
-training stack is ``perceiverio_pytorch_tpu_torch.training`` (with file-backed
-datasets, device prefetch, train-state checkpoints and exact resume, an EMA
-of the parameters and LoRA adapters); the examples
+training stack is ``perceiverio_pytorch_tpu_torch.training`` (optax's
+optimizer chain, file-backed datasets, device prefetch, train-state
+checkpoints and exact resume, ``steps_per_call``, an EMA of the parameters
+and LoRA adapters; dropout, stochastic input masking and selective remat,
+``Policy.remat_policy``, live in the models); the examples
 ``perceiverio_pytorch_tpu_torch.examples.train_flow``, ``.train_multimodal``,
 ``.train_mlm`` (``--lora``) and ``.train_classification`` train from
 synthetic data or files, ``.evaluate_flow``, ``.evaluate_classification``,

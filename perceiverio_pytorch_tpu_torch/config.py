@@ -6,19 +6,32 @@ selector values are ``"dense"`` (plain matmul + softmax, the JAX package's
 version on a CPU tensor) and ``"auto"``.
 
 Fields of the JAX policy that this port cannot honour yet (int8, the
-sequence/pipeline meshes, layer scan and selective remat) are kept as
-fields so that a caller porting a configuration learns of them: setting any
-of them raises ``NotImplementedError``.  ``fold_query_pad`` is ported: the
-multimodal decoder folds its constant query-pad channels through the query
-LayerNorm and projection (``core.attention.FoldedQuery``).
+sequence/pipeline meshes and layer scan) are kept as fields so that a
+caller porting a configuration learns of them: setting any of them raises
+``NotImplementedError``.  ``fold_query_pad`` is ported: the multimodal
+decoder folds its constant query-pad channels through the query LayerNorm
+and projection (``core.attention.FoldedQuery``).  ``remat_policy`` is
+ported for the ``jax.checkpoint_policies`` names that have a meaning here
+(``REMAT_POLICIES``): ``remat_call`` runs a checkpointed region under
+``torch.utils.checkpoint`` with a selective policy that keeps the outputs
+of the matrix products JAX's ``dot_general`` becomes (``aten.mm``,
+``addmm``, ``bmm``, ``baddbmm``) and recomputes everything else, the flash
+kernel's ``torch.library`` op included, as JAX recomputes a
+``pallas_call``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import functools
+from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 ATTN_DENSE = "dense"  # plain matmul + softmax, materialises [B,H,Tq,Tk]
 ATTN_FLASH = "flash"  # streaming-KV CUDA kernel (ops/flash_attention.py)
@@ -31,8 +44,24 @@ _NOT_PORTED = (
     ("sp_mesh", None),
     ("pp_mesh", None),
     ("layer_scan", "off"),
-    ("remat_policy", None),
 )
+
+_aten = torch.ops.aten
+# The products with batch dims (an attention's einsum) and without (a
+# projection: [B, T, C] x [C, D] lowers to mm or addmm).
+_NO_BATCH_DOTS = frozenset({_aten.mm.default, _aten.addmm.default})
+_DOTS = _NO_BATCH_DOTS | {_aten.bmm.default, _aten.baddbmm.default}
+
+# jax.checkpoint_policies names the port takes -> the aten ops whose outputs
+# the backward keeps (None: every op's; empty: none, full remat).
+REMAT_POLICIES = {
+    "nothing_saveable": frozenset(),
+    "everything_saveable": None,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +78,12 @@ class Policy:
       fold_query_pad: pass a decoder query whose pad channels are constant
         (the multimodal model's) in factored form, never materialising the
         padded [B, Tq, C] concat; no effect where no query is padded.
-      quant, sp_mesh, pp_mesh, layer_scan, remat_policy: not ported; any
-        value other than the default raises.
+      remat_policy: what a model built with ``remat=True`` keeps for the
+        backward of its checkpointed regions: None (full remat, as
+        "nothing_saveable") or a name of ``REMAT_POLICIES``; any other name
+        raises ValueError.
+      quant, sp_mesh, pp_mesh, layer_scan: not ported; any value other than
+        the default raises.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -73,12 +106,35 @@ class Policy:
                 "Policy.attn_impl must be 'dense', 'flash' or 'auto'; got"
                 f" {self.attn_impl!r}"
             )
+        if self.remat_policy is not None and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"Policy.remat_policy {self.remat_policy!r} is not one the port takes;"
+                f" take one of {sorted(REMAT_POLICIES)} or None (full remat)"
+            )
         for name, off in _NOT_PORTED:
             if getattr(self, name) != off:
                 raise NotImplementedError(
                     f"Policy.{name}={getattr(self, name)!r} is not ported to"
                     " PyTorch yet (see ROADMAP.md)"
                 )
+
+
+def _save_policy(saved, ctx, op, *args, **kwargs):
+    if saved is None or op in saved:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(policy: Policy, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as a checkpointed region under
+    ``policy.remat_policy`` (non-reentrant ``torch.utils.checkpoint``; full
+    remat without a selective policy for None and "nothing_saveable")."""
+    saved = REMAT_POLICIES[policy.remat_policy or "nothing_saveable"]
+    if saved is not None and not saved:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   functools.partial(_save_policy, saved))
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
 
 
 # fp32 everywhere, dense attention: the parity policy.

@@ -15,7 +15,15 @@ Counterpart of ``perceiverio_pytorch_tpu/core/attention.py``:
     query LayerNorm and projection (``_project_q_folded``).
 
 LayerNorms run in fp32 with eps 1e-5 and their output is cast to the
-compute dtype.  Dropout and the int8 projections are not ported yet.
+compute dtype.  Dropout is the JAX package's: ``dropout_attn_prob`` on the
+attention probabilities (which sends the site to the dense path) and
+``dropout_prob`` after the MLP and on the attention's output, in train mode
+(``module.training``) only.  The masks come from ``dropout_seed``, an int
+the caller draws (``PerceiverEncoder`` draws one a block from its
+``generator``): each site makes its own ``torch.Generator`` from it
+(``ops.attention_dense.site_generator``), so a checkpointed block draws the
+same masks when the backward recomputes it.  The int8 projections are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch import nn
 
 from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
 from perceiverio_pytorch_tpu_torch.ops.attention import multihead_attention
+from perceiverio_pytorch_tpu_torch.ops.attention_dense import dropout, site_generator
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
     lecun_normal_,
@@ -38,6 +47,27 @@ __all__ = ["Dense", "LayerNorm", "FoldedQuery", "Attention", "MLP", "SelfAttenti
            "CrossAttention"]
 
 _LN_EPS = 1e-5
+
+# Sub-site indices of a block's dropout_seed.
+_ATTN_PROBS, _POST_ATTN, _MLP_OUT = 0, 1, 2
+
+
+def _site(module: nn.Module, rate: float, seed: Optional[int], index: int, device):
+    """The generator of an active dropout site (train mode, rate above 0),
+    else None."""
+    if not (module.training and rate > 0.0):
+        return None
+    if seed is None:
+        raise ValueError(
+            f"{type(module).__name__} has dropout {rate} in train mode: pass dropout_seed"
+            " (or a generator to PerceiverEncoder / PerceiverIO.encode)")
+    return site_generator(seed, index, device)
+
+
+def _dropout(module: nn.Module, x: torch.Tensor, rate: float, seed: Optional[int],
+             index: int) -> torch.Tensor:
+    generator = _site(module, rate, seed, index, x.device)
+    return x if generator is None else dropout(x, rate, generator)
 
 
 def zeros_(weight: torch.Tensor, generator: torch.Generator):
@@ -127,10 +157,12 @@ class Attention(nn.Module):
         v_out_channels: Optional[int] = None,
         output_channels: Optional[int] = None,
         policy: Policy = DEFAULT,
+        dropout_prob: float = 0.0,
         *,
         generator=None,
     ):
         super().__init__()
+        self.dropout_prob = dropout_prob
         qk_out = qk_out_channels or q_in_channels
         v_out = v_out_channels or qk_out
         out = output_channels or v_out
@@ -173,8 +205,11 @@ class Attention(nn.Module):
         w32 = self.proj_q.weight.float().t()  # [C, qk_out]
         gamma, beta = fq.ln_scale.float(), fq.ln_bias.float()
         total_c = w32.shape[0]
-        u = gamma @ w32  # [qk_out], token-independent
-        const = beta @ w32 + self.proj_q.bias.float()
+        # Row-vector products as [1, C] @ [C, qk_out]: ``vector @ matrix``
+        # squeezes its product in place, which a selective checkpoint that
+        # keeps the product refuses (Policy.remat_policy).
+        u = (gamma[None] @ w32)[0]  # [qk_out], token-independent
+        const = (beta[None] @ w32)[0] + self.proj_q.bias.float()
         compute_dtype = self.policy.compute_dtype or fq.parts[0][0].dtype
         outs = []
         for pos, pad in fq.parts:
@@ -186,13 +221,14 @@ class Attention(nn.Module):
             pad_ss = sumsq_p - 2.0 * mu * sum_p + float(p32.shape[0]) * mu * mu
             inv_sigma = torch.rsqrt(((dx * dx).sum(-1) + pad_ss) / total_c + _LN_EPS)
             t1 = (x32 * gamma[:cm]).to(compute_dtype) @ w32[:cm].to(compute_dtype)
-            cp = (p32 * gamma[cm:]) @ w32[cm:]  # [qk_out], constant
+            cp = ((p32 * gamma[cm:])[None] @ w32[cm:])[0]  # [qk_out], constant
             q_m = (t1.float() + cp - mu[..., None] * u) * inv_sigma[..., None] + const
             outs.append(q_m.to(compute_dtype))
         return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
     def forward(self, inputs_q, inputs_k, inputs_v, *, attention_mask=None,
-                q_mask=None, kv_mask=None, kv_logical_len: Optional[int] = None):
+                q_mask=None, kv_mask=None, kv_logical_len: Optional[int] = None,
+                dropout_seed: Optional[int] = None):
         if isinstance(inputs_q, FoldedQuery):
             q = self._project_q_folded(inputs_q)
         else:
@@ -205,6 +241,7 @@ class Attention(nn.Module):
         k = k.reshape(batch, kv_time, self.num_heads, self._qk_out // self.num_heads)
         v = v.reshape(batch, kv_time, self.num_heads, self._v_out // self.num_heads)
         pol = self.policy
+        generator = _site(self, self.dropout_prob, dropout_seed, _ATTN_PROBS, q.device)
         result = multihead_attention(
             q, k, v,
             q_mask=q_mask,
@@ -216,18 +253,21 @@ class Attention(nn.Module):
             flash_min_self=pol.flash_min_self,
             flash_long_q_min_kv=pol.flash_long_q_min_kv,
             kv_logical_len=kv_logical_len,
+            dropout_rate=0.0 if generator is None else self.dropout_prob,
+            dropout_generator=generator,
         )
         return self.final(result)
 
 
 class MLP(nn.Module):
-    """Dense -> GELU -> Dense."""
+    """Dense -> GELU -> Dense -> Dropout."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  widening_factor: int = 4, init_scale: float = 1.0,
-                 policy: Policy = DEFAULT, *, generator=None):
+                 policy: Policy = DEFAULT, dropout_prob: float = 0.0, *, generator=None):
         super().__init__()
         g = default_generator(generator)
+        self.dropout_prob = dropout_prob
         kw = dict(init=_variance_scaling(init_scale),
                   compute_dtype=policy.compute_dtype, generator=g)
         self.approximate = "tanh" if policy.gelu_approximate else "none"
@@ -235,8 +275,9 @@ class MLP(nn.Module):
         self.fc2 = Dense(widening_factor * in_channels,
                          out_channels or in_channels, **kw)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x, *, dropout_seed: Optional[int] = None):
+        x = self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        return _dropout(self, x, self.dropout_prob, dropout_seed, _MLP_OUT)
 
 
 class SelfAttention(nn.Module):
@@ -247,29 +288,35 @@ class SelfAttention(nn.Module):
                  dense_init_scale: float = 1.0,
                  qk_channels: Optional[int] = None,
                  v_channels: Optional[int] = None,
-                 policy: Policy = DEFAULT, *, generator=None):
+                 policy: Policy = DEFAULT, dropout_prob: float = 0.0,
+                 dropout_attn_prob: float = 0.0, *, generator=None):
         super().__init__()
         g = default_generator(generator)
         qk_channels = qk_channels or in_channels
         v_channels = v_channels or qk_channels
         self.policy = policy
+        self.dropout_prob = dropout_prob
         self.attention = Attention(
             q_in_channels=in_channels, k_in_channels=in_channels,
             v_in_channels=in_channels, num_heads=num_heads,
             init_scale=att_init_scale, qk_out_channels=qk_channels,
-            v_out_channels=v_channels, policy=policy, generator=g,
+            v_out_channels=v_channels, policy=policy, dropout_prob=dropout_attn_prob,
+            generator=g,
         )
         self.mlp = MLP(in_channels=v_channels, widening_factor=widening_factor,
-                       init_scale=dense_init_scale, policy=policy, generator=g)
+                       init_scale=dense_init_scale, policy=policy,
+                       dropout_prob=dropout_prob, generator=g)
         self.layer_norm1 = LayerNorm(in_channels)
         self.layer_norm2 = LayerNorm(v_channels)
 
-    def forward(self, inputs, *, attention_mask=None, q_mask=None, kv_mask=None):
+    def forward(self, inputs, *, attention_mask=None, q_mask=None, kv_mask=None,
+                dropout_seed: Optional[int] = None):
         compute_dtype = self.policy.compute_dtype or inputs.dtype
         qkv = self.layer_norm1(inputs).to(compute_dtype)
-        x = inputs + self.attention(qkv, qkv, qkv, attention_mask=attention_mask,
-                                    q_mask=q_mask, kv_mask=kv_mask)
-        return x + self.mlp(self.layer_norm2(x).to(compute_dtype))
+        attention = self.attention(qkv, qkv, qkv, attention_mask=attention_mask,
+                                   q_mask=q_mask, kv_mask=kv_mask, dropout_seed=dropout_seed)
+        x = inputs + _dropout(self, attention, self.dropout_prob, dropout_seed, _POST_ATTN)
+        return x + self.mlp(self.layer_norm2(x).to(compute_dtype), dropout_seed=dropout_seed)
 
 
 class CrossAttention(nn.Module):
@@ -281,9 +328,11 @@ class CrossAttention(nn.Module):
                  shape_for_attn: str = "kv", use_query_residual: bool = True,
                  qk_channels: Optional[int] = None,
                  v_channels: Optional[int] = None,
-                 policy: Policy = DEFAULT, *, generator=None):
+                 policy: Policy = DEFAULT, dropout_prob: float = 0.0,
+                 dropout_attn_prob: float = 0.0, *, generator=None):
         super().__init__()
         g = default_generator(generator)
+        self.dropout_prob = dropout_prob
         if qk_channels is None:
             if shape_for_attn == "q":
                 qk_channels = q_in_channels
@@ -301,16 +350,18 @@ class CrossAttention(nn.Module):
             v_in_channels=kv_in_channels, num_heads=num_heads,
             init_scale=attn_init_scale, qk_out_channels=qk_channels,
             v_out_channels=v_channels, output_channels=q_in_channels,
-            policy=policy, generator=g,
+            policy=policy, dropout_prob=dropout_attn_prob, generator=g,
         )
         self.mlp = MLP(in_channels=q_in_channels, widening_factor=widening_factor,
-                       init_scale=mlp_init_scale, policy=policy, generator=g)
+                       init_scale=mlp_init_scale, policy=policy,
+                       dropout_prob=dropout_prob, generator=g)
         self.layer_norm_q = LayerNorm(q_in_channels)
         self.layer_norm_kv = LayerNorm(kv_in_channels)
         self.layer_norm2 = LayerNorm(q_in_channels)
 
     def forward(self, inputs_q, inputs_kv, *, attention_mask=None, q_mask=None,
-                kv_mask=None, kv_logical_len: Optional[int] = None):
+                kv_mask=None, kv_logical_len: Optional[int] = None,
+                dropout_seed: Optional[int] = None):
         folded = isinstance(inputs_q, FoldedQuery)
         compute_dtype = self.policy.compute_dtype or (
             inputs_q.parts[0][0].dtype if folded else inputs_q.dtype)
@@ -328,9 +379,10 @@ class CrossAttention(nn.Module):
             q = self.layer_norm_q(inputs_q).to(compute_dtype)
         attention = self.attention(
             q, kv, kv, attention_mask=attention_mask, q_mask=q_mask,
-            kv_mask=kv_mask, kv_logical_len=kv_logical_len,
+            kv_mask=kv_mask, kv_logical_len=kv_logical_len, dropout_seed=dropout_seed,
         )
+        attention = _dropout(self, attention, self.dropout_prob, dropout_seed, _POST_ATTN)
         # No residual when query and output semantics differ (e.g. queries
         # are positions, outputs are pixels).
         x = inputs_q + attention if self.use_query_residual else attention
-        return x + self.mlp(self.layer_norm2(x).to(compute_dtype))
+        return x + self.mlp(self.layer_norm2(x).to(compute_dtype), dropout_seed=dropout_seed)

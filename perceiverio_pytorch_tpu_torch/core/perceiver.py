@@ -4,24 +4,25 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
   * ``PerceiverEncoder``: trainable latent array, one cross-attend, then
     ``num_blocks`` weight-shared passes over ``num_self_attends_per_block``
     distinct self-attention layers, as a plain Python loop; with ``remat``
-    each pass is rematerialised in the backward
-    (``torch.utils.checkpoint``, the JAX package's ``nn.remat``);
+    each pass is rematerialised in the backward under
+    ``Policy.remat_policy`` (``config.remat_call``: ``torch.utils.checkpoint``,
+    the JAX package's ``nn.remat``); ``dropout_prob`` (and, beyond the JAX
+    encoder, ``dropout_attn_prob``) in train mode, with one seed a block
+    drawn from the caller's ``generator`` before the block's region;
   * ``PerceiverDecoder``: one query cross-attend over the latents and an
     optional final projection ("lecun_normal" or "zeros" init);
   * ``MultimodalPreprocessor``: per-modality preprocess, trainable channel
-    padding, token masking with a trainable mask token per modality
-    (``mask_probs`` of 0 or 1: deterministic), concat in sorted modality
-    order (checkpoint-critical);
+    padding, token masking with a trainable mask token per modality (a
+    ``mask_probs`` of 0 or 1 is deterministic; one strictly between draws a
+    Bernoulli per token from a ``torch.Generator``), concat in sorted
+    modality order (checkpoint-critical);
   * ``PerceiverIO``: the orchestrator, with ``encode`` / ``decode`` /
     ``decoder_query``.  A bare module is wrapped under the ``"__default"``
     modality, as in the reference.  Under ``Policy.fold_query_pad`` the
     decoder query goes out as a ``FoldedQuery`` (per modality, its position
     features and its raw pad vector), never as the padded concat.
 
-Not ported yet: layer scan, pipelining, selective remat
-(``Policy.remat_policy``), input sharding, and token masking with a
-probability strictly between 0 and 1 (it needs random draws: multimodal
-training).
+Not ported yet: layer scan, pipelining and input sharding.
 """
 
 from __future__ import annotations
@@ -31,9 +32,8 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
+from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy, remat_call
 from perceiverio_pytorch_tpu_torch.core import position_encoding
 from perceiverio_pytorch_tpu_torch.core.attention import (
     CrossAttention,
@@ -42,6 +42,7 @@ from perceiverio_pytorch_tpu_torch.core.attention import (
     SelfAttention,
     zeros_,
 )
+from perceiverio_pytorch_tpu_torch.ops.attention_dense import keep_mask, mix_seed
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
     lecun_normal_,
@@ -70,26 +71,36 @@ def restructure(modality_sizes: Mapping[str, int], inputs: torch.Tensor
     return outputs
 
 
+def draw_seeds(generator: torch.Generator, n: int):
+    """``n`` dropout seeds drawn from ``generator`` (one read from its device
+    when it is a card's)."""
+    return torch.randint(0, 2**62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
 class _SelfAttendStack(nn.ModuleList):
     """One block: ``num_self_attends`` distinct self-attention layers,
     children "0".."N-1" (the reference's state_dict names)."""
 
     def __init__(self, num_self_attends: int, in_channels: int, num_heads: int,
                  qk_channels: Optional[int], v_channels: Optional[int],
-                 widening_factor: int, policy: Policy, *, generator):
+                 widening_factor: int, policy: Policy, dropout_prob: float = 0.0,
+                 dropout_attn_prob: float = 0.0, *, generator):
         super().__init__(
             SelfAttention(
                 in_channels=in_channels, num_heads=num_heads,
                 qk_channels=qk_channels, v_channels=v_channels,
                 widening_factor=widening_factor, policy=policy,
+                dropout_prob=dropout_prob, dropout_attn_prob=dropout_attn_prob,
                 generator=generator,
             )
             for _ in range(num_self_attends)
         )
 
-    def forward(self, latents):
-        for layer in self:
-            latents = layer(latents)
+    def forward(self, latents, dropout_seed: Optional[int] = None):
+        for i, layer in enumerate(self):
+            seed = None if dropout_seed is None else mix_seed(dropout_seed, i)
+            latents = layer(latents, dropout_seed=seed)
         return latents
 
 
@@ -114,6 +125,8 @@ class PerceiverEncoder(nn.Module):
         use_query_residual: bool = True,
         policy: Policy = DEFAULT,
         remat: bool = False,
+        dropout_prob: float = 0.0,
+        dropout_attn_prob: float = 0.0,
         *,
         generator=None,
     ):
@@ -130,6 +143,8 @@ class PerceiverEncoder(nn.Module):
         # Rematerialise the self-attend stack in the backward: one more
         # forward of the stack in FLOPs, O(1) instead of O(depth) activations.
         self.remat = remat
+        self.policy = policy
+        self.has_dropout = dropout_prob > 0.0 or dropout_attn_prob > 0.0
         self.latent_pos_enc = position_encoding.TrainablePositionEncoding(
             index_dim=num_latents, num_channels=num_latent_channels,
             init_scale=latent_pos_enc_init_scale, generator=g,
@@ -140,26 +155,38 @@ class PerceiverEncoder(nn.Module):
             widening_factor=cross_attend_widening_factor,
             shape_for_attn=cross_attention_shape_for_attn,
             qk_channels=qk_channels, v_channels=v_channels,
-            use_query_residual=use_query_residual, policy=policy, generator=g,
+            use_query_residual=use_query_residual, policy=policy,
+            dropout_prob=dropout_prob, dropout_attn_prob=dropout_attn_prob, generator=g,
         )
         self.self_attends = _SelfAttendStack(
             num_self_attends_per_block, num_latent_channels,
             num_self_attend_heads, qk_channels, v_channels,
-            self_attend_widening_factor, policy, generator=g,
+            self_attend_widening_factor, policy, dropout_prob, dropout_attn_prob,
+            generator=g,
         )
 
     def latents(self, inputs) -> torch.Tensor:
         """Initial latent array for the cross-attend: [B, N_lat, C_lat]."""
         return self.latent_pos_enc(inputs.shape[0])
 
-    def forward(self, inputs, latents, *, input_mask=None, kv_logical_len=None):
+    def forward(self, inputs, latents, *, input_mask=None, kv_logical_len=None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout seeds (one for the cross-attend,
+        one a block, before the block's checkpointed region); it is required
+        in train mode when a dropout rate is above 0."""
+        seeds = [None] * (1 + self.num_blocks)
+        if self.training and self.has_dropout:
+            if generator is None:
+                raise ValueError("PerceiverEncoder has dropout in train mode: pass a"
+                                 " torch.Generator (generator=...)")
+            seeds = draw_seeds(generator, 1 + self.num_blocks)
         latents = self.cross_attend(latents, inputs, kv_mask=input_mask,
-                                    kv_logical_len=kv_logical_len)
-        for _ in range(self.num_blocks):  # weight-shared blocks
+                                    kv_logical_len=kv_logical_len, dropout_seed=seeds[0])
+        for seed in seeds[1:]:  # weight-shared blocks
             if self.remat and torch.is_grad_enabled():
-                latents = checkpoint(self.self_attends, latents, use_reentrant=False)
+                latents = remat_call(self.policy, self.self_attends, latents, seed)
             else:
-                latents = self.self_attends(latents)
+                latents = self.self_attends(latents, seed)
         return latents
 
 
@@ -222,11 +249,8 @@ class MultimodalPreprocessor(nn.Module):
         generator=None,
     ):
         super().__init__()
-        if mask_probs is not None and any(0.0 < p < 1.0 for p in mask_probs.values()):
-            raise NotImplementedError(
-                f"mask_probs {dict(mask_probs)}: a probability strictly between 0 and 1"
-                " needs random draws, which come with multimodal training (ROADMAP.md)"
-            )
+        if mask_probs is not None and not all(0.0 <= p <= 1.0 for p in mask_probs.values()):
+            raise ValueError(f"mask_probs {dict(mask_probs)}: each must lie in [0, 1]")
         if (input_preprocessors is None) == (input_channels is None):
             raise ValueError(
                 "exactly one of input_preprocessors and input_channels is required"
@@ -239,9 +263,14 @@ class MultimodalPreprocessor(nn.Module):
             channels = dict(input_channels)
         self._common_channels = max(channels.values()) + min_padding_size
         g = default_generator(generator)
-        # Masking replaces every token of a modality with probability 1 by
-        # its mask token, and none with probability 0.
+        # Masking replaces each token of a modality by its mask token with
+        # the modality's probability: all with 1, none with 0, else a
+        # Bernoulli draw per token from the forward's generator or, without
+        # one, from this constructor's.
         self.mask_probs = None if mask_probs is None else dict(mask_probs)
+        self._mask_generator = (
+            g if self.mask_probs and any(0.0 < p < 1.0 for p in self.mask_probs.values())
+            else None)
         if mask_probs is not None:
             self.mask_tokens = nn.ModuleDict({
                 m: position_encoding.TrainablePositionEncoding(
@@ -262,7 +291,8 @@ class MultimodalPreprocessor(nn.Module):
     def n_output_channels(self) -> int:
         return self._common_channels
 
-    def forward(self, inputs: Mapping[str, torch.Tensor], *, pos=None):
+    def forward(self, inputs: Mapping[str, torch.Tensor], *, pos=None,
+                generator: Optional[torch.Generator] = None):
         if self._preprocessors is None:
             outputs = dict(inputs)
             inputs_without_pos = dict(inputs)
@@ -283,10 +313,17 @@ class MultimodalPreprocessor(nn.Module):
 
         if self.mask_probs is not None:
             for modality, output in outputs.items():
-                if self.mask_probs[modality] <= 0.0:
+                prob = self.mask_probs[modality]
+                if prob <= 0.0:
                     continue
                 token = self.mask_tokens[modality](output.shape[0])
-                mask = output.new_ones((output.shape[0], output.shape[1], 1))
+                shape = (output.shape[0], output.shape[1], 1)
+                if prob >= 1.0:
+                    mask = output.new_ones(shape)
+                else:
+                    draws = generator if generator is not None else self._mask_generator
+                    mask = keep_mask(shape, prob, draws, draws.device)
+                    mask = mask.to(device=output.device, dtype=output.dtype)
                 outputs[modality] = (1.0 - mask) * output + mask * token
         return _concat_sorted(outputs, 1), modality_sizes, inputs_without_pos
 
@@ -381,20 +418,23 @@ class PerceiverIO(nn.Module):
         return self._query_channels
 
     def forward(self, inputs, *, subsampled_output_points=None, pos=None,
-                input_mask=None, query_mask=None):
-        latents, state = self.encode(inputs, pos=pos, input_mask=input_mask)
+                input_mask=None, query_mask=None, generator=None):
+        latents, state = self.encode(inputs, pos=pos, input_mask=input_mask,
+                                     generator=generator)
         return self.decode(latents, state,
                            subsampled_output_points=subsampled_output_points,
                            query_mask=query_mask)
 
-    def encode(self, inputs, *, pos=None, input_mask=None):
-        """Preprocess + encode once; returns (latents, preprocess state)."""
+    def encode(self, inputs, *, pos=None, input_mask=None, generator=None):
+        """Preprocess + encode once; returns (latents, preprocess state).
+        ``generator`` draws the token masks and the encoder's dropout seeds,
+        outside every checkpointed region."""
         if not isinstance(inputs, Mapping):
             inputs = {"__default": inputs}
         flat_inputs, modality_sizes, inputs_without_pos = self._multi_preprocessor(
-            inputs, pos=pos)
+            inputs, pos=pos, generator=generator)
         latents = self._encoder(flat_inputs, self._encoder.latents(flat_inputs),
-                                input_mask=input_mask)
+                                input_mask=input_mask, generator=generator)
         return latents, (flat_inputs, modality_sizes, inputs_without_pos)
 
     def decode(self, latents, preprocess_state, *, subsampled_output_points=None,

@@ -24,13 +24,15 @@ masked with seed 1.  ``--checkpoint-dir`` saves the train state every
 model and trains rank-R adapters on its attention and MLP projections
 instead (``training.lora``: the ``LoRA`` module is the train state's model,
 the loss and the evaluation run the frozen model with the adapters merged).
+``--steps-per-call K`` runs K updates per call of the Trainer's step
+(``Trainer(steps_per_call=K)``: K eager steps, the same updates).
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_mlm --steps 50 [--full-scale] \
-        [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]] [--lora R]
+        [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]] [--lora R] \
+        [--steps-per-call K]
 
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp``,
-``--steps-per-call`` and ``--quant``.
+``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp`` and ``--quant``.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def text_datasets(text_file, seq_len, batch_size, mask_rate=0.15):
 def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
           metrics_path="./mlm_metrics.jsonl", log_every=10, text_file=None, mask_rate=0.15,
           checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0,
-          lora_rank=0):
+          lora_rank=0, steps_per_call=1):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``, where
     ``batches(start_step)`` yields batches on ``device`` (with ``prefetch``
@@ -113,7 +115,7 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
     is given.  Weights are drawn from ``seed``.  With ``lora_rank`` the
     state's model is the ``LoRA`` adapters of the frozen language model
     (their ``a`` drawn from ``seed + 1``), which the loss and evaluation
-    functions take."""
+    functions take.  ``steps_per_call`` goes to the Trainer."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     if full_scale:
@@ -157,6 +159,7 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
         checkpoint_every=checkpoint_every,
         checkpoint_async=checkpoint_async,
         prefetch=prefetch,
+        steps_per_call=steps_per_call,
     )
     eval_batches = [on_device(b) for b in epoch_batches(held_out, batch_size)]
 
@@ -177,11 +180,13 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
 
 def main(steps=50, batch_size=8, full_scale=False, *, device="cuda",
          metrics_path="./mlm_metrics.jsonl", text_file=None, mask_rate=0.15,
-         checkpoint_dir=None, resume=False, async_checkpoint=False, lora_rank=0):
+         checkpoint_dir=None, resume=False, async_checkpoint=False, lora_rank=0,
+         steps_per_call=1):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
         text_file=text_file, mask_rate=mask_rate, checkpoint_dir=checkpoint_dir,
-        checkpoint_async=async_checkpoint, prefetch=2, lora_rank=lora_rank)
+        checkpoint_async=async_checkpoint, prefetch=2, lora_rank=lora_rank,
+        steps_per_call=steps_per_call)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -206,9 +211,12 @@ if __name__ == "__main__":
     parser.add_argument("--lora", type=int, default=0, metavar="RANK",
                         help="freeze the model; train rank-R LoRA adapters on the attention"
                              " and MLP projections instead")
+    parser.add_argument("--steps-per-call", type=int, default=1,
+                        help="updates per call of the Trainer's step")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
          text_file=args.text_file, mask_rate=args.mask_rate,
          checkpoint_dir=args.checkpoint_dir, resume=args.resume,
-         async_checkpoint=args.async_checkpoint, lora_rank=args.lora)
+         async_checkpoint=args.async_checkpoint, lora_rank=args.lora,
+         steps_per_call=args.steps_per_call)

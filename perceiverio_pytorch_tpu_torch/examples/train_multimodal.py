@@ -10,9 +10,14 @@ The default configuration is tiny (seconds on a CPU).  ``--full-scale``
 trains the published Kinetics configuration (16 frames of 224x224, 30,720
 audio samples, 700 classes, 784 x 512 latents, 8 self-attends of 8 heads)
 with remat (the encoder's self-attend stack and each of the 16 chunks'
-decode rematerialised in the backward) and the bf16 ``PERFORMANCE``
-policy: the encoder's cross-attend then runs the hand-written flash
-kernels forward (K1) and backward (K2, K3) at head width 704.
+decode rematerialised in the backward) under ``remat_policy=
+"dots_saveable"``, as the JAX example sets it (the matrix products' outputs
+kept, the rest recomputed), and the bf16 ``PERFORMANCE`` policy: the
+encoder's cross-attend then runs the hand-written flash kernels forward
+(K1) and backward (K2, K3) at head width 704.  ``--remat-policy`` takes
+another ``jax.checkpoint_policies`` name the port knows
+(``config.REMAT_POLICIES``; "nothing_saveable" is full remat); the tiny
+configuration rematerialises in full unless given one.
 
 ``--data-dir`` trains on real clips instead (``VideoClipDataset``:
 ``.avi``/``.mp4`` with ``.wav`` sidecars, labels from the directory names or
@@ -22,22 +27,23 @@ scaled on the device).  ``--checkpoint-dir`` saves the train state every
 goes on from the newest save there.
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_multimodal --steps 20 \
-        [--full-scale] [--data-dir DIR [--labels-file F]] [--checkpoint-dir DIR [--resume]]
+        [--full-scale] [--remat-policy NAME] [--data-dir DIR [--labels-file F]] \
+        [--checkpoint-dir DIR [--resume]]
 
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: the JAX example's selective remat
-policy (the port rematerialises in full).
+``main(device="cpu")``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from perceiverio_pytorch_tpu_torch.config import PERFORMANCE
+from perceiverio_pytorch_tpu_torch.config import DEFAULT, PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
 from perceiverio_pytorch_tpu_torch.models.multimodal import MultiModalPerceiver
 from perceiverio_pytorch_tpu_torch.training import (
@@ -55,6 +61,7 @@ TINY = dict(img_size=(16, 16), num_frames=2, num_classes=11, audio_samples_per_f
             num_latents=8, num_latent_channels=512)
 WEIGHTS = {"image": 1.0, "audio": 1.0, "label": 0.01}
 FULL_SCALE_CHUNKS = 16
+FULL_SCALE_REMAT_POLICY = "dots_saveable"  # the JAX example's
 
 
 def synthetic_clips(n: int, num_frames, hw, n_audio, num_classes, seed=0):
@@ -84,17 +91,22 @@ def loss_fn(model, video, audio, labels, n_chunks: int = 4):
 
 def setup(steps=20, batch_size=1, n_chunks=None, full_scale=False, *, device="cuda",
           metrics_path="./multimodal_metrics.jsonl", log_every=5, lr=None, data_dir=None,
-          labels_file=None, checkpoint_dir=None, checkpoint_every=None, prefetch=0, seed=0):
+          labels_file=None, checkpoint_dir=None, checkpoint_every=None, prefetch=0, seed=0,
+          remat_policy=None):
     """The example's trainer, initial state and batch stream:
     ``(trainer, state, batches)``, where ``batches(start_step)`` yields
     batches on ``device`` (with ``prefetch`` > 0, host batches that the
     Trainer copies there ahead of the step).  ``checkpoint_every`` defaults
     to ``steps // 2`` when ``checkpoint_dir`` is given.  Weights are drawn
-    from ``seed``."""
+    from ``seed``.  ``remat_policy`` defaults to "dots_saveable" at full
+    scale and to full remat in the tiny configuration."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
+    if remat_policy is None and full_scale:
+        remat_policy = FULL_SCALE_REMAT_POLICY
     if full_scale:
-        model = MultiModalPerceiver(policy=PERFORMANCE, remat=True, device=device,
+        policy = dataclasses.replace(PERFORMANCE, remat_policy=remat_policy)
+        model = MultiModalPerceiver(policy=policy, remat=True, device=device,
                                     generator=generator)
         if n_chunks not in (None, FULL_SCALE_CHUNKS):
             print(f"--full-scale forces n_chunks={FULL_SCALE_CHUNKS} (requested {n_chunks})")
@@ -102,7 +114,9 @@ def setup(steps=20, batch_size=1, n_chunks=None, full_scale=False, *, device="cu
         n_audio = 16 * (48000 // 25)
     else:
         n_chunks = 4 if n_chunks is None else n_chunks
-        model = MultiModalPerceiver(**TINY, remat=True, device=device, generator=generator)
+        model = MultiModalPerceiver(**TINY, policy=dataclasses.replace(
+            DEFAULT, remat_policy=remat_policy), remat=True, device=device,
+            generator=generator)
         num_frames, hw, num_classes = TINY["num_frames"], TINY["img_size"], TINY["num_classes"]
         n_audio = num_frames * TINY["audio_samples_per_frame"]
     dataset = None
@@ -148,11 +162,12 @@ def setup(steps=20, batch_size=1, n_chunks=None, full_scale=False, *, device="cu
 
 def main(steps=20, batch_size=1, n_chunks=None, full_scale=False, *, device="cuda",
          metrics_path="./multimodal_metrics.jsonl", lr=None, data_dir=None, labels_file=None,
-         checkpoint_dir=None, checkpoint_every=None, resume=False):
+         checkpoint_dir=None, checkpoint_every=None, resume=False, remat_policy=None):
     trainer, state, batches = setup(steps, batch_size, n_chunks, full_scale, device=device,
                                     metrics_path=metrics_path, lr=lr, data_dir=data_dir,
                                     labels_file=labels_file, checkpoint_dir=checkpoint_dir,
-                                    checkpoint_every=checkpoint_every, prefetch=2)
+                                    checkpoint_every=checkpoint_every, prefetch=2,
+                                    remat_policy=remat_policy)
     state = trainer.fit(state, batches, num_steps=steps, resume=resume)
     print(f"finished at step {state.step}")
     return state
@@ -177,9 +192,13 @@ if __name__ == "__main__":
                         help="steps between checkpoints (default steps // 2)")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest checkpoint in --checkpoint-dir")
+    parser.add_argument("--remat-policy", default=None,
+                        help="what remat keeps for the backward (default: dots_saveable"
+                             " full-scale, full remat tiny)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, args.n_chunks, full_scale=args.full_scale,
          device=args.device, lr=args.lr, data_dir=args.data_dir,
          labels_file=args.labels_file, checkpoint_dir=args.checkpoint_dir,
-         checkpoint_every=args.checkpoint_every, resume=args.resume)
+         checkpoint_every=args.checkpoint_every, resume=args.resume,
+         remat_policy=args.remat_policy)

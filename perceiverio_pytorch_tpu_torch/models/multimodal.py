@@ -21,9 +21,10 @@ With ``remat`` (training at the published width), the encoder's
 self-attend stack and each chunk's decode are rematerialised in the backward
 (``torch.utils.checkpoint``), as the JAX model's ``nn.remat`` does; the
 encoder's cross-attend stays outside every checkpoint, so its flash kernel
-runs once a step.  The port rematerialises in full where the JAX package's
-full-scale example keeps the dot products (``Policy.remat_policy`` raises in
-the port).
+runs once a step.  ``Policy.remat_policy`` says what both regions keep for
+the backward (``config.remat_call``): the full-scale training example sets
+``"dots_saveable"``, as the JAX one does, which keeps the matrix products'
+outputs and recomputes the rest.
 
 Left out, each raising: ``chunk_mesh`` (chunk-parallel decoding across
 cards) and the int8 policies (``Policy.quant`` raises in the port).
@@ -39,9 +40,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
+from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy, remat_call
 from perceiverio_pytorch_tpu_torch.core.perceiver import PerceiverIO
 from perceiverio_pytorch_tpu_torch.core.position_encoding import PosEncodingType
 from perceiverio_pytorch_tpu_torch.core.queries import FourierQuery, TrainableQuery
@@ -216,9 +216,9 @@ class MultiModalPerceiver(nn.Module):
             if self.remat and torch.is_grad_enabled():
                 # Recompute the chunk's decode in the backward: without it
                 # every chunk's decoder activations stay alive together.
-                outs.append(checkpoint(self.perceiver.decode, latents, state,
-                                       subsampled_output_points=subsampling,
-                                       use_reentrant=False))
+                outs.append(remat_call(self.perceiver.policy, self.perceiver.decode,
+                                       latents, state,
+                                       subsampled_output_points=subsampling))
             else:
                 outs.append(self.perceiver.decode(latents, state,
                                                   subsampled_output_points=subsampling))

@@ -13,8 +13,9 @@ rule and thresholds.  Every attention site of a Perceiver goes through
 
 Masks travel in factored [B,Tq] x [B,Tk] form; a pre-built rank-3
 ``attention_mask`` (or a bias, a ``dropout_rate`` above 0, or
-``return_matrix``) forces the dense path.  Attention dropout itself is not
-ported yet: a site with ``dropout_rate > 0`` raises ``NotImplementedError``.
+``return_matrix``) forces the dense path, as in the JAX package: a site with
+attention dropout runs dense on the card too, its mask drawn from the
+caller's ``dropout_generator``.
 """
 
 from __future__ import annotations
@@ -112,6 +113,7 @@ def multihead_attention(
     flash_min_self: int = 2048,
     flash_long_q_min_kv: int = 1024,
     dropout_rate: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
     return_matrix: bool = False,
     softmax_scale: Optional[float] = None,
     kv_logical_len: Optional[int] = None,
@@ -123,8 +125,8 @@ def multihead_attention(
       q_mask: optional [B,Tq] bool; invalid query rows are wiped to zero.
       kv_mask: optional [B,Tk] bool; invalid keys are excluded from softmax.
       attention_mask: optional pre-built [B,Tq,Tk] mask (forces dense).
-      dropout_rate: post-softmax dropout; above 0 it forces the dense
-        path, which has no dropout yet and raises.
+      dropout_rate: post-softmax dropout; above 0 it forces the dense path
+        and needs ``dropout_generator``, which draws the mask.
       kv_logical_len: keys at or beyond this index are masked.
 
     Returns:
@@ -150,9 +152,6 @@ def multihead_attention(
             softmax_scale=softmax_scale, kv_logical_len=kv_logical_len,
         )
 
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet")
-
     if kv_logical_len is not None and kv_logical_len < kv_len:
         tail = torch.arange(kv_len, device=k.device) < kv_logical_len
         tail = tail[None, :].expand(k.shape[0], kv_len)
@@ -177,4 +176,6 @@ def multihead_attention(
         softmax_dtype=softmax_dtype,
         return_matrix=return_matrix,
         softmax_scale=softmax_scale,
+        dropout_rate=dropout_rate,
+        dropout_generator=dropout_generator,
     )

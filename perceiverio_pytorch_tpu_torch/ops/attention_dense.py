@@ -5,7 +5,15 @@ same numerical contract:
   * the scale ``1/sqrt(qk_head_dim)`` is applied AFTER the QK^T matmul;
   * masked logits are filled with -1e30 (-1e4 in fp16);
   * the softmax runs in ``softmax_dtype`` and is cast back to v's dtype;
+  * post-softmax dropout keeps an entry with probability ``1 - rate`` and
+    scales it by ``1 / (1 - rate)`` (``where(keep, p / (1 - rate), 0)``);
   * query rows whose mask is all false are wiped to exactly 0.
+
+``dropout`` is the same rule on any tensor (flax ``nn.Dropout``).  Its
+draws come from a ``torch.Generator``: ``site_generator`` makes one from a
+seed and a site index, so that a dropout site inside a checkpointed region
+draws the same mask when the backward recomputes it.  The bits cannot be
+JAX's; ``keep_mask`` is the one place they are drawn.
 """
 
 from __future__ import annotations
@@ -23,6 +31,39 @@ def make_cross_attention_mask(
     return query_mask[:, :, None].bool() & kv_mask[:, None, :].bool()
 
 
+def mix_seed(seed: int, index: int) -> int:
+    """A seed for sub-site ``index`` of the site seeded with ``seed``."""
+    return (seed * 1_000_003 + index) % 2**63
+
+
+def site_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of dropout sub-site ``index`` of a site seeded with
+    ``seed``, on ``device``: the same seed gives the same draws."""
+    return torch.Generator(device=device).manual_seed(mix_seed(seed, index))
+
+
+def keep_mask(shape, keep_prob: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """Bernoulli(``keep_prob``) booleans: uniform draws below ``keep_prob``,
+    ``jax.random.bernoulli``'s rule."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``where(keep, x / (1 - rate), 0)`` with ``keep`` drawn from
+    ``generator``; ``x`` itself when ``rate`` is 0."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("a generator is required when the dropout rate is above 0")
+    if rate >= 1.0:  # flax's edge case: no 0 / 0 in the gradient
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = keep_mask(x.shape, keep_prob, generator, x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _mask_fill_value(dtype: torch.dtype) -> float:
     return 1e4 if dtype == torch.float16 else 1e30
 
@@ -37,6 +78,8 @@ def attend_dense(
     softmax_dtype: torch.dtype = torch.float32,
     return_matrix: bool = False,
     softmax_scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
 ):
     """Multi-head attention.
 
@@ -47,6 +90,8 @@ def attend_dense(
         the raw (pre-scale) logits.
       softmax_dtype: accumulation dtype of the softmax.
       softmax_scale: logit scale; defaults to 1/sqrt(Dqk).
+      dropout_rate / dropout_generator: post-softmax dropout, drawn from
+        the generator (required when the rate is above 0).
 
     Returns:
       [B, Tq, H*Dv] (and the [B, H, Tq, Tk] matrix if return_matrix).
@@ -68,6 +113,7 @@ def attend_dense(
         )
 
     normalized = torch.softmax(attention.to(softmax_dtype), dim=-1).to(v.dtype)
+    normalized = dropout(normalized, dropout_rate, dropout_generator)
     summed = torch.einsum("bhts,bshd->bthd", normalized, v)
     summed = summed.reshape(batch, q_len, num_heads * v_head_dim)
 

@@ -510,7 +510,7 @@ def _profile_train_step(label, trainer, state, batch, top):
             elif phase == "backward":
                 loss.backward()
             else:
-                trainer.tx.update(opt, state.step)
+                trainer.tx.update(opt)
                 state.step += 1
             torch.cuda.synchronize()
             parts.append(time.perf_counter() - t0)

@@ -1,7 +1,10 @@
 """Training stack of the PyTorch/CUDA port: the losses of the four task
-models, AdamW with its schedules and clip, the train step with its EMA, the
-Trainer with its evaluation, checkpoints and resume, LoRA adapters, the
-file-backed datasets, and the host-side batching with device prefetch."""
+models, optax's optimizer chain (AdamW, Adafactor, Lion, SGD; schedules,
+clip, weight-decay and trainable masks, accumulation, skipping non-finite
+updates), the train step with its EMA and its multi-step form, the Trainer
+with its evaluation, checkpoints, resume and ``steps_per_call``, LoRA
+adapters, the file-backed datasets, and the host-side batching with device
+prefetch."""
 
 from perceiverio_pytorch_tpu_torch.training.checkpoint import (  # noqa: F401
     AsyncCheckpointWriter,
@@ -47,13 +50,16 @@ from perceiverio_pytorch_tpu_torch.training.losses import (  # noqa: F401
     multimodal_autoencode_loss,
 )
 from perceiverio_pytorch_tpu_torch.training.optim import (  # noqa: F401
+    OptaxChain,
     Optimizer,
     build_optimizer,
     build_schedule,
     global_norm,
+    non_1d_weight_decay_mask,
 )
 from perceiverio_pytorch_tpu_torch.training.trainer import (  # noqa: F401
     TrainState,
     create_train_state,
+    make_multi_step,
     make_train_step,
 )

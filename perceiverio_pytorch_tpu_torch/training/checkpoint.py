@@ -12,8 +12,10 @@ a save counts as finished only once its marker exists, as Orbax's
   (BatchNorm's running averages and ``num_batches_tracked`` included; the
   non-persistent Fourier tables are derived, not saved), the optimizer's
   ``state_dict``, ``step`` and, when the state keeps one, the EMA of the
-  parameters.  The learning rate is a function of ``step``
-  (``training/optim.py``), so ``step`` restores it.
+  parameters.  The optimizer's ``state_dict`` carries its own counts
+  (``training/optim.py``: the inner count the schedule reads, the
+  accumulation window and its running mean, the non-finite counters), so a
+  resume inside an accumulation window goes on exactly.
 - ``AsyncCheckpointWriter``: the same saves written by a thread while the
   training goes on.
 - ``latest_checkpoint``/``prune_checkpoints``: the Trainer's

@@ -5,10 +5,10 @@ Counterpart of ``Trainer`` and ``MetricsLogger`` in
 over a batch stream, its evaluation (``eval_fn``, ``eval_every``,
 ``Trainer.evaluate``), periodic train-state checkpoints (synchronous or by
 a thread, pruned to the newest N), ``fit(resume=True)``, device prefetch,
-the SIGTERM guard, an EMA of the parameters (``ema_decay``) and the logged
-learning rate (``lr_schedule``).  The JAX Trainer's mesh and FSDP and
-multi-step dispatch are not ported: setting any of them raises
-``NotImplementedError``.
+the SIGTERM guard, an EMA of the parameters (``ema_decay``), the logged
+learning rate (``lr_schedule``) and ``steps_per_call`` (k updates a call,
+here k eager steps).  The JAX Trainer's mesh and FSDP are not ported:
+setting either raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from perceiverio_pytorch_tpu_torch.training.trainer import (
     TrainState,
     create_train_state,
     ema_weights,
+    make_multi_step,
     make_train_step,
 )
 
@@ -93,7 +94,21 @@ class _PreemptionGuard:
 
 # Trainer arguments of the JAX package that are not ported, with the value
 # that means "off".
-_NOT_PORTED = {"mesh": None, "fsdp": False, "steps_per_call": 1}
+_NOT_PORTED = {"mesh": None, "fsdp": False}
+
+
+def _groups(batches, size: int):
+    """Consecutive batch tuples in lists of ``size`` (a short last one at its
+    own length): ``make_multi_step``'s input, the JAX ``_stack_groups``
+    without the stacking."""
+    group = []
+    for batch in batches:
+        group.append(batch if isinstance(batch, (tuple, list)) else (batch,))
+        if len(group) == size:
+            yield group
+            group = []
+    if group:
+        yield group
 
 
 class Trainer:
@@ -134,12 +149,20 @@ class Trainer:
         parameters in ``state.ema_params``, updated after each optimizer
         step; ``evaluate`` uses it by default and the checkpoints carry it.
       lr_schedule: ``tx.schedule``, to log the learning rate of each logged
-        step as ``lr`` (``tx.schedule(step - 1)``, the rate the logged update
-        took), outside the ``steps_per_sec`` window.  The JAX Trainer takes
-        the schedule because optax hides it; here ``tx`` carries it, so any
-        other callable raises ValueError: the logged rate is the applied one.
-      mesh, fsdp, steps_per_call: not ported; anything but the default
-        raises NotImplementedError.
+        step as ``lr`` (``tx.logged_lr``: the rate of the last update the
+        optimizer applied, read from its own count, or inside an
+        accumulation window the rate the window's update takes), outside the
+        ``steps_per_sec`` window.  The JAX Trainer takes the schedule because
+        optax hides it; here ``tx`` carries it, so any other callable raises
+        ValueError: the logged rate is the applied one.
+      steps_per_call: run this many updates per call of the step
+        (``make_multi_step``: k eager steps, the same updates as k calls of
+        the single step); consecutive batches are grouped k at a time.  Log,
+        evaluation and checkpoint cadences fire when the step count crosses
+        them, and a run overshoots ``num_steps`` by at most k - 1; the
+        logged loss is the group's last.  Refused with ``log_grad_norm``.
+      mesh, fsdp: not ported; anything but the default raises
+        NotImplementedError.
     """
 
     def __init__(self, loss_fn: Callable, tx: Optimizer, *,
@@ -149,7 +172,8 @@ class Trainer:
                  checkpoint_every: int = 0, checkpoint_keep: int = 0,
                  checkpoint_final: bool = False, checkpoint_async: bool = False,
                  prefetch: int = 0, ema_decay: Optional[float] = None,
-                 lr_schedule: Optional[Callable[[int], float]] = None, **not_ported):
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 steps_per_call: int = 1, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"Trainer got an unexpected argument {name!r}")
@@ -173,6 +197,10 @@ class Trainer:
         if lr_schedule is not None and lr_schedule is not tx.schedule:
             raise ValueError("lr_schedule must be tx.schedule, the schedule the updates apply")
         self.lr_schedule = lr_schedule
+        self.steps_per_call = max(int(steps_per_call), 1)
+        if log_grad_norm and self.steps_per_call > 1:
+            raise ValueError("log_grad_norm is not available with steps_per_call > 1"
+                             " (the multi-step call returns per-step losses only)")
         self._async_writer: Optional[ckpt.AsyncCheckpointWriter] = None
 
     def init_state(self, model) -> TrainState:
@@ -259,22 +287,30 @@ class Trainer:
             batches = batches(state.step)
         if self.prefetch > 0:
             device = next(iter(state.model.parameters())).device
-            batches = prefetch_to_device(batches, self.prefetch, device=device)
-        step_fn = make_train_step(self.loss_fn, self.tx, with_metrics=self.log_grad_norm,
-                                  ema_decay=self.ema_decay)
+            batches = prefetched = prefetch_to_device(batches, self.prefetch, device=device)
+        if self.steps_per_call > 1:
+            step_fn = make_multi_step(self.loss_fn, self.tx, ema_decay=self.ema_decay)
+            batches = _groups(batches, self.steps_per_call)
+        else:
+            step_fn = make_train_step(self.loss_fn, self.tx,
+                                      with_metrics=self.log_grad_norm,
+                                      ema_decay=self.ema_decay)
         try:
             with _PreemptionGuard() as guard:
                 return self._fit_loop(state, batches, num_steps, step_fn, eval_batches,
                                       guard)
         finally:
             if self.prefetch > 0:
-                batches.close()  # stops the prefetch thread
+                prefetched.close()  # stops the prefetch thread
             if self._async_writer is not None:
                 # The caller may exit or restore right after fit().
                 writer, self._async_writer = self._async_writer, None
                 writer.close()
 
     def _fit_loop(self, state, batches: Iterable, num_steps, step_fn, eval_batches, guard):
+        def crossed(step_num, prev_step, every):
+            return bool(every) and step_num // every > prev_step // every
+
         t0 = time.perf_counter()
         window_start, window_step = t0, state.step
         start_step = step_num = state.step
@@ -282,11 +318,16 @@ class Trainer:
         for batch in batches:
             if num_steps is not None and state.step >= num_steps:
                 break
-            if not isinstance(batch, (tuple, list)):
-                batch = (batch,)
-            state, loss = step_fn(state, *batch)
+            prev_step = state.step
+            if self.steps_per_call > 1:
+                state, loss = step_fn(state, batch)
+                loss = loss[-1]
+            else:
+                if not isinstance(batch, (tuple, list)):
+                    batch = (batch,)
+                state, loss = step_fn(state, *batch)
             step_num = state.step
-            if (self.log_every and step_num % self.log_every == 0) or (
+            if crossed(step_num, prev_step, self.log_every) or (
                 num_steps is not None and step_num >= num_steps
             ):
                 extra = {}
@@ -297,8 +338,7 @@ class Trainer:
                 loss_val = float(loss)  # waits for the step: ends the window
                 now = time.perf_counter()
                 if self.lr_schedule is not None:
-                    # the rate the logged update took (optimizer steps count from 0)
-                    extra["lr"] = round(float(self.tx.schedule(step_num - 1)), 8)
+                    extra["lr"] = round(float(self.tx.logged_lr(state.optimizer)), 8)
                 self.logger.log(
                     step=step_num,
                     loss=loss_val,
@@ -309,14 +349,13 @@ class Trainer:
                 )
                 window_start, window_step = now, step_num
             if (self.eval_fn is not None and eval_batches is not None
-                    and self.eval_every and step_num % self.eval_every == 0):
+                    and crossed(step_num, prev_step, self.eval_every)):
                 ev = self.evaluate(
                     state, eval_batches() if callable(eval_batches) else eval_batches)
                 if not isinstance(ev, dict):
                     ev = {"eval_loss": ev}
                 self.logger.log(step=step_num, **{k: round(v, 6) for k, v in ev.items()})
-            if (self.checkpoint_dir and self.checkpoint_every
-                    and step_num % self.checkpoint_every == 0):
+            if self.checkpoint_dir and crossed(step_num, prev_step, self.checkpoint_every):
                 self._save_checkpoint(state, step_num)
                 last_saved = step_num
             if guard.requested:

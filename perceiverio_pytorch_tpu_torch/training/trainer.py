@@ -1,9 +1,10 @@
-"""The training step: zero-grad, forward, loss, backward, clip, update, EMA.
+"""The training step: zero-grad, forward, loss, backward, the optimizer, EMA.
 
-Counterpart of ``make_train_step`` and the EMA of
+Counterpart of ``make_train_step``, ``make_multi_step`` and the EMA of
 ``perceiverio_pytorch_tpu/training/trainer.py``.  JAX's state is a pure
 pytree; here ``TrainState`` holds the module (whose parameters are updated
-in place), its ``torch.optim.AdamW``, the count of updates taken and, when
+in place), its ``OptaxChain`` (``training/optim.py``, which keeps its own
+counts), the count of steps taken and, when
 built with ``ema_decay``, an exponential moving average of the trainable
 parameters.  Buffers such as the Fourier position tables are not
 parameters, so they get no optimizer state and no average, as the JAX
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -44,8 +45,7 @@ def create_train_state(model: nn.Module, tx: Optimizer,
     ema = None
     if ema_decay is not None:
         ema = {n: p.detach().clone() for n, p in _trainable(model).items()}
-    return TrainState(step=0, model=model, optimizer=tx.create(model.parameters()),
-                      ema_params=ema)
+    return TrainState(step=0, model=model, optimizer=tx.create(model), ema_params=ema)
 
 
 @torch.no_grad()
@@ -97,7 +97,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], tx: Optimizer,
         with torch.enable_grad():
             loss = loss_fn(model, *batch)
         loss.backward()
-        grad_norm = tx.update(opt, state.step)
+        grad_norm = tx.update(opt)
         if ema_decay is not None:
             _ema_update(state, ema_decay)
         state.step += 1
@@ -107,5 +107,26 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], tx: Optimizer,
             return state, {"loss": loss, "grad_norm": grad_norm,
                            "param_norm": global_norm(params)}
         return state, loss
+
+    return step
+
+
+def make_multi_step(loss_fn: Callable[..., torch.Tensor], tx: Optimizer,
+                    ema_decay: Optional[float] = None):
+    """Build ``step(state, batches) -> (state, losses)``: one update per
+    batch tuple of ``batches``, in order, each the step of
+    ``make_train_step`` (EMA included); ``losses`` holds one loss per step.
+
+    The JAX package scans the steps inside one dispatch; here they are that
+    many eager steps, so the result is the same as calling the single step
+    on each batch, bit for bit."""
+    one = make_train_step(loss_fn, tx, ema_decay=ema_decay)
+
+    def step(state: TrainState, batches: Sequence):
+        losses = []
+        for batch in batches:
+            state, loss = one(state, *batch)
+            losses.append(loss)
+        return state, torch.stack(losses)
 
     return step

@@ -70,9 +70,15 @@ def test_attention_path_grid_matches_jax(impl, lengths, dropout_rate, masks, on_
 
 
 def test_dropout_site_raises_on_the_dense_path():
+    """A dropout site takes the dense path, which draws its mask from the
+    caller's generator: without one it raises, as JAX does without
+    ``dropout_rng``."""
     q = torch.zeros(1, 4, 1, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
         port_ops.multihead_attention(q, q, q, impl="flash", dropout_rate=0.1)
+    out = port_ops.multihead_attention(q, q, q, impl="flash", dropout_rate=0.1,
+                                       dropout_generator=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 4, 8)
     out = port_ops.multihead_attention(q, q, q, impl="flash", dropout_rate=0.0)
     assert out.shape == (1, 4, 8)
 
@@ -203,6 +209,12 @@ def test_attention_widths_and_gelu_tanh_match_jax():
      ("layer_scan", "on"), ("remat_policy", "dots_saveable")],
 )
 def test_unported_policy_fields_raise(field, value):
+    if field == "remat_policy":
+        # Ported: the names with a torch meaning are taken; any other raises.
+        assert port_config.Policy(**{field: value}).remat_policy == value
+        with pytest.raises(ValueError, match=value):
+            port_config.Policy(remat_policy="save_only_these_names")
+        return
     with pytest.raises(NotImplementedError):
         port_config.Policy(**{field: value})
 

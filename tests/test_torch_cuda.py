@@ -21,7 +21,9 @@ keys.  The data path on the card: ``prefetch_to_device`` against direct
 copies while the consumer allocates and frees, an async save taken before an
 in-place update, the tiny flow model trained from files, interrupted and
 resumed, against the uninterrupted run, and the tiny multimodal model
-trained from a clip tree.
+trained from a clip tree.  The rest of training: the tiny flow model under
+``dots_saveable`` against full remat, and dropout under remat with a CUDA
+generator.
 """
 
 import dataclasses
@@ -995,3 +997,46 @@ def test_tiny_multimodal_from_clips_on_the_card(cuda, tmp_path):
     assert [x["step"] for x in logged] == [1, 2, 3]
     assert all(np.isfinite(x["loss"]) for x in logged)
     assert latest_checkpoint(str(tmp_path / "ck")).endswith("step_00000003")
+
+
+@pytest.mark.cuda
+def test_tiny_flow_under_dots_saveable_on_the_card(cuda):
+    """The tiny flow model (bf16, remat, every site on the flash kernels)
+    under dots_saveable against full remat: gradients bit for bit, and K1
+    launched again at each self-attend in the backward under both."""
+    grads, launches = {}, {}
+    for name in ("dots_saveable", "nothing_saveable"):
+        policy = dataclasses.replace(config.PERFORMANCE, attn_impl="flash", remat_policy=name)
+        model = FlowPerceiver(**SMALL, policy=policy, remat=True, device="cuda",
+                              generator=torch.Generator().manual_seed(0)).train()
+        img = torch.rand(1, 3, 16, 24, generator=torch.Generator().manual_seed(1)).cuda()
+        before = fa.LAUNCHES
+        flow_endpoint_error(model(img, img.flip(-1)), torch.zeros(1, 2, 16, 24, device="cuda")
+                            ).backward()
+        launches[name] = fa.LAUNCHES - before
+        grads[name] = {n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None}
+    assert launches["dots_saveable"] == launches["nothing_saveable"] == 4 + 2
+    for n, g in grads["nothing_saveable"].items():
+        assert torch.equal(grads["dots_saveable"][n], g), n
+
+
+@pytest.mark.cuda
+def test_encoder_dropout_under_remat_on_the_card(cuda):
+    """Dropout in every site of a small encoder, its masks from a CUDA
+    generator: the gradients with remat equal those without, bit for bit."""
+    from perceiverio_pytorch_tpu_torch.core.perceiver import PerceiverEncoder
+
+    x = torch.randn(2, 40, 12, generator=torch.Generator().manual_seed(2)).cuda()
+    grads = []
+    for remat in (False, True):
+        enc = PerceiverEncoder(num_input_channels=12, num_self_attends_per_block=2,
+                               num_blocks=2, num_latents=8, num_latent_channels=32,
+                               num_self_attend_heads=4, remat=remat, dropout_prob=0.2,
+                               dropout_attn_prob=0.2,
+                               generator=torch.Generator().manual_seed(0)).cuda().train()
+        out = enc(x, enc.latents(x), generator=torch.Generator(device="cuda").manual_seed(3))
+        out.square().mean().backward()
+        grads.append({n: p.grad.clone() for n, p in enc.named_parameters()})
+    for n, g in grads[0].items():
+        assert torch.equal(grads[1][n], g), n

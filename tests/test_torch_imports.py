@@ -1,6 +1,6 @@
 """Import hygiene and device rules of the PyTorch/CUDA port.
 
-The port and chip_smoke.py import neither JAX/flax nor the JAX package
+The port and chip_smoke.py import neither JAX/flax/optax nor the JAX package
 (nor torchvision/timm), and its entry points never fall back to the CPU
 quietly.
 """
@@ -16,7 +16,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "perceiverio_pytorch_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "perceiverio_pytorch_tpu", "torchvision", "timm")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "perceiverio_pytorch_tpu", "torchvision",
+             "timm")
 
 
 def _port_files():

@@ -205,9 +205,17 @@ def test_mask_probs_zero_and_one_match_jax():
 
 
 def test_mask_probs_between_zero_and_one_raise():
-    with pytest.raises(NotImplementedError, match="random draws"):
-        port_perceiver.MultimodalPreprocessor(
-            mask_probs={"a": 0.5}, input_channels={"a": 4})
+    """A probability strictly between 0 and 1 draws a mask per token (see
+    tests/test_torch_dropout.py); one outside [0, 1] raises."""
+    for bad in (1.5, -0.1):
+        with pytest.raises(ValueError, match=r"\[0, 1\]"):
+            port_perceiver.MultimodalPreprocessor(
+                mask_probs={"a": bad}, input_channels={"a": 4})
+    pm = port_perceiver.MultimodalPreprocessor(
+        mask_probs={"a": 0.5}, input_channels={"a": 4}, min_padding_size=0)
+    out, _, _ = pm({"a": torch.zeros(2, 64, 4)})
+    masked = (out != 0).any(-1)
+    assert 0 < masked.float().mean() < 1
 
 
 # ---- the query-pad fold ----------------------------------------------------
@@ -500,16 +508,16 @@ def test_multimodal_state_dict_from_flax_matches_export_state_dict(mm_variables)
 
 def test_multimodal_refusals():
     """n_chunks must divide both query counts (JAX's error); the parts left
-    out raise: chunk_mesh, a remat policy (the port rematerialises in full)
-    and a CUDA device where there is none."""
+    out raise: chunk_mesh, a remat policy the port does not know, and a CUDA
+    device where there is none."""
     model = port_mm.MultiModalPerceiver(**SMALL, device="cpu")
     images, audio = (torch.from_numpy(x) for x in _clip(5))
     with pytest.raises(ValueError, match="must divide both the image query"):
         model(images, audio, n_chunks=3)
     with pytest.raises(NotImplementedError, match="chunk_mesh"):
         model(images, audio, n_chunks=4, chunk_mesh=object())
-    with pytest.raises(NotImplementedError):
-        port_config.Policy(remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="dots_saveable"):
+        port_config.Policy(remat_policy="save_and_offload_only_these_names")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_mm.MultiModalPerceiver(**SMALL)
