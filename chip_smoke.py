@@ -253,6 +253,33 @@ warm: B after phase 8, A after phase 12, C to E after phase 19.
      mask_probs 0.15 (image, audio) and 1 (label): masked shares within 4
      sigma, the same seed the same mask.
 
+int8 (Policy.quant) runs in phases F to I, after phase 31, in the order G,
+F, H, I (F takes G's shapes):
+  F. every distinct int8 projection shape (M, K, N) of the full-width pixel
+     and 1x1-conv classifiers at batch 16 and of the full-width MLM at
+     batch 32 (one int8 request): torch._int_mm on operands zero-padded to
+     its rules against the plain product (float64 on the card), int32 bit
+     for bit; int8_dynamic_matmul and int8_static_matmul on the card
+     against the CPU's on the same rows; times of both, of torch._int_mm
+     alone and of bf16 F.linear, beside the bounds (1,979 int8 TOP/s,
+     989 bf16 TFLOP/s, 3.35 TB/s);
+  G. the full-width pixel and 1x1-conv classifiers at batch 16 under
+     PERFORMANCE_INT8 and PERFORMANCE_INT8_STATIC (calibrated on two seeded
+     batches), phase 14's weights and requests: K1 launches a request equal
+     to the bf16 run's, one torch._int_mm a projection, quant_error_report
+     against the model's exact bf16 pass (bounded), top-1 agreement,
+     images/s and peak beside phase 14's;
+  H. examples/serve.py build(full_scale=True, LEARNED_POS_1X1CONV,
+     quant="static") and load: K1's op once and a torch._int_mm a
+     projection in the graph, calibrated fp32 amax in the weights; the
+     artifact at buckets 1, 4 and 16 against the eager int8 model, bit for
+     bit; batch-1 latency beside phase 21's bf16 artifact;
+  I. train_classification --full-scale --quant dynamic (1x1 conv, batch 8):
+     1 + 3 steps through K1, K2 and K3 with the launches of phase 18's bf16
+     step; one batch's gradients with the product on torch._int_mm against
+     the plain product, bit for bit under deterministic algorithms; step
+     time beside phase 18's.
+
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
 """
@@ -459,6 +486,19 @@ SPC_STEPS = 6
 DROPOUT = 0.1
 MASK_PROB = 0.15
 SIGMAS = 4.0
+# int8 (phases F to I).  Peak dense int8 rate of one H100 SXM (NVIDIA data
+# sheet), for the products' bound.
+PEAK_INT8_OPS = 1979e12
+INT8_PREPS = ("FOURIER_POS_PIXEL", "LEARNED_POS_1X1CONV")
+INT8_MODES = {"dynamic": "PERFORMANCE_INT8", "static": "PERFORMANCE_INT8_STATIC"}
+INT8_CALIB_BATCHES = 2  # seeded batches of 16 that calibrate the static models
+# The int8 logits against the same model's exact bf16 pass, relative to its
+# max |logit|, across 49 attention blocks of int8 projections (about 1% a
+# GEMM on Gaussian data; static clips what exceeds its calibrated range).
+INT8_REL_BOUND = {"dynamic": 0.25, "static": 0.5}
+INT8_CPU_ROWS = 512  # rows of each product held against the CPU's functions
+INT8_REPS = 5
+INT8_TRAIN_STEPS = 3  # timed, after one warm-up step
 
 
 def smi_line() -> str:
@@ -1912,8 +1952,8 @@ def phase_bucket_kernels(reps: int = 3):
 
 
 def _artifact_contents(blob, model, weights):
-    """What the exported program holds: its K1 op nodes, its state (which
-    must hold no parameter), its constants (each must be one of the model's
+    """What the exported program holds: its K1 op nodes, its int8 products
+    (aten._int_mm nodes), its state (which must hold no parameter), its constants (each must be one of the model's
     non-persistent buffers) and their bytes."""
     import io
 
@@ -1929,6 +1969,8 @@ def _artifact_contents(blob, model, weights):
     if len(ep.state_dict):
         raise AssertionError(f"the artifact holds parameters: {list(ep.state_dict)[:5]}")
     return dict(k1_op_nodes=sum(n.target is op for n in ep.graph.nodes),
+                int_mm_nodes=sum(n.target is torch.ops.aten._int_mm.default
+                                 for n in ep.graph.nodes),
                 artifact_bytes=len(blob), artifact_state_tensors=len(ep.state_dict),
                 constant_bytes=sum(c.numel() * c.element_size() for c in ep.constants.values()),
                 weights_bytes=sum(t.numel() * t.element_size() for t in weights.values()))
@@ -3544,6 +3586,337 @@ def phase_dropout():
     return rec
 
 
+def _quant_sites(model):
+    return [m for m in model.modules() if getattr(m, "quant", None)]
+
+
+def _int8_calls(model):
+    """The int8 products a forward of a classifier runs, and those of them
+    in the weight-shared self-attend blocks (which remat recomputes)."""
+    named = [n for n, m in model.named_modules() if getattr(m, "quant", None)]
+    shared = sum(".self_attends." in n for n in named)
+    blocks = model.perceiver._encoder.num_blocks
+    return len(named) - shared + blocks * shared, blocks * shared
+
+
+def _record_shapes(model, shapes):
+    """Forward pre-hooks adding each int8 projection's (M, K, N) to
+    ``shapes``; returns the hooks."""
+    def hook(module, args):
+        x = args[0]
+        shapes.add((x.numel() // x.shape[-1], module.in_features, module.out_features))
+
+    return [m.register_forward_pre_hook(hook) for m in _quant_sites(model)]
+
+
+def phase_int8_serve(smi, cls_serve):
+    """G: the full-width pixel and 1x1-conv classifiers at batch 16 under
+    PERFORMANCE_INT8 and PERFORMANCE_INT8_STATIC (the static one calibrated
+    on two seeded batches), phase 14's weights and requests: one warm-up
+    request (its projections' shapes recorded for phase F), three timed; K1
+    launches a request equal to the bf16 run's, one torch._int_mm a
+    projection; quant_error_report against the same model's exact bf16
+    pass over the timed requests, top-1 agreement on the last."""
+    import torch
+
+    import perceiverio_pytorch_tpu_torch as port
+    from perceiverio_pytorch_tpu_torch.ops import quant
+
+    records, shapes = {}, {}
+    for prep in INT8_PREPS:
+        records[prep], shapes[prep] = {}, set()
+        bf16 = cls_serve[prep]
+        for mode, preset in INT8_MODES.items():
+            t0 = time.perf_counter()
+            model = _cls_model(prep, getattr(port, preset))
+            sites, _ = _int8_calls(model)
+            gen = torch.Generator().manual_seed(SEED + 9)  # phase 14's requests
+            requests = [_cls_images(gen, CLS_SERVE_BATCH) for _ in range(CLS_REQUESTS + 1)]
+            with torch.inference_mode():
+                if mode == "static":
+                    calib = torch.Generator().manual_seed(SEED + 40)
+                    quant.calibrate(model, [(_cls_images(calib, CLS_SERVE_BATCH),)
+                                            for _ in range(INT8_CALIB_BATCHES)])
+                hooks = _record_shapes(model, shapes[prep])
+                model(requests[0])  # warm-up
+                for hook in hooks:
+                    hook.remove()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_launch_counts()
+                quant.LAUNCHES = 0
+                latencies = []
+                t_all = time.perf_counter()
+                for img in requests[1:]:
+                    t1 = time.perf_counter()
+                    logits = model(img)
+                    torch.cuda.synchronize()
+                    latencies.append(time.perf_counter() - t1)
+                total = time.perf_counter() - t_all
+                launches, gemms = _launch_counts(), quant.LAUNCHES
+                peak_mem = torch.cuda.max_memory_allocated()
+                report = quant.quant_error_report(model, [(img,) for img in requests[1:]])
+                with quant.quant_pass(model, "exact"):
+                    exact = model(requests[-1])
+            want = (bf16["k1_launches_per_request"] * CLS_REQUESTS, bf16["merge_launches"])
+            if (launches["K1"], launches["merge"]) != want:
+                raise AssertionError(f"{prep} {mode}: launches {launches}, bf16's {want}")
+            if gemms != sites * CLS_REQUESTS:
+                raise AssertionError(f"{prep} {mode}: {gemms} torch._int_mm calls, expected"
+                                     f" {sites} a request")
+            if tuple(logits.shape) != (CLS_SERVE_BATCH, 1000) or not torch.isfinite(logits).all():
+                raise AssertionError(f"{prep} {mode}: int8 logits {tuple(logits.shape)}")
+            rel = report["output"]["max_rel"]
+            if not 0.0 < rel <= INT8_REL_BOUND[mode]:
+                raise AssertionError(f"{prep} {mode}: int8 vs exact logits {rel} not in"
+                                     f" (0, {INT8_REL_BOUND[mode]}]")
+            top1 = (logits.float().argmax(-1) == exact.float().argmax(-1)).float().mean().item()
+            rec = dict(prep=prep, mode=mode, batch=CLS_SERVE_BATCH, requests=CLS_REQUESTS,
+                       projections=len(_quant_sites(model)), int_mm_per_request=sites,
+                       int_mm_calls=gemms, launches=launches["K1"],
+                       merge_launches=launches["merge"], latency_s=latencies,
+                       images_per_s=CLS_REQUESTS * CLS_SERVE_BATCH / total,
+                       bf16_images_per_s=bf16["images_per_s"], peak_mem_gb=peak_mem / 1e9,
+                       bf16_peak_mem_gb=bf16["peak_mem_gb"], quant_error_report=report,
+                       rel_bound=INT8_REL_BOUND[mode], top1_agreement=top1, card=smi,
+                       seconds=time.perf_counter() - t0)
+            print(f"[int8 serve] {json.dumps(rec)}", flush=True)
+            records[prep][mode] = rec
+            del model, requests, logits, exact
+            torch.cuda.empty_cache()
+    return records, shapes
+
+
+def _int8_gemm_case(label, m, k, n, gen, smi):
+    """One product shape: torch._int_mm (padded) against the plain version
+    on the card, int32 bit for bit; int8_dynamic_matmul and
+    int8_static_matmul on the card against the CPU's on the same rows, bit
+    for bit (each output row depends on its input row alone);
+    times of both, of torch._int_mm alone and of bf16 F.linear, beside the
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from perceiverio_pytorch_tpu_torch.ops import quant
+
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    got, want = quant.int8_gemm(xq, wq), quant.int8_gemm_reference(xq, wq)
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        raise AssertionError(f"{label} {(m, k, n)}: torch._int_mm differs from the plain product")
+    del got, want
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(n, k, generator=gen, device="cuda") / math.sqrt(k)
+    amax = x.float().abs().max() * 0.9
+    rows = min(m, INT8_CPU_ROWS)
+    cpu = {}
+    for name, fn, args in (("dynamic", quant.int8_dynamic_matmul, ()),
+                           ("static", quant.int8_static_matmul, (amax,))):
+        card = fn(x, w, *args)[:rows].cpu()
+        ref = fn(x[:rows].cpu(), w.cpu(), *(a.cpu() for a in args))
+        if not torch.equal(card, ref):
+            diff = (card.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"{label} {(m, k, n)} {name}: card vs CPU differ by {diff}")
+        cpu[name] = dict(bitwise=True)
+    pad_m = 0 if m > 16 else 17
+    xp = F.pad(xq, (0, -k % 8, 0, pad_m))
+    wp = F.pad(wq, (0, -k % 8, 0, -n % 8))
+    w16 = w.bfloat16()
+    ops = 2 * m * n * k
+    rec = dict(
+        model=label, m=m, k=k, n=n,
+        dynamic_ms=time_ms(lambda: quant.int8_dynamic_matmul(x, w), INT8_REPS),
+        static_ms=time_ms(lambda: quant.int8_static_matmul(x, w, amax), INT8_REPS),
+        int_mm_ms=time_ms(lambda: torch._int_mm(xp, wp.t()), INT8_REPS),
+        bf16_linear_ms=time_ms(lambda: F.linear(x, w16), INT8_REPS),
+        # the int8 product: int8 operands read once, the int32 result written
+        int_mm_bound_ms=max(ops / PEAK_INT8_OPS, (m * k + n * k + 4 * m * n) / PEAK_BYTES) * 1e3,
+        # the whole int8 matmul: bf16 x and fp32 w read, bf16 y written
+        bound_ms=max(ops / PEAK_INT8_OPS, (2 * m * k + 4 * n * k + 2 * m * n) / PEAK_BYTES) * 1e3,
+        bf16_bound_ms=max(ops / PEAK_FLOPS["bf16"],
+                          (2 * m * k + 2 * n * k + 2 * m * n) / PEAK_BYTES) * 1e3,
+        padded=dict(m=xp.shape[0], k=xp.shape[1], n=wp.shape[0]), cpu_rows=rows, cpu=cpu,
+        card=smi)
+    print(f"[int8 gemm] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_int8_gemm(smi, cls_shapes):
+    """F: every distinct int8 projection shape (M, K, N) of the full-width
+    pixel and 1x1-conv classifiers at batch 16 (phase G's warm-up
+    requests) and of the full-width MLM at batch 32 (one PERFORMANCE_INT8
+    request here), each held and timed by ``_int8_gemm_case``."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE_INT8, LanguagePerceiver
+
+    t0 = time.perf_counter()
+    model = LanguagePerceiver(policy=PERFORMANCE_INT8, device="cuda",
+                              generator=torch.Generator().manual_seed(SEED)).eval()
+    ids, mask = _lm_batch(SEED + 10)
+    shapes = dict(cls_shapes, MLM=set())
+    hooks = _record_shapes(model, shapes["MLM"])
+    with torch.inference_mode():
+        logits = model(ids, mask)
+    for hook in hooks:
+        hook.remove()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("the int8 MLM's logits are not finite")
+    del model, logits
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    records = []
+    with torch.inference_mode():
+        for label, found in shapes.items():
+            for m, k, n in sorted(found):
+                records.append(_int8_gemm_case(label, m, k, n, gen, smi))
+                torch.cuda.empty_cache()
+    print(f"[int8 gemm] {len(records)} shapes in {time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
+def phase_int8_export(smi, exported):
+    """H: examples/serve.py build(full_scale=True, LEARNED_POS_1X1CONV,
+    quant="static") and load: the graph holds K1's op once, a
+    torch._int_mm a projection and no parameter; the artifact at buckets 1,
+    4 and 16 against the eager int8 model on the same weights, bit for bit;
+    batch-1 latency beside phase 21's bf16 artifact."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import (
+        PERFORMANCE_INT8_STATIC,
+        ClassificationPerceiver,
+        PrepType,
+    )
+    from perceiverio_pytorch_tpu_torch.examples import serve
+    from perceiverio_pytorch_tpu_torch.ops import quant
+    from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_variables
+
+    prep = "LEARNED_POS_1X1CONV"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        built = serve.build(out, full_scale=True, prep_type=PrepType[prep], device="cuda",
+                            quant="static")
+        t1 = time.perf_counter()
+        call = serve.load(out, device="cuda")
+        built["load_s"] = time.perf_counter() - t1
+        weights = restore_variables(os.path.join(out, serve.WEIGHTS), device="cuda")
+        with open(os.path.join(out, serve.ARTIFACT), "rb") as f:
+            blob = f.read()
+    model = ClassificationPerceiver(num_classes=1000, img_size=(224, 224),
+                                    prep_type=PrepType[prep], policy=PERFORMANCE_INT8_STATIC,
+                                    device="cuda").eval()
+    sites, _ = _int8_calls(model)
+    contents = _artifact_contents(blob, model, weights)
+    if contents["k1_op_nodes"] != 1 or contents["int_mm_nodes"] != sites:
+        raise AssertionError(f"int8 artifact: {contents['k1_op_nodes']} K1 op nodes,"
+                             f" {contents['int_mm_nodes']} torch._int_mm nodes for {sites}"
+                             " products a call")
+    amax = [t for n, t in weights.items() if n.endswith(".amax")]
+    if len(amax) != len(_quant_sites(model)) or any(t.dtype != torch.float32 or t.item() <= 0 for t in amax):
+        raise AssertionError("int8 artifact's weights: amax missing, not fp32 or uncalibrated")
+    gen = torch.Generator().manual_seed(SEED + 42)
+    calls = []
+    for b in EXPORT_BATCHES:
+        img = _cls_images(gen, b)
+        with torch.inference_mode():
+            _reset_launch_counts()
+            got = call(img)  # the graph calls aten._int_mm itself (counted above)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            quant.LAUNCHES = 0
+            want = torch.func.functional_call(model, weights, (img,))
+            gemms = quant.LAUNCHES
+        expected = _expected_k1(prep, b, torch.bfloat16)
+        if (launches["K1"], launches["merge"]) != expected or gemms != sites:
+            raise AssertionError(f"int8 artifact at {b}: launches {launches}, eager {gemms}"
+                                 f" torch._int_mm, expected {expected} and {sites}")
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"int8 artifact vs eager at batch {b}: {diff}")
+        calls.append(dict(batch=b, launches=launches["K1"], merge_launches=launches["merge"],
+                          eager_int_mm_calls=gemms, bitwise=True))
+    with torch.inference_mode():
+        latency = _latency(call, _cls_images(gen, 1), EXPORT_REQUESTS)
+    rec = dict(prep=prep, quant="static", build=built, projections=len(amax),
+               int_mm_per_call=sites,
+               **contents, calls=calls, batch1=latency,
+               bf16_batch1=exported["k1"]["timing"][1]["artifact"], card=smi,
+               seconds=time.perf_counter() - t0)
+    print(f"[int8 export] {json.dumps(rec)}", flush=True)
+    del model, weights, call
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grads(loss_fn, model, batch):
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, *batch).backward()
+    torch.cuda.synchronize()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def phase_int8_train(smi, cls_train):
+    """I: train_classification --full-scale --quant dynamic, 1x1 conv, batch
+    8: one warm-up step and three timed through K1, K2 and K3 (finite
+    losses, parameters that move, K1/K2/K3 launches a step equal to the
+    bf16 step's, one torch._int_mm a projection a step and one more a
+    recomputed self-attend projection); then one batch's gradients with the
+    product on torch._int_mm against the product on the plain version,
+    under deterministic algorithms, bit for bit (a parameter whose gradient
+    two torch._int_mm passes do not reproduce is reported apart)."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PrepType
+    from perceiverio_pytorch_tpu_torch.examples import train_classification
+    from perceiverio_pytorch_tpu_torch.ops import quant
+
+    prep = "LEARNED_POS_1X1CONV"
+    total = 1 + INT8_TRAIN_STEPS
+    t0 = time.perf_counter()
+    metrics = _metrics_path("chip_smoke_int8_train.jsonl")
+    trainer, state, batches, _ = train_classification.setup(
+        total, full_scale=True, prep_type=PrepType[prep], device="cuda",
+        metrics_path=metrics, log_every=1, quant="dynamic")
+    forward, recomputed = _int8_calls(state.model)
+    quant.LAUNCHES = 0
+    rec = _train_steps(trainer, state, batches, total, metrics, CLS_STEP_LAUNCHES)
+    if quant.LAUNCHES != total * (forward + recomputed):
+        raise AssertionError(f"{quant.LAUNCHES} torch._int_mm calls in {total} steps, expected"
+                             f" {forward} + {recomputed} a step")
+    batch = next(iter(batches(0)))
+    model = state.model.train()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _deterministic_algorithms():
+            card = _grads(trainer.loss_fn, model, batch)
+            with mock.patch.object(quant, "int8_gemm", quant.int8_gemm_reference):
+                plain = _grads(trainer.loss_fn, model, batch)
+            again = _grads(trainer.loss_fn, model, batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    model.zero_grad(set_to_none=True)
+    unstable = sorted(n for n in card if not torch.equal(card[n], again[n]))
+    differ = sorted(n for n in card if n not in unstable and not torch.equal(card[n], plain[n]))
+    if differ or len(card) < 100:
+        raise AssertionError(f"int8 step: {len(differ)} gradients differ from the plain"
+                             f" product's: {differ[:5]}")
+    bf16 = cls_train[prep]
+    rec.update(prep=prep, quant="dynamic", batch=8, int_mm_forward=forward,
+               int_mm_recomputed=recomputed, int_mm_calls=quant.LAUNCHES,
+               images_per_s=8 * rec["steps_per_s"], bf16_median_step_s=bf16["median_step_s"],
+               bf16_peak_mem_gb=bf16["peak_mem_gb"], grads_bitwise=len(card) - len(unstable),
+               grads_not_reproducible=unstable, card=smi, seconds=time.perf_counter() - t0)
+    print(f"[int8 train] {json.dumps(rec)}", flush=True)
+    del trainer, state, batches, model, card, plain, again
+    torch.cuda.empty_cache()
+    return rec
+
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -3558,7 +3931,7 @@ def _site_sums(records, keep, per_site):
 
 
 def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
-                 cls_k1_train, buckets, serving, files):
+                 cls_k1_train, buckets, serving, files, int8):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -3602,8 +3975,13 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     ``launches_nothing_saveable_step``) on the flow entries, and on the d =
     704 K2/K3 entries the multimodal training run's launches under its
     dots_saveable (``launches``) and under full remat
-    (``launches_full_remat_train``).  Each entry's error is the largest of
-    all its comparisons."""
+    (``launches_full_remat_train``).  The int8 phases' launches: on the d =
+    261 and d = 512 K1 entries ``launches_int8_serve`` (phase G's requests
+    under both int8 modes, with their merges), on the d = 512 one
+    ``launches_int8_export`` (phase H's artifact calls) and on the d = 512
+    K1, K2 and K3 entries ``launches_int8_train`` (phase I's steps, with
+    their merges or sums).  Each entry's error is the largest of all its
+    comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
@@ -3690,6 +4068,16 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                               "launches_evaluate_classification"))
         else:
             stack = dict(launches_export=serving["export"]["pixel"]["call"]["launches"])
+        served = int8["serve"][prep].values()
+        stack.update(launches_int8_serve=sum(r["launches"] for r in served),
+                     merge_launches_int8_serve=sum(r["merge_launches"] for r in served))
+        if prep == int8["train"]["prep"]:
+            stack.update(
+                launches_int8_export=sum(c["launches"] for c in int8["export"]["calls"]),
+                merge_launches_int8_export=sum(c["merge_launches"]
+                                               for c in int8["export"]["calls"]),
+                launches_int8_train=int8["train"]["launches"]["K1"],
+                merge_launches_int8_train=int8["train"]["launches"]["merge"])
         train_sites = [r for r in cls_k1_train if r["site"].startswith(f"{site}_train")]
         train_rec = next(r for r in train_sites
                          if r["site"] == f"{site}_train" and r["dtype"] == "bf16")
@@ -3760,6 +4148,9 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                 launches=cls_train[prep]["launches"][kernel],
                 sum_launches_train=cls_train[prep]["launches"]["sum"],
                 **(file_counts(kernel, "sum", cls_files) if site == "cls_1x1conv" else {}),
+                **(dict(launches_int8_train=int8["train"]["launches"][kernel],
+                        sum_launches_int8_train=int8["train"]["launches"]["sum"])
+                   if prep == int8["train"]["prep"] else {}),
                 max_abs_err=max(r["max_abs_err"] for r in cls_bwd),
                 **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "splits", "col_chunks")},
@@ -3840,9 +4231,16 @@ def main() -> int:
         ema = phase_ema(train, tmp)
     files = dict(flow=flow_files, evaluate_flow=evaluated, cls=cls_files,
                  evaluate_multimodal=mm_eval, ema=ema, flow_sac=flow_sac)
+    torch.cuda.empty_cache()
+    t_int8 = time.perf_counter()
+    int8_serve, int8_shapes = phase_int8_serve(smi, cls_serve)
+    int8 = dict(serve=int8_serve, gemm=phase_int8_gemm(smi, int8_shapes),
+                export=phase_int8_export(smi, serving["export"]),
+                train=phase_int8_train(smi, cls_train))
+    print(f"[int8] phases F-I in {time.perf_counter() - t_int8:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
-                       cls_serve, cls_train, cls_k1_train, buckets, serving, files))
+                       cls_serve, cls_train, cls_k1_train, buckets, serving, files, int8))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,7 +23,10 @@ synthetic data or files, ``.evaluate_flow``, ``.evaluate_classification``,
 ``export_apply``/``load_exported`` (``torch.export`` artifacts),
 ``BatchingServer`` (bucketed, pipelined micro-batching) and
 ``HttpFrontend`` (JSON and npz over HTTP); the demo is
-``perceiverio_pytorch_tpu_torch.examples.serve``.
+``perceiverio_pytorch_tpu_torch.examples.serve``.  int8 inference and
+quantization-aware training: ``Policy.quant`` (``PERFORMANCE_INT8``,
+``PERFORMANCE_INT8_STATIC``) and ``ops.quant`` (``calibrate``,
+``quant_error_report``).
 """
 
 __version__ = "0.1.0"
@@ -32,6 +35,8 @@ from perceiverio_pytorch_tpu_torch.config import (  # noqa: F401
     DEFAULT,
     PARITY,
     PERFORMANCE,
+    PERFORMANCE_INT8,
+    PERFORMANCE_INT8_STATIC,
     Policy,
 )
 from perceiverio_pytorch_tpu_torch.models.classification import (  # noqa: F401

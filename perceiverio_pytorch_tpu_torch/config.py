@@ -5,12 +5,15 @@ selector values are ``"dense"`` (plain matmul + softmax, the JAX package's
 ``"xla"``), ``"flash"`` (the hand-written CUDA kernel, or its plain PyTorch
 version on a CPU tensor) and ``"auto"``.
 
-Fields of the JAX policy that this port cannot honour yet (int8, the
+Fields of the JAX policy that this port cannot honour yet (the
 sequence/pipeline meshes and layer scan) are kept as fields so that a
 caller porting a configuration learns of them: setting any of them raises
-``NotImplementedError``.  ``fold_query_pad`` is ported: the multimodal
-decoder folds its constant query-pad channels through the query LayerNorm
-and projection (``core.attention.FoldedQuery``).  ``remat_policy`` is
+``NotImplementedError``.  ``quant`` and ``quant_scope`` are ported: int8
+projections (``ops.quant``, ``core.attention.Dense``), validated with the
+JAX package's messages (``quant_enabled``).  ``fold_query_pad`` is ported:
+the multimodal decoder folds its constant query-pad channels through the
+query LayerNorm and projection (``core.attention.FoldedQuery``).
+``remat_policy`` is
 ported for the ``jax.checkpoint_policies`` names that have a meaning here
 (``REMAT_POLICIES``): ``remat_call`` runs a checkpointed region under
 ``torch.utils.checkpoint`` with a selective policy that keeps the outputs
@@ -40,7 +43,6 @@ ATTN_AUTO = "auto"  # flash on a CUDA tensor at long sequence lengths
 # (field, value that means "off") for the JAX policy's fields the port does
 # not implement yet.
 _NOT_PORTED = (
-    ("quant", None),
     ("sp_mesh", None),
     ("pp_mesh", None),
     ("layer_scan", "off"),
@@ -82,8 +84,15 @@ class Policy:
         backward of its checkpointed regions: None (full remat, as
         "nothing_saveable") or a name of ``REMAT_POLICIES``; any other name
         raises ValueError.
-      quant, sp_mesh, pp_mesh, layer_scan: not ported; any value other than
-        the default raises.
+      quant: None, "int8_dynamic" (the attention and MLP projections as int8
+        GEMMs, per-token activation scales and per-output-channel weight
+        scales, ``ops.quant``) or "int8_static" (one calibrated activation
+        scale per projection, ``ops.quant.calibrate``); the backward of
+        either is the exact product's (a straight-through estimator).
+      quant_scope: which projections quantize: "all", or "latent" (the
+        self-attention stack only; the cross-attention blocks stay exact).
+      sp_mesh, pp_mesh, layer_scan: not ported; any value other than the
+        default raises.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -99,6 +108,7 @@ class Policy:
     layer_scan: str = "off"
     remat_policy: Optional[str] = None
     fold_query_pad: bool = False
+    quant_scope: str = "all"
 
     def __post_init__(self):
         if self.attn_impl not in (ATTN_DENSE, ATTN_FLASH, ATTN_AUTO):
@@ -111,12 +121,39 @@ class Policy:
                 f"Policy.remat_policy {self.remat_policy!r} is not one the port takes;"
                 f" take one of {sorted(REMAT_POLICIES)} or None (full remat)"
             )
+        quant_enabled(self)
         for name, off in _NOT_PORTED:
             if getattr(self, name) != off:
                 raise NotImplementedError(
                     f"Policy.{name}={getattr(self, name)!r} is not ported to"
                     " PyTorch yet (see ROADMAP.md)"
                 )
+
+
+def quant_enabled(policy: Policy, site: str = "latent") -> bool:
+    """Validate Policy.quant/quant_scope; is int8 on at this ``site``?
+
+    ``site`` is "latent" (the self-attention stack) or "cross" (the
+    cross-attention blocks: the encoder's input attend, the decoder).
+    """
+    if policy.quant_scope not in ("all", "latent"):
+        raise ValueError(
+            "Policy.quant_scope must be 'all' or 'latent'; got"
+            f" {policy.quant_scope!r}"
+        )
+    if policy.quant is None:
+        return False
+    if policy.quant in ("int8_dynamic", "int8_static"):
+        return policy.quant_scope == "all" or site == "latent"
+    raise ValueError(
+        "Policy.quant must be None, 'int8_dynamic' or 'int8_static'; got"
+        f" {policy.quant!r}"
+    )
+
+
+def quant_mode(policy: Policy, site: str = "latent") -> Optional[str]:
+    """The validated Policy.quant mode at this site, or None when off."""
+    return policy.quant if quant_enabled(policy, site) else None
 
 
 def _save_policy(saved, ctx, op, *args, **kwargs):
@@ -148,5 +185,12 @@ PERFORMANCE = Policy(
     gelu_approximate=True,
     fold_query_pad=True,
 )
+
+# PERFORMANCE with dynamic int8 projections (approximate: about 1% relative
+# error a GEMM).
+PERFORMANCE_INT8 = dataclasses.replace(PERFORMANCE, quant="int8_dynamic")
+
+# The static (calibrated) variant: run ops.quant.calibrate before inference.
+PERFORMANCE_INT8_STATIC = dataclasses.replace(PERFORMANCE, quant="int8_static")
 
 DEFAULT = Policy()

@@ -22,21 +22,26 @@ attention probabilities (which sends the site to the dense path) and
 the caller draws (``PerceiverEncoder`` draws one a block from its
 ``generator``): each site makes its own ``torch.Generator`` from it
 (``ops.attention_dense.site_generator``), so a checkpointed block draws the
-same masks when the backward recomputes it.  The int8 projections are not
-ported yet.
+same masks when the backward recomputes it.  Under ``Policy.quant`` the
+attention and MLP projections are int8 products (``Dense(quant=...)``,
+``ops.quant``); ``CrossAttention`` keeps them exact under
+``quant_scope="latent"``, and the folded query projection
+(``_project_q_folded``) is always exact, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy
+from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy, quant_enabled, quant_mode
 from perceiverio_pytorch_tpu_torch.ops.attention import multihead_attention
 from perceiverio_pytorch_tpu_torch.ops.attention_dense import dropout, site_generator
+from perceiverio_pytorch_tpu_torch.ops.quant import int8_dynamic_matmul, int8_static_matmul
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
     lecun_normal_,
@@ -86,22 +91,56 @@ class Dense(nn.Linear):
     The weight is drawn by ``init(weight, generator)`` and the bias is 0.
     With ``compute_dtype`` set, input, weight and bias are cast to it (flax
     ``nn.Dense(dtype=...)``); otherwise they are promoted to a common dtype.
+
+    ``quant`` (a ``Policy.quant`` mode, the JAX package's ``_QuantDense``)
+    makes the product an int8 one (``ops.quant``), quantized from the stored
+    weight, not from its compute-dtype cast; the result is in
+    ``compute_dtype`` (else the input's dtype), the bias added in that dtype.
+    An "int8_static" projection holds its calibrated ``max|x|`` in a 0-d
+    fp32 buffer ``amax`` (0: uncalibrated), which no other projection has,
+    so that every other model's state_dict keeps the reference's names.
+    ``quant_pass`` (set by ``ops.quant.quant_pass``) is "calibrate" (a
+    static projection records ``max|x|`` and runs the exact product),
+    "exact" (the exact product) or None.
     """
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  init: Callable = lecun_normal_,
-                 compute_dtype: Optional[torch.dtype] = None, generator=None):
+                 compute_dtype: Optional[torch.dtype] = None, generator=None,
+                 quant: Optional[str] = None):
         super().__init__(in_features, out_features, bias=bias)
+        if quant not in (None, "int8_dynamic", "int8_static"):
+            raise ValueError(f"Dense quant must be None, 'int8_dynamic' or 'int8_static';"
+                             f" got {quant!r}")
         self.compute_dtype = compute_dtype
+        self.quant = quant
+        self.quant_pass = None
+        if quant == "int8_static":
+            self.register_buffer("amax", torch.zeros((), dtype=torch.float32))
         init(self.weight.data, default_generator(generator))
         if self.bias is not None:
             with torch.no_grad():
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        quant = None if self.quant_pass == "exact" else self.quant
+        if quant == "int8_static" and self.quant_pass == "calibrate":
+            with torch.no_grad():
+                torch.maximum(self.amax, x.detach().float().abs().amax(), out=self.amax)
+            quant = None
+        if quant is not None:
+            return self._int8(x, quant)
         dtype = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = self.bias.to(dtype) if self.bias is not None else None
         return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+    def _int8(self, x: torch.Tensor, quant: str) -> torch.Tensor:
+        out_dtype = self.compute_dtype or x.dtype
+        if quant == "int8_static":
+            y = int8_static_matmul(x, self.weight, self.amax, out_dtype=out_dtype)
+        else:
+            y = int8_dynamic_matmul(x, self.weight, out_dtype=out_dtype)
+        return y if self.bias is None else y + self.bias.to(out_dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -181,7 +220,7 @@ class Attention(nn.Module):
         self.policy = policy
         self._qk_out, self._v_out = qk_out, v_out
         g = default_generator(generator)
-        kw = dict(compute_dtype=policy.compute_dtype, generator=g)
+        kw = dict(compute_dtype=policy.compute_dtype, generator=g, quant=quant_mode(policy))
         init = _variance_scaling(init_scale)
         self.proj_q = Dense(q_in_channels, qk_out, init=init, **kw)
         self.proj_k = Dense(k_in, qk_out, init=init, **kw)
@@ -269,7 +308,7 @@ class MLP(nn.Module):
         g = default_generator(generator)
         self.dropout_prob = dropout_prob
         kw = dict(init=_variance_scaling(init_scale),
-                  compute_dtype=policy.compute_dtype, generator=g)
+                  compute_dtype=policy.compute_dtype, generator=g, quant=quant_mode(policy))
         self.approximate = "tanh" if policy.gelu_approximate else "none"
         self.fc1 = Dense(in_channels, widening_factor * in_channels, **kw)
         self.fc2 = Dense(widening_factor * in_channels,
@@ -343,6 +382,10 @@ class CrossAttention(nn.Module):
                     f"Unknown value {shape_for_attn} for shape_for_attention."
                 )
         v_channels = v_channels or qk_channels
+        # A cross-attention block is a "cross" quant site: under
+        # quant_scope="latent" its projections keep the exact product.
+        if policy.quant is not None and not quant_enabled(policy, site="cross"):
+            policy = dataclasses.replace(policy, quant=None)
         self.policy = policy
         self.use_query_residual = use_query_residual
         self.attention = Attention(

@@ -8,7 +8,10 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
     ``Policy.remat_policy`` (``config.remat_call``: ``torch.utils.checkpoint``,
     the JAX package's ``nn.remat``); ``dropout_prob`` (and, beyond the JAX
     encoder, ``dropout_attn_prob``) in train mode, with one seed a block
-    drawn from the caller's ``generator`` before the block's region;
+    drawn from the caller's ``generator`` before the block's region; the
+    blocks share their modules, so a static int8 projection's ``amax``
+    calibrates as the max over every block's input (the JAX encoder
+    unrolls its block scan for that pass);
   * ``PerceiverDecoder``: one query cross-attend over the latents and an
     optional final projection ("lecun_normal" or "zeros" init);
   * ``MultimodalPreprocessor``: per-modality preprocess, trainable channel

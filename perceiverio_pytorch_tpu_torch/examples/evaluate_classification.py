@@ -13,14 +13,19 @@ Without ``--data-dir`` it scores a synthetic 3-class set (class = brightest
 channel).  At ``--full-scale`` the published ImageNet model runs in bf16
 with its weights cast to bf16 (``cast_variables_for_inference``), as in the
 JAX script; ``--prep-type`` picks the preprocessing the checkpoint was
-trained with (the JAX script always builds the convnet).  Runs on the GPU
-unless the caller asks for the CPU (``--device cpu``).  Not ported:
-``--mesh`` and ``--quant`` (they raise).
+trained with (the JAX script always builds the convnet).  ``--quant
+dynamic|static`` evaluates under int8 projections (``Policy.quant``); the
+weights then stay fp32, as in the JAX script, and ``static`` calibrates
+each projection on the first two batches first (``ops.quant.calibrate``).
+Runs on the GPU unless the caller asks for the CPU (``--device cpu``).  Not
+ported: ``--mesh`` (raises).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import time
 
@@ -34,6 +39,7 @@ from perceiverio_pytorch_tpu_torch.models.classification import (
     PrepType,
 )
 from perceiverio_pytorch_tpu_torch.training import ImageFolderDataset, dataset_iterator
+from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 from perceiverio_pytorch_tpu_torch.utils.params import cast_variables_for_inference
@@ -61,9 +67,8 @@ class _SyntheticSet:
 def main(data_dir=None, checkpoint=None, torch_checkpoint=None, batch_size=16,
          full_scale=False, mesh_devices=None, quant=None, limit=None, *,
          prep_type=PrepType.FOURIER_POS_CONVNET, device="cuda"):
-    if mesh_devices or quant:
-        raise NotImplementedError(
-            "--mesh and --quant are not ported to PyTorch yet (see ROADMAP.md)")
+    if mesh_devices:
+        raise NotImplementedError("--mesh is not ported to PyTorch yet (see ROADMAP.md)")
     device = resolve_device(device)
     hw = (224, 224) if full_scale else TINY["img_size"]
     if data_dir is not None:
@@ -72,15 +77,24 @@ def main(data_dir=None, checkpoint=None, torch_checkpoint=None, batch_size=16,
         dataset = _SyntheticSet(8 * batch_size, hw)
     num_classes = len(dataset.class_names)
     generator = torch.Generator().manual_seed(0)
+    policy = PERFORMANCE if full_scale else DEFAULT
+    if quant:
+        policy = dataclasses.replace(policy, quant=f"int8_{quant}")
     if full_scale:
         model = ClassificationPerceiver(num_classes=num_classes, prep_type=prep_type,
-                                        policy=PERFORMANCE, device=device, generator=generator)
+                                        policy=policy, device=device, generator=generator)
     else:
         model = ClassificationPerceiver(num_classes=num_classes, prep_type=prep_type, **TINY,
-                                        policy=DEFAULT, device=device, generator=generator)
+                                        policy=policy, device=device, generator=generator)
     restore_eval_variables(model, checkpoint, torch_checkpoint).eval()
-    if full_scale:
+    if full_scale and not quant:
         model.load_state_dict(cast_variables_for_inference(model))  # bf16-rounded weights
+    if quant == "static":
+        # Restored weights carry no useful amax: calibrate on the first two
+        # batches, as the JAX script does.
+        batches = itertools.islice(dataset_iterator(dataset, batch_size, num_workers=4), 2)
+        calibrate(model, [(prep_images(torch.from_numpy(img).to(device)),)
+                          for img, _ in batches])
     k = min(5, num_classes)
 
     top1 = top5 = seen = 0
@@ -125,7 +139,8 @@ if __name__ == "__main__":
     parser.add_argument("--mesh", type=int, default=None, metavar="N",
                         help="not ported (raises)")
     parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
-                        choices=["dynamic", "static"], help="not ported (raises)")
+                        choices=["dynamic", "static"],
+                        help="int8 projections (static: calibrated on the first two batches)")
     parser.add_argument("--limit", type=int, default=None,
                         help="stop after this many images")
     parser.add_argument("--device", default="cuda")

@@ -18,13 +18,17 @@ reference-convention ``.pth``; with neither the weights are random (seed
 0).  ``--full-scale`` is the published model in bf16 (``PERFORMANCE``);
 the default is the JAX script's small configuration in fp32.  Prints one
 JSON line: masked_accuracy, masked_ce, masked_tokens, sequences and
-seq_per_sec (after the first batch).  Runs on the GPU unless the caller
-asks for the CPU (``--device cpu``).  Not ported: ``--quant`` (raises).
+seq_per_sec (after the first batch).  ``--quant dynamic|static`` scores
+under int8 projections (``Policy.quant``); ``static`` first calibrates each
+projection on one batch of the first sequences, masked at positions drawn
+from ``--seed`` (``ops.quant.calibrate``), as the JAX script does.  Runs on
+the GPU unless the caller asks for the CPU (``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -33,6 +37,7 @@ import torch
 
 from perceiverio_pytorch_tpu_torch.config import PERFORMANCE, Policy
 from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
+from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
 from perceiverio_pytorch_tpu_torch.utils.bytes_tokenizer import BytesTokenizer
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
@@ -61,15 +66,16 @@ def _chunks(text: str, seq_len: int, tokenizer: BytesTokenizer) -> np.ndarray:
 def main(text_file=None, checkpoint=None, torch_checkpoint=None, full_scale=False,
          batch_size=8, mask_rate=0.15, seed=0, limit=None, partial_decode=True, quant=None,
          *, device="cuda"):
-    if quant:
-        raise NotImplementedError("--quant (int8) is not ported to PyTorch yet (see ROADMAP.md)")
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(0)
+    policy = PERFORMANCE if full_scale else Policy()
+    if quant:
+        policy = dataclasses.replace(policy, quant=f"int8_{quant}")
     if full_scale:
-        model = LanguagePerceiver(policy=PERFORMANCE, device=device, generator=generator)
+        model = LanguagePerceiver(policy=policy, device=device, generator=generator)
         seq_len = 2048
     else:
-        model = LanguagePerceiver(**SMALL, policy=Policy(), device=device, generator=generator)
+        model = LanguagePerceiver(**SMALL, policy=policy, device=device, generator=generator)
         seq_len = SMALL["max_seq_len"]
     restore_eval_variables(model, checkpoint, torch_checkpoint).eval()
 
@@ -80,6 +86,14 @@ def main(text_file=None, checkpoint=None, torch_checkpoint=None, full_scale=Fals
         text = _DEMO_TEXT
     seqs = _chunks(text, seq_len, BytesTokenizer())
     n_masked = max(1, int(round(mask_rate * seq_len)))
+    if quant == "static":
+        # Restored weights carry no useful amax: calibrate on one batch of
+        # the first sequences, masked at positions of their own draw.
+        calib = seqs[:batch_size].copy()
+        calib[:, np.random.RandomState(seed).choice(seq_len, n_masked, replace=False)] = (
+            MASK_TOKEN)
+        calib = torch.from_numpy(calib).long().to(device)
+        calibrate(model, [(calib, torch.ones_like(calib, dtype=torch.bool))])
 
     def scores(tokens, positions):
         corrupted = tokens.clone()
@@ -146,7 +160,8 @@ if __name__ == "__main__":
                         help="decode every position instead of only the masked ones"
                              " (the same numbers, more work)")
     parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
-                        choices=["dynamic", "static"], help="not ported (raises)")
+                        choices=["dynamic", "static"],
+                        help="int8 projections (static: calibrated on the first batch)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(text_file=args.text_file, checkpoint=args.checkpoint,

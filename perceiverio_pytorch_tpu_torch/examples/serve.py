@@ -30,9 +30,15 @@ variants run K1 at their encoders; the convnet runs no kernel.
     python -m perceiverio_pytorch_tpu_torch.examples.serve [--full-scale] \\
         [--server] [--http] [--multi] [--requests 20] [--seconds 2] [--out DIR]
 
+``--quant dynamic`` exports the model under ``PERFORMANCE_INT8`` (int8
+projections, per-token scales); ``--quant static`` under
+``PERFORMANCE_INT8_STATIC``, calibrated first on two seeded uniform batches
+(``ops.quant.calibrate``), as the JAX script does: the calibrated ``amax``
+of every projection rides in the weights directory, in fp32, and the
+artifact stays batch-polymorphic.
+
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``).
-Not ported: ``--quant`` (int8 export) raises NotImplementedError, and the
-XLA compilation-cache flags have no counterpart.
+The XLA compilation-cache flags have no counterpart.
 """
 
 from __future__ import annotations
@@ -49,12 +55,17 @@ import urllib.request
 import numpy as np
 import torch
 
-from perceiverio_pytorch_tpu_torch.config import PERFORMANCE
+from perceiverio_pytorch_tpu_torch.config import (
+    PERFORMANCE,
+    PERFORMANCE_INT8,
+    PERFORMANCE_INT8_STATIC,
+)
 from perceiverio_pytorch_tpu_torch.models.classification import (
     ClassificationPerceiver,
     PrepType,
 )
 from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
+from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.serving import export_apply, load_exported
 from perceiverio_pytorch_tpu_torch.serving_http import HttpFrontend, decode_npz, encode_npz
 from perceiverio_pytorch_tpu_torch.serving_server import BatchingServer
@@ -79,23 +90,31 @@ def image(i: int, hw: int) -> np.ndarray:
 def build(out_dir: str, full_scale: bool = False, *, prep_type=None, device="cuda",
           quant=None) -> dict:
     """Export the classifier and its bf16 weights to ``out_dir``; returns
-    the artifact's and the weights' sizes in bytes and the export time."""
-    if quant is not None:
-        raise NotImplementedError("int8 export is not ported yet (ROADMAP.md, item 6)")
+    the artifact's and the weights' sizes in bytes and the export time.
+    ``quant``: None, "dynamic" or "static" (int8, calibrated on two seeded
+    batches of uniform [-1, 1] images)."""
+    policy = {None: PERFORMANCE, "dynamic": PERFORMANCE_INT8,
+              "static": PERFORMANCE_INT8_STATIC}[quant]
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(0)
     if full_scale:
         prep_type = prep_type or PrepType.FOURIER_POS_CONVNET
         model = ClassificationPerceiver(num_classes=1000, img_size=(224, 224),
-                                        prep_type=prep_type, policy=PERFORMANCE,
+                                        prep_type=prep_type, policy=policy,
                                         device=device, generator=generator)
         hw = 224
     else:
         prep_type = prep_type or PrepType.FOURIER_POS_PIXEL
-        model = ClassificationPerceiver(prep_type=prep_type, **TINY, policy=PERFORMANCE,
+        model = ClassificationPerceiver(prep_type=prep_type, **TINY, policy=policy,
                                         device=device, generator=generator)
         hw = TINY["img_size"][0]
     model.eval()
+    if quant == "static":
+        # Calibration on representative inputs (random here, real data in
+        # production) before the weights are cast, as the JAX script does.
+        rng = np.random.RandomState(0)
+        calibrate(model, [(torch.from_numpy(rng.uniform(-1, 1, (1, 3, hw, hw))).float()
+                           .to(device),) for _ in range(2)])
     weights = cast_variables_for_inference(model)
     # A batch of 2: a batch-polymorphic export needs one above 1.
     example = torch.zeros((2, 3, hw, hw), device=device)
@@ -106,7 +125,8 @@ def build(out_dir: str, full_scale: bool = False, *, prep_type=None, device="cud
     with open(os.path.join(out_dir, ARTIFACT), "wb") as f:
         f.write(blob)
     save_variables(os.path.join(out_dir, WEIGHTS), weights, overwrite=True)
-    rec = dict(prep_type=prep_type.name, artifact_bytes=len(blob), export_s=export_s,
+    rec = dict(prep_type=prep_type.name, quant=quant, artifact_bytes=len(blob),
+               export_s=export_s,
                weights_bytes=sum(t.numel() * t.element_size() for t in weights.values()))
     print(f"exported {rec['artifact_bytes'] / 1e6:.1f} MB artifact + "
           f"{rec['weights_bytes'] / 1e6:.1f} MB weights to {out_dir} in {export_s:.1f} s")
@@ -385,7 +405,8 @@ def main(argv=None) -> None:
     ap.add_argument("--multi", action="store_true",
                     help="also demo multi-model routing + request deadlines")
     ap.add_argument("--quant", nargs="?", const="dynamic", default=None,
-                    choices=["dynamic", "static"], help="int8 export: not ported yet")
+                    choices=["dynamic", "static"],
+                    help="int8 export (static: calibrated on two seeded batches)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

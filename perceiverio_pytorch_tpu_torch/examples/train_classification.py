@@ -31,13 +31,21 @@ by a thread pool, shipped uint8 and normalised on the device); the last
     python -m perceiverio_pytorch_tpu_torch.examples.train_classification --steps 30 \
         [--full-scale] [--data-dir DIR] [--checkpoint-dir DIR [--resume]]
 
+``--quant dynamic|static`` is quantization-aware training: the forward runs
+the int8 projections a deployment runs (``Policy.quant``), the backward the
+exact products' gradients.  ``static`` calibrates every projection's
+``amax`` first (in eval mode) on the first training batch, the batch the
+JAX example initialises (and so calibrates) with, and keeps it through
+training.
+
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp`` and ``--quant``.
+``main(device="cpu")``).  Not ported: ``--mesh`` and ``--fsdp``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -48,6 +56,7 @@ from perceiverio_pytorch_tpu_torch.models.classification import (
     PrepType,
 )
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
+from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.training import (
     ImageFolderDataset,
     Subset,
@@ -104,7 +113,7 @@ def eval_fn(model, img, labels):
 def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIER_POS_CONVNET,
           device="cuda", metrics_path="./classification_metrics.jsonl", log_every=10,
           data_dir=None, checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False,
-          prefetch=0, seed=0):
+          prefetch=0, seed=0, quant=None):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``.
 
@@ -114,6 +123,8 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
     images of ``data_dir``), or None for the synthetic set, which holds none
     out.  ``checkpoint_every`` defaults to ``steps // 2`` when
     ``checkpoint_dir`` is given.  Weights are drawn from ``seed``.
+    ``quant`` ("dynamic" or "static") trains the int8 model (static:
+    calibrated on the first training batch).
     """
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
@@ -138,13 +149,21 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
     else:
         num_classes = FULL_SCALE_CLASSES if full_scale else TINY_CLASSES
         img, labels = synthetic_quadrants(8 * batch_size, hw, num_classes)
+    policy = PERFORMANCE if full_scale else DEFAULT
+    if quant:
+        policy = dataclasses.replace(policy, quant=f"int8_{quant}")
     if full_scale:
         model = ClassificationPerceiver(num_classes=num_classes, prep_type=prep_type,
-                                        policy=PERFORMANCE, remat=True, device=device,
+                                        policy=policy, remat=True, device=device,
                                         generator=generator)
     else:
         model = ClassificationPerceiver(num_classes=num_classes, prep_type=prep_type, **TINY,
-                                        policy=DEFAULT, device=device, generator=generator)
+                                        policy=policy, device=device, generator=generator)
+    if quant == "static":
+        first = (next(dataset_iterator(dataset, batch_size, num_workers=0))[0]
+                 if dataset is not None else img[:batch_size])
+        calibrate(model.eval(), [(prep_images(torch.from_numpy(first).to(device)),)])
+        model.train()
     if checkpoint_every is None:
         checkpoint_every = 0 if checkpoint_dir is None else max(steps // 2, 1)
     trainer = Trainer(
@@ -178,11 +197,11 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
 
 def main(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIER_POS_CONVNET,
          device="cuda", metrics_path="./classification_metrics.jsonl", data_dir=None,
-         checkpoint_dir=None, resume=False):
+         checkpoint_dir=None, resume=False, quant=None):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, prep_type=prep_type, device=device,
         metrics_path=metrics_path, data_dir=data_dir, checkpoint_dir=checkpoint_dir,
-        prefetch=2)
+        prefetch=2, quant=quant)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -202,8 +221,11 @@ if __name__ == "__main__":
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest checkpoint in --checkpoint-dir")
+    parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
+                        choices=["dynamic", "static"],
+                        help="quantization-aware training: int8 forward, exact backward")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale,
          prep_type=PrepType[args.prep_type], device=args.device, data_dir=args.data_dir,
-         checkpoint_dir=args.checkpoint_dir, resume=args.resume)
+         checkpoint_dir=args.checkpoint_dir, resume=args.resume, quant=args.quant)

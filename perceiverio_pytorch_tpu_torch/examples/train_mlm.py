@@ -31,13 +31,20 @@ the loss and the evaluation run the frozen model with the adapters merged).
         [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]] [--lora R] \
         [--steps-per-call K]
 
+``--quant dynamic|static`` is quantization-aware training: the forward runs
+the int8 projections a deployment runs (``Policy.quant``), the backward the
+exact products' gradients.  ``static`` calibrates every projection's
+``amax`` first on the first batch of the training data, the batch the JAX
+example initialises (and so calibrates) with, and keeps it through training.
+
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp`` and ``--quant``.
+``main(device="cpu")``).  Not ported: ``--mesh`` and ``--fsdp``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -45,6 +52,7 @@ import torch
 from perceiverio_pytorch_tpu_torch.config import DEFAULT, PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
 from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
+from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.training import (
     MLMDataset,
     Subset,
@@ -105,7 +113,7 @@ def text_datasets(text_file, seq_len, batch_size, mask_rate=0.15):
 def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
           metrics_path="./mlm_metrics.jsonl", log_every=10, text_file=None, mask_rate=0.15,
           checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0,
-          lora_rank=0, steps_per_call=1):
+          lora_rank=0, steps_per_call=1, quant=None):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``, where
     ``batches(start_step)`` yields batches on ``device`` (with ``prefetch``
@@ -115,15 +123,20 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
     is given.  Weights are drawn from ``seed``.  With ``lora_rank`` the
     state's model is the ``LoRA`` adapters of the frozen language model
     (their ``a`` drawn from ``seed + 1``), which the loss and evaluation
-    functions take.  ``steps_per_call`` goes to the Trainer."""
+    functions take.  ``steps_per_call`` goes to the Trainer.  ``quant``
+    ("dynamic" or "static") trains the int8 model (static: calibrated on
+    the first training batch)."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
+    policy = PERFORMANCE if full_scale else DEFAULT
+    if quant:
+        policy = dataclasses.replace(policy, quant=f"int8_{quant}")
     if full_scale:
         seq_len = FULL_SCALE_SEQ_LEN
-        model = LanguagePerceiver(policy=PERFORMANCE, device=device, generator=generator)
+        model = LanguagePerceiver(policy=policy, device=device, generator=generator)
     else:
         seq_len = TINY_SEQ_LEN
-        model = LanguagePerceiver(max_seq_len=seq_len, **TINY, policy=DEFAULT, device=device,
+        model = LanguagePerceiver(max_seq_len=seq_len, **TINY, policy=policy, device=device,
                                   generator=generator)
     dataset = None
     if text_file is not None:
@@ -134,6 +147,13 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
 
     def on_device(batch):
         return tuple(torch.from_numpy(a).to(device) for a in batch)
+
+    if quant == "static":
+        first = (next(dataset_iterator(dataset, batch_size, num_workers=0)) if dataset
+                 is not None else tuple(a[:batch_size] for a in corpus))
+        corrupted = on_device(first)[0]
+        calibrate(model.eval(), [(corrupted, torch.ones_like(corrupted, dtype=torch.bool))])
+        model.train()
 
     if checkpoint_every is None:
         checkpoint_every = 0 if checkpoint_dir is None else max(steps // 2, 1)
@@ -181,12 +201,12 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
 def main(steps=50, batch_size=8, full_scale=False, *, device="cuda",
          metrics_path="./mlm_metrics.jsonl", text_file=None, mask_rate=0.15,
          checkpoint_dir=None, resume=False, async_checkpoint=False, lora_rank=0,
-         steps_per_call=1):
+         steps_per_call=1, quant=None):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
         text_file=text_file, mask_rate=mask_rate, checkpoint_dir=checkpoint_dir,
         checkpoint_async=async_checkpoint, prefetch=2, lora_rank=lora_rank,
-        steps_per_call=steps_per_call)
+        steps_per_call=steps_per_call, quant=quant)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -213,10 +233,13 @@ if __name__ == "__main__":
                              " and MLP projections instead")
     parser.add_argument("--steps-per-call", type=int, default=1,
                         help="updates per call of the Trainer's step")
+    parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
+                        choices=["dynamic", "static"],
+                        help="quantization-aware training: int8 forward, exact backward")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
          text_file=args.text_file, mask_rate=args.mask_rate,
          checkpoint_dir=args.checkpoint_dir, resume=args.resume,
          async_checkpoint=args.async_checkpoint, lora_rank=args.lora,
-         steps_per_call=args.steps_per_call)
+         steps_per_call=args.steps_per_call, quant=args.quant)

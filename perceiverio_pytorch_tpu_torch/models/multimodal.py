@@ -26,8 +26,12 @@ the backward (``config.remat_call``): the full-scale training example sets
 ``"dots_saveable"``, as the JAX one does, which keeps the matrix products'
 outputs and recomputes the rest.
 
-Left out, each raising: ``chunk_mesh`` (chunk-parallel decoding across
-cards) and the int8 policies (``Policy.quant`` raises in the port).
+Under ``Policy(quant="int8_static")`` every chunk's decode runs the same
+shared decoder, so ``ops.quant.calibrate`` folds each projection's ``amax``
+over the chunks (the JAX model unrolls its chunk scan for that pass) and
+static inference reads it, whatever the chunk count.
+
+Left out, raising: ``chunk_mesh`` (chunk-parallel decoding across cards).
 
 ``device`` is "cuda" by default; with no GPU the model raises unless the
 caller asks for ``device="cpu"``.  Weights are drawn from a

@@ -303,6 +303,15 @@ def _fill_batch_counters(model: nn.Module, state_dict: Dict[str, torch.Tensor]) 
             state_dict[name] = value
 
 
+def _fill_uncalibrated(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """A static int8 projection's ``amax``, which weights saved from a model
+    without one lack, is 0: uncalibrated, as the JAX package's initial
+    ``quant_stats`` (run ``ops.quant.calibrate`` before serving)."""
+    for name, value in model.state_dict().items():
+        if name.endswith(".amax") and name not in state_dict:
+            state_dict[name] = torch.zeros_like(value, device="cpu")
+
+
 def restore_eval_variables(model: nn.Module, checkpoint: Optional[str] = None,
                            torch_checkpoint: Optional[str] = None) -> nn.Module:
     """Load weights into ``model`` (in place, on its device) for evaluation;
@@ -315,7 +324,9 @@ def restore_eval_variables(model: nn.Module, checkpoint: Optional[str] = None,
     ``torch_checkpoint`` is a reference-convention ``.pth``
     (``{"model_state_dict": ...}``, or a bare state_dict), which loads with
     ``strict=True`` because the port carries the reference's names.  With
-    neither, ``model`` is returned unchanged.
+    neither, ``model`` is returned unchanged.  Into an ``int8_static`` model
+    the load fills the ``amax`` entries a source without them lacks with 0
+    (uncalibrated); any other missing or unexpected entry still fails.
     """
     ema = None
     if checkpoint:
@@ -333,6 +344,8 @@ def restore_eval_variables(model: nn.Module, checkpoint: Optional[str] = None,
         _fill_batch_counters(model, state_dict)
     else:
         return model
+    state_dict = dict(state_dict)
+    _fill_uncalibrated(model, state_dict)
     model.load_state_dict(state_dict, strict=True)
     if ema is not None:
         # By parameter: a module registered under two names (the language

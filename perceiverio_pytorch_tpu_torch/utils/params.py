@@ -2,8 +2,10 @@
 
 Counterpart of ``perceiverio_pytorch_tpu/utils/params.py``.  The JAX
 package casts the ``params`` collection of a variables pytree and keeps
-``batch_stats``; here the parameters are a module's ``nn.Parameter``s, and
-BatchNorm's running statistics and ``num_batches_tracked`` are buffers.
+every other collection (``batch_stats``, ``quant_stats``) as it is; here the
+parameters are a module's ``nn.Parameter``s, and BatchNorm's running
+statistics and ``num_batches_tracked`` and a static int8 projection's
+``amax`` are buffers.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
-# state_dict entries that are BatchNorm statistics, not parameters.
-_STATISTICS = ("running_mean", "running_var", "num_batches_tracked")
+# state_dict entries that are statistics, not parameters: BatchNorm's and a
+# static int8 projection's calibrated max|x| (core.attention.Dense).
+_STATISTICS = ("running_mean", "running_var", "num_batches_tracked", "amax")
 
 
 def cast_floating(tree: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
@@ -39,12 +42,13 @@ def cast_variables_for_inference(
     variables: Union[nn.Module, Mapping[str, torch.Tensor]],
     dtype: torch.dtype = torch.bfloat16,
 ) -> Dict[str, torch.Tensor]:
-    """A state_dict whose parameters are cast to ``dtype``, BatchNorm's
-    statistics kept as they are (fp32, for a stable normalisation).
+    """A state_dict whose parameters are cast to ``dtype``, the statistics
+    kept as they are (fp32: BatchNorm's, for a stable normalisation, and
+    the int8 projections' ``amax``, which sets their activation scale).
 
     ``variables`` is a module (its parameters are cast; its buffers are
     not) or a state_dict (every floating entry but BatchNorm's
-    ``running_mean`` and ``running_var`` is cast).  The module itself is
+    ``running_mean`` and ``running_var`` and the ``amax`` entries is cast).  The module itself is
     left unchanged.  Entries that share one tensor (a tied embedding)
     share one cast tensor.
     """

@@ -1,8 +1,8 @@
 """Weights carried across from the JAX package to the port.
 
 ``state_dict_from_flax`` turns the JAX package's ``{"params",
-"batch_stats"}`` variable tree (nested dicts of numpy arrays) into this
-port's ``state_dict``.  It is a numpy-only copy of the path translation in
+"batch_stats", "quant_stats"}`` variable tree (nested dicts of numpy
+arrays) into this port's ``state_dict``.  It is a numpy-only copy of the path translation in
 ``perceiverio_pytorch_tpu/utils/torch_checkpoint.py`` (``_translate_path``
 and ``export_state_dict``), so the port's modules carry the reference's
 torch attribute names and the converted DeepMind checkpoints load with
@@ -13,6 +13,8 @@ torch attribute names and the converted DeepMind checkpoints load with
   scale         -> weight                              (LayerNorm / BatchNorm)
   embedding     -> weight                              (Embedding)
   mean / var    -> running_mean / running_var          (batch_stats)
+  amax          -> amax                                (quant_stats: a static
+                                                        int8 projection's buffer)
 
 A BatchNorm's ``num_batches_tracked`` buffer, which flax has no counterpart
 of, is written as 0 beside its running averages.  ``overrides`` place flax
@@ -112,7 +114,7 @@ def state_dict_from_flax(variables: Mapping, overrides: Optional[Mapping[str, st
     """
     overrides = dict(overrides or {})
     out: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant_stats"):
         for path, value in _flatten(variables.get(collection, {})):
             value = np.array(value, dtype=np.float32)  # a writable copy
             if path[-1] == "kernel":

@@ -215,6 +215,15 @@ def test_unported_policy_fields_raise(field, value):
         with pytest.raises(ValueError, match=value):
             port_config.Policy(remat_policy="save_only_these_names")
         return
+    if field == "quant":
+        # Ported: the JAX modes are taken; any other raises JAX's ValueError.
+        assert port_config.Policy(**{field: value}).quant == value
+        with pytest.raises(ValueError) as want:
+            jax_config.quant_enabled(jax_config.Policy(quant="int4"))
+        with pytest.raises(ValueError) as got:
+            port_config.Policy(quant="int4")
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError):
         port_config.Policy(**{field: value})
 

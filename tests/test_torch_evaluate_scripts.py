@@ -74,7 +74,8 @@ def test_evaluate_mlm_matches_jax(mlm_weights, partial_decode):
 
 def test_evaluate_mlm_decodes_agree_and_refuse_int8(tmp_path):
     """The masked rows alone against the full decode on a text file (the
-    JAX test's tolerances); ``--quant`` is not ported."""
+    JAX test's tolerances); ``--quant`` runs (dynamic, and static calibrated
+    on the first batch), both decodes alike."""
     text = tmp_path / "corpus.txt"
     text.write_text("the encoder attends to the byte sequence in parallel. " * 60)
     fast = evaluate_mlm.main(text_file=str(text), batch_size=4, limit=8, device="cpu")
@@ -84,8 +85,13 @@ def test_evaluate_mlm_decodes_agree_and_refuse_int8(tmp_path):
     assert fast["masked_tokens"] == slow["masked_tokens"]
     np.testing.assert_allclose(fast["masked_accuracy"], slow["masked_accuracy"], atol=1e-6)
     np.testing.assert_allclose(fast["masked_ce"], slow["masked_ce"], atol=2e-3)
-    with pytest.raises(NotImplementedError, match="int8"):
-        evaluate_mlm.main(quant="dynamic", device="cpu")
+    for mode in ("dynamic", "static"):
+        runs = [evaluate_mlm.main(text_file=str(text), batch_size=4, limit=8, device="cpu",
+                                  quant=mode, partial_decode=partial)
+                for partial in (True, False)]
+        assert runs[0]["masked_tokens"] == runs[1]["masked_tokens"] == fast["masked_tokens"]
+        assert np.isfinite(runs[0]["masked_ce"])
+        np.testing.assert_allclose(runs[0]["masked_ce"], runs[1]["masked_ce"], atol=2e-3)
     with pytest.raises(ValueError, match="too short"):
         evaluate_mlm._chunks("short", 256, evaluate_mlm.BytesTokenizer())
 

@@ -211,8 +211,8 @@ def test_serving_stack_defaults_to_cuda(no_cuda, tmp_path):
     assert restore_variables(str(tmp_path / "w"), device="cpu")["w"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.build(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="int8"):
-        serve.build(str(tmp_path), device="cpu", quant="dynamic")
+    rec = serve.build(str(tmp_path), device="cpu", quant="dynamic")  # int8 exports
+    assert rec["quant"] == "dynamic" and os.path.exists(tmp_path / serve.ARTIFACT)
 
 
 def test_data_path_entry_points_default_to_cuda(no_cuda, tmp_path):
@@ -230,8 +230,11 @@ def test_data_path_entry_points_default_to_cuda(no_cuda, tmp_path):
         evaluate_classification.main()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_flow.setup(2, data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="--mesh and --quant"):
-        evaluate_classification.main(quant="dynamic", device="cpu")
+    with pytest.raises(NotImplementedError, match="--mesh"):
+        evaluate_classification.main(mesh_devices=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_classification.main(quant="dynamic")
+    assert evaluate_classification.main(quant="dynamic", device="cpu", limit=16)["images"] == 16
 
 
 @pytest.mark.parametrize("module", ["convert", "training.lora", "training.trainer",
