@@ -219,7 +219,7 @@ Phases (each raises on failure; nothing is caught):
      restore_eval_variables on the final checkpoint gives the EMA weights;
      the logged lr equals the schedule's; step time beside phase 8's;
  32. prints the run's seconds, the kernels line and, last, {"ok": true,
-     "device": {...}}.
+     "device": {...}} (after phases A to L below).
 
 The rest of training runs in phases A to E, each where its inputs are
 warm: B after phase 8, A after phase 12, C to E after phase 19.
@@ -279,6 +279,32 @@ F, H, I (F takes G's shapes):
      step; one batch's gradients with the product on torch._int_mm against
      the plain product, bit for bit under deterministic algorithms; step
      time beside phase 18's.
+
+The rest of the single-card surface runs in phases J to L, after phase I:
+  J. the four reference demos (examples/opt_flow.py, img_classify.py for
+     each PrepType, language.py, multimodal.py) at full width, fp32 as the
+     demos run, each from a seeded reference-convention .pth given by
+     --checkpoint, on media the phase writes at the demos' default paths (a
+     436x1024 PNG frame pair: 6 tiles; a 375x500 JPEG; a 17-frame MJPG AVI;
+     a stereo int16 48 kHz WAV): the demo's own forward against the same
+     weights called directly on the same inputs, bit for bit; its K1
+     launches against the serving phases' count a request (6, 14, 10: 26
+     for flow, 1 for the pixel, 1x1-conv and multimodal models, none for the
+     convnet and the MLM); each demo's seconds;
+  K. ImagePostprocessor at the multimodal model's video shapes: "patches"
+     from [1, 16, 56, 56, 48], "conv" over 16 frames of [56, 56, 512]
+     (temporal_upsample 1, spatial 4), "conv" from [1, 8, 56, 56, 512]
+     (temporal 2, spatial 4: a stride-1 time axis), "conv1x1" over the
+     decoder's [1, 802816, 512]; all to [1, 16, 224, 224, 3], fp32 on the
+     card against the CPU (1e-4 of the largest value), then bf16 ms and
+     peak memory;
+  L. utils.memory's compiled_memory_stats of a bf16 flow forward (6 tiles)
+     against the allocator's high-water read around the same call,
+     hbm_headroom's fit and its refusal of a request of twice the card's
+     memory (the allocator usable after it); utils.profiling's trace of a
+     served pair and op_stats finding K1's kernel as often as phase 6
+     counts it; ThroughputMeter's pairs/s beside phase 6's; the full-width
+     MLM under layer_scan "on" against "off", bit for bit.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -499,6 +525,16 @@ INT8_REL_BOUND = {"dynamic": 0.25, "static": 0.5}
 INT8_CPU_ROWS = 512  # rows of each product held against the CPU's functions
 INT8_REPS = 5
 INT8_TRAIN_STEPS = 3  # timed, after one warm-up step
+
+# The rest of the single-card surface (phases J to L).
+DEMO_FLOW_HW = (436, 1024)  # Sintel's frame size: 6 tiles of 368x496
+DEMO_IMAGE_HW = (375, 500)
+DEMO_CLIP_FRAMES = 17  # one more than the demo takes
+DEMO_AUDIO_SAMPLES = 16 * 1920 + 480
+POSTPROC_TOL = 1e-4
+POSTPROC_REPS = 10
+HBM_TOL = 0.02  # compiled_memory_stats against the allocator read around the same call
+
 
 
 def smi_line() -> str:
@@ -3917,6 +3953,312 @@ def phase_int8_train(smi, cls_train):
 
 
 
+def _write_demo_media(gen):
+    """The demos' default media under ./sample_data: a 436x1024 PNG frame
+    pair (the second rolled by (2, 3) pixels), a 375x500 JPEG, a 17-frame
+    MJPG AVI of 256x320 and a stereo int16 48 kHz WAV."""
+    import cv2
+    import numpy as np
+    import scipy.io.wavfile
+    from PIL import Image
+
+    def to_uint8(chw):
+        return ((chw + 1) * 127.5).round().clamp(0, 255).byte().permute(1, 2, 0).numpy()
+
+    os.makedirs("sample_data", exist_ok=True)
+    frame = _smooth_frame(gen, *DEMO_FLOW_HW)
+    Image.fromarray(to_uint8(frame)).save("sample_data/frame_0016.png")
+    Image.fromarray(to_uint8(frame.roll((2, 3), (1, 2)))).save("sample_data/frame_0017.png")
+    Image.fromarray(to_uint8(_smooth_frame(gen, *DEMO_IMAGE_HW))).save(
+        "sample_data/dalmation.jpg", quality=95)
+    writer = cv2.VideoWriter("sample_data/video.avi", cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                             (320, 256))
+    for i in range(DEMO_CLIP_FRAMES):
+        writer.write(np.ascontiguousarray(to_uint8(_smooth_frame(gen, 256, 320))[..., ::-1]))
+    writer.release()
+    t = np.arange(DEMO_AUDIO_SAMPLES)[:, None] / 48000.0
+    audio = 0.4 * np.sin(2 * np.pi * np.array([440.0, 523.25]) * t)
+    scipy.io.wavfile.write("sample_data/audio.wav", 48000, (audio * 2**15).astype(np.int16))
+
+
+@contextlib.contextmanager
+def _captured_model(module, name):
+    """Patch the demo module's model constructor to keep the model it builds
+    and every output of its forward (the demo's own model, its own call)."""
+    import torch
+
+    seen = {"outputs": []}
+    cls = getattr(module, name)
+
+    def build(*args, **kwargs):
+        model = cls(*args, **kwargs)
+        seen["model"] = model
+
+        def hook(mod, inputs, output):
+            seen["outputs"].append(output)
+        model.register_forward_hook(hook)
+        return model
+
+    with mock.patch.object(module, name, build), torch.inference_mode():
+        yield seen
+
+
+def _same(label, got, want):
+    import torch
+
+    if isinstance(want, dict):
+        for key in want:
+            _same(f"{label}[{key}]", got[key], want[key])
+        return
+    if not (got.shape == want.shape and torch.equal(got, want)):
+        diff = (got.float() - want.float()).abs().max().item() if got.shape == want.shape else None
+        raise AssertionError(f"{label}: the demo's output is not the model's (max diff {diff})")
+
+
+def phase_demos(serve, cls_serve, mm_serve):
+    """J: the four reference demos at full width on the card, from a seeded
+    reference-convention .pth each (--checkpoint) and synthetic media at the
+    demos' default paths; each demo's own forward against the same weights
+    called directly on the same inputs, bit for bit; K1 launches against the
+    serving phases' counts a request."""
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import DEFAULT, FlowInference, LanguagePerceiver
+    from perceiverio_pytorch_tpu_torch.examples import img_classify, language, multimodal
+    from perceiverio_pytorch_tpu_torch.examples import opt_flow
+    from perceiverio_pytorch_tpu_torch.utils.bytes_tokenizer import BytesTokenizer, pad_sequence
+    from perceiverio_pytorch_tpu_torch.utils.image import (
+        center_crop_resize,
+        load_image,
+        load_video,
+        normalize_imagenet,
+    )
+
+    _write_demo_media(torch.Generator().manual_seed(SEED + 40))
+    records = {}
+
+    def run(label, module, name, demo, direct, want_k1):
+        model = direct["model"]
+        torch.save({"model_state_dict": model.state_dict()}, f"{label}.pth")
+        _reset_launch_counts()
+        with _captured_model(module, name) as seen:
+            t0 = time.perf_counter()
+            result = demo(f"{label}.pth")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        if launches["K1"] != want_k1:
+            raise AssertionError(f"{label} demo: {launches['K1']} K1 launches, the serving"
+                                 f" phase holds {want_k1} a request")
+        with torch.inference_mode():
+            _reset_launch_counts()
+            want = direct["call"]()
+            torch.cuda.synchronize()
+            direct_k1 = _launch_counts()["K1"]
+        got = seen["outputs"][-1] if direct.get("hooked", True) else result
+        _same(f"{label} demo", got, want)
+        records[label] = dict(seconds=seconds, launches=launches["K1"],
+                              merge_launches=launches["merge"], direct_launches=direct_k1,
+                              result=direct["describe"](result))
+        print(f"[demo] {label}: {json.dumps(records[label])}", flush=True)
+        del seen, model, direct
+        torch.cuda.empty_cache()
+
+    # Flow: the tiled 436x1024 pair, 6 tiles in one forward.
+    flow_model = _flow_model(DEFAULT)
+    img1 = torch.from_numpy(2 * (load_image("sample_data/frame_0016.png") / 255.0) - 1.0)
+    img2 = torch.from_numpy(2 * (load_image("sample_data/frame_0017.png") / 255.0) - 1.0)
+    infer = FlowInference(flow_model, device="cuda")
+    run("opt_flow", opt_flow, "FlowPerceiver",
+        lambda pth: torch.from_numpy(opt_flow.flow_example(checkpoint=pth)),
+        dict(model=flow_model, hooked=False, call=lambda: infer(img1, img2).cpu(),
+             describe=lambda f: dict(shape=list(f.shape),
+                                     max_abs_flow=float(f.abs().max()))),
+        serve["launches"] // serve["requests"])
+    del flow_model, infer
+    for prep in CLS_SITE_OF:
+        model = _cls_model(prep, DEFAULT)
+        img = torch.from_numpy(normalize_imagenet(center_crop_resize(
+            load_image("sample_data/dalmation.jpg"), (224, 224)))).cuda()
+        run(f"img_classify_{prep}", img_classify, "ClassificationPerceiver",
+            lambda pth, prep=prep: img_classify.img_classify_example(
+                img_classify.PrepType[prep], checkpoint=pth),
+            dict(model=model, call=lambda model=model, img=img: model(img),
+                 describe=lambda top5: top5),
+            cls_serve[prep]["k1_launches_per_request"])
+        del model
+    # Language: the masked sentence, 2,048 bytes.
+    lm = LanguagePerceiver(device="cuda", generator=torch.Generator().manual_seed(SEED)).eval()
+    tokenizer = BytesTokenizer()
+    tokens = tokenizer.to_int("This is an incomplete sentence where some words are missing.")
+    tokens[51:60] = tokenizer.mask_token
+    ids, mask = pad_sequence(2048, tokens[None], np.ones_like(tokens[None]),
+                             tokenizer.pad_token)
+    ids = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    mask = torch.as_tensor(mask, dtype=torch.bool, device="cuda")
+    run("language", language, "LanguagePerceiver",
+        lambda pth: language.language_example(checkpoint=pth),
+        dict(model=lm, call=lambda: lm(ids, mask), describe=lambda text: text), 0)
+    del lm
+    # Multimodal: 16 frames of 224x224, 30,720 samples, 16 chunks.
+    mm = _mm_model(DEFAULT)
+    video = load_video("sample_data/video.avi", resize=(224, 224))
+    _, audio = scipy.io.wavfile.read("sample_data/audio.wav")
+    video = torch.from_numpy(np.ascontiguousarray(np.moveaxis(video[None, :16], -1, -3))).cuda()
+    audio = torch.from_numpy(
+        (audio[None, :16 * 1920, 0:1].astype(np.float32) / 2**15)).cuda()
+    run("multimodal", multimodal, "MultiModalPerceiver",
+        lambda pth: multimodal.multimodal_example(checkpoint=pth),
+        dict(model=mm, call=lambda: mm(video, audio, multimodal.N_CHUNKS),
+             describe=lambda out: {k: list(v.shape) for k, v in out.items()}),
+        mm_serve["k1_launches_per_clip"])
+    for name in ("flow_prediction.png", "audio_reconstruction.wav", "video_reconstruction.avi"):
+        if not os.path.getsize(name):
+            raise AssertionError(f"the demos wrote an empty {name}")
+    return records
+
+
+def phase_postprocessor(smi):
+    """K: ImagePostprocessor at the multimodal model's video shapes, every
+    type with weights: fp32 on the card against the CPU (the same weights
+    and inputs), then bf16 ms and peak memory."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.io_processors import ImagePostprocessor
+
+    cases = [
+        ("patches", dict(postproc_type="patches", spatial_upsample=4), (1, 16, 56, 56, 48)),
+        ("conv_t1_s4", dict(postproc_type="conv", spatial_upsample=4, n_outputs=3),
+         (1, 16, 56, 56, 512)),
+        ("conv_t2_s4", dict(postproc_type="conv", temporal_upsample=2, spatial_upsample=4,
+                            n_outputs=3), (1, 8, 56, 56, 512)),
+        ("conv1x1", dict(postproc_type="conv1x1", n_outputs=3,
+                         input_reshape_size=(16, 224, 224)), (1, 16 * 224 * 224, 512)),
+    ]
+    gen = torch.Generator().manual_seed(SEED + 41)
+    records = {}
+    for label, kw, shape in cases:
+        module = ImagePostprocessor(img_size=(224, 224), input_channels=shape[-1],
+                                    generator=gen, **kw)
+        x = torch.randn(shape, generator=gen)
+        with torch.inference_mode():
+            want = module(x)
+            card = module.cuda()
+            got = card(x.cuda())
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (1, 16, 224, 224, 3) or tuple(want.shape) != tuple(got.shape):
+                raise AssertionError(f"postprocessor {label}: shape {tuple(got.shape)}")
+            diff = (got.cpu() - want).abs().max().item()
+            peak = want.abs().max().item()
+            if not diff <= POSTPROC_TOL * peak:
+                raise AssertionError(f"postprocessor {label}: card vs CPU {diff} >"
+                                     f" {POSTPROC_TOL} * {peak}")
+            card = card.to(torch.bfloat16)
+            xb = x.cuda().to(torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_ms(lambda: card(xb), POSTPROC_REPS)
+            peak_mem = torch.cuda.max_memory_allocated() - base
+        records[label] = dict(input=list(shape), fp32_max_abs_diff=diff, max_abs=peak,
+                              tolerance=POSTPROC_TOL, bf16_ms=ms, bf16_peak_mem_gb=peak_mem / 1e9)
+        print(f"[postprocessor] {label}: {json.dumps(records[label])} | {smi}", flush=True)
+        del module, card, x, xb, got, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_utilities(smi, serve):
+    """L: compiled_memory_stats and hbm_headroom of a bf16 flow serving
+    forward (6 tiles), an over-sized request; trace and op_stats of that
+    forward; ThroughputMeter's pairs/s; the MLM with layer_scan "on" against
+    "off"."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import (
+        PERFORMANCE,
+        FlowInference,
+        LanguagePerceiver,
+        compute_grid_indices,
+    )
+    from perceiverio_pytorch_tpu_torch.utils import memory, profiling
+
+    model = _flow_model(PERFORMANCE)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    frame = _smooth_frame(gen, *DEMO_FLOW_HW)
+    img1, img2 = frame[None].cuda(), frame.roll((2, 3), (1, 2))[None].cuda()
+    infer = FlowInference(model, device="cuda")
+    h, w = model.img_size
+    grid = compute_grid_indices(DEMO_FLOW_HW, (h, w))  # FlowInference's 6 tiles
+    t1 = torch.cat([img1[..., y:y + h, x:x + w] for y, x in grid])
+    t2 = torch.cat([img2[..., y:y + h, x:x + w] for y, x in grid])
+    with torch.inference_mode():
+        model(t1, t2)  # warm-up
+        stats = memory.compiled_memory_stats(model, t1, t2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model(t1, t2)
+        torch.cuda.synchronize()
+        around = torch.cuda.max_memory_allocated() - before
+        measured = stats["peak_bytes"] - stats["argument_bytes"]
+        if abs(measured - around) > HBM_TOL * around:
+            raise AssertionError(f"compiled_memory_stats high-water {measured} against the"
+                                 f" allocator's {around}")
+        fits = memory.hbm_headroom(model, t1, t2)
+        if not fits["fits"]:
+            raise AssertionError(f"hbm_headroom: the flow forward does not fit: {fits}")
+        total = torch.cuda.get_device_properties(0).total_memory
+        # fp32 elements: twice the card's memory.
+        over = memory.hbm_headroom(lambda t: t.new_empty(total // 2 + 1), t1)
+        if over["fits"] or over["headroom_bytes"] >= 0:
+            raise AssertionError(f"hbm_headroom: a {total} byte request fits: {over}")
+        again = model(t1, t2)  # the allocator is usable afterwards
+        torch.cuda.synchronize()
+        if not torch.isfinite(again).all():
+            raise AssertionError("the flow forward after the refused request is not finite")
+        with tempfile.TemporaryDirectory() as trace_dir:
+            _reset_launch_counts()
+            with profiling.trace(trace_dir):
+                infer(img1, img2)
+                torch.cuda.synchronize()
+            launches = _launch_counts()
+            rows = profiling.op_stats(trace_dir)
+        k1_rows = [r for r in rows if "flash_fwd" in r["op"] and r["type"] == "kernel"]
+        k1_seen = sum(r["occurrences"] for r in k1_rows)
+        merge_seen = sum(r["occurrences"] for r in rows if "merge_kernel" in r["op"])
+        want_k1 = serve["launches"] // serve["requests"]
+        if (k1_seen, launches["K1"]) != (want_k1, want_k1) or merge_seen != launches["merge"]:
+            raise AssertionError(f"op_stats: {k1_seen} K1 kernels and {merge_seen} merges in the"
+                                 f" trace, the counters {launches}, phase 6 {want_k1}")
+        pairs_per_s = profiling.ThroughputMeter(warmup=1).measure(infer, img1, img2, iters=3)
+    del model, infer
+    torch.cuda.empty_cache()
+    lm = {value: LanguagePerceiver(policy=dataclasses.replace(PERFORMANCE, layer_scan=value),
+                                   device="cuda",
+                                   generator=torch.Generator().manual_seed(SEED)).eval()
+          for value in ("off", "on")}
+    lm["on"].load_state_dict(lm["off"].state_dict())
+    ids, mask = _lm_batch(SEED + 43)
+    with torch.inference_mode():
+        out = {value: model(ids[:8], mask[:8]) for value, model in lm.items()}
+    if not torch.equal(out["on"], out["off"]):
+        raise AssertionError("layer_scan='on' differs from 'off'")
+    rec = dict(memory_stats=stats, allocator_high_water=around, fits=fits["fits"],
+               headroom_gb=fits["headroom_bytes"] / 1e9, over_fits=over["fits"],
+               over_peak_gb=over["peak_bytes"] / 1e9, k1_kernels_traced=k1_seen,
+               merges_traced=merge_seen,
+               k1_self_us=sum(r["total_self_us"] for r in k1_rows),
+               top_kernels=[(r["op"][:60], r["occurrences"], r["total_self_us"])
+                            for r in rows[:5]],
+               meter_pairs_per_s=pairs_per_s, phase6_pairs_per_s=serve["pairs_per_s"],
+               layer_scan_on_equals_off=True)
+    print(f"[utilities] {json.dumps(rec)} | {smi}", flush=True)
+    return dict(k1_traced=k1_seen, pairs_per_s=pairs_per_s)
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -3931,7 +4273,7 @@ def _site_sums(records, keep, per_site):
 
 
 def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
-                 cls_k1_train, buckets, serving, files, int8):
+                 cls_k1_train, buckets, serving, files, int8, demos, utilities):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -3980,8 +4322,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     under both int8 modes, with their merges), on the d = 512 one
     ``launches_int8_export`` (phase H's artifact calls) and on the d = 512
     K1, K2 and K3 entries ``launches_int8_train`` (phase I's steps, with
-    their merges or sums).  Each entry's error is the largest of all its
-    comparisons."""
+    their merges or sums).  The reference demos' (phase J, fp32, one
+    request each): ``launches_demo`` (with ``merge_launches_demo``) on the
+    flow, d = 704, d = 261 and d = 512 K1 entries, and on the flow one
+    ``launches_traced`` (phase L: the K1 kernels ``op_stats`` found in a
+    traced bf16 serving forward).  Each entry's error is the largest of all
+    its comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
@@ -3993,6 +4339,11 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                 out[f"launches_{policy}_step"] = rec["launches"][kernel]
                 out[f"{extra}_launches_{policy}_step"] = rec["launches"][extra]
         return out
+
+    def demo_counts(demo):
+        """Phase J's launches: the demo's one request."""
+        return dict(launches_demo=demos[demo]["launches"],
+                    merge_launches_demo=demos[demo]["merge_launches"])
 
     def file_counts(kernel, extra, counts, evaluated=None, evaluate_key=None):
         out = {"launches_files_train": counts["train"][kernel],
@@ -4030,6 +4381,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         launches_ema_train=files["ema"]["launches"]["K1"],
         merge_launches_ema_train=files["ema"]["launches"]["merge"],
         **sac_counts("K1", "merge"),
+        **demo_counts("opt_flow"),
+        launches_traced=utilities["k1_traced"],
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -4047,6 +4400,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         launches_full_remat_train=mm_train["full_remat"]["launches"]["K1"],
         launches_evaluate_multimodal=sum(r["launches"]["K1"] for r in mm_eval_runs),
         merge_launches_evaluate_multimodal=sum(r["launches"]["merge"] for r in mm_eval_runs),
+        **demo_counts("multimodal"),
         max_abs_err=max(r["max_abs_err"] for r in mm),
         **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                          "bound_by", "splits", "col_chunks")},
@@ -4068,6 +4422,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                               "launches_evaluate_classification"))
         else:
             stack = dict(launches_export=serving["export"]["pixel"]["call"]["launches"])
+        stack.update(demo_counts(f"img_classify_{prep}"))
         served = int8["serve"][prep].values()
         stack.update(launches_int8_serve=sum(r["launches"] for r in served),
                      merge_launches_int8_serve=sum(r["merge_launches"] for r in served))
@@ -4238,9 +4593,27 @@ def main() -> int:
                 export=phase_int8_export(smi, serving["export"]),
                 train=phase_int8_train(smi, cls_train))
     print(f"[int8] phases F-I in {time.perf_counter() - t_int8:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_demos = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the demos read ./sample_data and write into the working directory
+        try:
+            demos = phase_demos(serve, cls_serve, mm_serve)
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    t_post = time.perf_counter()
+    phase_postprocessor(smi)
+    t_util = time.perf_counter()
+    utilities = phase_utilities(smi, serve)
+    t_end = time.perf_counter()
+    print(f"[surface] phases J {t_post - t_demos:.1f} s, K {t_util - t_post:.1f} s,"
+          f" L {t_end - t_util:.1f} s; J-L in {t_end - t_demos:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
-                       cls_serve, cls_train, cls_k1_train, buckets, serving, files, int8))
+                       cls_serve, cls_train, cls_k1_train, buckets, serving, files, int8,
+                       demos, utilities))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,9 +6,13 @@ selector values are ``"dense"`` (plain matmul + softmax, the JAX package's
 version on a CPU tensor) and ``"auto"``.
 
 Fields of the JAX policy that this port cannot honour yet (the
-sequence/pipeline meshes and layer scan) are kept as fields so that a
-caller porting a configuration learns of them: setting any of them raises
-``NotImplementedError``.  ``quant`` and ``quant_scope`` are ported: int8
+sequence/pipeline meshes) are kept as fields so that a caller porting a
+configuration learns of them: setting either raises
+``NotImplementedError``.  ``layer_scan`` and ``layer_scan_min`` are taken
+with the JAX package's values and validation; eager PyTorch has no scan and
+compiles nothing, so every value runs the self-attend stack as one loop,
+whose outputs are the unrolled loop's (JAX's scan is exact against its
+unrolled loop too).  ``quant`` and ``quant_scope`` are ported: int8
 projections (``ops.quant``, ``core.attention.Dense``), validated with the
 JAX package's messages (``quant_enabled``).  ``fold_query_pad`` is ported:
 the multimodal decoder folds its constant query-pad channels through the
@@ -45,8 +49,9 @@ ATTN_AUTO = "auto"  # flash on a CUDA tensor at long sequence lengths
 _NOT_PORTED = (
     ("sp_mesh", None),
     ("pp_mesh", None),
-    ("layer_scan", "off"),
 )
+
+LAYER_SCAN_VALUES = ("auto", "on", "off")
 
 _aten = torch.ops.aten
 # The products with batch dims (an attention's einsum) and without (a
@@ -91,8 +96,12 @@ class Policy:
         either is the exact product's (a straight-through estimator).
       quant_scope: which projections quantize: "all", or "latent" (the
         self-attention stack only; the cross-attention blocks stay exact).
-      sp_mesh, pp_mesh, layer_scan: not ported; any value other than the
-        default raises.
+      layer_scan, layer_scan_min: the JAX package's switch for scanning the
+        self-attend stack ("off" | "auto" | "on"; "auto" from
+        ``layer_scan_min`` layers); any other value raises ValueError.  Every
+        value runs the same loop here (see the module docstring).
+      sp_mesh, pp_mesh: not ported; any value other than the default
+        raises.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -106,6 +115,7 @@ class Policy:
     sp_mesh: Any = None
     pp_mesh: Any = None
     layer_scan: str = "off"
+    layer_scan_min: int = 16
     remat_policy: Optional[str] = None
     fold_query_pad: bool = False
     quant_scope: str = "all"
@@ -122,6 +132,11 @@ class Policy:
                 f" take one of {sorted(REMAT_POLICIES)} or None (full remat)"
             )
         quant_enabled(self)
+        if self.layer_scan not in LAYER_SCAN_VALUES:
+            raise ValueError(
+                "Policy.layer_scan must be 'auto', 'on' or 'off'; got"
+                f" {self.layer_scan!r}"
+            )
         for name, off in _NOT_PORTED:
             if getattr(self, name) != off:
                 raise NotImplementedError(

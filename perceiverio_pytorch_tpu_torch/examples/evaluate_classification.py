@@ -41,6 +41,10 @@ from perceiverio_pytorch_tpu_torch.models.classification import (
 from perceiverio_pytorch_tpu_torch.training import ImageFolderDataset, dataset_iterator
 from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
+from perceiverio_pytorch_tpu_torch.utils.compilation_cache import (
+    add_cache_arg,
+    enable_cache_if_requested,
+)
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 from perceiverio_pytorch_tpu_torch.utils.params import cast_variables_for_inference
 
@@ -144,7 +148,9 @@ if __name__ == "__main__":
     parser.add_argument("--limit", type=int, default=None,
                         help="stop after this many images")
     parser.add_argument("--device", default="cuda")
+    add_cache_arg(parser)
     args = parser.parse_args()
+    enable_cache_if_requested(args)
     main(data_dir=args.data_dir, checkpoint=args.checkpoint,
          torch_checkpoint=args.torch_checkpoint, batch_size=args.batch_size,
          full_scale=args.full_scale, mesh_devices=args.mesh, quant=args.quant,

@@ -32,6 +32,10 @@ import torch
 from perceiverio_pytorch_tpu_torch.config import PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import FlowInference, FlowPerceiver
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
+from perceiverio_pytorch_tpu_torch.utils.compilation_cache import (
+    add_cache_arg,
+    enable_cache_if_requested,
+)
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 from perceiverio_pytorch_tpu_torch.utils.flow_io import flow_error_stats, read_flo
 from perceiverio_pytorch_tpu_torch.utils.image import load_image
@@ -117,7 +121,9 @@ if __name__ == "__main__":
     parser.add_argument("--wave-size", type=int, default=0,
                         help="tiles per forward (0: all of a request's tiles at once)")
     parser.add_argument("--device", default="cuda")
+    add_cache_arg(parser)
     args = parser.parse_args()
+    enable_cache_if_requested(args)
     main(args.data_dir, checkpoint=args.checkpoint, torch_checkpoint=args.torch_checkpoint,
          small=args.small, limit=args.limit, min_overlap=args.min_overlap,
          wave_size=args.wave_size, device=args.device)

@@ -40,6 +40,10 @@ from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
 from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
 from perceiverio_pytorch_tpu_torch.utils.bytes_tokenizer import BytesTokenizer
+from perceiverio_pytorch_tpu_torch.utils.compilation_cache import (
+    add_cache_arg,
+    enable_cache_if_requested,
+)
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 
 _DEMO_TEXT = (
@@ -163,7 +167,9 @@ if __name__ == "__main__":
                         choices=["dynamic", "static"],
                         help="int8 projections (static: calibrated on the first batch)")
     parser.add_argument("--device", default="cuda")
+    add_cache_arg(parser)
     args = parser.parse_args()
+    enable_cache_if_requested(args)
     main(text_file=args.text_file, checkpoint=args.checkpoint,
          torch_checkpoint=args.torch_checkpoint, full_scale=args.full_scale,
          batch_size=args.batch_size, mask_rate=args.mask_rate, seed=args.seed,

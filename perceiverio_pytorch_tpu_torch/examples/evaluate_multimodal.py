@@ -46,6 +46,10 @@ import torch
 from perceiverio_pytorch_tpu_torch.config import PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.multimodal import MultiModalPerceiver
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
+from perceiverio_pytorch_tpu_torch.utils.compilation_cache import (
+    add_cache_arg,
+    enable_cache_if_requested,
+)
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 from perceiverio_pytorch_tpu_torch.utils.image import load_video
 from perceiverio_pytorch_tpu_torch.utils.labels import kinetics700_labels
@@ -205,7 +209,9 @@ if __name__ == "__main__":
     parser.add_argument("--n-chunks", type=int, default=None,
                         help="decoder chunks (16 at full width, 4 with --small)")
     parser.add_argument("--device", default="cuda")
+    add_cache_arg(parser)
     args = parser.parse_args()
+    enable_cache_if_requested(args)
     main(args.data_dir, checkpoint=args.checkpoint, torch_checkpoint=args.torch_checkpoint,
          small=args.small, labels_file=args.labels_file, limit=args.limit,
          n_chunks=args.n_chunks, device=args.device)

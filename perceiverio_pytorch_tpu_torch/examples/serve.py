@@ -70,6 +70,10 @@ from perceiverio_pytorch_tpu_torch.serving import export_apply, load_exported
 from perceiverio_pytorch_tpu_torch.serving_http import HttpFrontend, decode_npz, encode_npz
 from perceiverio_pytorch_tpu_torch.serving_server import BatchingServer
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_variables, save_variables
+from perceiverio_pytorch_tpu_torch.utils.compilation_cache import (
+    add_cache_arg,
+    enable_cache_if_requested,
+)
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 from perceiverio_pytorch_tpu_torch.utils.params import cast_variables_for_inference
 
@@ -408,7 +412,9 @@ def main(argv=None) -> None:
                     choices=["dynamic", "static"],
                     help="int8 export (static: calibrated on two seeded batches)")
     ap.add_argument("--device", default="cuda")
+    add_cache_arg(ap)
     args = ap.parse_args(argv)
+    enable_cache_if_requested(args)
 
     build(args.out, args.full_scale, device=args.device, quant=args.quant)
     hw = 224 if args.full_scale else TINY["img_size"][0]

@@ -2,26 +2,36 @@
 
 Counterpart of ``perceiverio_pytorch_tpu/io_processors/processor_utils.py``:
   * ``space_to_depth``: stack spatial/temporal blocks into channels, in
-    (dt, dh, dw, c) order, for rank-4 images and rank-5 video;
+    (dt, dh, dw, c) order, for rank-4 images and rank-5 video, and
+    ``reverse_space_to_depth``, its exact inverse;
   * ``extract_patches``: VALID patch extraction, the flattened patch in
     (ph, pw, c) channel order;
   * ``patches_for_flow``: pad 1 pixel and take 3x3 patches per frame;
   * ``Conv2DDownsample``: per layer a TF-SAME padded 7x7 stride-2 conv
     (no bias), BatchNorm, ReLU and a zero-padded 3x3 stride-2 max-pool, on
     channel-first tensors (torch's conv layout);
-  * ``BatchNorm2d``: ``nn.BatchNorm2d`` with flax's train-mode statistics.
+  * ``BatchNorm2d``: ``nn.BatchNorm2d`` with flax's train-mode statistics;
+  * ``Conv2DUpsample`` / ``Conv3DUpsample``: the image postprocessor's
+    transposed-convolution upsamplers, channel-last in and out (flax
+    ``nn.ConvTranspose`` with SAME padding, ``ConvTranspose``).
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Union
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from perceiverio_pytorch_tpu_torch.utils.conv_shapes import conv_output_shape, same_padding
-from perceiverio_pytorch_tpu_torch.utils.initializers import default_generator, trunc_normal_
+from perceiverio_pytorch_tpu_torch.utils.initializers import (
+    default_generator,
+    lecun_normal_,
+    trunc_normal_,
+)
 
 
 def space_to_depth(frames: torch.Tensor, temporal_block_size: int = 1,
@@ -38,6 +48,27 @@ def space_to_depth(frames: torch.Tensor, temporal_block_size: int = 1,
         x = frames.reshape(b, t // t_, t_, h // s, s, w // s, s, c)
         x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
         return x.reshape(b, t // t_, h // s, w // s, t_ * s * s * c)
+    raise ValueError(
+        "Frames should be of rank 4 (batch, height, width, channels)"
+        " or rank 5 (batch, time, height, width, channels)"
+    )
+
+
+def reverse_space_to_depth(frames: torch.Tensor, temporal_block_size: int = 1,
+                           spatial_block_size: int = 1) -> torch.Tensor:
+    """Inverse of ``space_to_depth``: channels (dt, dh, dw, c) unfolded into
+    [B, H*dh, W*dw, C] or [B, T*dt, H*dh, W*dw, C]."""
+    s = spatial_block_size
+    if frames.dim() == 4:
+        b, h, w, c = frames.shape
+        x = frames.reshape(b, h, w, s, s, c // (s * s))
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * s, w * s, c // (s * s))
+    if frames.dim() == 5:
+        t_ = temporal_block_size
+        b, t, h, w, c = frames.shape
+        x = frames.reshape(b, t, h, w, t_, s, s, c // (t_ * s * s))
+        x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+        return x.reshape(b, t * t_, h * s, w * s, c // (t_ * s * s))
     raise ValueError(
         "Frames should be of rank 4 (batch, height, width, channels)"
         " or rank 5 (batch, time, height, width, channels)"
@@ -176,3 +207,89 @@ class Conv2DDownsample(nn.Module):
             out = F.pad(out, same_padding(out.shape[-2:], 3, 2), value=0.0)
             out = F.max_pool2d(out, kernel_size=3, stride=2)
         return out
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(kernel_size=4, strides, padding="SAME")`` in 2
+    or 3 spatial dims, channel-last in and out.
+
+    The weight is torch's ``[in, out, k...]`` layout, which is the flax
+    kernel ``[k..., in, out]`` permuted and flipped in every spatial axis
+    (``utils.weights`` carries it so): lax's transposed convolution does not
+    flip its kernel, torch's does.  Padding 1 gives SAME's ``n * stride``
+    elements on a stride-2 axis exactly; on a stride-1 axis lax pads 2
+    before and 1 after, torch 1 on each side, so torch's ``n + 1`` elements
+    are cut to their first ``n``.  Input, weight and bias are cast to their
+    common dtype, as flax promotes.
+    """
+
+    KERNEL = 4
+
+    def __init__(self, in_channels: int, out_channels: int, strides: Sequence[int],
+                 *, generator):
+        super().__init__()
+        self.strides = tuple(int(s) for s in strides)
+        if set(self.strides) - {1, 2}:
+            raise ValueError(f"ConvTranspose takes strides of 1 or 2 (got {self.strides})")
+        k = (self.KERNEL,) * len(self.strides)
+        self.weight = nn.Parameter(torch.empty((in_channels, out_channels) + k))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        # flax's lecun_normal over the kernel [k..., in, out]: fan-in is the
+        # input channels times the receptive field.
+        lecun_normal_(self.weight.data, generator, fan_in=in_channels * math.prod(k))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = len(self.strides)
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        conv = F.conv_transpose2d if dims == 2 else F.conv_transpose3d
+        out = conv(torch.movedim(x.to(dtype), -1, -dims - 1), self.weight.to(dtype),
+                   self.bias.to(dtype), stride=self.strides, padding=1)
+        for axis, (stride, n) in enumerate(zip(self.strides, x.shape[-dims - 1:-1])):
+            if stride == 1:
+                out = out.narrow(axis - dims, 0, n)
+        return torch.movedim(out, -dims - 1, -1)
+
+
+class Conv2DUpsample(nn.Module):
+    """Upsample 4x: a stride-2 4x4 transposed conv to ``2 * n_outputs``
+    channels, ReLU, a stride-2 4x4 transposed conv to ``n_outputs``
+    (children ``transp_conv1``, ``transp_conv2``: the flax names).
+    [B, H, W, C] -> [B, 4H, 4W, n_outputs]."""
+
+    def __init__(self, in_channels: int, n_outputs: int, *, generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        self.transp_conv1 = ConvTranspose(in_channels, 2 * n_outputs, (2, 2), generator=g)
+        self.transp_conv2 = ConvTranspose(2 * n_outputs, n_outputs, (2, 2), generator=g)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        return self.transp_conv2(F.relu(self.transp_conv1(inputs)))
+
+
+class Conv3DUpsample(nn.Module):
+    """``max(n_time_upsamples, n_space_upsamples)`` 4x4x4 transposed convs
+    (children ``conv3d_transpose_{i}``, the flax names): layer i has strides
+    (2 if i < n_time_upsamples else 1, then 2 if i < n_space_upsamples else
+    1 on both spatial axes) and ``n_outputs * 2 ** (n - 1 - i)`` output
+    channels, with a ReLU between layers.  [B, T, H, W, C] in and out."""
+
+    def __init__(self, in_channels: int, n_outputs: int, n_time_upsamples: int = 2,
+                 n_space_upsamples: int = 4, *, generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        self.n_upsamples = max(n_time_upsamples, n_space_upsamples)
+        channels = in_channels
+        for i in range(self.n_upsamples):
+            t = 2 if i < n_time_upsamples else 1
+            s = 2 if i < n_space_upsamples else 1
+            out = n_outputs * 2 ** (self.n_upsamples - 1 - i)
+            self.add_module(f"conv3d_transpose_{i}",
+                            ConvTranspose(channels, out, (t, s, s), generator=g))
+            channels = out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_upsamples):
+            x = getattr(self, f"conv3d_transpose_{i}")(x)
+            if i != self.n_upsamples - 1:
+                x = F.relu(x)
+        return x

@@ -49,6 +49,8 @@ design does about that.
 The kernels are built with ``nvcc`` at first use, from the sources in this
 package, into ``build/kernels/`` under the repository root (one ``nvcc``
 per source, all started together), and bound with ``ctypes``.
+``set_build_dir`` (``utils.compilation_cache.enable_compilation_cache``)
+moves that directory before the first use.
 """
 
 from __future__ import annotations
@@ -106,6 +108,26 @@ _libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STRIDES = [ctypes.c_longlong] * 3  # batch, token, head
+
+
+def build_dir() -> str:
+    """The directory the kernel libraries are built into and loaded from."""
+    return _BUILD_DIR
+
+
+def set_build_dir(path: str) -> str:
+    """Build and load the kernel libraries in ``path`` (created at the
+    build); returns its absolute form.  Raises ``RuntimeError`` once the
+    kernels are loaded from another directory."""
+    global _BUILD_DIR
+    path = os.path.abspath(path)
+    with _lib_lock:
+        if _libs is not None and path != _BUILD_DIR:
+            raise RuntimeError(
+                f"the flash attention kernels are already loaded from {_BUILD_DIR}; set the"
+                " build directory before their first use")
+        _BUILD_DIR = path
+    return path
 
 
 def _nvcc() -> str:

@@ -42,13 +42,14 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
 
 @torch.no_grad()
 def variance_scaling_(
-    weight: torch.Tensor, scale: float, generator: torch.Generator
+    weight: torch.Tensor, scale: float, generator: torch.Generator, fan_in=None
 ):
-    """Init a torch Linear weight [out, in]: fan_in is its last dim."""
-    fan_in = weight.shape[-1]
+    """Init a torch Linear weight [out, in]: fan_in is its last dim unless
+    given (a conv kernel's: input channels times the receptive field)."""
+    fan_in = weight.shape[-1] if fan_in is None else fan_in
     std = math.sqrt(scale / max(1, fan_in)) / _TRUNC_STD
     return trunc_normal_(weight, std, generator)
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    return variance_scaling_(weight, 1.0, generator)
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator, fan_in=None):
+    return variance_scaling_(weight, 1.0, generator, fan_in)

@@ -10,6 +10,10 @@ torch attribute names and the converted DeepMind checkpoints load with
 
   kernel (2-D)  -> weight = kernel.T                   (Linear [out, in])
   kernel (4-D)  -> weight = kernel.transpose(3,2,0,1)  (Conv [out, in, kh, kw])
+  kernel (4-D or 5-D) of a transposed conv (``transp_conv{i}``,
+                ``conv3d_transpose_{i}``)
+                -> weight = kernel.transpose(-2,-1,0,1[,2]) flipped in every
+                   spatial axis                        (ConvTranspose [in, out, k...])
   scale         -> weight                              (LayerNorm / BatchNorm)
   embedding     -> weight                              (Embedding)
   mean / var    -> running_mean / running_var          (batch_stats)
@@ -63,6 +67,8 @@ _CONTAINER_PREFIXES = {
 }
 
 _INDEXED_RE = re.compile(r"^(convs|norms|linear)_(\d+)$")
+# The image postprocessor's upsamplers: flax ``nn.ConvTranspose`` modules.
+_TRANSPOSED_CONV_RE = re.compile(r"^(transp_conv\d+|conv3d_transpose_\d+)$")
 
 
 def _translate_segment(seg: str) -> str:
@@ -118,7 +124,9 @@ def state_dict_from_flax(variables: Mapping, overrides: Optional[Mapping[str, st
         for path, value in _flatten(variables.get(collection, {})):
             value = np.array(value, dtype=np.float32)  # a writable copy
             if path[-1] == "kernel":
-                if value.ndim == 2:
+                if len(path) > 1 and _TRANSPOSED_CONV_RE.match(path[-2]):
+                    value = _transposed_conv_weight(value, path)
+                elif value.ndim == 2:
                     value = value.T
                 elif value.ndim == 4:
                     value = value.transpose(3, 2, 0, 1)
@@ -133,6 +141,17 @@ def state_dict_from_flax(variables: Mapping, overrides: Optional[Mapping[str, st
     for alias, source in (tied or {}).items():
         out[alias] = out[source].clone()
     return out
+
+
+def _transposed_conv_weight(kernel: np.ndarray, path) -> np.ndarray:
+    """flax ``[k..., in, out]`` -> torch ``[in, out, k...]``, flipped in every
+    spatial axis: lax's transposed convolution does not flip its kernel,
+    torch's does."""
+    if kernel.ndim not in (4, 5):
+        raise ValueError(f"unexpected transposed-conv kernel rank {kernel.ndim} at {path}")
+    spatial = tuple(range(kernel.ndim - 2))
+    weight = kernel.transpose((kernel.ndim - 2, kernel.ndim - 1) + spatial)
+    return np.flip(weight, axis=tuple(a + 2 for a in spatial))
 
 
 def lora_state_dict_from_flax(lora: Mapping) -> Dict[str, torch.Tensor]:

@@ -215,6 +215,13 @@ def test_unported_policy_fields_raise(field, value):
         with pytest.raises(ValueError, match=value):
             port_config.Policy(remat_policy="save_only_these_names")
         return
+    if field == "layer_scan":
+        # Ported: JAX's values are taken (each runs the same loop); any
+        # other raises JAX's ValueError.
+        assert port_config.Policy(**{field: value}).layer_scan == value
+        with pytest.raises(ValueError, match="layer_scan must be 'auto', 'on' or 'off'"):
+            port_config.Policy(layer_scan="maybe")
+        return
     if field == "quant":
         # Ported: the JAX modes are taken; any other raises JAX's ValueError.
         assert port_config.Policy(**{field: value}).quant == value

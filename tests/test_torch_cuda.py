@@ -23,7 +23,10 @@ in-place update, the tiny flow model trained from files, interrupted and
 resumed, against the uninterrupted run, and the tiny multimodal model
 trained from a clip tree.  The rest of training: the tiny flow model under
 ``dots_saveable`` against full remat, and dropout under remat with a CUDA
-generator.
+generator.  The rest of the single-card surface: ``ImagePostprocessor``'s
+types on the card against the CPU, ``compiled_memory_stats`` and
+``hbm_headroom`` (a fit, and an out-of-memory verdict that leaves the
+allocator usable), and ``op_stats`` finding K1's kernel in a trace.
 """
 
 import dataclasses
@@ -1040,3 +1043,73 @@ def test_encoder_dropout_under_remat_on_the_card(cuda):
         grads.append({n: p.grad.clone() for n, p in enc.named_parameters()})
     for n, g in grads[0].items():
         assert torch.equal(grads[1][n], g), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,shape", [
+    (dict(postproc_type="conv", n_outputs=3, spatial_upsample=4), (2, 3, 5, 6, 8)),
+    (dict(postproc_type="conv", n_outputs=3, spatial_upsample=4, temporal_upsample=2),
+     (1, 2, 5, 6, 8)),
+    (dict(postproc_type="conv", n_outputs=2, spatial_upsample=2, temporal_upsample=4),
+     (1, 2, 5, 6, 8)),
+    (dict(postproc_type="conv1x1", n_outputs=3, spatial_upsample=2), (2, 3, 5, 6, 8)),
+    (dict(postproc_type="patches", spatial_upsample=2), (2, 3, 5, 6, 8)),
+])
+def test_image_postprocessor_on_the_card(cuda, kw, shape):
+    from perceiverio_pytorch_tpu_torch.io_processors import ImagePostprocessor
+
+    gen = torch.Generator().manual_seed(0)
+    module = ImagePostprocessor((8, 8), input_channels=shape[-1], generator=gen, **kw)
+    x = torch.randn(shape, generator=gen)
+    with torch.no_grad():
+        want = module(x)
+        got = module.to(cuda)(x.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_compiled_memory_stats_on_the_card(cuda):
+    from perceiverio_pytorch_tpu_torch.utils import memory
+
+    model = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.GELU(),
+                                torch.nn.Linear(32, 4)).to(cuda)
+    x = torch.randn(1024, 16, device=cuda)
+    stats = memory.compiled_memory_stats(model, x)
+    assert set(stats) == {"argument_bytes", "output_bytes", "temp_bytes", "code_bytes",
+                          "peak_bytes"}
+    weights = sum(p.numel() * 4 for p in model.parameters())
+    assert stats["argument_bytes"] == weights + x.numel() * 4
+    assert stats["output_bytes"] == 1024 * 4 * 4 and stats["code_bytes"] == 0
+    assert stats["peak_bytes"] >= stats["argument_bytes"] + stats["output_bytes"]
+
+
+@pytest.mark.cuda
+def test_hbm_headroom_on_the_card(cuda):
+    from perceiverio_pytorch_tpu_torch.utils import memory
+
+    x = torch.ones(256, device=cuda)
+    fits = memory.hbm_headroom(lambda t: t * 2, x)
+    assert fits["fits"] and fits["hbm_bytes"] == torch.cuda.get_device_properties(0).total_memory
+    over = fits["hbm_bytes"] // 4 + 1  # float32 elements past the card's memory
+    verdict = memory.hbm_headroom(lambda t: t.new_empty(over), x)
+    assert not verdict["fits"] and verdict["headroom_bytes"] < 0
+    assert (x * 2).sum().item() == 512  # the allocator is usable afterwards
+
+
+@pytest.mark.cuda
+def test_op_stats_finds_k1_in_a_trace(cuda, tmp_path):
+    from perceiverio_pytorch_tpu_torch.utils import profiling
+
+    q, k, v, _, _ = _inputs(1, 128, 4096, 2, 64, 64, 0, cuda)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES
+    with profiling.trace(str(tmp_path)):
+        for _ in range(3):
+            fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert fa.LAUNCHES - launches == 3
+    rows = [r for r in profiling.op_stats(str(tmp_path)) if "flash_fwd" in r["op"]]
+    assert sum(r["occurrences"] for r in rows) == 3
+    assert all(r["type"] == "kernel" and r["total_self_us"] > 0 for r in rows)

@@ -275,3 +275,31 @@ def test_evaluation_scripts_default_to_cuda(no_cuda, tmp_path):
         evaluate_multimodal.main(str(tmp_path))
     template = convert.build_family_template("multimodal")
     assert {t.device.type for t in template.state_dict().values()} == {"meta"}
+
+
+@pytest.mark.parametrize("module", ["examples.opt_flow", "examples.img_classify",
+                                    "examples.language", "examples.multimodal",
+                                    "utils.profiling", "utils.memory",
+                                    "utils.compilation_cache", "io_processors",
+                                    "io_processors.postprocessors"])
+def test_single_card_surface_modules_load_no_jax(module):
+    """Each module of the rest of the single-card surface (the four reference
+    demos, the profiling, memory and compilation-cache utilities, the
+    ImagePostprocessor), imported alone in a fresh interpreter, is among the
+    files checked above and loads no JAX, flax or JAX package module, nor
+    PIL, OpenCV, matplotlib or scipy (imported where a file is read or
+    written)."""
+    name = f"{PACKAGE}.{module}"
+    assert name in [_module_name(p) for p in _port_files()]
+    forbidden = FORBIDDEN + ("PIL", "cv2", "matplotlib", "scipy")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
