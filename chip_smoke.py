@@ -219,7 +219,7 @@ Phases (each raises on failure; nothing is caught):
      restore_eval_variables on the final checkpoint gives the EMA weights;
      the logged lr equals the schedule's; step time beside phase 8's;
  32. prints the run's seconds, the kernels line and, last, {"ok": true,
-     "device": {...}} (after phases A to L below).
+     "device": {...}} (after phases A to O below).
 
 The rest of training runs in phases A to E, each where its inputs are
 warm: B after phase 8, A after phase 12, C to E after phase 19.
@@ -305,6 +305,28 @@ The rest of the single-card surface runs in phases J to L, after phase I:
      served pair and op_stats finding K1's kernel as often as phase 6
      counts it; ThroughputMeter's pairs/s beside phase 6's; the full-width
      MLM under layer_scan "on" against "off", bit for bit.
+The parallel layouts (parallel/) run in phases M to O, after phase L, each
+on a (1, 1) mesh over the world-size-1 NCCL group that make_mesh((1, 1))
+makes in this process (the card machine has one GPU; several ranks are
+held on the CPU by the tests), each mesh run beside the same example run
+without a mesh, for 1 + 3 steps:
+  M. train_flow --full-scale (bf16 PERFORMANCE, remat, batch 1, phase 8's
+     seed and batches) with --mesh 1 1 and with --mesh 1 1 --fsdp: the loss
+     of every step and every state_dict entry after the last equal to the
+     run without a mesh, bit for bit; K1/K2/K3 launches per step equal to
+     phase 8's; the TP projections and the FSDP gathers counted; one more
+     step profiled for its collectives (the c10d calls and the NCCL kernels,
+     counts and ms); step time and peak memory beside phase 8's;
+  N. train_classification --full-scale --prep-type LEARNED_POS_1X1CONV
+     --mesh 1 1 --fsdp (K1/K2/K3 at d = 512, launches per step as phase 18's)
+     and train_mlm --full-scale --mesh 1 1 (no kernel; evaluations at steps
+     2 and 4), each held as in M, under deterministic algorithms for both
+     runs;
+  O. FlowInference on the mesh over phase 6's three pairs and weights: the
+     flows equal phase 6's bit for bit, 26 K1 launches a request;
+     evaluate_classification --full-scale --prep-type LEARNED_POS_1X1CONV
+     --mesh 1 over 64 images: every batch's logits and the top-1/top-5
+     equal the run without --mesh; then the process group is torn down.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -325,6 +347,7 @@ from unittest import mock
 
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SERVED = {}  # phase 6's requests, flows and weights, which phase O serves again
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): fp32 on the CUDA
 # cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -534,6 +557,13 @@ DEMO_AUDIO_SAMPLES = 16 * 1920 + 480
 POSTPROC_TOL = 1e-4
 POSTPROC_REPS = 10
 HBM_TOL = 0.02  # compiled_memory_stats against the allocator read around the same call
+# The parallel layouts on one card (phases M to O): a (1, 1) mesh over a
+# world-size-1 NCCL group.  Each mesh run takes 1 + MESH_STEPS steps beside
+# the same example's run without a mesh, and must equal it bit for bit: on
+# one rank every collective leaves its tensor as it is, a row-parallel
+# projection's bias is added in its one product, FSDP's gather is a copy.
+MESH_STEPS = 3
+MESH_EVAL_LIMIT = 64  # images of evaluate_classification --full-scale, with and without --mesh
 
 
 
@@ -1083,7 +1113,7 @@ def phase_serve(fp32_model, n_requests: int = 3):
     infer(*requests[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    latencies = []
+    latencies, flows = [], []
     fa.LAUNCHES = fa.LAUNCHES_MERGE = 0
     t_all = time.perf_counter()
     for img1, img2 in requests[1:]:
@@ -1093,7 +1123,11 @@ def phase_serve(fp32_model, n_requests: int = 3):
         latencies.append(time.perf_counter() - t0)
         if tuple(flow.shape) != (1, 2, 436, 1024) or not torch.isfinite(flow).all():
             raise AssertionError(f"bad flow: shape {tuple(flow.shape)}")
+        flows.append(flow)
     total = time.perf_counter() - t_all
+    # Phase O serves the same pairs with the same weights on a mesh.
+    SERVED.update(requests=requests[1:], flows=[f.cpu() for f in flows], latency_s=latencies,
+                  weights={k: v.cpu() for k, v in model.state_dict().items()})
     launches = fa.LAUNCHES
     if launches != 26 * n_requests:
         raise AssertionError(
@@ -4259,6 +4293,232 @@ def phase_utilities(smi, serve):
     return dict(k1_traced=k1_seen, pairs_per_s=pairs_per_s)
 
 
+def _same_run(label, rec, state, want):
+    """A mesh run's losses and final state_dict against the run without a
+    mesh, bit for bit."""
+    import torch
+
+    got = state.model.state_dict()
+    differ = {k: (got[k].double() - v.double()).abs().max().item()
+              for k, v in want["state"].items() if not torch.equal(got[k], v)}
+    if rec["loss"] != want["loss"] or set(got) != set(want["state"]) or differ:
+        worst = max(differ.items(), key=lambda kv: kv[1]) if differ else None
+        raise AssertionError(f"{label}: losses {rec['loss']} vs {want['loss']};"
+                             f" {len(differ)} state entries differ (worst {worst})")
+
+
+def _collectives(trainer, state, batches, step):
+    """One more step of ``trainer`` to ``step`` under torch.profiler: the
+    collectives it issues, as c10d calls on the host and NCCL kernels on the
+    card, with their counts and times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.fit(state, batches, num_steps=step)
+        torch.cuda.synchronize()
+    calls, kernels = {}, {}
+    for event in prof.key_averages():
+        name = event.key
+        if name.startswith(("nccl:", "c10d::")):
+            calls[name] = dict(count=event.count, cpu_ms=event.cpu_time_total / 1e3)
+        elif "nccl" in name.lower():
+            device_us = getattr(event, "device_time_total", None)
+            if device_us is None:
+                device_us = getattr(event, "cuda_time_total", 0.0)
+            kernels[name] = dict(count=event.count, ms=device_us / 1e3)
+    return dict(calls=calls, kernels=kernels,
+                kernel_launches=sum(k["count"] for k in kernels.values()),
+                kernel_ms=sum(k["ms"] for k in kernels.values()))
+
+
+def _mesh_runs(label, setup, expected, eval_batches=False):
+    """The example's ``setup`` for 1 + MESH_STEPS steps without a mesh, then
+    on a (1, 1) mesh for each entry of ``MESH_RUNS``-style ``runs``: each
+    mesh run's losses and final state bit for bit against the first run,
+    its launches per step ``expected``, then one profiled step for its
+    collectives.  Returns the records by run."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.core.attention import Dense
+    from perceiverio_pytorch_tpu_torch.parallel import layout_of
+
+    total = 1 + MESH_STEPS
+    records, want = {}, None
+    for run, kw in setup["runs"]:
+        metrics = _metrics_path(f"chip_smoke_mesh_{label}_{run}.jsonl")
+        trainer, state, batches, evals = setup["fn"](total, metrics, **kw)
+        rec = _train_steps(trainer, state, batches, total, metrics, expected,
+                           evals if eval_batches else None)
+        with open(metrics) as f:
+            rec["eval_lines"] = [x for x in map(json.loads, f) if "loss" not in x
+                                 and "resumed_from" not in x]
+        if want is None:
+            want = dict(loss=rec["loss"], evals=rec["eval_lines"],
+                        state={k: v.clone() for k, v in state.model.state_dict().items()})
+        else:
+            _same_run(f"{label} {run}", rec, state, want)
+            if [e for e in rec["eval_lines"]] != want["evals"]:
+                raise AssertionError(f"{label} {run}: evaluations {rec['eval_lines']} vs"
+                                     f" {want['evals']}")
+            layout = layout_of(state.model)
+            rec["fsdp_gathered_params"] = len(layout.gathers)
+            rec["tp_projections"] = sum(isinstance(m, Dense) and m.tp is not None
+                                        for m in state.model.modules())
+            if kw.get("fsdp") and not rec["fsdp_gathered_params"]:
+                raise AssertionError(f"{label} {run}: FSDP gathers no parameter")
+            if not rec["tp_projections"]:
+                raise AssertionError(f"{label} {run}: no projection is tensor-parallel")
+            rec["collectives"] = _collectives(trainer, state, batches, total + 1)
+        records[run] = rec
+        del trainer, state, batches, evals
+        torch.cuda.empty_cache()
+    return records
+
+
+def _mesh_summary(records, reference):
+    return {run: dict(losses=r["loss"], median_step_s=r["median_step_s"],
+                      step_s=r["step_s"], peak_mem_gb=r["peak_mem_gb"],
+                      launches_per_step=r["launches_per_step"][-1],
+                      **{k: r[k] for k in ("fsdp_gathered_params", "tp_projections",
+                                           "collectives") if k in r})
+            for run, r in records.items()} | {"reference_phase": reference}
+
+
+def phase_mesh_flow(smi, train):
+    """Phase M: train_flow --full-scale on a (1, 1) mesh, and with --fsdp,
+    beside the run without a mesh."""
+    from perceiverio_pytorch_tpu_torch.examples import train_flow
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host, one rank
+    setup = dict(
+        fn=lambda total, metrics, **kw: train_flow.setup(
+            total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1, **kw),
+        runs=(("single", {}), ("mesh", dict(mesh_shape=(1, 1))),
+              ("mesh_fsdp", dict(mesh_shape=(1, 1), fsdp=True))))
+    records = _mesh_runs("flow", setup, STEP_LAUNCHES)
+    summary = _mesh_summary(records, dict(phase=8, median_step_s=train["median_step_s"],
+                                          peak_mem_gb=train["peak_mem_gb"]))
+    print(f"[mesh flow] {smi}: bf16 full width, remat, batch 1, 1 + {MESH_STEPS} steps,"
+          f" bit for bit: {json.dumps(summary)}", flush=True)
+    return records
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def phase_mesh_cls_mlm(smi, cls_train, lm_train):
+    """Phase N: train_classification --full-scale --prep-type
+    LEARNED_POS_1X1CONV on a (1, 1) mesh with --fsdp, and train_mlm
+    --full-scale on a (1, 1) mesh, each beside its run without a mesh, all
+    under deterministic algorithms (cuDNN's conv and the token table's
+    backward are not reproducible otherwise, phases 25 and D)."""
+    from perceiverio_pytorch_tpu_torch import PrepType
+    from perceiverio_pytorch_tpu_torch.examples import train_classification, train_mlm
+
+    prep = "LEARNED_POS_1X1CONV"
+    cls_setup = dict(
+        fn=lambda total, metrics, **kw: train_classification.setup(
+            total, full_scale=True, prep_type=PrepType[prep], device="cuda",
+            metrics_path=metrics, log_every=1, **kw),
+        runs=(("single", {}), ("mesh_fsdp", dict(mesh_shape=(1, 1), fsdp=True))))
+    mlm_setup = dict(
+        fn=lambda total, metrics, **kw: train_mlm.setup(
+            total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1, **kw),
+        runs=(("single", {}), ("mesh", dict(mesh_shape=(1, 1)))))
+    with _deterministic_algorithms(), _cudnn_deterministic():
+        cls = _mesh_runs("cls", cls_setup, CLS_STEP_LAUNCHES)
+        mlm = _mesh_runs("mlm", mlm_setup, NO_LAUNCHES, eval_batches=True)
+    cls_ref = cls_train[prep]
+    print(f"[mesh cls] {smi}: 1x1 conv, bf16 full width, remat, batch 8, 1 + {MESH_STEPS}"
+          " steps, bit for bit: " + json.dumps(_mesh_summary(cls, dict(
+              phase=18, median_step_s=cls_ref["median_step_s"],
+              peak_mem_gb=cls_ref["peak_mem_gb"]))), flush=True)
+    print(f"[mesh mlm] {smi}: bf16 full width, batch 8, 1 + {MESH_STEPS} steps, bit for"
+          " bit, evaluations at steps 2 and 4: " + json.dumps(_mesh_summary(mlm, dict(
+              phase=19, median_step_s=lm_train["median_step_s"],
+              peak_mem_gb=lm_train["peak_mem_gb"]))), flush=True)
+    return dict(cls=cls, mlm=mlm)
+
+
+def phase_mesh_serve(smi):
+    """Phase O: FlowInference on a (1, 1) mesh over phase 6's pairs and
+    weights (the flows equal phase 6's, bit for bit, 26 K1 launches a
+    request); evaluate_classification --full-scale --prep-type
+    LEARNED_POS_1X1CONV with --mesh 1 against the run without (the same
+    logits, bit for bit, the same top-1 and top-5); then the process group
+    is torn down."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowInference, PrepType
+    from perceiverio_pytorch_tpu_torch.examples import evaluate_classification
+    from perceiverio_pytorch_tpu_torch.models.classification import ClassificationPerceiver
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.parallel import make_mesh
+
+    model = _flow_model(PERFORMANCE)
+    model.load_state_dict(SERVED["weights"])
+    infer = FlowInference(model, mesh=make_mesh((1, 1)))
+    infer(*SERVED["requests"][0])  # warm-up
+    torch.cuda.synchronize()
+    latencies = []
+    fa.LAUNCHES = fa.LAUNCHES_MERGE = 0
+    for (img1, img2), want in zip(SERVED["requests"], SERVED["flows"]):
+        t0 = time.perf_counter()
+        flow = infer(img1, img2)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        if not torch.equal(flow.cpu(), want):
+            raise AssertionError("FlowInference(mesh) differs from phase 6: max"
+                                 f" {(flow.cpu() - want).abs().max().item()}")
+    n = len(SERVED["requests"])
+    launches = dict(K1=fa.LAUNCHES, merge=fa.LAUNCHES_MERGE)
+    if launches["K1"] != 26 * n:
+        raise AssertionError(f"FlowInference(mesh): {launches} for {n} requests")
+    del model, infer
+    torch.cuda.empty_cache()
+    logits, results, k1 = {}, {}, {}
+    forward = ClassificationPerceiver.forward
+    for mesh in (None, 1):
+        logits[mesh] = []
+
+        def recording(self, *args, _into=logits[mesh], **kwargs):
+            out = forward(self, *args, **kwargs)
+            _into.append(out.detach().clone())
+            return out
+
+        fa.LAUNCHES = 0
+        with mock.patch.object(ClassificationPerceiver, "forward", recording):
+            results[mesh] = evaluate_classification.main(
+                full_scale=True, mesh_devices=mesh, limit=MESH_EVAL_LIMIT,
+                prep_type=PrepType.LEARNED_POS_1X1CONV, device="cuda")
+        k1[mesh] = fa.LAUNCHES
+        torch.cuda.empty_cache()
+    same = len(logits[None]) == len(logits[1]) and all(
+        torch.equal(a, b) for a, b in zip(logits[None], logits[1]))
+    keys = ("images", "top1", "top5")
+    if not same or any(results[None][k] != results[1][k] for k in keys) or k1[None] != k1[1]:
+        raise AssertionError(f"evaluate_classification --mesh 1: {results[1]}, K1 {k1[1]}"
+                             f" vs {results[None]}, K1 {k1[None]}; logits equal: {same}")
+    torch.distributed.destroy_process_group()
+    rec = dict(flow=dict(requests=n, latency_s=latencies, launches=launches,
+                         phase6_latency_s=SERVED.get("latency_s")),
+               evaluate_classification={"mesh": results[1], "no_mesh": results[None],
+                                        "k1_launches": k1[1], "batches": len(logits[1])})
+    print(f"[mesh serve] {smi}: bit for bit: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -4273,7 +4533,7 @@ def _site_sums(records, keep, per_site):
 
 
 def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
-                 cls_k1_train, buckets, serving, files, int8, demos, utilities):
+                 cls_k1_train, buckets, serving, files, int8, demos, utilities, mesh):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
     K2 and K3.  K1 (two sources: the bf16 wgmma
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
@@ -4326,8 +4586,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     request each): ``launches_demo`` (with ``merge_launches_demo``) on the
     flow, d = 704, d = 261 and d = 512 K1 entries, and on the flow one
     ``launches_traced`` (phase L: the K1 kernels ``op_stats`` found in a
-    traced bf16 serving forward).  Each entry's error is the largest of all
-    its comparisons."""
+    traced bf16 serving forward).  The mesh phases' (M to O):
+    ``launches_mesh_train`` (with its merges or sums) on the flow entries of
+    K1, K2 and K3 (phase M's two mesh runs) and on the d = 512 ones (phase
+    N's classifier), ``launches_mesh_serve`` on the flow K1 entry and
+    ``launches_mesh_evaluate`` on the d = 512 one (phase O).  Each entry's
+    error is the largest of all its comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
@@ -4339,6 +4603,14 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                 out[f"launches_{policy}_step"] = rec["launches"][kernel]
                 out[f"{extra}_launches_{policy}_step"] = rec["launches"][extra]
         return out
+
+    def mesh_counts(kernel, extra, runs):
+        """The mesh runs' launches (phases M and N)."""
+        return {"launches_mesh_train": sum(r["launches"][kernel] for r in runs),
+                f"{extra}_launches_mesh_train": sum(r["launches"][extra] for r in runs)}
+
+    flow_mesh = [r for run, r in mesh["flow"].items() if run != "single"]
+    cls_mesh = [r for run, r in mesh["cls"].items() if run != "single"]
 
     def demo_counts(demo):
         """Phase J's launches: the demo's one request."""
@@ -4383,6 +4655,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         **sac_counts("K1", "merge"),
         **demo_counts("opt_flow"),
         launches_traced=utilities["k1_traced"],
+        **mesh_counts("K1", "merge", flow_mesh),
+        launches_mesh_serve=mesh["serve"]["flow"]["launches"]["K1"],
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -4426,6 +4700,10 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         served = int8["serve"][prep].values()
         stack.update(launches_int8_serve=sum(r["launches"] for r in served),
                      merge_launches_int8_serve=sum(r["merge_launches"] for r in served))
+        if site == "cls_1x1conv":
+            stack.update(**mesh_counts("K1", "merge", cls_mesh),
+                         launches_mesh_evaluate=mesh["serve"]["evaluate_classification"][
+                             "k1_launches"])
         if prep == int8["train"]["prep"]:
             stack.update(
                 launches_int8_export=sum(c["launches"] for c in int8["export"]["calls"]),
@@ -4477,6 +4755,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             launches_ema_train=files["ema"]["launches"][kernel],
             sum_launches_ema_train=files["ema"]["launches"]["sum"],
             **sac_counts(kernel, "sum"),
+            **mesh_counts(kernel, "sum", flow_mesh),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
@@ -4506,6 +4785,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                 **(dict(launches_int8_train=int8["train"]["launches"][kernel],
                         sum_launches_int8_train=int8["train"]["launches"]["sum"])
                    if prep == int8["train"]["prep"] else {}),
+                **(mesh_counts(kernel, "sum", cls_mesh) if site == "cls_1x1conv" else {}),
                 max_abs_err=max(r["max_abs_err"] for r in cls_bwd),
                 **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "splits", "col_chunks")},
@@ -4610,10 +4890,19 @@ def main() -> int:
     t_end = time.perf_counter()
     print(f"[surface] phases J {t_post - t_demos:.1f} s, K {t_util - t_post:.1f} s,"
           f" L {t_end - t_util:.1f} s; J-L in {t_end - t_demos:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    mesh = dict(flow=phase_mesh_flow(smi, train))
+    t_n = time.perf_counter()
+    mesh.update(phase_mesh_cls_mlm(smi, cls_train, lm_train))
+    t_o = time.perf_counter()
+    mesh["serve"] = phase_mesh_serve(smi)
+    t_mesh = time.perf_counter()
+    print(f"[mesh] phases M {t_n - t_end:.1f} s, N {t_o - t_n:.1f} s, O {t_mesh - t_o:.1f} s;"
+          f" M-O in {t_mesh - t_end:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
                        cls_serve, cls_train, cls_k1_train, buckets, serving, files, int8,
-                       demos, utilities))
+                       demos, utilities, mesh))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,6 +27,18 @@ attention and MLP projections are int8 products (``Dense(quant=...)``,
 ``ops.quant``); ``CrossAttention`` keeps them exact under
 ``quant_scope="latent"``, and the folded query projection
 (``_project_q_folded``) is always exact, as in the JAX package.
+
+Placed on a mesh (``parallel.sharding.shard_module``), a projection runs
+its part of the tensor-parallel layout (``Dense.tp``): a column-parallel one
+takes its replicated input through ``copy_to`` and gives its local output
+features; a row-parallel one sums its partial products over the model axis
+(``reduce_from``), the bias added once, by the rank at model coordinate 0,
+so that on one rank the product is the unsharded one bit for bit; under
+int8 it reduces its per-token and per-channel maxima over the model axis
+too (``ops.quant``).  An ``Attention`` attends on its H/M local heads where
+the model axis of M divides its H heads, else it gathers its projections'
+output features and attends on all heads (the 1-head cross-attends), its
+``final`` then taking its own slice of the replicated result.
 """
 
 from __future__ import annotations
@@ -42,6 +54,13 @@ from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy, quant_enabled,
 from perceiverio_pytorch_tpu_torch.ops.attention import multihead_attention
 from perceiverio_pytorch_tpu_torch.ops.attention_dense import dropout, site_generator
 from perceiverio_pytorch_tpu_torch.ops.quant import int8_dynamic_matmul, int8_static_matmul
+from perceiverio_pytorch_tpu_torch.parallel.collectives import (
+    all_reduce_,
+    copy_to,
+    gather_dim,
+    reduce_from,
+    scatter_dim,
+)
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
     lecun_normal_,
@@ -102,7 +121,13 @@ class Dense(nn.Linear):
     ``quant_pass`` (set by ``ops.quant.quant_pass``) is "calibrate" (a
     static projection records ``max|x|`` and runs the exact product),
     "exact" (the exact product) or None.
+
+    ``tp`` (set by ``parallel.sharding.shard_module``) is None, or
+    ``("col", axis)`` / ``("row", axis)`` with the model axis
+    (``parallel.mesh.Axis``): see the module docstring.
     """
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  init: Callable = lecun_normal_,
@@ -123,23 +148,37 @@ class Dense(nn.Linear):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode, ax = self.tp or (None, None)
+        if mode == "col":
+            x = copy_to(x, ax.group)
         quant = None if self.quant_pass == "exact" else self.quant
         if quant == "int8_static" and self.quant_pass == "calibrate":
             with torch.no_grad():
-                torch.maximum(self.amax, x.detach().float().abs().amax(), out=self.amax)
+                local = x.detach().float().abs().amax()
+                if mode == "row":
+                    all_reduce_(local, ax.group, torch.distributed.ReduceOp.MAX)
+                torch.maximum(self.amax, local, out=self.amax)
             quant = None
         if quant is not None:
-            return self._int8(x, quant)
+            return self._int8(x, quant, ax.group if mode == "row" else None)
         dtype = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = self.bias.to(dtype) if self.bias is not None else None
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        bias = self.bias
+        if mode == "row" and bias is not None:
+            # Added once to the partial sums: the other ranks add a zero
+            # that keeps the bias's gradient collective in their graph.
+            bias = copy_to(bias, ax.group)
+            bias = bias if ax.index == 0 else bias * 0.0
+        bias = bias.to(dtype) if bias is not None else None
+        y = F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        return reduce_from(y, ax.group) if mode == "row" else y
 
-    def _int8(self, x: torch.Tensor, quant: str) -> torch.Tensor:
+    def _int8(self, x: torch.Tensor, quant: str, group=None) -> torch.Tensor:
         out_dtype = self.compute_dtype or x.dtype
         if quant == "int8_static":
-            y = int8_static_matmul(x, self.weight, self.amax, out_dtype=out_dtype)
+            y = int8_static_matmul(x, self.weight, self.amax, out_dtype=out_dtype,
+                                   group=group)
         else:
-            y = int8_dynamic_matmul(x, self.weight, out_dtype=out_dtype)
+            y = int8_dynamic_matmul(x, self.weight, out_dtype=out_dtype, group=group)
         return y if self.bias is None else y + self.bias.to(out_dtype)
 
 
@@ -181,7 +220,13 @@ class FoldedQuery(NamedTuple):
 
 
 class Attention(nn.Module):
-    """Multi-headed {cross, self}-attention."""
+    """Multi-headed {cross, self}-attention.
+
+    ``tp``: the model axis (``parallel.mesh.Axis``) when the module is
+    placed on a mesh (``parallel.sharding.shard_module``), else None.
+    """
+
+    tp = None
 
     def __init__(
         self,
@@ -243,6 +288,11 @@ class Attention(nn.Module):
         """
         w32 = self.proj_q.weight.float().t()  # [C, qk_out]
         gamma, beta = fq.ln_scale.float(), fq.ln_bias.float()
+        if self.proj_q.tp is not None:  # column-parallel: replicated inputs
+            group = self.proj_q.tp[1].group
+            gamma, beta = copy_to(gamma, group), copy_to(beta, group)
+            fq = fq._replace(parts=tuple((copy_to(pos, group), copy_to(pad, group))
+                                         for pos, pad in fq.parts))
         total_c = w32.shape[0]
         # Row-vector products as [1, C] @ [C, qk_out]: ``vector @ matrix``
         # squeezes its product in place, which a selective checkpoint that
@@ -274,11 +324,18 @@ class Attention(nn.Module):
             q = self.proj_q(inputs_q)
         k = self.proj_k(inputs_k)
         v = self.proj_v(inputs_v)
+        heads, gathered = self.num_heads, False
+        if self.tp is not None:
+            if self.num_heads % self.tp.size == 0:
+                heads = self.num_heads // self.tp.size  # this rank's heads
+            else:  # the heads do not split: attend on all of them
+                q, k, v = (gather_dim(t, -1, self.tp.group) for t in (q, k, v))
+                gathered = True
         batch, q_time, _ = q.shape
         kv_time = k.shape[1]
-        q = q.reshape(batch, q_time, self.num_heads, self._qk_out // self.num_heads)
-        k = k.reshape(batch, kv_time, self.num_heads, self._qk_out // self.num_heads)
-        v = v.reshape(batch, kv_time, self.num_heads, self._v_out // self.num_heads)
+        q = q.reshape(batch, q_time, heads, self._qk_out // self.num_heads)
+        k = k.reshape(batch, kv_time, heads, self._qk_out // self.num_heads)
+        v = v.reshape(batch, kv_time, heads, self._v_out // self.num_heads)
         pol = self.policy
         generator = _site(self, self.dropout_prob, dropout_seed, _ATTN_PROBS, q.device)
         result = multihead_attention(
@@ -295,6 +352,8 @@ class Attention(nn.Module):
             dropout_rate=0.0 if generator is None else self.dropout_prob,
             dropout_generator=generator,
         )
+        if gathered:  # the row-parallel final takes its slice of the result
+            result = scatter_dim(result, -1, self.tp.group)
         return self.final(result)
 
 

@@ -25,7 +25,7 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
     decoder query goes out as a ``FoldedQuery`` (per modality, its position
     features and its raw pad vector), never as the padded concat.
 
-Not ported yet: layer scan, pipelining and input sharding.
+Not ported yet: pipelining and input sharding.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ the device; a thread pool decodes them (``dataset_iterator``).
 
     python -m perceiverio_pytorch_tpu_torch.examples.evaluate_classification \\
         --data-dir DIR [--checkpoint CKPT | --torch-checkpoint model.pth] \\
-        [--full-scale] [--prep-type LEARNED_POS_1X1CONV]
+        [--full-scale] [--prep-type LEARNED_POS_1X1CONV] [--mesh N]
 
 Without ``--data-dir`` it scores a synthetic 3-class set (class = brightest
 channel).  At ``--full-scale`` the published ImageNet model runs in bf16
@@ -17,8 +17,13 @@ trained with (the JAX script always builds the convnet).  ``--quant
 dynamic|static`` evaluates under int8 projections (``Policy.quant``); the
 weights then stay fp32, as in the JAX script, and ``static`` calibrates
 each projection on the first two batches first (``ops.quant.calibrate``).
-Runs on the GPU unless the caller asks for the CPU (``--device cpu``).  Not
-ported: ``--mesh`` (raises).
+``--mesh N`` evaluates data parallel over N processes, one per device
+(``parallel.make_data_parallel_apply`` over an (N, 1) mesh: each rank runs
+its rows of every batch and the predictions are all-gathered; launched as
+``python -m torch.distributed.run --nproc-per-node N -m ...``, or as a
+plain ``python`` call with ``--mesh 1``); the batch must divide by N.  Rank
+r drives ``cuda:<LOCAL_RANK>`` unless ``--device cpu``.
+Runs on the GPU unless the caller asks for the CPU (``--device cpu``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ from perceiverio_pytorch_tpu_torch.models.classification import (
 )
 from perceiverio_pytorch_tpu_torch.training import ImageFolderDataset, dataset_iterator
 from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
+from perceiverio_pytorch_tpu_torch.parallel import (
+    make_data_parallel_apply,
+    make_mesh,
+    mesh_device,
+)
 from perceiverio_pytorch_tpu_torch.training.checkpoint import restore_eval_variables
 from perceiverio_pytorch_tpu_torch.utils.compilation_cache import (
     add_cache_arg,
@@ -71,9 +81,11 @@ class _SyntheticSet:
 def main(data_dir=None, checkpoint=None, torch_checkpoint=None, batch_size=16,
          full_scale=False, mesh_devices=None, quant=None, limit=None, *,
          prep_type=PrepType.FOURIER_POS_CONVNET, device="cuda"):
-    if mesh_devices:
-        raise NotImplementedError("--mesh is not ported to PyTorch yet (see ROADMAP.md)")
     device = resolve_device(device)
+    mesh = None
+    if mesh_devices:
+        mesh = make_mesh((mesh_devices, 1), device=device)
+        device = mesh_device(mesh)
     hw = (224, 224) if full_scale else TINY["img_size"]
     if data_dir is not None:
         dataset = ImageFolderDataset(data_dir, image_size=hw)
@@ -100,12 +112,19 @@ def main(data_dir=None, checkpoint=None, torch_checkpoint=None, batch_size=16,
         calibrate(model, [(prep_images(torch.from_numpy(img).to(device)),)
                           for img, _ in batches])
     k = min(5, num_classes)
+    forward = model
+    if mesh is not None:
+        apply, place = make_data_parallel_apply(model, mesh)
+        weights = model.state_dict()
+
+        def forward(images):
+            return apply(*place(weights, images))
 
     top1 = top5 = seen = 0
     t0, t0_seen = None, 0
     with torch.inference_mode():
         for img, label in dataset_iterator(dataset, batch_size, num_workers=4):
-            logits = model(prep_images(torch.from_numpy(img).to(device)))
+            logits = forward(prep_images(torch.from_numpy(img).to(device)))
             pred5 = logits.topk(k, dim=-1).indices.cpu().numpy()  # [B, k] class indices
             if t0 is None:  # the first batch's warm-up is not timed
                 t0, t0_seen = time.perf_counter(), len(label)
@@ -141,7 +160,7 @@ if __name__ == "__main__":
     parser.add_argument("--prep-type", default="FOURIER_POS_CONVNET",
                         choices=[p.name for p in PrepType])
     parser.add_argument("--mesh", type=int, default=None, metavar="N",
-                        help="not ported (raises)")
+                        help="data parallel over N processes, one per device")
     parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
                         choices=["dynamic", "static"],
                         help="int8 projections (static: calibrated on the first two batches)")

@@ -29,7 +29,8 @@ by a thread pool, shipped uint8 and normalised on the device); the last
 ``--resume`` goes on from the newest save there.
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_classification --steps 30 \
-        [--full-scale] [--data-dir DIR] [--checkpoint-dir DIR [--resume]]
+        [--full-scale] [--data-dir DIR] [--checkpoint-dir DIR [--resume]] \
+        [--mesh DATA MODEL [--fsdp]]
 
 ``--quant dynamic|static`` is quantization-aware training: the forward runs
 the int8 projections a deployment runs (``Policy.quant``), the backward the
@@ -38,8 +39,15 @@ exact products' gradients.  ``static`` calibrates every projection's
 JAX example initialises (and so calibrates) with, and keeps it through
 training.
 
+``--mesh D M`` trains on a (data, model) mesh of D x M processes, one per
+device (``Trainer(mesh=...)``; ``python -m torch.distributed.run
+--nproc-per-node N -m ...``, or a plain ``python`` call with ``--mesh 1 1``):
+rank r drives ``cuda:<LOCAL_RANK>`` unless ``--device cpu``; every rank
+makes the same global batches and trains on its rows.  ``--fsdp`` also
+shards the weights and their optimizer moments over the data axis.
+
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh`` and ``--fsdp``.
+``main(device="cpu")``).
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from perceiverio_pytorch_tpu_torch.models.classification import (
 )
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
 from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
+from perceiverio_pytorch_tpu_torch.parallel import make_mesh, mesh_device
 from perceiverio_pytorch_tpu_torch.training import (
     ImageFolderDataset,
     Subset,
@@ -113,7 +122,7 @@ def eval_fn(model, img, labels):
 def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIER_POS_CONVNET,
           device="cuda", metrics_path="./classification_metrics.jsonl", log_every=10,
           data_dir=None, checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False,
-          prefetch=0, seed=0, quant=None):
+          prefetch=0, seed=0, quant=None, mesh_shape=None, fsdp=False):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``.
 
@@ -124,9 +133,14 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
     out.  ``checkpoint_every`` defaults to ``steps // 2`` when
     ``checkpoint_dir`` is given.  Weights are drawn from ``seed``.
     ``quant`` ("dynamic" or "static") trains the int8 model (static:
-    calibrated on the first training batch).
+    calibrated on the first training batch).  ``mesh_shape`` (data, model)
+    trains on a mesh (``device`` becomes this rank's), ``fsdp`` with FSDP.
     """
     device = resolve_device(device)
+    mesh = None
+    if mesh_shape is not None:  # this rank's device of a (data, model) mesh
+        mesh = make_mesh(tuple(mesh_shape), device=device)
+        device = mesh_device(mesh)
     generator = torch.Generator().manual_seed(seed)
     hw = FULL_SCALE_HW if full_scale else TINY["img_size"]
 
@@ -178,6 +192,8 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
         checkpoint_every=checkpoint_every,
         checkpoint_async=checkpoint_async,
         prefetch=prefetch,
+        mesh=mesh,
+        fsdp=fsdp,
     )
 
     # epochs=None reshuffles every epoch; start_batch puts a resumed run at
@@ -197,11 +213,11 @@ def setup(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIE
 
 def main(steps=30, batch_size=8, full_scale=False, *, prep_type=PrepType.FOURIER_POS_CONVNET,
          device="cuda", metrics_path="./classification_metrics.jsonl", data_dir=None,
-         checkpoint_dir=None, resume=False, quant=None):
+         checkpoint_dir=None, resume=False, quant=None, mesh_shape=None, fsdp=False):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, prep_type=prep_type, device=device,
         metrics_path=metrics_path, data_dir=data_dir, checkpoint_dir=checkpoint_dir,
-        prefetch=2, quant=quant)
+        prefetch=2, quant=quant, mesh_shape=mesh_shape, fsdp=fsdp)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -224,8 +240,13 @@ if __name__ == "__main__":
     parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
                         choices=["dynamic", "static"],
                         help="quantization-aware training: int8 forward, exact backward")
+    parser.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("DATA", "MODEL"),
+                        help="(data, model) mesh shape: one process per device")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard the weights and optimizer moments over the data axis")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale,
          prep_type=PrepType[args.prep_type], device=args.device, data_dir=args.data_dir,
-         checkpoint_dir=args.checkpoint_dir, resume=args.resume, quant=args.quant)
+         checkpoint_dir=args.checkpoint_dir, resume=args.resume, quant=args.quant,
+         mesh_shape=args.mesh, fsdp=args.fsdp)

@@ -20,11 +20,18 @@ then runs the hand-written flash kernels forward and backward.
 ``--resume`` goes on from the newest save there.
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_flow --steps 30 [--full-scale] \\
-        [--data-dir DIR [--no-augment]] [--checkpoint-dir DIR [--resume]]
+        [--data-dir DIR [--no-augment]] [--checkpoint-dir DIR [--resume]] \\
+        [--mesh DATA MODEL [--fsdp]]
+
+``--mesh D M`` trains on a (data, model) mesh of D x M processes, one per
+device (``Trainer(mesh=...)``; ``python -m torch.distributed.run
+--nproc-per-node N -m ...``, or a plain ``python`` call with ``--mesh 1 1``):
+rank r drives ``cuda:<LOCAL_RANK>`` unless ``--device cpu``; every rank
+makes the same global batches and trains on its rows.  ``--fsdp`` also
+shards the weights and their optimizer moments over the data axis.
 
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh``, ``--fsdp`` and the
-pipeline flags.
+``main(device="cpu")``).  Not ported: the pipeline flags.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from perceiverio_pytorch_tpu_torch.config import PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import FlowPerceiver, resolve_device
+from perceiverio_pytorch_tpu_torch.parallel import make_mesh, mesh_device
 from perceiverio_pytorch_tpu_torch.training import (
     FlowPairDataset,
     Subset,
@@ -103,7 +111,8 @@ def flow_datasets(data_dir, hw, batch_size, augment=True):
 
 def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
           metrics_path="./flow_metrics.jsonl", log_every=10, data_dir=None, augment=True,
-          checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0):
+          checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0,
+          mesh_shape=None, fsdp=False):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``.
 
@@ -113,8 +122,14 @@ def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
     pairs of ``data_dir``), or None for the synthetic pairs, which hold none
     out.  ``checkpoint_every`` defaults to ``steps // 2`` when
     ``checkpoint_dir`` is given.  Weights are drawn from ``seed``.
+    ``mesh_shape`` (data, model) trains on a mesh (``device`` becomes this
+    rank's), ``fsdp`` with FSDP.
     """
     device = resolve_device(device)
+    mesh = None
+    if mesh_shape is not None:  # this rank's device of a (data, model) mesh
+        mesh = make_mesh(tuple(mesh_shape), device=device)
+        device = mesh_device(mesh)
     generator = torch.Generator().manual_seed(seed)
     if full_scale:
         model = FlowPerceiver(policy=PERFORMANCE, remat=True, device=device,
@@ -158,6 +173,8 @@ def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
         checkpoint_every=checkpoint_every,
         checkpoint_async=checkpoint_async,
         prefetch=prefetch,
+        mesh=mesh,
+        fsdp=fsdp,
     )
 
     # epochs=None reshuffles every epoch; start_batch puts a resumed run at
@@ -177,10 +194,11 @@ def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
 
 def main(steps=30, batch_size=None, full_scale=False, *, device="cuda",
          metrics_path="./flow_metrics.jsonl", data_dir=None, augment=True,
-         checkpoint_dir=None, resume=False):
+         checkpoint_dir=None, resume=False, mesh_shape=None, fsdp=False):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
-        data_dir=data_dir, augment=augment, checkpoint_dir=checkpoint_dir, prefetch=2)
+        data_dir=data_dir, augment=augment, checkpoint_dir=checkpoint_dir, prefetch=2,
+        mesh_shape=mesh_shape, fsdp=fsdp)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -202,8 +220,13 @@ if __name__ == "__main__":
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest checkpoint in --checkpoint-dir")
+    parser.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("DATA", "MODEL"),
+                        help="(data, model) mesh shape: one process per device")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard the weights and optimizer moments over the data axis")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
          data_dir=args.data_dir, augment=not args.no_augment,
-         checkpoint_dir=args.checkpoint_dir, resume=args.resume)
+         checkpoint_dir=args.checkpoint_dir, resume=args.resume, mesh_shape=args.mesh,
+         fsdp=args.fsdp)

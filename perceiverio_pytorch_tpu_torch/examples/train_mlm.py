@@ -29,7 +29,7 @@ the loss and the evaluation run the frozen model with the adapters merged).
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_mlm --steps 50 [--full-scale] \
         [--text-file FILE [--mask-rate R]] [--checkpoint-dir DIR [--resume]] [--lora R] \
-        [--steps-per-call K]
+        [--steps-per-call K] [--mesh DATA MODEL [--fsdp]]
 
 ``--quant dynamic|static`` is quantization-aware training: the forward runs
 the int8 projections a deployment runs (``Policy.quant``), the backward the
@@ -37,8 +37,15 @@ exact products' gradients.  ``static`` calibrates every projection's
 ``amax`` first on the first batch of the training data, the batch the JAX
 example initialises (and so calibrates) with, and keeps it through training.
 
+``--mesh D M`` trains on a (data, model) mesh of D x M processes, one per
+device (``Trainer(mesh=...)``; ``python -m torch.distributed.run
+--nproc-per-node N -m ...``, or a plain ``python`` call with ``--mesh 1 1``):
+rank r drives ``cuda:<LOCAL_RANK>`` unless ``--device cpu``; every rank
+makes the same global batches and trains on its rows.  ``--fsdp`` also
+shards the weights and their optimizer moments over the data axis.
+
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: ``--mesh`` and ``--fsdp``.
+``main(device="cpu")``).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from perceiverio_pytorch_tpu_torch.config import DEFAULT, PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
 from perceiverio_pytorch_tpu_torch.models.language import LanguagePerceiver
 from perceiverio_pytorch_tpu_torch.ops.quant import calibrate
+from perceiverio_pytorch_tpu_torch.parallel import make_mesh, mesh_device
 from perceiverio_pytorch_tpu_torch.training import (
     MLMDataset,
     Subset,
@@ -113,7 +121,7 @@ def text_datasets(text_file, seq_len, batch_size, mask_rate=0.15):
 def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
           metrics_path="./mlm_metrics.jsonl", log_every=10, text_file=None, mask_rate=0.15,
           checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0,
-          lora_rank=0, steps_per_call=1, quant=None):
+          lora_rank=0, steps_per_call=1, quant=None, mesh_shape=None, fsdp=False):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``, where
     ``batches(start_step)`` yields batches on ``device`` (with ``prefetch``
@@ -125,8 +133,13 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
     (their ``a`` drawn from ``seed + 1``), which the loss and evaluation
     functions take.  ``steps_per_call`` goes to the Trainer.  ``quant``
     ("dynamic" or "static") trains the int8 model (static: calibrated on
-    the first training batch)."""
+    the first training batch).  ``mesh_shape`` (data, model) trains on a
+    mesh (``device`` becomes this rank's), ``fsdp`` with FSDP."""
     device = resolve_device(device)
+    mesh = None
+    if mesh_shape is not None:  # this rank's device of a (data, model) mesh
+        mesh = make_mesh(tuple(mesh_shape), device=device)
+        device = mesh_device(mesh)
     generator = torch.Generator().manual_seed(seed)
     policy = PERFORMANCE if full_scale else DEFAULT
     if quant:
@@ -180,6 +193,8 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
         checkpoint_async=checkpoint_async,
         prefetch=prefetch,
         steps_per_call=steps_per_call,
+        mesh=mesh,
+        fsdp=fsdp,
     )
     eval_batches = [on_device(b) for b in epoch_batches(held_out, batch_size)]
 
@@ -201,12 +216,12 @@ def setup(steps=50, batch_size=8, full_scale=False, *, device="cuda",
 def main(steps=50, batch_size=8, full_scale=False, *, device="cuda",
          metrics_path="./mlm_metrics.jsonl", text_file=None, mask_rate=0.15,
          checkpoint_dir=None, resume=False, async_checkpoint=False, lora_rank=0,
-         steps_per_call=1, quant=None):
+         steps_per_call=1, quant=None, mesh_shape=None, fsdp=False):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
         text_file=text_file, mask_rate=mask_rate, checkpoint_dir=checkpoint_dir,
         checkpoint_async=async_checkpoint, prefetch=2, lora_rank=lora_rank,
-        steps_per_call=steps_per_call, quant=quant)
+        steps_per_call=steps_per_call, quant=quant, mesh_shape=mesh_shape, fsdp=fsdp)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -236,10 +251,15 @@ if __name__ == "__main__":
     parser.add_argument("--quant", nargs="?", const="dynamic", default=None,
                         choices=["dynamic", "static"],
                         help="quantization-aware training: int8 forward, exact backward")
+    parser.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("DATA", "MODEL"),
+                        help="(data, model) mesh shape: one process per device")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard the weights and optimizer moments over the data axis")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
          text_file=args.text_file, mask_rate=args.mask_rate,
          checkpoint_dir=args.checkpoint_dir, resume=args.resume,
          async_checkpoint=args.async_checkpoint, lora_rank=args.lora,
-         steps_per_call=args.steps_per_call, quant=args.quant)
+         steps_per_call=args.steps_per_call, quant=args.quant, mesh_shape=args.mesh,
+         fsdp=args.fsdp)

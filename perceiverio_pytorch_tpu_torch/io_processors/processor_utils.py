@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perceiverio_pytorch_tpu_torch.parallel.collectives import all_reduce_sum, data_group
 from perceiverio_pytorch_tpu_torch.utils.conv_shapes import conv_output_shape, same_padding
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
@@ -127,6 +128,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalises with the running averages.  Both return fp32, whatever the
     input's dtype.  Only flax's configuration is taken: a float ``momentum``,
     ``affine`` and ``track_running_stats``; anything else raises ValueError.
+
+    Inside the train step of a mesh whose data axis has more than one rank
+    (``parallel.collectives.global_batch``), the train-mode statistics are
+    the global batch's: the fp32 sums and sums of squares are all-reduced
+    over the data axis (with their gradients), as GSPMD reduces the sharded
+    batch's mean.  Otherwise they are the rank's batch's, as above.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
@@ -146,8 +153,16 @@ class BatchNorm2d(nn.BatchNorm2d):
             # dtype=float32 promotes bf16 parameters).
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
                                 self.bias.float(), False, 0.0, self.eps)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        group = data_group()
+        if group is None:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2, 3)),
+                                               (x * x).sum(dim=(0, 2, 3))]), group)
+            count = x.numel() // x.shape[1] * torch.distributed.get_world_size(group)
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)

@@ -142,14 +142,37 @@ class FlowInference:
     ``wave_size``: when > 0 and a request has more tiles than that, the tiles
     run as waves of at most ``wave_size`` in a Python loop, which bounds the
     activation memory to one wave; 0 runs all tiles in one forward.
+
+    ``mesh`` (``parallel.make_mesh``): the tiles are data parallel.  Every
+    rank makes the request's stacked tiles, padded cyclically to a multiple
+    of the data axis's size D; each rank runs its contiguous share of each
+    wave (``parallel.make_data_parallel_apply``: the weights replicated) and
+    the flows are all-gathered, so every rank returns the whole result.
+    ``wave_size`` is rounded up to a multiple of D, as in the JAX package.
+    The model runs on the mesh's device (``device`` is ignored).
     """
 
     def __init__(self, model: FlowPerceiver, min_overlap: int = 20,
-                 wave_size: int = 0, *, device="cuda"):
-        self.device = resolve_device(device)
+                 wave_size: int = 0, *, device="cuda", mesh=None):
+        self.mesh = mesh
+        self._dp_size = 1
+        if mesh is not None:
+            from perceiverio_pytorch_tpu_torch.parallel import (
+                make_data_parallel_apply,
+                mesh_device,
+            )
+            from perceiverio_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, axis
+
+            self.device = mesh_device(mesh)
+            self._dp_size = axis(mesh, DATA_AXIS).size
+            self._apply, self._place = make_data_parallel_apply(model, mesh)
+        else:
+            self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.min_overlap = min_overlap
         self.wave_size = wave_size or 0
+        if self.wave_size and self._dp_size > 1:
+            self.wave_size = -(-self.wave_size // self._dp_size) * self._dp_size
         h, w = model.img_size
         wy, wx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
         wx = torch.minimum(wx + 1, w - wx)
@@ -181,11 +204,24 @@ class FlowInference:
         batch = image1.shape[0]
         tiles1 = torch.cat([image1[..., y:y + h, x:x + w] for y, x in grid])
         tiles2 = torch.cat([image2[..., y:y + h, x:x + w] for y, x in grid])
+        n_stacked = tiles1.shape[0]
+        forward = self.model
+        if self.mesh is not None:
+            pad = -n_stacked % self._dp_size
+            if pad:  # cyclic repeats, dropped after the gather
+                idx = torch.arange(pad, device=tiles1.device) % n_stacked
+                tiles1 = torch.cat([tiles1, tiles1[idx]])
+                tiles2 = torch.cat([tiles2, tiles2[idx]])
+            weights = self.model.state_dict()
+
+            def forward(t1, t2):
+                return self._apply(*self._place(weights, t1, t2))
+
         step = self.wave_size or tiles1.shape[0]
         flow_tiles = torch.cat([
-            self.model(tiles1[i:i + step], tiles2[i:i + step])
+            forward(tiles1[i:i + step], tiles2[i:i + step])
             for i in range(0, tiles1.shape[0], step)
-        ])
+        ])[:n_stacked]
 
         flows = torch.zeros((batch, 2, height, width), device=self.device)
         flow_count = torch.zeros((1, 1, height, width), device=self.device)

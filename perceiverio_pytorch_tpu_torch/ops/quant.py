@@ -22,6 +22,13 @@ dynamic path dequantizes as ``(y * x_scale) * w_scale``, the static one as
 Inputs are quantized from their own dtype via fp32; the result is fp32,
 cast to ``out_dtype`` (default: the input's).
 
+Under tensor parallelism a row-parallel projection holds a slice of the
+contraction (``group``: the model axis's group): its per-token activation
+maximum and its weight's per-output-channel maximum are all-reduced with
+``max`` over the group, and the int32 product is all-reduced (exactly)
+before the scales apply, so that the codes and the result are the unsharded
+ones.  The static scale ``amax`` is a replicated scalar.
+
 The backward is the exact product's (a straight-through estimator), so a
 training step under ``Policy.quant`` is quantization-aware training: the
 forward runs the int8 products a deployment will run, the gradients are
@@ -118,33 +125,45 @@ def _per_127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.full((), 127.0, device=t.device)
 
 
-def _quantize_weights(w32: torch.Tensor):
-    """Symmetric per-output-channel int8 codes [N, K] and scales [N]."""
-    w_scale = _per_127(w32.abs().amax(dim=1))
+def _max_over(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` with the maxima of the ranks of ``group`` (None: ``t``)."""
+    if group is not None:
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
+    return t
+
+
+def _quantize_weights(w32: torch.Tensor, group=None):
+    """Symmetric per-output-channel int8 codes [N, K] and scales [N] (the
+    maxima over the ranks of ``group``, which hold slices of K)."""
+    w_scale = _per_127(_max_over(w32.abs().amax(dim=1), group))
     w_scale = torch.clamp_min(w_scale, 1e-12)
     return torch.round(w32 / w_scale[:, None]).to(torch.int8), w_scale
 
 
-def _product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """The int32 product of [..., K] codes and [N, K] codes: [..., N]."""
+def _product(xq: torch.Tensor, wq: torch.Tensor, group=None) -> torch.Tensor:
+    """The int32 product of [..., K] codes and [N, K] codes: [..., N], summed
+    over the ranks of ``group`` (which hold slices of K)."""
     y = int8_gemm(xq.reshape(-1, xq.shape[-1]), wq)
+    if group is not None:
+        torch.distributed.all_reduce(y, group=group)
     return y.reshape(*xq.shape[:-1], wq.shape[0])
 
 
-def _dynamic(x32: torch.Tensor, w32: torch.Tensor) -> torch.Tensor:
-    wq, w_scale = _quantize_weights(w32)
-    x_scale = _per_127(x32.abs().amax(dim=-1, keepdim=True))  # [..., 1]
+def _dynamic(x32: torch.Tensor, w32: torch.Tensor, group=None) -> torch.Tensor:
+    wq, w_scale = _quantize_weights(w32, group)
+    x_scale = _per_127(_max_over(x32.abs().amax(dim=-1, keepdim=True), group))  # [..., 1]
     x_scale = torch.clamp_min(x_scale, 1e-12)
     xq = torch.round(x32 / x_scale).to(torch.int8)
-    return _product(xq, wq).float() * x_scale * w_scale
+    return _product(xq, wq, group).float() * x_scale * w_scale
 
 
-def _static(x32: torch.Tensor, w32: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+def _static(x32: torch.Tensor, w32: torch.Tensor, amax: torch.Tensor,
+            group=None) -> torch.Tensor:
     # An uncalibrated site (amax 0) takes scale 1.0, as the JAX package does.
-    wq, w_scale = _quantize_weights(w32)
+    wq, w_scale = _quantize_weights(w32, group)
     x_scale = _per_127(torch.where(amax > 0, amax, 127.0))
     xq = torch.clamp(torch.round(x32 / x_scale), -127, 127).to(torch.int8)
-    return _product(xq, wq).float() * (x_scale * w_scale)
+    return _product(xq, wq, group).float() * (x_scale * w_scale)
 
 
 def _exact_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
@@ -161,13 +180,13 @@ class _DynamicMatmul(torch.autograd.Function):
     inputs in their own dtypes (a bf16 activation is not kept in fp32)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, group):
         ctx.save_for_backward(x, w)
-        return _dynamic(x.float(), w.float())
+        return _dynamic(x.float(), w.float(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return _exact_grads(*ctx.saved_tensors, g)
+        return (*_exact_grads(*ctx.saved_tensors, g), None)
 
 
 class _StaticMatmul(torch.autograd.Function):
@@ -175,13 +194,13 @@ class _StaticMatmul(torch.autograd.Function):
     reaches ``amax``)."""
 
     @staticmethod
-    def forward(ctx, x, w, amax):
+    def forward(ctx, x, w, amax, group):
         ctx.save_for_backward(x, w)
-        return _static(x.float(), w.float(), amax)
+        return _static(x.float(), w.float(), amax, group)
 
     @staticmethod
     def backward(ctx, g):
-        return (*_exact_grads(*ctx.saved_tensors, g), None)
+        return (*_exact_grads(*ctx.saved_tensors, g), None, None)
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -189,7 +208,7 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 
 def int8_dynamic_matmul(x: torch.Tensor, weight: torch.Tensor, *,
-                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                        out_dtype: Optional[torch.dtype] = None, group=None) -> torch.Tensor:
     """``x @ weight.T`` as an int8 product with dynamic scales.
 
     Args:
@@ -197,17 +216,19 @@ def int8_dynamic_matmul(x: torch.Tensor, weight: torch.Tensor, *,
       weight: [N, K] float weights (nn.Linear's layout), quantized per
         output channel here.
       out_dtype: the result's dtype (default: ``x.dtype``).
+      group: the process group over which K is split (a row-parallel
+        projection), or None.
     """
     out_dtype = out_dtype or x.dtype
     if _needs_grad(x, weight):
-        y = _DynamicMatmul.apply(x, weight)
+        y = _DynamicMatmul.apply(x, weight, group)
     else:
-        y = _dynamic(x.float(), weight.float())
+        y = _dynamic(x.float(), weight.float(), group)
     return y.to(out_dtype)
 
 
 def int8_static_matmul(x: torch.Tensor, weight: torch.Tensor, amax: torch.Tensor, *,
-                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None, group=None) -> torch.Tensor:
     """``x @ weight.T`` as an int8 product with one calibrated activation
     scale.
 
@@ -217,13 +238,14 @@ def int8_static_matmul(x: torch.Tensor, weight: torch.Tensor, amax: torch.Tensor
       amax: the site's calibrated ``max|x|`` (a 0-d fp32 tensor, see
         ``calibrate``); 0 means uncalibrated (scale 1.0).
       out_dtype: the result's dtype (default: ``x.dtype``).
+      group: as for ``int8_dynamic_matmul``.
     """
     out_dtype = out_dtype or x.dtype
     amax = torch.as_tensor(amax, dtype=torch.float32, device=x.device)
     if _needs_grad(x, weight):
-        y = _StaticMatmul.apply(x, weight, amax)
+        y = _StaticMatmul.apply(x, weight, amax, group)
     else:
-        y = _static(x.float(), weight.float(), amax)
+        y = _static(x.float(), weight.float(), amax, group)
     return y.to(out_dtype)
 
 

@@ -28,6 +28,14 @@ Every tensor is copied to host memory before ``torch.save`` sees it: a
 ``state_dict`` holds live references, and AdamW updates the parameters in
 place, so a writer that kept the references would save a later step's
 values.
+
+A train state placed on a mesh (``training.trainer.create_sharded_train_state``)
+is saved in the single-device format: every rank gathers the whole
+``state_dict``s (parameters, their optimizer moments and EMA from their
+pieces), rank 0 writes them, and a barrier follows a synchronous save.  So
+it restores with or without a mesh, and onto another mesh:
+``restore_train_state`` gives a sharded state the pieces of its own layout.
+``prune_checkpoints`` runs on rank 0 only (the Trainer's call).
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
-from perceiverio_pytorch_tpu_torch.training.trainer import TrainState
+from perceiverio_pytorch_tpu_torch.parallel.sharding import NamedSharding, layout_of
+from perceiverio_pytorch_tpu_torch.training.trainer import _PARAM_LIKE, TrainState
 from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -90,7 +99,32 @@ def _train_state_tree(state: TrainState) -> Dict[str, Any]:
             "optimizer": state.optimizer.state_dict()}
     if state.ema_params is not None:
         tree["ema"] = dict(state.ema_params)
+    layout = layout_of(state.model)
+    if layout is not None:  # the whole tensors, from every rank's pieces
+        _map_pieces(tree, state, lambda spec, t: layout.gather_spec(spec, t))
     return tree
+
+
+def _map_pieces(tree: Dict[str, Any], state: TrainState, fn) -> None:
+    """``fn(spec, t)`` in place of each tensor of a train-state tree that is
+    placed by its parameter's spec: the parameters, their optimizer moments
+    (by the optimizer's parameter index) and the EMA."""
+    specs = layout_of(state.model).specs
+    for name, t in tree["model"].items():
+        if name in specs:
+            tree["model"][name] = fn(specs[name], t)
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for index, entries in tree["optimizer"]["state"].items():
+        spec = specs[names[id(params[index])]]
+        tree["optimizer"]["state"][index] = {
+            k: fn(spec, v) if k in _PARAM_LIKE else v for k, v in entries.items()}
+    for name, t in (tree.get("ema") or {}).items():
+        tree["ema"][name] = fn(specs[name], t)
+
+
+def _rank() -> int:
+    return torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
 
 
 def _prepare(path: str, overwrite: bool) -> str:
@@ -137,9 +171,15 @@ def restore_variables(path: str, device="cuda") -> Dict[str, torch.Tensor]:
 
 
 def save_train_state(path: str, state: TrainState, overwrite: bool = False) -> None:
-    """Save ``state`` (module, optimizer, step, EMA) into the new directory ``path``."""
-    path = _prepare(path, overwrite)
-    _write(path, _STATE_FILE, _host_copy(_train_state_tree(state)), "train_state")
+    """Save ``state`` (module, optimizer, step, EMA) into the new directory
+    ``path``; a sharded state is gathered by every rank and written by rank
+    0, and the ranks meet at a barrier after the write."""
+    tree = _train_state_tree(state)
+    if _rank() == 0:
+        path = _prepare(path, overwrite)
+        _write(path, _STATE_FILE, _host_copy(tree), "train_state")
+    if layout_of(state.model) is not None:
+        torch.distributed.barrier()
 
 
 def _load_train_state(path: str) -> Dict[str, Any]:
@@ -158,6 +198,9 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
     template that does not match.
     """
     tree = _load_train_state(path)
+    layout = layout_of(state.model)
+    if layout is not None:  # this rank's pieces of the whole tensors
+        _map_pieces(tree, state, lambda spec, t: NamedSharding(layout.mesh, spec).shard(t))
     have = state.model.state_dict()
     saved = tree["model"]
     missing, unexpected = sorted(set(have) - set(saved)), sorted(set(saved) - set(have))
@@ -206,6 +249,8 @@ class AsyncCheckpointWriter:
 
     def _start(self, path: str, name: str, tree: Any, kind: str, overwrite: bool) -> None:
         self.wait()
+        if _rank() != 0:  # a sharded state's tree is gathered; rank 0 writes it
+            return
         path = _prepare(path, overwrite)
         host = _host_copy(tree)
 
@@ -224,7 +269,8 @@ class AsyncCheckpointWriter:
         self._start(path, _FILE, dict(state_dict), "variables", overwrite)
 
     def save_train_state(self, path: str, state: TrainState, overwrite: bool = False) -> None:
-        """``save_train_state`` in the background."""
+        """``save_train_state`` in the background (a sharded state is gathered
+        before this returns; rank 0 writes it)."""
         self._start(path, _STATE_FILE, _train_state_tree(state), "train_state", overwrite)
 
     def wait(self) -> None:

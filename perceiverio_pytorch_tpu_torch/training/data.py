@@ -5,8 +5,14 @@ A numpy copy of ``_index_batches`` and ``batch_iterator`` (with
 of ``epoch_batches`` from ``perceiverio_pytorch_tpu/utils/data.py``, so that
 the port sees the same data order as the JAX package for the same seed; and
 ``prefetch_to_device``, which keeps batches copied to the card ahead of the
-step loop.  A process's rank and the world size come from
-``torch.distributed`` when it is initialised, else 0 and 1.
+step loop.
+
+``shard_by_process`` keeps the rows of this rank's coordinate on the data
+axis of the process's mesh (``parallel.make_mesh``), so that the ranks of
+one model group see the same rows: a JAX process is a host whose devices
+form whole mesh rows, a rank here is one device.  Without a mesh every rank
+is its own data index (``torch.distributed``'s rank and world size, else 0
+and 1).
 """
 
 from __future__ import annotations
@@ -23,22 +29,18 @@ from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
 __all__ = ["batch_iterator", "epoch_batches", "prefetch_to_device", "process_slice"]
 
 
-def process_slice(batch_size: int, drop_remainder: bool) -> Tuple[int, int]:
-    """``[lo, hi)`` of this process's contiguous piece of a global batch of
-    ``batch_size``: ``batch_size // world_size`` rows at ``rank``."""
+def process_slice(batch_size: int, drop_remainder: bool, mesh=None) -> Tuple[int, int]:
+    """``[lo, hi)`` of this rank's contiguous piece of a global batch of
+    ``batch_size``: the piece of its coordinate on the data axis of ``mesh``
+    (default: the process's mesh; without one, ``rank`` of ``world_size``)."""
+    from perceiverio_pytorch_tpu_torch.parallel.multihost import data_rows
+
     if not drop_remainder:
         raise ValueError(
             "shard_by_process requires drop_remainder=True: a ragged"
             " tail batch cannot be split evenly across processes"
         )
-    rank, world = 0, 1
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
-    if batch_size % world != 0:
-        raise ValueError(
-            f"global batch {batch_size} is not divisible by the process count {world}")
-    local = batch_size // world
-    return rank * local, rank * local + local
+    return data_rows(batch_size, mesh)
 
 
 def _index_batches(
@@ -92,9 +94,11 @@ def batch_iterator(
       shuffle: reshuffle every epoch (deterministic in ``seed``).
       epochs: number of passes; ``None`` repeats forever.
       drop_remainder: drop the short tail batch.
-      shard_by_process: ``batch_size`` is the global batch; each process
-        yields its own contiguous ``batch_size // world_size`` slice of every
-        global batch (every process holds the same arrays and seed).
+      shard_by_process: ``batch_size`` is the global batch; each rank
+        yields the contiguous piece of every global batch of its coordinate
+        on the data axis (``process_slice``; every rank holds the same
+        arrays and seed).  ``parallel.shard_host_batch`` assembles the
+        pieces into the global batch the Trainer takes.
       start_batch: skip this many leading batches, with the same per-epoch
         shuffles, so that a resumed run sees the data order of an
         uninterrupted one.
@@ -144,9 +148,13 @@ def _host_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
 
 
-def prefetch_to_device(batches: Iterable[Any], size: int = 2, device="cuda") -> Iterator[tuple]:
+def prefetch_to_device(batches: Iterable[Any], size: int = 2, device="cuda", *,
+                       sharding=None) -> Iterator[tuple]:
     """Iterate ``batches`` (tuples of numpy arrays or CPU tensors) with up to
     ``size`` of them already on ``device``, as tuples of tensors.
+
+    ``sharding``: ``parallel.batch_sharding(mesh)`` keeps this rank's rows of
+    each global batch (cut before the copy; ``device`` is then the mesh's).
 
     A daemon thread draws from the source, so that file reads and decodes
     overlap the steps.  For a CUDA device it pins each array and copies it
@@ -171,6 +179,8 @@ def prefetch_to_device(batches: Iterable[Any], size: int = 2, device="cuda") -> 
         if not isinstance(batch, (tuple, list)):
             batch = (batch,)
         tensors = [_host_tensor(x) for x in batch]
+        if sharding is not None:  # this rank's rows, cut before the copy
+            tensors = [sharding.piece(t).contiguous() for t in tensors]
         if side is None:
             return tuple(t.to(device) for t in tensors), None
         with torch.cuda.stream(side):

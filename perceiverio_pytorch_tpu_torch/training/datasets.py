@@ -401,8 +401,8 @@ def dataset_iterator(dataset, batch_size: int, *, shuffle: bool = False, seed: i
     into a C-contiguous array.
 
     The epoch, shuffle and ``start_batch`` stream is ``batch_iterator``'s;
-    ``shard_by_process`` keeps this process's contiguous ``batch_size //
-    world_size`` piece of each global batch.  ``num_workers`` threads decode
+    ``shard_by_process`` keeps this rank's contiguous piece of each global
+    batch, that of its coordinate on the data axis (``process_slice``).  ``num_workers`` threads decode
     the items of up to ``lookahead`` batches ahead of the consumer, and the
     batches come in order whatever the threads' timing (``num_workers=0``
     decodes inline).  A dataset with ``getitem_at_epoch(i, epoch)`` gets the

@@ -1,14 +1,17 @@
 """Training loop with JSONL metrics, checkpoints and device prefetch.
 
 Counterpart of ``Trainer`` and ``MetricsLogger`` in
-``perceiverio_pytorch_tpu/training/loop.py``, on one device: the train step
-over a batch stream, its evaluation (``eval_fn``, ``eval_every``,
-``Trainer.evaluate``), periodic train-state checkpoints (synchronous or by
-a thread, pruned to the newest N), ``fit(resume=True)``, device prefetch,
-the SIGTERM guard, an EMA of the parameters (``ema_decay``), the logged
-learning rate (``lr_schedule``) and ``steps_per_call`` (k updates a call,
-here k eager steps).  The JAX Trainer's mesh and FSDP are not ported:
-setting either raises ``NotImplementedError``.
+``perceiverio_pytorch_tpu/training/loop.py``: the train step over a batch
+stream, its evaluation (``eval_fn``, ``eval_every``, ``Trainer.evaluate``),
+periodic train-state checkpoints (synchronous or by a thread, pruned to the
+newest N), ``fit(resume=True)``, device prefetch, the SIGTERM guard, an EMA
+of the parameters (``ema_decay``), the logged learning rate
+(``lr_schedule``), ``steps_per_call`` (k updates a call, here k eager
+steps), and the mesh (``mesh``, ``fsdp``): one process per device, each
+running this loop on the same global batches, its step keeping its own rows
+(``training.trainer.make_sharded_train_step``).  On a mesh the ranks agree
+on the SIGTERM flag every step, so that all stop at the same step and save
+once; rank 0 writes the checkpoints, the metrics file and the log lines.
 """
 
 from __future__ import annotations
@@ -23,15 +26,21 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from perceiverio_pytorch_tpu_torch.parallel import collectives as cc
+from perceiverio_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, axis, mesh_device
+from perceiverio_pytorch_tpu_torch.parallel.sharding import batch_sharding, gathered
 from perceiverio_pytorch_tpu_torch.training import checkpoint as ckpt
 from perceiverio_pytorch_tpu_torch.training.data import prefetch_to_device
 from perceiverio_pytorch_tpu_torch.training.optim import Optimizer
 from perceiverio_pytorch_tpu_torch.training.trainer import (
     TrainState,
+    create_sharded_train_state,
     create_train_state,
     ema_weights,
     make_multi_step,
+    make_sharded_train_step,
     make_train_step,
+    place_batch,
 )
 
 
@@ -90,11 +99,6 @@ class _PreemptionGuard:
             signal.signal(signal.SIGTERM,
                           signal.SIG_DFL if self._prev is None else self._prev)
         return False
-
-
-# Trainer arguments of the JAX package that are not ported, with the value
-# that means "off".
-_NOT_PORTED = {"mesh": None, "fsdp": False}
 
 
 def _groups(batches, size: int):
@@ -161,11 +165,18 @@ class Trainer:
         evaluation and checkpoint cadences fire when the step count crosses
         them, and a run overshoots ``num_steps`` by at most k - 1; the
         logged loss is the group's last.  Refused with ``log_grad_norm``.
-      mesh, fsdp: not ported; anything but the default raises
-        NotImplementedError.
+        Ignored on a mesh (one update a call), as in the JAX Trainer.
+      mesh: a (data, model) mesh (``parallel.make_mesh``): ``init_state``
+        places the model on it by the TP rules and the step runs on it
+        (``make_sharded_train_step``).  ``fit`` and ``evaluate`` take global
+        batches, the same on every rank, and keep this rank's rows (placed
+        in the prefetch thread with ``prefetch``); the logged losses and
+        evaluation metrics are the global ones.
+      fsdp: also shard every >=2-D parameter and its optimizer moments over
+        the data axis (FSDP); needs ``mesh`` (ValueError without one).
     """
 
-    def __init__(self, loss_fn: Callable, tx: Optimizer, *,
+    def __init__(self, loss_fn: Callable, tx: Optimizer, mesh=None, fsdp: bool = False, *,
                  metrics_path: Optional[str] = None, log_every: int = 10,
                  log_grad_norm: bool = False, eval_fn: Optional[Callable] = None,
                  eval_every: int = 0, checkpoint_dir: Optional[str] = None,
@@ -173,16 +184,17 @@ class Trainer:
                  checkpoint_final: bool = False, checkpoint_async: bool = False,
                  prefetch: int = 0, ema_decay: Optional[float] = None,
                  lr_schedule: Optional[Callable[[int], float]] = None,
-                 steps_per_call: int = 1, **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"Trainer got an unexpected argument {name!r}")
-            if value != _NOT_PORTED[name]:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported to PyTorch yet (see ROADMAP.md)")
+                 steps_per_call: int = 1):
+        self.mesh = mesh
+        self.fsdp = bool(fsdp)
+        if self.fsdp and mesh is None:
+            raise ValueError(
+                "Trainer(fsdp=True) needs a mesh -- without one there is no data axis to"
+                " shard the weights over and training would silently run fully replicated")
         self.loss_fn = loss_fn
         self.tx = tx
-        self.logger = MetricsLogger(metrics_path)
+        self._rank0 = mesh is None or torch.distributed.get_rank() == 0
+        self.logger = MetricsLogger(metrics_path if self._rank0 else None, echo=self._rank0)
         self.log_every = log_every
         self.log_grad_norm = log_grad_norm
         self.eval_fn = eval_fn
@@ -204,7 +216,25 @@ class Trainer:
         self._async_writer: Optional[ckpt.AsyncCheckpointWriter] = None
 
     def init_state(self, model) -> TrainState:
+        if self.mesh is not None:
+            return create_sharded_train_state(model, self.tx, self.mesh,
+                                              ema_decay=self.ema_decay, fsdp=self.fsdp)
         return create_train_state(model, self.tx, ema_decay=self.ema_decay)
+
+    def _eval_batch(self, model, batch):
+        """``eval_fn`` on one batch: on a mesh, on this rank's rows, the
+        result averaged over the data axis (the global metric)."""
+        if self.mesh is None:
+            return self.eval_fn(model, *batch)
+        data = axis(self.mesh, DATA_AXIS)
+        with cc.global_batch(data.group), gathered(model):
+            val = self.eval_fn(model, *place_batch(batch, self.mesh))
+
+        def mean(v):
+            v = torch.as_tensor(v, device=mesh_device(self.mesh)).detach().float().clone()
+            return cc.all_reduce_(v, data.group).div_(data.size)
+
+        return {k: mean(v) for k, v in val.items()} if isinstance(val, dict) else mean(val)
 
     def evaluate(self, state: TrainState, eval_batches, use_ema: Optional[bool] = None):
         """The mean of ``eval_fn`` over ``eval_batches``: a float for a scalar
@@ -231,7 +261,7 @@ class Trainer:
                 for batch in eval_batches:
                     if not isinstance(batch, (tuple, list)):
                         batch = (batch,)
-                    val = self.eval_fn(model, *batch)
+                    val = self._eval_batch(model, batch)
                     for k, v in (val if isinstance(val, dict) else {"eval_loss": val}).items():
                         totals[k] = totals.get(k, 0.0) + torch.as_tensor(v).detach().double()
                     n += 1
@@ -285,10 +315,19 @@ class Trainer:
                 self.logger.log(step=state.step, resumed_from=os.path.basename(latest))
         if callable(batches):
             batches = batches(state.step)
+        sharding = None if self.mesh is None else batch_sharding(self.mesh)
         if self.prefetch > 0:
             device = next(iter(state.model.parameters())).device
-            batches = prefetched = prefetch_to_device(batches, self.prefetch, device=device)
-        if self.steps_per_call > 1:
+            batches = prefetched = prefetch_to_device(batches, self.prefetch, device=device,
+                                                      sharding=sharding)
+        elif sharding is not None:
+            batches = (place_batch(b if isinstance(b, (tuple, list)) else (b,), self.mesh)
+                       for b in batches)
+        if self.mesh is not None:
+            step_fn = make_sharded_train_step(self.loss_fn, self.tx, self.mesh, state,
+                                              with_metrics=self.log_grad_norm,
+                                              ema_decay=self.ema_decay, placed_batches=True)
+        elif self.steps_per_call > 1:
             step_fn = make_multi_step(self.loss_fn, self.tx, ema_decay=self.ema_decay)
             batches = _groups(batches, self.steps_per_call)
         else:
@@ -297,8 +336,8 @@ class Trainer:
                                       ema_decay=self.ema_decay)
         try:
             with _PreemptionGuard() as guard:
-                return self._fit_loop(state, batches, num_steps, step_fn, eval_batches,
-                                      guard)
+                state = self._fit_loop(state, batches, num_steps, step_fn, eval_batches,
+                                       guard)
         finally:
             if self.prefetch > 0:
                 prefetched.close()  # stops the prefetch thread
@@ -306,6 +345,9 @@ class Trainer:
                 # The caller may exit or restore right after fit().
                 writer, self._async_writer = self._async_writer, None
                 writer.close()
+        if self.mesh is not None:  # every rank returns after rank 0's writes
+            torch.distributed.barrier()
+        return state
 
     def _fit_loop(self, state, batches: Iterable, num_steps, step_fn, eval_batches, guard):
         def crossed(step_num, prev_step, every):
@@ -319,7 +361,7 @@ class Trainer:
             if num_steps is not None and state.step >= num_steps:
                 break
             prev_step = state.step
-            if self.steps_per_call > 1:
+            if self.steps_per_call > 1 and self.mesh is None:
                 state, loss = step_fn(state, batch)
                 loss = loss[-1]
             else:
@@ -358,7 +400,7 @@ class Trainer:
             if self.checkpoint_dir and crossed(step_num, prev_step, self.checkpoint_every):
                 self._save_checkpoint(state, step_num)
                 last_saved = step_num
-            if guard.requested:
+            if self._stop_requested(guard):
                 # The step in flight has finished: save it and stop, so that
                 # fit(resume=True) goes on from exactly here.
                 if self.checkpoint_dir and last_saved != step_num:
@@ -371,6 +413,17 @@ class Trainer:
             self._save_checkpoint(state, step_num)
         return state
 
+    def _stop_requested(self, guard) -> bool:
+        """Has any rank been told to stop?  SIGTERM reaches the ranks at
+        different times; a rank that broke out alone would leave the others
+        waiting in the next step's collectives.  On a mesh the ranks agree
+        on the flag every step (one ``MAX`` all-reduce of a scalar), so that
+        all break at the same step and save once."""
+        if self.mesh is None:
+            return guard.requested
+        flag = torch.tensor([int(guard.requested)], device=mesh_device(self.mesh))
+        return bool(cc.all_reduce_(flag, None, torch.distributed.ReduceOp.MAX).item())
+
     def _save_checkpoint(self, state: TrainState, step_num: int) -> None:
         path = os.path.join(self.checkpoint_dir, f"step_{step_num:08d}")
         # overwrite=True: a resumed run may reach this step again
@@ -382,5 +435,5 @@ class Trainer:
             ckpt.save_train_state(path, state, overwrite=True)
         # A save in flight has no marker yet and is newer than every finished
         # one, so pruning leaves it alone.
-        if self.checkpoint_keep > 0:
+        if self.checkpoint_keep > 0 and self._rank0:  # host files: one process
             ckpt.prune_checkpoints(self.checkpoint_dir, self.checkpoint_keep)

@@ -6,6 +6,16 @@ MLM's ``masked_token_cross_entropy``, ImageNet's
 multimodal autoencoder's ``multimodal_autoencode_loss``.  Every
 cross-entropy is taken in fp32, whatever the logits' dtype (the JAX package
 takes it in the logits' dtype).
+
+Inside the train step or evaluation of a mesh whose data axis has D > 1
+ranks (``parallel.collectives.global_batch``), each rank holds its rows of
+the global batch, and the step averages the ranks' losses.  A plain mean
+over the rows is then the global one, but a masked mean is not: its
+denominator differs per rank.  Each masked mean therefore returns D times
+its local sum over the global count (all-reduced, with no gradient through
+it), so that the ranks' average is the global masked mean, as GSPMD
+computes it.  With no mesh, or D = 1, the code path and the bits are the
+single-device ones.
 """
 
 from __future__ import annotations
@@ -14,6 +24,18 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+
+from perceiverio_pytorch_tpu_torch.parallel import collectives as cc
+
+
+def _masked_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``total / max(count, 1)`` over the global batch (see the module
+    docstring)."""
+    group = cc.data_group()
+    if group is None:
+        return total / torch.clamp(count, min=1)
+    count = cc.all_reduce_(count.detach().clone(), group)
+    return total * cc.size(group) / torch.clamp(count, min=1)
 
 
 def masked_token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -27,7 +49,7 @@ def masked_token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     if loss_mask is None:
         return ce.mean()
     loss_mask = loss_mask.to(ce.dtype)
-    return (ce * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+    return _masked_mean((ce * loss_mask).sum(), loss_mask.sum())
 
 
 def classification_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -49,7 +71,7 @@ def flow_endpoint_error(pred_flow: torch.Tensor, gt_flow: torch.Tensor,
     if valid is None:
         return epe.mean()
     valid = valid.to(epe.dtype)
-    return (epe * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return _masked_mean((epe * valid).sum(), valid.sum())
 
 
 def multimodal_autoencode_loss(outputs: Mapping[str, torch.Tensor],
@@ -74,6 +96,6 @@ def multimodal_autoencode_loss(outputs: Mapping[str, torch.Tensor],
         labels = targets["label"].long()
         valid = labels >= 0
         ce = F.cross_entropy(outputs["label"].float(), labels.clamp(min=0), reduction="none")
-        label_loss = torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)
+        label_loss = _masked_mean(torch.where(valid, ce, torch.zeros_like(ce)).sum(), valid.sum())
         total = total + weights.get("label", 1.0) * label_loss
     return total

@@ -29,6 +29,18 @@ semantics:
 The decision to skip a non-finite update is taken on the host: one read of
 a flag from the device per step, only when ``skip_nonfinite_updates`` is
 set.
+
+On a mesh (``training.trainer.create_sharded_train_state``) the chain's
+``shards`` is the model's ``parallel.sharding.ShardLayout`` and its
+parameters are this rank's pieces.  The updates of AdamW, Lion, SGD, the
+accumulation and the weight decay are elementwise, so they run on the
+pieces as they are; what reads a whole tensor reads it over all shards:
+the global norms of the clip and of the metrics (each tensor's sum of
+squares all-reduced over the axes it is split on), the non-finite flag
+(all ranks agree), and Adafactor, which gathers a split parameter and its
+gradient to compute its factored moments (kept whole, replicated, as the
+JAX package's opt_state_shardings leaves them) and its block RMS exactly as
+unsharded, then keeps its own piece of the update.
 """
 
 from __future__ import annotations
@@ -222,6 +234,7 @@ class OptaxChain(torch.optim.Optimizer):
             groups = [{"params": [], "trainable": True, "decay": True}]
         super().__init__(groups, {"lr": spec.schedule(0)})
         self.spec = spec
+        self.shards = None  # a ShardLayout on a mesh (see the module docstring)
         self.chain = {"count": 0, "mini_step": 0, "notfinite_count": 0,
                       "last_finite": True, "total_notfinite": 0}
 
@@ -236,6 +249,13 @@ class OptaxChain(torch.optim.Optimizer):
                              " an OptaxChain (a torch.optim.AdamW's, say)")
         super().load_state_dict(state_dict)
         self.chain = dict(state_dict["chain"])
+
+    def global_norm(self, params: List[torch.Tensor], tensors) -> torch.Tensor:
+        """``global_norm`` of ``tensors`` (placed as ``params``), over every
+        shard on a mesh."""
+        if self.shards is None:
+            return global_norm(tensors)
+        return self.shards.global_norm(params, tensors)
 
     def _params(self, trainable: Optional[bool] = None) -> List[torch.Tensor]:
         return [p for g in self.param_groups
@@ -252,7 +272,7 @@ class OptaxChain(torch.optim.Optimizer):
         for p in every:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = global_norm([p.grad for p in every])
+        norm = self.global_norm(every, [p.grad for p in every])
         if spec.skip_nonfinite_updates > 0:  # optax.apply_if_finite, outermost
             finite = self.grads_finite()
             chain["notfinite_count"] = 0 if finite else chain["notfinite_count"] + 1
@@ -281,9 +301,11 @@ class OptaxChain(torch.optim.Optimizer):
         on the host (NaN propagates through the max; an empty gradient, which
         has no max, is skipped)."""
         grads = [p.grad for p in self._params() if p.grad is not None and p.grad.numel()]
-        if not grads:
-            return True
-        return bool(torch.isfinite(torch.stack(torch._foreach_norm(grads, math.inf))).all())
+        finite = not grads or bool(
+            torch.isfinite(torch.stack(torch._foreach_norm(grads, math.inf))).all())
+        if self.shards is not None:
+            finite = self.shards.all_finite(finite, self._params()[0].device)
+        return finite
 
     def _state(self, p, key, make):
         state = self.state[p]
@@ -299,7 +321,7 @@ class OptaxChain(torch.optim.Optimizer):
             return
         if spec.clip_norm is not None:
             # In place, decided on the device: the step does not wait for the norm.
-            clip_norm = global_norm(grads)
+            clip_norm = self.global_norm(params, grads)
             keep = clip_norm < spec.clip_norm
             for g in grads:
                 g.copy_(torch.where(keep, g, g / clip_norm.to(g.dtype) * spec.clip_norm))
@@ -364,13 +386,17 @@ class OptaxChain(torch.optim.Optimizer):
         rate = float(np.float32(1.0) - t ** np.float32(-_ADAFACTOR_DECAY))
         updates = []
         for p, g in zip(params, grads):
+            shards = self.shards if self.shards is not None and self.shards.axes(p) else None
+            piece = p
+            if shards is not None:  # the whole tensors, computed as unsharded
+                p, g = shards.gather(piece, p), shards.gather(piece, g)
             sq = g * g + _ADAFACTOR_EPS
             dims = _adafactor_dims(tuple(p.shape))
             if dims is not None:
                 d1, d0 = dims
-                v_row = self._state(p, "v_row", lambda p: p.new_zeros(
+                v_row = self._state(piece, "v_row", lambda _: p.new_zeros(
                     [s for i, s in enumerate(p.shape) if i != d0]))
-                v_col = self._state(p, "v_col", lambda p: p.new_zeros(
+                v_col = self._state(piece, "v_col", lambda _: p.new_zeros(
                     [s for i, s in enumerate(p.shape) if i != d1]))
                 v_row.mul_(rate).add_(sq.mean(dim=d0) * (1.0 - rate))
                 v_col.mul_(rate).add_(sq.mean(dim=d1) * (1.0 - rate))
@@ -378,12 +404,17 @@ class OptaxChain(torch.optim.Optimizer):
                 row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
                 u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
             else:
-                v = self._state(p, "v", torch.zeros_like)
+                v = v_piece = self._state(piece, "v", torch.zeros_like)
+                if shards is not None:
+                    v = shards.gather(piece, v_piece)
                 v.mul_(rate).add_(sq * (1.0 - rate))
+                if shards is not None:
+                    v_piece.copy_(shards.local(piece, v))
                 u = g * v.rsqrt()
             u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)  # clip_by_block_rms(1)
             u = u * lr
-            updates.append(u * torch.clamp(p.square().mean().sqrt(), min=_ADAFACTOR_MIN_SCALE))
+            u = u * torch.clamp(p.square().mean().sqrt(), min=_ADAFACTOR_MIN_SCALE)
+            updates.append(u if shards is None else shards.local(piece, u))
         if self.spec.weight_decay and decayed:
             torch._foreach_add_([updates[i] for i in decayed],
                                 torch._foreach_mul([params[i] for i in decayed],

@@ -52,6 +52,14 @@ def test_no_forbidden_import_statements(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def test_the_parallel_package_is_checked():
+    """``parallel/`` (mesh, sharding, api, multihost, collectives) is among
+    the files checked above and imported below."""
+    parallel = {os.path.basename(p) for p in _port_files() if os.sep + "parallel" + os.sep in p}
+    assert {"__init__.py", "mesh.py", "sharding.py", "api.py", "multihost.py",
+            "collectives.py"} <= parallel
+
+
 def test_importing_the_port_loads_no_jax():
     modules = [_module_name(p) for p in _port_files()]
     code = (
@@ -230,8 +238,8 @@ def test_data_path_entry_points_default_to_cuda(no_cuda, tmp_path):
         evaluate_classification.main()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_flow.setup(2, data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        evaluate_classification.main(mesh_devices=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_classification.main(mesh_devices=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_classification.main(quant="dynamic")
     assert evaluate_classification.main(quant="dynamic", device="cpu", limit=16)["images"] == 16

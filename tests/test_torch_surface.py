@@ -1,7 +1,9 @@
 """The port's public surface against the JAX package's: every public name of
-JAX's top-level ``__init__`` and of its ``io_processors/__init__`` is
-importable from the port's counterpart, and names the same kind of object
-(a class, a function, an enum, a constant)."""
+JAX's top-level ``__init__``, of its ``io_processors/__init__`` and of its
+``parallel/__init__`` is importable from the port's counterpart, and names
+the same kind of object (a class, a function, an enum, a constant).  The
+parallel names of the next slice (sequence-parallel attention and the
+pipelines) are skipped until it lands."""
 
 import inspect
 
@@ -10,8 +12,10 @@ import torch
 
 import perceiverio_pytorch_tpu as jax_pkg
 import perceiverio_pytorch_tpu.io_processors as jax_io
+import perceiverio_pytorch_tpu.parallel as jax_parallel
 import perceiverio_pytorch_tpu_torch as port_pkg
 import perceiverio_pytorch_tpu_torch.io_processors as port_io
+import perceiverio_pytorch_tpu_torch.parallel as port_parallel
 
 torch.set_num_threads(1)
 
@@ -50,6 +54,24 @@ def test_each_exported_name_is_the_same_kind(name):
         assert inspect.isclass(got), name
         return
     assert _kind(got) == _kind(want), name
+
+
+# parallel/__init__ names whose modules (sequence_parallel.py, pipeline.py)
+# the next slice ports.
+NEXT_SLICE = {"sequence_parallel_attention", "PIPE_AXIS", "make_pipeline_mesh",
+              "pipeline_spmd", "pipelined_self_attends", "pp_param_shardings",
+              "stack_layer_params", "unstack_layer_params", "unstack_layer_params_circular"}
+
+
+@pytest.mark.parametrize("name", _public(jax_parallel))
+def test_each_parallel_name_is_exported_as_the_same_kind(name):
+    if name in NEXT_SLICE:
+        pytest.skip("sequence parallelism and the pipelines come in the next slice")
+    assert hasattr(port_parallel, name), name
+    want, got = getattr(jax_parallel, name), getattr(port_parallel, name)
+    assert _kind(got) == _kind(want), name
+    if isinstance(want, str):
+        assert got == want
 
 
 def test_port_exports_its_own_extras():

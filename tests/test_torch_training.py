@@ -171,8 +171,9 @@ def test_adamw_with_clip_matches_optax(weight_decay_mask):
 
 
 def test_unported_optimizer_and_trainer_options_raise():
-    """What still raises: the Trainer's mesh and FSDP.  Every optimizer
-    option of the JAX package is taken; bad values are refused."""
+    """What raises: FSDP without a mesh (JAX's ValueError), an argument the
+    JAX Trainer does not take.  Every optimizer option of the JAX package is
+    taken; bad values are refused."""
     for kw in (dict(optimizer="lion"), dict(optimizer="adafactor"), dict(optimizer="sgd"),
                dict(accum_steps=2), dict(skip_nonfinite_updates=3),
                dict(trainable_mask=lambda m: {}), dict(weight_decay_mask={"w": True})):
@@ -181,9 +182,8 @@ def test_unported_optimizer_and_trainer_options_raise():
         with pytest.raises(ValueError):
             build_optimizer(1e-3, **kw)
     tx = build_optimizer(1e-3)
-    for kw in (dict(mesh=object()), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError):
-            Trainer(lambda m: m, tx, **kw)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        Trainer(lambda m: m, tx, fsdp=True)
     with pytest.raises(TypeError):
         Trainer(lambda m: m, tx, mesh_shape=(2, 2))
     with pytest.raises(ValueError, match="log_grad_norm"):
