@@ -219,7 +219,7 @@ Phases (each raises on failure; nothing is caught):
      restore_eval_variables on the final checkpoint gives the EMA weights;
      the logged lr equals the schedule's; step time beside phase 8's;
  32. prints the run's seconds, the kernels line and, last, {"ok": true,
-     "device": {...}} (after phases A to O below).
+     "device": {...}} (after phases A to Q below).
 
 The rest of training runs in phases A to E, each where its inputs are
 warm: B after phase 8, A after phase 12, C to E after phase 19.
@@ -327,6 +327,34 @@ without a mesh, for 1 + 3 steps:
      evaluate_classification --full-scale --prep-type LEARNED_POS_1X1CONV
      --mesh 1 over 64 images: every batch's logits and the top-1/top-5
      equal the run without --mesh; then the process group is torn down.
+Sequence parallelism, chunk_mesh and the mesh server run in phases P and
+Q, after phase O, on a new (1, 1) mesh:
+  P. (a) the ring's merge in one process: the flow encoder (1, 2048,
+     182,528, 1, 322) and the multimodal encoder (1, 784, 52,097, 1, 704)
+     in bf16 and fp32, their keys split into 2, 4 and 8 pieces (padded with
+     masked keys where the count does not divide), K1 with its lse on each
+     piece merged by the ring's own lse_merge with one-process reductions,
+     then K2/K3 on each piece with the merged output and the global lse:
+     the output, dK/dV concatenated and dQ summed against K1/K2/K3 on the
+     whole site within TOL (relative to max |x|), the pieces' summed ms
+     beside the whole site's; (b) the published flow model under
+     Policy(sp_mesh=mesh) on phase 6's pairs and weights (the encoder
+     through the ring once a request: the flows against phase 6's, bit for
+     bit or the largest gap within MODEL_TOL, 26 K1 launches a request) and
+     a phase-8 step (train_flow's model, loss and remat, bf16) with and
+     without it (loss and every gradient, bit for bit or within
+     BF16_GRAD_TOL; K1/K2/K3 launches as phase 8's); (c) the multimodal
+     model under Policy(sp_mesh) on phase 10's clip and weights (the
+     encoder's 52,097 keys through the ring, K1 once a clip, the outputs
+     against phase 10's);
+  Q. phase 10's clip through MultiModalPerceiver(chunk_mesh=mesh) (128
+     waves of one chunk): every output bit for bit against phase 10's, K1
+     once a clip; the full-width bf16 1x1-conv classifier behind
+     serve_on_mesh (BatchingServer over make_data_parallel_apply, buckets 8
+     and 16, pipeline on, 24 single-image requests): every batch the server
+     ran bit for bit against the eager model on the same padded batch,
+     every row its batch's, one K1 launch a batch (the two warm-ups apart);
+     then the process group is torn down.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -348,6 +376,7 @@ from unittest import mock
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVED = {}  # phase 6's requests, flows and weights, which phase O serves again
+MM_SERVED = {}  # phase 10's last clip, its outputs and weights, which P and Q decode again
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): fp32 on the CUDA
 # cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -564,6 +593,13 @@ HBM_TOL = 0.02  # compiled_memory_stats against the allocator read around the sa
 # projection's bias is added in its one product, FSDP's gather is a copy.
 MESH_STEPS = 3
 MESH_EVAL_LIMIT = 64  # images of evaluate_classification --full-scale, with and without --mesh
+# Sequence parallelism, chunk_mesh and the mesh server (phases P and Q).  The
+# published encoder sites whose keys the ring splits, and the numbers of
+# pieces they are split into in one process.
+SP_SITES = {"flow_encoder": FLOW_SITES["encoder"], "mm_encoder": MM_SITE}
+SP_PIECES = (2, 4, 8)
+SP_REPS = 2
+MESH_SERVER_REQUESTS = 24  # single images, served in buckets of 8 and 16
 
 
 
@@ -1454,6 +1490,9 @@ def phase_mm_serve(fp32_model, n_clips: int = 3):
         total = time.perf_counter() - t_all
         launches = _launch_counts()
         peak_mem = torch.cuda.max_memory_allocated()
+        MM_SERVED.update(clip=clips[-1], outputs={k: v.cpu() for k, v in out.items()},
+                         weights={k: v.cpu() for k, v in model.state_dict().items()},
+                         latency_s=latencies)
         ref = fp32_model(*clips[-1], n_chunks=MM_CHUNKS)
     if (launches["K1"], launches["merge"]) != (n_clips, n_clips):
         raise AssertionError(f"expected one K1 launch and one merge a clip, got {launches}")
@@ -4519,6 +4558,323 @@ def phase_mesh_serve(smi):
     return rec
 
 
+def _rel(got, want):
+    """max |got - want| over max |want|, in fp32."""
+    want = want.float()
+    return (got.float() - want).abs().max().item() / want.abs().max().item()
+
+
+def _sp_pieces(k, v, n):
+    """k and v padded with masked keys to a multiple of ``n`` and split into
+    ``n`` pieces of keys: [(k_i, v_i, kv_mask_i)]."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.parallel.sequence_parallel import pad_tokens
+
+    (k, v), mask = pad_tokens((k, v), None, n)
+    if mask is None:  # nothing padded: every key valid
+        mask = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    return [tuple(t.contiguous() for t in piece)
+            for piece in zip(k.chunk(n, 1), v.chunk(n, 1), mask.chunk(n, 1))]
+
+
+def _one_process_ring(q, pieces):
+    """The ring's forward in one process: K1 with its lse on each piece, then
+    ``lse_merge`` with reductions over the stacked pieces."""
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    b, tq, h, _ = q.shape
+    dv = pieces[0][1].shape[3]
+    parts = [fa.flash_attention(q, k, v, kv_mask=m, return_lse=True) for k, v, m in pieces]
+    return _merge_pieces(parts, b, tq, h, dv, q.dtype)
+
+
+def _merge_pieces(parts, b, tq, h, dv, dtype):
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.parallel import sequence_parallel as sp
+
+    out, lse = sp.lse_merge(torch.stack([o.view(b, tq, h, dv) for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]),
+                            lambda t: t.amax(0, keepdim=True), lambda t: t.sum(0, keepdim=True))
+    return out[0].reshape(b, tq, h * dv).to(dtype), lse[0]
+
+
+def _pieces_backward(q, pieces, out, lse, grad, tk):
+    """K2/K3 on each piece with the merged output and the global lse: dQ
+    summed over the pieces (fp32), dK and dV concatenated (pads cut)."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    grads = [fa.flash_attention_backward(q, k, v, out, lse, grad, kv_mask=m)
+             for k, v, m in pieces]
+    dq = torch.stack([g[0].float() for g in grads]).sum(0)
+    dk = torch.cat([g[1] for g in grads], dim=1)[:, :tk]
+    dv = torch.cat([g[2] for g in grads], dim=1)[:, :tk]
+    return dq, dk, dv
+
+
+def phase_sp_merge(smi):
+    """Phase P(a): the ring's merge and backward in one process at the
+    published encoder sites, against K1/K2/K3 on the whole site."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    records = []
+    for site, shape in SP_SITES.items():
+        b, tq, tk, h, d, dv = shape
+        for dtype_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v, _ = _case_inputs(*shape, dtype, False, gen)
+            grad = torch.randn(b, tq, h * dv, generator=gen, device="cuda").to(dtype)
+            out_w, lse_w = fa.flash_attention(q, k, v, return_lse=True)
+            dq_w, dk_w, dv_w = fa.flash_attention_backward(q, k, v, out_w, lse_w, grad)
+            whole_k1 = time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True), SP_REPS)
+            whole_bwd = time_ms(lambda: fa.flash_attention_backward(q, k, v, out_w, lse_w, grad),
+                                SP_REPS)
+            for n in SP_PIECES:
+                pieces = _sp_pieces(k, v, n)
+                out, lse = _one_process_ring(q, pieces)
+                dq, dk, dvv = _pieces_backward(q, pieces, out, lse, grad, tk)
+                finite = torch.isfinite(lse_w)
+                rec = dict(site=site, dtype=dtype_name, shape=list(shape), pieces=n,
+                           keys_per_piece=pieces[0][0].shape[1],
+                           out_rel=_rel(out, out_w),
+                           lse_max_abs_diff=(lse - lse_w)[finite].abs().max().item(),
+                           dq_rel=_rel(dq, dq_w), dk_rel=_rel(dk, dk_w), dv_rel=_rel(dvv, dv_w))
+                worst = max(rec[key] for key in ("out_rel", "dq_rel", "dk_rel", "dv_rel"))
+                if not (torch.equal(torch.isfinite(lse), finite) and worst <= TOL[dtype_name]):
+                    raise AssertionError(f"one-process ring vs whole site: {rec}")
+                parts = [fa.flash_attention(q, pk, pv, kv_mask=m, return_lse=True)
+                         for pk, pv, m in pieces]
+                rec.update(
+                    whole_k1_ms=whole_k1, whole_bwd_ms=whole_bwd,
+                    pieces_k1_ms=time_ms(lambda: [fa.flash_attention(
+                        q, pk, pv, kv_mask=m, return_lse=True) for pk, pv, m in pieces], SP_REPS),
+                    merge_ms=time_ms(lambda: _merge_pieces(parts, b, tq, h, dv, dtype), SP_REPS),
+                    pieces_bwd_ms=time_ms(lambda: [fa.flash_attention_backward(
+                        q, pk, pv, out, lse, grad, kv_mask=m) for pk, pv, m in pieces], SP_REPS),
+                    tolerance=TOL[dtype_name])
+                records.append(rec)
+                del pieces, parts, out, lse, dq, dk, dvv
+            del q, k, v, grad, out_w, lse_w, dq_w, dk_w, dv_w
+            torch.cuda.empty_cache()
+    print(f"[sp merge] {smi}: {json.dumps(records)}", flush=True)
+    return records
+
+
+@contextlib.contextmanager
+def _ring_calls():
+    """Counts the ring's merges (one a site the ring runs) within the block."""
+    from perceiverio_pytorch_tpu_torch.parallel import sequence_parallel as sp
+
+    with mock.patch.object(sp, "lse_merge", wraps=sp.lse_merge) as merges:
+        yield merges
+
+
+def _sp_flow_step(policy):
+    """Phase 8's step (train_flow's model, loss and remat, bf16) on one
+    synthetic pair, once to warm up and once counted and timed: the loss,
+    every gradient, the launches and seconds."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.examples.train_flow import synthetic_flow_pairs
+    from perceiverio_pytorch_tpu_torch.training import flow_endpoint_error
+
+    model = _flow_model(policy, remat=True).train()
+    img1, img2, flow = (torch.from_numpy(a).cuda()
+                        for a in synthetic_flow_pairs(1, (368, 496), seed=SEED + 4))
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = flow_endpoint_error(model(img1, img2), flow)
+        loss.backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return loss.item(), grads, _launch_counts(), seconds
+
+
+def phase_sp_models(smi, mesh):
+    """Phase P(b), (c): the published flow model under Policy(sp_mesh) on
+    phase 6's pairs and weights and a phase-8 step, and the multimodal model
+    on phase 10's clip, on the (1, 1) mesh."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowInference
+
+    policy = dataclasses.replace(PERFORMANCE, sp_mesh=mesh)
+    model = _flow_model(policy)
+    model.load_state_dict(SERVED["weights"])
+    infer = FlowInference(model, device="cuda")
+    latencies, gaps = [], []
+    with torch.inference_mode(), _ring_calls() as merges:
+        infer(*SERVED["requests"][0])  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        merges.reset_mock()
+        for (img1, img2), want in zip(SERVED["requests"], SERVED["flows"]):
+            t0 = time.perf_counter()
+            flow = infer(img1, img2)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            gaps.append((flow.cpu() - want).abs().max().item() / want.abs().max().item())
+        launches, rings = _launch_counts(), merges.call_count
+    n = len(SERVED["requests"])
+    if launches["K1"] != 26 * n or rings != n or not max(gaps) <= MODEL_TOL:
+        raise AssertionError(f"flow under Policy(sp_mesh): launches {launches}, ring {rings}"
+                             f" for {n} requests, gaps {gaps}")
+    flow_rec = dict(requests=n, bitwise=max(gaps) == 0.0, max_rel_gap=max(gaps),
+                    latency_s=latencies, phase6_latency_s=SERVED["latency_s"],
+                    launches=launches, ring_merges=rings)
+    del model, infer
+    torch.cuda.empty_cache()
+    with _ring_calls() as merges:
+        loss_sp, grads_sp, launches_sp, seconds_sp = _sp_flow_step(policy)
+        rings = merges.call_count
+    loss, grads, launches_ref, seconds = _sp_flow_step(PERFORMANCE)
+    if launches_sp != STEP_LAUNCHES or launches_ref != STEP_LAUNCHES or rings != 2:
+        raise AssertionError(f"sp step launches {launches_sp}, ring {rings}; without sp"
+                             f" {launches_ref}; expected {STEP_LAUNCHES}")
+    if loss_sp != loss and not abs(loss_sp - loss) <= 1e-3 * abs(loss):
+        raise AssertionError(f"sp step loss {loss_sp} vs {loss}")
+    worst, worst_name, _ = _compare_grads("sp step", grads_sp, grads, BF16_GRAD_TOL)
+    bitwise = loss_sp == loss and all(torch.equal(grads_sp[k], g) for k, g in grads.items())
+    step_rec = dict(loss=loss_sp, loss_without_sp=loss, bitwise=bitwise, ring_merges=rings,
+                    worst_rel_grad_diff=worst, worst_param=worst_name, launches=launches_sp,
+                    step_s=seconds_sp, step_s_without_sp=seconds,
+                    phase8_median_step_s=None)
+    del grads, grads_sp
+    torch.cuda.empty_cache()
+    mm = _mm_model(dataclasses.replace(PERFORMANCE, sp_mesh=mesh))
+    mm.load_state_dict(MM_SERVED["weights"])
+    with torch.inference_mode(), _ring_calls() as merges:
+        mm(*MM_SERVED["clip"], n_chunks=MM_CHUNKS)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        merges.reset_mock()
+        t0 = time.perf_counter()
+        out = mm(*MM_SERVED["clip"], n_chunks=MM_CHUNKS)
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        launches, rings = _launch_counts(), merges.call_count
+    _check_mm_outputs(out, "multimodal under Policy(sp_mesh)")
+    gaps = {k: _rel(out[k].cpu(), v) for k, v in MM_SERVED["outputs"].items()}
+    if (launches["K1"], launches["merge"], rings) != (1, 1, 1) or not max(
+            gaps.values()) <= MODEL_TOL:
+        raise AssertionError(f"multimodal under Policy(sp_mesh): {launches}, ring {rings},"
+                             f" gaps {gaps}")
+    mm_rec = dict(bitwise=max(gaps.values()) == 0.0, max_rel_gap=gaps, launches=launches,
+                  ring_merges=rings, clip_s=clip_s, phase10_latency_s=MM_SERVED["latency_s"])
+    del mm
+    torch.cuda.empty_cache()
+    return dict(flow=flow_rec, step=step_rec, multimodal=mm_rec)
+
+
+def phase_sp(smi, train):
+    """Phase P: sequence parallelism on the card (see the module docstring)."""
+    from perceiverio_pytorch_tpu_torch.parallel import make_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host, one rank
+    merge = phase_sp_merge(smi)
+    models = phase_sp_models(smi, make_mesh((1, 1)))
+    models["step"]["phase8_median_step_s"] = train["median_step_s"]
+    print(f"[sp models] {smi}: {json.dumps(models)}", flush=True)
+    return dict(merge=merge, **models)
+
+
+def phase_chunk_mesh_and_server(smi):
+    """Phase Q: phase 10's clip through chunk_mesh on the (1, 1) mesh, and
+    the full-width 1x1-conv classifier behind serve_on_mesh; then the process
+    group is torn down."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.parallel import (
+        make_data_parallel_apply,
+        make_mesh,
+        serve_on_mesh,
+    )
+
+    mesh = make_mesh((1, 1))
+    model = _mm_model(PERFORMANCE)
+    model.load_state_dict(MM_SERVED["weights"])
+    with torch.inference_mode():
+        model(*MM_SERVED["clip"], n_chunks=MM_CHUNKS, chunk_mesh=mesh)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model(*MM_SERVED["clip"], n_chunks=MM_CHUNKS, chunk_mesh=mesh)
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        launches = _launch_counts()
+    differ = {k: _rel(out[k].cpu(), v) for k, v in MM_SERVED["outputs"].items()
+              if not torch.equal(out[k].cpu(), v)}
+    if differ or (launches["K1"], launches["merge"]) != (1, 1):
+        raise AssertionError(f"chunk_mesh clip: outputs differ from phase 10's {differ},"
+                             f" launches {launches}")
+    chunk_rec = dict(bitwise=True, n_chunks=MM_CHUNKS, waves=MM_CHUNKS, launches=launches,
+                     clip_s=clip_s, phase10_latency_s=MM_SERVED["latency_s"])
+    del model, out
+    torch.cuda.empty_cache()
+
+    prep = "LEARNED_POS_1X1CONV"
+    cls = _cls_model(prep, PERFORMANCE)
+    weights = {k: v.detach().clone() for k, v in cls.state_dict().items()}
+    fn, place = make_data_parallel_apply(cls, mesh)
+    ran = []
+
+    def recorded(variables, *rows):
+        out = fn(variables, *rows)
+        ran.append((rows[0].clone(), out.clone()))
+        return out
+
+    images = list(_cls_images(torch.Generator().manual_seed(SEED + 17),
+                              MESH_SERVER_REQUESTS).cpu())
+    server = serve_on_mesh(recorded, place(weights)[0], mesh, max_batch=16,
+                           batch_sizes=(8, 16), max_wait_ms=20.0, pipeline=True)
+    try:
+        _reset_launch_counts()
+        server.warmup(images[0])
+        warmups = _launch_counts()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        futures = [server.submit(img) for img in images]
+        rows = [f.result(timeout=300) for f in futures]
+        served_s = time.perf_counter() - t0
+        served = _launch_counts()
+        stats = server.stats()
+    finally:
+        server.stop()
+    batches = ran[len(ran) - stats["batches_dispatched"]:]
+    if served["K1"] != len(batches) or warmups["K1"] != 2 or stats["requests_served"] != len(
+            images):
+        raise AssertionError(f"mesh server: K1 {served} for {len(batches)} batches, warm-ups"
+                             f" {warmups}, stats {stats}")
+    with torch.inference_mode():
+        for batch, got in ran:
+            if not torch.equal(cls(batch), got):
+                raise AssertionError("mesh server: a batch differs from the eager model's")
+    for i, (img, row) in enumerate(zip(images, rows)):
+        j, r = next((j, r) for j, (batch, _) in enumerate(batches)
+                    for r in range(batch.shape[0]) if torch.equal(batch[r].cpu(), img))
+        if not torch.equal(row, batches[j][1][r].cpu()):
+            raise AssertionError(f"mesh server: request {i}'s row differs from its batch's")
+    torch.distributed.destroy_process_group()
+    server_rec = dict(requests=len(images), seconds=served_s, launches=served,
+                      warmup_launches=warmups, batches=[b.shape[0] for b, _ in batches],
+                      stats={k: stats[k] for k in ("batches_dispatched", "rows_padded",
+                                                   "bucket_dispatches")}, bitwise=True)
+    rec = dict(chunk_mesh=chunk_rec, server=server_rec)
+    print(f"[chunk mesh, mesh server] {smi}: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -4590,8 +4946,15 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     ``launches_mesh_train`` (with its merges or sums) on the flow entries of
     K1, K2 and K3 (phase M's two mesh runs) and on the d = 512 ones (phase
     N's classifier), ``launches_mesh_serve`` on the flow K1 entry and
-    ``launches_mesh_evaluate`` on the d = 512 one (phase O).  Each entry's
-    error is the largest of all its comparisons."""
+    ``launches_mesh_evaluate`` on the d = 512 one (phase O).  Sequence
+    parallelism and the mesh server's (P, Q): ``launches_sp_serve`` (phase
+    P's flow requests under Policy(sp_mesh)) on the flow K1 entry and
+    ``launches_sp_train`` (its step) on the flow K1, K2 and K3 entries,
+    ``launches_sp_clip`` and ``launches_chunk_mesh`` on the d = 704 K1
+    entry, ``launches_mesh_server`` (and its warm-ups) on the d = 512 one;
+    ``sp_pieces`` on the flow and d = 704 entries: phase P(a)'s errors and
+    times at that site.  Each entry's error is the largest of all its
+    comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
@@ -4611,6 +4974,17 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
 
     flow_mesh = [r for run, r in mesh["flow"].items() if run != "single"]
     cls_mesh = [r for run, r in mesh["cls"].items() if run != "single"]
+    sp, chunk_server = mesh["sp"], mesh["chunk_server"]
+
+    def sp_counts(kernel, extra):
+        """Phase P(b)'s step under Policy(sp_mesh)."""
+        return {"launches_sp_train": sp["step"]["launches"][kernel],
+                f"{extra}_launches_sp_train": sp["step"]["launches"][extra]}
+
+    def sp_pieces(site, keys):
+        """Phase P(a)'s one-process ring at this site: errors and times."""
+        return [{k: r[k] for k in ("dtype", "pieces") + keys} for r in sp["merge"]
+                if r["site"] == site]
 
     def demo_counts(demo):
         """Phase J's launches: the demo's one request."""
@@ -4657,6 +5031,11 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         launches_traced=utilities["k1_traced"],
         **mesh_counts("K1", "merge", flow_mesh),
         launches_mesh_serve=mesh["serve"]["flow"]["launches"]["K1"],
+        launches_sp_serve=sp["flow"]["launches"]["K1"],
+        merge_launches_sp_serve=sp["flow"]["launches"]["merge"],
+        **sp_counts("K1", "merge"),
+        sp_pieces=sp_pieces("flow_encoder", ("out_rel", "whole_k1_ms", "pieces_k1_ms",
+                                             "merge_ms")),
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -4675,6 +5054,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         launches_evaluate_multimodal=sum(r["launches"]["K1"] for r in mm_eval_runs),
         merge_launches_evaluate_multimodal=sum(r["launches"]["merge"] for r in mm_eval_runs),
         **demo_counts("multimodal"),
+        launches_sp_clip=sp["multimodal"]["launches"]["K1"],
+        merge_launches_sp_clip=sp["multimodal"]["launches"]["merge"],
+        launches_chunk_mesh=chunk_server["chunk_mesh"]["launches"]["K1"],
+        merge_launches_chunk_mesh=chunk_server["chunk_mesh"]["launches"]["merge"],
+        sp_pieces=sp_pieces("mm_encoder", ("out_rel", "whole_k1_ms", "pieces_k1_ms",
+                                           "merge_ms")),
         max_abs_err=max(r["max_abs_err"] for r in mm),
         **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                          "bound_by", "splits", "col_chunks")},
@@ -4701,9 +5086,13 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         stack.update(launches_int8_serve=sum(r["launches"] for r in served),
                      merge_launches_int8_serve=sum(r["merge_launches"] for r in served))
         if site == "cls_1x1conv":
+            server = chunk_server["server"]
             stack.update(**mesh_counts("K1", "merge", cls_mesh),
                          launches_mesh_evaluate=mesh["serve"]["evaluate_classification"][
-                             "k1_launches"])
+                             "k1_launches"],
+                         launches_mesh_server=server["launches"]["K1"],
+                         merge_launches_mesh_server=server["launches"]["merge"],
+                         launches_mesh_server_warmup=server["warmup_launches"]["K1"])
         if prep == int8["train"]["prep"]:
             stack.update(
                 launches_int8_export=sum(c["launches"] for c in int8["export"]["calls"]),
@@ -4756,6 +5145,10 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             sum_launches_ema_train=files["ema"]["launches"]["sum"],
             **sac_counts(kernel, "sum"),
             **mesh_counts(kernel, "sum", flow_mesh),
+            **sp_counts(kernel, "sum"),
+            sp_pieces=sp_pieces("flow_encoder", (
+                "dk_rel", "dv_rel", "whole_bwd_ms", "pieces_bwd_ms") if kernel == "K2" else (
+                "dq_rel", "whole_bwd_ms", "pieces_bwd_ms")),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
@@ -4766,6 +5159,9 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             launches=mm_train["launches"][kernel],
             sum_launches_train=mm_train["launches"]["sum"],
             launches_full_remat_train=mm_train["full_remat"]["launches"][kernel],
+            sp_pieces=sp_pieces("mm_encoder", (
+                "dk_rel", "dv_rel", "whole_bwd_ms", "pieces_bwd_ms") if kernel == "K2" else (
+                "dq_rel", "whole_bwd_ms", "pieces_bwd_ms")),
             max_abs_err=max(r["max_abs_err"] for r in mm_bwd),
             **{key: mm_site[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by", "splits", "col_chunks")},
@@ -4899,6 +5295,13 @@ def main() -> int:
     t_mesh = time.perf_counter()
     print(f"[mesh] phases M {t_n - t_end:.1f} s, N {t_o - t_n:.1f} s, O {t_mesh - t_o:.1f} s;"
           f" M-O in {t_mesh - t_end:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    mesh["sp"] = phase_sp(smi, train)
+    t_q = time.perf_counter()
+    mesh["chunk_server"] = phase_chunk_mesh_and_server(smi)
+    t_sp = time.perf_counter()
+    print(f"[sp] phases P {t_q - t_mesh:.1f} s, Q {t_sp - t_q:.1f} s; P-Q in"
+          f" {t_sp - t_mesh:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
                        cls_serve, cls_train, cls_k1_train, buckets, serving, files, int8,

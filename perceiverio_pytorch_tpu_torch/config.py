@@ -5,10 +5,13 @@ selector values are ``"dense"`` (plain matmul + softmax, the JAX package's
 ``"xla"``), ``"flash"`` (the hand-written CUDA kernel, or its plain PyTorch
 version on a CPU tensor) and ``"auto"``.
 
-Fields of the JAX policy that this port cannot honour yet (the
-sequence/pipeline meshes) are kept as fields so that a caller porting a
-configuration learns of them: setting either raises
-``NotImplementedError``.  ``layer_scan`` and ``layer_scan_min`` are taken
+The sequence-parallel fields are ported: with ``sp_mesh`` set, an
+attention site with at least ``sp_min_kv`` keys (the encoder's
+cross-attend) runs ``parallel.sequence_parallel_attention`` over the mesh
+axis ``sp_axis``, its route ``sp_impl`` named as ``attn_impl``'s ("dense",
+the JAX package's "xla"; "flash"; "auto").  The pipeline mesh of the JAX
+policy is kept as a field so that a caller porting a configuration learns
+of it: setting it raises ``NotImplementedError``.  ``layer_scan`` and ``layer_scan_min`` are taken
 with the JAX package's values and validation; eager PyTorch has no scan and
 compiles nothing, so every value runs the self-attend stack as one loop,
 whose outputs are the unrolled loop's (JAX's scan is exact against its
@@ -47,7 +50,6 @@ ATTN_AUTO = "auto"  # flash on a CUDA tensor at long sequence lengths
 # (field, value that means "off") for the JAX policy's fields the port does
 # not implement yet.
 _NOT_PORTED = (
-    ("sp_mesh", None),
     ("pp_mesh", None),
 )
 
@@ -100,8 +102,16 @@ class Policy:
         self-attend stack ("off" | "auto" | "on"; "auto" from
         ``layer_scan_min`` layers); any other value raises ValueError.  Every
         value runs the same loop here (see the module docstring).
-      sp_mesh, pp_mesh: not ported; any value other than the default
-        raises.
+      sp_mesh / sp_axis / sp_min_kv: with a mesh (``parallel.make_mesh``),
+        a site whose keys number at least ``sp_min_kv`` and that has no
+        pre-built mask, bias, dropout or returned matrix runs sequence
+        parallel: its keys split over ``sp_axis`` (``ops.attention``).
+      sp_impl: the sequence-parallel route, "dense" (local logits and an
+        all-reduce of the softmax statistics), "flash" (K1 with its lse on
+        the local keys, merged over the axis: ring attention) or "auto"
+        (flash on a CUDA tensor whose local keys number at least 8192); any
+        other value raises ValueError.
+      pp_mesh: not ported; any value other than the default raises.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -113,6 +123,9 @@ class Policy:
     gelu_approximate: bool = False
     quant: Optional[str] = None
     sp_mesh: Any = None
+    sp_axis: str = "model"
+    sp_min_kv: int = 32768
+    sp_impl: str = ATTN_AUTO
     pp_mesh: Any = None
     layer_scan: str = "off"
     layer_scan_min: int = 16
@@ -125,6 +138,11 @@ class Policy:
             raise ValueError(
                 "Policy.attn_impl must be 'dense', 'flash' or 'auto'; got"
                 f" {self.attn_impl!r}"
+            )
+        if self.sp_impl not in (ATTN_DENSE, ATTN_FLASH, ATTN_AUTO):
+            raise ValueError(
+                "Policy.sp_impl must be 'dense', 'flash' or 'auto'; got"
+                f" {self.sp_impl!r}"
             )
         if self.remat_policy is not None and self.remat_policy not in REMAT_POLICIES:
             raise ValueError(

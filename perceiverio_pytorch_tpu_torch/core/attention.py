@@ -39,6 +39,16 @@ too (``ops.quant``).  An ``Attention`` attends on its H/M local heads where
 the model axis of M divides its H heads, else it gathers its projections'
 output features and attends on all heads (the 1-head cross-attends), its
 ``final`` then taking its own slice of the replicated result.
+
+Sequence parallelism: every ``Attention`` passes ``Policy.sp_*`` to the
+dispatch, whose ``"sp"`` path splits a long site's keys over a mesh axis.
+A ``CrossAttention`` given ``kv_shard`` (the mesh axis; the encoder under
+``PerceiverIO(input_token_sharding=...)``) receives this rank's tokens
+only: its key-side LayerNorm and K/V projections run under ``copy_to``
+stand-ins (``parallel.collectives.summed_params``), so that their partial
+gradients are summed over the axis, and a static int8 projection
+calibrates the max over the axis.  A site that is TP-sharded and takes the
+sequence-parallel path raises ValueError: both would use the model axis.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceiverio_pytorch_tpu_torch.config import DEFAULT, Policy, quant_enabled, quant_mode
-from perceiverio_pytorch_tpu_torch.ops.attention import multihead_attention
+from perceiverio_pytorch_tpu_torch.ops.attention import attention_path, multihead_attention
 from perceiverio_pytorch_tpu_torch.ops.attention_dense import dropout, site_generator
 from perceiverio_pytorch_tpu_torch.ops.quant import int8_dynamic_matmul, int8_static_matmul
 from perceiverio_pytorch_tpu_torch.parallel.collectives import (
@@ -60,6 +70,8 @@ from perceiverio_pytorch_tpu_torch.parallel.collectives import (
     gather_dim,
     reduce_from,
     scatter_dim,
+    summed_params,
+    using,
 )
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
@@ -317,13 +329,35 @@ class Attention(nn.Module):
 
     def forward(self, inputs_q, inputs_k, inputs_v, *, attention_mask=None,
                 q_mask=None, kv_mask=None, kv_logical_len: Optional[int] = None,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, kv_shard=None):
+        """``kv_shard``: the mesh axis (``parallel.mesh.Axis``) that
+        ``inputs_k``/``inputs_v`` and ``kv_mask`` are this rank's tokens of
+        (see the module docstring)."""
+        pol = self.policy
+        generator = _site(self, self.dropout_prob, dropout_seed, _ATTN_PROBS,
+                          inputs_k.device)
+        if self.tp is not None and (kv_shard is not None or attention_path(
+                pol.attn_impl, q_len=0, kv_len=inputs_k.shape[1], on_cuda=False,
+                attention_mask=attention_mask, dropout_rate=0.0 if generator is None else 1.0,
+                sp_mesh=pol.sp_mesh, sp_min_kv=pol.sp_min_kv) == "sp"):
+            raise ValueError(
+                "this attention is tensor parallel over the model axis and would run"
+                " sequence parallel (Policy.sp_mesh or input_token_sharding) over it too;"
+                " the two cannot share the axis")
         if isinstance(inputs_q, FoldedQuery):
             q = self._project_q_folded(inputs_q)
         else:
             q = self.proj_q(inputs_q)
-        k = self.proj_k(inputs_k)
-        v = self.proj_v(inputs_v)
+        if kv_shard is None:
+            k = self.proj_k(inputs_k)
+            v = self.proj_v(inputs_v)
+        else:
+            with using(summed_params((self.proj_k, self.proj_v), kv_shard.group)):
+                k = self.proj_k(inputs_k)
+                v = self.proj_v(inputs_v)
+            for proj in (self.proj_k, self.proj_v):
+                if proj.quant_pass == "calibrate" and proj.quant == "int8_static":
+                    all_reduce_(proj.amax, kv_shard.group, torch.distributed.ReduceOp.MAX)
         heads, gathered = self.num_heads, False
         if self.tp is not None:
             if self.num_heads % self.tp.size == 0:
@@ -336,8 +370,6 @@ class Attention(nn.Module):
         q = q.reshape(batch, q_time, heads, self._qk_out // self.num_heads)
         k = k.reshape(batch, kv_time, heads, self._qk_out // self.num_heads)
         v = v.reshape(batch, kv_time, heads, self._v_out // self.num_heads)
-        pol = self.policy
-        generator = _site(self, self.dropout_prob, dropout_seed, _ATTN_PROBS, q.device)
         result = multihead_attention(
             q, k, v,
             q_mask=q_mask,
@@ -351,6 +383,11 @@ class Attention(nn.Module):
             kv_logical_len=kv_logical_len,
             dropout_rate=0.0 if generator is None else self.dropout_prob,
             dropout_generator=generator,
+            sp_mesh=pol.sp_mesh,
+            sp_axis=pol.sp_axis,
+            sp_min_kv=pol.sp_min_kv,
+            sp_impl=pol.sp_impl,
+            kv_shard=kv_shard,
         )
         if gathered:  # the row-parallel final takes its slice of the result
             result = scatter_dim(result, -1, self.tp.group)
@@ -463,11 +500,17 @@ class CrossAttention(nn.Module):
 
     def forward(self, inputs_q, inputs_kv, *, attention_mask=None, q_mask=None,
                 kv_mask=None, kv_logical_len: Optional[int] = None,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, kv_shard=None):
+        """``kv_shard``: the mesh axis that ``inputs_kv`` and ``kv_mask``
+        are this rank's tokens of (see the module docstring)."""
         folded = isinstance(inputs_q, FoldedQuery)
         compute_dtype = self.policy.compute_dtype or (
             inputs_q.parts[0][0].dtype if folded else inputs_q.dtype)
-        kv = self.layer_norm_kv(inputs_kv).to(compute_dtype)
+        if kv_shard is None:
+            kv = self.layer_norm_kv(inputs_kv).to(compute_dtype)
+        else:
+            with using(summed_params((self.layer_norm_kv,), kv_shard.group)):
+                kv = self.layer_norm_kv(inputs_kv).to(compute_dtype)
         if folded:
             if self.use_query_residual:
                 raise ValueError(
@@ -482,6 +525,7 @@ class CrossAttention(nn.Module):
         attention = self.attention(
             q, kv, kv, attention_mask=attention_mask, q_mask=q_mask,
             kv_mask=kv_mask, kv_logical_len=kv_logical_len, dropout_seed=dropout_seed,
+            kv_shard=kv_shard,
         )
         attention = _dropout(self, attention, self.dropout_prob, dropout_seed, _POST_ATTN)
         # No residual when query and output semantics differ (e.g. queries

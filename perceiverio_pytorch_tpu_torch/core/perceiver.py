@@ -23,9 +23,19 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
     ``decoder_query``.  A bare module is wrapped under the ``"__default"``
     modality, as in the reference.  Under ``Policy.fold_query_pad`` the
     decoder query goes out as a ``FoldedQuery`` (per modality, its position
-    features and its raw pad vector), never as the padded concat.
+    features and its raw pad vector), never as the padded concat.  With
+    ``input_token_sharding`` (a ``parallel.sharding.NamedSharding`` whose
+    spec names the mesh axis of the token dim), each rank keeps its piece
+    of the preprocessed tokens and of the input mask, padded with masked
+    tokens where the axis does not divide them, and the encoder's
+    cross-attend runs sequence parallel over that axis
+    (``parallel.sequence_parallel_attention_local``); the decoder query is
+    built from the whole tokens.  The spec's batch entry (None or "data")
+    says how the caller placed the rows: a batch on a data axis is this
+    rank's rows already, as the Trainer's.  The JAX package puts a GSPMD
+    sharding constraint on the same array.
 
-Not ported yet: pipelining and input sharding.
+Not ported yet: pipelining.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ from perceiverio_pytorch_tpu_torch.core.attention import (
     zeros_,
 )
 from perceiverio_pytorch_tpu_torch.ops.attention_dense import keep_mask, mix_seed
+from perceiverio_pytorch_tpu_torch.parallel import collectives as cc
+from perceiverio_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, axis as mesh_axis
 from perceiverio_pytorch_tpu_torch.utils.initializers import (
     default_generator,
     lecun_normal_,
@@ -173,10 +185,12 @@ class PerceiverEncoder(nn.Module):
         return self.latent_pos_enc(inputs.shape[0])
 
     def forward(self, inputs, latents, *, input_mask=None, kv_logical_len=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, kv_shard=None):
         """``generator`` draws the dropout seeds (one for the cross-attend,
         one a block, before the block's checkpointed region); it is required
-        in train mode when a dropout rate is above 0."""
+        in train mode when a dropout rate is above 0.  ``kv_shard``: the
+        mesh axis that ``inputs`` and ``input_mask`` are this rank's tokens
+        of (``PerceiverIO(input_token_sharding=...)``)."""
         seeds = [None] * (1 + self.num_blocks)
         if self.training and self.has_dropout:
             if generator is None:
@@ -184,7 +198,8 @@ class PerceiverEncoder(nn.Module):
                                  " torch.Generator (generator=...)")
             seeds = draw_seeds(generator, 1 + self.num_blocks)
         latents = self.cross_attend(latents, inputs, kv_mask=input_mask,
-                                    kv_logical_len=kv_logical_len, dropout_seed=seeds[0])
+                                    kv_logical_len=kv_logical_len, dropout_seed=seeds[0],
+                                    kv_shard=kv_shard)
         for seed in seeds[1:]:  # weight-shared blocks
             if self.remat and torch.is_grad_enabled():
                 latents = remat_call(self.policy, self.self_attends, latents, seed)
@@ -353,12 +368,25 @@ class PerceiverIO(nn.Module):
         input_mask_probs: Optional[Mapping[str, float]] = None,
         policy: Policy = DEFAULT,
         remat: bool = False,
+        input_token_sharding=None,
         *,
         generator=None,
     ):
         super().__init__()
         g = default_generator(generator)
         self.policy = policy
+        if input_token_sharding is not None:
+            spec = tuple(input_token_sharding.spec)
+            if (len(spec) < 2 or spec[1] is None or spec[0] not in (None, DATA_AXIS)
+                    or any(s is not None for s in spec[2:])):
+                raise ValueError(
+                    f"input_token_sharding spec {spec}: the port splits the token dim of"
+                    " [B, N, C] over one mesh axis, (None or 'data', axis)")
+            if (perceiver_encoder_kwargs or {}).get("dropout_attn_prob", 0.0) > 0.0:
+                raise ValueError(
+                    "input_token_sharding: the encoder's attention dropout needs the whole"
+                    " attention matrix, which no rank holds; set dropout_attn_prob to 0")
+        self.input_token_sharding = input_token_sharding
         if isinstance(input_channels, int):
             input_channels = {"__default": input_channels}
         self._multi_preprocessor = MultimodalPreprocessor(
@@ -436,9 +464,26 @@ class PerceiverIO(nn.Module):
             inputs = {"__default": inputs}
         flat_inputs, modality_sizes, inputs_without_pos = self._multi_preprocessor(
             inputs, pos=pos, generator=generator)
-        latents = self._encoder(flat_inputs, self._encoder.latents(flat_inputs),
-                                input_mask=input_mask, generator=generator)
+        tokens, mask, kv_shard = flat_inputs, input_mask, None
+        if self.input_token_sharding is not None:
+            tokens, mask, kv_shard = self._token_piece(flat_inputs, input_mask)
+        latents = self._encoder(tokens, self._encoder.latents(flat_inputs),
+                                input_mask=mask, generator=generator, kv_shard=kv_shard)
         return latents, (flat_inputs, modality_sizes, inputs_without_pos)
+
+    def _token_piece(self, tokens, input_mask):
+        """This rank's piece of the [B, N, C] tokens and of the [B, N] mask
+        along the axis of ``input_token_sharding``, N padded with masked
+        tokens to a multiple of its size; and the axis."""
+        from perceiverio_pytorch_tpu_torch.parallel.sequence_parallel import pad_tokens
+
+        sharding = self.input_token_sharding
+        ax = mesh_axis(sharding.mesh, sharding.spec[1])
+        (tokens,), input_mask = pad_tokens((tokens,), input_mask, ax.size)
+        tokens = cc.scatter_dim(tokens, 1, ax.group)  # the gradient gathered back whole
+        if input_mask is not None:
+            input_mask = cc.local_piece(input_mask, 1, ax.group).contiguous()
+        return tokens, input_mask, ax
 
     def decode(self, latents, preprocess_state, *, subsampled_output_points=None,
                query_mask=None):

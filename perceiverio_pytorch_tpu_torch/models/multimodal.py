@@ -31,7 +31,17 @@ shared decoder, so ``ops.quant.calibrate`` folds each projection's ``amax``
 over the chunks (the JAX model unrolls its chunk scan for that pass) and
 static inference reads it, whatever the chunk count.
 
-Left out, raising: ``chunk_mesh`` (chunk-parallel decoding across cards).
+``chunk_mesh`` (a (data, model) mesh, ``parallel.make_mesh``) decodes the
+chunks in waves of D, the size of its data axis: each rank of the axis
+decodes chunk ``wave * D + its data coordinate``, and each wave's outputs
+are all-gathered over the axis in rank order, which is the sequential chunk
+order, so the result is the sequential decode's.  The latents and the
+decoder's parameters (the decoder, the queries and their padding, the
+postprocessors) enter the decode through ``copy_to``: each rank's chunks
+give them a partial gradient, which is summed over the axis once a step.
+``n_chunks`` must be a multiple of D when D > 1 (JAX's ValueError); the
+``int8_static`` calibration pass ignores the mesh and decodes every chunk,
+as the JAX model does.
 
 ``device`` is "cuda" by default; with no GPU the model raises unless the
 caller asks for ``device="cpu"``.  Weights are drawn from a
@@ -60,6 +70,8 @@ from perceiverio_pytorch_tpu_torch.io_processors.preprocessors import (
     OneHotPreprocessor,
 )
 from perceiverio_pytorch_tpu_torch.models.flow import resolve_device
+from perceiverio_pytorch_tpu_torch.parallel import collectives as cc
+from perceiverio_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, axis as mesh_axis
 from perceiverio_pytorch_tpu_torch.utils.initializers import default_generator
 
 
@@ -182,17 +194,14 @@ class MultiModalPerceiver(nn.Module):
           images: [B, T, C, H, W] video in [0, 1].
           audio: [B, n_audio_samples, 1] waveform in [-1, 1].
           n_chunks: the output queries are decoded in this many equal chunks.
-          chunk_mesh: chunk-parallel decoding across cards; not ported.
+          chunk_mesh: a mesh whose data axis decodes the chunks in parallel
+            waves (see the module docstring); every rank passes the same
+            clip and gets the whole output.
 
         Returns:
           dict with "image" [B, T, C, H, W], "audio" [B, n_samples, 1],
           "label" [B, num_classes].
         """
-        if chunk_mesh is not None:
-            raise NotImplementedError(
-                "chunk_mesh (chunk-parallel decoding across cards) is not ported yet"
-                " (ROADMAP.md)"
-            )
         batch_size, t, c, h, w = images.shape
         n_audio_patches = audio.shape[1] // self.audio_samples_per_patch
         if (t * h * w) % n_chunks or n_audio_patches % n_chunks:
@@ -204,28 +213,61 @@ class MultiModalPerceiver(nn.Module):
             )
         image_chunk = t * h * w // n_chunks
         audio_chunk = n_audio_patches // n_chunks
+        data = None if chunk_mesh is None else mesh_axis(chunk_mesh, DATA_AXIS)
+        if data is not None and data.size > 1 and n_chunks % data.size:
+            raise ValueError(
+                f"n_chunks ({n_chunks}) must be a multiple of the mesh's "
+                f"data axis ({data.size}) for chunk-parallel decoding"
+            )
+        if data is not None and any(getattr(m, "quant_pass", None) == "calibrate"
+                                    for m in self.modules()):
+            data = None  # calibration decodes every chunk, as the JAX model does
         inputs = {
             "image": images,
             "audio": audio,
             "label": images.new_zeros((batch_size, self.num_classes)),
         }
         latents, state = self.perceiver.encode(inputs)  # once, for every chunk
-        outs = []
-        for i in range(n_chunks):
+        stand_ins = ()
+        if data is not None:
+            # Each rank's chunks give the latents and the decoder a partial
+            # gradient: copy_to sums it over the data axis.
+            p = self.perceiver
+            decoder_side = [p._decoder, p._output_queries, p.padding_embeddings]
+            if p._output_postprocessors is not None:
+                decoder_side.append(p._output_postprocessors)
+            stand_ins = cc.summed_params(decoder_side, data.group)
+            latents = cc.copy_to(latents, data.group)
+            flat_inputs, modality_sizes, without_pos = state
+            state = (cc.copy_to(flat_inputs, data.group), modality_sizes,
+                     {m: cc.copy_to(x, data.group) if isinstance(x, torch.Tensor) else x
+                      for m, x in without_pos.items()})
+
+        def run(i, latents):
             subsampling = {
                 "image": i * image_chunk + torch.arange(image_chunk),
                 "audio": i * audio_chunk + torch.arange(audio_chunk),
                 "label": None,
             }
+            with cc.using(stand_ins):  # inside the checkpoint: its recompute too
+                return self.perceiver.decode(latents, state,
+                                             subsampled_output_points=subsampling)
+
+        def decode(i):
             if self.remat and torch.is_grad_enabled():
                 # Recompute the chunk's decode in the backward: without it
                 # every chunk's decoder activations stay alive together.
-                outs.append(remat_call(self.perceiver.policy, self.perceiver.decode,
-                                       latents, state,
-                                       subsampled_output_points=subsampling))
-            else:
-                outs.append(self.perceiver.decode(latents, state,
-                                                  subsampled_output_points=subsampling))
+                return remat_call(self.perceiver.policy, run, i, latents)
+            return run(i, latents)
+
+        if data is None:
+            outs = [decode(i) for i in range(n_chunks)]
+        else:
+            outs = []
+            for wave in range(n_chunks // data.size):
+                mine = decode(wave * data.size + data.index)
+                whole = {key: cc.gather_dim(x[None], 0, data.group) for key, x in mine.items()}
+                outs += [{key: x[j] for key, x in whole.items()} for j in range(data.size)]
         image = torch.stack([o["image"] for o in outs], dim=1)  # [B, n_chunks, chunk, C]
         image = torch.movedim(image.reshape(batch_size, t, h, w, c), -1, -3)
         audio_out = torch.stack([o["audio"] for o in outs], dim=1).reshape(audio.shape)

@@ -9,7 +9,13 @@ rule and thresholds.  Every attention site of a Perceiver goes through
   * ``flash`` -- ops.flash_attention.flash_attention: the CUDA kernel on a
     CUDA tensor, its plain chunked version on a CPU tensor;
   * ``auto``  -- flash on a CUDA tensor at long lengths, else dense.  Where
-    the JAX rule asks "is this a TPU", this one asks "is q on a CUDA device".
+    the JAX rule asks "is this a TPU", this one asks "is q on a CUDA device";
+  * ``sp``    -- ahead of both, under ``Policy.sp_mesh``: a site with at
+    least ``sp_min_kv`` keys and no pre-built mask, bias, dropout or
+    returned matrix splits its keys over the mesh axis
+    (``parallel.sequence_parallel_attention``, route ``sp_impl``); a site
+    whose keys are split already (``kv_shard``: the encoder under
+    ``PerceiverIO(input_token_sharding=...)``) always takes it.
 
 Masks travel in factored [B,Tq] x [B,Tk] form; a pre-built rank-3
 ``attention_mask`` (or a bias, a ``dropout_rate`` above 0, or
@@ -44,9 +50,20 @@ def attention_path(
     attention_bias=None,
     dropout_rate: float = 0.0,
     return_matrix: bool = False,
+    sp_mesh=None,
+    sp_min_kv: int = 32768,
 ) -> str:
     """Which implementation ``multihead_attention`` dispatches to:
-    ``"flash"`` or ``"dense"``."""
+    ``"sp"``, ``"flash"`` or ``"dense"``."""
+    if (
+        sp_mesh is not None
+        and attention_mask is None
+        and attention_bias is None
+        and dropout_rate == 0.0
+        and not return_matrix
+        and kv_len >= sp_min_kv
+    ):
+        return "sp"
     if _flash_eligible(
         impl,
         q_len=q_len,
@@ -117,6 +134,11 @@ def multihead_attention(
     return_matrix: bool = False,
     softmax_scale: Optional[float] = None,
     kv_logical_len: Optional[int] = None,
+    sp_mesh=None,
+    sp_axis: str = "model",
+    sp_min_kv: int = 32768,
+    sp_impl: str = "auto",
+    kv_shard=None,
 ):
     """Multi-head attention over [B, T, H, D] tensors.
 
@@ -128,6 +150,11 @@ def multihead_attention(
       dropout_rate: post-softmax dropout; above 0 it forces the dense path
         and needs ``dropout_generator``, which draws the mask.
       kv_logical_len: keys at or beyond this index are masked.
+      sp_mesh, sp_axis, sp_min_kv, sp_impl: ``Policy``'s sequence-parallel
+        fields (the ``"sp"`` path).
+      kv_shard: the mesh axis (``parallel.mesh.Axis``) that k, v and kv_mask
+        are this rank's piece of; the site then runs
+        ``sequence_parallel_attention_local`` over it.
 
     Returns:
       [B, Tq, H*Dv] (plus the attention matrix when return_matrix=True).
@@ -145,7 +172,17 @@ def multihead_attention(
         attention_bias=attention_bias,
         dropout_rate=dropout_rate,
         return_matrix=return_matrix,
+        sp_mesh=sp_mesh,
+        sp_min_kv=sp_min_kv,
     )
+    if kv_shard is not None:
+        if (attention_mask is not None or attention_bias is not None or dropout_rate > 0.0
+                or return_matrix or kv_logical_len is not None):
+            raise ValueError(
+                "keys split over a mesh axis (kv_shard) take the sequence-parallel path"
+                " only: no attention_mask, bias, dropout, returned matrix or"
+                " kv_logical_len")
+        path = "sp"
     if path == "flash":
         return flash_attention(
             q, k, v, q_mask=q_mask, kv_mask=kv_mask,
@@ -156,6 +193,21 @@ def multihead_attention(
         tail = torch.arange(kv_len, device=k.device) < kv_logical_len
         tail = tail[None, :].expand(k.shape[0], kv_len)
         kv_mask = tail if kv_mask is None else (kv_mask.bool() & tail)
+
+    if path == "sp":
+        from perceiverio_pytorch_tpu_torch.parallel import sequence_parallel as sp
+
+        if kv_shard is not None:
+            out = sp.sequence_parallel_attention_local(
+                q, k, v, kv_shard.group, kv_mask=kv_mask, impl=sp_impl,
+                softmax_scale=softmax_scale)
+        else:
+            out = sp.sequence_parallel_attention(
+                q, k, v, sp_mesh, kv_mask=kv_mask, axis_name=sp_axis, impl=sp_impl,
+                softmax_scale=softmax_scale)
+        if q_mask is not None:
+            out = out.masked_fill(~q_mask.bool()[:, :, None], 0.0)
+        return out
 
     if q_mask is not None or kv_mask is not None:
         batch = q.shape[0]

@@ -1,8 +1,8 @@
 """Parallel layouts of the PyTorch/CUDA port on ``torch.distributed``: the
 (data, model) mesh, the partition rules with FSDP, data-parallel inference
-and the multi-process helpers (one process per device).  Counterpart of
-``perceiverio_pytorch_tpu/parallel``; its sequence-parallel attention and
-pipelines have no counterpart yet."""
+and serving, sequence-parallel attention and the multi-process helpers (one
+process per device).  Counterpart of ``perceiverio_pytorch_tpu/parallel``;
+its pipelines have no counterpart yet."""
 
 from perceiverio_pytorch_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
@@ -25,6 +25,10 @@ from perceiverio_pytorch_tpu_torch.parallel.sharding import (  # noqa: F401
 from perceiverio_pytorch_tpu_torch.parallel.api import (  # noqa: F401
     make_data_parallel_apply,
     pad_batch_to_multiple,
+    serve_on_mesh,
+)
+from perceiverio_pytorch_tpu_torch.parallel.sequence_parallel import (  # noqa: F401
+    sequence_parallel_attention,
 )
 from perceiverio_pytorch_tpu_torch.parallel.multihost import (  # noqa: F401
     initialize_distributed,

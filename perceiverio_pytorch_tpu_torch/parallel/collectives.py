@@ -17,6 +17,12 @@ forward is an autograd Function with the matching backward (Megatron's
   * ``all_reduce_sum``: all-reduce forward and backward (the batch
     statistics of train-mode BatchNorm over the global batch).
 
+``summed_params(modules, group)`` and ``using(...)`` put each parameter of
+some modules through ``copy_to`` for a block: a rank that applies them to
+its own part of the work (its key shard, its decoder chunks) gets a partial
+gradient, which the ``copy_to`` sums over the axis once, before any
+optimizer sees it.
+
 ``global_batch(group)`` marks the code that runs on this rank's rows of a
 batch sharded over the data axis: the losses and BatchNorm read
 ``data_group()`` to reduce their denominators and statistics over it.
@@ -33,7 +39,7 @@ import torch.distributed as dist
 
 __all__ = ["all_gather_dim", "all_reduce_", "all_reduce_sum", "copy_to", "data_group",
            "fsdp_gather", "gather_dim", "global_batch", "reduce_from", "reduce_scatter_dim",
-           "scatter_dim"]
+           "scatter_dim", "summed_params", "using"]
 
 # dist.all_gather_single / reduce_scatter_single where the installed torch
 # has them (the *_tensor names are deprecated there), else the older names.
@@ -166,6 +172,40 @@ def scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def fsdp_gather(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _FsdpGather.apply(shard, dim, group)
+
+
+def summed_params(modules, group) -> list:
+    """``(module, attribute, copy_to(parameter, group))`` for every parameter
+    slot of ``modules`` and their children (a parameter held in two slots
+    goes through one ``copy_to``): stand-ins whose gradient is all-reduced
+    over ``group`` when the backward reaches them (``using``)."""
+    summed, out = {}, []
+    for root in modules:
+        for mod in root.modules():
+            for attr, p in mod._parameters.items():
+                if p is None:
+                    continue
+                if id(p) not in summed:
+                    summed[id(p)] = copy_to(p, group)
+                out.append((mod, attr, summed[id(p)]))
+    return out
+
+
+@contextlib.contextmanager
+def using(substitutes):
+    """Within the block, each ``(module, attribute, tensor)`` of
+    ``substitutes`` stands in for that module's parameter.  Entering the
+    block inside a checkpointed function makes the recomputation use the
+    same stand-ins."""
+    saved = []
+    try:
+        for mod, attr, tensor in substitutes:
+            saved.append((mod, attr, mod._parameters[attr]))
+            mod._parameters[attr] = tensor
+        yield
+    finally:
+        for mod, attr, p in reversed(saved):
+            mod._parameters[attr] = p
 
 
 # The data-axis group of the enclosing global_batch block.  Process-wide, not

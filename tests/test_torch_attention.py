@@ -222,6 +222,17 @@ def test_unported_policy_fields_raise(field, value):
         with pytest.raises(ValueError, match="layer_scan must be 'auto', 'on' or 'off'"):
             port_config.Policy(layer_scan="maybe")
         return
+    if field == "sp_mesh":
+        # Ported: any mesh is taken with JAX's defaults for the other sp
+        # fields; sp_impl takes attn_impl's names, and any other raises.
+        pol = port_config.Policy(**{field: value})
+        assert pol.sp_mesh is value
+        assert (pol.sp_axis, pol.sp_min_kv, pol.sp_impl) == ("model", 32768, "auto")
+        jax_pol = jax_config.Policy()
+        assert (jax_pol.sp_axis, jax_pol.sp_min_kv) == (pol.sp_axis, pol.sp_min_kv)
+        with pytest.raises(ValueError, match="sp_impl must be 'dense', 'flash' or 'auto'"):
+            port_config.Policy(sp_mesh=value, sp_impl="xla")
+        return
     if field == "quant":
         # Ported: the JAX modes are taken; any other raises JAX's ValueError.
         assert port_config.Policy(**{field: value}).quant == value

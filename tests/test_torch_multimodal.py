@@ -507,15 +507,14 @@ def test_multimodal_state_dict_from_flax_matches_export_state_dict(mm_variables)
 
 
 def test_multimodal_refusals():
-    """n_chunks must divide both query counts (JAX's error); the parts left
-    out raise: chunk_mesh, a remat policy the port does not know, and a CUDA
-    device where there is none."""
+    """n_chunks must divide both query counts (JAX's error); a remat policy
+    the port does not know and a CUDA device where there is none raise
+    (chunk_mesh's refusal of an n_chunks its data axis does not divide is
+    held on a gloo group, tests/test_torch_chunk_mesh.py)."""
     model = port_mm.MultiModalPerceiver(**SMALL, device="cpu")
     images, audio = (torch.from_numpy(x) for x in _clip(5))
     with pytest.raises(ValueError, match="must divide both the image query"):
         model(images, audio, n_chunks=3)
-    with pytest.raises(NotImplementedError, match="chunk_mesh"):
-        model(images, audio, n_chunks=4, chunk_mesh=object())
     with pytest.raises(ValueError, match="dots_saveable"):
         port_config.Policy(remat_policy="save_and_offload_only_these_names")
     if not torch.cuda.is_available():

@@ -56,9 +56,8 @@ def test_each_exported_name_is_the_same_kind(name):
     assert _kind(got) == _kind(want), name
 
 
-# parallel/__init__ names whose modules (sequence_parallel.py, pipeline.py)
-# the next slice ports.
-NEXT_SLICE = {"sequence_parallel_attention", "PIPE_AXIS", "make_pipeline_mesh",
+# parallel/__init__ names whose module (pipeline.py) the next slice ports.
+NEXT_SLICE = {"PIPE_AXIS", "make_pipeline_mesh",
               "pipeline_spmd", "pipelined_self_attends", "pp_param_shardings",
               "stack_layer_params", "unstack_layer_params", "unstack_layer_params_circular"}
 
@@ -66,7 +65,7 @@ NEXT_SLICE = {"sequence_parallel_attention", "PIPE_AXIS", "make_pipeline_mesh",
 @pytest.mark.parametrize("name", _public(jax_parallel))
 def test_each_parallel_name_is_exported_as_the_same_kind(name):
     if name in NEXT_SLICE:
-        pytest.skip("sequence parallelism and the pipelines come in the next slice")
+        pytest.skip("the pipelines come in the next slice")
     assert hasattr(port_parallel, name), name
     want, got = getattr(jax_parallel, name), getattr(port_parallel, name)
     assert _kind(got) == _kind(want), name
