@@ -219,7 +219,7 @@ Phases (each raises on failure; nothing is caught):
      restore_eval_variables on the final checkpoint gives the EMA weights;
      the logged lr equals the schedule's; step time beside phase 8's;
  32. prints the run's seconds, the kernels line and, last, {"ok": true,
-     "device": {...}} (after phases A to Q below).
+     "device": {...}} (after phases A to R below).
 
 The rest of training runs in phases A to E, each where its inputs are
 warm: B after phase 8, A after phase 12, C to E after phase 19.
@@ -355,6 +355,27 @@ Q, after phase O, on a new (1, 1) mesh:
      ran bit for bit against the eager model on the same padded batch,
      every row its batch's, one K1 launch a batch (the two warm-ups apart);
      then the process group is torn down.
+The pipelines run in phase R, after Q, on the published flow model of
+phases 6 and 8 (24 self-attends of 2048 x 512 latents, 16 heads):
+  R. (a) the schedule in one process (``parallel.pipeline``'s
+     ``pipeline_layers(stages=S)``: the Policy route's tick loop and stage
+     body, each stage's output handed on by a local hop in place of the
+     ring's send): the latents the stack receives on phase 6's six tiles
+     through GPipe at S = 2, 4, 8 with M = 2, 3, 6 and the circular
+     schedule at S = 4, v = 2, M = 6, in bf16 (PERFORMANCE) and fp32
+     (PARITY with flash), each timed after a warm-up at its shape, against
+     the sequential stack within TOL (bit for bit said), K1's launches
+     exactly 24 x M (the valid ticks), printed beside 24 x (v M + S - 1) / v
+     (every stage every tick); (b) the backward at batch 2, M = 2, GPipe S
+     = 4 and circular S = 2 (v = 2), loss sum(out * g) with a seeded g:
+     every stack parameter's and the latents' gradient against the
+     sequential stack's within GRAD_TOL / BF16_GRAD_TOL, K1, K2 and K3
+     exactly 48 launches each; (c) a one-stage pipe mesh
+     (``make_pipeline_mesh(1)``, a one-rank group): phase 6's flows under
+     Policy(pp_mesh) bit for bit, 26 K1 a request, and a phase-8 step's
+     loss and gradients bit for bit against the step without it, K1 50 /
+     K2 26 / K3 26; then the process group is torn down.  No point-to-point
+     send runs on one card.
 
 It exits non-zero without a result when there is no GPU or when the port's
 package is not beside it.
@@ -597,6 +618,13 @@ MESH_EVAL_LIMIT = 64  # images of evaluate_classification --full-scale, with and
 # published encoder sites whose keys the ring splits, and the numbers of
 # pieces they are split into in one process.
 SP_SITES = {"flow_encoder": FLOW_SITES["encoder"], "mm_encoder": MM_SITE}
+# The pipelines (phase R): the GPipe (stages, microbatches) and circular
+# (stages, repeats, microbatches) schedules over phase 6's six tiles, and
+# the backward's cases (name, stages, repeats) at batch 2, two microbatches.
+PP_GPIPE = tuple((s, m) for s in (2, 4, 8) for m in (2, 3, 6))
+PP_CIRCULAR = (4, 2, 6)
+PP_BACKWARD = (("gpipe", 4, 1), ("circular", 2, 2))
+PP_LAYERS = 24
 SP_PIECES = (2, 4, 8)
 SP_REPS = 2
 MESH_SERVER_REQUESTS = 24  # single images, served in buckets of 8 and 16
@@ -4875,6 +4903,177 @@ def phase_chunk_mesh_and_server(smi):
     return rec
 
 
+def _stack_input(policy):
+    """The flow model under ``policy`` on phase 6's weights, and the latents
+    its self-attend stack receives on phase 6's first request (6 tiles)."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import FlowInference
+
+    model = _flow_model(policy)
+    model.load_state_dict(SERVED["weights"])
+    seen = []
+    stack = model.perceiver._encoder.self_attends
+    hook = stack.register_forward_pre_hook(lambda module, args: seen.append(args[0].detach()))
+    try:
+        with torch.inference_mode():
+            FlowInference(model, device="cuda")(*SERVED["requests"][0])
+    finally:
+        hook.remove()
+    return model, seen[0].clone()
+
+
+def _schedule(stack, latents, policy, n_stages, num_mb, circ):
+    """The ``Policy.pp_mesh`` route (``pipeline_layers``: its tick loop and
+    stage body on the stack's own layers) over ``n_stages`` stages in this
+    process, the ring's sends replaced by a local hop."""
+    from perceiverio_pytorch_tpu_torch.parallel import pipeline as pp
+
+    policy = dataclasses.replace(policy, pp_microbatches=num_mb, pp_circ_repeats=circ)
+    return pp.pipeline_layers(stack, latents, policy, stages=n_stages)
+
+
+def phase_pp_schedule(smi):
+    """Phase R(a), (b): the schedules in one process at the flow stack's
+    width, forward and backward, against the sequential stack."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE
+    from perceiverio_pytorch_tpu_torch.config import PARITY
+
+    forward, backward = [], []
+    for dtype, policy in (("bf16", PERFORMANCE),
+                          ("fp32", dataclasses.replace(PARITY, attn_impl="auto"))):
+        model, latents = _stack_input(policy)
+        stack = model.perceiver._encoder.self_attends
+        with torch.inference_mode():
+            stack(latents)  # warm-up
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            want = stack(latents)
+            torch.cuda.synchronize()
+            seq_ms, seq_k1 = 1e3 * (time.perf_counter() - t0), _launch_counts()["K1"]
+            cases = [(s, 1, m) for s, m in PP_GPIPE] + [PP_CIRCULAR]
+            for n_stages, circ, num_mb in cases:
+                _schedule(stack, latents, policy, n_stages, num_mb, circ)  # warm-up
+                torch.cuda.synchronize()
+                _reset_launch_counts()
+                t0 = time.perf_counter()
+                out = _schedule(stack, latents, policy, n_stages, num_mb, circ)
+                torch.cuda.synchronize()
+                ms, launches = 1e3 * (time.perf_counter() - t0), _launch_counts()
+                rec = dict(dtype=dtype, stages=n_stages, circ_repeats=circ,
+                           microbatches=num_mb, tiles=latents.shape[0],
+                           max_rel_diff=_rel(out, want), bitwise=torch.equal(out, want),
+                           k1_launches=launches["K1"], valid_ticks_k1=PP_LAYERS * num_mb,
+                           every_tick_k1=PP_LAYERS * (circ * num_mb + n_stages - 1) // circ,
+                           ms=ms, sequential_ms=seq_ms, sequential_k1=seq_k1,
+                           tolerance=TOL[dtype])
+                # the bubble computes nothing: K1 once a layer a valid tick
+                if not (rec["max_rel_diff"] <= TOL[dtype]
+                        and launches["K1"] == rec["valid_ticks_k1"]):
+                    raise AssertionError(f"pipeline schedule vs the sequential stack: {rec}")
+                forward.append(rec)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        x = latents[:2].detach().clone()
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        tol = GRAD_TOL if dtype == "fp32" else BF16_GRAD_TOL
+
+        def gradients(run):
+            model.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_()
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            loss = (run(xg).float() * g).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {n: p.grad.detach().clone() for n, p in stack.named_parameters()}
+            return loss.item(), grads, xg.grad.detach().clone(), _launch_counts()
+
+        loss_s, grads_s, dx_s, launches_s = gradients(stack)
+        for name, n_stages, circ in PP_BACKWARD:
+            loss_p, grads_p, dx_p, launches_p = gradients(
+                lambda xg: _schedule(stack, xg, policy, n_stages, 2, circ))
+            worst, worst_name, key_bias = _compare_grads(f"pp {name} {dtype}", grads_p,
+                                                         grads_s, tol)
+            rec = dict(dtype=dtype, schedule=name, stages=n_stages, circ_repeats=circ,
+                       microbatches=2, batch=2, loss=loss_p, sequential_loss=loss_s,
+                       latents_grad_rel=_rel(dx_p, dx_s), worst_rel_grad_diff=worst,
+                       worst_param=worst_name, key_bias_grad_rel=key_bias,
+                       bitwise=all(torch.equal(grads_p[k], v) for k, v in grads_s.items()),
+                       launches=launches_p, sequential_launches=launches_s, tolerance=tol)
+            if not (rec["latents_grad_rel"] <= tol
+                    and all(launches_p[k] == PP_LAYERS * 2 for k in ("K1", "K2", "K3"))):
+                raise AssertionError(f"pipeline backward vs the sequential stack: {rec}")
+            backward.append(rec)
+        del model, stack, latents, x, g, grads_s, dx_s
+        torch.cuda.empty_cache()
+    print(f"[pp schedule] {smi}: {json.dumps(forward)}", flush=True)
+    print(f"[pp backward] {smi}: {json.dumps(backward)}", flush=True)
+    return forward, backward
+
+
+def phase_pp_one_stage(smi):
+    """Phase R(c): the published flow model under Policy(pp_mesh) on a
+    one-stage pipe mesh: phase 6's flows and a phase-8 step, bit for bit
+    (the sequential stack runs); then the process group is torn down."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowInference
+    from perceiverio_pytorch_tpu_torch.parallel import make_pipeline_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host, one rank
+    policy = dataclasses.replace(PERFORMANCE, pp_mesh=make_pipeline_mesh(1))
+    model = _flow_model(policy)
+    model.load_state_dict(SERVED["weights"])
+    infer = FlowInference(model, device="cuda")
+    latencies = []
+    with torch.inference_mode():
+        infer(*SERVED["requests"][0])  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        for (img1, img2), want in zip(SERVED["requests"], SERVED["flows"]):
+            t0 = time.perf_counter()
+            flow = infer(img1, img2)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            if not torch.equal(flow.cpu(), want):
+                raise AssertionError("flow under a one-stage Policy(pp_mesh) differs from"
+                                     " phase 6's")
+        launches = _launch_counts()
+    n = len(SERVED["requests"])
+    if launches["K1"] != 26 * n:
+        raise AssertionError(f"one-stage pp flows: launches {launches} for {n} requests")
+    serve_rec = dict(requests=n, bitwise=True, latency_s=latencies,
+                     phase6_latency_s=SERVED["latency_s"], launches=launches)
+    del model, infer
+    torch.cuda.empty_cache()
+    loss_pp, grads_pp, launches_pp, seconds_pp = _sp_flow_step(policy)
+    loss, grads, launches_ref, seconds = _sp_flow_step(PERFORMANCE)
+    if launches_pp != STEP_LAUNCHES or launches_ref != STEP_LAUNCHES:
+        raise AssertionError(f"one-stage pp step launches {launches_pp}; without"
+                             f" {launches_ref}; expected {STEP_LAUNCHES}")
+    if loss_pp != loss or not all(torch.equal(grads_pp[k], g) for k, g in grads.items()) or (
+            set(grads_pp) != set(grads)):
+        raise AssertionError(f"one-stage pp step: loss {loss_pp} vs {loss}, or a gradient"
+                             " differs")
+    step_rec = dict(loss=loss_pp, bitwise=True, launches=launches_pp, step_s=seconds_pp,
+                    step_s_without_pp=seconds)
+    del grads, grads_pp
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return dict(serve=serve_rec, step=step_rec)
+
+
+def phase_pp(smi):
+    """Phase R: the pipelines on the card (see the module docstring)."""
+    forward, backward = phase_pp_schedule(smi)
+    one_stage = phase_pp_one_stage(smi)
+    print(f"[pp one stage] {smi}: {json.dumps(one_stage)}", flush=True)
+    return dict(schedule=forward, backward=backward, **one_stage)
+
+
 def _site_sums(records, keep, per_site):
     """Sums of the timed keys over the sites' launches (per_site: site ->
     launches), the records picked by ``keep``; None where a site has no
@@ -4953,8 +5152,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     ``launches_sp_clip`` and ``launches_chunk_mesh`` on the d = 704 K1
     entry, ``launches_mesh_server`` (and its warm-ups) on the d = 512 one;
     ``sp_pieces`` on the flow and d = 704 entries: phase P(a)'s errors and
-    times at that site.  Each entry's error is the largest of all its
-    comparisons."""
+    times at that site.  The pipelines' (R): ``launches_pp_schedule`` (R(a)'s
+    one-process schedules, with ``pp_schedule``: each case's error, launches
+    and ms) and ``launches_pp_serve`` (R(c)'s requests) on the flow K1 entry,
+    ``launches_pp_backward`` (R(b)) and ``launches_pp_train`` (R(c)'s step)
+    on the flow K1, K2 and K3 entries.  Each entry's error is the largest of
+    all its comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
@@ -4980,6 +5183,17 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         """Phase P(b)'s step under Policy(sp_mesh)."""
         return {"launches_sp_train": sp["step"]["launches"][kernel],
                 f"{extra}_launches_sp_train": sp["step"]["launches"][extra]}
+
+    pp = mesh["pp"]
+
+    def pp_counts(kernel, extra):
+        """Phase R's launches: the one-process schedules' backward (R(b)) and
+        the one-stage pipe mesh's step (R(c))."""
+        return {"launches_pp_backward": sum(r["launches"][kernel] for r in pp["backward"]),
+                f"{extra}_launches_pp_backward": sum(r["launches"][extra]
+                                                     for r in pp["backward"]),
+                "launches_pp_train": pp["step"]["launches"][kernel],
+                f"{extra}_launches_pp_train": pp["step"]["launches"][extra]}
 
     def sp_pieces(site, keys):
         """Phase P(a)'s one-process ring at this site: errors and times."""
@@ -5036,6 +5250,13 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         **sp_counts("K1", "merge"),
         sp_pieces=sp_pieces("flow_encoder", ("out_rel", "whole_k1_ms", "pieces_k1_ms",
                                              "merge_ms")),
+        launches_pp_schedule=sum(r["k1_launches"] for r in pp["schedule"]),
+        launches_pp_serve=pp["serve"]["launches"]["K1"],
+        merge_launches_pp_serve=pp["serve"]["launches"]["merge"],
+        **pp_counts("K1", "merge"),
+        pp_schedule=[{k: r[k] for k in ("dtype", "stages", "circ_repeats", "microbatches",
+                                        "max_rel_diff", "bitwise", "k1_launches", "ms",
+                                        "sequential_ms")} for r in pp["schedule"]],
         max_abs_err=max(rec["max_abs_err"] for rec in records),
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
@@ -5146,6 +5367,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             **sac_counts(kernel, "sum"),
             **mesh_counts(kernel, "sum", flow_mesh),
             **sp_counts(kernel, "sum"),
+            **pp_counts(kernel, "sum"),
             sp_pieces=sp_pieces("flow_encoder", (
                 "dk_rel", "dv_rel", "whole_bwd_ms", "pieces_bwd_ms") if kernel == "K2" else (
                 "dq_rel", "whole_bwd_ms", "pieces_bwd_ms")),
@@ -5302,6 +5524,9 @@ def main() -> int:
     t_sp = time.perf_counter()
     print(f"[sp] phases P {t_q - t_mesh:.1f} s, Q {t_sp - t_q:.1f} s; P-Q in"
           f" {t_sp - t_mesh:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    mesh["pp"] = phase_pp(smi)
+    print(f"[pp] phase R {time.perf_counter() - t_sp:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(kernels_line(records, serve, backward + cls_backward, train, mm_serve, mm_train,
                        cls_serve, cls_train, cls_k1_train, buckets, serving, files, int8,

@@ -9,9 +9,10 @@ The sequence-parallel fields are ported: with ``sp_mesh`` set, an
 attention site with at least ``sp_min_kv`` keys (the encoder's
 cross-attend) runs ``parallel.sequence_parallel_attention`` over the mesh
 axis ``sp_axis``, its route ``sp_impl`` named as ``attn_impl``'s ("dense",
-the JAX package's "xla"; "flash"; "auto").  The pipeline mesh of the JAX
-policy is kept as a field so that a caller porting a configuration learns
-of it: setting it raises ``NotImplementedError``.  ``layer_scan`` and ``layer_scan_min`` are taken
+the JAX package's "xla"; "flash"; "auto").  The pipeline fields are
+ported: with ``pp_mesh`` set (``parallel.make_pipeline_mesh``), the latent
+self-attend stack runs as a pipeline over its ``pp_axis``
+(``parallel.pipeline``).  ``layer_scan`` and ``layer_scan_min`` are taken
 with the JAX package's values and validation; eager PyTorch has no scan and
 compiles nothing, so every value runs the self-attend stack as one loop,
 whose outputs are the unrolled loop's (JAX's scan is exact against its
@@ -46,12 +47,6 @@ from torch.utils.checkpoint import (
 ATTN_DENSE = "dense"  # plain matmul + softmax, materialises [B,H,Tq,Tk]
 ATTN_FLASH = "flash"  # streaming-KV CUDA kernel (ops/flash_attention.py)
 ATTN_AUTO = "auto"  # flash on a CUDA tensor at long sequence lengths
-
-# (field, value that means "off") for the JAX policy's fields the port does
-# not implement yet.
-_NOT_PORTED = (
-    ("pp_mesh", None),
-)
 
 LAYER_SCAN_VALUES = ("auto", "on", "off")
 
@@ -111,7 +106,15 @@ class Policy:
         the local keys, merged over the axis: ring attention) or "auto"
         (flash on a CUDA tensor whose local keys number at least 8192); any
         other value raises ValueError.
-      pp_mesh: not ported; any value other than the default raises.
+      pp_mesh / pp_axis / pp_microbatches / pp_circ_repeats: with a mesh
+        (``parallel.make_pipeline_mesh``) whose ``pp_axis`` has more than
+        one rank, every self-attend stack whose layer count divides into
+        its stages x ``pp_circ_repeats`` runs as a pipeline over that axis
+        (``parallel.pipeline``), ``pp_microbatches`` microbatches a block
+        (the batch must divide into them), the circular schedule with
+        ``pp_circ_repeats`` > 1 (then ``pp_microbatches`` >= the stages).
+        A ``pp_axis`` the mesh lacks or a ``pp_circ_repeats`` below 1
+        raises ValueError.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -127,6 +130,9 @@ class Policy:
     sp_min_kv: int = 32768
     sp_impl: str = ATTN_AUTO
     pp_mesh: Any = None
+    pp_axis: str = "pipe"
+    pp_microbatches: int = 2
+    pp_circ_repeats: int = 1
     layer_scan: str = "off"
     layer_scan_min: int = 16
     remat_policy: Optional[str] = None
@@ -155,12 +161,16 @@ class Policy:
                 "Policy.layer_scan must be 'auto', 'on' or 'off'; got"
                 f" {self.layer_scan!r}"
             )
-        for name, off in _NOT_PORTED:
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"Policy.{name}={getattr(self, name)!r} is not ported to"
-                    " PyTorch yet (see ROADMAP.md)"
-                )
+        if self.pp_mesh is not None:
+            # JAX checks these at apply (core/perceiver.py:197-206), with
+            # the same messages.
+            names = tuple(getattr(self.pp_mesh, "mesh_dim_names", None) or ())
+            if self.pp_axis not in names:
+                raise ValueError(
+                    f"Policy.pp_axis {self.pp_axis!r} is not an axis of pp_mesh {names}")
+            if self.pp_circ_repeats < 1:
+                raise ValueError(
+                    f"Policy.pp_circ_repeats must be >= 1; got {self.pp_circ_repeats}")
 
 
 def quant_enabled(policy: Policy, site: str = "latent") -> bool:

@@ -35,7 +35,13 @@ Counterpart of ``perceiverio_pytorch_tpu/core/perceiver.py``:
     rank's rows already, as the Trainer's.  The JAX package puts a GSPMD
     sharding constraint on the same array.
 
-Not ported yet: pipelining.
+Pipelining: under ``Policy.pp_mesh`` each block of the self-attend stack
+runs as a pipeline over the mesh's ``pp_axis``
+(``parallel.pipeline.pipeline_layers``), unless the axis has one stage, the
+projections are calibrating (``ops.quant.quant_pass``) or the latents are
+on the ``meta`` device: those run the sequential stack.  With ``remat`` a
+pipelined block rematerialises each (tick, stage) stage body on its own,
+outside the hops, where the sequential one checkpoints the whole block.
 """
 
 from __future__ import annotations
@@ -95,7 +101,8 @@ def draw_seeds(generator: torch.Generator, n: int):
 
 class _SelfAttendStack(nn.ModuleList):
     """One block: ``num_self_attends`` distinct self-attention layers,
-    children "0".."N-1" (the reference's state_dict names)."""
+    children "0".."N-1" (the reference's state_dict names), applied in
+    turn, or as a pipeline under ``Policy.pp_mesh``."""
 
     def __init__(self, num_self_attends: int, in_channels: int, num_heads: int,
                  qk_channels: Optional[int], v_channels: Optional[int],
@@ -111,12 +118,39 @@ class _SelfAttendStack(nn.ModuleList):
             )
             for _ in range(num_self_attends)
         )
+        self.policy = policy
 
-    def forward(self, latents, dropout_seed: Optional[int] = None):
+    def forward(self, latents, dropout_seed: Optional[int] = None, remat: bool = False):
+        """The block on ``latents``; ``remat``: rematerialised in the
+        backward under ``Policy.remat_policy``."""
+        if self._use_pipeline(latents):
+            from perceiverio_pytorch_tpu_torch.parallel.pipeline import pipeline_layers
+
+            return pipeline_layers(self, latents, self.policy, dropout_seed=dropout_seed,
+                                   remat=remat)
+        if remat:
+            return remat_call(self.policy, self._sequential, latents, dropout_seed)
+        return self._sequential(latents, dropout_seed)
+
+    def _sequential(self, latents, dropout_seed: Optional[int] = None):
         for i, layer in enumerate(self):
             seed = None if dropout_seed is None else mix_seed(dropout_seed, i)
             latents = layer(latents, dropout_seed=seed)
         return latents
+
+    def _use_pipeline(self, latents) -> bool:
+        """Route through the pipeline (``Policy.pp_mesh``, its fields checked
+        when the Policy was made)?  JAX's ``_use_pipeline``: a calibration
+        pass (and a ``meta`` build) stays sequential, a pipe axis of one
+        stage too (``pipeline_layers`` refuses a layer count that does not
+        divide)."""
+        pol = self.policy
+        if pol.pp_mesh is None:
+            return False
+        if latents.device.type == "meta" or any(
+                getattr(m, "quant_pass", None) == "calibrate" for m in self.modules()):
+            return False
+        return mesh_axis(pol.pp_mesh, pol.pp_axis).size > 1  # else the sequential path
 
 
 class PerceiverEncoder(nn.Module):
@@ -201,10 +235,8 @@ class PerceiverEncoder(nn.Module):
                                     kv_logical_len=kv_logical_len, dropout_seed=seeds[0],
                                     kv_shard=kv_shard)
         for seed in seeds[1:]:  # weight-shared blocks
-            if self.remat and torch.is_grad_enabled():
-                latents = remat_call(self.policy, self.self_attends, latents, seed)
-            else:
-                latents = self.self_attends(latents, seed)
+            latents = self.self_attends(latents, seed,
+                                        remat=self.remat and torch.is_grad_enabled())
         return latents
 
 

@@ -21,7 +21,8 @@ then runs the hand-written flash kernels forward and backward.
 
     python -m perceiverio_pytorch_tpu_torch.examples.train_flow --steps 30 [--full-scale] \\
         [--data-dir DIR [--no-augment]] [--checkpoint-dir DIR [--resume]] \\
-        [--mesh DATA MODEL [--fsdp]]
+        [--mesh DATA MODEL [--fsdp]] [--pp-stages S [--pp-microbatches M]
+        [--pp-circ-repeats V]]
 
 ``--mesh D M`` trains on a (data, model) mesh of D x M processes, one per
 device (``Trainer(mesh=...)``; ``python -m torch.distributed.run
@@ -30,20 +31,32 @@ rank r drives ``cuda:<LOCAL_RANK>`` unless ``--device cpu``; every rank
 makes the same global batches and trains on its rows.  ``--fsdp`` also
 shards the weights and their optimizer moments over the data axis.
 
+``--pp-stages S`` (> 1) pipelines the latent stack over S processes
+(``Policy.pp_mesh``, ``parallel.make_pipeline_mesh``; with ``--mesh D S``
+the pipeline mesh is (D, S), its stages the ranks of one data row; another
+model axis is refused), ``--pp-microbatches`` a batch
+(it must divide the batch), the circular schedule with
+``--pp-circ-repeats`` > 1; the tiny configuration then takes 2 * S
+self-attends, as the JAX example does.
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m perceiverio_pytorch_tpu_torch.examples.train_flow --pp-stages 2 --device cpu
+
 Runs on the GPU unless the caller asks for the CPU (``--device cpu``, or
-``main(device="cpu")``).  Not ported: the pipeline flags.
+``main(device="cpu")``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
 
-from perceiverio_pytorch_tpu_torch.config import PERFORMANCE
+from perceiverio_pytorch_tpu_torch.config import DEFAULT, PERFORMANCE
 from perceiverio_pytorch_tpu_torch.models.flow import FlowPerceiver, resolve_device
-from perceiverio_pytorch_tpu_torch.parallel import make_mesh, mesh_device
+from perceiverio_pytorch_tpu_torch.parallel import make_mesh, make_pipeline_mesh, mesh_device
 from perceiverio_pytorch_tpu_torch.training import (
     FlowPairDataset,
     Subset,
@@ -112,7 +125,7 @@ def flow_datasets(data_dir, hw, batch_size, augment=True):
 def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
           metrics_path="./flow_metrics.jsonl", log_every=10, data_dir=None, augment=True,
           checkpoint_dir=None, checkpoint_every=None, checkpoint_async=False, prefetch=0, seed=0,
-          mesh_shape=None, fsdp=False):
+          mesh_shape=None, fsdp=False, pp_stages=0, pp_microbatches=2, pp_circ_repeats=1):
     """The example's trainer, initial state, batch stream and evaluation
     batches: ``(trainer, state, batches, eval_batches)``.
 
@@ -123,23 +136,38 @@ def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
     out.  ``checkpoint_every`` defaults to ``steps // 2`` when
     ``checkpoint_dir`` is given.  Weights are drawn from ``seed``.
     ``mesh_shape`` (data, model) trains on a mesh (``device`` becomes this
-    rank's), ``fsdp`` with FSDP.
+    rank's), ``fsdp`` with FSDP.  ``pp_stages`` > 1 pipelines the latent
+    stack over that many ranks (see the module docstring).
     """
+    if pp_stages > 1 and mesh_shape is not None and mesh_shape[1] != pp_stages:
+        # the trainer splits rows over the mesh's data axis; a pipe group's
+        # ranks must read the same rows, so they are one data row's
+        raise ValueError(
+            f"--mesh {mesh_shape[0]} {mesh_shape[1]} with --pp-stages {pp_stages}: the"
+            " pipeline's stages are the ranks of one data row, so the mesh's model axis"
+            f" must have {pp_stages} ranks (--mesh DATA {pp_stages})")
     device = resolve_device(device)
     mesh = None
     if mesh_shape is not None:  # this rank's device of a (data, model) mesh
         mesh = make_mesh(tuple(mesh_shape), device=device)
         device = mesh_device(mesh)
+    policy = PERFORMANCE if full_scale else DEFAULT
+    if pp_stages > 1:
+        data = 1 if mesh_shape is None else mesh_shape[0]
+        pp_mesh = make_pipeline_mesh(pp_stages, data=data, device=device)
+        device = mesh_device(pp_mesh)
+        policy = dataclasses.replace(policy, pp_mesh=pp_mesh, pp_microbatches=pp_microbatches,
+                                     pp_circ_repeats=pp_circ_repeats)
     generator = torch.Generator().manual_seed(seed)
     if full_scale:
-        model = FlowPerceiver(policy=PERFORMANCE, remat=True, device=device,
-                              generator=generator)
+        model = FlowPerceiver(policy=policy, remat=True, device=device, generator=generator)
         if batch_size not in (None, 1):
             print(f"--full-scale forces batch_size=1 (requested {batch_size})")
         hw, batch_size = FULL_SCALE_HW, 1
     else:
         batch_size = 2 if batch_size is None else batch_size
-        model = FlowPerceiver(**TINY, device=device, generator=generator)
+        tiny = dict(TINY, num_self_attends_per_block=2 if pp_stages <= 1 else 2 * pp_stages)
+        model = FlowPerceiver(**tiny, policy=policy, device=device, generator=generator)
         hw = TINY["img_size"]
 
     def on_device(batch):
@@ -194,11 +222,13 @@ def setup(steps=30, batch_size=None, full_scale=False, *, device="cuda",
 
 def main(steps=30, batch_size=None, full_scale=False, *, device="cuda",
          metrics_path="./flow_metrics.jsonl", data_dir=None, augment=True,
-         checkpoint_dir=None, resume=False, mesh_shape=None, fsdp=False):
+         checkpoint_dir=None, resume=False, mesh_shape=None, fsdp=False, pp_stages=0,
+         pp_microbatches=2, pp_circ_repeats=1):
     trainer, state, batches, eval_batches = setup(
         steps, batch_size, full_scale, device=device, metrics_path=metrics_path,
         data_dir=data_dir, augment=augment, checkpoint_dir=checkpoint_dir, prefetch=2,
-        mesh_shape=mesh_shape, fsdp=fsdp)
+        mesh_shape=mesh_shape, fsdp=fsdp, pp_stages=pp_stages,
+        pp_microbatches=pp_microbatches, pp_circ_repeats=pp_circ_repeats)
     state = trainer.fit(state, batches, num_steps=steps, eval_batches=eval_batches,
                         resume=resume)
     print(f"finished at step {state.step}")
@@ -224,9 +254,18 @@ if __name__ == "__main__":
                         help="(data, model) mesh shape: one process per device")
     parser.add_argument("--fsdp", action="store_true",
                         help="shard the weights and optimizer moments over the data axis")
+    parser.add_argument("--pp-stages", type=int, default=0,
+                        help="pipeline the latent stack over this many processes"
+                             " (Policy.pp_mesh; the batch must divide --pp-microbatches;"
+                             " with --mesh, its MODEL must be this)")
+    parser.add_argument("--pp-microbatches", type=int, default=2)
+    parser.add_argument("--pp-circ-repeats", type=int, default=1,
+                        help="> 1: circular (interleaved) schedule with this many layer"
+                             " groups a stage")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     main(args.steps, args.batch_size, full_scale=args.full_scale, device=args.device,
          data_dir=args.data_dir, augment=not args.no_augment,
          checkpoint_dir=args.checkpoint_dir, resume=args.resume, mesh_shape=args.mesh,
-         fsdp=args.fsdp)
+         fsdp=args.fsdp, pp_stages=args.pp_stages, pp_microbatches=args.pp_microbatches,
+         pp_circ_repeats=args.pp_circ_repeats)

@@ -23,6 +23,18 @@ its own part of the work (its key shard, its decoder chunks) gets a partial
 gradient, which the ``copy_to`` sums over the axis once, before any
 optimizer sees it.
 
+The pipeline's two (``parallel.pipeline``):
+
+  * ``ring_hop``: JAX's ``ppermute`` to ``(i + 1) % n``: send to the next
+    rank of the group and receive from the previous one forward; send the
+    gradient to the previous rank and receive the next one's backward
+    (paired non-blocking sends and receives, so that two ranks that are
+    each other's both neighbours cannot deadlock);
+  * ``copy_to_many``: ``copy_to`` of several tensors in one autograd node,
+    each gradient all-reduced over its own groups (one flat buffer per
+    dtype and groups): one collective in one place of every rank's
+    backward, whichever of the tensors this rank used.
+
 ``global_batch(group)`` marks the code that runs on this rank's rows of a
 batch sharded over the data axis: the losses and BatchNorm read
 ``data_group()`` to reduce their denominators and statistics over it.
@@ -37,9 +49,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_dim", "all_reduce_", "all_reduce_sum", "copy_to", "data_group",
-           "fsdp_gather", "gather_dim", "global_batch", "reduce_from", "reduce_scatter_dim",
-           "scatter_dim", "summed_params", "using"]
+__all__ = ["all_gather_dim", "all_reduce_", "all_reduce_sum", "copy_to", "copy_to_many",
+           "data_group", "exchange", "fsdp_gather", "gather_dim", "global_batch",
+           "reduce_from", "reduce_scatter_dim", "ring_hop", "scatter_dim", "summed_params",
+           "using"]
 
 # dist.all_gather_single / reduce_scatter_single where the installed torch
 # has them (the *_tensor names are deprecated there), else the older names.
@@ -148,6 +161,66 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def exchange(t: torch.Tensor, send_to: int, recv_from: int, group) -> torch.Tensor:
+    """Send ``t`` to global rank ``send_to`` and receive a tensor shaped as
+    it from global rank ``recv_from``, both posted before either is waited
+    on."""
+    out = torch.empty_like(t)
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, t.contiguous(), send_to, group),
+                                    dist.P2POp(dist.irecv, out, recv_from, group)])
+    for work in works:
+        work.wait()
+    return out
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        n, i = size(group), index(group)
+        ctx.group = group
+        ctx.next = dist.get_global_rank(group, (i + 1) % n)
+        ctx.prev = dist.get_global_rank(group, (i - 1) % n)
+        return exchange(y, ctx.next, ctx.prev, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, ctx.prev, ctx.next, ctx.group), None
+
+
+class _CopyToMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, *tensors):
+        ctx.groups = groups
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.contiguous().clone() for g in grads]
+        buckets = {}
+        for i, (g, groups) in enumerate(zip(grads, ctx.groups)):
+            if groups:
+                buckets.setdefault((g.dtype, tuple(map(id, groups))), (groups, []))[1].append(i)
+        for groups, idx in buckets.values():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            for group in groups:
+                all_reduce_(flat, group)
+            for i, piece in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                grads[i] = piece.view_as(grads[i])
+        return (None, *grads)
+
+
+def ring_hop(y: torch.Tensor, group) -> torch.Tensor:
+    """This rank's ``y`` to the next rank of ``group``, the previous rank's
+    ``y`` back (see the module docstring); ``y`` itself on one rank."""
+    return _RingHop.apply(y, group) if size(group) > 1 else y
+
+
+def copy_to_many(tensors, groups) -> tuple:
+    """``tensors`` as they are; backward, the gradient of ``tensors[i]`` is
+    all-reduced over every group of ``groups[i]`` (an empty tuple: kept)."""
+    return _CopyToMany.apply(tuple(tuple(g) for g in groups), *tensors)
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

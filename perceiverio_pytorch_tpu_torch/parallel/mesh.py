@@ -13,7 +13,9 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``mesh_dim_names=("data", "model")``, laid out row-major as JAX's
 ``reshape(d, m)``: rank r sits at (r // m, r % m).  Each rank is one
 process driving one device (``cuda:<LOCAL_RANK>``, or the CPU), where a JAX
-process drives all the devices of its host.
+process drives all the devices of its host.  ``parallel.pipeline``'s
+``make_pipeline_mesh`` makes a ("data", "pipe") mesh with the same set-up
+(``join_group``).
 
 ``make_mesh`` in a process without a process group joins the one a
 ``torchrun`` launch describes (``multihost.initialize_distributed``), and
@@ -33,8 +35,8 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Axis", "axis", "default_mesh_shape", "make_mesh",
-           "mesh_device", "process_mesh"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Axis", "adopt_process_mesh", "axis",
+           "default_mesh_shape", "join_group", "make_mesh", "mesh_device", "process_mesh"]
 
 # The mesh the last make_mesh call of this process made (the data path's
 # default, as JAX's process index is the process's own).
@@ -64,17 +66,8 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
     """
     from torch.distributed.device_mesh import DeviceMesh
 
-    from perceiverio_pytorch_tpu_torch.parallel.multihost import initialize_distributed
-    from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
-
     global _PROCESS_MESH
-    device = resolve_device(device)
-    if device.type == "cuda":
-        torch.cuda.set_device(_local_cuda_device() if device.index is None else device)
-    if not dist.is_initialized() and not initialize_distributed(device=device.type):
-        dist.init_process_group(backend_for(device), store=dist.HashStore(), rank=0,
-                                world_size=1)
-    ranks = list(devices if devices is not None else range(dist.get_world_size()))
+    device, ranks = join_group(device, devices)
     if shape is None:
         shape = (len(ranks), 1)
     d, m = (int(s) for s in shape)
@@ -84,6 +77,24 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
                       mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
     _PROCESS_MESH = mesh
     return mesh
+
+
+def join_group(device, devices: Optional[Sequence[int]] = None):
+    """Set up this rank for a mesh: its card (``cuda:<LOCAL_RANK>``) made
+    current, the process group joined (``multihost.initialize_distributed``)
+    or, with no launch, made as a one-rank group on a ``HashStore``.
+    Returns the resolved device and the global ranks ``devices`` names
+    (default: every rank of the group, in order)."""
+    from perceiverio_pytorch_tpu_torch.parallel.multihost import initialize_distributed
+    from perceiverio_pytorch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(_local_cuda_device() if device.index is None else device)
+    if not dist.is_initialized() and not initialize_distributed(device=device.type):
+        dist.init_process_group(backend_for(device), store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return device, list(devices if devices is not None else range(dist.get_world_size()))
 
 
 def default_mesh_shape(n_devices: int) -> Tuple[int, int]:
@@ -102,6 +113,14 @@ def process_mesh():
     return _PROCESS_MESH
 
 
+def adopt_process_mesh(mesh) -> None:
+    """Make ``mesh`` the data path's default unless this process made a
+    (data, model) mesh already, whose data axis the Trainer splits rows by."""
+    global _PROCESS_MESH
+    if process_mesh() is None:
+        _PROCESS_MESH = mesh
+
+
 class Axis(NamedTuple):
     """One mesh axis as this rank sees it: its process group, its size and
     this rank's coordinate along it."""
@@ -112,7 +131,7 @@ class Axis(NamedTuple):
 
 
 def axis(mesh, name: str) -> Axis:
-    """``Axis`` of ``mesh`` named ``name`` ("data" or "model")."""
+    """``Axis`` of ``mesh`` named ``name`` ("data", "model" or "pipe")."""
     cache = mesh.__dict__.setdefault("_pio_axes", {})
     if name not in cache:
         cache[name] = Axis(mesh.get_group(name), mesh.size(mesh.mesh_dim_names.index(name)),

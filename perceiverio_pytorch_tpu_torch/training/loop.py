@@ -193,7 +193,10 @@ class Trainer:
                 " shard the weights over and training would silently run fully replicated")
         self.loss_fn = loss_fn
         self.tx = tx
-        self._rank0 = mesh is None or torch.distributed.get_rank() == 0
+        # One process writes the host files: rank 0 of a group, with a mesh
+        # or without (the ranks of a pipeline without one run alike).
+        self._rank0 = (not torch.distributed.is_initialized()
+                       or torch.distributed.get_rank() == 0)
         self.logger = MetricsLogger(metrics_path if self._rank0 else None, echo=self._rank0)
         self.log_every = log_every
         self.log_grad_norm = log_grad_norm

@@ -4,6 +4,9 @@ Weights go from the JAX modules to the port through ``state_dict_from_flax``
 and inputs are made with numpy, so both frameworks see the same numbers.
 """
 
+import re
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -242,8 +245,20 @@ def test_unported_policy_fields_raise(field, value):
             port_config.Policy(quant="int4")
         assert str(got.value) == str(want.value)
         return
-    with pytest.raises(NotImplementedError):
-        port_config.Policy(**{field: value})
+    # pp_mesh: ported.  A mesh is taken with JAX's defaults for the other pp
+    # fields; an axis the mesh lacks or a repeat count below 1 raises JAX's
+    # ValueError (JAX raises at apply, the port when the Policy is made).
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "pipe"))
+    pol = port_config.Policy(**{field: mesh})
+    assert pol.pp_mesh is mesh
+    jax_pol = jax_config.Policy()
+    assert (pol.pp_axis, pol.pp_microbatches, pol.pp_circ_repeats) == (
+        jax_pol.pp_axis, jax_pol.pp_microbatches, jax_pol.pp_circ_repeats) == ("pipe", 2, 1)
+    with pytest.raises(ValueError, match=re.escape(
+            "Policy.pp_axis 'model' is not an axis of pp_mesh ('data', 'pipe')")):
+        port_config.Policy(pp_mesh=mesh, pp_axis="model")
+    with pytest.raises(ValueError, match="Policy.pp_circ_repeats must be >= 1; got 0"):
+        port_config.Policy(pp_mesh=mesh, pp_circ_repeats=0)
 
 
 def test_fold_query_pad_is_ported():

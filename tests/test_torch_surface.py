@@ -1,9 +1,7 @@
 """The port's public surface against the JAX package's: every public name of
 JAX's top-level ``__init__``, of its ``io_processors/__init__`` and of its
 ``parallel/__init__`` is importable from the port's counterpart, and names
-the same kind of object (a class, a function, an enum, a constant).  The
-parallel names of the next slice (sequence-parallel attention and the
-pipelines) are skipped until it lands."""
+the same kind of object (a class, a function, an enum, a constant)."""
 
 import inspect
 
@@ -56,16 +54,8 @@ def test_each_exported_name_is_the_same_kind(name):
     assert _kind(got) == _kind(want), name
 
 
-# parallel/__init__ names whose module (pipeline.py) the next slice ports.
-NEXT_SLICE = {"PIPE_AXIS", "make_pipeline_mesh",
-              "pipeline_spmd", "pipelined_self_attends", "pp_param_shardings",
-              "stack_layer_params", "unstack_layer_params", "unstack_layer_params_circular"}
-
-
 @pytest.mark.parametrize("name", _public(jax_parallel))
 def test_each_parallel_name_is_exported_as_the_same_kind(name):
-    if name in NEXT_SLICE:
-        pytest.skip("the pipelines come in the next slice")
     assert hasattr(port_parallel, name), name
     want, got = getattr(jax_parallel, name), getattr(port_parallel, name)
     assert _kind(got) == _kind(want), name
