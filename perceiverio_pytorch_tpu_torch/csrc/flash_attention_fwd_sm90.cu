@@ -45,17 +45,30 @@
 //     instead of double-buffered: V(t) is fetched while S(t) and the
 //     softmax run, and K(t+1) while P V(t) runs, each into the buffer the
 //     previous step has just released.  Ragged widths are zero-padded to a
-//     multiple of 16 in shared memory (the pad is zeroed once and never
-//     written).
+//     multiple of 16 in shared memory (the pad is zeroed once; copies never
+//     write it, the realigning loader writes zeros there, or, in a V tile,
+//     may leave what it held: V's pad columns feed only dropped output
+//     columns).
 //   * Layout: wgmma's core-matrix layout without a swizzle (sm90.cuh), which
 //     takes any width that is a multiple of 8.  Q, K and P are read K-major;
 //     V is read MN-major in its natural [key][column] order through the
 //     transpose flag, so no tile is transposed on the way in.
-//   * Loads: cp.async at the widest granularity that every base address,
-//     stride and row width allows (16, 8 or 4 bytes; plain 2-byte loads
-//     below that).  The encoder's rows are 322 bf16 = 644 bytes apart, so
-//     they take 4-byte copies; TMA would need 16-byte strides and is not
-//     used.  Rows of a tile past the end of its split are not loaded (their
+//   * Loads: cp.async copies of the widest granularity that every base
+//     address, stride and row width allows (16, 8 or 4 bytes; the flow
+//     encoder's rows are 322 bf16 = 644 bytes apart and take 4).  Rows
+//     aligned to 2 bytes only (the pixel encoder's 261 = 522 bytes; before,
+//     2-byte copies through registers, about 130 a thread per 128-key tile)
+//     take the realigning loader in its asynchronous form (sm90.cuh
+//     cover_rows, shift_rows): 16-byte cp.async copies of the aligned
+//     chunks that cover each row into the row's own slots, then, once they
+//     have landed, a pass that shifts each row into place through registers
+//     and zeroes its pad.  A realigned K(t + 1) is shifted while P V(t)
+//     runs; a realigned V(t) after the softmax, before P V(t) (one more
+//     block barrier each).  Where the covering chunks would not fit a
+//     row's slots (rows at most 6 columns short of the tile's padded width,
+//     such as an odd-offset view of 512 columns), the operand takes 2-byte
+//     copies through registers.  Rows that allow 4- or 8-byte copies keep
+//     them.  Rows of a tile past the end of its split are not copied (their
 //     p is 0, and they hold finite stale data or the initial zeros).
 //   * Split-KV.  The grid is (q blocks x column chunks x splits, heads,
 //     batch); a block walks the keys of its split only (whole 64-key tiles
@@ -84,6 +97,8 @@
 // What it does not do yet: no warp specialisation or TMA producer, no
 // overlap of one warpgroup's softmax with the other's products, no swizzled
 // layouts, and S and P V of a tile run back to back in each warpgroup.
+// Heads of at most 64 (the flow self-attends) take the narrow-head kernel of
+// flash_attention_fwd_narrow_sm90.cu instead, unless a split count is forced.
 //
 // Interface: a plain C function, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -122,14 +137,26 @@ struct Params {
   int B, H, Tq, Tk, kv_len, D, Dv, Dp;
   int n_qblocks, tiles_per_split, splits;  // split s: keys [s, s + 1) * tiles * SPLIT_K
   int col_chunks, CW;       // chunk c: value columns [c CW, min((c + 1) CW, Dv))
-  int vec_q, vec_k, vec_v;  // copy granularity in bytes
+  int vec_q, vec_k, vec_v;  // cp.async copy bytes (16, 8, 4); 0: 2-byte aligned (realign_vec)
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale_log2;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ void load_rows(char* tile, const bf16* g, long long ld, int rows,
-                                          int cols, int C, int vec, int tid) {
-  sm90::load_rows<THREADS>(tile, g, ld, rows, cols, C, vec, tid);
+// The loads of an operand whose rows are aligned to 2 bytes only: the
+// realigning loader (cover_rows' cp.async copies, then shift_rows once they
+// have landed; 0) where the covering chunks fit the tile's columns, else
+// 2-byte copies through registers.
+__device__ __forceinline__ int realign_vec(int vec, int cols, int C) {
+  return vec ? vec : sm90::cover_fits(cols, C) ? 0 : 2;
+}
+
+// Starts loading rows [0, rows) of a tile: cp.async copies of `vec` bytes
+// (2: stores through registers), or the covering chunks (vec 0) for the
+// caller to commit, wait for and shift.
+__device__ __forceinline__ void load_start(char* tile, const bf16* g, long long ld, int rows,
+                                           int cols, int C, int vec, int tid) {
+  if (vec) sm90::load_rows<THREADS>(tile, g, ld, rows, cols, C, vec, tid);
+  else sm90::cover_rows<THREADS>(tile, g, ld, rows, cols, C, tid);
 }
 
 // Blocks per SM that an instantiation asks the register allocator to make
@@ -147,7 +174,10 @@ size_t smem_size(int Dp) {
 // NV: value columns per warpgroup (the padded chunk width / 2, a multiple
 // of 8).  BK: keys per tile, 128 where the tiles fit in shared memory (fewer
 // barriers and wgmma round trips per key), else 64, else 32.
-template <int NV, int BK>
+// REALIGN: some operand takes the realigning loader; without it, every
+// load is a cp.async copy and the loader's code is compiled out (it cost
+// the aligned d = 512 launches about 2% on an H100).
+template <int NV, int BK, bool REALIGN>
 __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel(const Params p) {
   constexpr int CV = 2 * NV;            // padded value width in shared memory
   constexpr int HALF_K = BK / 2;        // keys of one warpgroup's S
@@ -188,11 +218,23 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
-  load_rows(sQ, qg, p.q_st, min(BQ, p.Tq - q0), p.D, Dp, p.vec_q, tid);
-  if (k_begin < k_end)
-    load_rows(sK, kg + (long long)k_begin * p.k_st, p.k_st, min(BK, k_end - k_begin), p.D,
-              Dp, p.vec_k, tid);
+  const int vec_q = REALIGN ? realign_vec(p.vec_q, p.D, Dp) : p.vec_q;
+  const int vec_k = REALIGN ? realign_vec(p.vec_k, p.D, Dp) : p.vec_k;
+  const int vec_v = REALIGN ? realign_vec(p.vec_v, dv_blk, CV) : p.vec_v;
+  const int q_rows = min(BQ, p.Tq - q0);
+  const int k_rows = min(BK, k_end - k_begin);
+  const bf16* kg0 = kg + (long long)k_begin * p.k_st;
+  load_start(sQ, qg, p.q_st, q_rows, p.D, Dp, vec_q, tid);
+  if (k_rows > 0) load_start(sK, kg0, p.k_st, k_rows, p.D, Dp, vec_k, tid);
   sm90::cp_async_commit();
+  if (vec_q == 0 || (k_rows > 0 && vec_k == 0)) {
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    if (vec_q == 0)
+      sm90::shift_rows<THREADS, BQ>(sQ, qg, p.q_st, q_rows, p.D, Dp, Dp / 8, tid);
+    if (k_rows > 0 && vec_k == 0)
+      sm90::shift_rows<THREADS, BK>(sK, kg0, p.k_st, k_rows, p.D, Dp, Dp / 8, tid);
+  }
 
   const uint64_t desc_q = sm90::make_desc(sm90::smem_addr(sQ), 128, 16 * Dp);
   const uint64_t desc_k = sm90::make_desc(sm90::smem_addr(sK + wg * HALF_K * Dp * 2), 128, 16 * Dp);
@@ -213,7 +255,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     sm90::cp_async_wait<0>();
     sm90::fence_proxy_async();
     __syncthreads();
-    load_rows(sV, vg + (long long)k0 * p.v_st, p.v_st, rows, dv_blk, CV, p.vec_v, tid);
+    const bf16* vt = vg + (long long)k0 * p.v_st;
+    load_start(sV, vt, p.v_st, rows, dv_blk, CV, vec_v, tid);
     sm90::cp_async_commit();
 
     // S = Q K^T for this warpgroup's half of the keys.
@@ -243,9 +286,10 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
     }
     // The maxima are posted; both warpgroups are done reading K(t).
     __syncthreads();
+    const bf16* kn = kg + (long long)(k0 + BK) * p.k_st;
+    const int kn_rows = min(BK, k_end - k0 - BK);
     if (more) {
-      load_rows(sK, kg + (long long)(k0 + BK) * p.k_st, p.k_st, min(BK, k_end - k0 - BK), p.D,
-                Dp, p.vec_k, tid);
+      load_start(sK, kn, p.k_st, kn_rows, p.D, Dp, vec_k, tid);
       sm90::cp_async_commit();
     }
 
@@ -273,19 +317,31 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
 #pragma unroll
     for (int i = 0; i < NV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // V(t) has landed (K(t + 1) may still be in flight); P is written.
+    // V(t) has landed (a copied K(t + 1) may still be in flight); P is
+    // written.
     if (more) sm90::cp_async_wait<1>();
     else sm90::cp_async_wait<0>();
+
+    if (vec_v == 0) {
+      __syncthreads();
+      sm90::shift_rows<THREADS, BK>(sV, vt, p.v_st, rows, dv_blk, CV, (dv_blk + 7) / 8, tid);
+    }
     sm90::fence_proxy_async();
     __syncthreads();
 
-    // O_half += P V[:, NV wg ..].
+    // O_half += P V[:, NV wg ..] (a realigned K(t + 1) is shifted while it
+    // runs).
     sm90::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks)
       sm90::wgmma_cols<NV, 0, 1>(o, sm90::desc_add(desc_p, ks * 256),
                                  sm90::desc_add(desc_v, ks * 2 * 16 * CV), 128, 1);
     sm90::wgmma_commit();
+    if (more && vec_k == 0) {
+      sm90::cp_async_wait<0>();
+      __syncthreads();
+      sm90::shift_rows<THREADS, BK>(sK, kn, p.k_st, kn_rows, p.D, Dp, Dp / 8, tid);
+    }
     sm90::wgmma_wait<0>();
     sm90::fence_operands<NV / 2>(o);
   }
@@ -336,14 +392,15 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NV)) flash_fwd_sm90_kernel
   }
 }
 
-template <int NV, int BK>
+template <int NV, int BK, bool REALIGN>
 cudaError_t launch_tiles(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_size<NV, BK>(p.Dp);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<NV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_sm90_kernel<NV, BK, REALIGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.n_qblocks * p.col_chunks * p.splits, p.H, p.B);
-  flash_fwd_sm90_kernel<NV, BK><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_sm90_kernel<NV, BK, REALIGN><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -352,18 +409,26 @@ cudaError_t launch_tiles(const Params& p, cudaStream_t stream) {
 // columns) beside a wide Q (704: the multimodal encoder).  Up to d = 704
 // every instantiation fits one of them; a launch that does not fit is
 // refused by cudaFuncSetAttribute, never run.
-template <int NV>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int NV, bool REALIGN>
+cudaError_t launch_width(const Params& p, cudaStream_t stream) {
   if constexpr (NV <= 168) {
-    if (smem_size<NV, 128>(p.Dp) <= MAX_SMEM) return launch_tiles<NV, 128>(p, stream);
+    if (smem_size<NV, 128>(p.Dp) <= MAX_SMEM) return launch_tiles<NV, 128, REALIGN>(p, stream);
   }
   if constexpr (NV >= 176) {
-    if (smem_size<NV, 64>(p.Dp) > MAX_SMEM) return launch_tiles<NV, 32>(p, stream);
+    if (smem_size<NV, 64>(p.Dp) > MAX_SMEM) return launch_tiles<NV, 32, REALIGN>(p, stream);
   }
-  return launch_tiles<NV, 64>(p, stream);
+  return launch_tiles<NV, 64, REALIGN>(p, stream);
 }
 
-using sm90::copy_vec;
+// A launch with a realigned operand takes one of three value widths a
+// warpgroup (64, 168 or 256, rounded up: the pixel encoder's 261 is 168
+// exactly), which keeps the build short.
+template <int NV>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  if (p.vec_q && p.vec_k && p.vec_v) return launch_width<NV, false>(p, stream);
+  constexpr int RV = NV <= 64 ? 64 : NV <= 168 ? 168 : 256;
+  return launch_width<RV, true>(p, stream);
+}
 
 }  // namespace
 
@@ -410,9 +475,15 @@ extern "C" int flash_attention_fwd_sm90(
   p.splits = splits;
   p.col_chunks = col_chunks;
   p.CW = CW;
-  p.vec_q = copy_vec(q, q_sb, q_st, q_sh, d);
-  p.vec_k = copy_vec(k, k_sb, k_st, k_sh, d);
-  p.vec_v = copy_vec(v, v_sb, v_st, v_sh, dv);
+  // cp.async copies of 16, 8 or 4 bytes where the rows allow them; rows
+  // aligned to 2 bytes only take the realigning loader (0).
+  auto vec = [](const void* x, long long sb, long long st, long long sh, int w) {
+    const int bytes = sm90::copy_vec(x, sb, st, sh, w);
+    return bytes >= 4 ? bytes : 0;
+  };
+  p.vec_q = vec(q, q_sb, q_st, q_sh, d);
+  p.vec_k = vec(k, k_sb, k_st, k_sh, d);
+  p.vec_v = vec(v, v_sb, v_st, v_sh, dv);
   p.q_sb = q_sb;
   p.q_st = q_st;
   p.q_sh = q_sh;

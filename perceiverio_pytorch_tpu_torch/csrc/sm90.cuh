@@ -23,10 +23,22 @@
 // Eight threads that copy 16 bytes each into rows 0..7 of one core matrix
 // write 128 contiguous bytes, so the loaders walk rows fastest.
 //
-// Every wgmma here reads both operands from shared memory.  A thread's
-// fragment of an m64nN fp32 accumulator is N/2 floats: d[4j + 2h + c] holds
-// row 16 w + l / 4 + 8 h, column 8 j + 2 (l % 4) + c, for warp w of the
-// warpgroup and lane l.
+// The wgmma products read B from shared memory and A from shared memory, or
+// (the _rA forms) from registers.  A thread's fragment of an m64nN fp32
+// accumulator is N/2 floats: d[4j + 2h + c] holds row 16 w + l / 4 + 8 h,
+// column 8 j + 2 (l % 4) + c, for warp w of the warpgroup and lane l.  A
+// register A fragment of 64 x 16 bf16 is four 32-bit registers: a[i] holds
+// the pair of columns 2 (l % 4) + 8 (i / 2), + 1 of row 16 w + l / 4 +
+// 8 (i % 2) -- so the pairs (d[8k + 2i], d[8k + 2i + 1]) of an accumulator,
+// rounded to bf16, are the A fragment of its columns 16k .. 16k + 15.
+//
+// Rows that are not 16-byte aligned (a 261-wide bf16 row is 522 bytes; an
+// offset view) cannot take 16-byte cp.async copies.  The realigning loader
+// reads the aligned 16-byte chunks that cover a row, shifts each pair of
+// neighbours in registers by the row's offset within its chunk, and stores
+// 16-byte chunks of the tile, zeros past the row's width: realign_rows
+// loads the chunks into registers; cover_rows and shift_rows copy them into
+// the tile with cp.async and shift them there in place.
 
 #pragma once
 
@@ -56,6 +68,22 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(BYTES)
                  : "memory");
   }
+}
+
+// 16 bytes when `valid`, else 16 zero bytes (src is not read).
+__device__ __forceinline__ void cp_async_16_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Makes the mbarrier track this thread's earlier cp.async copies: it
+// receives one arrival when they have all landed (.noinc: the barrier's
+// count includes that arrival).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -234,6 +262,61 @@ __device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t a, uint64_t b, i
   else static_assert(N == 8, "wgmma_m64k16: N must be 8, 16, 32, 64, 128 or 256");
 }
 
+// D[64 x N] (+)= A[64 x 16] * B[16 x N] with A from registers (four 32-bit
+// registers of bf16 pairs, laid out as the header says), B from shared
+// memory; TRANS_B = 1 reads B MN-major.
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_rA(float* d, const uint32_t* a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rA(float* d, const uint32_t* a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64k16_rA(float* d, const uint32_t* a, uint64_t b,
+                                                int scale_d) {
+  if constexpr (N == 32) wgmma_m64n32k16_rA<TRANS_B>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16_rA<TRANS_B>(d, a, b, scale_d);
+  else static_assert(N == 32, "wgmma_m64k16_rA: N must be 32 or 64");
+}
+
+// 2^x on the SFU (ex2.approx.ftz: results below 2^-126 flush to 0; 2^-inf
+// is 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 values as a bf16 pair in one register (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // D[64 x N] (+)= A[64 x 16] * B[16 x N] for any N that is a multiple of 8,
 // as products of 256, 128, ..., 8 columns from column OFF on: the product
 // of columns c.. reads B from `b` moved on by (c / 8) * n8_bytes and
@@ -259,6 +342,31 @@ template <int ID>
 __device__ __forceinline__ void warpgroup_sync() {
   static_assert(ID >= 1 && ID <= 15, "barrier 0 is __syncthreads");
   asm volatile("bar.sync %0, 128;\n" ::"n"(ID) : "memory");
+}
+
+// mbarriers in shared memory: init (once, before a __syncthreads), arrive
+// (release), and a wait for the phase of the given parity (acquire).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra LAB_DONE;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // ---- loaders ---------------------------------------------------------------
@@ -313,6 +421,174 @@ inline int copy_vec(const void* ptr, long long sb, long long st, long long sh, i
     if (ok) return vec;
   }
   return 2;
+}
+
+// ---- the realigning loader -----------------------------------------------
+
+
+// Bytes [off, off + 16) of the 32 bytes lo:hi (off even, 0 to 14).
+__device__ __forceinline__ uint4 shift_chunk(const uint4& lo, const uint4& hi, int off) {
+  const uint32_t wd[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const bool by2 = off & 8;     // two words first,
+  const bool by1 = off & 4;     // then one,
+  const int s = (off & 3) * 8;  // then 0 or 16 bits
+  uint32_t x2[6], x1[5];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) x2[j] = by2 ? wd[j + 2] : wd[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) x1[j] = by1 ? x2[j + 1] : x2[j];
+  return make_uint4(__funnelshift_r(x1[0], x1[1], s), __funnelshift_r(x1[1], x1[2], s),
+                    __funnelshift_r(x1[2], x1[3], s), __funnelshift_r(x1[3], x1[4], s));
+}
+
+// A chunk with only its first `valid` bytes kept (valid even; <= 0: none).
+__device__ __forceinline__ uint4 keep_bytes(uint4 c, long long valid) {
+  if (valid >= 16) return c;
+  uint32_t o[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long keep = valid - 4 * j;
+    o[j] = keep >= 4 ? o[j] : keep >= 2 ? (o[j] & 0xFFFFu) : 0u;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Chunks c0 .. c0 + n - 1 (n <= NB; 8 columns each) of one row of a tile
+// with C columns: the row's source starts at `row` (any 2-byte alignment)
+// and holds `nbytes` valid bytes.  Loads the n + 1 aligned 16-byte chunks
+// that cover them -- only those that hold a valid byte, so nothing outside
+// the chunks of the row's first and last valid bytes is read -- shifts
+// each neighbouring pair by the offset, zeroes the bytes past nbytes, and
+// stores 16 bytes a chunk.
+template <int NB>
+__device__ __forceinline__ void realign_run(char* tile, const char* row, int nbytes, int r, int c0,
+                                            int n, int C) {
+  const unsigned long long first = reinterpret_cast<unsigned long long>(row) + 16ull * c0;
+  const unsigned long long stop = reinterpret_cast<unsigned long long>(row) + nbytes;
+  const int off = (int)(first & 15);
+  const unsigned long long base = first - off;
+  uint4 w[NB + 1];
+#pragma unroll
+  for (int i = 0; i <= NB; ++i) {
+    const unsigned long long a = base + 16ull * i;
+    if ((i < n || (i == n && off != 0)) && a < stop) {
+      w[i] = __ldg(reinterpret_cast<const uint4*>(a));
+    } else {
+      w[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  char* dst = tile + cm_offset(r, 8 * c0, C);
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    if (i < n) {
+      // Valid bytes of this chunk: <= 0 past the row's end.
+      const long long valid = (long long)stop - (long long)(first + 16ull * i);
+      *reinterpret_cast<uint4*>(dst + 128 * i) =
+          keep_bytes(shift_chunk(w[i], w[i + 1], off), valid);
+    }
+  }
+}
+
+// Rows [0, R) x columns [0, C) of a tile in the core-matrix layout (R a
+// multiple of 8, C of 8) from a bf16 matrix with row stride `ld` (elements)
+// at any 2-byte alignment: source rows [0, rows) x columns [0, cols), zeros
+// elsewhere (pad columns, rows past the end), written through registers.
+// Thread tid takes rows 8 i + tid % 8 of one octet of rows and a run of
+// that octet's chunks (a share of R / 8 x C / 8 units, in runs of at most
+// NB chunks, one aligned load a chunk and one more a run), so that eight
+// threads store one core matrix and a thread's loads walk along its row.
+template <int THREADS, int NB>
+__device__ __forceinline__ void realign_rows(char* tile, const __nv_bfloat16* g, long long ld,
+                                             int rows, int R, int cols, int C, int tid) {
+  constexpr int G = THREADS / 8;
+  const int nch = C >> 3;
+  const int units = (R >> 3) * nch;
+  const int per = (units + G - 1) / G;
+  const int r8 = tid & 7;
+  int u = (tid >> 3) * per;
+  const int end = min(units, u + per);
+  while (u < end) {
+    const int oct = u / nch;
+    const int c0 = u - oct * nch;
+    const int n = min(NB, min(nch - c0, end - u));
+    const int r = 8 * oct + r8;
+    realign_run<NB>(tile, reinterpret_cast<const char*>(g + (long long)r * ld),
+                    r < rows ? 2 * cols : 0, r, c0, n, C);
+    u += n;
+  }
+}
+
+// The asynchronous form, in two passes over a tile with C columns.
+// cover_rows copies, for each row r < rows, the aligned 16-byte chunks that
+// hold a byte of the source row (columns [0, cols) at g + r ld, any 2-byte
+// alignment) into chunk slots 0, 1, ... of tile row r, with 16-byte
+// cp.async copies (the caller commits and waits, then syncs the block).
+// It needs ceil((14 + 2 cols) / 16) <= C / 8 (cover_fits).  shift_rows then
+// moves each such row left by its source's offset within its first chunk,
+// in place: slot j < nout becomes bytes [16 j, 16 j + 16) of the row, zeros
+// past its end.  nout = C / 8 writes every slot (a Q or K tile, whose pad
+// columns enter the products and must be zero); a V tile may stop at
+// ceil(cols / 8), since its pad columns feed only output columns that are
+// dropped.  Rows past `rows` keep what they held.
+__host__ __device__ __forceinline__ bool cover_fits(int cols, int C) {
+  return (14 + 2 * cols + 15) / 16 <= C / 8;
+}
+
+template <int THREADS>
+__device__ __forceinline__ void cover_rows(char* tile, const __nv_bfloat16* g, long long ld,
+                                           int rows, int cols, int C, int tid) {
+  const int r8 = tid & 7;
+#pragma unroll 1
+  for (int r = r8; r < rows; r += 8) {
+    const unsigned long long a = reinterpret_cast<unsigned long long>(g + (long long)r * ld);
+    const unsigned long long base = a & ~15ull;
+    const int n = (int)((a - base + 2ull * cols + 15) >> 4);
+    char* dst = tile + cm_offset(r, 0, C);
+    for (int j = tid >> 3; j < n; j += THREADS / 8)
+      cp_async<16>(smem_addr(dst + 128 * j), reinterpret_cast<const void*>(base + 16ull * j));
+  }
+}
+
+// THREADS / R consecutive threads (lanes of one warp) share a row: each
+// reads the slot after its run of slots, then, after a __syncwarp, shifts
+// its run four slots at a time, reading slots j + 1 .. j + 4 before it
+// writes slots j .. j + 3.
+template <int THREADS, int R>
+__device__ __forceinline__ void shift_rows(char* tile, const __nv_bfloat16* g, long long ld,
+                                           int rows, int cols, int C, int nout, int tid) {
+  constexpr int P = THREADS / R;
+  static_assert(P >= 1 && 32 % P == 0, "shift_rows: a row's threads must share a warp");
+  const int r = tid / P;
+  const int per = (nout + P - 1) / P;
+  const int j0 = (tid % P) * per;
+  const int j1 = min(nout, j0 + per);
+  char* row = tile + cm_offset(r, 0, C);
+  const bool live = r < rows && j0 < j1;
+  uint4 after = make_uint4(0u, 0u, 0u, 0u);
+  if (live && j1 < C / 8) after = *reinterpret_cast<const uint4*>(row + 128 * j1);
+  __syncwarp();
+  if (!live) return;
+  const int off = (int)(reinterpret_cast<unsigned long long>(g + (long long)r * ld) & 15);
+  const long long nbytes = 2ll * cols;
+  auto slot = [&](int j) { return reinterpret_cast<uint4*>(row + 128 * j); };
+  uint4 cur = *slot(j0);
+  int j = j0;
+#pragma unroll 1
+  for (; j + 4 <= j1; j += 4) {
+    const uint4 n0 = *slot(j + 1), n1 = *slot(j + 2), n2 = *slot(j + 3);
+    const uint4 n3 = j + 4 < j1 ? *slot(j + 4) : after;
+    *slot(j) = keep_bytes(shift_chunk(cur, n0, off), nbytes - 16ll * j);
+    *slot(j + 1) = keep_bytes(shift_chunk(n0, n1, off), nbytes - 16ll * (j + 1));
+    *slot(j + 2) = keep_bytes(shift_chunk(n1, n2, off), nbytes - 16ll * (j + 2));
+    *slot(j + 3) = keep_bytes(shift_chunk(n2, n3, off), nbytes - 16ll * (j + 3));
+    cur = n3;
+  }
+#pragma unroll 1
+  for (; j < j1; ++j) {
+    const uint4 nxt = j + 1 < j1 ? *slot(j + 1) : after;
+    *slot(j) = keep_bytes(shift_chunk(cur, nxt, off), nbytes - 16ll * j);
+    cur = nxt;
+  }
 }
 
 }  // namespace sm90

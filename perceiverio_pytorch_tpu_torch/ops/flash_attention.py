@@ -2,10 +2,13 @@
 their plain versions.
 
 Counterpart of ``perceiverio_pytorch_tpu/ops/pallas/flash_attention.py``:
-``_flash_kernel`` (K1) is ``csrc/flash_attention_fwd_sm90.cu`` for bf16
-inputs (wgmma on the tensor cores, route ``sm90_wgmma``) and
-``csrc/flash_attention_fwd.cu`` for fp32 ones (IEEE fp32 on the CUDA cores,
-route ``cuda_cores``), which also holds the merge of split-KV partials;
+``_flash_kernel`` (K1) is ``csrc/flash_attention_fwd_narrow_sm90.cu`` for
+bf16 inputs whose head widths are at most ``NARROW_HEAD_DIM`` = 64 (the flow
+self-attends: wgmma with P in registers, a producer warp feeding a K/V ring,
+route ``sm90_narrow``), ``csrc/flash_attention_fwd_sm90.cu`` for wider bf16
+heads (wgmma, route ``sm90_wgmma``) and ``csrc/flash_attention_fwd.cu`` for
+fp32 ones (IEEE fp32 on the CUDA cores, route ``cuda_cores``), which also
+holds the merge of split-KV partials;
 ``_bwd_dkv_kernel`` (K2) and ``_bwd_dq_kernel`` (K3) are
 ``csrc/flash_attention_bwd_sm90.cu`` for bf16 inputs (wgmma, route
 ``sm90_wgmma``, with the ordered sum of their split partials) and
@@ -29,15 +32,18 @@ design does about that.
     [Tq, Tk] logit matrix.
   * ``LAUNCHES``, ``LAUNCHES_BWD_DKV`` and ``LAUNCHES_BWD_DQ`` count kernel
     launches of K1, K2 and K3 (never plain-version calls): one per call,
-    however many CUDA launches it makes.  ``LAUNCHES_MERGE`` counts the
-    merge kernel's launches (K1 calls with more than one key split) and
-    ``LAUNCHES_BWD_SUM`` the sum kernel's (K2 or K3 calls with more than one
-    split).
+    however many CUDA launches it makes; ``LAUNCHES_NARROW`` counts the K1
+    launches that took the narrow route (each also counts in ``LAUNCHES``).
+    ``LAUNCHES_MERGE`` counts the merge kernel's launches (K1 calls with
+    more than one key split) and ``LAUNCHES_BWD_SUM`` the sum kernel's (K2
+    or K3 calls with more than one split).
   * ``launch_plan`` says what a K1 call on given tensors launches: route,
-    key splits (``_split_plan``), value-column chunks (``_col_chunks``),
-    blocks and CUDA launches; ``backward_plan`` the same for K2 (query
-    splits, ``_dkv_split_plan``) and K3 (key splits, ``_split_plan``), with
-    their output-column chunks.
+    key splits (``_split_plan``; the narrow route never splits), value-column
+    chunks (``_col_chunks``), blocks, CUDA launches and the bf16 kernels'
+    ``loader`` (cp.async copies, the realigning loader for rows that
+    cp.async cannot copy, or 2-byte copies: ``_loader``); ``backward_plan`` the same
+    for K2 (query splits, ``_dkv_split_plan``) and K3 (key splits,
+    ``_split_plan``), with their output-column chunks.
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
     512 its grid splits the value columns in two), K2 and K3 up to
@@ -69,6 +75,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
+            "fwd_narrow": "flash_attention_fwd_narrow_sm90.cu",
             "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu"}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
@@ -80,6 +87,10 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "ker
 # columns as K1 splits its values.
 MAX_HEAD_DIM_FWD = 704
 MAX_HEAD_DIM_BWD = 704
+# bf16 K1 calls whose Dqk and Dv are both at most this take the narrow-head
+# kernel (two warpgroups of 64 query rows a block, never a key split).
+NARROW_HEAD_DIM = 64
+NARROW_BLOCK_Q = 128
 COL_CHUNK = 512
 WIDE_DQ_CHUNK = 352
 # K1's blocks: query rows per block and keys per tile (both kernels); the
@@ -95,6 +106,7 @@ MIN_SPLIT_TILES = 8
 # K2 and K3, the merge of K1's split-KV partials and the sum of K2's or K3's
 # split partials.
 LAUNCHES = 0
+LAUNCHES_NARROW = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_MERGE = 0
@@ -143,8 +155,9 @@ def _nvcc() -> str:
 
 def library_paths() -> Dict[str, str]:
     """The .so path of each kernel source by name ("fwd", "fwd_sm90",
-    "bwd", "bwd_sm90"): the name carries the hash of the source and of every
-    ``csrc/*.cuh`` header, so an edit to either builds a new library."""
+    "fwd_narrow", "bwd", "bwd_sm90"): the name carries the hash of the
+    source and of every ``csrc/*.cuh`` header, so an edit to either builds a
+    new library."""
     headers = b""
     for name in sorted(os.listdir(_CSRC)):
         if name.endswith(".cuh"):
@@ -213,6 +226,14 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_void_p]  # stream
             )
             fwd.flash_attention_fwd_merge.restype = ctypes.c_int
+            fwd_narrow = ctypes.CDLL(paths["fwd_narrow"])
+            fwd_narrow.flash_attention_fwd_narrow_sm90.argtypes = (
+                [ctypes.c_void_p] * 7  # q, k, v, kv_mask, q_mask, out, lse
+                + [ctypes.c_int] * 7  # B, H, Tq, Tk, kv_len, D, Dv
+                + _STRIDES * 3  # q, k, v
+                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            )
+            fwd_narrow.flash_attention_fwd_narrow_sm90.restype = ctypes.c_int
             bwd = ctypes.CDLL(paths["bwd"])
             for fn in (bwd.flash_attention_bwd_dkv, bwd.flash_attention_bwd_dq):
                 fn.argtypes = (
@@ -242,7 +263,8 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_int, ctypes.c_void_p]  # splits, stream
             )
             bwd_sm90.flash_attention_bwd_sum.restype = ctypes.c_int
-            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "bwd": bwd, "bwd_sm90": bwd_sm90}
+            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "fwd_narrow": fwd_narrow, "bwd": bwd,
+                     "bwd_sm90": bwd_sm90}
     return _libs
 
 
@@ -487,15 +509,69 @@ def _split_plan(b: int, tq: int, h: int, tk: int, col_chunks: int = 1):
     return _split_bounds(tk, splits)
 
 
+def _copy_bytes(t: torch.Tensor, width: int) -> int:
+    """The widest cp.async copy (16, 8, 4 or 2 bytes) that ``t``'s address,
+    batch, token and head strides and row width all allow (csrc/sm90.cuh
+    ``copy_vec``)."""
+    size = t.element_size()
+    addr = t.storage_offset() * size if t.device.type == "meta" else t.data_ptr()
+    sizes = [addr, width * size] + [st * size for st in t.stride()[:3]]
+    return next(n for n in (16, 8, 4, 2) if all(x % n == 0 for x in sizes))
+
+
+def _covers(width: int, tile: int) -> bool:
+    """csrc/sm90.cuh ``cover_fits``: the aligned 16-byte chunks that cover a
+    bf16 row of ``width`` at any 2-byte alignment fit a tile row of ``tile``
+    columns."""
+    return width + 7 <= tile
+
+
+def _loader(q, k, v, narrow: bool) -> str:
+    """How K1's bf16 kernels bring q, k and v into shared memory:
+    "cp.async16", "cp.async8" or "cp.async4" when every operand takes cp.async
+    copies of at least that many bytes, "realign" when one or more takes the
+    realigning loader (aligned 16-byte chunks shifted into place: the narrow
+    route's rows that are not 16-byte aligned, such as 41 wide; the wgmma
+    route's rows aligned to 2 bytes only, such as the pixel encoder's 261
+    wide or an odd offset view), "copy2" when the wgmma route copies one or
+    more 2 bytes at a time (rows aligned to 2 bytes only whose covering
+    chunks do not fit the tile: ``_covers`` at Q's and K's padded width and
+    at the value columns of the kernel's instantiation, 128, 336 or 512);
+    the fp32 kernel loads elements ("elements")."""
+    if q.dtype != torch.bfloat16:
+        return "elements"
+    least = min(_copy_bytes(t, t.shape[3]) for t in (q, k, v))
+    if narrow:
+        return "realign" if least < 16 else "cp.async16"
+    if least >= 4:
+        return f"cp.async{least}"
+    d, dv = q.shape[3], v.shape[3]
+    cw = -(-(-(-dv // _col_chunks(dv))) // 16) * 16  # value columns of chunk 0
+    half = cw // 2
+    tiles = (-(-d // 16) * 16,) * 2 + (2 * (64 if half <= 64 else 168 if half <= 168 else 256),)
+    widths = (d, d, min(cw, dv))
+    covered = all(_covers(w, c) for t, w, c in zip((q, k, v), widths, tiles)
+                  if _copy_bytes(t, t.shape[3]) == 2)
+    return "realign" if covered else "copy2"
+
+
 def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
-    """What a K1 call on these tensors launches: ``route`` ("sm90_wgmma"
-    for bf16 on CUDA, "cuda_cores" for fp32), ``splits`` and
+    """What a K1 call on these tensors launches: ``route`` ("sm90_narrow"
+    for bf16 on CUDA with Dqk and Dv at most NARROW_HEAD_DIM, "sm90_wgmma"
+    for wider bf16 heads, "cuda_cores" for fp32), ``splits`` and
     ``tiles_per_split`` (``_split_plan``, or ``num_splits`` ranges when
-    given), ``col_chunks`` (``_col_chunks``: the grid's split of the value
-    columns), ``blocks`` of the main kernel's grid and ``cuda_launches``
-    (the kernel, and the merge when there is more than one split)."""
-    b, tq, h = q.shape[:3]
+    given; the narrow route walks all keys in one split, and a forced
+    ``num_splits`` takes the split-KV kernel, "sm90_wgmma"), ``col_chunks``
+    (``_col_chunks``: the grid's split of the value columns), ``blocks`` of
+    the main kernel's grid, ``cuda_launches`` (the kernel, and the merge
+    when there is more than one split) and ``loader`` (``_loader``)."""
+    b, tq, h, d = q.shape
     _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
+    if (q.dtype == torch.bfloat16 and num_splits is None
+            and max(d, v.shape[3]) <= NARROW_HEAD_DIM):
+        return dict(route="sm90_narrow", splits=1, tiles_per_split=-(-kv_len // BLOCK_K),
+                    col_chunks=1, blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1,
+                    loader=_loader(q, k, v, narrow=True))
     chunks = _col_chunks(v.shape[3])
     splits, per = (_split_plan(b, tq, h, kv_len, chunks) if num_splits is None
                    else _split_bounds(kv_len, num_splits))
@@ -503,7 +579,7 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
         route="sm90_wgmma" if q.dtype == torch.bfloat16 else "cuda_cores",
         splits=splits, tiles_per_split=per, col_chunks=chunks,
         blocks=-(-tq // BLOCK_Q) * h * b * chunks * splits,
-        cuda_launches=1 + (splits > 1),
+        cuda_launches=1 + (splits > 1), loader=_loader(q, k, v, narrow=False),
     )
 
 
@@ -563,11 +639,12 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
 
 def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
                           kv_logical_len, return_lse, num_splits=None):
-    """K1 on CUDA tensors: the sm90 kernel for bf16, the CUDA-core kernel
-    for fp32, then the merge when the plan splits the keys.  ``num_splits``
-    overrides the plan (for tests that hold split counts against each
-    other)."""
-    global LAUNCHES, LAUNCHES_MERGE
+    """K1 on CUDA tensors: the narrow-head kernel for bf16 heads up to
+    NARROW_HEAD_DIM wide, the sm90 kernel for wider bf16 heads, the CUDA-core
+    kernel for fp32, then the merge when the plan splits the keys.
+    ``num_splits`` overrides the plan (for tests that hold split counts
+    against each other; it takes the split-KV kernels)."""
+    global LAUNCHES, LAUNCHES_MERGE, LAUNCHES_NARROW
     kv_mask_c, q_mask_c = _check_cuda(
         q, (("q", q), ("k", k), ("v", v)), (("kv_mask", kv_mask), ("q_mask", q_mask)),
         MAX_HEAD_DIM_FWD, "K1 (flash attention forward)")
@@ -590,19 +667,25 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
         part_ml = torch.empty((2, splits, b, h, tq), dtype=torch.float32, device=q.device)
 
     libs = _load()
-    kernel = (libs["fwd_sm90"].flash_attention_fwd_sm90 if plan["route"] == "sm90_wgmma"
-              else libs["fwd"].flash_attention_fwd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(kv_mask_c), _ptr(q_mask_c), out.data_ptr(), _ptr(lse),
-            _ptr(part_o), _ptr(None if part_ml is None else part_ml[0]),
-            _ptr(None if part_ml is None else part_ml[1]),
-            b, h, tq, tk, kv_len, d, dv, splits, plan["tiles_per_split"], plan["col_chunks"],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            scale, stream,
-        )
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        if plan["route"] == "sm90_narrow":
+            err = libs["fwd_narrow"].flash_attention_fwd_narrow_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask_c), _ptr(q_mask_c),
+                out.data_ptr(), _ptr(lse), b, h, tq, tk, kv_len, d, dv, *strides, scale,
+                stream)
+        else:
+            kernel = (libs["fwd_sm90"].flash_attention_fwd_sm90
+                      if plan["route"] == "sm90_wgmma" else libs["fwd"].flash_attention_fwd)
+            err = kernel(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(kv_mask_c), _ptr(q_mask_c), out.data_ptr(), _ptr(lse),
+                _ptr(part_o), _ptr(None if part_ml is None else part_ml[0]),
+                _ptr(None if part_ml is None else part_ml[1]),
+                b, h, tq, tk, kv_len, d, dv, splits, plan["tiles_per_split"],
+                plan["col_chunks"], *strides, scale, stream,
+            )
         if err != 0:
             raise RuntimeError(f"K1 ({plan['route']}) launch failed: CUDA error {err}")
         if splits > 1:
@@ -615,6 +698,7 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
                 raise RuntimeError(f"flash_attention_fwd_merge launch failed: CUDA error {err}")
             LAUNCHES_MERGE += 1
     LAUNCHES += 1
+    LAUNCHES_NARROW += plan["route"] == "sm90_narrow"
     return (out, lse) if return_lse else out
 
 

@@ -8,8 +8,8 @@ On a machine with an NVIDIA GPU, from the repository root:
      every kernel instantiation's registers, spills, stack and shared memory
      (static; the dynamic size of the sm90 instantiations at the three flow
      sites, of K1's, K2's and K3's at the multimodal encoder, in both
-     dtypes, and of K1's at the two classification encoders is printed
-     beside);
+     dtypes, of K1's at the two classification encoders and of the four
+     narrow-route instantiations is printed beside);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -22,8 +22,8 @@ On a machine with an NVIDIA GPU, from the repository root:
   5. times K1 and K2, K3 apart, in both dtypes at the three flow sites at
      batch 1 and at the multimodal encoder (CUDA events), with each call's
      plan; K1 alone at the classification encoders (batch 16: the pixel
-     variant's d = 261, the 1x1-conv variant's d = 512), with the width of
-     the loads its strides allow;
+     variant's d = 261, the 1x1-conv variant's d = 512), with the loader
+     its strides take;
   6. the full-width bf16 multimodal model (PERFORMANCE, seeded random
      weights, one random clip, 128 chunks): a clip's wall time and its
      encode's (host clock ending in a synchronize), with the query-pad fold
@@ -60,10 +60,25 @@ On a machine with an NVIDIA GPU, from the repository root:
      (partial, full, full, partial): the median wall of a call, and of a
      call with the copy of the rows to the host, a call's host enqueue,
      wait, device time (CUDA events) and copy apart, then each under
-     ``torch.profiler`` as in 6.
+     ``torch.profiler`` as in 6;
+ 15. (``noise``) the flow self-attend stack in bf16 (``chip_smoke.py``'s
+     full-width model and synthetic requests, batch 2; run from the
+     repository root): the largest gradient of a key projection's bias,
+     whose exact value is 0, against that projection's weight gradient, on
+     12 inputs (the first is ``chip_smoke.py`` phase R(b)'s);
+ 16. (``k1``) bf16 K1 alone at the main path's sites (the flow sites at
+     batch 1 and 6, the classification encoders at 16, 8 and the server's
+     buckets 1, 2, 4, the multimodal encoder), each timed as
+     ``chip_smoke.py`` times a kernel: at least 3 launches and at least
+     10 ms of them.  It needs nothing of K1 but ``flash_attention`` and
+     ``launch_plan``, so run as a file it times the checkout that
+     ``PYTHONPATH`` names: to compare two checkouts on one card, run
+     ``PYTHONPATH=DIR python perceiverio_pytorch_tpu_torch/tools/kernel_report.py k1``
+     with DIR the other one, this one, this one, the other one.
 
 ``python -m perceiverio_pytorch_tpu_torch.tools.kernel_report artifact``
-(or any of ``SECTIONS``' names) runs only those parts, after the build.
+(or any of ``SECTIONS``' names) runs only those parts, after the build;
+``ptxas`` is parts 1 and 2.
 
 It checks and prints; ``chip_smoke.py`` is the test that fails.
 """
@@ -159,6 +174,10 @@ def ptxas_report():
     print(f"[smem] flash_bwd_dkv_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 32 * 64 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_bwd_dq_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
+    # The narrow route: 128 query rows, 4 stages of 64 keys, 8 mbarriers.
+    for dp, nv in ((32, 32), (32, 64), (64, 32), (64, 64)):
+        smem = (128 * dp + 4 * 64 * (dp + nv)) * 2 + 2 * 4 * 8
+        print(f"[smem] flash_fwd_narrow_kernel<{dp}, {nv}>: {smem} bytes dynamic")
     # K2 and K3 at the classification encoders: d = 261 takes the flow
     # encoder's <16, 6> (6 tiles of 64 columns) and <168, 64> (Q and K tiles
     # of 336 columns, dO and V of 272); d = 512 the flow decoder's <16, 8> and
@@ -304,8 +323,7 @@ def time_flow_sites(gen, reps=2):
             ms = _time(lambda: fa.flash_attention(q, k, v), reps)
             b, tq, tk, h, d, dv = shape
             tflops = 2 * b * tq * tk * h * (d + dv) / ms / 1e9
-            loads = f", loads of {_load_bytes(k)} bytes" if dtype == torch.bfloat16 else ""
-            print(f"[time] {shape} {dtype}: K1 {ms:.3f} ms, {tflops:.1f} TFLOP/s{loads} "
+            print(f"[time] {shape} {dtype}: K1 {ms:.3f} ms, {tflops:.1f} TFLOP/s "
                   f"({fa.launch_plan(q, k, v)})", flush=True)
 
 
@@ -324,19 +342,12 @@ def time_classification_backward(gen, reps=2):
             pairs = b * tq * tk * h
             tflops2 = (4 * d + 4 * dv) * pairs / ms2 / 1e9
             tflops3 = (4 * d + 2 * dv) * pairs / ms3 / 1e9
-            loads = f", loads of {_load_bytes(k)} bytes" if dtype == torch.bfloat16 else ""
+            loads = (f", loads of {fa._copy_bytes(k, k.shape[3])} bytes"
+                     if dtype == torch.bfloat16 else "")
             print(f"[time] {shape} {dtype}: K2 {ms2:.3f} ms ({tflops2:.1f} TFLOP/s), K3"
                   f" {ms3:.3f} ms ({tflops3:.1f} TFLOP/s){loads} ({kernels.plan})", flush=True)
             del q, k, v, out, lse, grad, kernels
             torch.cuda.empty_cache()
-
-
-def _load_bytes(t):
-    """The widest cp.async granularity (16, 8, 4 or 2 bytes) that the bf16
-    kernel's loads of ``t`` may take: base address, strides and row width
-    in bytes must all be multiples of it (csrc/sm90.cuh ``copy_vec``)."""
-    sizes = [t.data_ptr(), 2 * t.shape[-1]] + [2 * st for st in t.stride()[:-1]]
-    return next(n for n in (16, 8, 4, 2) if all(x % n == 0 for x in sizes))
 
 
 def profile_multimodal(n_chunks=128, top=12):
@@ -684,8 +695,71 @@ def time_codecs(calls=10):
               f"{sorted(times)[calls // 2] * 1e3:.2f} ms over {calls}", flush=True)
 
 
-SECTIONS = ("forward", "backward", "flow", "mm", "mm_train", "serving", "cls_backward",
-            "training", "artifact", "codecs", "lora", "mlm_eval")
+def key_bias_noise():
+    """Section 15: the key biases' gradient noise of the flow self-attend
+    stack through K1."""
+    import chip_smoke
+    from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowInference
+
+    model = chip_smoke._flow_model(PERFORMANCE)
+    stack = model.perceiver._encoder.self_attends
+    gen = torch.Generator().manual_seed(chip_smoke.SEED + 2)
+    frames = [chip_smoke._smooth_frame(gen, 436, 1024) for _ in range(4)]
+
+    def stack_input(i):  # chip_smoke.py phase 6's request i (1 to 3)
+        seen = []
+        hook = stack.register_forward_pre_hook(lambda m, a: seen.append(a[0].detach()))
+        with torch.inference_mode():
+            FlowInference(model, device="cuda")(
+                frames[i][None],
+                torch.roll(frames[i], shifts=(i + 1, 2 * i + 1), dims=(1, 2))[None])
+        hook.remove()
+        return seen[0].clone()
+
+    ratios = []
+    for i in range(1, 4):
+        latents = stack_input(i)
+        for seed in range(4):
+            ggen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 18 + seed)
+            x = latents[2 * seed % latents.shape[0]:][:2].detach().clone()
+            g = torch.randn(x.shape, generator=ggen, device="cuda")
+            model.zero_grad(set_to_none=True)
+            (stack(x.clone().requires_grad_()).float() * g).sum().backward()
+            torch.cuda.synchronize()
+            grads = {n: p.grad.float() for n, p in stack.named_parameters()}
+            ratios.append(max(grads[n].abs().max().item()
+                              / grads[n[:-len("bias")] + "weight"].abs().max().item()
+                              for n in grads if n.endswith("proj_k.bias")))
+            print(f"[noise] request {i}, tiles {2 * seed % 6}-{2 * seed % 6 + 1}, upstream"
+                  f" seed {chip_smoke.SEED + 18 + seed}: {ratios[-1]:.4f}", flush=True)
+    vals = sorted(ratios)
+    print(f"[noise] {len(vals)} inputs, key-bias |grad| / weight's: median "
+          f"{vals[len(vals) // 2]:.4f}, range {vals[0]:.4f}-{vals[-1]:.4f}, above 0.1: "
+          f"{sum(v > 0.1 for v in vals)}", flush=True)
+
+
+def time_k1_sites(reps=3, window_ms=10.0):
+    """Section 16: bf16 K1 alone at the main path's sites."""
+    import math
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sites = (FLOW_SITES + tuple((6,) + shape[1:] for shape in FLOW_SITES)
+             + CLASSIFICATION_SITES[:2] + CLASSIFICATION_TRAIN_SITES[:2]
+             + tuple((b, 512, 50176, 1, d, d) for d in (261, 512) for b in (1, 2, 4))
+             + (MULTIMODAL_SITE,))
+    for shape in sites:
+        (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
+        call = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        n = max(reps, math.ceil(window_ms / max(_time(call, 1), 1e-3)))
+        print(f"[k1] {shape}: {_time(call, n):.4f} ms over {n} launches "
+              f"({fa.launch_plan(q, k, v)['route']})", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+SECTIONS = ("ptxas", "forward", "backward", "flow", "mm", "mm_train", "serving",
+            "cls_backward", "training", "artifact", "codecs", "lora", "mlm_eval", "noise",
+            "k1")
 
 
 def main(argv=None):
@@ -697,20 +771,22 @@ def main(argv=None):
     if any(name not in SECTIONS for name in sections):
         raise SystemExit(f"unknown sections {sections}; choose from {SECTIONS}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if not sections:
+    sections = sections or list(SECTIONS)
+    if "ptxas" in sections:
         ptxas_report()
     paths = fa.build()
     print(f"[build] {paths}", flush=True)
-    if not sections:
+    if "ptxas" in sections:
         sass_report(paths)
-        sections = SECTIONS
     gen = torch.Generator(device="cuda").manual_seed(0)
-    runs = dict(forward=lambda: check_forward(gen), backward=lambda: check_backward(gen),
+    runs = dict(ptxas=lambda: None, forward=lambda: check_forward(gen),
+                backward=lambda: check_backward(gen),
                 flow=lambda: time_flow_sites(gen), mm=profile_multimodal,
                 mm_train=profile_multimodal_training, serving=profile_serving,
                 cls_backward=lambda: time_classification_backward(gen),
                 training=profile_training, artifact=profile_artifact, codecs=time_codecs,
-                lora=profile_lora, mlm_eval=profile_mlm_eval)
+                lora=profile_lora, mlm_eval=profile_mlm_eval, noise=key_bias_noise,
+                k1=time_k1_sites)
     for name in sections:
         runs[name]()
 

@@ -185,6 +185,106 @@ def test_bf16_takes_the_wgmma_route(cuda):
     _check(out, fa.flash_attention_reference(q, k, v), 2e-2)
 
 
+# The narrow route (bf16, Dqk and Dv at most 64): the flow self-attend's
+# width, 16 wide, the 41-wide rows that take the realigning loader, 64, and
+# unequal widths; 1 to 16 heads; Tq and Tk not multiples of 128.
+NARROW_CASES = [(2, 100, 777, 2, 32, 32), (3, 130, 300, 16, 32, 32), (2, 70, 129, 1, 16, 16),
+                (2, 100, 777, 2, 41, 64), (1, 200, 333, 3, 64, 64), (2, 65, 190, 4, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", NARROW_CASES)
+def test_narrow_kernel_matches_reference(cuda, b, tq, tk, h, d, dv):
+    """The narrow-head kernel against the plain version: kv_mask, q_mask,
+    kv_logical_len, an all-masked batch entry (zeros, lse +inf) and the lse;
+    two calls bit for bit; one launch, no merge."""
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 20 + d, cuda)
+    kv_mask[-1] = False
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 3, return_lse=True)
+    assert fa.launch_plan(q, k, v, kv_logical_len=tk - 3)["route"] == "sm90_narrow"
+    before = (fa.LAUNCHES, fa.LAUNCHES_MERGE)
+    got, got_lse = fa.flash_attention(q, k, v, **kw)
+    again, again_lse = fa.flash_attention(q, k, v, **kw)
+    assert (fa.LAUNCHES, fa.LAUNCHES_MERGE) == (before[0] + 2, before[1])
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got_lse, again_lse)
+    _check(got, want, 2e-2)
+    assert torch.all(got.view(b, tq, -1)[~q_mask] == 0) and torch.all(got[-1] == 0)
+    assert torch.equal(torch.isinf(got_lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(got_lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
+    # without masks: the unmasked tiles' path, and the lse
+    got, got_lse = fa.flash_attention(q, k, v, return_lse=True)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                  return_lse=True)
+    _check(got, want, 2e-2)
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 41, 64])
+def test_narrow_kernel_takes_strided_inputs(cuda, d):
+    """[B, H, T, D] storage seen as [B, T, H, D], and q, k, v as views of
+    one [B, T, 3, H, D] buffer: strides, not copies, on the narrow route."""
+    q, k, v, kv_mask, _ = _inputs(2, 150, 150, 3, d, d, 30 + d, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    want = fa.flash_attention_reference(q.float(), k.float(), v.float(), kv_mask=kv_mask)
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not qs.is_contiguous()
+    assert fa.launch_plan(qs, ks, vs)["route"] == "sm90_narrow"
+    _check(fa.flash_attention(qs, ks, vs, kv_mask=kv_mask), want, 2e-2)
+    qkv = torch.stack([q, k, v], dim=2)
+    got = fa.flash_attention(*qkv.unbind(2), kv_mask=kv_mask)
+    _check(got, want, 2e-2)
+
+
+def _realign_views(x, offset):
+    """``x`` [B, T, H, W] copied into a NaN-filled buffer at element
+    ``offset`` with rows W + 8 apart, and seen as [B, T, H, W]: no row (for
+    the odd offsets and widths, no address) is 16-byte aligned, and every
+    byte around the rows is NaN."""
+    b, t, h, w = x.shape
+    buf = torch.full((b * t * h * (w + 8) + 8,), float("nan"), dtype=x.dtype, device=x.device)
+    view = buf[offset:offset + b * t * h * (w + 8)].view(b, t, h, w + 8)[..., :w]
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(8))
+@pytest.mark.parametrize("b,tq,tk,h,d", [(2, 130, 1000, 1, 261), (1, 100, 700, 1, 322),
+                                         (2, 130, 700, 2, 79), (2, 130, 700, 3, 41),
+                                         (2, 130, 700, 3, 32)])
+def test_realigned_rows_match_aligned_rows(cuda, offset, b, tq, tk, h, d):
+    """The loaders change only how bytes reach shared memory: unaligned
+    views at every offset mod 16 bytes (rows W + 8 apart in a NaN-filled
+    buffer; the realigning loader or 4- and 8-byte copies) give the same bits
+    as the same values zero-padded to a multiple of 8 columns, which take
+    16-byte copies -- on the wgmma route (the pixel encoder's 261, the flow
+    encoder's 322, and 79, whose Q and K rows take 2-byte copies) and the
+    narrow one."""
+    q, k, v, _, _ = _inputs(b, tq, tk, h, d, d, 40 + d, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(kv_logical_len=tk - 7, softmax_scale=1.0 / d ** 0.5, return_lse=True)
+    dpad = -(-d // 8) * 8
+    padded = [torch.nn.functional.pad(x, (0, dpad - d)) for x in (q, k, v)]
+    views = [_realign_views(x, offset) for x in (q, k, v)]
+    assert fa.launch_plan(*padded)["loader"] == "cp.async16"
+    plan = fa.launch_plan(*views)
+    assert plan["route"] == ("sm90_narrow" if d <= 64 else "sm90_wgmma")
+    assert plan["loader"] != "cp.async16" or offset % 8 == 0
+    if offset % 2:  # rows aligned to 2 bytes only
+        assert plan["loader"] == ("copy2" if d == 79 else "realign")
+    want, want_lse = fa.flash_attention(*padded, **kw)
+    got, got_lse = fa.flash_attention(*views, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(b, tq, h, d), want.view(b, tq, h, dpad)[..., :d])
+    assert torch.equal(got_lse, want_lse)
+
+
 # Widths above 512 (the value columns split over two grid chunks): the
 # multimodal encoder's 704, a ragged 600 (chunks of 304 + 296 in bf16, 320 +
 # 280 in fp32), a 704-wide Q with Dv 512 (32-key tiles, one chunk) and with

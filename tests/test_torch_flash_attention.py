@@ -225,7 +225,7 @@ def test_launch_plan_routes_by_dtype():
     k = torch.zeros(1, 182528, 1, 322, dtype=torch.bfloat16)
     plan = fa.launch_plan(q, k, k)
     assert plan == dict(route="sm90_wgmma", splits=8, tiles_per_split=357, col_chunks=1,
-                        blocks=256, cuda_launches=2)
+                        blocks=256, cuda_launches=2, loader="cp.async4")
     plan = fa.launch_plan(q.float(), k.float(), k.float(), num_splits=1)
     assert (plan["route"], plan["splits"], plan["cuda_launches"]) == ("cuda_cores", 1, 1)
 
@@ -252,14 +252,126 @@ def test_wide_launch_plan(dtype, b, tq, dv, want):
     k = torch.empty(b, 52097, 1, 704, dtype=dtype, device="meta")
     v = torch.empty(b, 52097, 1, dv, dtype=dtype, device="meta")
     plan = fa.launch_plan(q, k, v)
-    assert plan == dict(route="sm90_wgmma" if dtype == torch.bfloat16 else "cuda_cores",
-                        **want)
+    bf16 = dtype == torch.bfloat16
+    assert plan == dict(route="sm90_wgmma" if bf16 else "cuda_cores",
+                        loader="cp.async16" if bf16 else "elements", **want)
     assert fa._split_plan(b, tq, 1, 52097, fa._col_chunks(dv)) == (
         want["splits"], want["tiles_per_split"])
     tiles = -(-52097 // fa.BLOCK_K)
     assert (want["splits"] - 1) * want["tiles_per_split"] < tiles
     assert tiles <= want["splits"] * want["tiles_per_split"]
     assert [fa._col_chunks(w) for w in (1, 322, 512, 513, 704)] == [1, 1, 1, 2, 2]
+
+
+# The self-attend's batches in chip_smoke.py: a flow request's 6 tiles, one
+# tile, and phase R's microbatches of the 6 tiles (M = 2, 3, 6).
+SELF_ATTEND_BATCHES = (1, 2, 3, 6)
+
+
+@pytest.mark.parametrize("b", SELF_ATTEND_BATCHES)
+def test_narrow_route_at_the_self_attend(b):
+    """The flow self-attend (B, 2048 queries, 2048 keys, 16 heads of 32)
+    takes the narrow-head kernel at every batch the card runs it at: one
+    launch, no key split, no merge, 16 blocks of 128 rows a head and batch
+    entry, 16-byte copies of its 64-byte rows."""
+    q = torch.empty(b, 2048, 16, 32, dtype=torch.bfloat16, device="meta")
+    plan = fa.launch_plan(q, q, q)
+    assert plan == dict(route="sm90_narrow", splits=1, tiles_per_split=32, col_chunks=1,
+                        blocks=16 * 16 * b, cuda_launches=1, loader="cp.async16")
+    # the rows of [B, T, 3, H, D] qkv storage (q, k, v views) are aligned too
+    qkv = torch.empty(b, 2048, 3, 16, 32, dtype=torch.bfloat16, device="meta")
+    assert fa.launch_plan(*qkv.unbind(2)) == plan
+
+
+@pytest.mark.parametrize(
+    "dtype,d,dv,num_splits,route",
+    [(torch.bfloat16, 16, 16, None, "sm90_narrow"), (torch.bfloat16, 41, 64, None, "sm90_narrow"),
+     (torch.bfloat16, 64, 64, None, "sm90_narrow"), (torch.bfloat16, 64, 32, None, "sm90_narrow"),
+     (torch.bfloat16, 65, 64, None, "sm90_wgmma"), (torch.bfloat16, 32, 72, None, "sm90_wgmma"),
+     (torch.bfloat16, 32, 32, 1, "sm90_wgmma"), (torch.bfloat16, 41, 64, 2, "sm90_wgmma"),
+     (torch.float32, 32, 32, None, "cuda_cores")],
+)
+def test_narrow_route_by_width(dtype, d, dv, num_splits, route):
+    """bf16 calls whose Dqk and Dv are both at most NARROW_HEAD_DIM take the
+    narrow route, which never splits its keys; wider heads, fp32 and a
+    forced split count take the split-KV kernels."""
+    b, tq, tk, h = 2, 100, 777, 2
+    q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
+    k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
+    v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
+    plan = fa.launch_plan(q, k, v, kv_logical_len=tk - 50, num_splits=num_splits)
+    assert plan["route"] == route
+    if route == "sm90_narrow":
+        assert (plan["splits"], plan["tiles_per_split"], plan["cuda_launches"]) == (1, 12, 1)
+        assert plan["blocks"] == -(-tq // fa.NARROW_BLOCK_Q) * h * b
+    else:
+        assert plan["blocks"] == -(-tq // fa.BLOCK_Q) * h * b * plan["splits"]
+
+
+@pytest.mark.parametrize(
+    "width,offset,loader,own",
+    [(261, 0, "realign", "realign"), (322, 0, "cp.async4", "cp.async4"),
+     (322, 1, "realign", "cp.async4"), (264, 0, "cp.async16", "cp.async16"),
+     (264, 1, "realign", "cp.async16"), (264, 2, "cp.async4", "cp.async16"),
+     (264, 4, "cp.async8", "cp.async16"), (512, 3, "copy2", "cp.async16"),
+     (704, 0, "cp.async16", "cp.async16"), (79, 0, "copy2", "copy2"),
+     (600, 1, "realign", "cp.async16"), (41, 0, "realign", "realign"),
+     (32, 0, "cp.async16", "cp.async16"), (32, 4, "realign", "cp.async16"),
+     (32, 8, "cp.async16", "cp.async16")],
+)
+def test_loader_by_row_alignment(width, offset, loader, own):
+    """How the bf16 kernels bring rows into shared memory, by the alignment
+    that address, strides and row width all allow: the wgmma route copies
+    them with cp.async of 16, 8 or 4 bytes and realigns rows aligned to 2
+    bytes only (the pixel encoder's 261 wide, 522-byte rows; odd offsets),
+    or copies them 2 bytes at a time where the covering chunks do not fit
+    the tile (79 wide, an odd offset view of 512); the narrow route copies
+    16-byte rows and realigns any other (41 wide, a view ``offset`` elements
+    into its storage).  ``own`` is the loader of the contiguous tensor; a
+    call takes the least of its operands'.  fp32 calls load elements."""
+    b, t, h = 2, 24, 2
+    buf = torch.zeros(b * t * h * width + offset, dtype=torch.bfloat16)
+    x = buf[offset:].view(b, t, h, width)
+    y = torch.zeros(b, t, h, width, dtype=torch.bfloat16)
+    assert fa.launch_plan(x, y, y)["loader"] == loader
+    assert fa.launch_plan(y, y, x)["loader"] == loader
+    assert fa.launch_plan(y, y, y)["loader"] == own
+    meta = torch.empty(b * t * h * width + offset, dtype=torch.bfloat16, device="meta")
+    xm = meta[offset:].view(b, t, h, width)
+    assert fa.launch_plan(xm, xm, xm)["loader"] == loader
+    assert fa.launch_plan(x.float(), y.float(), y.float())["loader"] == "elements"
+    # a [.., W + pad] buffer seen as [.., :W]: the strides are 16-byte
+    # multiples, and the row width decides
+    padded = torch.zeros(b, t, h, -(-width // 8) * 8 + 8, dtype=torch.bfloat16)[..., :width]
+    assert fa.launch_plan(padded, padded, padded)["loader"] == own
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv,masked",
+    [(2, 100, 777, 2, 32, 32, True),  # chip_smoke.py's masked narrow case
+     (1, 130, 300, 4, 16, 16, False), (2, 70, 129, 2, 64, 64, True),
+     (3, 65, 200, 3, 64, 32, True)],
+)
+def test_narrow_reference_matches_pallas(b, tq, tk, h, d, dv, masked):
+    """K1's plain version at the narrow route's widths (the kernel is held
+    against it on the card), with kv_mask, q_mask, kv_logical_len, an
+    all-masked batch entry and the lse, against the Pallas kernel."""
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, seed=100 + d)
+    kw, jkw = {}, {}
+    if masked:
+        kv_mask[-1] = False
+        jkw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 50)
+        kw = dict(kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+                  kv_logical_len=tk - 50)
+    want, want_lse = _jax_flash(q, k, v, **jkw)
+    got, got_lse = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                      torch.from_numpy(v), return_lse=True, **kw)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.array_equal(np.isinf(got_lse.numpy()), np.isinf(want_lse))
+    finite = np.isfinite(want_lse)
+    np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
+    if masked:
+        assert np.all(got.numpy()[-1] == 0.0) and np.all(got.numpy()[~q_mask] == 0.0)
 
 
 def test_kernel_width_limits_raise_before_a_launch():
@@ -292,7 +404,7 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
     monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
     before = fa.library_paths()
-    assert set(before) == {"fwd", "fwd_sm90", "bwd", "bwd_sm90"}
+    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "bwd", "bwd_sm90"}
     assert os.path.basename(before["bwd_sm90"]).startswith("flash_attention_bwd_sm90_")
     with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
