@@ -11,8 +11,8 @@ Phases (each raises on failure; nothing is caught):
      process per source, all at once (K1 forward: the bf16 narrow-head
      kernel, the bf16 wgmma kernel and the fp32 CUDA-core kernel with the
      split-KV merge; K2 dK/dV and K3 dQ
-     backward: the bf16 wgmma kernels with the sum of their split partials,
-     and the fp32 CUDA-core kernels);
+     backward: the bf16 narrow-head kernels, the bf16 wgmma kernels with
+     the sum of their split partials, and the fp32 CUDA-core kernels);
   3. kernel: holds K1 against its plain PyTorch version on the card
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
      serving forward's shapes (6 tiles, bf16), at the multimodal encoder
@@ -37,13 +37,19 @@ Phases (each raises on failure; nothing is caught):
      the same values zero-padded to a multiple of 8 columns (16-byte
      copies), bit for bit;
   4. backward kernels: holds K2 and K3 against the plain backward at the
-     three flow sites (batch 1) in fp32 and bf16, at the multimodal encoder
-     (d = dv = 704) in fp32 and bf16 and at masked cases at widths 41 and
-     704 (exact zeros on wiped rows and tail keys); records each call's
-     route, splits, column chunks, blocks and CUDA launches
-     (``backward_plan``); times each kernel, the plain backward, SDPA's
-     backward (forward+backward minus forward, a yardstick only; null where
-     it does not run) and the bounds; then holds bf16 K2 at the flow decoder
+     three flow sites (batch 1) in fp32 and bf16, at the bf16 self-attend at
+     batch 2 (phase R(b)'s), at the multimodal encoder (d = dv = 704) in
+     fp32 and bf16 and at masked cases at widths 41 and 704 (exact zeros on
+     wiped rows and tail keys); the bf16 self-attend and the 41-wide masked
+     case must take the narrow route, one narrow launch each, and give the
+     same bits in two calls; records each call's route, splits, column
+     chunks, blocks and CUDA launches (``backward_plan``); times each
+     kernel, the plain backward, SDPA's backward (a yardstick only: its
+     flash backend's backward op where that takes the inputs, the bf16
+     self-attend; else forward+backward minus forward; null where it does
+     not run; bf16 kernels and SDPA over at least 10 ms of launches) and
+     the bounds; then holds
+     bf16 K2 at the flow decoder
      and K3 at the flow and multimodal encoders at their planned splits
      against a single split, and two calls of each (and of K2 at the
      multimodal encoder) against each other bit for bit;
@@ -65,7 +71,7 @@ Phases (each raises on failure; nothing is caught):
      PERFORMANCE, remat, batch 1, synthetic roll pairs) through its Trainer:
      one warm-up step, then timed steps with finite losses and parameters
      that move once the warmup's lr-0 step is past; 48 narrow-route K1
-     launches a step;
+     launches a step, and 24 narrow-route K2 and 24 K3;
   9. multimodal model: MultiModalPerceiver at full width (16 frames of
      224x224, 30,720 audio samples, 700 classes, 784x512 latents, 8
      self-attends), seeded random weights, fp32, one synthetic clip decoded
@@ -454,8 +460,12 @@ FLOW_SITES = {
     "decoder": (1, 182528, 2048, 1, 512, 512),
 }
 SITE_LAUNCHES = {"encoder": 1, "self": 24, "decoder": 1}
-# The bf16 self-attend's plan: the narrow-head kernel, one launch, no split.
+# The bf16 self-attend's plan: the narrow-head kernel, one launch, no split
+# (K1; K2 and K3 likewise, each).
 NARROW_PLAN = {"route": "sm90_narrow", "splits": 1, "cuda_launches": 1}
+# The flow self-attend at phase R(b)'s batch of 2, whose K2 and K3 phase 4
+# holds beside batch 1.
+SELF_B2 = (2,) + FLOW_SITES["self"][1:]
 # The masked narrow case at the self-attend's width (B, Tq, Tk, H, D, Dv).
 NARROW_MASKED = (2, 100, 777, 2, 32, 32)
 # Element offsets of the unaligned views that phases 3, 16 and 20 hold
@@ -1009,12 +1019,43 @@ def _bwd_flops_and_bytes(q, k, v, kw):
     }
 
 
-def _library_backward_ms(q, k, v, grad, kw, reps):
-    """F.scaled_dot_product_attention forward+backward minus its forward, on
-    the same tensors: a yardstick for K2+K3 (the port never calls it), or
-    None where no SDPA backend takes them."""
+def _flash_backward_call(q, k, v, grad):
+    """SDPA's flash backend's backward as one call on the same tensors
+    (``aten._scaled_dot_product_flash_attention_backward``, after its
+    forward gave the output and lse): what K2 + K3 compute, without
+    autograd's host work around it; None where the backend does not take
+    them (it takes no mask, and bf16 or fp16 heads up to 256 wide)."""
     import torch
 
+    if q.dtype not in (torch.bfloat16, torch.float16) or max(q.shape[3], v.shape[3]) > 256:
+        return None
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b, tq, h = q.shape[:3]
+    g = grad.view(b, tq, h, -1).transpose(1, 2)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    try:
+        out, lse, cq, ck, mq, mk, seed, offset, _ = (
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, False, False, scale=scale))
+    except RuntimeError as exc:
+        print(f"[backward] no flash backend at {tuple(q.shape)}: {exc}"[:300], flush=True)
+        return None
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        g, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset, scale=scale)
+
+
+def _library_backward_ms(q, k, v, grad, kw, reps, window=False):
+    """SDPA's backward on the same tensors, a yardstick for K2+K3 (the port
+    never calls it): without masks, where its flash backend takes the
+    inputs, that backend's backward alone (``_flash_backward_call``); else
+    F.scaled_dot_product_attention forward+backward minus its forward.
+    With ``window``, each timed over ``timing_reps`` launches.  Returns
+    (ms, method), or (None, None) where no SDPA backend takes them."""
+    import torch
+
+    call = None if kw.get("kv_mask") is not None else _flash_backward_call(q, k, v, grad)
+    if call is not None:
+        return time_ms(call, timing_reps(call, reps) if window else reps), "flash_backward"
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     fwd = _library_call(qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2), kw)
     b, tq, h = q.shape[:3]
@@ -1025,18 +1066,20 @@ def _library_backward_ms(q, k, v, grad, kw, reps):
 
     try:
         with torch.enable_grad():
-            total = time_ms(fwd_bwd, reps)
-            forward = time_ms(fwd, reps)
+            total = time_ms(fwd_bwd, timing_reps(fwd_bwd, reps) if window else reps)
+            forward = time_ms(fwd, timing_reps(fwd, reps) if window else reps)
     except RuntimeError as exc:
         print(f"[backward] no SDPA backward at {tuple(q.shape)} x {tuple(k.shape)}: {exc}"[:300],
               flush=True)
-        return None
-    return total - forward
+        return None, None
+    return total - forward, "forward_backward_less_forward"
 
 
 def check_backward_case(name, shape, dtype_name, masked, reps, gen):
     """K2 and K3 vs the plain backward at one shape; returns one record per
-    kernel."""
+    kernel.  bf16 heads up to 64 wide must take the narrow route, one narrow
+    launch per kernel, and two calls must give the same bits; bf16 kernels
+    and SDPA are timed over at least 10 ms of launches (``timing_reps``)."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -1052,20 +1095,34 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
                                      kv_mask=kw.get("kv_mask"), softmax_scale=None,
                                      kv_logical_len=kw.get("kv_logical_len"))
         plan = kernels.plan
-        want_route = "sm90_wgmma" if dtype_name == "bf16" else "cuda_cores"
+        narrow = dtype_name == "bf16" and max(shape[4], shape[5]) <= fa.NARROW_HEAD_DIM
+        want_route = ("cuda_cores" if dtype_name == "fp32"
+                      else "sm90_narrow" if narrow else "sm90_wgmma")
         if plan["route"] != want_route:
             raise AssertionError(f"{name}/{dtype_name}: route {plan['route']}")
         cuda_launches = {}
         for kernel, run in (("K2", kernels.dkv), ("K3", kernels.dq)):
             before = fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ + fa.LAUNCHES_BWD_SUM
+            narrow_before = fa.LAUNCHES_BWD_NARROW
             run()
             cuda_launches[kernel] = (fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ
                                      + fa.LAUNCHES_BWD_SUM - before)
             planned = plan["dkv" if kernel == "K2" else "dq"]["cuda_launches"]
-            if cuda_launches[kernel] != planned:
+            if (cuda_launches[kernel] != planned
+                    or fa.LAUNCHES_BWD_NARROW - narrow_before != narrow):
                 raise AssertionError(f"{name}/{dtype_name}: {kernel} made "
                                      f"{cuda_launches[kernel]} CUDA launches, planned {plan}")
         got = {"dq": kernels.grad_q, "dk": kernels.grad_k, "dv": kernels.grad_v}
+        if narrow:  # two calls, bit for bit
+            again = fa.BackwardKernels(*args, q_mask=kw.get("q_mask"),
+                                       kv_mask=kw.get("kv_mask"), softmax_scale=None,
+                                       kv_logical_len=kw.get("kv_logical_len"))
+            again.dkv()
+            again.dq()
+            if not all(torch.equal(got[key], getattr(again, f"grad_{key[1:]}"))
+                       for key in got):
+                raise AssertionError(f"{name}/{dtype_name}: two K2/K3 calls differ")
+            del again
         want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_reference(
             *(x.float() for x in args), **kw)))
         torch.cuda.synchronize()
@@ -1091,10 +1148,12 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
             if any(x != 0.0 for x in exact):
                 raise AssertionError(f"{name}/{dtype_name}: wiped gradients not 0: {exact}")
 
-        ms = {"K2": time_ms(kernels.dkv, reps), "K3": time_ms(kernels.dq, reps)}
+        window = dtype_name == "bf16"
+        ms = {kernel: time_ms(run, timing_reps(run, reps) if window else reps)
+              for kernel, run in (("K2", kernels.dkv), ("K3", kernels.dq))}
         plain_ms = time_ms(
             lambda: fa.flash_attention_backward_reference(*args, **kw), reps)
-    library_ms = _library_backward_ms(q, k, v, grad, kw, reps)
+    library_ms, library_method = _library_backward_ms(q, k, v, grad, kw, reps, window)
     records = []
     for kernel, (flops, nbytes) in _bwd_flops_and_bytes(q, k, v, kw).items():
         flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -1105,10 +1164,11 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
             kernel=kernel, site=name, dtype=dtype_name, shape=list(shape),
             route=plan["route"], splits=kplan["splits"], col_chunks=kplan["col_chunks"],
             blocks=kplan["blocks"], cuda_launches=cuda_launches[kernel],
+            bitwise_repeat=narrow,
             max_abs_err=max(errs[key][0] for key in keys),
             max_abs_grad=max(errs[key][1] for key in keys),
             ms=ms[kernel], plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(flops_ms, bytes_ms),
+            library_method=library_method, bound_ms=max(flops_ms, bytes_ms),
             bound_by="operations" if flops_ms >= bytes_ms else "bytes",
             flops=flops, tflops=flops / ms[kernel] / 1e9,
         )
@@ -1125,6 +1185,8 @@ def phase_backward(reps: int = 3):
     for dtype_name in ("fp32", "bf16"):
         for name, shape in FLOW_SITES.items():
             records += check_backward_case(name, shape, dtype_name, False, reps, gen)
+        if dtype_name == "bf16":
+            records += check_backward_case("self_b2", SELF_B2, dtype_name, False, reps, gen)
         records += check_backward_case(
             "masked", (2, 100, 777, 2, 41, 64), dtype_name, True, reps, gen)
         records += check_backward_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen)
@@ -1451,6 +1513,27 @@ def _compare_grads(label, grads_k, grads_p, tol, key_bias_tol=None):
     return worst, worst_name, key_bias
 
 
+@contextlib.contextmanager
+def _narrow_backward_launches():
+    """Counts the narrow-route K2 and K3 launches apart while it is open:
+    each increment of ``fa.LAUNCHES_BWD_NARROW`` goes to the kernel whose
+    ``BackwardKernels`` method made it.  Yields {"K2": n, "K3": n}."""
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    counts = {"K2": 0, "K3": 0}
+
+    def counted(kernel, method):
+        def run(self):
+            before = fa.LAUNCHES_BWD_NARROW
+            method(self)
+            counts[kernel] += fa.LAUNCHES_BWD_NARROW - before
+        return run
+
+    with mock.patch.object(fa.BackwardKernels, "dkv", counted("K2", fa.BackwardKernels.dkv)), \
+            mock.patch.object(fa.BackwardKernels, "dq", counted("K3", fa.BackwardKernels.dq)):
+        yield counts
+
+
 def phase_train():
     """The port's train_flow example at --full-scale, through its Trainer,
     one step per fit() call so that each step is timed and counted."""
@@ -1462,10 +1545,14 @@ def phase_train():
     trainer, state, batches, _ = train_flow.setup(
         total, full_scale=True, device="cuda", metrics_path=metrics, log_every=1)
     fa.LAUNCHES_NARROW = 0
-    rec = _train_steps(trainer, state, batches, total, metrics, STEP_LAUNCHES)
+    with _narrow_backward_launches() as narrow_bwd:
+        rec = _train_steps(trainer, state, batches, total, metrics, STEP_LAUNCHES)
     rec["narrow_launches"] = fa.LAUNCHES_NARROW
     if rec["narrow_launches"] != 48 * total:  # 24 self-attends, each recomputed
         raise AssertionError(f"{rec['narrow_launches']} narrow K1 launches in {total} steps")
+    rec["narrow_bwd_launches"] = narrow_bwd
+    if narrow_bwd != {"K2": 24 * total, "K3": 24 * total}:  # the 24 self-attends
+        raise AssertionError(f"narrow K2/K3 launches in {total} steps: {narrow_bwd}")
     print(f"[train] bf16 full width, remat, batch 1: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -5233,13 +5320,16 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     kernel, which the serving forward runs, and the fp32 CUDA-core kernel
     with the split-KV merge): times summed over the 26 launches of one
     serving forward (6 tiles, bf16), the launches of the serving run (and,
-    apart, of the training run), merges counted apart.  K2 and K3 (two sources
-    each: the bf16 wgmma kernels with the sum of their split partials, which
-    training runs, and the fp32 CUDA-core kernels): times summed over the 26
-    launches of one training step (batch 1, bf16), the launches of the
-    training run (the sums of both counted together); their plain and
-    library times are the whole backward (dq, dk and dv in one call), the
-    same for both.  K1 on the multimodal path (``flash_attention_fwd_d704``,
+    apart, of the training run), merges counted apart.  K2 and K3 (three sources
+    each: the bf16 wgmma kernels with the sum of their split partials and the
+    bf16 narrow-head kernels, which training runs, and the fp32 CUDA-core
+    kernels): times summed over the 26 launches of one training step (batch
+    1, bf16), the launches of the training run (the sums of both counted
+    together); their plain and library times are the whole backward (dq, dk
+    and dv in one call), the same for both.  K2 and K3 at the flow
+    self-attend (``..._d32``, the narrow-head source): the bf16 site's times
+    at batch 1 (and ``_batch2``, phase R(b)'s batch), the narrow launches of
+    the training run.  K1 on the multimodal path (``flash_attention_fwd_d704``,
     the same sources at d = dv = 704, two value-column chunks): the bf16
     encoder site's times, the launches of the multimodal serving run.  K2
     and K3 on the multimodal path (``..._d704``, the same sources at d = dv
@@ -5511,6 +5601,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         ))
     bwd_sources = {
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+        "sm90_narrow": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_narrow_sm90.cu",
         "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
     }
     for kernel, name, line in (("K2", "flash_attention_bwd_dkv", 473),
@@ -5520,7 +5611,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         mm_bwd = [r for r in backward if r["kernel"] == kernel and r["site"].startswith("mm_")]
         mm_site = next(r for r in mm_bwd if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
         common = dict(route="cuda", source=bwd_sources["sm90_wgmma"], sources=bwd_sources,
-                      routes={"bf16": "sm90_wgmma", "fp32": "cuda_cores"},
+                      routes={"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
+                              "fp32": "cuda_cores"},
                       replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}")
         entries.append(dict(
             name=name,
@@ -5540,6 +5632,20 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             **_site_sums(mine, lambda r: r["dtype"] == "bf16", SITE_LAUNCHES),
             sites=mine,
+        ))
+        narrow = [r for r in mine if r["route"] == "sm90_narrow"]
+        self_one, self_two = (next(r for r in narrow if r["site"] == site)
+                              for site in ("self", "self_b2"))
+        entries.append(dict(
+            name=f"{name}_d32",
+            **dict(common, source=bwd_sources["sm90_narrow"]),
+            launches=train["narrow_bwd_launches"][kernel],
+            max_abs_err=max(r["max_abs_err"] for r in narrow),
+            **{key: self_one[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by", "splits", "blocks")},
+            **{f"{key}_batch2": self_two[key] for key in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms")},
+            sites=narrow,
         ))
         entries.append(dict(
             name=f"{name}_d704",

@@ -76,7 +76,6 @@ constexpr int BQ = 64 * NWG;            // query rows of a block
 constexpr int BK = 64;                  // keys of a stage
 constexpr int STAGES = 4;               // stages of the K/V ring
 constexpr int THREADS = 128 * NWG + 32; // the consumers and the producer warp
-constexpr int NB = 4;                   // chunks of a realigned run
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -105,33 +104,6 @@ struct Smem {
   static constexpr int BAR = V + STAGES * BK * NV * 2;
   static constexpr int SIZE = BAR + 2 * STAGES * 8;
 };
-
-// 16-byte cp.async copies of rows [0, rows) x columns [0, cols) (cols a
-// multiple of 8 here) into a tile of R rows and C columns, zero-filled
-// elsewhere; THREADS_ threads, thread tid from 0.
-template <int THREADS_, int R, int C>
-__device__ __forceinline__ void copy_tile(char* tile, const bf16* g, long long ld, int rows,
-                                          int cols, int tid) {
-  constexpr int nch = C / 8;
-#pragma unroll 4
-  for (int u = tid; u < R * nch; u += THREADS_) {
-    const int r = ((u >> 3) / nch) * 8 + (u & 7);
-    const int c = ((u >> 3) % nch) * 8;
-    const bool ok = r < rows && c < cols;
-    sm90::cp_async_16_zfill(sm90::smem_addr(tile + sm90::cm_offset(r, c, C)),
-                            ok ? g + (long long)r * ld + c : g, ok);
-  }
-}
-
-template <int THREADS_, int R, int C>
-__device__ __forceinline__ void load_tile(char* tile, const bf16* g, long long ld, int rows,
-                                          int cols, bool aligned, int tid) {
-  if (aligned) {
-    copy_tile<THREADS_, R, C>(tile, g, ld, rows, cols, tid);
-  } else {
-    sm90::realign_rows<THREADS_, NB>(tile, g, ld, rows, R, cols, C, tid);
-  }
-}
 
 // Scales, masks (where MASKED) and exponentiates this thread's share of S
 // for the keys k0 .. k0 + BK - 1, updates the running max and sum of its two
@@ -230,10 +202,10 @@ __global__ void __launch_bounds__(THREADS, NV <= 32 ? 2 : 1)
       if (t >= STAGES) sm90::mbar_wait(&empty[st], (t / STAGES - 1) & 1);
       const int k0 = t * BK;
       const int rows = min(BK, p.kv_len - k0);
-      load_tile<32, BK, DP>(sK + st * BK * DP * 2, kg + (long long)k0 * p.k_st, p.k_st, rows, p.D,
-                            p.al_k, lane);
-      load_tile<32, BK, NV>(sV + st * BK * NV * 2, vg + (long long)k0 * p.v_st, p.v_st, rows, p.Dv,
-                            p.al_v, lane);
+      sm90::load_tile<32, BK, DP>(sK + st * BK * DP * 2, kg + (long long)k0 * p.k_st, p.k_st,
+                                  rows, p.D, p.al_k, lane);
+      sm90::load_tile<32, BK, NV>(sV + st * BK * NV * 2, vg + (long long)k0 * p.v_st, p.v_st,
+                                  rows, p.Dv, p.al_v, lane);
       if (async) {
         sm90::cp_async_mbar_arrive_noinc(&full[st]);
       } else {
@@ -253,8 +225,8 @@ __global__ void __launch_bounds__(THREADS, NV <= 32 ? 2 : 1)
   const int row_lo = 16 * warp + (lane >> 2);  // this thread's rows: row_lo, row_lo + 8
   const int qw = q0 + 64 * wg;
   char* sQw = sQ + wg * 64 * DP * 2;
-  load_tile<128, 64, DP>(sQw, p.q + b * p.q_sb + h * p.q_sh + (long long)qw * p.q_st, p.q_st,
-                         min(64, p.Tq - qw), p.D, p.al_q, tid & 127);
+  sm90::load_tile<128, 64, DP>(sQw, p.q + b * p.q_sb + h * p.q_sh + (long long)qw * p.q_st,
+                               p.q_st, min(64, p.Tq - qw), p.D, p.al_q, tid & 127);
   sm90::cp_async_commit();
   sm90::cp_async_wait<0>();
   sm90::fence_proxy_async();

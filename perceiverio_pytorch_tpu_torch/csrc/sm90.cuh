@@ -77,6 +77,13 @@ __device__ __forceinline__ void cp_async_16_zfill(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 4 bytes when `valid`, else 4 zero bytes (src is not read).
+__device__ __forceinline__ void cp_async_4_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 // Makes the mbarrier track this thread's earlier cp.async copies: it
 // receives one arrival when they have all landed (.noinc: the barrier's
 // count includes that arrival).
@@ -515,6 +522,31 @@ __device__ __forceinline__ void realign_rows(char* tile, const __nv_bfloat16* g,
     realign_run<NB>(tile, reinterpret_cast<const char*>(g + (long long)r * ld),
                     r < rows ? 2 * cols : 0, r, c0, n, C);
     u += n;
+  }
+}
+
+// The narrow kernels' tile loader: rows [0, rows) x columns [0, cols) of a
+// bf16 matrix with row stride `ld` into a tile of R rows and C columns,
+// zeros elsewhere, with THREADS threads (thread tid from 0).  `aligned`
+// (every row 16-byte aligned, so cols is a multiple of 8): 16-byte cp.async
+// copies, zero-filled past the rows and columns, which the caller commits
+// or tracks on an mbarrier; else the realigning loader, whose stores are
+// done when it returns.
+template <int THREADS, int R, int C>
+__device__ __forceinline__ void load_tile(char* tile, const __nv_bfloat16* g, long long ld,
+                                          int rows, int cols, bool aligned, int tid) {
+  if (!aligned) {
+    realign_rows<THREADS, 4>(tile, g, ld, rows, R, cols, C, tid);
+    return;
+  }
+  constexpr int nch = C / 8;
+#pragma unroll 4
+  for (int u = tid; u < R * nch; u += THREADS) {
+    const int r = ((u >> 3) / nch) * 8 + (u & 7);
+    const int c = ((u >> 3) % nch) * 8;
+    const bool ok = r < rows && c < cols;
+    cp_async_16_zfill(smem_addr(tile + cm_offset(r, c, C)), ok ? g + (long long)r * ld + c : g,
+                      ok);
   }
 }
 

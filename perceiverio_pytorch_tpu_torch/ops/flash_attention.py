@@ -10,7 +10,10 @@ heads (wgmma, route ``sm90_wgmma``) and ``csrc/flash_attention_fwd.cu`` for
 fp32 ones (IEEE fp32 on the CUDA cores, route ``cuda_cores``), which also
 holds the merge of split-KV partials;
 ``_bwd_dkv_kernel`` (K2) and ``_bwd_dq_kernel`` (K3) are
-``csrc/flash_attention_bwd_sm90.cu`` for bf16 inputs (wgmma, route
+``csrc/flash_attention_bwd_narrow_sm90.cu`` for bf16 inputs whose head widths
+are at most ``NARROW_HEAD_DIM`` (the flow self-attends: wgmma with P and dS
+in registers, a producer warp feeding a ring, route ``sm90_narrow``),
+``csrc/flash_attention_bwd_sm90.cu`` for wider bf16 heads (wgmma, route
 ``sm90_wgmma``, with the ordered sum of their split partials) and
 ``csrc/flash_attention_bwd.cu`` for fp32 ones (route ``cuda_cores``).  The
 source note at the head of each says what bounds it on an H100 and what its
@@ -33,7 +36,9 @@ design does about that.
   * ``LAUNCHES``, ``LAUNCHES_BWD_DKV`` and ``LAUNCHES_BWD_DQ`` count kernel
     launches of K1, K2 and K3 (never plain-version calls): one per call,
     however many CUDA launches it makes; ``LAUNCHES_NARROW`` counts the K1
-    launches that took the narrow route (each also counts in ``LAUNCHES``).
+    launches that took the narrow route (each also counts in ``LAUNCHES``)
+    and ``LAUNCHES_BWD_NARROW`` the K2 and K3 launches that did (each also
+    counts in ``LAUNCHES_BWD_DKV`` or ``LAUNCHES_BWD_DQ``).
     ``LAUNCHES_MERGE`` counts the merge kernel's launches (K1 calls with
     more than one key split) and ``LAUNCHES_BWD_SUM`` the sum kernel's (K2
     or K3 calls with more than one split).
@@ -43,7 +48,8 @@ design does about that.
     ``loader`` (cp.async copies, the realigning loader for rows that
     cp.async cannot copy, or 2-byte copies: ``_loader``); ``backward_plan`` the same
     for K2 (query splits, ``_dkv_split_plan``) and K3 (key splits,
-    ``_split_plan``), with their output-column chunks.
+    ``_split_plan``; the narrow route never splits), with their
+    output-column chunks.
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
     512 its grid splits the value columns in two), K2 and K3 up to
@@ -76,7 +82,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
             "fwd_narrow": "flash_attention_fwd_narrow_sm90.cu",
-            "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu"}
+            "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu",
+            "bwd_narrow": "flash_attention_bwd_narrow_sm90.cu"}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
 # Head-width limits (Dqk and Dv) of the kernels' shared-memory and register
@@ -87,10 +94,12 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "ker
 # columns as K1 splits its values.
 MAX_HEAD_DIM_FWD = 704
 MAX_HEAD_DIM_BWD = 704
-# bf16 K1 calls whose Dqk and Dv are both at most this take the narrow-head
-# kernel (two warpgroups of 64 query rows a block, never a key split).
+# bf16 K1, K2 and K3 calls whose Dqk and Dv are both at most this take the
+# narrow-head kernels (two warpgroups of 64 query rows, or of 64 keys for K2,
+# a block; never a split).
 NARROW_HEAD_DIM = 64
 NARROW_BLOCK_Q = 128
+NARROW_BLOCK_K = 128
 COL_CHUNK = 512
 WIDE_DQ_CHUNK = 352
 # K1's blocks: query rows per block and keys per tile (both kernels); the
@@ -108,6 +117,7 @@ MIN_SPLIT_TILES = 8
 LAUNCHES = 0
 LAUNCHES_NARROW = 0
 LAUNCHES_BWD_DKV = 0
+LAUNCHES_BWD_NARROW = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_MERGE = 0
 LAUNCHES_BWD_SUM = 0
@@ -155,9 +165,9 @@ def _nvcc() -> str:
 
 def library_paths() -> Dict[str, str]:
     """The .so path of each kernel source by name ("fwd", "fwd_sm90",
-    "fwd_narrow", "bwd", "bwd_sm90"): the name carries the hash of the
-    source and of every ``csrc/*.cuh`` header, so an edit to either builds a
-    new library."""
+    "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow"): the name carries the
+    hash of the source and of every ``csrc/*.cuh`` header, so an edit to
+    either builds a new library."""
     headers = b""
     for name in sorted(os.listdir(_CSRC)):
         if name.endswith(".cuh"):
@@ -263,8 +273,19 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_int, ctypes.c_void_p]  # splits, stream
             )
             bwd_sm90.flash_attention_bwd_sum.restype = ctypes.c_int
+            bwd_narrow = ctypes.CDLL(paths["bwd_narrow"])
+            for fn in (bwd_narrow.flash_attention_bwd_dkv_narrow_sm90,
+                       bwd_narrow.flash_attention_bwd_dq_narrow_sm90):
+                fn.argtypes = (
+                    # q, k, v, dout, lse, delta, kv_mask, dq, dk, dv
+                    [ctypes.c_void_p] * 10
+                    + [ctypes.c_int] * 7  # B, H, Tq, Tk, kv_len, D, Dv
+                    + _STRIDES * 4  # q, k, v, dout
+                    + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+                )
+                fn.restype = ctypes.c_int
             _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "fwd_narrow": fwd_narrow, "bwd": bwd,
-                     "bwd_sm90": bwd_sm90}
+                     "bwd_sm90": bwd_sm90, "bwd_narrow": bwd_narrow}
     return _libs
 
 
@@ -595,7 +616,10 @@ def _dkv_split_plan(b: int, tq: int, h: int, tk: int):
 
 def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     """What a backward (K2, then K3) on these tensors launches: ``route``
-    ("sm90_wgmma" for bf16 on CUDA, "cuda_cores" for fp32) and, under
+    ("sm90_narrow" for bf16 with Dqk and Dv at most NARROW_HEAD_DIM and no
+    forced split: one launch each, K2 a block per NARROW_BLOCK_K keys, K3 per
+    NARROW_BLOCK_Q query rows, never split; "sm90_wgmma" for wider bf16
+    heads or a forced ``num_splits``; "cuda_cores" for fp32) and, under
     "dkv" (K2) and "dq" (K3), ``splits`` and ``tiles_per_split`` (K2's
     query ranges by ``_dkv_split_plan``, K3's key ranges by ``_split_plan``
     counted with K3's column chunks, or ``num_splits`` ranges for both when
@@ -620,6 +644,14 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
                      blocks=-(-tk // 32) * h * b * dkv_chunks, cuda_launches=1),
             dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=dq_chunks,
                     blocks=q_blocks * dq_chunks, cuda_launches=1),
+        )
+    if num_splits is None and width <= NARROW_HEAD_DIM:
+        return dict(
+            route="sm90_narrow",
+            dkv=dict(splits=1, tiles_per_split=-(-tq // BLOCK_Q), col_chunks=1,
+                     blocks=-(-tk // NARROW_BLOCK_K) * h * b, cuda_launches=1),
+            dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=1,
+                    blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1),
         )
     if num_splits is None:
         plans = (_dkv_split_plan(b, tq, h, tk), _split_plan(b, tq, h, kv_len, dq_chunks))
@@ -752,8 +784,7 @@ class BackwardKernels:
             MAX_HEAD_DIM_BWD, "K2/K3 (flash attention backward)")
         scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
         self.plan = backward_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
-        self._sm90 = self.plan["route"] == "sm90_wgmma"
-        if not self._sm90 and num_splits not in (None, 1):
+        if self.plan["route"] == "cuda_cores" and num_splits not in (None, 1):
             raise ValueError("the fp32 backward kernels do not split their walks")
         lse = lse.float().contiguous()
         delta = delta.contiguous()
@@ -786,9 +817,13 @@ class BackwardKernels:
         splits, per, chunks = plan["splits"], plan["tiles_per_split"], plan["col_chunks"]
         parts = [torch.empty((splits, *g.shape), dtype=torch.float32, device=self._device)
                  if splits > 1 else None for g in grads]
+        route = self.plan["route"]
         with torch.cuda.device(self._device):
             stream = torch.cuda.current_stream(self._device).cuda_stream
-            if self._sm90:
+            if route == "sm90_narrow":
+                err = getattr(libs["bwd_narrow"], name + "_narrow_sm90")(
+                    *self._inputs, *self._dims, *self._strides, self._scale, stream)
+            elif route == "sm90_wgmma":
                 part_q, part_k, part_v = ((parts[0], None, None) if kernel == "dq"
                                           else (None, *parts))
                 err = getattr(libs["bwd_sm90"], name + "_sm90")(
@@ -798,7 +833,7 @@ class BackwardKernels:
                 err = getattr(libs["bwd"], name)(
                     *self._inputs, *self._dims, chunks, *self._strides, self._scale, stream)
             if err != 0:
-                raise RuntimeError(f"{name} ({self.plan['route']}) launch failed: CUDA error {err}")
+                raise RuntimeError(f"{name} ({route}) launch failed: CUDA error {err}")
             if splits > 1:
                 pairs = [(_ptr(part), g.data_ptr(), g.numel()) for part, g in zip(parts, grads)]
                 pairs += [(None, None, 0)] * (2 - len(pairs))
@@ -810,15 +845,17 @@ class BackwardKernels:
 
     def dkv(self):
         """K2: dk and dv."""
-        global LAUNCHES_BWD_DKV
+        global LAUNCHES_BWD_DKV, LAUNCHES_BWD_NARROW
         if self._run("dkv", (self.grad_k, self.grad_v)):
             LAUNCHES_BWD_DKV += 1
+            LAUNCHES_BWD_NARROW += self.plan["route"] == "sm90_narrow"
 
     def dq(self):
         """K3: dq."""
-        global LAUNCHES_BWD_DQ
+        global LAUNCHES_BWD_DQ, LAUNCHES_BWD_NARROW
         if self._run("dq", (self.grad_q,)):
             LAUNCHES_BWD_DQ += 1
+            LAUNCHES_BWD_NARROW += self.plan["route"] == "sm90_narrow"
 
 
 def _valid_keys(q, k, kv_mask, kv_len):

@@ -9,7 +9,7 @@ On a machine with an NVIDIA GPU, from the repository root:
      (static; the dynamic size of the sm90 instantiations at the three flow
      sites, of K1's, K2's and K3's at the multimodal encoder, in both
      dtypes, of K1's at the two classification encoders and of the four
-     narrow-route instantiations is printed beside);
+     narrow-route instantiations of K1, K2 and K3 is printed beside);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -65,7 +65,9 @@ On a machine with an NVIDIA GPU, from the repository root:
      full-width model and synthetic requests, batch 2; run from the
      repository root): the largest gradient of a key projection's bias,
      whose exact value is 0, against that projection's weight gradient, on
-     12 inputs (the first is ``chip_smoke.py`` phase R(b)'s);
+     12 inputs (the first is ``chip_smoke.py`` phase R(b)'s), under the
+     planned backward (K2/K3's narrow route) and under the wgmma one (one
+     forced split) on the same inputs;
  16. (``k1``) bf16 K1 alone at the main path's sites (the flow sites at
      batch 1 and 6, the classification encoders at 16, 8 and the server's
      buckets 1, 2, 4, the multimodal encoder), each timed as
@@ -74,7 +76,14 @@ On a machine with an NVIDIA GPU, from the repository root:
      ``launch_plan``, so run as a file it times the checkout that
      ``PYTHONPATH`` names: to compare two checkouts on one card, run
      ``PYTHONPATH=DIR python perceiverio_pytorch_tpu_torch/tools/kernel_report.py k1``
-     with DIR the other one, this one, this one, the other one.
+     with DIR the other one, this one, this one, the other one;
+ 17. (``bwd``) bf16 K2 and K3 alone at the main path's sites (the flow
+     self-attend at batch 1 and 2, the flow encoder and decoder, the
+     multimodal encoder, the classification encoders at 8), timed as
+     ``k1`` times K1 and, beside the self-attend, SDPA's backward
+     (forward and backward less the forward, the same window); like ``k1``
+     it needs nothing but ``flash_attention`` and ``BackwardKernels``, so
+     run as a file it times the checkout that ``PYTHONPATH`` names.
 
 ``python -m perceiverio_pytorch_tpu_torch.tools.kernel_report artifact``
 (or any of ``SECTIONS``' names) runs only those parts, after the build;
@@ -174,10 +183,16 @@ def ptxas_report():
     print(f"[smem] flash_bwd_dkv_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 32 * 64 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_bwd_dq_kernel<6, chunked> at d = dv = 704: {smem} bytes dynamic")
-    # The narrow route: 128 query rows, 4 stages of 64 keys, 8 mbarriers.
+    # The narrow route: 128 query rows (K1, K3) or keys (K2) resident, 4
+    # stages of 64 keys (K1, K3) or query rows with their lse and delta (K2),
+    # 8 mbarriers.
     for dp, nv in ((32, 32), (32, 64), (64, 32), (64, 64)):
         smem = (128 * dp + 4 * 64 * (dp + nv)) * 2 + 2 * 4 * 8
         print(f"[smem] flash_fwd_narrow_kernel<{dp}, {nv}>: {smem} bytes dynamic")
+        smem = (128 + 4 * 64) * (dp + nv) * 2 + 4 * 2 * 64 * 4 + 2 * 4 * 8
+        print(f"[smem] flash_bwd_dkv_narrow_kernel<{dp}, {nv}>: {smem} bytes dynamic")
+        smem = (128 + 4 * 64) * (dp + nv) * 2 + 2 * 4 * 8
+        print(f"[smem] flash_bwd_dq_narrow_kernel<{dp}, {nv}>: {smem} bytes dynamic")
     # K2 and K3 at the classification encoders: d = 261 takes the flow
     # encoder's <16, 6> (6 tiles of 64 columns) and <168, 64> (Q and K tiles
     # of 336 columns, dO and V of 272); d = 512 the flow decoder's <16, 8> and
@@ -697,7 +712,11 @@ def time_codecs(calls=10):
 
 def key_bias_noise():
     """Section 15: the key biases' gradient noise of the flow self-attend
-    stack through K1."""
+    stack through K1, K2 and K3: the planned backward, then the wgmma one
+    (a forced split count of 1) on the same inputs."""
+    import functools
+    from unittest import mock
+
     import chip_smoke
     from perceiverio_pytorch_tpu_torch import PERFORMANCE, FlowInference
 
@@ -716,32 +735,50 @@ def key_bias_noise():
         hook.remove()
         return seen[0].clone()
 
-    ratios = []
+    def ratio(x, g):
+        model.zero_grad(set_to_none=True)
+        (stack(x.clone().requires_grad_()).float() * g).sum().backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.float() for n, p in stack.named_parameters()}
+        return max(grads[n].abs().max().item()
+                   / grads[n[:-len("bias")] + "weight"].abs().max().item()
+                   for n in grads if n.endswith("proj_k.bias"))
+
+    wgmma = functools.partial(fa._flash_attention_backward_cuda, num_splits=1)
+    ratios = {"planned": [], "wgmma": []}
     for i in range(1, 4):
         latents = stack_input(i)
         for seed in range(4):
             ggen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 18 + seed)
             x = latents[2 * seed % latents.shape[0]:][:2].detach().clone()
             g = torch.randn(x.shape, generator=ggen, device="cuda")
-            model.zero_grad(set_to_none=True)
-            (stack(x.clone().requires_grad_()).float() * g).sum().backward()
-            torch.cuda.synchronize()
-            grads = {n: p.grad.float() for n, p in stack.named_parameters()}
-            ratios.append(max(grads[n].abs().max().item()
-                              / grads[n[:-len("bias")] + "weight"].abs().max().item()
-                              for n in grads if n.endswith("proj_k.bias")))
+            ratios["planned"].append(ratio(x, g))
+            with mock.patch.object(fa, "_flash_attention_backward_cuda", wgmma):
+                ratios["wgmma"].append(ratio(x, g))
             print(f"[noise] request {i}, tiles {2 * seed % 6}-{2 * seed % 6 + 1}, upstream"
-                  f" seed {chip_smoke.SEED + 18 + seed}: {ratios[-1]:.4f}", flush=True)
-    vals = sorted(ratios)
-    print(f"[noise] {len(vals)} inputs, key-bias |grad| / weight's: median "
-          f"{vals[len(vals) // 2]:.4f}, range {vals[0]:.4f}-{vals[-1]:.4f}, above 0.1: "
-          f"{sum(v > 0.1 for v in vals)}", flush=True)
+                  f" seed {chip_smoke.SEED + 18 + seed}: {ratios['planned'][-1]:.4f}"
+                  f" (wgmma backward {ratios['wgmma'][-1]:.4f})", flush=True)
+    route = fa.backward_plan(*(torch.empty(2, 2048, 16, 32, dtype=torch.bfloat16,
+                                           device="meta"),) * 3)["route"]
+    for name, found in ratios.items():
+        vals = sorted(found)
+        print(f"[noise] {name} backward ({route if name == 'planned' else 'sm90_wgmma'}),"
+              f" {len(vals)} inputs, key-bias |grad| / weight's: median"
+              f" {vals[len(vals) // 2]:.4f}, range {vals[0]:.4f}-{vals[-1]:.4f}, above 0.1:"
+              f" {sum(v > 0.1 for v in vals)}", flush=True)
+
+
+def _window_ms(call, reps, window_ms):
+    """``call``'s mean over at least ``reps`` launches and at least
+    ``window_ms`` of them (``chip_smoke.timing_reps``), and the count."""
+    import math
+
+    n = max(reps, math.ceil(window_ms / max(_time(call, 1), 1e-3)))
+    return _time(call, n), n
 
 
 def time_k1_sites(reps=3, window_ms=10.0):
     """Section 16: bf16 K1 alone at the main path's sites."""
-    import math
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     sites = (FLOW_SITES + tuple((6,) + shape[1:] for shape in FLOW_SITES)
              + CLASSIFICATION_SITES[:2] + CLASSIFICATION_TRAIN_SITES[:2]
@@ -749,17 +786,48 @@ def time_k1_sites(reps=3, window_ms=10.0):
              + (MULTIMODAL_SITE,))
     for shape in sites:
         (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
-        call = lambda: fa.flash_attention(q, k, v)  # noqa: E731
-        n = max(reps, math.ceil(window_ms / max(_time(call, 1), 1e-3)))
-        print(f"[k1] {shape}: {_time(call, n):.4f} ms over {n} launches "
+        ms, n = _window_ms(lambda: fa.flash_attention(q, k, v), reps, window_ms)
+        print(f"[k1] {shape}: {ms:.4f} ms over {n} launches "
               f"({fa.launch_plan(q, k, v)['route']})", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
 
 
+def time_bwd_sites(reps=3, window_ms=10.0):
+    """Section 17: bf16 K2 and K3 alone at the main path's sites, and SDPA's
+    backward beside the self-attend."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    self_sites = (FLOW_SITES[0], (2,) + FLOW_SITES[0][1:])
+    sites = self_sites + FLOW_SITES[1:] + (MULTIMODAL_SITE,) + CLASSIFICATION_TRAIN_SITES[:2]
+    for shape in sites:
+        (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        grad = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        kernels = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
+                                     softmax_scale=None, kv_logical_len=None)
+        (k2, n2), (k3, n3) = (_window_ms(call, reps, window_ms)
+                              for call in (kernels.dkv, kernels.dq))
+        line = (f"[bwd] {shape}: K2 {k2:.4f} ms over {n2}, K3 {k3:.4f} ms over {n3}, K2 + K3"
+                f" {k2 + k3:.4f} ({kernels.plan['route']})")
+        if shape in self_sites:
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            g = grad.view(*out.shape[:2], shape[3], -1).transpose(1, 2)
+            fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+            with torch.enable_grad():
+                total, _ = _window_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), g),
+                                      reps, window_ms)
+                forward, _ = _window_ms(fwd, reps, window_ms)
+            line += f"; SDPA backward {total - forward:.4f} ms ({total:.4f} - {forward:.4f})"
+        print(line, flush=True)
+        del q, k, v, out, lse, grad, kernels
+        torch.cuda.empty_cache()
+
+
 SECTIONS = ("ptxas", "forward", "backward", "flow", "mm", "mm_train", "serving",
             "cls_backward", "training", "artifact", "codecs", "lora", "mlm_eval", "noise",
-            "k1")
+            "k1", "bwd")
 
 
 def main(argv=None):
@@ -786,7 +854,7 @@ def main(argv=None):
                 cls_backward=lambda: time_classification_backward(gen),
                 training=profile_training, artifact=profile_artifact, codecs=time_codecs,
                 lora=profile_lora, mlm_eval=profile_mlm_eval, noise=key_bias_noise,
-                k1=time_k1_sites)
+                k1=time_k1_sites, bwd=time_bwd_sites)
     for name in sections:
         runs[name]()
 

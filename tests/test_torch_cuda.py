@@ -7,8 +7,9 @@ it without the suite's conftest (which imports JAX):
 
 The kernels (K1 forward and K2/K3 backward, each on both routes: the bf16
 wgmma kernels with their split grids, merge and sum, and the fp32 CUDA-core
-kernels; all three also at head widths up to 704) are held against their
-plain PyTorch versions, which the CPU tests hold against the JAX package;
+kernels; all three also at head widths up to 704, and on the bf16
+narrow-head route at widths up to 64) are held against their plain PyTorch
+versions, which the CPU tests hold against the JAX package;
 K1 also at the classification encoders' widths (261 and 512) over 50,176
 keys, K2 and K3 at those widths (masked small cases, and a few thousand
 keys), reduced-depth classification and language models on the card
@@ -507,6 +508,102 @@ def test_bf16_backward_takes_the_wgmma_route(cuda):
     assert all(x.dtype == torch.bfloat16 for x in got)
     want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
     _check_backward(got, want, kw, 2e-2)
+
+
+# The backward's narrow route (bf16, Dqk and Dv at most 64): the flow
+# self-attend's width (2 and 16 heads), 16 and 64 wide with Dv 32 or 64, the
+# 41-wide rows that take the realigning loader, 64 with Dv 32; Tq and Tk not
+# multiples of 128.
+NARROW_BACKWARD_CASES = [(2, 100, 777, 2, 32, 32), (3, 130, 300, 16, 32, 32),
+                         (2, 70, 129, 1, 16, 32), (2, 90, 200, 1, 16, 64),
+                         (2, 100, 777, 2, 41, 64), (1, 200, 333, 3, 64, 64),
+                         (2, 65, 190, 4, 64, 32)]
+
+
+def _narrow_launches():
+    return (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_NARROW,
+            fa.LAUNCHES_BWD_SUM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", NARROW_BACKWARD_CASES)
+def test_narrow_backward_matches_reference(cuda, b, tq, tk, h, d, dv):
+    """K2 and K3 on the narrow route against the plain backward, with
+    kv_mask, q_mask, kv_logical_len and an all-masked batch entry: exact
+    zeros on wiped rows, tail keys and the masked entry; two calls bit for
+    bit; one launch each, counted as narrow, no sum.  Then without masks
+    (K3's masked tiles: the ragged last one only)."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda)
+    plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
+    assert plan["route"] == "sm90_narrow"
+    assert plan["dkv"]["cuda_launches"] == plan["dq"]["cuda_launches"] == 1
+    before = _narrow_launches()
+    got = fa.flash_attention_backward(*args, **kw)
+    again = fa.flash_attention_backward(*args, **kw)
+    assert _narrow_launches() == (before[0] + 2, before[1] + 2, before[2] + 4, before[3])
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for x, x_like in zip(got, args[:3]):
+        assert x.dtype == torch.bfloat16 and x.shape == x_like.shape
+    _check_backward(got, want, kw, 2e-2)
+    q, k, v, _, _, grad = args
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad)
+    want = fa.flash_attention_backward_reference(
+        *(x.float() for x in (q, k, v, out, lse, grad)))
+    for x, y in zip(got, want):
+        _check(x, y, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 41, 64])
+def test_narrow_backward_takes_strided_inputs(cuda, d):
+    """On the narrow route: [B, H, T, D] storage seen as [B, T, H, D], and
+    q, k, v as views of one [B, T, 3, H, D] buffer with dO a view of a wider
+    gradient buffer (token stride twice its row): strides, not copies; both
+    against the plain backward on contiguous copies."""
+    b, tq, tk, h = 2, 150, 150, 3
+    q, k, v, kv_mask, _ = _inputs(b, tq, tk, h, d, d, 50 + d, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, kv_mask=kv_mask)
+    wide = torch.randn(b, tq, 2 * h * d, generator=torch.Generator().manual_seed(d))
+    grad = wide.to(cuda, torch.bfloat16)[..., :h * d]
+    want = fa.flash_attention_backward_reference(
+        *(x.float() for x in (q, k, v, out, lse, grad)), kv_mask=kv_mask)
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    qkv = torch.stack([q, k, v], dim=2)
+    for views in ((qs, ks, vs), tuple(qkv.unbind(2))):
+        assert not views[0].is_contiguous()
+        assert fa.backward_plan(*views)["route"] == "sm90_narrow"
+        got = fa.flash_attention_backward(*views, out, lse, grad, kv_mask=kv_mask)
+        for x, y in zip(got, want):
+            _check(x, y, 2e-2)
+
+
+@pytest.mark.cuda
+def test_narrow_backward_at_the_self_attend(cuda):
+    """The flow self-attend (2048 x 2048, 16 heads of 32) at batch 1 and 2:
+    K2 and K3 against the plain backward, two calls bit for bit, and against
+    the wgmma kernels (a forced split count of 1) within the bf16
+    tolerance."""
+    for b in (1, 2):
+        q, k, v, _, _ = _inputs(b, 2048, 2048, 16, 32, 32, 60 + b, cuda)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(b)).to(
+            cuda, torch.bfloat16)
+        args = (q, k, v, out, lse, grad)
+        assert fa.backward_plan(q, k, v)["dkv"]["blocks"] == 256 * b
+        got = fa.flash_attention_backward(*args)
+        again = fa.flash_attention_backward(*args)
+        wgmma = fa._flash_attention_backward_cuda(*args, num_splits=1)
+        want = fa.flash_attention_backward_reference(*(x.float() for x in args))
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        for x, y, z in zip(got, want, wgmma):
+            _check(x, y, 2e-2)
+            _check(x, z.float(), 2e-2)
 
 
 # K2/K3 above 512: the multimodal encoder's 704 (the bf16 K2 with 16 keys a

@@ -404,7 +404,7 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
     monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
     before = fa.library_paths()
-    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "bwd", "bwd_sm90"}
+    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow"}
     assert os.path.basename(before["bwd_sm90"]).startswith("flash_attention_bwd_sm90_")
     with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
@@ -450,27 +450,62 @@ def _port_grads(q, k, v, g, fn=fa.flash_attention, **kw):
     return [x.grad.numpy() for x in leaves]
 
 
-@pytest.mark.parametrize("b,tq,tk,h,d,dv,kv_logical_len", GRAD_CASES)
-def test_backward_matches_pallas(b, tq, tk, h, d, dv, kv_logical_len):
-    """The autograd Function's backward (the plain version of K2 and K3 on
-    the CPU) against jax.grad through the Pallas dKV/dQ sweeps, with masks,
-    kv_logical_len and a batch entry whose keys are all masked."""
+def _grads_against_pallas(b, tq, tk, h, d, dv, kv_logical_len):
+    """The autograd Function's backward on the CPU against jax.grad through
+    the Pallas sweeps, with masks, kv_logical_len and a batch entry whose
+    keys are all masked: within TOL, exact zeros on wiped rows, that entry's
+    keys and tail keys, and no launch counted."""
     q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, seed=d + tk)
     kv_mask[-1] = False
     g = np.random.default_rng(d).standard_normal((b, tq, h * dv), dtype=np.float32)
     want = _jax_grads(q, k, v, g, kv_mask, q_mask, kv_logical_len)
-    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_NARROW)
     got = _port_grads(q, k, v, g, kv_mask=torch.from_numpy(kv_mask),
                       q_mask=torch.from_numpy(q_mask), kv_logical_len=kv_logical_len)
-    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ) == before
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ,
+            fa.LAUNCHES_BWD_NARROW) == before
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(x, y, err_msg=name, **TOL)
         assert np.abs(y).max() > 0, name
     dq, dk, dv_ = got
     assert np.all(dq[-1] == 0.0) and np.all(dq[~q_mask] == 0.0)
+    assert np.all(dk[-1] == 0.0) and np.all(dv_[-1] == 0.0)
     if kv_logical_len is not None:
         assert np.all(dk[:, kv_logical_len:] == 0.0)
         assert np.all(dv_[:, kv_logical_len:] == 0.0)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,dv,kv_logical_len", GRAD_CASES)
+def test_backward_matches_pallas(b, tq, tk, h, d, dv, kv_logical_len):
+    """The autograd Function's backward (the plain version of K2 and K3 on
+    the CPU) against jax.grad through the Pallas dKV/dQ sweeps, with masks,
+    kv_logical_len and a batch entry whose keys are all masked."""
+    _grads_against_pallas(b, tq, tk, h, d, dv, kv_logical_len)
+
+
+# The backward's narrow route (bf16, Dqk and Dv at most 64), whose kernels
+# are held against the plain backward on the card: 16, 32 (16 heads), the
+# 41-wide rows that take the realigning loader, 64 with Dv 32 and 32 with
+# Dv 64, each with kv_logical_len, Tq and Tk not multiples of 64.
+NARROW_GRAD_CASES = [
+    (2, 70, 150, 2, 16, 16, 140),
+    (2, 40, 100, 16, 32, 32, 97),
+    (2, 70, 150, 2, 41, 41, 141),
+    (3, 65, 130, 3, 64, 32, 120),
+    (2, 50, 90, 2, 32, 64, 80),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,dv,kv_logical_len", NARROW_GRAD_CASES)
+def test_narrow_backward_matches_pallas(b, tq, tk, h, d, dv, kv_logical_len):
+    """The plain backward at the narrow route's widths (which the bf16
+    kernels take on the card) against jax.grad through the Pallas sweeps in
+    interpreter mode: masks, kv_logical_len, an all-masked entry, exact
+    zeros on wiped rows and tail keys."""
+    shapes = [torch.empty(b, t, h, w, dtype=torch.bfloat16, device="meta")
+              for t, w in ((tq, d), (tk, d), (tk, dv))]
+    assert fa.backward_plan(*shapes, kv_logical_len=kv_logical_len)["route"] == "sm90_narrow"
+    _grads_against_pallas(b, tq, tk, h, d, dv, kv_logical_len)
 
 
 @pytest.mark.parametrize(
@@ -564,22 +599,24 @@ def test_split_backward_reference_matches_pallas(bwd_split_case, num_splits):
 
 
 @pytest.mark.parametrize(
-    "site,b,tq,h,tk,d,dkv_splits,dkv_blocks,dq_splits,dq_blocks",
-    [("decoder", 1, 182528, 1, 2048, 512, 8, 512, 1, 2852),
-     ("encoder", 1, 2048, 1, 182528, 322, 1, 5704, 8, 256),
-     ("self", 1, 2048, 16, 2048, 32, 1, 512, 1, 512),
-     ("masked", 2, 100, 2, 777, 41, 1, 52, 1, 8)],
+    "site,b,tq,h,tk,d,route,dkv_splits,dkv_blocks,dq_splits,dq_blocks",
+    [("decoder", 1, 182528, 1, 2048, 512, "sm90_wgmma", 8, 512, 1, 2852),
+     ("encoder", 1, 2048, 1, 182528, 322, "sm90_wgmma", 1, 5704, 8, 256),
+     ("self", 1, 2048, 16, 2048, 32, "sm90_narrow", 1, 256, 1, 256),
+     ("masked", 2, 100, 2, 777, 41, "sm90_narrow", 1, 28, 1, 4)],
 )
-def test_backward_split_plan(site, b, tq, h, tk, d, dkv_splits, dkv_blocks, dq_splits,
+def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_blocks, dq_splits,
                              dq_blocks):
     """The flow sites at batch 1: K2 splits the decoder's query rows (64
     key blocks of 32 on 132 SMs), K3 the encoder's keys (K1's plan: 32
-    query blocks); the full grids take one split.  No range is empty and the
-    ranges cover every tile."""
+    query blocks); the full grids take one split, and the self-attend and a
+    41-wide case take the narrow route (blocks of 128 keys or query rows),
+    which never splits and agrees with the plans that find no split.  No
+    range is empty and the ranges cover every tile."""
     q = torch.empty(b, tq, h, d, dtype=torch.bfloat16, device="meta")
     k = torch.empty(b, tk, h, d, dtype=torch.bfloat16, device="meta")
     plan = fa.backward_plan(q, k, k)
-    assert plan["route"] == "sm90_wgmma"
+    assert plan["route"] == route
     assert fa._dkv_split_plan(b, tq, h, tk) == (plan["dkv"]["splits"],
                                                plan["dkv"]["tiles_per_split"])
     assert fa._split_plan(b, tq, h, tk) == (plan["dq"]["splits"], plan["dq"]["tiles_per_split"])
@@ -594,7 +631,8 @@ def test_backward_split_plan(site, b, tq, h, tk, d, dkv_splits, dkv_blocks, dq_s
 
 def test_backward_plan_routes_by_dtype():
     """bf16 takes the wgmma kernels and their split plans (or forced split
-    counts); fp32 the CUDA-core kernels, which never split."""
+    counts), or at head widths up to 64 the narrow kernels; fp32 the
+    CUDA-core kernels, which never split."""
     q = torch.empty(1, 182528, 1, 512, dtype=torch.bfloat16, device="meta")
     k = torch.empty(1, 2048, 1, 512, dtype=torch.bfloat16, device="meta")
     plan = fa.backward_plan(q, k, k)
@@ -609,6 +647,67 @@ def test_backward_plan_routes_by_dtype():
     assert plan["route"] == "cuda_cores"
     assert all(plan[x]["splits"] == 1 and plan[x]["cuda_launches"] == 1 for x in ("dkv", "dq"))
     assert (plan["dkv"]["blocks"], plan["dq"]["blocks"]) == (64, 2852)
+    narrow = torch.empty(1, 2048, 16, 32, dtype=torch.bfloat16, device="meta")
+    assert fa.backward_plan(narrow, narrow, narrow)["route"] == "sm90_narrow"
+    assert fa.backward_plan(narrow.float(), narrow.float(), narrow.float())["route"] == (
+        "cuda_cores")
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv,num_splits,want",
+    [(1, 2048, 2048, 16, 32, 32, None,
+      ("sm90_narrow", dict(splits=1, tiles_per_split=32, col_chunks=1, blocks=256,
+                           cuda_launches=1),
+       dict(splits=1, tiles_per_split=32, col_chunks=1, blocks=256, cuda_launches=1))),
+     (2, 2048, 2048, 16, 32, 32, None,
+      ("sm90_narrow", dict(splits=1, tiles_per_split=32, col_chunks=1, blocks=512,
+                           cuda_launches=1),
+       dict(splits=1, tiles_per_split=32, col_chunks=1, blocks=512, cuda_launches=1))),
+     (2, 100, 777, 2, 41, 64, None,
+      ("sm90_narrow", dict(splits=1, tiles_per_split=2, col_chunks=1, blocks=28,
+                           cuda_launches=1),
+       dict(splits=1, tiles_per_split=13, col_chunks=1, blocks=4, cuda_launches=1))),
+     (2, 100, 777, 2, 16, 16, None, ("sm90_narrow", None, None)),
+     (2, 100, 777, 2, 64, 64, None, ("sm90_narrow", None, None)),
+     (2, 100, 777, 2, 65, 64, None, ("sm90_wgmma", None, None)),
+     (2, 100, 777, 2, 32, 72, None, ("sm90_wgmma", None, None)),
+     (1, 2048, 2048, 16, 32, 32, 1, ("sm90_wgmma", None, None)),
+     (2, 100, 777, 2, 41, 64, 2, ("sm90_wgmma", None, None))],
+)
+def test_narrow_backward_plan(b, tq, tk, h, d, dv, num_splits, want):
+    """bf16 backwards whose Dqk and Dv are both at most 64 take the narrow
+    route: one launch each, no split, K2 a block per 128 keys walking the
+    query tiles, K3 a block per 128 query rows walking the key tiles below
+    kv_logical_len (here 770 at the 41-wide case); a wider head or a forced
+    split count takes the wgmma kernels and fp32 the CUDA-core ones."""
+    q = torch.empty(b, tq, h, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, tk, h, d, dtype=torch.bfloat16, device="meta")
+    v = torch.empty(b, tk, h, dv, dtype=torch.bfloat16, device="meta")
+    kv_len = tk - 7 if tk == 777 else None
+    plan = fa.backward_plan(q, k, v, kv_logical_len=kv_len, num_splits=num_splits)
+    route, dkv, dq = want
+    assert plan["route"] == route
+    if dkv is not None:
+        assert (plan["dkv"], plan["dq"]) == (dkv, dq)
+    if route == "sm90_wgmma" and num_splits is not None:
+        assert plan["dkv"]["splits"] == plan["dq"]["splits"] == num_splits
+    fp32 = fa.backward_plan(q.float(), k.float(), v.float(), kv_logical_len=kv_len)
+    assert fp32["route"] == "cuda_cores"
+
+
+def test_cpu_backward_counts_no_launch():
+    """A backward on CPU tensors runs the plain version: no K2, K3 or
+    narrow-route launch is counted, though bf16 inputs at these widths take
+    the narrow route on the card."""
+    q, k, v, kv_mask, _ = _inputs(1, 40, 70, 2, 32, 32, seed=9)
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    assert fa.backward_plan(*args)["route"] == "sm90_narrow"
+    out, lse = fa.flash_attention(*args, return_lse=True)
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_NARROW)
+    grads = fa.flash_attention_backward(*args, out, lse, torch.ones_like(out),
+                                        kv_mask=torch.from_numpy(kv_mask))
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_NARROW) == before
+    assert all(torch.isfinite(g.float()).all() for g in grads)
 
 
 # The multimodal encoder, (B, Tq, Tk, H, D, Dv) = (1, 784, 52097, 1, 704, 704).
