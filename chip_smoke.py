@@ -449,7 +449,8 @@ BF16_KEY_BIAS_TOL = 0.3
 # the encoder's K1 splits its keys and merges them once, the decoder's K2
 # splits its query rows and the encoder's K3 its keys, each summed once.  The
 # fp32 kernels of K2 and K3 never split.
-STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26, "merge": 1, "sum": 2}
+STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26, "merge": 1, "sum": 2, "longkv": 0,
+                 "copy": 0}
 FP32_STEP_LAUNCHES = dict(STEP_LAUNCHES, sum=0)
 TRAIN_STEPS = 6  # timed, after one warm-up step
 
@@ -486,7 +487,7 @@ MM_BF16_TOL = 1e-1
 # flash site, outside every checkpoint: K1 once with its merge, K2 and K3
 # once; in bf16 K3 splits the keys and sums them once, K2 does not split.
 MM_TRAIN_CHUNKS = 16
-MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1}
+MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 0, "copy": 0}
 MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0)
 MM_TRAIN_STEPS = 3  # timed, after one warm-up step
 MM_LABEL = 123  # the synthetic clip's class in the gradient phase
@@ -512,11 +513,15 @@ CLS_TRAIN_K1_PLAN = {"splits": 4, "cuda_launches": 2}
 # Launches per training step of the pixel or 1x1-conv classifier (remat of
 # the self-attend stack, batch 2 or 8): the encoder's cross-attend, outside
 # every checkpoint, is the one flash site: K1 with its merge, K2 and K3 once;
-# in bf16 K3 splits the keys and sums them once, K2 does not split.  The
-# convnet's sites are all dense.
-CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1}
-CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0)
-NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0}
+# in bf16 K3 splits the keys and sums them once, K2 does not split and takes
+# the long-KV route ("longkv": 512 latents over 50,176 pixels at batch 2 and
+# 8), which at the pixel encoder first copies q and dO into 16-byte aligned
+# rows ("copy": their 522-byte rows; the 1x1-conv encoder's are aligned).
+# The convnet's sites are all dense.
+CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1, "copy": 0}
+CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0, longkv=0)
+CLS_STEP_COPIES = {"FOURIER_POS_PIXEL": 2, "LEARNED_POS_1X1CONV": 0}
+NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0, "longkv": 0, "copy": 0}
 CLS_TRAIN_STEPS = 10  # timed, after one warm-up step
 # Timed, after one warm-up step: 12 steps in all, so that train_mlm's
 # eval_every (steps // 2) puts its evaluations at the mid and final steps.
@@ -968,6 +973,52 @@ def check_realign(gen, site, shape, offsets):
     return rec
 
 
+def check_realign_backward(gen, site, shape, offsets):
+    """K2 at a bf16 site whose rows are not 16-byte aligned (the pixel
+    encoder's 261, on the long-KV route): q, k and v as views at each
+    element offset in ``offsets`` (rows W + 8 apart in NaN-filled buffers,
+    which the route copies into aligned rows first) against contiguous
+    copies of the same values (K and V by bulk copies, each row shifted by
+    its own offset as it is repacked), on the same output, lse and
+    gradient: dK and dV bit for bit.  Returns the record, with each
+    offset's loader and copies and the check's seconds."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    q, k, v, _ = _case_inputs(*shape, torch.bfloat16, False, gen)
+    kw = dict(q_mask=None, kv_mask=None, softmax_scale=None, kv_logical_len=None)
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        grad = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        plan = fa.backward_plan(q, k, v)
+        want = fa.BackwardKernels(q, k, v, out, lse, grad, **kw)
+        want.dkv()
+        unequal, loaders = [], []
+        for offset in offsets:
+            views = [_unaligned_view(x, offset) for x in (q, k, v)]
+            vplan = fa.backward_plan(*views)
+            got = fa.BackwardKernels(*views, out, lse, grad, **kw)
+            got.dkv()
+            torch.cuda.synchronize()
+            loaders.append([vplan["dkv"]["loader"], vplan["dkv"]["copies"]])
+            if vplan["route"] != "sm90_longkv" or loaders[-1][0] != "copy":
+                raise AssertionError(f"{site}: offset {offset}: backward plan {vplan}")
+            if not (torch.equal(got.grad_k, want.grad_k) and torch.equal(got.grad_v, want.grad_v)):
+                unequal.append(offset)
+            del views, got
+    if plan["route"] != "sm90_longkv" or plan["dkv"]["loader"] != "bulk" or unequal:
+        raise AssertionError(f"{site} {shape}: plan {plan}; K2 on realigned views at"
+                             f" element offsets {unequal} differs from contiguous copies")
+    rec = dict(site=site, kernel="K2", shape=list(shape), route=plan["route"],
+               loader=plan["dkv"]["loader"], copies=plan["dkv"]["copies"],
+               offsets_bytes=[2 * o for o in offsets], loaders=loaders, bitwise=True,
+               seconds=time.perf_counter() - t0)
+    print(f"[realign] {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def check_splits(gen, site, shape):
     """At a bf16 site whose short grid splits the keys: the planned split
     count against one split (within the bf16 tolerance), and two calls bit
@@ -1075,10 +1126,30 @@ def _library_backward_ms(q, k, v, grad, kw, reps, window=False):
     return total - forward, "forward_backward_less_forward"
 
 
+def _want_backward_route(shape, dtype_name):
+    """The route ``backward_plan`` must pick at (B, Tq, Tk, H, D, Dv): fp32
+    the CUDA-core kernels; bf16 heads up to 64 wide the narrow one; the
+    long-KV K2 at most 512 query rows over at least 4,224 keys with the
+    wider head 257 to 512 wide (the classification encoders); else wgmma."""
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    _, tq, tk, _, d, dv = shape
+    width = max(d, dv)
+    if dtype_name == "fp32":
+        return "cuda_cores"
+    if width <= fa.NARROW_HEAD_DIM:
+        return "sm90_narrow"
+    if (fa.LONGKV_MIN_WIDTH <= width <= fa.COL_CHUNK and tq <= fa.LONGKV_MAX_Q
+            and tk >= fa.LONGKV_MIN_K):
+        return "sm90_longkv"
+    return "sm90_wgmma"
+
+
 def check_backward_case(name, shape, dtype_name, masked, reps, gen):
     """K2 and K3 vs the plain backward at one shape; returns one record per
-    kernel.  bf16 heads up to 64 wide must take the narrow route, one narrow
-    launch per kernel, and two calls must give the same bits; bf16 kernels
+    kernel.  The plan must take ``_want_backward_route``'s route: a narrow
+    launch per kernel on the narrow route, a long-KV K2 launch on the
+    long-KV one, where two calls must also give the same bits; bf16 kernels
     and SDPA are timed over at least 10 ms of launches (``timing_reps``)."""
     import torch
 
@@ -1095,25 +1166,26 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
                                      kv_mask=kw.get("kv_mask"), softmax_scale=None,
                                      kv_logical_len=kw.get("kv_logical_len"))
         plan = kernels.plan
-        narrow = dtype_name == "bf16" and max(shape[4], shape[5]) <= fa.NARROW_HEAD_DIM
-        want_route = ("cuda_cores" if dtype_name == "fp32"
-                      else "sm90_narrow" if narrow else "sm90_wgmma")
+        want_route = _want_backward_route(shape, dtype_name)
+        narrow, longkv = want_route == "sm90_narrow", want_route == "sm90_longkv"
         if plan["route"] != want_route:
             raise AssertionError(f"{name}/{dtype_name}: route {plan['route']}")
         cuda_launches = {}
         for kernel, run in (("K2", kernels.dkv), ("K3", kernels.dq)):
-            before = fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ + fa.LAUNCHES_BWD_SUM
-            narrow_before = fa.LAUNCHES_BWD_NARROW
+            before = (fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ + fa.LAUNCHES_BWD_SUM
+                      + fa.LAUNCHES_BWD_COPY)
+            narrow_before, longkv_before = fa.LAUNCHES_BWD_NARROW, fa.LAUNCHES_BWD_LONGKV
             run()
             cuda_launches[kernel] = (fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ
-                                     + fa.LAUNCHES_BWD_SUM - before)
+                                     + fa.LAUNCHES_BWD_SUM + fa.LAUNCHES_BWD_COPY - before)
             planned = plan["dkv" if kernel == "K2" else "dq"]["cuda_launches"]
             if (cuda_launches[kernel] != planned
-                    or fa.LAUNCHES_BWD_NARROW - narrow_before != narrow):
+                    or fa.LAUNCHES_BWD_NARROW - narrow_before != narrow
+                    or fa.LAUNCHES_BWD_LONGKV - longkv_before != (longkv and kernel == "K2")):
                 raise AssertionError(f"{name}/{dtype_name}: {kernel} made "
                                      f"{cuda_launches[kernel]} CUDA launches, planned {plan}")
         got = {"dq": kernels.grad_q, "dk": kernels.grad_k, "dv": kernels.grad_v}
-        if narrow:  # two calls, bit for bit
+        if narrow or longkv:  # two calls, bit for bit
             again = fa.BackwardKernels(*args, q_mask=kw.get("q_mask"),
                                        kv_mask=kw.get("kv_mask"), softmax_scale=None,
                                        kv_logical_len=kw.get("kv_logical_len"))
@@ -1162,9 +1234,10 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
         kplan = plan["dkv" if kernel == "K2" else "dq"]
         rec = dict(
             kernel=kernel, site=name, dtype=dtype_name, shape=list(shape),
-            route=plan["route"], splits=kplan["splits"], col_chunks=kplan["col_chunks"],
+            route="sm90_wgmma" if longkv and kernel == "K3" else plan["route"],
+            loader=kplan.get("loader"), splits=kplan["splits"], col_chunks=kplan["col_chunks"],
             blocks=kplan["blocks"], cuda_launches=cuda_launches[kernel],
-            bitwise_repeat=narrow,
+            bitwise_repeat=narrow or longkv,
             max_abs_err=max(errs[key][0] for key in keys),
             max_abs_grad=max(errs[key][1] for key in keys),
             ms=ms[kernel], plain_ms=plain_ms, library_ms=library_ms,
@@ -1247,9 +1320,11 @@ def phase_cls_kernels(reps: int = 3):
     that their large blocks do not change the allocator state those phases
     start from): K1 with its lse (as the autograd Function asks for it) in
     fp32 and bf16, unmasked and masked, its plan 4 key splits and a merge;
-    K2 and K3 against the plain backward in fp32 and bf16; bf16 K3 at the
+    K2 and K3 against the plain backward in fp32 and bf16, the bf16 K2 on
+    the long-KV route at both sites, two calls bit for bit; bf16 K3 at the
     pixel encoder at its planned splits against one split, and two calls bit
-    for bit.  Returns the K1 and the K2/K3 records."""
+    for bit; K1 and the long-KV K2 on realigned views of the pixel encoder's
+    rows bit for bit.  Returns the K1 and the K2/K3 records."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
@@ -1264,6 +1339,8 @@ def phase_cls_kernels(reps: int = 3):
     check_backward_splits(gen, (("K3", "cls_pixel", CLS_TRAIN_SITES["cls_pixel"]),))
     REALIGNED.append(check_realign(gen, "cls_pixel_train", CLS_TRAIN_SITES["cls_pixel"],
                                    REALIGN_OFFSETS))
+    REALIGNED.append(check_realign_backward(gen, "bwd_cls_pixel_train",
+                                            CLS_TRAIN_SITES["cls_pixel"], REALIGN_OFFSETS))
     return forward, backward
 
 
@@ -1392,14 +1469,15 @@ def _launch_counts():
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
     return {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DKV, "K3": fa.LAUNCHES_BWD_DQ,
-            "merge": fa.LAUNCHES_MERGE, "sum": fa.LAUNCHES_BWD_SUM}
+            "merge": fa.LAUNCHES_MERGE, "sum": fa.LAUNCHES_BWD_SUM,
+            "longkv": fa.LAUNCHES_BWD_LONGKV, "copy": fa.LAUNCHES_BWD_COPY}
 
 
 def _reset_launch_counts():
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
     fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_MERGE = 0
-    fa.LAUNCHES_BWD_SUM = 0
+    fa.LAUNCHES_BWD_SUM = fa.LAUNCHES_BWD_LONGKV = fa.LAUNCHES_BWD_COPY = 0
 
 
 def phase_gradients():
@@ -2135,7 +2213,8 @@ def phase_cls_gradients():
         for label, policy, launches, tol in (
                 ("fp32", dataclasses.replace(PARITY, attn_impl="auto"), CLS_FP32_STEP_LAUNCHES,
                  GRAD_TOL),
-                ("bf16", PERFORMANCE, CLS_STEP_LAUNCHES, BF16_GRAD_TOL)):
+                ("bf16", PERFORMANCE, dict(CLS_STEP_LAUNCHES, copy=CLS_STEP_COPIES[prep]),
+                 BF16_GRAD_TOL)):
             records[prep, label] = _cls_gradient_pass(prep, label, policy, launches, tol,
                                                       img, labels)
             torch.cuda.empty_cache()
@@ -2212,7 +2291,8 @@ def phase_cls_train():
             metrics_path=metrics, log_every=1)
         norms = [m for m in state.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
         initial = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
-        expected = NO_LAUNCHES if CLS_SITE_OF[prep] is None else CLS_STEP_LAUNCHES
+        expected = (NO_LAUNCHES if CLS_SITE_OF[prep] is None
+                    else dict(CLS_STEP_LAUNCHES, copy=CLS_STEP_COPIES[prep]))
         rec = _train_steps(trainer, state, batches, total, metrics, expected)
         rec.update(prep=prep, batch=8, images_per_s=8 * rec["steps_per_s"])
         if prep == "FOURIER_POS_CONVNET":
@@ -5602,6 +5682,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     bwd_sources = {
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "sm90_narrow": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_narrow_sm90.cu",
+        "sm90_longkv": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd_longkv_sm90.cu",
         "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
     }
     for kernel, name, line in (("K2", "flash_attention_bwd_dkv", 473),
@@ -5612,7 +5693,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         mm_site = next(r for r in mm_bwd if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
         common = dict(route="cuda", source=bwd_sources["sm90_wgmma"], sources=bwd_sources,
                       routes={"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
-                              "fp32": "cuda_cores"},
+                              "bf16 K2, Tq <= 512 over Tk >= 4224, 257 <= d <= 512":
+                              "sm90_longkv", "fp32": "cuda_cores"},
                       replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}")
         entries.append(dict(
             name=name,
@@ -5666,10 +5748,16 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                 continue
             cls_bwd = [r for r in backward if r["kernel"] == kernel and r["site"] == site]
             site_rec = next(r for r in cls_bwd if r["dtype"] == "bf16")
+            longkv = kernel == "K2"
             entries.append(dict(
                 name=f"{name}_d{CLS_TRAIN_SITES[site][4]}",
-                **common,
+                **dict(common, source=bwd_sources["sm90_longkv" if longkv else "sm90_wgmma"]),
                 launches=cls_train[prep]["launches"][kernel],
+                **(dict(longkv_launches_train=cls_train[prep]["launches"]["longkv"],
+                        copy_launches_train=cls_train[prep]["launches"]["copy"],
+                        loader=site_rec["loader"],
+                        realign=[r for r in REALIGNED if r["site"] == f"bwd_{site}_train"])
+                   if longkv else {}),
                 sum_launches_train=cls_train[prep]["launches"]["sum"],
                 **(file_counts(kernel, "sum", cls_files) if site == "cls_1x1conv" else {}),
                 **(dict(launches_int8_train=int8["train"]["launches"][kernel],

@@ -1,0 +1,833 @@
+// Flash attention backward, K2 (dK, dV), for bf16 inputs on Hopper (sm_90a)
+// where a (batch, head) has a short query range and many keys: the
+// classification encoders' cross-attends, 512 latents over 50,176 pixels,
+// one head 261 (the pixel variant) or 512 (the 1x1-conv variant) wide.
+//
+// Replaces `_bwd_dkv_kernel` (perceiverio_pytorch_tpu/ops/pallas/
+// flash_attention.py, launched by `_pallas_attention_bwd` through
+// `pl.pallas_call`) at head widths of 257 to 512 whose walk is at most 512
+// query rows over at least 4,224 keys (ops/flash_attention.py
+// `backward_plan`, route "sm90_longkv"); K3 keeps the wgmma kernel of
+// flash_attention_bwd_sm90.cu there.  The same contract as that file's K2:
+// p = exp(scale * q k^T - lse) from the forward's log-sum-exp (exp2 of the
+// logits prescaled by scale * log2(e)), 0 for keys at or beyond kv_len,
+// keys whose kv_mask byte is 0 and rows with lse = +inf (all keys masked,
+// or past Tq); dp = do v^T and ds = p * (dp - delta) in fp32, where the
+// caller computes delta = rowsum(do * out) and zeroes do on q-masked rows;
+// p and ds are rounded to bf16 before their products; dv += p^T do and
+// dk += scale ds^T q are summed in fp32 and written as bf16.  Keys past
+// kv_len, keys masked everywhere and wiped rows come out exactly 0.  No
+// atomics and no split: two calls give the same bits.
+//
+// What bounds it on an H100.  Per (query, key) pair K2 does 4 d + 4 dv FLOP:
+// 0.84 TFLOP at (B, Tq, Tk) = (8, 512, 50,176) and d = 512, 0.85 ms at 989
+// TFLOP/s.  The register wall (64 keys' dK and dV at d = 512 fill the
+// register file) keeps a block at 32 keys, so every query row is read once
+// per 32 keys: 8 x 1,568 blocks x 1 MiB of Q and dO, 13 GB out of L2 into
+// shared memory.  The route flash_attention_bwd_sm90.cu takes elsewhere
+// (`<16, 8>`, `<16, 6>` at 261) moved that at about 1.4 TB/s: its loads are
+// issued by the consumers themselves in 16-byte pieces of eight different
+// rows a warp, staggered and not overlapped, each block walks only 8 query
+// tiles behind a prologue of its own, and 261-wide rows (522 bytes) took
+// 2-byte copies into 6 column tiles of 64.
+//
+// The design:
+//   * Persistent blocks.  One block an SM walks work items (b, h, 32 keys)
+//     in steps of the grid, batch entries first and each item's query tiles
+//     from a tile of its own (tile_of), so that the blocks running at once
+//     read different lines of L2; a block loads the next item's K and V
+//     and first tiles while it finishes the last one.
+//   * Warp specialisation.  A producer warpgroup keeps the loads in flight:
+//     its side 0 feeds the dO ring and the V rows, side 1 the Q ring and the
+//     K rows.  The two consumer warpgroups split the four products by role,
+//     so that every product is an N = 32 wgmma over all 32 keys (twice the
+//     old N = 16: half the shared-memory reads of the A operand per FLOP):
+//       warpgroup 0: S = Q K^T, P (fp32, from the lse), dV^T += dO^T P;
+//       warpgroup 1: dP = dO V^T, dS = P (dP - delta), dK^T += Q^T dS;
+//     each holding one transposed accumulator of NM x 16 fp32 registers a
+//     thread (128 at d = 512; setmaxnreg moves the producers' registers to
+//     the consumers).  P reaches warpgroup 1 in fp32 through an 8 KB
+//     exchange area, so dS is formed from the same fp32 p as before; two
+//     named barriers a tile (READY, FREE) hand it over.
+//   * A ring of column chunks.  The Q and dO tiles (64 rows x 512 columns,
+//     64 KB each at d = 512) cannot be double-buffered beside K, V and the
+//     accumulators' operands.  So each ring slot holds one 64-column chunk
+//     of a tile (8 KB), with a full and an empty mbarrier.  S and dP start
+//     on a tile's first chunk while the rest land, and a chunk is released
+//     as soon as the product that reads it last is done with it (dV^T and
+//     dK^T are issued chunk by chunk, one commit group each).  At d = 512
+//     9 slots fit; at 261 (5 chunks a tile) 8 to 10.
+//   * TMA into wgmma's 128-byte swizzle.  One thread a side issues a TMA
+//     copy a chunk (a box of 64 rows x 128 bytes) and the K and V rows (NM
+//     boxes of 32 rows): whole 128-byte lines, no thread spent on copies,
+//     and no proxy fence on the consumers' side.  Copies of 16-byte pieces
+//     (by threads, or TMA boxes whose inner dimension is 16 bytes, which the
+//     unswizzled core-matrix layout asks for) were the bound of every
+//     earlier form of this kernel (PERF.md).
+//   * Rows that are not 16-byte aligned (the pixel encoder's 522 bytes;
+//     offset views), which TMA cannot address.  Q and dO are read again by
+//     every key block, so they are copied once into 16-byte aligned rows
+//     (copy_rows_kernel, 1 MB a batch entry at the pixel encoder; the
+//     wrapper launches it).  K and V are read once: packed rows (one head,
+//     token stride = width) arrive by one bulk copy an item into a staging
+//     buffer, issued an item ahead, and the side's threads repack them into
+//     the swizzled tiles, each row shifted by its offset within its 16-byte
+//     units (layout BULK); other strides are copied into aligned rows first.
+//   * At d = 261: 5 column tiles of 64 (320 columns), not 6; S and dP
+//     reduce over 272.
+//
+// Shared memory is zeroed once; TMA zero-fills columns and rows past the
+// tensors, and rows past Tq or kv_len hold zeros or finite stale rows whose
+// p is 0.
+//
+// Interface: a plain C function, built with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and called through ctypes.  It launches on the given stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;              // query rows of a tile
+constexpr int BK = 32;              // keys of a work item
+constexpr int NF = BK / 2;          // registers of one m64 x 32 fp32 fragment
+constexpr int CONSUMERS = 256;      // two warpgroups
+constexpr int NT = 64;              // producer threads a side (two warps)
+constexpr int THREADS = CONSUMERS + 2 * NT;  // and a producer warpgroup
+// Registers a thread after setmaxnreg, the 64,512 that 384 threads x 168
+// take at launch shared out: the consumers' accumulators take NM x 16 (128
+// at NM = 8).
+constexpr int PRODUCER_REGS = 88;
+constexpr int CONSUMER_REGS = (168 * THREADS - 2 * NT * PRODUCER_REGS) / CONSUMERS;  // 208
+constexpr int MAX_SMEM = 232448;    // dynamic shared memory a block may use on an H100
+constexpr float LOG2E = 1.4426950408889634f;
+// Named barriers (0 is __syncthreads): each warpgroup's own, P handed from
+// warpgroup 0 to 1 and the exchange area handed back, and each producer
+// side's own (5, 6).
+constexpr int BAR_WG0 = 1, BAR_WG1 = 2, BAR_READY = 3, BAR_FREE = 4, BAR_SIDE = 5;
+
+// How the K and V rows arrive (Smem's LAYOUT; the Q and dO chunks arrive by
+// TMA in both).  TMA: by TMA too (16-byte aligned rows).  BULK: by bulk
+// copies of an item's packed rows into a staging buffer, repacked into
+// place by the side's threads (2-byte aligned rows: the pixel encoder's
+// 522 bytes).
+constexpr int TMA = 0, BULK = 1;
+
+struct Params {
+  const bf16* k;           // BULK: the K and V rows, [B, Tk, 1, D] and [.., Dv], packed
+  const bf16* v;
+  const float* lse;        // [B, H, Tq]
+  const float* delta;      // [B, H, Tq]
+  const uint8_t* kv_mask;  // [B, Tk] or null
+  bf16* dk;                // [B, Tk, H, D], contiguous
+  bf16* dv;                // [B, Tk, H, Dv], contiguous
+  int B, H, Tq, Tk, kv_len, D, Dv;
+  int D16, Dv16;           // D and Dv rounded up to 16: the reductions of S and dP
+  int nq, no;              // column chunks of 64 of Q and K (d), of dO and V (dv)
+  int n_tiles;             // query tiles of 64: ceil(Tq / 64)
+  int n_kb;                // key blocks of 32 a (batch, head)
+  int items;               // n_kb * H * B
+  long long k_sb, v_sb;    // BULK: batch strides (elements)
+  float scale;             // softmax scale
+  float scale_log2;        // softmax scale * log2(e)
+  // TMA tensor maps (make_tmap): 128-byte swizzled boxes of 64 columns.
+  CUtensorMap tm_q, tm_o, tm_k, tm_v;
+};
+
+// Shared memory of a block with NM column tiles of 64: the K and V rows as
+// NM chunks of 32 rows, P, dS, the fp32 P exchange, BULK's two staging
+// buffers (one a side, 32 rows of at most 64 NM columns), and as many ring
+// slots (one 128-byte swizzled chunk of 64 rows x 64 columns of Q or dO
+// each) as fit, up to two tiles.  Every offset is a multiple of 1024 bytes
+// (the swizzle's repeat) from a 1024-byte aligned base.
+template <int NM, int LAYOUT>
+struct Smem {
+  static constexpr int C = 64 * NM;         // columns of the K and V rows
+  static constexpr int SLOT = BQ * 64 * 2;  // one ring chunk
+  static constexpr int K = 0;
+  static constexpr int V = K + BK * C * 2;
+  static constexpr int P = V + BK * C * 2;    // bf16 P, [64 queries][32 keys]
+  static constexpr int S = P + BQ * BK * 2;   // bf16 dS, the same
+  static constexpr int PF = S + BQ * BK * 2;  // fp32 P fragments, [NF][128 threads]
+  static constexpr int STG = PF + NF * 128 * 4;
+  static constexpr int STG_BYTES = LAYOUT == BULK ? BK * C * 2 : 0;
+  static constexpr int RING = STG + 2 * STG_BYTES;
+  // Barriers: full and empty per slot of both rings, K's and V's pairs, the
+  // two staging buffers'; and 1 KB to align the base.
+  static constexpr int FIXED = RING + 8 * (4 * 2 * NM + 6) + 1024;
+  static constexpr int FIT = (MAX_SMEM - FIXED) / (2 * SLOT);
+  static constexpr int NSLOT = FIT < 2 * NM ? FIT : 2 * NM;
+  static constexpr int Q = RING;
+  static constexpr int O = Q + NSLOT * SLOT;
+  static constexpr int BAR = O + NSLOT * SLOT;
+  static constexpr int NBAR = 4 * NSLOT + 6;
+  static constexpr int SIZE = BAR + 8 * NBAR + 1024;  // with the alignment pad
+  static_assert(NSLOT >= NM, "a tile's chunks must fit the ring");
+  static_assert(SIZE <= MAX_SMEM, "K2 long-KV tiles exceed shared memory");
+  static_assert(V % 1024 == 0 && STG % 1024 == 0 && STG_BYTES % 1024 == 0, "swizzle atoms");
+};
+
+template <int ID, int N>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
+}
+
+template <int ID, int N>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
+}
+
+// One TMA copy of the box of `tmap` at (column, head, row, batch) into
+// `dst`, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(char* dst, const CUtensorMap* tmap, int col, int h,
+                                         int row, int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(sm90::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(col), "r"(h), "r"(row), "r"(b),
+      "r"(sm90::smem_addr(bar))
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16) from 16-byte aligned `src`
+// into `dst`, counted on `bar`.
+__device__ __forceinline__ void bulk_load(char* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(sm90::smem_addr(dst)), "l"(src), "r"(bytes), "r"(sm90::smem_addr(bar))
+      : "memory");
+}
+
+// This thread's arrival on `bar`, which then also waits for `bytes`.
+__device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   sm90::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A wgmma descriptor of a 128-byte swizzled operand: K-major (the Q, dO,
+// K and V chunks as S's and dP's operands: 8-row groups 1024 bytes apart, a
+// k16 step 32 bytes on) or MN-major (a Q or dO chunk as the A of dK^T or
+// dV^T: 8 query rows, the K of the product, a 1024-byte atom; M = 64
+// columns, one atom).
+__device__ __forceinline__ uint64_t make_desc_sw128(const char* p) {
+  return sm90::make_desc(sm90::smem_addr(p), 16, 1024) | (1ull << 62);
+}
+
+// Byte offset of 16-byte unit u (8 columns) of row r in a 128-byte swizzled
+// tile of 64 columns.
+__device__ __forceinline__ uint32_t sw_offset(int r, int u) {
+  return (uint32_t)(r * 128 + ((u ^ (r & 7)) << 4));
+}
+
+// The query tile walked w-th (of n) by the item of key block kb: each item
+// starts at its own tile, so that the blocks running at once read
+// different tiles (and, items taken batch first, different batch entries)
+// rather than all the same lines of L2 at the same time.
+__device__ __forceinline__ int tile_of(int w, int kb, int n) { return (w + kb) % n; }
+
+// wgmma.wait_group with a count known only after unrolling.
+__device__ __forceinline__ void wgmma_wait_n(int n) {
+  switch (n) {
+    case 0: sm90::wgmma_wait<0>(); break;
+    case 1: sm90::wgmma_wait<1>(); break;
+    case 2: sm90::wgmma_wait<2>(); break;
+    case 3: sm90::wgmma_wait<3>(); break;
+    case 4: sm90::wgmma_wait<4>(); break;
+    case 5: sm90::wgmma_wait<5>(); break;
+    case 6: sm90::wgmma_wait<6>(); break;
+    default: sm90::wgmma_wait<7>(); break;
+  }
+}
+
+// BULK's repack of a staging buffer (rows `rb` bytes apart from a 16-byte
+// aligned start, as in global memory) into 128-byte swizzled chunks: the
+// 16-byte units [0, units) of rows [0, rows) (zeros past a row's `rb`
+// bytes), unit u of row r to chunk u / 8 (`chunk(c)` its address), row r0 +
+// r.  NT / 32 threads a row, each a run of its units: unit u is the 16 bytes
+// at an offset of (r * rb) % 16 into the row's aligned units u and u + 1,
+// shifted into place (sm90.cuh shift_chunk), so a thread reads one new
+// 16-byte unit a unit it writes; only the units that reach past the row's
+// end are masked.
+template <typename Chunk>
+__device__ __forceinline__ void repack(const char* stage, int rows, int rb, int units, int r0,
+                                       Chunk chunk, int pt) {
+  constexpr int PER_ROW = NT / 32;
+  const int r = pt / PER_ROW;
+  if (r >= rows) return;
+  const int run = (units + PER_ROW - 1) / PER_ROW;
+  const int u0 = (pt % PER_ROW) * run;
+  const int u1 = min(units, u0 + run);
+  const int off = (r * rb) & 15;
+  const uint4* row = reinterpret_cast<const uint4*>(stage + r * rb - off);
+  uint4 cur = row[u0];
+#pragma unroll 4
+  for (int u = u0; u < u1; ++u) {
+    const uint4 nxt = row[u + 1];
+    uint4 out = sm90::shift_chunk(cur, nxt, off);
+    if (16 * u + 16 > rb) out = sm90::keep_bytes(out, rb - 16 * u);
+    *reinterpret_cast<uint4*>(chunk(u >> 3) + sw_offset(r0 + r, u & 7)) = out;
+    cur = nxt;
+  }
+}
+
+// A barrier over one producer side's NT threads.
+__device__ __forceinline__ void side_sync(int side) {
+  if (side) named_sync<BAR_SIDE + 1, NT>();
+  else named_sync<BAR_SIDE, NT>();
+}
+
+template <int NM, int LAYOUT>
+__device__ __forceinline__ void consume(const Params& p, char* smem, int wg);
+
+// ---------------------------------------------------------------------------
+// The kernel.  NM column tiles of 64; two consumer warpgroups and one
+// producer warpgroup, whose two sides (two warps each) feed dO and V (side
+// 0) and Q and K (side 1).
+
+template <int NM, int LAYOUT>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_longkv_kernel(const __grid_constant__ Params p) {
+  using L = Smem<NM, LAYOUT>;
+  constexpr int NS = L::NSLOT;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty_q = full_q + NS;
+  uint64_t* full_o = empty_q + NS;
+  uint64_t* empty_o = full_o + NS;
+  uint64_t* full_k = empty_o + NS;
+  uint64_t* empty_k = full_k + 1;
+  uint64_t* full_v = empty_k + 1;
+  uint64_t* empty_v = full_v + 1;
+  uint64_t* staged = empty_v + 1;  // BULK: [side]
+
+  const int tid = threadIdx.x;
+  // Zero everything once: the pad rows and columns of the tiles stay
+  // finite (TMA zero-fills what lies past the tensors).
+  for (int i = tid; i < L::BAR / 16; i += THREADS)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  sm90::fence_proxy_async();
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&full_q[s], 1);  // one TMA copy, its bytes counted
+      sm90::mbar_init(&empty_q[s], 8);
+      sm90::mbar_init(&full_o[s], 1);
+      sm90::mbar_init(&empty_o[s], 8);
+    }
+    // A K or V tile: one TMA copy, or the side's NT repacking threads.
+    sm90::mbar_init(full_k, LAYOUT == TMA ? 1 : NT);
+    sm90::mbar_init(empty_k, 4);
+    sm90::mbar_init(full_v, LAYOUT == TMA ? 1 : NT);
+    sm90::mbar_init(empty_v, 4);
+    sm90::mbar_init(&staged[0], 1);
+    sm90::mbar_init(&staged[1], 1);
+  }
+  __syncthreads();
+
+  // Warp-uniform roles (read from lane 0, so that ptxas sees them as such
+  // and does not serialise the wgmma): 0, 1 the consumer warpgroups, 2 the
+  // producers.
+  const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (role < 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    consume<NM, LAYOUT>(p, smem, role);
+    return;
+  }
+  // The producers give registers to the consumers (384 threads leave 168
+  // a thread; the consumers' accumulators alone take 128 at d = 512).
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  const int side = __shfl_sync(0xffffffffu, (tid - CONSUMERS) / NT, 0);
+  const int pt = (tid - CONSUMERS) % NT;
+  const int nch = side ? p.nq : p.no;
+  char* ring = smem + (side ? L::Q : L::O);
+  uint64_t* full = side ? full_q : full_o;
+  uint64_t* empty = side ? empty_q : empty_o;
+  char* res = smem + (side ? L::K : L::V);
+  uint64_t* full_r = side ? full_k : full_v;
+  uint64_t* empty_r = side ? empty_k : empty_v;
+  const CUtensorMap* tm = side ? &p.tm_q : &p.tm_o;
+  const CUtensorMap* tm_r = side ? &p.tm_k : &p.tm_v;
+  const int BH = p.B * p.H;
+  // The items this block walks, past those whose keys all lie past kv_len
+  // (their dK and dV are zeros the consumers write).
+  auto first_from = [&](int item) {
+    while (item < p.items && (item / BH) * BK >= p.kv_len) item += gridDim.x;
+    return item;
+  };
+  // One thread a side issues the TMA copies of an item's query tiles, chunk
+  // by chunk as their slots come free; g counts the ring's chunks.
+  int g = 0;
+  auto issue_tiles = [&](int item) {
+    const int bh = item % BH, kb = item / BH;
+    const int h = bh % p.H, b = bh / p.H;
+    for (int w = 0; w < p.n_tiles; ++w) {
+      const int t = tile_of(w, kb, p.n_tiles);
+      for (int c = 0; c < nch; ++c, ++g) {
+        const int s = g % NS;
+        if (g >= NS) sm90::mbar_wait(&empty[s], (g / NS - 1) & 1);
+        arrive_expect_tx(&full[s], L::SLOT);
+        tma_load(ring + s * L::SLOT, tm, 64 * c, h, t * BQ, b, &full[s]);
+      }
+    }
+  };
+
+  if constexpr (LAYOUT == TMA) {
+    if (pt != 0) return;
+    int it = 0;
+    for (int item = first_from(blockIdx.x); item < p.items;
+         item = first_from(item + gridDim.x), ++it) {
+      const int bh = item % BH, kb = item / BH;
+      if (it > 0) sm90::mbar_wait(empty_r, (it - 1) & 1);
+      arrive_expect_tx(full_r, nch * BK * 128);
+      for (int c = 0; c < nch; ++c)
+        tma_load(res + c * BK * 128, tm_r, 64 * c, bh % p.H, kb * BK, bh / p.H, full_r);
+      issue_tiles(item);
+    }
+  } else {
+    // BULK (one head): an item's K or V rows land in the side's staging
+    // buffer by one bulk copy, issued an item ahead, and every thread of the
+    // side repacks them into place.
+    const bf16* rsrc = side ? p.k : p.v;
+    const long long rb = side ? p.k_sb : p.v_sb;
+    const int width = side ? p.D : p.Dv;
+    const int rbytes = 2 * width;
+    const int units = (side ? p.D16 : p.Dv16) / 8;  // 16-byte units of a row S and dP read
+    char* stage = smem + L::STG + side * L::STG_BYTES;
+    uint64_t* sbar = &staged[side];
+    auto issue_rows = [&](int item) {
+      const int b = item % BH, kb = item / BH;
+      const int rows = min(BK, p.Tk - kb * BK);
+      arrive_expect_tx(sbar, rows * rbytes);
+      bulk_load(stage, rsrc + b * rb + (long long)kb * BK * width, rows * rbytes, sbar);
+    };
+    int item = first_from(blockIdx.x);
+    if (pt == 0 && item < p.items) issue_rows(item);
+    for (int it = 0; item < p.items; ++it) {
+      const int next = first_from(item + gridDim.x);
+      const int kb = item / BH;
+      sm90::mbar_wait(sbar, it & 1);
+      if (it > 0) sm90::mbar_wait(empty_r, (it - 1) & 1);
+      repack(stage, min(BK, p.Tk - kb * BK), rbytes, units, 0,
+             [&](int c) { return res + c * BK * 128; }, pt);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(full_r);
+      side_sync(side);  // the staging buffer is free again
+      if (pt == 0) {
+        if (next < p.items) issue_rows(next);
+        issue_tiles(item);
+      }
+      item = next;
+    }
+  }
+}
+
+// A consumer warpgroup (wg 0 or 1) of the kernel above.
+template <int NM, int LAYOUT>
+__device__ __forceinline__ void consume(const Params& p, char* smem, const int wg) {
+  using L = Smem<NM, LAYOUT>;
+  constexpr int NS = L::NSLOT;
+  char* sK = smem + L::K;
+  char* sV = smem + L::V;
+  char* sP = smem + L::P;
+  char* sS = smem + L::S;
+  float* sPF = reinterpret_cast<float*>(smem + L::PF);
+  char* sQ = smem + L::Q;
+  char* sO = smem + L::O;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty_q = full_q + NS;
+  uint64_t* full_o = empty_q + NS;
+  uint64_t* empty_o = full_o + NS;
+  uint64_t* full_k = empty_o + NS;
+  uint64_t* empty_k = full_k + 1;
+  uint64_t* full_v = empty_k + 1;
+  uint64_t* empty_v = full_v + 1;
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int row_lo = 16 * warp + (lane >> 2);  // S/dP rows row_lo, row_lo + 8
+  const int t128 = tid & 127;
+
+  // K-major A (a Q or dO chunk) and B (K or V rows) of S and dP, and
+  // MN-major A (a chunk) of dV^T and dK^T, all 128-byte swizzled: the K and
+  // V rows are NM chunks of 32 rows (4096 bytes apart), a k16 step moves 32
+  // bytes on, 16 query rows 2048; B of dV^T and dK^T (P or dS, written by
+  // the warpgroups) in sm90.cuh's core-matrix layout, MN-major.
+  const uint64_t desc_k = make_desc_sw128(sK);
+  const uint64_t desc_v = make_desc_sw128(sV);
+  const uint64_t desc_ring_k = make_desc_sw128(wg ? sO : sQ);
+  const uint64_t desc_ring_t = make_desc_sw128(wg ? sQ : sO);
+  const uint64_t desc_ps = sm90::make_desc(sm90::smem_addr(wg ? sS : sP), 16 * BK, 128);
+  constexpr uint32_t K_STEP = 32;         // bytes a k16 step of S or dP moves on
+  constexpr uint32_t RES_CHUNK = BK * 128;  // bytes a 64-column chunk of K or V
+  constexpr uint32_t Q_STEP = 2048;       // bytes 16 query rows of a chunk
+  // Chunks of this warpgroup's first product (S: Q, dP: dO) and of its
+  // accumulated one (dV^T: dO, dK^T: Q), and their barriers.
+  const int n_first = wg ? p.no : p.nq;
+  const int n_acc = wg ? p.nq : p.no;
+  const int red16 = (wg ? p.Dv16 : p.D16) / 16;  // 16-column steps of S's or dP's reduction
+  uint64_t* full_first = wg ? full_o : full_q;
+  uint64_t* empty_first = wg ? empty_o : empty_q;
+  uint64_t* full_acc = wg ? full_q : full_o;
+  uint64_t* empty_acc = wg ? empty_q : empty_o;
+  const uint64_t desc_res = wg ? desc_v : desc_k;
+
+  float acc[NM][NF];  // dV^T (warpgroup 0) or dK^T (1): column 64 j + row, key of the fragment
+#pragma unroll
+  for (int j = 0; j < NM; ++j)
+#pragma unroll
+    for (int i = 0; i < NF; ++i) acc[j][i] = 0.f;
+
+  int it = 0;      // items walked
+  int tiles = 0;   // tiles walked, over all items
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const int bh = item % (p.B * p.H);
+    const int kb = item / (p.B * p.H);
+    const int h = bh % p.H, b = bh / p.H;
+    const int k0 = kb * BK;
+    if (k0 < p.kv_len) {
+      // This thread's keys: bit i for fragment register i.
+      uint32_t valid = 0;
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < NF; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const bool ok = key < p.kv_len &&
+                          (p.kv_mask == nullptr || p.kv_mask[(long long)b * p.Tk + key] != 0);
+          valid |= (uint32_t)ok << i;
+        }
+      }
+      sm90::mbar_wait(wg ? full_v : full_k, it & 1);
+      const float* row_g = (wg ? p.delta : p.lse) + (long long)bh * p.Tq;
+      const int first_g = it * p.n_tiles * n_first;  // ring chunks before this item's
+      const int acc_g = it * p.n_tiles * n_acc;
+      for (int w = 0; w < p.n_tiles; ++w) {
+        const int t = tile_of(w, kb, p.n_tiles);
+        // lse (warpgroup 0) or delta (1) of this thread's two rows.
+        float rowv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = t * BQ + row_lo + 8 * r;
+          rowv[r] = i < p.Tq ? row_g[i] * (wg ? 1.f : LOG2E) : (wg ? 0.f : INFINITY);
+        }
+
+        // S = Q K^T (0) or dP = dO V^T (1), chunk by chunk as they land.
+        float f[NF];
+        sm90::wgmma_fence();
+        for (int c = 0; c < n_first; ++c) {
+          const int gc = first_g + w * n_first + c;
+          const int s = gc % NS;
+          sm90::mbar_wait(&full_first[s], (gc / NS) & 1);  // TMA: no proxy fence
+          const int steps = min(4, red16 - 4 * c);
+          for (int ks = 0; ks < steps; ++ks)
+            sm90::wgmma_m64k16<BK, 0, 0>(
+                f, sm90::desc_add(desc_ring_k, s * L::SLOT + ks * K_STEP),
+                sm90::desc_add(desc_res, c * RES_CHUNK + ks * K_STEP), (c | ks) > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands<NF>(f);
+        if (lane == 0) {
+          for (int c = 0; c < n_first; ++c)
+            sm90::mbar_arrive(&empty_first[(first_g + w * n_first + c) % NS]);
+          if (w == p.n_tiles - 1) sm90::mbar_arrive(wg ? empty_v : empty_k);
+        }
+
+        if (wg == 0) {
+          // P in fp32 (to the exchange area) and rounded to bf16 (for dV^T).
+          float pv[NF];
+#pragma unroll
+          for (int i = 0; i < NF; ++i)
+            pv[i] = ((valid >> i) & 1) ? exp2f(f[i] * p.scale_log2 - rowv[(i >> 1) & 1]) : 0.f;
+          if (tiles > 0) named_sync<BAR_FREE, CONSUMERS>();  // warpgroup 1 has read the last P
+#pragma unroll
+          for (int i = 0; i < NF; ++i) sPF[i * 128 + t128] = pv[i];
+#pragma unroll
+          for (int i = 0; i < NF; i += 2) {
+            const uint32_t off = sm90::cm_offset(row_lo + 8 * ((i >> 1) & 1),
+                                                 8 * (i >> 2) + 2 * (lane & 3), BK);
+            *reinterpret_cast<__nv_bfloat162*>(sP + off) = __floats2bfloat162_rn(pv[i], pv[i + 1]);
+          }
+          sm90::fence_proxy_async();
+          named_arrive<BAR_READY, CONSUMERS>();
+          sm90::warpgroup_sync<BAR_WG0>();
+        } else {
+          named_sync<BAR_READY, CONSUMERS>();
+          float pv[NF];
+#pragma unroll
+          for (int i = 0; i < NF; ++i) pv[i] = sPF[i * 128 + t128];
+          named_arrive<BAR_FREE, CONSUMERS>();
+#pragma unroll
+          for (int i = 0; i < NF; i += 2) {
+            const int r = (i >> 1) & 1;
+            const uint32_t off = sm90::cm_offset(row_lo + 8 * r, 8 * (i >> 2) + 2 * (lane & 3), BK);
+            *reinterpret_cast<__nv_bfloat162*>(sS + off) = __floats2bfloat162_rn(
+                pv[i] * (f[i] - rowv[r]), pv[i + 1] * (f[i + 1] - rowv[r]));
+          }
+          sm90::fence_proxy_async();
+          sm90::warpgroup_sync<BAR_WG1>();
+        }
+        ++tiles;
+
+        // dV^T += dO^T P (0) or dK^T += Q^T dS (1) over the tile's 64 rows,
+        // one commit group a column chunk, each chunk released when its
+        // group is done.
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < NM; ++j) {
+          if (j < n_acc) {
+            const int gc = acc_g + w * n_acc + j;
+            const int s = gc % NS;
+            sm90::mbar_wait(&full_acc[s], (gc / NS) & 1);
+#pragma unroll
+            for (int ks = 0; ks < BQ / 16; ++ks)
+              sm90::wgmma_m64k16<BK, 1, 1>(
+                  acc[j], sm90::desc_add(desc_ring_t, s * L::SLOT + ks * Q_STEP),
+                  sm90::desc_add(desc_ps, ks * 32 * BK), 1);
+          }
+          sm90::wgmma_commit();
+        }
+#pragma unroll
+        for (int j = 0; j < NM; ++j) {
+          wgmma_wait_n(NM - 1 - j);
+          sm90::fence_operands<NF>(acc[j]);
+          if (j < n_acc && lane == 0)
+            sm90::mbar_arrive(&empty_acc[(acc_g + w * n_acc + j) % NS]);
+        }
+      }
+      ++it;
+    }
+
+    // Every key below Tk is written, those past kv_len as exact zeros.
+    bf16* out = wg ? p.dk : p.dv;
+    const int width = wg ? p.D : p.Dv;
+    const float mul = wg ? p.scale : 1.f;
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+#pragma unroll
+      for (int i = 0; i < NF; ++i) {
+        const int col = 64 * j + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+        const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (key < p.Tk && col < width)
+          out[(((long long)b * p.Tk + key) * p.H + h) * width + col] =
+              __float2bfloat16_rn(acc[j][i] * mul);
+        acc[j][i] = 0.f;
+      }
+    }
+  }
+  // Warpgroup 1 arrived on FREE after its last tile: match it.
+  if (wg == 0 && tiles > 0) named_sync<BAR_FREE, CONSUMERS>();
+}
+
+template <int NM, int LAYOUT>
+cudaError_t launch(const Params& p, int blocks, cudaStream_t stream) {
+  constexpr int smem = Smem<NM, LAYOUT>::SIZE;
+  auto kernel = flash_bwd_dkv_longkv_kernel<NM, LAYOUT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The copy into aligned rows: dst [B, T, H, W8] (contiguous, W8 = W rounded
+// up to 8: 16-byte rows) from src [B, T, H, W] at any 2-byte aligned
+// strides, zeros in columns [W, W8).  Eight columns a thread.
+
+__global__ void copy_rows_kernel(const bf16* src, bf16* dst, int B, int T, int H, int W, int W8,
+                                 long long sb, long long st, long long sh) {
+  const long long units = (long long)B * T * H * (W8 / 8);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < units;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / (W8 / 8);
+    const int c0 = (int)(i - row * (W8 / 8)) * 8;
+    const int h = (int)(row % H);
+    const long long bt = row / H;
+    const bf16* s = src + (bt / T) * sb + (bt % T) * st + h * sh;
+    __align__(16) bf16 out[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = c0 + j < W ? s[c0 + j] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<uint4*>(dst + row * W8 + c0) = *reinterpret_cast<const uint4*>(out);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (looked up at run time), or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static bool looked = false;
+  if (!looked) {
+    looked = true;
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map of a [B, T, H, W] bf16 tensor (strides in elements, every
+// one of them and the address 16-byte aligned) in boxes of `rows` rows x 64
+// columns at (column, head, row, batch), written to shared memory in wgmma's
+// 128-byte swizzle; columns past W and rows past T read as zeros.
+bool make_tmap(CUtensorMap* map, const void* ptr, int B, int T, int H, int W, long long sb,
+               long long st, long long sh, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NM, int LAYOUT>
+int smem_of(int* slots) {
+  *slots = Smem<NM, LAYOUT>::NSLOT;
+  return Smem<NM, LAYOUT>::SIZE;
+}
+
+template <int NM>
+cudaError_t launch_nm(const Params& p, int layout, int blocks, cudaStream_t stream) {
+  if constexpr (NM == 5) {
+    if (layout == BULK) return launch<NM, BULK>(p, blocks, stream);
+  }
+  return launch<NM, TMA>(p, blocks, stream);
+}
+
+}  // namespace
+
+// Strides are in elements; the head dim of q, k, v and dout must be
+// contiguous; lse and delta are [B, H, Tq] fp32; dk and dv are contiguous.
+// Head widths d and dv of 1 to 512 whose wider one is above 256. q and dout
+// must have 16-byte aligned rows (the wrapper copies those that do not into
+// aligned ones: flash_attention_bwd_longkv_copy_rows); k and v too, or, with
+// one head and the wider width at most 320, packed rows (token stride =
+// width) from 16-byte aligned starts and batches, Tk a multiple of 8 (the
+// pixel encoder's 522-byte rows, brought in by bulk copies).  `blocks`
+// persistent blocks (at most one an SM fits) walk the ceil(Tk / 32) * H * B
+// work items.  Returns a cudaError_t (0 on success; invalid value for
+// operands neither way takes).
+extern "C" int flash_attention_bwd_dkv_longkv_sm90(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, const void* kv_mask, void* dk, void* dv, int batch, int heads, int tq,
+    int tk, int kv_len, int d, int dv_width, int blocks, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, long long o_sb, long long o_st, long long o_sh, float scale,
+    void* stream) {
+  const int width = d > dv_width ? d : dv_width;
+  if (d < 1 || dv_width < 1 || width <= 256 || width > 512 || kv_len < 0 || kv_len > tk ||
+      blocks < 1 || batch < 1 || heads < 1 || tq < 1 || tk < 1)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.B = batch;
+  p.H = heads;
+  p.Tq = tq;
+  p.Tk = tk;
+  p.kv_len = kv_len;
+  p.D = d;
+  p.Dv = dv_width;
+  p.D16 = (d + 15) / 16 * 16;
+  p.Dv16 = (dv_width + 15) / 16 * 16;
+  p.nq = (d + 63) / 64;
+  p.no = (dv_width + 63) / 64;
+  p.n_tiles = (tq + BQ - 1) / BQ;
+  p.n_kb = (tk + BK - 1) / BK;
+  p.items = p.n_kb * heads * batch;
+  p.k_sb = k_sb;
+  p.v_sb = v_sb;
+  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
+  if (blocks > p.items) blocks = p.items;
+  const int nm = (width + 63) / 64;
+  // TMA takes a start and strides that are multiples of 16 bytes (a row may
+  // end anywhere: the box reads zeros past it).
+  auto aligned = [](const void* ptr, long long sb, long long st, long long sh, int) {
+    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb * 2 % 16 == 0 &&
+           st * 2 % 16 == 0 && sh * 2 % 16 == 0;
+  };
+  auto packed = [&](const void* ptr, long long sb, long long st, int w) {
+    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && st == w && sb * 2 % 16 == 0;
+  };
+  if (!aligned(q, q_sb, q_st, q_sh, d) || !aligned(dout, o_sb, o_st, o_sh, dv_width) ||
+      !make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
+      !make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ))
+    return (int)cudaErrorInvalidValue;
+  int layout;
+  if (aligned(k, k_sb, k_st, k_sh, d) && aligned(v, v_sb, v_st, v_sh, dv_width) &&
+      make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) &&
+      make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK)) {
+    layout = TMA;
+  } else if (nm <= 5 && heads == 1 && tk % 8 == 0 && packed(k, k_sb, k_st, d) &&
+             packed(v, v_sb, v_st, dv_width)) {
+    layout = BULK;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = nm <= 5   ? launch_nm<5>(p, layout, blocks, s)
+                          : nm <= 6 ? launch_nm<6>(p, layout, blocks, s)
+                                    : launch_nm<8>(p, layout, blocks, s);
+  return (int)err;
+}
+
+// The dynamic shared memory (bytes, the alignment pad included) of the
+// kernel that flash_attention_bwd_dkv_longkv_sm90 launches when the wider
+// head is `width` wide and K and V arrive by TMA (bulk = 0) or by bulk
+// copies (1), and the slots of each of its two rings in *slots; -1 for a
+// width and layout it does not launch.  For reports: no launch.
+extern "C" int flash_attention_bwd_longkv_smem(int width, int bulk, int* slots) {
+  if (width <= 256 || width > 512) return -1;
+  const int nm = (width + 63) / 64;
+  if (bulk) return nm <= 5 ? smem_of<5, BULK>(slots) : -1;
+  return nm <= 5   ? smem_of<5, TMA>(slots)
+         : nm <= 6 ? smem_of<6, TMA>(slots)
+                   : smem_of<8, TMA>(slots);
+}
+
+// dst [B, T, H, W8] (contiguous, W8 = W rounded up to 8) = src [B, T, H, W]
+// (strides in elements, the last 1, any 2-byte alignment), zeros in
+// columns [W, W8): the long-KV K2's aligned rows of q or dout.  Returns a
+// cudaError_t.
+extern "C" int flash_attention_bwd_longkv_copy_rows(const void* src, void* dst, int batch, int t,
+                                                    int heads, int w, long long sb, long long st,
+                                                    long long sh, void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  const int w8 = (w + 7) / 8 * 8;
+  const long long units = (long long)batch * t * heads * (w8 / 8);
+  const long long blocks = (units + 255) / 256 < 132 * 16 ? (units + 255) / 256 : 132 * 16;
+  copy_rows_kernel<<<(int)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(src), static_cast<bf16*>(dst), batch, t, heads, w, w8, sb, st, sh);
+  return (int)cudaGetLastError();
+}

@@ -15,7 +15,14 @@ are at most ``NARROW_HEAD_DIM`` (the flow self-attends: wgmma with P and dS
 in registers, a producer warp feeding a ring, route ``sm90_narrow``),
 ``csrc/flash_attention_bwd_sm90.cu`` for wider bf16 heads (wgmma, route
 ``sm90_wgmma``, with the ordered sum of their split partials) and
-``csrc/flash_attention_bwd.cu`` for fp32 ones (route ``cuda_cores``).  The
+``csrc/flash_attention_bwd.cu`` for fp32 ones (route ``cuda_cores``); where a
+bf16 backward has a short query range against many keys at widths of 257 to
+512 (the classification encoders), K2 is
+``csrc/flash_attention_bwd_longkv_sm90.cu`` (persistent blocks, a producer
+warpgroup feeding rings of column chunks by TMA, route ``sm90_longkv``;
+rows that are not 16-byte aligned are copied into aligned ones first by
+its copy kernel, or, packed K and V rows, brought in by bulk copies) and
+K3 the wgmma kernel.  The
 source note at the head of each says what bounds it on an H100 and what its
 design does about that.
 
@@ -39,6 +46,9 @@ design does about that.
     launches that took the narrow route (each also counts in ``LAUNCHES``)
     and ``LAUNCHES_BWD_NARROW`` the K2 and K3 launches that did (each also
     counts in ``LAUNCHES_BWD_DKV`` or ``LAUNCHES_BWD_DQ``).
+    ``LAUNCHES_BWD_LONGKV`` counts the K2 launches on the long-KV route
+    (each also counts in ``LAUNCHES_BWD_DKV``) and ``LAUNCHES_BWD_COPY``
+    the launches of its copies into aligned rows (``_bwd_copies``).
     ``LAUNCHES_MERGE`` counts the merge kernel's launches (K1 calls with
     more than one key split) and ``LAUNCHES_BWD_SUM`` the sum kernel's (K2
     or K3 calls with more than one split).
@@ -48,8 +58,9 @@ design does about that.
     ``loader`` (cp.async copies, the realigning loader for rows that
     cp.async cannot copy, or 2-byte copies: ``_loader``); ``backward_plan`` the same
     for K2 (query splits, ``_dkv_split_plan``) and K3 (key splits,
-    ``_split_plan``; the narrow route never splits), with their
-    output-column chunks.
+    ``_split_plan``; the narrow and long-KV routes never split K2), with
+    their output-column chunks and the long-KV K2's ``loader``
+    (``_bwd_loader``).
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
     512 its grid splits the value columns in two), K2 and K3 up to
@@ -83,7 +94,8 @@ _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
             "fwd_narrow": "flash_attention_fwd_narrow_sm90.cu",
             "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu",
-            "bwd_narrow": "flash_attention_bwd_narrow_sm90.cu"}
+            "bwd_narrow": "flash_attention_bwd_narrow_sm90.cu",
+            "bwd_longkv": "flash_attention_bwd_longkv_sm90.cu"}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "kernels")
 
 # Head-width limits (Dqk and Dv) of the kernels' shared-memory and register
@@ -110,6 +122,16 @@ BLOCK_K = 64
 # the fewest key tiles worth a split of their own.
 NUM_SMS = 132
 MIN_SPLIT_TILES = 8
+# bf16 backwards whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns
+# wide (where the wgmma K2 holds 32 keys a block), with at most LONGKV_MAX_Q
+# query rows a (batch, head) (8 tiles of 64) over at least LONGKV_MIN_K keys
+# (a key block of LONGKV_BLOCK_K for every SM), take the long-KV K2 and no
+# forced split: persistent blocks, at most one an SM, walking work items of
+# LONGKV_BLOCK_K keys.  K3 keeps the wgmma kernel and its plan there.
+LONGKV_MIN_WIDTH = 257
+LONGKV_MAX_Q = 512
+LONGKV_BLOCK_K = 32
+LONGKV_MIN_K = NUM_SMS * LONGKV_BLOCK_K
 
 # Kernel launches since import (or since the caller last reset them): K1,
 # K2 and K3, the merge of K1's split-KV partials and the sum of K2's or K3's
@@ -118,6 +140,8 @@ LAUNCHES = 0
 LAUNCHES_NARROW = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_NARROW = 0
+LAUNCHES_BWD_LONGKV = 0
+LAUNCHES_BWD_COPY = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_MERGE = 0
 LAUNCHES_BWD_SUM = 0
@@ -165,9 +189,9 @@ def _nvcc() -> str:
 
 def library_paths() -> Dict[str, str]:
     """The .so path of each kernel source by name ("fwd", "fwd_sm90",
-    "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow"): the name carries the
-    hash of the source and of every ``csrc/*.cuh`` header, so an edit to
-    either builds a new library."""
+    "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow", "bwd_longkv"): the name
+    carries the hash of the source and of every ``csrc/*.cuh`` header, so an
+    edit to either builds a new library."""
     headers = b""
     for name in sorted(os.listdir(_CSRC)):
         if name.endswith(".cuh"):
@@ -284,8 +308,23 @@ def _load() -> Dict[str, ctypes.CDLL]:
                     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
                 )
                 fn.restype = ctypes.c_int
+            bwd_longkv = ctypes.CDLL(paths["bwd_longkv"])
+            bwd_longkv.flash_attention_bwd_dkv_longkv_sm90.argtypes = (
+                [ctypes.c_void_p] * 9  # q, k, v, dout, lse, delta, kv_mask, dk, dv
+                + [ctypes.c_int] * 8  # B, H, Tq, Tk, kv_len, D, Dv, blocks
+                + _STRIDES * 4  # q, k, v, dout
+                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            )
+            bwd_longkv.flash_attention_bwd_dkv_longkv_sm90.restype = ctypes.c_int
+            bwd_longkv.flash_attention_bwd_longkv_copy_rows.argtypes = (
+                [ctypes.c_void_p] * 2  # src, dst
+                + [ctypes.c_int] * 4  # B, T, H, W
+                + _STRIDES  # src
+                + [ctypes.c_void_p]  # stream
+            )
+            bwd_longkv.flash_attention_bwd_longkv_copy_rows.restype = ctypes.c_int
             _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "fwd_narrow": fwd_narrow, "bwd": bwd,
-                     "bwd_sm90": bwd_sm90, "bwd_narrow": bwd_narrow}
+                     "bwd_sm90": bwd_sm90, "bwd_narrow": bwd_narrow, "bwd_longkv": bwd_longkv}
     return _libs
 
 
@@ -530,13 +569,17 @@ def _split_plan(b: int, tq: int, h: int, tk: int, col_chunks: int = 1):
     return _split_bounds(tk, splits)
 
 
+def _byte_addr(t: torch.Tensor) -> int:
+    """``t``'s address (on ``meta``, its storage offset in bytes)."""
+    return t.storage_offset() * t.element_size() if t.device.type == "meta" else t.data_ptr()
+
+
 def _copy_bytes(t: torch.Tensor, width: int) -> int:
     """The widest cp.async copy (16, 8, 4 or 2 bytes) that ``t``'s address,
     batch, token and head strides and row width all allow (csrc/sm90.cuh
     ``copy_vec``)."""
     size = t.element_size()
-    addr = t.storage_offset() * size if t.device.type == "meta" else t.data_ptr()
-    sizes = [addr, width * size] + [st * size for st in t.stride()[:3]]
+    sizes = [_byte_addr(t), width * size] + [st * size for st in t.stride()[:3]]
     return next(n for n in (16, 8, 4, 2) if all(x % n == 0 for x in sizes))
 
 
@@ -604,6 +647,57 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     )
 
 
+def _tma_rows(t: torch.Tensor) -> bool:
+    """A start and batch, token and head strides of ``t`` that are multiples
+    of 16 bytes: what a TMA copy addresses (a row may end anywhere)."""
+    size = t.element_size()
+    return all(x % 16 == 0 for x in [_byte_addr(t)] + [st * size for st in t.stride()[:3]])
+
+
+def _longkv_packed(t: torch.Tensor, width: int) -> bool:
+    """Rows of ``t`` [B, T, 1, W] packed (token stride = width) from a
+    16-byte aligned start, batches 16-byte aligned: what one bulk copy of
+    whole rows takes."""
+    return (_byte_addr(t) % 16 == 0 and t.stride(1) == width
+            and t.stride(0) * t.element_size() % 16 == 0)
+
+
+def _bwd_loader(q, k, v) -> str:
+    """How the long-KV K2 brings the K and V rows into shared memory: "tma"
+    when both have 16-byte aligned rows (``_tma_rows``); "bulk" when they do
+    not but are packed from 16-byte aligned starts (``_longkv_packed``), one
+    head, Tk a multiple of 8 and the wider head at most 320 wide (bulk
+    copies of an item's rows, realigned as they are repacked: the pixel
+    encoder's 522-byte rows); else "copy": those not aligned are first
+    copied into 16-byte aligned rows (``_bwd_copies``), then "tma".  The Q
+    and dO chunks always arrive by TMA, copied first where their rows are
+    not aligned (the rule of ``_loader`` for K2's tiles)."""
+    _, _, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[3]
+    if _tma_rows(k) and _tma_rows(v):
+        return "tma"
+    if (max(d, dv) <= 320 and h == 1 and tk % 8 == 0
+            and _longkv_packed(k, d) and _longkv_packed(v, dv)):
+        return "bulk"
+    return "copy"
+
+
+def _bwd_copies(q, k, v) -> Tuple[str, ...]:
+    """The operands the long-KV K2 first copies into 16-byte aligned rows
+    (one copy kernel launch each): q and the output's gradient (made
+    contiguous by the wrapper: rows dv wide) where their rows are not
+    aligned; k and v where neither TMA nor the bulk copies take them
+    (``_bwd_loader`` "copy").  Q and dO are re-read by every key block, so
+    a copy of them (1 MB a batch entry at the pixel encoder) costs next to
+    nothing; K and V are read once."""
+    copies = [] if _tma_rows(q) else ["q"]
+    if v.shape[3] % 8:
+        copies.append("dout")
+    if _bwd_loader(q, k, v) == "copy":
+        copies += [name for name, t in (("k", k), ("v", v)) if not _tma_rows(t)]
+    return tuple(copies)
+
+
 def _dkv_split_plan(b: int, tq: int, h: int, tk: int):
     """K2's plan: (splits, tiles_per_split) over the query rows, for B, Tq,
     H and Tk.  It is K1's plan with the roles of queries and keys swapped,
@@ -619,7 +713,15 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     ("sm90_narrow" for bf16 with Dqk and Dv at most NARROW_HEAD_DIM and no
     forced split: one launch each, K2 a block per NARROW_BLOCK_K keys, K3 per
     NARROW_BLOCK_Q query rows, never split; "sm90_wgmma" for wider bf16
-    heads or a forced ``num_splits``; "cuda_cores" for fp32) and, under
+    heads or a forced ``num_splits``; "sm90_longkv" for bf16 heads whose
+    wider one is LONGKV_MIN_WIDTH to COL_CHUNK columns wide with at most
+    LONGKV_MAX_Q query rows over at least LONGKV_MIN_K keys and no forced
+    split: K2 the long-KV kernel, ``blocks`` persistent blocks (at most one
+    an SM) walking ``items`` blocks of LONGKV_BLOCK_K keys, ``cluster`` 1 (no
+    thread-block cluster), its ``loader`` (``_bwd_loader``) and the
+    ``copies`` it first makes into aligned rows (``_bwd_copies``, one launch
+    each before the kernel's), K3 the wgmma kernel as under "sm90_wgmma";
+    "cuda_cores" for fp32) and, under
     "dkv" (K2) and "dq" (K3), ``splits`` and ``tiles_per_split`` (K2's
     query ranges by ``_dkv_split_plan``, K3's key ranges by ``_split_plan``
     counted with K3's column chunks, or ``num_splits`` ranges for both when
@@ -653,6 +755,18 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
             dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=1,
                     blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1),
         )
+    if (num_splits is None and LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq <= LONGKV_MAX_Q
+            and tk >= LONGKV_MIN_K):
+        items = -(-tk // LONGKV_BLOCK_K) * h * b
+        copies = _bwd_copies(q, k, v)
+        splits, per = _split_plan(b, tq, h, kv_len, dq_chunks)
+        return dict(
+            route="sm90_longkv",
+            dkv=dict(splits=1, tiles_per_split=-(-tq // BLOCK_Q), col_chunks=1,
+                     blocks=min(items, NUM_SMS), cuda_launches=1 + len(copies), items=items,
+                     cluster=1, loader=_bwd_loader(q, k, v), copies=copies),
+            dq=dict(splits=splits, tiles_per_split=per, col_chunks=dq_chunks,
+                    blocks=q_blocks * dq_chunks * splits, cuda_launches=1 + (splits > 1)))
     if num_splits is None:
         plans = (_dkv_split_plan(b, tq, h, tk), _split_plan(b, tq, h, kv_len, dq_chunks))
     else:
@@ -784,6 +898,9 @@ class BackwardKernels:
             MAX_HEAD_DIM_BWD, "K2/K3 (flash attention backward)")
         scale, kv_len = _scale_and_len(q, k, softmax_scale, kv_logical_len)
         self.plan = backward_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
+        if self.plan["route"] == "sm90_longkv" and not (
+                do.is_contiguous() and do.data_ptr() % 16 == 0):
+            do = do.clone(memory_format=torch.contiguous_format)  # as _bwd_copies assumes
         if self.plan["route"] == "cuda_cores" and num_splits not in (None, 1):
             raise ValueError("the fp32 backward kernels do not split their walks")
         lse = lse.float().contiguous()
@@ -823,7 +940,9 @@ class BackwardKernels:
             if route == "sm90_narrow":
                 err = getattr(libs["bwd_narrow"], name + "_narrow_sm90")(
                     *self._inputs, *self._dims, *self._strides, self._scale, stream)
-            elif route == "sm90_wgmma":
+            elif route == "sm90_longkv" and kernel == "dkv":
+                err = self._longkv_dkv(libs["bwd_longkv"], plan, stream)
+            elif route in ("sm90_wgmma", "sm90_longkv"):
                 part_q, part_k, part_v = ((parts[0], None, None) if kernel == "dq"
                                           else (None, *parts))
                 err = getattr(libs["bwd_sm90"], name + "_sm90")(
@@ -843,12 +962,37 @@ class BackwardKernels:
                 LAUNCHES_BWD_SUM += 1
         return True
 
+    def _longkv_dkv(self, lib, plan, stream):
+        """The long-KV K2: its operands named in ``plan["copies"]`` copied
+        into 16-byte aligned rows (one launch each), then the kernel; the
+        first nonzero error."""
+        global LAUNCHES_BWD_COPY
+        q, k, v, do = self._keep[:4]
+        ops = {"q": q, "k": k, "v": v, "dout": do}
+        for name in plan["copies"]:
+            t = ops[name]
+            b, n, h, w = t.shape
+            copy = torch.empty((b, n, h, -(-w // 8) * 8), dtype=t.dtype, device=t.device)
+            err = lib.flash_attention_bwd_longkv_copy_rows(
+                t.data_ptr(), copy.data_ptr(), b, n, h, w, *t.stride()[:3], stream)
+            if err != 0:
+                return err
+            LAUNCHES_BWD_COPY += 1
+            ops[name] = copy
+        args = [ops[name] for name in ("q", "k", "v", "dout")]
+        self._copies = args  # kept while the kernel may read them
+        strides = [x for t in args for x in t.stride()[:3]]
+        return lib.flash_attention_bwd_dkv_longkv_sm90(
+            *(t.data_ptr() for t in args[:3]), args[3].data_ptr(), *self._inputs[4:7],
+            *self._inputs[8:], *self._dims, plan["blocks"], *strides, self._scale, stream)
+
     def dkv(self):
         """K2: dk and dv."""
-        global LAUNCHES_BWD_DKV, LAUNCHES_BWD_NARROW
+        global LAUNCHES_BWD_DKV, LAUNCHES_BWD_NARROW, LAUNCHES_BWD_LONGKV
         if self._run("dkv", (self.grad_k, self.grad_v)):
             LAUNCHES_BWD_DKV += 1
             LAUNCHES_BWD_NARROW += self.plan["route"] == "sm90_narrow"
+            LAUNCHES_BWD_LONGKV += self.plan["route"] == "sm90_longkv"
 
     def dq(self):
         """K3: dq."""

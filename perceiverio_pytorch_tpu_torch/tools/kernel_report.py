@@ -8,8 +8,10 @@ On a machine with an NVIDIA GPU, from the repository root:
      every kernel instantiation's registers, spills, stack and shared memory
      (static; the dynamic size of the sm90 instantiations at the three flow
      sites, of K1's, K2's and K3's at the multimodal encoder, in both
-     dtypes, of K1's at the two classification encoders and of the four
-     narrow-route instantiations of K1, K2 and K3 is printed beside);
+     dtypes, of K1's at the two classification encoders, of the four
+     narrow-route instantiations of K1, K2 and K3 is printed beside, and
+     after the build the four long-KV K2 instantiations' as their source
+     computes it);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -79,9 +81,14 @@ On a machine with an NVIDIA GPU, from the repository root:
      with DIR the other one, this one, this one, the other one;
  17. (``bwd``) bf16 K2 and K3 alone at the main path's sites (the flow
      self-attend at batch 1 and 2, the flow encoder and decoder, the
-     multimodal encoder, the classification encoders at 8), timed as
-     ``k1`` times K1 and, beside the self-attend, SDPA's backward
-     (forward and backward less the forward, the same window); like ``k1``
+     multimodal encoder, the classification encoders at 8, whose K2 takes
+     the long-KV route), timed as ``k1`` times K1 and, beside the
+     self-attend and the classification encoders, SDPA's backward (a
+     backend's backward op alone where one takes the tensors, and forward
+     and backward less the forward, the same windows), and at the pixel
+     encoder K2 on contiguous K and V against K and V as strided views that
+     every operand's copy into aligned rows takes (``_strided_kv_k2``,
+     contiguous, views, views, contiguous); like ``k1``
      it needs nothing but ``flash_attention`` and ``BackwardKernels``, so
      run as a file it times the checkout that ``PYTHONPATH`` names.
 
@@ -205,6 +212,22 @@ def ptxas_report():
         smem = ((64 + bk3) * (2 * nh + dp) + 64 * bk3) * 2
         print(f"[smem] flash_bwd_dq_sm90_kernel<{nh}, {bk3}> at d = dv = {d}: {smem} bytes"
               " dynamic")
+
+
+def longkv_smem_report(paths):
+    """The long-KV K2's dynamic shared memory and ring slots, as its source
+    computes them (``flash_attention_bwd_longkv_smem``), at the widths whose
+    instantiations it launches."""
+    import ctypes
+
+    lib = ctypes.CDLL(paths["bwd_longkv"])
+    lib.flash_attention_bwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.c_int,
+                                                     ctypes.POINTER(ctypes.c_int))
+    for width, nm, bulk in ((261, 5, 1), (261, 5, 0), (322, 6, 0), (512, 8, 0)):
+        slots = ctypes.c_int(0)
+        smem = lib.flash_attention_bwd_longkv_smem(width, bulk, ctypes.byref(slots))
+        print(f"[smem] flash_bwd_dkv_longkv_kernel<{nm}, {'BULK' if bulk else 'TMA'}> at"
+              f" width {width}: {slots.value} ring slots, {smem} bytes dynamic")
 
 
 def sass_report(paths):
@@ -793,9 +816,64 @@ def time_k1_sites(reps=3, window_ms=10.0):
         torch.cuda.empty_cache()
 
 
+def _sdpa_backward_op(q, k, v, grad):
+    """SDPA's backward as one backend op on these tensors, after its forward
+    gave the output and lse: the flash backend's where it takes them (bf16
+    heads up to 256 wide), else the memory-efficient backend's; None where
+    neither takes them."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b, tq, h = q.shape[:3]
+    g = grad.view(b, tq, h, -1).transpose(1, 2)
+    scale = q.shape[3] ** -0.5
+    try:
+        if max(q.shape[3], v.shape[3]) <= 256:
+            out, lse, cq, ck, mq, mk, seed, offset, _ = (
+                torch.ops.aten._scaled_dot_product_flash_attention(
+                    qt, kt, vt, 0.0, False, False, scale=scale))
+            return "flash", lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                g, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset, scale=scale)
+        out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, True, 0.0, False, scale=scale)
+        return "efficient", lambda: (
+            torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                g, qt, kt, vt, None, out, lse, seed, offset, 0.0, [True, True, True, False],
+                False, scale=scale))
+    except (RuntimeError, TypeError) as exc:  # no backend takes them, or another signature
+        print(f"[bwd] no SDPA backend op at {tuple(q.shape)} x {tuple(k.shape)}: {exc}"[:300],
+              flush=True)
+        return None
+
+
+def _strided_kv_k2(q, k, v, out, lse, grad, kernels, reps, window_ms):
+    """K2 at the pixel encoder's site on K and V as views whose token stride
+    is the width + 1 (rows neither 16-byte aligned nor packed: every operand
+    is first copied into aligned rows) against ``kernels`` on the contiguous
+    rows, timed contiguous, views, views, contiguous; dK and dV must agree
+    bit for bit."""
+    views = []
+    for x in (k, v):
+        buf = torch.empty(*x.shape[:3], x.shape[3] + 1, dtype=x.dtype, device=x.device)
+        buf[..., :x.shape[3]] = x
+        views.append(buf[..., :x.shape[3]])
+    strided = fa.BackwardKernels(q, *views, out, lse, grad, q_mask=None, kv_mask=None,
+                                 softmax_scale=None, kv_logical_len=None)
+    ms = [_window_ms(call, reps, window_ms)[0]
+          for call in (kernels.dkv, strided.dkv, strided.dkv, kernels.dkv)]
+    same = (torch.equal(kernels.grad_k, strided.grad_k)
+            and torch.equal(kernels.grad_v, strided.grad_v))
+    plans = [x.plan["dkv"] for x in (kernels, strided)]
+    return (f"K2 contiguous/strided K, V/strided/contiguous"
+            f" {'/'.join(f'{t:.4f}' for t in ms)} ms (loaders"
+            f" {plans[0].get('loader')} {plans[0].get('copies')},"
+            f" {plans[1].get('loader')} {plans[1].get('copies')}; bit for bit {same})")
+
+
 def time_bwd_sites(reps=3, window_ms=10.0):
     """Section 17: bf16 K2 and K3 alone at the main path's sites, and SDPA's
-    backward beside the self-attend."""
+    backward beside the self-attend and the classification encoders: a
+    backend's backward op alone where one takes the tensors
+    (``_sdpa_backward_op``), and forward and backward less the forward, each
+    over the same window."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -811,7 +889,11 @@ def time_bwd_sites(reps=3, window_ms=10.0):
                               for call in (kernels.dkv, kernels.dq))
         line = (f"[bwd] {shape}: K2 {k2:.4f} ms over {n2}, K3 {k3:.4f} ms over {n3}, K2 + K3"
                 f" {k2 + k3:.4f} ({kernels.plan['route']})")
-        if shape in self_sites:
+        if shape in self_sites or shape in CLASSIFICATION_TRAIN_SITES:
+            op = _sdpa_backward_op(q, k, v, grad)
+            if op is not None:
+                ms, n = _window_ms(op[1], reps, window_ms)
+                line += f"; SDPA {op[0]} backward op {ms:.4f} ms over {n}"
             qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
             g = grad.view(*out.shape[:2], shape[3], -1).transpose(1, 2)
             fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
@@ -819,7 +901,10 @@ def time_bwd_sites(reps=3, window_ms=10.0):
                 total, _ = _window_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), g),
                                       reps, window_ms)
                 forward, _ = _window_ms(fwd, reps, window_ms)
-            line += f"; SDPA backward {total - forward:.4f} ms ({total:.4f} - {forward:.4f})"
+            line += (f"; SDPA forward + backward less forward {total - forward:.4f} ms"
+                     f" ({total:.4f} - {forward:.4f})")
+        if shape == CLASSIFICATION_TRAIN_SITES[0]:
+            line += "; " + _strided_kv_k2(q, k, v, out, lse, grad, kernels, reps, window_ms)
         print(line, flush=True)
         del q, k, v, out, lse, grad, kernels
         torch.cuda.empty_cache()
@@ -845,6 +930,7 @@ def main(argv=None):
     paths = fa.build()
     print(f"[build] {paths}", flush=True)
     if "ptxas" in sections:
+        longkv_smem_report(paths)
         sass_report(paths)
     gen = torch.Generator(device="cuda").manual_seed(0)
     runs = dict(ptxas=lambda: None, forward=lambda: check_forward(gen),

@@ -196,10 +196,13 @@ def test_classification_gradient_golden_replay():
 def test_launch_plans_at_the_classification_training_batch(width, dtype):
     """The pixel (d = 261) and 1x1-conv (d = 512) encoders at the training
     batch of 8 (512 latents x 50,176 keys, one head): K1 splits the keys in
-    4 (256 blocks) and merges; the bf16 K2 takes 32 keys a block in one
-    split (12,544 blocks), the bf16 K3 4 key splits (256 blocks) and a sum;
-    the fp32 K2 12,544 blocks of 32 keys, the fp32 K3 64 blocks, neither
-    split.  So a step makes K1 1 + merge 1, K2 1, K3 1 (+ sum 1 in bf16)."""
+    4 (256 blocks) and merges; the bf16 K2 takes the long-KV route, 132
+    persistent blocks over 12,544 blocks of 32 keys in one split, after a
+    copy of q and of dO into 16-byte aligned rows at 261 (522-byte rows);
+    the bf16 K3 4 key splits (256 blocks) and a sum; the fp32 K2 12,544
+    blocks of 32 keys, the fp32 K3 64 blocks, neither split.  So a step
+    makes K1 1 + merge 1, K2 1 (+ 2 copies in bf16 at 261), K3 1 (+ sum 1
+    in bf16)."""
     q = torch.empty(8, 512, 1, width, device="meta", dtype=dtype)
     k = torch.empty(8, 50176, 1, width, device="meta", dtype=dtype)
     fwd = fa.launch_plan(q, k, k)
@@ -207,10 +210,12 @@ def test_launch_plans_at_the_classification_training_batch(width, dtype):
         4, 1, 256, 2)
     bwd = fa.backward_plan(q, k, k)
     bf16 = dtype == torch.bfloat16
-    assert bwd["route"] == ("sm90_wgmma" if bf16 else "cuda_cores")
+    assert bwd["route"] == ("sm90_longkv" if bf16 else "cuda_cores")
     dkv, dq = bwd["dkv"], bwd["dq"]
     assert (dkv["splits"], dkv["col_chunks"], dkv["blocks"], dkv["cuda_launches"]) == (
-        1, 1, 12544, 1)
+        (1, 1, 132, 3 if width == 261 else 1) if bf16 else (1, 1, 12544, 1))
+    if bf16:
+        assert dkv["items"] == 12544
     assert (dq["splits"], dq["col_chunks"], dq["blocks"], dq["cuda_launches"]) == (
         (4, 1, 256, 2) if bf16 else (1, 1, 64, 1))
     if bf16:

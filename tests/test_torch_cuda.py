@@ -12,7 +12,8 @@ narrow-head route at widths up to 64) are held against their plain PyTorch
 versions, which the CPU tests hold against the JAX package;
 K1 also at the classification encoders' widths (261 and 512) over 50,176
 keys, K2 and K3 at those widths (masked small cases, and a few thousand
-keys), reduced-depth classification and language models on the card
+keys; K2's long-KV route over 4,231 to 4,451 keys, and its realigned views
+bit for bit), reduced-depth classification and language models on the card
 against the same models on the CPU, and one training step of each tiny
 classifier and of the tiny MLM on the card with its launches counted.
 The serving stack on the card: K1's torch.library op bit for bit against
@@ -949,6 +950,62 @@ def test_backward_kernels_at_the_classification_widths_unmasked(cuda, dtype, tol
         one = fa._flash_attention_backward_cuda(q, k, v, out, lse, grad, num_splits=1)
         for x, y in zip(got, one):
             _check(x, y, tol)
+
+
+# The long-KV K2 (bf16, at most 512 query rows over at least 4,224 keys, the
+# wider head 257 to 512 wide), with masks, kv_logical_len and an all-masked
+# entry: the pixel encoder's 261 (522-byte rows) with odd Tq and Tk (K and V
+# copied into aligned rows) and with a multiple of 8 keys (bulk copies,
+# repacked), the 1x1-conv encoder's 512 (TMA) over 2 heads, d = 300 with Dv
+# 264 over 3 heads (q and k copied).
+LONGKV_CASES = [(2, 129, 4301, 1, 261, 261), (2, 136, 4400, 1, 261, 261),
+                (3, 65, 4451, 2, 512, 512), (2, 77, 4231, 3, 300, 264)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES)
+def test_longkv_backward_matches_reference(cuda, b, tq, tk, h, d, dv):
+    """K2 on the long-KV route and K3 against the plain backward, exact
+    zeros on wiped rows, tail keys and the all-masked entry, one long-KV
+    launch and one copy launch for each operand the plan copies into
+    aligned rows, and two calls bit for bit."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda)
+    plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
+    copies = plan["dkv"]["copies"]
+    assert plan["route"] == "sm90_longkv" and plan["dkv"]["cuda_launches"] == 1 + len(copies)
+    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_LONGKV, fa.LAUNCHES_BWD_COPY,
+              fa.LAUNCHES_BWD_DQ)
+    got = fa.flash_attention_backward(*args, **kw)
+    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_LONGKV, fa.LAUNCHES_BWD_COPY,
+            fa.LAUNCHES_BWD_DQ) == (before[0] + 1, before[1] + 1, before[2] + len(copies),
+                                    before[3] + 1)
+    again = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _check_backward(got, want, kw, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 6])
+@pytest.mark.parametrize("d", [261, 512])
+def test_longkv_realigned_views_match_contiguous(cuda, offset, d):
+    """The long-KV K2's loaders change only how bytes reach shared memory:
+    q, k and v seen ``offset`` elements into NaN-filled buffers (rows d + 8
+    apart, copied into aligned rows first) give dK and dV bit for bit as the
+    contiguous tensors (K and V by bulk copies, repacked, at 261; by TMA at
+    512)."""
+    args, kw = _backward_case(2, 136, 4400, 1, d, d, torch.bfloat16, cuda)
+    assert fa.backward_plan(*args[:3])["dkv"]["loader"] == ("bulk" if d == 261 else "tma")
+    q, k, v, out, lse, grad = args
+    views = [_realign_views(x, offset) for x in (q, k, v)]
+    plan = fa.backward_plan(*views, kv_logical_len=kw["kv_logical_len"])
+    assert plan["route"] == "sm90_longkv"
+    assert plan["dkv"]["loader"] == "copy" and "k" in plan["dkv"]["copies"]
+    want = fa.flash_attention_backward(*args, **kw)
+    got = fa.flash_attention_backward(*views, out, lse, grad, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 def _tiny_classifier(prep, impl, device):

@@ -404,7 +404,8 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
     monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
     before = fa.library_paths()
-    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow"}
+    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow",
+                           "bwd_longkv"}
     assert os.path.basename(before["bwd_sm90"]).startswith("flash_attention_bwd_sm90_")
     with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
@@ -508,6 +509,15 @@ def test_narrow_backward_matches_pallas(b, tq, tk, h, d, dv, kv_logical_len):
     _grads_against_pallas(b, tq, tk, h, d, dv, kv_logical_len)
 
 
+def test_longkv_shape_backward_matches_pallas():
+    """The plain backward at the long-KV route's shape class, few query
+    rows against many keys one head 261 wide (which the bf16 kernels take
+    on the card from 4,224 keys on), against jax.grad through the Pallas
+    sweeps in interpreter mode: masks, kv_logical_len, an all-masked entry,
+    exact zeros on wiped rows and tail keys."""
+    _grads_against_pallas(2, 130, 700, 1, 261, 261, 690)
+
+
 @pytest.mark.parametrize(
     "b,tq,tk,h,d,dv,masked",
     [(2, 37, 90, 3, 16, 8, True), (1, 64, 700, 1, 322, 322, False)],
@@ -603,7 +613,9 @@ def test_split_backward_reference_matches_pallas(bwd_split_case, num_splits):
     [("decoder", 1, 182528, 1, 2048, 512, "sm90_wgmma", 8, 512, 1, 2852),
      ("encoder", 1, 2048, 1, 182528, 322, "sm90_wgmma", 1, 5704, 8, 256),
      ("self", 1, 2048, 16, 2048, 32, "sm90_narrow", 1, 256, 1, 256),
-     ("masked", 2, 100, 2, 777, 41, "sm90_narrow", 1, 28, 1, 4)],
+     ("masked", 2, 100, 2, 777, 41, "sm90_narrow", 1, 28, 1, 4),
+     ("cls_pixel", 8, 512, 1, 50176, 261, "sm90_longkv", 1, 132, 4, 256),
+     ("cls_1x1conv", 8, 512, 1, 50176, 512, "sm90_longkv", 1, 132, 4, 256)],
 )
 def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_blocks, dq_splits,
                              dq_blocks):
@@ -611,12 +623,21 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
     key blocks of 32 on 132 SMs), K3 the encoder's keys (K1's plan: 32
     query blocks); the full grids take one split, and the self-attend and a
     41-wide case take the narrow route (blocks of 128 keys or query rows),
-    which never splits and agrees with the plans that find no split.  No
-    range is empty and the ranges cover every tile."""
+    which never splits and agrees with the plans that find no split.  The
+    classification encoders at the training batch of 8 (512 latents over
+    50,176 pixels, d = 261 and 512) take the long-KV route: K2 one launch of
+    132 persistent blocks over 8 x 1,568 blocks of 32 keys, no cluster, its
+    loader by the rows' alignment; K3 the wgmma kernel's plan (4 key
+    splits).  No range is empty and the ranges cover every tile."""
     q = torch.empty(b, tq, h, d, dtype=torch.bfloat16, device="meta")
     k = torch.empty(b, tk, h, d, dtype=torch.bfloat16, device="meta")
     plan = fa.backward_plan(q, k, k)
     assert plan["route"] == route
+    if route == "sm90_longkv":
+        assert (plan["dkv"]["items"], plan["dkv"]["cluster"], plan["dkv"]["loader"],
+                plan["dkv"]["copies"]) == (
+            -(-tk // fa.LONGKV_BLOCK_K) * h * b, 1, "bulk" if d == 261 else "tma",
+            ("q", "dout") if d == 261 else ())
     assert fa._dkv_split_plan(b, tq, h, tk) == (plan["dkv"]["splits"],
                                                plan["dkv"]["tiles_per_split"])
     assert fa._split_plan(b, tq, h, tk) == (plan["dq"]["splits"], plan["dq"]["tiles_per_split"])
@@ -624,9 +645,88 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
                                            ("dq", dq_splits, dq_blocks, tk)):
         got = plan[kernel]
         assert (got["splits"], got["blocks"]) == (splits, blocks), (kernel, got)
-        assert got["cuda_launches"] == 1 + (splits > 1)
+        assert got["cuda_launches"] == 1 + (splits > 1) + len(got.get("copies", ()))
         tiles = -(-length // fa.BLOCK_K)
         assert (splits - 1) * got["tiles_per_split"] < tiles <= splits * got["tiles_per_split"]
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv,dtype,num_splits,route",
+    [(8, 512, 50176, 1, 261, 261, torch.bfloat16, None, "sm90_longkv"),
+     (2, 512, 50176, 1, 512, 512, torch.bfloat16, None, "sm90_longkv"),  # phase 17's batch
+     (8, 512, 50176, 1, 261, 261, torch.float32, None, "cuda_cores"),
+     (8, 512, 50176, 1, 261, 261, torch.bfloat16, 1, "sm90_wgmma"),  # a forced split count
+     (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, "sm90_wgmma"),  # 9 query tiles
+     (8, 512, 4223, 1, 512, 512, torch.bfloat16, None, "sm90_wgmma"),  # fewer keys than 132 x 32
+     (1, 77, 4224, 3, 300, 264, torch.bfloat16, None, "sm90_longkv"),
+     (8, 512, 50176, 1, 256, 256, torch.bfloat16, None, "sm90_wgmma"),  # 64 keys a wgmma block
+     (2, 100, 8000, 1, 64, 257, torch.bfloat16, None, "sm90_longkv"),
+     (8, 512, 50176, 1, 513, 513, torch.bfloat16, None, "sm90_wgmma"),
+     (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, "sm90_wgmma"),  # the multimodal encoder
+     (2, 100, 8000, 2, 48, 48, torch.bfloat16, None, "sm90_narrow")],
+)
+def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
+    """bf16 backwards with at most 512 query rows over at least 4,224 keys,
+    whose wider head is 257 to 512 wide, take the long-KV K2 (K3 keeps the
+    wgmma kernel's plan); a forced split count, fp32, more query rows, fewer
+    keys and other widths keep their routes."""
+    q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
+    k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
+    v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
+    plan = fa.backward_plan(q, k, v, num_splits=num_splits)
+    assert plan["route"] == route
+    if route == "sm90_longkv":
+        items = -(-tk // 32) * h * b
+        copies = fa._bwd_copies(q, k, v)
+        assert plan["dkv"] == dict(splits=1, tiles_per_split=-(-tq // 64), col_chunks=1,
+                                   blocks=min(items, fa.NUM_SMS), cuda_launches=1 + len(copies),
+                                   items=items, cluster=1, loader=fa._bwd_loader(q, k, v),
+                                   copies=copies)
+        splits, per = fa._split_plan(b, tq, h, tk)
+        assert plan["dq"] == dict(splits=splits, tiles_per_split=per, col_chunks=1,
+                                  blocks=-(-tq // 64) * h * b * splits,
+                                  cuda_launches=1 + (splits > 1))
+
+
+@pytest.mark.parametrize(
+    "width,offset,target,loader,copies",
+    [(261, 0, "all", "bulk", ("q", "dout")), (261, 1, "all", "copy", ("q", "dout", "k", "v")),
+     (261, 3, "k", "copy", ("q", "dout", "k", "v")), (264, 0, "all", "tma", ()),
+     (264, 1, "q", "tma", ("q",)), (264, 4, "v", "copy", ("v",)), (512, 0, "all", "tma", ()),
+     (512, 1, "q", "tma", ("q",)), (512, 1, "k", "copy", ("k",)), (512, 2, "v", "copy", ("v",)),
+     (384, 3, "k", "copy", ("k",)), (320, 0, "all", "tma", ()),
+     (311, 0, "all", "bulk", ("q", "dout")), (322, 0, "all", "copy", ("q", "dout", "k", "v"))],
+)
+def test_backward_loader_by_row_alignment(width, offset, target, loader, copies):
+    """How the long-KV K2 brings rows into shared memory: the K and V rows
+    by TMA where they are 16-byte aligned; by bulk copies realigned as they
+    are repacked where they are packed from 16-byte aligned starts, one head,
+    at most 320 wide (the pixel encoder's 522-byte rows, Tk a multiple of
+    8); else copied into aligned rows first.  Q and dO always by TMA, copied
+    into aligned rows first where theirs are not (dO contiguous, rows Dv
+    wide).  ``target`` is the operand seen ``offset`` elements into its
+    storage."""
+    b, tq, tk, h = 2, 100, 8000, 1
+    views = {}
+    for name, t in (("q", tq), ("k", tk), ("v", tk)):
+        shift = offset if target in ("all", name) else 0
+        storage = torch.empty(b * t * h * width + shift, dtype=torch.bfloat16, device="meta")
+        views[name] = storage[shift:].view(b, t, h, width)
+    plan = fa.backward_plan(views["q"], views["k"], views["v"])
+    assert plan["route"] == "sm90_longkv"
+    assert plan["dkv"]["loader"] == fa._bwd_loader(views["q"], views["k"], views["v"]) == loader
+    assert plan["dkv"]["copies"] == copies
+    assert plan["dkv"]["cuda_launches"] == 1 + len(copies)
+    # a [.., W + pad] buffer seen as [.., :W]: 16-byte strides, which TMA
+    # takes whatever the width
+    padded = torch.empty(b, tk, h, -(-width // 8) * 8 + 8, dtype=torch.bfloat16,
+                         device="meta")[..., :width]
+    assert fa._bwd_loader(padded[:, :tq], padded, padded) == "tma"
+    assert fa._bwd_copies(padded[:, :tq], padded, padded) == (() if width % 8 == 0 else ("dout",))
+    # Tk not a multiple of 8: no bulk copies
+    if loader == "bulk":
+        odd = torch.empty(b, tk + 1, h, width, dtype=torch.bfloat16, device="meta")
+        assert fa._bwd_loader(views["q"], odd, odd) == "copy"
 
 
 def test_backward_plan_routes_by_dtype():
