@@ -120,8 +120,10 @@ Phases (each raises on failure; nothing is caught):
      alone: K1 with its lse, as training calls it, in fp32 and bf16,
      unmasked and masked, against the plain version, its plan 4 key splits
      and a merge; K2 and K3 against the plain backward in fp32 and bf16, as
-     in phase 4; bf16 K3 at the pixel encoder at its planned splits against
-     one split, and two calls bit for bit;
+     in phase 4 (bf16: both on the long-KV route, masked too at both widths
+     with a lone last query tile); bf16 K3 at both encoders
+     at its planned splits against one split, and two calls bit for bit;
+     K2 and K3 on offset views of the pixel encoder's rows bit for bit;
  17. classification gradients: the full-width pixel and 1x1-conv
      classifiers with remat, two synthetic images with random labels and
      the cross-entropy, the backward through the kernels (per step: K1 and
@@ -450,7 +452,7 @@ BF16_KEY_BIAS_TOL = 0.3
 # splits its query rows and the encoder's K3 its keys, each summed once.  The
 # fp32 kernels of K2 and K3 never split.
 STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26, "merge": 1, "sum": 2, "longkv": 0,
-                 "copy": 0}
+                 "dq_longkv": 0, "copy": 0}
 FP32_STEP_LAUNCHES = dict(STEP_LAUNCHES, sum=0)
 TRAIN_STEPS = 6  # timed, after one warm-up step
 
@@ -487,7 +489,8 @@ MM_BF16_TOL = 1e-1
 # flash site, outside every checkpoint: K1 once with its merge, K2 and K3
 # once; in bf16 K3 splits the keys and sums them once, K2 does not split.
 MM_TRAIN_CHUNKS = 16
-MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 0, "copy": 0}
+MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 0,
+                    "dq_longkv": 0, "copy": 0}
 MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0)
 MM_TRAIN_STEPS = 3  # timed, after one warm-up step
 MM_LABEL = 123  # the synthetic clip's class in the gradient phase
@@ -508,20 +511,27 @@ CLS_BF16_TOL = 1e-1
 # (examples/train_classification.py --full-scale): (B, Tq, Tk, H, D, Dv).
 CLS_TRAIN_SITES = {"cls_pixel": (8, 512, 50176, 1, 261, 261),
                    "cls_1x1conv": (8, 512, 50176, 1, 512, 512)}
+# The long-KV route at both widths with masks, kv_logical_len, an
+# all-masked entry and a lone last query tile (129 and 65 rows), bf16.
+CLS_MASKED_SITES = {"cls_pixel_masked": (2, 129, 4301, 1, 261, 261),
+                    "cls_1x1conv_masked": (3, 65, 4451, 2, 512, 512)}
 # K1's plan there, on both routes: 4 key splits and their merge.
 CLS_TRAIN_K1_PLAN = {"splits": 4, "cuda_launches": 2}
 # Launches per training step of the pixel or 1x1-conv classifier (remat of
 # the self-attend stack, batch 2 or 8): the encoder's cross-attend, outside
 # every checkpoint, is the one flash site: K1 with its merge, K2 and K3 once;
-# in bf16 K3 splits the keys and sums them once, K2 does not split and takes
-# the long-KV route ("longkv": 512 latents over 50,176 pixels at batch 2 and
-# 8), which at the pixel encoder first copies q and dO into 16-byte aligned
-# rows ("copy": their 522-byte rows; the 1x1-conv encoder's are aligned).
-# The convnet's sites are all dense.
-CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1, "copy": 0}
-CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0, longkv=0)
-CLS_STEP_COPIES = {"FOURIER_POS_PIXEL": 2, "LEARNED_POS_1X1CONV": 0}
-NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0, "longkv": 0, "copy": 0}
+# in bf16 both take the long-KV route ("longkv", "dq_longkv": 512 latents over
+# 50,176 pixels at batch 2 and 8), where K2 does not split and K3 splits the
+# keys and sums them once; at the pixel encoder K2 first copies q, dO, k and
+# v into 16-byte aligned rows and K3 reads the same copies ("copy": their
+# 522-byte rows; the 1x1-conv encoder's are aligned).  The convnet's sites
+# are all dense.
+CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1,
+                     "dq_longkv": 1, "copy": 0}
+CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0)
+CLS_STEP_COPIES = {"FOURIER_POS_PIXEL": 4, "LEARNED_POS_1X1CONV": 0}
+NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0, "longkv": 0, "dq_longkv": 0,
+               "copy": 0}
 CLS_TRAIN_STEPS = 10  # timed, after one warm-up step
 # Timed, after one warm-up step: 12 steps in all, so that train_mlm's
 # eval_every (steps // 2) puts its evaluations at the mid and final steps.
@@ -974,14 +984,15 @@ def check_realign(gen, site, shape, offsets):
 
 
 def check_realign_backward(gen, site, shape, offsets):
-    """K2 at a bf16 site whose rows are not 16-byte aligned (the pixel
-    encoder's 261, on the long-KV route): q, k and v as views at each
+    """K2 and K3 at a bf16 site whose rows are not 16-byte aligned (the
+    pixel encoder's 261, on the long-KV route): q, k and v as views at each
     element offset in ``offsets`` (rows W + 8 apart in NaN-filled buffers,
     which the route copies into aligned rows first) against contiguous
-    copies of the same values (K and V by bulk copies, each row shifted by
-    its own offset as it is repacked), on the same output, lse and
-    gradient: dK and dV bit for bit.  Returns the record, with each
-    offset's loader and copies and the check's seconds."""
+    copies of the same values (whose 522-byte rows are copied into aligned
+    rows too), on the same output, lse and gradient: dQ, dK and dV bit for
+    bit.
+    Returns the record, with each offset's loaders and copies and the
+    check's seconds."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -995,24 +1006,29 @@ def check_realign_backward(gen, site, shape, offsets):
         plan = fa.backward_plan(q, k, v)
         want = fa.BackwardKernels(q, k, v, out, lse, grad, **kw)
         want.dkv()
+        want.dq()
         unequal, loaders = [], []
         for offset in offsets:
             views = [_unaligned_view(x, offset) for x in (q, k, v)]
             vplan = fa.backward_plan(*views)
             got = fa.BackwardKernels(*views, out, lse, grad, **kw)
             got.dkv()
+            got.dq()
             torch.cuda.synchronize()
-            loaders.append([vplan["dkv"]["loader"], vplan["dkv"]["copies"]])
+            loaders.append([vplan["dkv"]["loader"], vplan["dkv"]["copies"],
+                            vplan["dq"]["loader"], vplan["dq"]["copies"]])
             if vplan["route"] != "sm90_longkv" or loaders[-1][0] != "copy":
                 raise AssertionError(f"{site}: offset {offset}: backward plan {vplan}")
-            if not (torch.equal(got.grad_k, want.grad_k) and torch.equal(got.grad_v, want.grad_v)):
+            if not (torch.equal(got.grad_k, want.grad_k) and torch.equal(got.grad_v, want.grad_v)
+                    and torch.equal(got.grad_q, want.grad_q)):
                 unequal.append(offset)
             del views, got
-    if plan["route"] != "sm90_longkv" or plan["dkv"]["loader"] != "bulk" or unequal:
-        raise AssertionError(f"{site} {shape}: plan {plan}; K2 on realigned views at"
-                             f" element offsets {unequal} differs from contiguous copies")
-    rec = dict(site=site, kernel="K2", shape=list(shape), route=plan["route"],
+    if plan["route"] != "sm90_longkv" or plan["dkv"]["loader"] != "copy" or unequal:
+        raise AssertionError(f"{site} {shape}: plan {plan}; K2/K3 on realigned views at"
+                             f" element offsets {unequal} differ from contiguous copies")
+    rec = dict(site=site, kernel="K2+K3", shape=list(shape), route=plan["route"],
                loader=plan["dkv"]["loader"], copies=plan["dkv"]["copies"],
+               dq_loader=plan["dq"]["loader"], dq_copies=plan["dq"]["copies"],
                offsets_bytes=[2 * o for o in offsets], loaders=loaders, bitwise=True,
                seconds=time.perf_counter() - t0)
     print(f"[realign] {json.dumps(rec)}", flush=True)
@@ -1129,8 +1145,9 @@ def _library_backward_ms(q, k, v, grad, kw, reps, window=False):
 def _want_backward_route(shape, dtype_name):
     """The route ``backward_plan`` must pick at (B, Tq, Tk, H, D, Dv): fp32
     the CUDA-core kernels; bf16 heads up to 64 wide the narrow one; the
-    long-KV K2 at most 512 query rows over at least 4,224 keys with the
-    wider head 257 to 512 wide (the classification encoders); else wgmma."""
+    long-KV K2 and K3 at most 512 query rows over at least 4,224 keys with
+    the wider head 257 to 512 wide (the classification encoders); else
+    wgmma."""
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
     _, tq, tk, _, d, dv = shape
@@ -1148,8 +1165,8 @@ def _want_backward_route(shape, dtype_name):
 def check_backward_case(name, shape, dtype_name, masked, reps, gen):
     """K2 and K3 vs the plain backward at one shape; returns one record per
     kernel.  The plan must take ``_want_backward_route``'s route: a narrow
-    launch per kernel on the narrow route, a long-KV K2 launch on the
-    long-KV one, where two calls must also give the same bits; bf16 kernels
+    launch per kernel on the narrow route, a long-KV launch of each kernel
+    on the long-KV one, where two calls must also give the same bits; bf16 kernels
     and SDPA are timed over at least 10 ms of launches (``timing_reps``)."""
     import torch
 
@@ -1175,13 +1192,16 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
             before = (fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ + fa.LAUNCHES_BWD_SUM
                       + fa.LAUNCHES_BWD_COPY)
             narrow_before, longkv_before = fa.LAUNCHES_BWD_NARROW, fa.LAUNCHES_BWD_LONGKV
+            dq_longkv_before = fa.LAUNCHES_BWD_DQ_LONGKV
             run()
             cuda_launches[kernel] = (fa.LAUNCHES_BWD_DKV + fa.LAUNCHES_BWD_DQ
                                      + fa.LAUNCHES_BWD_SUM + fa.LAUNCHES_BWD_COPY - before)
             planned = plan["dkv" if kernel == "K2" else "dq"]["cuda_launches"]
             if (cuda_launches[kernel] != planned
                     or fa.LAUNCHES_BWD_NARROW - narrow_before != narrow
-                    or fa.LAUNCHES_BWD_LONGKV - longkv_before != (longkv and kernel == "K2")):
+                    or fa.LAUNCHES_BWD_LONGKV - longkv_before != (longkv and kernel == "K2")
+                    or fa.LAUNCHES_BWD_DQ_LONGKV - dq_longkv_before
+                    != (longkv and kernel == "K3")):
                 raise AssertionError(f"{name}/{dtype_name}: {kernel} made "
                                      f"{cuda_launches[kernel]} CUDA launches, planned {plan}")
         got = {"dq": kernels.grad_q, "dk": kernels.grad_k, "dv": kernels.grad_v}
@@ -1234,8 +1254,8 @@ def check_backward_case(name, shape, dtype_name, masked, reps, gen):
         kplan = plan["dkv" if kernel == "K2" else "dq"]
         rec = dict(
             kernel=kernel, site=name, dtype=dtype_name, shape=list(shape),
-            route="sm90_wgmma" if longkv and kernel == "K3" else plan["route"],
-            loader=kplan.get("loader"), splits=kplan["splits"], col_chunks=kplan["col_chunks"],
+            route=plan["route"], loader=kplan.get("loader"),
+            splits=kplan["splits"], col_chunks=kplan["col_chunks"],
             blocks=kplan["blocks"], cuda_launches=cuda_launches[kernel],
             bitwise_repeat=narrow or longkv,
             max_abs_err=max(errs[key][0] for key in keys),
@@ -1320,10 +1340,13 @@ def phase_cls_kernels(reps: int = 3):
     that their large blocks do not change the allocator state those phases
     start from): K1 with its lse (as the autograd Function asks for it) in
     fp32 and bf16, unmasked and masked, its plan 4 key splits and a merge;
-    K2 and K3 against the plain backward in fp32 and bf16, the bf16 K2 on
-    the long-KV route at both sites, two calls bit for bit; bf16 K3 at the
-    pixel encoder at its planned splits against one split, and two calls bit
-    for bit; K1 and the long-KV K2 on realigned views of the pixel encoder's
+    K2 and K3 against the plain backward in fp32 and bf16, the bf16 K2 and
+    K3 on the long-KV route at both sites, two calls bit for bit, and masked
+    at both widths with a lone last query tile (``CLS_MASKED_SITES``, wiped
+    rows exactly 0); bf16 K3 at both encoders at its planned splits against
+    one split (the wgmma
+    kernel, which a forced split count takes), and two calls bit for bit;
+    K1 and the long-KV K2 and K3 on realigned views of the pixel encoder's
     rows bit for bit.  Returns the K1 and the K2/K3 records."""
     import torch
 
@@ -1336,7 +1359,10 @@ def phase_cls_kernels(reps: int = 3):
                     f"{name}_train" + ("_masked" if masked else ""), shape, dtype_name,
                     masked, reps, gen, lse=True, want_plan=CLS_TRAIN_K1_PLAN))
             backward += check_backward_case(name, shape, dtype_name, False, reps, gen)
-    check_backward_splits(gen, (("K3", "cls_pixel", CLS_TRAIN_SITES["cls_pixel"]),))
+    for name, shape in CLS_MASKED_SITES.items():
+        backward += check_backward_case(name, shape, "bf16", True, reps, gen)
+    check_backward_splits(gen, (("K3", "cls_pixel", CLS_TRAIN_SITES["cls_pixel"]),
+                                ("K3", "cls_1x1conv", CLS_TRAIN_SITES["cls_1x1conv"])))
     REALIGNED.append(check_realign(gen, "cls_pixel_train", CLS_TRAIN_SITES["cls_pixel"],
                                    REALIGN_OFFSETS))
     REALIGNED.append(check_realign_backward(gen, "bwd_cls_pixel_train",
@@ -1470,7 +1496,8 @@ def _launch_counts():
 
     return {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DKV, "K3": fa.LAUNCHES_BWD_DQ,
             "merge": fa.LAUNCHES_MERGE, "sum": fa.LAUNCHES_BWD_SUM,
-            "longkv": fa.LAUNCHES_BWD_LONGKV, "copy": fa.LAUNCHES_BWD_COPY}
+            "longkv": fa.LAUNCHES_BWD_LONGKV, "dq_longkv": fa.LAUNCHES_BWD_DQ_LONGKV,
+            "copy": fa.LAUNCHES_BWD_COPY}
 
 
 def _reset_launch_counts():
@@ -1478,6 +1505,7 @@ def _reset_launch_counts():
 
     fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_MERGE = 0
     fa.LAUNCHES_BWD_SUM = fa.LAUNCHES_BWD_LONGKV = fa.LAUNCHES_BWD_COPY = 0
+    fa.LAUNCHES_BWD_DQ_LONGKV = 0
 
 
 def phase_gradients():
@@ -5693,7 +5721,7 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         mm_site = next(r for r in mm_bwd if r["site"] == "mm_encoder" and r["dtype"] == "bf16")
         common = dict(route="cuda", source=bwd_sources["sm90_wgmma"], sources=bwd_sources,
                       routes={"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
-                              "bf16 K2, Tq <= 512 over Tk >= 4224, 257 <= d <= 512":
+                              "bf16, Tq <= 512 over Tk >= 4224, 257 <= d <= 512":
                               "sm90_longkv", "fp32": "cuda_cores"},
                       replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}")
         entries.append(dict(
@@ -5746,18 +5774,18 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         for prep, site in CLS_SITE_OF.items():
             if site is None:
                 continue
-            cls_bwd = [r for r in backward if r["kernel"] == kernel and r["site"] == site]
+            cls_bwd = [r for r in backward
+                       if r["kernel"] == kernel and r["site"] in (site, f"{site}_masked")]
             site_rec = next(r for r in cls_bwd if r["dtype"] == "bf16")
-            longkv = kernel == "K2"
             entries.append(dict(
                 name=f"{name}_d{CLS_TRAIN_SITES[site][4]}",
-                **dict(common, source=bwd_sources["sm90_longkv" if longkv else "sm90_wgmma"]),
+                **dict(common, source=bwd_sources["sm90_longkv"]),
                 launches=cls_train[prep]["launches"][kernel],
-                **(dict(longkv_launches_train=cls_train[prep]["launches"]["longkv"],
-                        copy_launches_train=cls_train[prep]["launches"]["copy"],
-                        loader=site_rec["loader"],
-                        realign=[r for r in REALIGNED if r["site"] == f"bwd_{site}_train"])
-                   if longkv else {}),
+                longkv_launches_train=cls_train[prep]["launches"][
+                    "longkv" if kernel == "K2" else "dq_longkv"],
+                copy_launches_train=cls_train[prep]["launches"]["copy"],
+                loader=site_rec["loader"],
+                realign=[r for r in REALIGNED if r["site"] == f"bwd_{site}_train"],
                 sum_launches_train=cls_train[prep]["launches"]["sum"],
                 **(file_counts(kernel, "sum", cls_files) if site == "cls_1x1conv" else {}),
                 **(dict(launches_int8_train=int8["train"]["launches"][kernel],

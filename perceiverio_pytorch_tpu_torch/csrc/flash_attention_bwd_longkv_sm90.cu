@@ -1,23 +1,27 @@
-// Flash attention backward, K2 (dK, dV), for bf16 inputs on Hopper (sm_90a)
-// where a (batch, head) has a short query range and many keys: the
-// classification encoders' cross-attends, 512 latents over 50,176 pixels,
-// one head 261 (the pixel variant) or 512 (the 1x1-conv variant) wide.
+// Flash attention backward, K2 (dK, dV) and K3 (dQ), for bf16 inputs on
+// Hopper (sm_90a) where a (batch, head) has a short query range and many
+// keys: the classification encoders' cross-attends, 512 latents over 50,176
+// pixels, one head 261 (the pixel variant) or 512 (the 1x1-conv variant)
+// wide.
 //
-// Replaces `_bwd_dkv_kernel` (perceiverio_pytorch_tpu/ops/pallas/
-// flash_attention.py, launched by `_pallas_attention_bwd` through
-// `pl.pallas_call`) at head widths of 257 to 512 whose walk is at most 512
-// query rows over at least 4,224 keys (ops/flash_attention.py
-// `backward_plan`, route "sm90_longkv"); K3 keeps the wgmma kernel of
-// flash_attention_bwd_sm90.cu there.  The same contract as that file's K2:
-// p = exp(scale * q k^T - lse) from the forward's log-sum-exp (exp2 of the
-// logits prescaled by scale * log2(e)), 0 for keys at or beyond kv_len,
-// keys whose kv_mask byte is 0 and rows with lse = +inf (all keys masked,
-// or past Tq); dp = do v^T and ds = p * (dp - delta) in fp32, where the
-// caller computes delta = rowsum(do * out) and zeroes do on q-masked rows;
-// p and ds are rounded to bf16 before their products; dv += p^T do and
-// dk += scale ds^T q are summed in fp32 and written as bf16.  Keys past
-// kv_len, keys masked everywhere and wiped rows come out exactly 0.  No
-// atomics and no split: two calls give the same bits.
+// Replaces `_bwd_dkv_kernel` (K2) and `_bwd_dq_kernel` (K3)
+// (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py, launched by
+// `_pallas_attention_bwd` through `pl.pallas_call`) at head widths of 257
+// to 512 whose walk is at most 512 query rows over at least 4,224 keys
+// (ops/flash_attention.py `backward_plan`, route "sm90_longkv"; a forced
+// split count keeps flash_attention_bwd_sm90.cu).  The same contract as
+// that file's kernels: p = exp(scale * q k^T - lse) from the forward's
+// log-sum-exp (exp2 of the logits prescaled by scale * log2(e)), 0 for keys
+// at or beyond kv_len, keys whose kv_mask byte is 0 and rows with lse = +inf
+// (all keys masked, or past Tq); dp = do v^T and ds = p * (dp - delta) in
+// fp32, where the caller computes delta = rowsum(do * out) and zeroes do on
+// q-masked rows; p and ds are rounded to bf16 before their products; dv +=
+// p^T do, dk += scale ds^T q and dq += scale ds k are summed in fp32 and
+// written as bf16 (K3's key splits as fp32 partials, added in split order
+// by flash_attention_bwd_sum).  Keys past kv_len, keys masked everywhere and
+// wiped rows come out exactly 0.  No atomics: two calls give the same bits.
+//
+// K2 (dK, dV).
 //
 // What bounds it on an H100.  Per (query, key) pair K2 does 4 d + 4 dv FLOP:
 // 0.84 TFLOP at (B, Tq, Tk) = (8, 512, 50,176) and d = 512, 0.85 ms at 989
@@ -65,14 +69,13 @@
 //     unswizzled core-matrix layout asks for) were the bound of every
 //     earlier form of this kernel (PERF.md).
 //   * Rows that are not 16-byte aligned (the pixel encoder's 522 bytes;
-//     offset views), which TMA cannot address.  Q and dO are read again by
-//     every key block, so they are copied once into 16-byte aligned rows
-//     (copy_rows_kernel, 1 MB a batch entry at the pixel encoder; the
-//     wrapper launches it).  K and V are read once: packed rows (one head,
-//     token stride = width) arrive by one bulk copy an item into a staging
-//     buffer, issued an item ahead, and the side's threads repack them into
-//     the swizzled tiles, each row shifted by its offset within its 16-byte
-//     units (layout BULK); other strides are copied into aligned rows first.
+//     offset views), which TMA cannot address, are first copied into 16-byte
+//     aligned rows (copy_rows_kernel; the wrapper launches it): Q and dO (1
+//     MB a batch entry at the pixel encoder), read again by every key block,
+//     and K and V (843 MB at batch 8), which K3 then reads from the same
+//     copies.  (A bulk copy of each item's packed K and V rows, repacked by
+//     the producers, ran 0.07 ms slower at the pixel encoder than TMA from
+//     the copies, and left K3 to copy them again: PERF.md.)
 //   * At d = 261: 5 column tiles of 64 (320 columns), not 6; S and dP
 //     reduce over 272.
 //
@@ -110,21 +113,11 @@ constexpr int PRODUCER_REGS = 88;
 constexpr int CONSUMER_REGS = (168 * THREADS - 2 * NT * PRODUCER_REGS) / CONSUMERS;  // 208
 constexpr int MAX_SMEM = 232448;    // dynamic shared memory a block may use on an H100
 constexpr float LOG2E = 1.4426950408889634f;
-// Named barriers (0 is __syncthreads): each warpgroup's own, P handed from
-// warpgroup 0 to 1 and the exchange area handed back, and each producer
-// side's own (5, 6).
-constexpr int BAR_WG0 = 1, BAR_WG1 = 2, BAR_READY = 3, BAR_FREE = 4, BAR_SIDE = 5;
-
-// How the K and V rows arrive (Smem's LAYOUT; the Q and dO chunks arrive by
-// TMA in both).  TMA: by TMA too (16-byte aligned rows).  BULK: by bulk
-// copies of an item's packed rows into a staging buffer, repacked into
-// place by the side's threads (2-byte aligned rows: the pixel encoder's
-// 522 bytes).
-constexpr int TMA = 0, BULK = 1;
+// Named barriers (0 is __syncthreads): each warpgroup's own, and P handed
+// from warpgroup 0 to 1 and the exchange area handed back.
+constexpr int BAR_WG0 = 1, BAR_WG1 = 2, BAR_READY = 3, BAR_FREE = 4;
 
 struct Params {
-  const bf16* k;           // BULK: the K and V rows, [B, Tk, 1, D] and [.., Dv], packed
-  const bf16* v;
   const float* lse;        // [B, H, Tq]
   const float* delta;      // [B, H, Tq]
   const uint8_t* kv_mask;  // [B, Tk] or null
@@ -136,7 +129,6 @@ struct Params {
   int n_tiles;             // query tiles of 64: ceil(Tq / 64)
   int n_kb;                // key blocks of 32 a (batch, head)
   int items;               // n_kb * H * B
-  long long k_sb, v_sb;    // BULK: batch strides (elements)
   float scale;             // softmax scale
   float scale_log2;        // softmax scale * log2(e)
   // TMA tensor maps (make_tmap): 128-byte swizzled boxes of 64 columns.
@@ -144,12 +136,11 @@ struct Params {
 };
 
 // Shared memory of a block with NM column tiles of 64: the K and V rows as
-// NM chunks of 32 rows, P, dS, the fp32 P exchange, BULK's two staging
-// buffers (one a side, 32 rows of at most 64 NM columns), and as many ring
-// slots (one 128-byte swizzled chunk of 64 rows x 64 columns of Q or dO
-// each) as fit, up to two tiles.  Every offset is a multiple of 1024 bytes
-// (the swizzle's repeat) from a 1024-byte aligned base.
-template <int NM, int LAYOUT>
+// NM chunks of 32 rows, P, dS, the fp32 P exchange, and as many ring slots
+// (one 128-byte swizzled chunk of 64 rows x 64 columns of Q or dO each) as
+// fit, up to two tiles.  Every offset is a multiple of 1024 bytes (the
+// swizzle's repeat) from a 1024-byte aligned base.
+template <int NM>
 struct Smem {
   static constexpr int C = 64 * NM;         // columns of the K and V rows
   static constexpr int SLOT = BQ * 64 * 2;  // one ring chunk
@@ -158,22 +149,20 @@ struct Smem {
   static constexpr int P = V + BK * C * 2;    // bf16 P, [64 queries][32 keys]
   static constexpr int S = P + BQ * BK * 2;   // bf16 dS, the same
   static constexpr int PF = S + BQ * BK * 2;  // fp32 P fragments, [NF][128 threads]
-  static constexpr int STG = PF + NF * 128 * 4;
-  static constexpr int STG_BYTES = LAYOUT == BULK ? BK * C * 2 : 0;
-  static constexpr int RING = STG + 2 * STG_BYTES;
-  // Barriers: full and empty per slot of both rings, K's and V's pairs, the
-  // two staging buffers'; and 1 KB to align the base.
-  static constexpr int FIXED = RING + 8 * (4 * 2 * NM + 6) + 1024;
+  static constexpr int RING = PF + NF * 128 * 4;
+  // Barriers: full and empty per slot of both rings, and K's and V's pairs;
+  // and 1 KB to align the base.
+  static constexpr int FIXED = RING + 8 * (4 * 2 * NM + 4) + 1024;
   static constexpr int FIT = (MAX_SMEM - FIXED) / (2 * SLOT);
   static constexpr int NSLOT = FIT < 2 * NM ? FIT : 2 * NM;
   static constexpr int Q = RING;
   static constexpr int O = Q + NSLOT * SLOT;
   static constexpr int BAR = O + NSLOT * SLOT;
-  static constexpr int NBAR = 4 * NSLOT + 6;
+  static constexpr int NBAR = 4 * NSLOT + 4;
   static constexpr int SIZE = BAR + 8 * NBAR + 1024;  // with the alignment pad
   static_assert(NSLOT >= NM, "a tile's chunks must fit the ring");
   static_assert(SIZE <= MAX_SMEM, "K2 long-KV tiles exceed shared memory");
-  static_assert(V % 1024 == 0 && STG % 1024 == 0 && STG_BYTES % 1024 == 0, "swizzle atoms");
+  static_assert(V % 1024 == 0 && RING % 1024 == 0, "swizzle atoms");
 };
 
 template <int ID, int N>
@@ -198,15 +187,6 @@ __device__ __forceinline__ void tma_load(char* dst, const CUtensorMap* tmap, int
       : "memory");
 }
 
-// One bulk copy of `bytes` (a multiple of 16) from 16-byte aligned `src`
-// into `dst`, counted on `bar`.
-__device__ __forceinline__ void bulk_load(char* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(sm90::smem_addr(dst)), "l"(src), "r"(bytes), "r"(sm90::smem_addr(bar))
-      : "memory");
-}
-
 // This thread's arrival on `bar`, which then also waits for `bytes`.
 __device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
@@ -222,12 +202,6 @@ __device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, int bytes) {
 // columns, one atom).
 __device__ __forceinline__ uint64_t make_desc_sw128(const char* p) {
   return sm90::make_desc(sm90::smem_addr(p), 16, 1024) | (1ull << 62);
-}
-
-// Byte offset of 16-byte unit u (8 columns) of row r in a 128-byte swizzled
-// tile of 64 columns.
-__device__ __forceinline__ uint32_t sw_offset(int r, int u) {
-  return (uint32_t)(r * 128 + ((u ^ (r & 7)) << 4));
 }
 
 // The query tile walked w-th (of n) by the item of key block kb: each item
@@ -250,55 +224,18 @@ __device__ __forceinline__ void wgmma_wait_n(int n) {
   }
 }
 
-// BULK's repack of a staging buffer (rows `rb` bytes apart from a 16-byte
-// aligned start, as in global memory) into 128-byte swizzled chunks: the
-// 16-byte units [0, units) of rows [0, rows) (zeros past a row's `rb`
-// bytes), unit u of row r to chunk u / 8 (`chunk(c)` its address), row r0 +
-// r.  NT / 32 threads a row, each a run of its units: unit u is the 16 bytes
-// at an offset of (r * rb) % 16 into the row's aligned units u and u + 1,
-// shifted into place (sm90.cuh shift_chunk), so a thread reads one new
-// 16-byte unit a unit it writes; only the units that reach past the row's
-// end are masked.
-template <typename Chunk>
-__device__ __forceinline__ void repack(const char* stage, int rows, int rb, int units, int r0,
-                                       Chunk chunk, int pt) {
-  constexpr int PER_ROW = NT / 32;
-  const int r = pt / PER_ROW;
-  if (r >= rows) return;
-  const int run = (units + PER_ROW - 1) / PER_ROW;
-  const int u0 = (pt % PER_ROW) * run;
-  const int u1 = min(units, u0 + run);
-  const int off = (r * rb) & 15;
-  const uint4* row = reinterpret_cast<const uint4*>(stage + r * rb - off);
-  uint4 cur = row[u0];
-#pragma unroll 4
-  for (int u = u0; u < u1; ++u) {
-    const uint4 nxt = row[u + 1];
-    uint4 out = sm90::shift_chunk(cur, nxt, off);
-    if (16 * u + 16 > rb) out = sm90::keep_bytes(out, rb - 16 * u);
-    *reinterpret_cast<uint4*>(chunk(u >> 3) + sw_offset(r0 + r, u & 7)) = out;
-    cur = nxt;
-  }
-}
-
-// A barrier over one producer side's NT threads.
-__device__ __forceinline__ void side_sync(int side) {
-  if (side) named_sync<BAR_SIDE + 1, NT>();
-  else named_sync<BAR_SIDE, NT>();
-}
-
-template <int NM, int LAYOUT>
+template <int NM>
 __device__ __forceinline__ void consume(const Params& p, char* smem, int wg);
 
 // ---------------------------------------------------------------------------
 // The kernel.  NM column tiles of 64; two consumer warpgroups and one
-// producer warpgroup, whose two sides (two warps each) feed dO and V (side
-// 0) and Q and K (side 1).
+// producer warpgroup, whose two sides (two warps each; one thread issues)
+// feed dO and V (side 0) and Q and K (side 1).
 
-template <int NM, int LAYOUT>
+template <int NM>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_longkv_kernel(const __grid_constant__ Params p) {
-  using L = Smem<NM, LAYOUT>;
+  using L = Smem<NM>;
   constexpr int NS = L::NSLOT;
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -310,7 +247,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty_k = full_k + 1;
   uint64_t* full_v = empty_k + 1;
   uint64_t* empty_v = full_v + 1;
-  uint64_t* staged = empty_v + 1;  // BULK: [side]
 
   const int tid = threadIdx.x;
   // Zero everything once: the pad rows and columns of the tiles stay
@@ -325,13 +261,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       sm90::mbar_init(&full_o[s], 1);
       sm90::mbar_init(&empty_o[s], 8);
     }
-    // A K or V tile: one TMA copy, or the side's NT repacking threads.
-    sm90::mbar_init(full_k, LAYOUT == TMA ? 1 : NT);
+    // A K or V tile: the TMA copies of its chunks.
+    sm90::mbar_init(full_k, 1);
     sm90::mbar_init(empty_k, 4);
-    sm90::mbar_init(full_v, LAYOUT == TMA ? 1 : NT);
+    sm90::mbar_init(full_v, 1);
     sm90::mbar_init(empty_v, 4);
-    sm90::mbar_init(&staged[0], 1);
-    sm90::mbar_init(&staged[1], 1);
   }
   __syncthreads();
 
@@ -341,7 +275,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
   if (role < 2) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consume<NM, LAYOUT>(p, smem, role);
+    consume<NM>(p, smem, role);
     return;
   }
   // The producers give registers to the consumers (384 threads leave 168
@@ -382,60 +316,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
 
-  if constexpr (LAYOUT == TMA) {
-    if (pt != 0) return;
-    int it = 0;
-    for (int item = first_from(blockIdx.x); item < p.items;
-         item = first_from(item + gridDim.x), ++it) {
-      const int bh = item % BH, kb = item / BH;
-      if (it > 0) sm90::mbar_wait(empty_r, (it - 1) & 1);
-      arrive_expect_tx(full_r, nch * BK * 128);
-      for (int c = 0; c < nch; ++c)
-        tma_load(res + c * BK * 128, tm_r, 64 * c, bh % p.H, kb * BK, bh / p.H, full_r);
-      issue_tiles(item);
-    }
-  } else {
-    // BULK (one head): an item's K or V rows land in the side's staging
-    // buffer by one bulk copy, issued an item ahead, and every thread of the
-    // side repacks them into place.
-    const bf16* rsrc = side ? p.k : p.v;
-    const long long rb = side ? p.k_sb : p.v_sb;
-    const int width = side ? p.D : p.Dv;
-    const int rbytes = 2 * width;
-    const int units = (side ? p.D16 : p.Dv16) / 8;  // 16-byte units of a row S and dP read
-    char* stage = smem + L::STG + side * L::STG_BYTES;
-    uint64_t* sbar = &staged[side];
-    auto issue_rows = [&](int item) {
-      const int b = item % BH, kb = item / BH;
-      const int rows = min(BK, p.Tk - kb * BK);
-      arrive_expect_tx(sbar, rows * rbytes);
-      bulk_load(stage, rsrc + b * rb + (long long)kb * BK * width, rows * rbytes, sbar);
-    };
-    int item = first_from(blockIdx.x);
-    if (pt == 0 && item < p.items) issue_rows(item);
-    for (int it = 0; item < p.items; ++it) {
-      const int next = first_from(item + gridDim.x);
-      const int kb = item / BH;
-      sm90::mbar_wait(sbar, it & 1);
-      if (it > 0) sm90::mbar_wait(empty_r, (it - 1) & 1);
-      repack(stage, min(BK, p.Tk - kb * BK), rbytes, units, 0,
-             [&](int c) { return res + c * BK * 128; }, pt);
-      sm90::fence_proxy_async();
-      sm90::mbar_arrive(full_r);
-      side_sync(side);  // the staging buffer is free again
-      if (pt == 0) {
-        if (next < p.items) issue_rows(next);
-        issue_tiles(item);
-      }
-      item = next;
-    }
+  if (pt != 0) return;
+  int it = 0;
+  for (int item = first_from(blockIdx.x); item < p.items;
+       item = first_from(item + gridDim.x), ++it) {
+    const int bh = item % BH, kb = item / BH;
+    if (it > 0) sm90::mbar_wait(empty_r, (it - 1) & 1);
+    arrive_expect_tx(full_r, nch * BK * 128);
+    for (int c = 0; c < nch; ++c)
+      tma_load(res + c * BK * 128, tm_r, 64 * c, bh % p.H, kb * BK, bh / p.H, full_r);
+    issue_tiles(item);
   }
 }
 
 // A consumer warpgroup (wg 0 or 1) of the kernel above.
-template <int NM, int LAYOUT>
+template <int NM>
 __device__ __forceinline__ void consume(const Params& p, char* smem, const int wg) {
-  using L = Smem<NM, LAYOUT>;
+  using L = Smem<NM>;
   constexpr int NS = L::NSLOT;
   char* sK = smem + L::K;
   char* sV = smem + L::V;
@@ -629,10 +526,10 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
   if (wg == 0 && tiles > 0) named_sync<BAR_FREE, CONSUMERS>();
 }
 
-template <int NM, int LAYOUT>
+template <int NM>
 cudaError_t launch(const Params& p, int blocks, cudaStream_t stream) {
-  constexpr int smem = Smem<NM, LAYOUT>::SIZE;
-  auto kernel = flash_bwd_dkv_longkv_kernel<NM, LAYOUT>;
+  constexpr int smem = Smem<NM>::SIZE;
+  auto kernel = flash_bwd_dkv_longkv_kernel<NM>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, THREADS, smem, stream>>>(p);
@@ -658,6 +555,355 @@ __global__ void copy_rows_kernel(const bf16* src, bf16* dst, int B, int T, int H
 #pragma unroll
     for (int j = 0; j < 8; ++j) out[j] = c0 + j < W ? s[c0 + j] : __float2bfloat16_rn(0.f);
     *reinterpret_cast<uint4*>(dst + row * W8 + c0) = *reinterpret_cast<const uint4*>(out);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 (dQ).
+//
+// What bounds it on an H100.  Per (query, key) pair K3 does 4 d + 2 dv FLOP:
+// 0.63 TFLOP at (B, Tq, Tk) = (8, 512, 50,176) and d = dv = 512, 0.64 ms at
+// 989 TFLOP/s (0.33 ms at 261).  Each query tile walks all of its batch
+// entry's keys, so K and V stream out of L2 once per tile of 64 rows (6.6 GB
+// at 512); HBM sees them once (0.82 GB, 0.25 ms).  The wgmma kernel of
+// flash_attention_bwd_sm90.cu took 4.77 ms there (5.49 at 261): its
+// consumers issued every load themselves, 2 bytes at a time at 261, and
+// waited for K(t + 1) behind dQ(t).
+//
+// The design:
+//   * A block holds 64 query rows: their Q and dO tiles stay resident (64 KB
+//     each at d = 512, as 64-column chunks in wgmma's 128-byte swizzle), and
+//     it walks its key split in steps of 32 keys.  The keys are split so
+//     that all blocks run in one wave (2 splits of 64 tiles at batch 8: 128
+//     blocks); each split writes fp32 partials.
+//   * A producer warpgroup keeps K and V in flight by TMA, as chunks of 32
+//     keys x 64 columns in two rings (K's and V's) that share what shared
+//     memory is left (11 and 10 slots at 512, 17 and 16 at 261).  A K chunk
+//     is read twice, by S = Q K^T and as B of dQ += dS K, so it is released
+//     only after dQ; a V chunk after dP.  Lane c of each warp releases chunk
+//     c; the rings' positions are running counters.
+//   * Warpgroup 0 forms S = Q K^T and P, warpgroup 1 dP = dO V^T and dS, each
+//     an N = 32 product over the step's keys; P crosses in fp32 (8 KB) and dS
+//     comes back as bf16 pairs already in wgmma's register-A layout (4 KB),
+//     each behind a pair of named barriers.  Then each warpgroup accumulates
+//     dQ over half of the 64-column chunks (128 fp32 registers a thread at
+//     512; setmaxnreg gives the consumers 224), dS from registers, K read
+//     MN-major from the ring.
+//   * Rows that are not 16-byte aligned (the pixel encoder's 522 bytes) are
+//     read from K2's copies in aligned rows (copy_rows_kernel; K3 makes them
+//     itself when K2 did not run first).  Every query tile re-reads K and V,
+//     so a per-block repack would run 8 times a batch entry.
+//   * Each block loads its own chunks.  Pairs of query tiles in a cluster,
+//     each chunk multicast to both, halved the reads out of L2 but ran ~2%
+//     slower on an H100, each block waiting on the other's releases, while
+//     L2 was not the bound (PERF.md).
+
+struct DqParams {
+  const float* lse;        // [B, H, Tq]
+  const float* delta;      // [B, H, Tq]
+  const uint8_t* kv_mask;  // [B, Tk] or null
+  bf16* dq;                // [B, Tq, H, D], contiguous (one split)
+  float* part_q;           // [S, B, Tq, H, D] fp32 (splits > 1)
+  int B, H, Tq, Tk, kv_len, D, Dv;
+  int D16, Dv16;           // D and Dv rounded up to 16: the reductions of S and dP
+  int nq, no;              // column chunks of 64 of Q and K (d), of dO and V (dv)
+  int n_tiles;             // query tiles of 64: ceil(Tq / 64)
+  int tiles_per_split;     // split s: keys [s, s + 1) * tiles_per_split * 64
+  int splits;
+  float scale;             // softmax scale
+  float scale_log2;        // softmax scale * log2(e)
+  CUtensorMap tm_q, tm_o, tm_k, tm_v;  // boxes of 64 columns x 64 (Q, dO) or 32 (K, V) rows
+};
+
+constexpr int DQ_SPLIT_T = 64;  // keys a tile of the split plan (ops/flash_attention.py BLOCK_K)
+// Registers after setmaxnreg: the producers keep 56 (TMA issue loops), the
+// consumers take the rest of the 64,512 (224 a thread): dQ's accumulators
+// are NM / 2 x 32 (128 at d = 512).
+constexpr int DQ_PRODUCER_REGS = 56;
+constexpr int DQ_CONSUMER_REGS = (168 * THREADS - 2 * NT * DQ_PRODUCER_REGS) / CONSUMERS;  // 224
+// Named barriers of the two exchanges: P (READY, FREE as in K2) and dS.
+constexpr int BAR_DS_READY = 5, BAR_DS_FREE = 6;
+
+// Shared memory of a K3 block with NM column tiles of 64: the resident Q and
+// dO tiles (NM chunks of 64 rows x 64 columns each, 128-byte swizzled), the
+// fp32 P exchange, the dS exchange (bf16 pairs in wgmma's register A
+// layout), and two rings of chunks of 32 keys x 64 columns, K's and V's,
+// sharing what is left.  Every offset is a multiple of 1024 bytes.
+template <int NM>
+struct DqSmem {
+  static constexpr int CH = BQ * 128;   // a resident chunk
+  static constexpr int SLOT = BK * 128; // a ring chunk
+  static constexpr int Q = 0;
+  static constexpr int O = Q + NM * CH;
+  static constexpr int PX = O + NM * CH;        // fp32 P, [NF][128 threads]
+  static constexpr int DX = PX + NF * 128 * 4;  // dS A fragments, [8][128 threads]
+  static constexpr int RING = DX + 8 * 128 * 4;
+  // 1 KB for the barriers and 1 KB to align the base.
+  static constexpr int FIT = (MAX_SMEM - RING - 2048) / SLOT;
+  static constexpr int NSK = FIT - FIT / 2;
+  static constexpr int NSV = FIT / 2;
+  static constexpr int K = RING;
+  static constexpr int V = K + NSK * SLOT;
+  static constexpr int BAR = V + NSV * SLOT;
+  static constexpr int NBAR = 2 * NSK + 2 * NSV + 2;
+  static constexpr int SIZE = BAR + 8 * NBAR + 1024;
+  // A block's K chunks are held until dQ has read them, its V chunks until
+  // dP is done: each ring holds a whole step.
+  static_assert(NSK >= NM && NSV >= NM, "a step's chunks must fit each ring");
+  static_assert(8 * NBAR <= 1024 && SIZE <= MAX_SMEM, "K3 long-KV tiles exceed shared memory");
+  static_assert(O % 1024 == 0 && PX % 1024 == 0 && RING % 1024 == 0, "swizzle atoms");
+};
+
+// Slot c on from slot s0 of a ring of n slots (c <= n).
+__device__ __forceinline__ int ring_at(int s0, int c, int n) {
+  return s0 + c >= n ? s0 + c - n : s0 + c;
+}
+
+struct DqWork {
+  int b, h, bh, tile, split, k_begin, k_end, nkb;
+};
+
+template <int NM>
+__device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, int wg, const DqWork& w);
+
+template <int NM>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_longkv_kernel(const __grid_constant__ DqParams p) {
+  using L = DqSmem<NM>;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty_k = full_k + L::NSK;
+  uint64_t* full_v = empty_k + L::NSK;
+  uint64_t* empty_v = full_v + L::NSV;
+  uint64_t* full_q = empty_v + L::NSV;  // Q, then dO
+  uint64_t* full_o = full_q + 1;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < L::NSK; ++s) {
+      sm90::mbar_init(&full_k[s], 1);   // the producer, the bytes counted
+      sm90::mbar_init(&empty_k[s], 8);  // every consumer warp
+    }
+    for (int s = 0; s < L::NSV; ++s) {
+      sm90::mbar_init(&full_v[s], 1);
+      sm90::mbar_init(&empty_v[s], 4);  // warpgroup 1's warps
+    }
+    sm90::mbar_init(full_q, 1);
+    sm90::mbar_init(full_o, 1);
+  }
+  __syncthreads();
+
+  // The block's work: blocks run (split, batch x head, tile), tile fastest.
+  DqWork w;
+  const int x = blockIdx.x / p.n_tiles;
+  w.tile = blockIdx.x % p.n_tiles;
+  w.bh = x % (p.B * p.H);
+  w.split = x / (p.B * p.H);
+  w.h = w.bh % p.H;
+  w.b = w.bh / p.H;
+  w.k_begin = w.split * p.tiles_per_split * DQ_SPLIT_T;
+  w.k_end = min(p.kv_len, w.k_begin + p.tiles_per_split * DQ_SPLIT_T);
+  w.nkb = w.k_begin < w.k_end ? (w.k_end - w.k_begin + BK - 1) / BK : 0;
+
+  const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (role < 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DQ_CONSUMER_REGS));
+    consume_dq<NM>(p, smem, role, w);
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(DQ_PRODUCER_REGS));
+    // Warp 0 of the producers loads Q and the K ring, warp 1 dO and the V
+    // ring, one thread each.
+    const int side = __shfl_sync(0xffffffffu, (tid - CONSUMERS) >> 5, 0);
+    if (side < 2 && (tid & 31) == 0) {
+      const bool kside = side == 0;
+      uint64_t* full_r = kside ? full_q : full_o;
+      const int nch = kside ? p.nq : p.no;
+      arrive_expect_tx(full_r, nch * L::CH);
+      for (int c = 0; c < nch; ++c)
+        tma_load(smem + (kside ? L::Q : L::O) + c * L::CH, kside ? &p.tm_q : &p.tm_o, 64 * c,
+                 w.h, w.tile * BQ, w.b, full_r);
+      char* ring = smem + (kside ? L::K : L::V);
+      uint64_t* full = kside ? full_k : full_v;
+      uint64_t* empty = kside ? empty_k : empty_v;
+      const int ns = kside ? L::NSK : L::NSV;
+      const CUtensorMap* tm = kside ? &p.tm_k : &p.tm_v;
+      // Chunk g of the walk goes to slot s in its phase ph; from the second
+      // lap on, the slot's last chunk must have been released.
+      int s = 0, ph = 0, g = 0;
+      for (int kb = 0; kb < w.nkb; ++kb) {
+        for (int c = 0; c < nch; ++c, ++g) {
+          if (g >= ns) sm90::mbar_wait(&empty[s], ph ^ 1);
+          arrive_expect_tx(&full[s], L::SLOT);
+          tma_load(ring + s * L::SLOT, tm, 64 * c, w.h, w.k_begin + kb * BK, w.b, &full[s]);
+          if (++s == ns) s = 0, ph ^= 1;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// A consumer warpgroup of K3: 0 forms S = Q K^T and P, 1 dP = dO V^T and dS
+// (each an N = 32 product over the step's keys, P handed over in fp32), then
+// each accumulates dQ += dS K over its half of the column chunks, dS from
+// registers (wgmma's register A), K read MN-major from the ring.
+template <int NM>
+__device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, const int wg,
+                                           const DqWork& w) {
+  using L = DqSmem<NM>;
+  constexpr int NA = (NM + 1) / 2;  // dQ column chunks a warpgroup holds at most
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty_k = full_k + L::NSK;
+  uint64_t* full_v = empty_k + L::NSK;
+  uint64_t* empty_v = full_v + L::NSV;
+  uint64_t* full_q = empty_v + L::NSV;
+  uint64_t* full_o = full_q + 1;
+  float* sPX = reinterpret_cast<float*>(smem + L::PX);
+  uint32_t* sDX = reinterpret_cast<uint32_t*>(smem + L::DX);
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int t128 = tid & 127;
+  const int row_lo = 16 * warp + (lane >> 2);  // fragment rows row_lo, row_lo + 8
+
+  // This warpgroup's first product (S: Q and the K ring; dP: dO and the V
+  // ring) and its dQ column chunks [c0, c0 + ncw).
+  const int n_first = wg ? p.no : p.nq;
+  const int red16 = (wg ? p.Dv16 : p.D16) / 16;
+  const int ns_first = wg ? L::NSV : L::NSK;
+  uint64_t* full_first = wg ? full_v : full_k;
+  const uint64_t desc_res = make_desc_sw128(smem + (wg ? L::O : L::Q));
+  const uint64_t desc_first = make_desc_sw128(smem + (wg ? L::V : L::K));
+  const uint64_t desc_k = make_desc_sw128(smem + L::K);
+  const int half = (p.nq + 1) / 2;
+  const int c0 = wg ? half : 0;
+  const int ncw = wg ? p.nq - half : half;
+
+  // lse * log2(e) (warpgroup 0) or delta (1) of this thread's two rows;
+  // rows past Tq: p = 0.
+  float rowv[2];
+  const float* row_g = (wg ? p.delta : p.lse) + (long long)w.bh * p.Tq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = w.tile * BQ + row_lo + 8 * r;
+    rowv[r] = i < p.Tq ? row_g[i] * (wg ? 1.f : LOG2E) : (wg ? 0.f : INFINITY);
+  }
+  const uint8_t* kvm = p.kv_mask ? p.kv_mask + (long long)w.b * p.Tk : nullptr;
+
+  float acc[NA][32];  // dQ columns 64 (c0 + j) ..: m64n64 fragments
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+
+  // Ring positions, kept as running counters (no division in the walk):
+  // this warpgroup's first-product ring (slot fs, phase fph) and the slot of
+  // the step's first K chunk (ks0).  Chunk c of a step lies c slots on
+  // (ring_at): a step's chunks never outnumber a ring's slots.
+  int fs = 0, fph = 0, ks0 = 0;
+  sm90::mbar_wait(wg ? full_o : full_q, 0);
+  for (int kb = 0; kb < w.nkb; ++kb) {
+    const int k0 = w.k_begin + kb * BK;
+    const int fs0 = fs;
+    // S (0) or dP (1), chunk by chunk as they land.
+    float f[NF];
+    sm90::wgmma_fence();
+    for (int c = 0; c < n_first; ++c) {
+      sm90::mbar_wait(&full_first[fs], fph);
+      const int steps = min(4, red16 - 4 * c);
+      for (int ks = 0; ks < steps; ++ks)
+        sm90::wgmma_m64k16<BK, 0, 0>(f, sm90::desc_add(desc_res, c * L::CH + ks * 32),
+                                     sm90::desc_add(desc_first, fs * L::SLOT + ks * 32),
+                                     (c | ks) > 0);
+      if (++fs == ns_first) fs = 0, fph ^= 1;
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands<NF>(f);
+
+    uint32_t a[8];  // dS as bf16 pairs: the register A of dQ's two k16 steps
+    if (wg == 0) {
+      float pv[NF];
+#pragma unroll
+      for (int i = 0; i < NF; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const bool ok = key < w.k_end && (kvm == nullptr || kvm[key] != 0);
+        pv[i] = ok ? exp2f(f[i] * p.scale_log2 - rowv[(i >> 1) & 1]) : 0.f;
+      }
+      if (kb > 0) named_sync<BAR_FREE, CONSUMERS>();  // warpgroup 1 has read the last P
+#pragma unroll
+      for (int i = 0; i < NF; ++i) sPX[i * 128 + t128] = pv[i];
+      named_arrive<BAR_READY, CONSUMERS>();
+      named_sync<BAR_DS_READY, CONSUMERS>();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = sDX[i * 128 + t128];
+      named_arrive<BAR_DS_FREE, CONSUMERS>();
+    } else {
+      // Lane c releases the step's V chunk c.
+      if (lane < p.no) sm90::mbar_arrive(&empty_v[ring_at(fs0, lane, L::NSV)]);
+      named_sync<BAR_READY, CONSUMERS>();
+      float pv[NF];
+#pragma unroll
+      for (int i = 0; i < NF; ++i) pv[i] = sPX[i * 128 + t128];
+      named_arrive<BAR_FREE, CONSUMERS>();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = sm90::pack_bf16x2(pv[2 * i] * (f[2 * i] - rowv[i & 1]),
+                                 pv[2 * i + 1] * (f[2 * i + 1] - rowv[i & 1]));
+      if (kb > 0) named_sync<BAR_DS_FREE, CONSUMERS>();  // warpgroup 0 has read the last dS
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sDX[i * 128 + t128] = a[i];
+      named_arrive<BAR_DS_READY, CONSUMERS>();
+      // The step's K chunks: warpgroup 0 waited for them before it formed
+      // the P this one has read.
+    }
+
+    // dQ[:, 64 (c0 + j) ..] += dS K[:, 64 (c0 + j) ..]: K read MN-major, 16
+    // keys (2048 bytes) a k16 step.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        if (j < ncw) {
+          const int s = ring_at(ks0, c0 + j, L::NSK);
+          sm90::wgmma_m64k16_rA<64, 1>(acc[j], a + 4 * ks,
+                                       sm90::desc_add(desc_k, s * L::SLOT + ks * 2048), 1);
+        }
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NA; ++j) sm90::fence_operands<32>(acc[j]);
+    // Lane c releases the step's K chunk c.
+    if (lane < p.nq) sm90::mbar_arrive(&empty_k[ring_at(ks0, lane, L::NSK)]);
+    ks0 = ring_at(ks0, p.nq, L::NSK);
+  }
+  // Match the other warpgroup's last arrival (FREE from 1, DS_FREE from 0).
+  if (w.nkb > 0) {
+    if (wg == 0) named_sync<BAR_FREE, CONSUMERS>();
+    else named_sync<BAR_DS_FREE, CONSUMERS>();
+  }
+
+  // Rows below Tq, columns below D: fp32 partials (scaled) of this split,
+  // or bf16 dQ when the keys are not split.
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    if (j >= ncw) continue;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = w.tile * BQ + row_lo + 8 * ((i >> 1) & 1);
+      const int col = 64 * (c0 + j) + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      if (row >= p.Tq || col >= p.D) continue;
+      const long long at = (((long long)w.b * p.Tq + row) * p.H + w.h) * p.D + col;
+      const float v = acc[j][i] * p.scale;
+      if (p.splits > 1)
+        p.part_q[(long long)w.split * p.B * p.Tq * p.H * p.D + at] = v;
+      else
+        p.dq[at] = __float2bfloat16_rn(v);
+    }
   }
 }
 
@@ -705,33 +951,26 @@ bool make_tmap(CUtensorMap* map, const void* ptr, int B, int T, int H, int W, lo
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NM, int LAYOUT>
-int smem_of(int* slots) {
-  *slots = Smem<NM, LAYOUT>::NSLOT;
-  return Smem<NM, LAYOUT>::SIZE;
-}
-
 template <int NM>
-cudaError_t launch_nm(const Params& p, int layout, int blocks, cudaStream_t stream) {
-  if constexpr (NM == 5) {
-    if (layout == BULK) return launch<NM, BULK>(p, blocks, stream);
-  }
-  return launch<NM, TMA>(p, blocks, stream);
+cudaError_t launch_dq(const DqParams& p, int blocks, cudaStream_t stream) {
+  constexpr int smem = DqSmem<NM>::SIZE;
+  auto kernel = flash_bwd_dq_longkv_kernel<NM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Strides are in elements; the head dim of q, k, v and dout must be
 // contiguous; lse and delta are [B, H, Tq] fp32; dk and dv are contiguous.
-// Head widths d and dv of 1 to 512 whose wider one is above 256. q and dout
-// must have 16-byte aligned rows (the wrapper copies those that do not into
-// aligned ones: flash_attention_bwd_longkv_copy_rows); k and v too, or, with
-// one head and the wider width at most 320, packed rows (token stride =
-// width) from 16-byte aligned starts and batches, Tk a multiple of 8 (the
-// pixel encoder's 522-byte rows, brought in by bulk copies).  `blocks`
-// persistent blocks (at most one an SM fits) walk the ceil(Tk / 32) * H * B
-// work items.  Returns a cudaError_t (0 on success; invalid value for
-// operands neither way takes).
+// Head widths d and dv of 1 to 512 whose wider one is above 256.  q, k, v
+// and dout must have 16-byte aligned starts and strides (the wrapper copies
+// those that do not into aligned rows: flash_attention_bwd_longkv_copy_rows).
+// `blocks` persistent blocks (at most one an SM fits) walk the
+// ceil(Tk / 32) * H * B work items.  Returns a cudaError_t (0 on success;
+// invalid value for operands it does not take).
 extern "C" int flash_attention_bwd_dkv_longkv_sm90(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* kv_mask, void* dk, void* dv, int batch, int heads, int tq,
@@ -744,8 +983,6 @@ extern "C" int flash_attention_bwd_dkv_longkv_sm90(
       blocks < 1 || batch < 1 || heads < 1 || tq < 1 || tk < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.kv_mask = static_cast<const uint8_t*>(kv_mask);
@@ -765,61 +1002,53 @@ extern "C" int flash_attention_bwd_dkv_longkv_sm90(
   p.n_tiles = (tq + BQ - 1) / BQ;
   p.n_kb = (tk + BK - 1) / BK;
   p.items = p.n_kb * heads * batch;
-  p.k_sb = k_sb;
-  p.v_sb = v_sb;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   if (blocks > p.items) blocks = p.items;
   const int nm = (width + 63) / 64;
   // TMA takes a start and strides that are multiples of 16 bytes (a row may
   // end anywhere: the box reads zeros past it).
-  auto aligned = [](const void* ptr, long long sb, long long st, long long sh, int) {
+  auto aligned = [](const void* ptr, long long sb, long long st, long long sh) {
     return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb * 2 % 16 == 0 &&
            st * 2 % 16 == 0 && sh * 2 % 16 == 0;
   };
-  auto packed = [&](const void* ptr, long long sb, long long st, int w) {
-    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && st == w && sb * 2 % 16 == 0;
-  };
-  if (!aligned(q, q_sb, q_st, q_sh, d) || !aligned(dout, o_sb, o_st, o_sh, dv_width) ||
+  if (!aligned(q, q_sb, q_st, q_sh) || !aligned(dout, o_sb, o_st, o_sh) ||
+      !aligned(k, k_sb, k_st, k_sh) || !aligned(v, v_sb, v_st, v_sh) ||
       !make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
-      !make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ))
+      !make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
+      !make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
+      !make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
     return (int)cudaErrorInvalidValue;
-  int layout;
-  if (aligned(k, k_sb, k_st, k_sh, d) && aligned(v, v_sb, v_st, v_sh, dv_width) &&
-      make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) &&
-      make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK)) {
-    layout = TMA;
-  } else if (nm <= 5 && heads == 1 && tk % 8 == 0 && packed(k, k_sb, k_st, d) &&
-             packed(v, v_sb, v_st, dv_width)) {
-    layout = BULK;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = nm <= 5   ? launch_nm<5>(p, layout, blocks, s)
-                          : nm <= 6 ? launch_nm<6>(p, layout, blocks, s)
-                                    : launch_nm<8>(p, layout, blocks, s);
+  const cudaError_t err = nm <= 5   ? launch<5>(p, blocks, s)
+                          : nm <= 6 ? launch<6>(p, blocks, s)
+                                    : launch<8>(p, blocks, s);
   return (int)err;
 }
 
 // The dynamic shared memory (bytes, the alignment pad included) of the
 // kernel that flash_attention_bwd_dkv_longkv_sm90 launches when the wider
-// head is `width` wide and K and V arrive by TMA (bulk = 0) or by bulk
-// copies (1), and the slots of each of its two rings in *slots; -1 for a
-// width and layout it does not launch.  For reports: no launch.
-extern "C" int flash_attention_bwd_longkv_smem(int width, int bulk, int* slots) {
+// head is `width` wide, and the slots of each of its two rings in *slots;
+// -1 for a width it does not launch.  For reports: no launch.
+extern "C" int flash_attention_bwd_longkv_smem(int width, int* slots) {
   if (width <= 256 || width > 512) return -1;
   const int nm = (width + 63) / 64;
-  if (bulk) return nm <= 5 ? smem_of<5, BULK>(slots) : -1;
-  return nm <= 5   ? smem_of<5, TMA>(slots)
-         : nm <= 6 ? smem_of<6, TMA>(slots)
-                   : smem_of<8, TMA>(slots);
+  if (nm <= 5) {
+    *slots = Smem<5>::NSLOT;
+    return Smem<5>::SIZE;
+  }
+  if (nm <= 6) {
+    *slots = Smem<6>::NSLOT;
+    return Smem<6>::SIZE;
+  }
+  *slots = Smem<8>::NSLOT;
+  return Smem<8>::SIZE;
 }
 
 // dst [B, T, H, W8] (contiguous, W8 = W rounded up to 8) = src [B, T, H, W]
 // (strides in elements, the last 1, any 2-byte alignment), zeros in
-// columns [W, W8): the long-KV K2's aligned rows of q or dout.  Returns a
-// cudaError_t.
+// columns [W, W8): the long-KV kernels' aligned rows of q, k, v or dout.
+// Returns a cudaError_t.
 extern "C" int flash_attention_bwd_longkv_copy_rows(const void* src, void* dst, int batch, int t,
                                                     int heads, int w, long long sb, long long st,
                                                     long long sh, void* stream) {
@@ -830,4 +1059,86 @@ extern "C" int flash_attention_bwd_longkv_copy_rows(const void* src, void* dst, 
   copy_rows_kernel<<<(int)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(src), static_cast<bf16*>(dst), batch, t, heads, w, w8, sb, st, sh);
   return (int)cudaGetLastError();
+}
+
+// K3 (dQ) on the long-KV route.  Strides are in elements; q, k, v and dout
+// must have 16-byte aligned starts and strides (the wrapper copies those
+// that do not into aligned rows: flash_attention_bwd_longkv_copy_rows) and
+// a contiguous head dim; lse and delta are [B, H, Tq] fp32.  Head widths d
+// and dv of 1 to 512 whose wider one is above 256.  Split s of `splits`
+// walks keys [s, s + 1) * tiles_per_split * 64 (below kv_len); with splits
+// > 1 it writes fp32 partials (scaled) to part_q [S, B, Tq, H, D] for
+// flash_attention_bwd_sum, else bf16 dq [B, Tq, H, D] (contiguous).
+// Returns a cudaError_t (0 on success; invalid value for operands it does
+// not take).
+extern "C" int flash_attention_bwd_dq_longkv_sm90(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, const void* kv_mask, void* dq, void* part_q, int batch, int heads, int tq,
+    int tk, int kv_len, int d, int dv_width, int splits, int tiles_per_split, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long o_sb, long long o_st,
+    long long o_sh, float scale, void* stream) {
+  const int width = d > dv_width ? d : dv_width;
+  if (d < 1 || dv_width < 1 || width <= 256 || width > 512 || kv_len < 0 || kv_len > tk ||
+      batch < 1 || heads < 1 || tq < 1 || tk < 1 || splits < 1 || tiles_per_split < 0 ||
+      (splits > 1 && part_q == nullptr))
+    return (int)cudaErrorInvalidValue;
+  DqParams p;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.dq = static_cast<bf16*>(dq);
+  p.part_q = static_cast<float*>(part_q);
+  p.B = batch;
+  p.H = heads;
+  p.Tq = tq;
+  p.Tk = tk;
+  p.kv_len = kv_len;
+  p.D = d;
+  p.Dv = dv_width;
+  p.D16 = (d + 15) / 16 * 16;
+  p.Dv16 = (dv_width + 15) / 16 * 16;
+  p.nq = (d + 63) / 64;
+  p.no = (dv_width + 63) / 64;
+  p.n_tiles = (tq + BQ - 1) / BQ;
+  p.tiles_per_split = tiles_per_split;
+  p.splits = splits;
+  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
+  auto aligned = [](const void* ptr, long long sb, long long st, long long sh) {
+    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb * 2 % 16 == 0 &&
+           st * 2 % 16 == 0 && sh * 2 % 16 == 0;
+  };
+  if (!aligned(q, q_sb, q_st, q_sh) || !aligned(dout, o_sb, o_st, o_sh) ||
+      !aligned(k, k_sb, k_st, k_sh) || !aligned(v, v_sb, v_st, v_sh) ||
+      !make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
+      !make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
+      !make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
+      !make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = p.n_tiles * batch * heads * splits;
+  const int nm = (width + 63) / 64;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = nm <= 5   ? launch_dq<5>(p, blocks, s)
+                          : nm <= 6 ? launch_dq<6>(p, blocks, s)
+                                    : launch_dq<8>(p, blocks, s);
+  return (int)err;
+}
+
+// The dynamic shared memory (bytes, the alignment pad included) of the K3
+// kernel at a wider head `width` wide, and the slots of its K and V rings;
+// -1 for a width it does not launch.  For reports: no launch.
+extern "C" int flash_attention_bwd_dq_longkv_smem(int width, int* slots_k, int* slots_v) {
+  if (width <= 256 || width > 512) return -1;
+  const int nm = (width + 63) / 64;
+  if (nm <= 5) {
+    *slots_k = DqSmem<5>::NSK, *slots_v = DqSmem<5>::NSV;
+    return DqSmem<5>::SIZE;
+  }
+  if (nm <= 6) {
+    *slots_k = DqSmem<6>::NSK, *slots_v = DqSmem<6>::NSV;
+    return DqSmem<6>::SIZE;
+  }
+  *slots_k = DqSmem<8>::NSK, *slots_v = DqSmem<8>::NSV;
+  return DqSmem<8>::SIZE;
 }

@@ -114,10 +114,12 @@
 // overlap of one warpgroup's elementwise work with the other's products,
 // the K tile of K3 is not double-buffered; above 512 the tiles are narrow
 // (m64n8k16 products for S and dP) and K3 recomputes S and dP per chunk.
-// K2 where at most 512 query rows meet at least 4,224 keys, 257 to 512
-// wide (the classification encoders), takes flash_attention_bwd_longkv_sm90.cu
-// instead, which has them (persistent blocks, a TMA or bulk-copy producer
-// warpgroup, 128-byte swizzled tiles); K3 stays here at every site.
+// K2 and K3 where at most 512 query rows meet at least 4,224 keys, 257 to
+// 512 wide (the classification encoders), take
+// flash_attention_bwd_longkv_sm90.cu instead, which has them (a TMA
+// producer warpgroup, 128-byte swizzled tiles, rows copied into 16-byte
+// aligned ones first where TMA cannot address them; K2 persistent, K3 with
+// Q and dO resident), unless a split count is forced.
 //
 // Interface: plain C functions, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC

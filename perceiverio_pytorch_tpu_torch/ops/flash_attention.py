@@ -17,12 +17,12 @@ in registers, a producer warp feeding a ring, route ``sm90_narrow``),
 ``sm90_wgmma``, with the ordered sum of their split partials) and
 ``csrc/flash_attention_bwd.cu`` for fp32 ones (route ``cuda_cores``); where a
 bf16 backward has a short query range against many keys at widths of 257 to
-512 (the classification encoders), K2 is
-``csrc/flash_attention_bwd_longkv_sm90.cu`` (persistent blocks, a producer
-warpgroup feeding rings of column chunks by TMA, route ``sm90_longkv``;
-rows that are not 16-byte aligned are copied into aligned ones first by
-its copy kernel, or, packed K and V rows, brought in by bulk copies) and
-K3 the wgmma kernel.  The
+512 (the classification encoders), K2 and K3 are
+``csrc/flash_attention_bwd_longkv_sm90.cu`` (a producer warpgroup feeding
+rings of column chunks by TMA, route ``sm90_longkv``: K2 in persistent
+blocks of keys, K3 in blocks of query rows with Q and dO resident; rows
+that are not 16-byte aligned are copied into aligned ones first by its copy
+kernel, once for both).  The
 source note at the head of each says what bounds it on an H100 and what its
 design does about that.
 
@@ -47,8 +47,10 @@ design does about that.
     and ``LAUNCHES_BWD_NARROW`` the K2 and K3 launches that did (each also
     counts in ``LAUNCHES_BWD_DKV`` or ``LAUNCHES_BWD_DQ``).
     ``LAUNCHES_BWD_LONGKV`` counts the K2 launches on the long-KV route
-    (each also counts in ``LAUNCHES_BWD_DKV``) and ``LAUNCHES_BWD_COPY``
-    the launches of its copies into aligned rows (``_bwd_copies``).
+    (each also counts in ``LAUNCHES_BWD_DKV``), ``LAUNCHES_BWD_DQ_LONGKV``
+    the K3 launches there (each also in ``LAUNCHES_BWD_DQ``) and
+    ``LAUNCHES_BWD_COPY`` the launches of their copies into aligned rows
+    (``_longkv_copies``; K3 reuses K2's).
     ``LAUNCHES_MERGE`` counts the merge kernel's launches (K1 calls with
     more than one key split) and ``LAUNCHES_BWD_SUM`` the sum kernel's (K2
     or K3 calls with more than one split).
@@ -58,9 +60,9 @@ design does about that.
     ``loader`` (cp.async copies, the realigning loader for rows that
     cp.async cannot copy, or 2-byte copies: ``_loader``); ``backward_plan`` the same
     for K2 (query splits, ``_dkv_split_plan``) and K3 (key splits,
-    ``_split_plan``; the narrow and long-KV routes never split K2), with
-    their output-column chunks and the long-KV K2's ``loader``
-    (``_bwd_loader``).
+    ``_split_plan``, or ``_longkv_dq_split_plan`` on the long-KV route; the
+    narrow and long-KV routes never split K2), with their output-column
+    chunks and the long-KV kernels' ``loader`` (``_longkv_loader``).
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
     512 its grid splits the value columns in two), K2 and K3 up to
@@ -125,9 +127,11 @@ MIN_SPLIT_TILES = 8
 # bf16 backwards whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns
 # wide (where the wgmma K2 holds 32 keys a block), with at most LONGKV_MAX_Q
 # query rows a (batch, head) (8 tiles of 64) over at least LONGKV_MIN_K keys
-# (a key block of LONGKV_BLOCK_K for every SM), take the long-KV K2 and no
-# forced split: persistent blocks, at most one an SM, walking work items of
-# LONGKV_BLOCK_K keys.  K3 keeps the wgmma kernel and its plan there.
+# (a key block of LONGKV_BLOCK_K for every SM), take the long-KV kernels and
+# no forced split.  K2: persistent blocks, at most one an SM, walking work
+# items of LONGKV_BLOCK_K keys.  K3: a block of 64 query rows walks its key
+# split in steps of LONGKV_BLOCK_K keys, the keys split so that every block
+# runs in one wave (``_longkv_dq_split_plan``).
 LONGKV_MIN_WIDTH = 257
 LONGKV_MAX_Q = 512
 LONGKV_BLOCK_K = 32
@@ -141,6 +145,7 @@ LAUNCHES_NARROW = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_NARROW = 0
 LAUNCHES_BWD_LONGKV = 0
+LAUNCHES_BWD_DQ_LONGKV = 0
 LAUNCHES_BWD_COPY = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_MERGE = 0
@@ -316,6 +321,15 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
             )
             bwd_longkv.flash_attention_bwd_dkv_longkv_sm90.restype = ctypes.c_int
+            bwd_longkv.flash_attention_bwd_dq_longkv_sm90.argtypes = (
+                # q, k, v, dout, lse, delta, kv_mask, dq, part_q
+                [ctypes.c_void_p] * 9
+                # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split
+                + [ctypes.c_int] * 9
+                + _STRIDES * 4  # q, k, v, dout
+                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            )
+            bwd_longkv.flash_attention_bwd_dq_longkv_sm90.restype = ctypes.c_int
             bwd_longkv.flash_attention_bwd_longkv_copy_rows.argtypes = (
                 [ctypes.c_void_p] * 2  # src, dst
                 + [ctypes.c_int] * 4  # B, T, H, W
@@ -654,48 +668,34 @@ def _tma_rows(t: torch.Tensor) -> bool:
     return all(x % 16 == 0 for x in [_byte_addr(t)] + [st * size for st in t.stride()[:3]])
 
 
-def _longkv_packed(t: torch.Tensor, width: int) -> bool:
-    """Rows of ``t`` [B, T, 1, W] packed (token stride = width) from a
-    16-byte aligned start, batches 16-byte aligned: what one bulk copy of
-    whole rows takes."""
-    return (_byte_addr(t) % 16 == 0 and t.stride(1) == width
-            and t.stride(0) * t.element_size() % 16 == 0)
+def _longkv_loader(k, v) -> str:
+    """How the long-KV K2 and K3 bring the K and V rows into shared memory:
+    "tma" when both have 16-byte aligned rows (``_tma_rows``), else "copy":
+    those not aligned are first copied into 16-byte aligned rows
+    (``_longkv_copies``), then "tma"."""
+    return "tma" if _tma_rows(k) and _tma_rows(v) else "copy"
 
 
-def _bwd_loader(q, k, v) -> str:
-    """How the long-KV K2 brings the K and V rows into shared memory: "tma"
-    when both have 16-byte aligned rows (``_tma_rows``); "bulk" when they do
-    not but are packed from 16-byte aligned starts (``_longkv_packed``), one
-    head, Tk a multiple of 8 and the wider head at most 320 wide (bulk
-    copies of an item's rows, realigned as they are repacked: the pixel
-    encoder's 522-byte rows); else "copy": those not aligned are first
-    copied into 16-byte aligned rows (``_bwd_copies``), then "tma".  The Q
-    and dO chunks always arrive by TMA, copied first where their rows are
-    not aligned (the rule of ``_loader`` for K2's tiles)."""
-    _, _, h, d = q.shape
-    tk, dv = k.shape[1], v.shape[3]
-    if _tma_rows(k) and _tma_rows(v):
-        return "tma"
-    if (max(d, dv) <= 320 and h == 1 and tk % 8 == 0
-            and _longkv_packed(k, d) and _longkv_packed(v, dv)):
-        return "bulk"
-    return "copy"
+def _longkv_copies(q, k, v) -> Tuple[str, ...]:
+    """The operands the long-KV kernels read from copies in 16-byte aligned
+    rows (one copy kernel launch each): q, the output's gradient (made
+    contiguous by the wrapper: rows dv wide), k and v wherever their rows
+    are not aligned (the pixel encoder's 522-byte rows: all four, 843 MB of
+    K and V at batch 8).  K2 makes them and K3 reads the same copies; K3
+    makes them itself when ``dkv()`` did not run first."""
+    return tuple((["q"] if not _tma_rows(q) else []) + (["dout"] if v.shape[3] % 8 else [])
+                 + [name for name, t in (("k", k), ("v", v)) if not _tma_rows(t)])
 
 
-def _bwd_copies(q, k, v) -> Tuple[str, ...]:
-    """The operands the long-KV K2 first copies into 16-byte aligned rows
-    (one copy kernel launch each): q and the output's gradient (made
-    contiguous by the wrapper: rows dv wide) where their rows are not
-    aligned; k and v where neither TMA nor the bulk copies take them
-    (``_bwd_loader`` "copy").  Q and dO are re-read by every key block, so
-    a copy of them (1 MB a batch entry at the pixel encoder) costs next to
-    nothing; K and V are read once."""
-    copies = [] if _tma_rows(q) else ["q"]
-    if v.shape[3] % 8:
-        copies.append("dout")
-    if _bwd_loader(q, k, v) == "copy":
-        copies += [name for name, t in (("k", k), ("v", v)) if not _tma_rows(t)]
-    return tuple(copies)
+def _longkv_dq_split_plan(b: int, tq: int, h: int, kv_len: int):
+    """The long-KV K3's key splits: (splits, tiles_per_split).  As many as
+    keep all blocks in one wave of one block an SM (NUM_SMS // the blocks of
+    a split, each block 64 query rows), at least MIN_SPLIT_TILES key tiles
+    each: 2 at the classification encoders at batch 8 (64 query tiles, 128
+    blocks)."""
+    blocks = -(-tq // BLOCK_Q) * h * b
+    tiles = -(-kv_len // BLOCK_K)
+    return _split_bounds(kv_len, max(1, min(NUM_SMS // blocks, tiles // MIN_SPLIT_TILES)))
 
 
 def _dkv_split_plan(b: int, tq: int, h: int, tk: int):
@@ -717,11 +717,13 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     wider one is LONGKV_MIN_WIDTH to COL_CHUNK columns wide with at most
     LONGKV_MAX_Q query rows over at least LONGKV_MIN_K keys and no forced
     split: K2 the long-KV kernel, ``blocks`` persistent blocks (at most one
-    an SM) walking ``items`` blocks of LONGKV_BLOCK_K keys, ``cluster`` 1 (no
-    thread-block cluster), its ``loader`` (``_bwd_loader``) and the
-    ``copies`` it first makes into aligned rows (``_bwd_copies``, one launch
-    each before the kernel's), K3 the wgmma kernel as under "sm90_wgmma";
-    "cuda_cores" for fp32) and, under
+    an SM) walking ``items`` blocks of LONGKV_BLOCK_K keys, its ``loader``
+    (``_longkv_loader``) and the ``copies`` it first makes into aligned rows
+    (``_longkv_copies``, one launch each before the kernel's); K3 the
+    long-KV kernel, ``blocks`` of 64 query rows over
+    ``_longkv_dq_split_plan``'s key splits, reading the same ``loader`` and
+    ``copies`` (K2's: its ``cuda_launches`` count none, as when ``dkv()``
+    runs first); "cuda_cores" for fp32) and, under
     "dkv" (K2) and "dq" (K3), ``splits`` and ``tiles_per_split`` (K2's
     query ranges by ``_dkv_split_plan``, K3's key ranges by ``_split_plan``
     counted with K3's column chunks, or ``num_splits`` ranges for both when
@@ -758,15 +760,15 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     if (num_splits is None and LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq <= LONGKV_MAX_Q
             and tk >= LONGKV_MIN_K):
         items = -(-tk // LONGKV_BLOCK_K) * h * b
-        copies = _bwd_copies(q, k, v)
-        splits, per = _split_plan(b, tq, h, kv_len, dq_chunks)
+        copies, loader = _longkv_copies(q, k, v), _longkv_loader(k, v)
+        splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)
         return dict(
             route="sm90_longkv",
             dkv=dict(splits=1, tiles_per_split=-(-tq // BLOCK_Q), col_chunks=1,
                      blocks=min(items, NUM_SMS), cuda_launches=1 + len(copies), items=items,
-                     cluster=1, loader=_bwd_loader(q, k, v), copies=copies),
-            dq=dict(splits=splits, tiles_per_split=per, col_chunks=dq_chunks,
-                    blocks=q_blocks * dq_chunks * splits, cuda_launches=1 + (splits > 1)))
+                     loader=loader, copies=copies),
+            dq=dict(splits=splits, tiles_per_split=per, col_chunks=1, blocks=q_blocks * splits,
+                    cuda_launches=1 + (splits > 1), loader=loader, copies=copies))
     if num_splits is None:
         plans = (_dkv_split_plan(b, tq, h, tk), _split_plan(b, tq, h, kv_len, dq_chunks))
     else:
@@ -900,7 +902,7 @@ class BackwardKernels:
         self.plan = backward_plan(q, k, v, kv_logical_len=kv_logical_len, num_splits=num_splits)
         if self.plan["route"] == "sm90_longkv" and not (
                 do.is_contiguous() and do.data_ptr() % 16 == 0):
-            do = do.clone(memory_format=torch.contiguous_format)  # as _bwd_copies assumes
+            do = do.clone(memory_format=torch.contiguous_format)  # as _longkv_copies assumes
         if self.plan["route"] == "cuda_cores" and num_splits not in (None, 1):
             raise ValueError("the fp32 backward kernels do not split their walks")
         lse = lse.float().contiguous()
@@ -920,6 +922,7 @@ class BackwardKernels:
         self._dims = (b, h, tq, tk, kv_len, d, dv)
         self._strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
         self._scale = scale
+        self._copies = {}  # the long-KV kernels' aligned copies, by operand, until K3's launch
 
     def _run(self, kernel, grads):
         """Launch ``kernel`` (K2 "dkv" or K3 "dq") into ``grads``, and the
@@ -942,7 +945,9 @@ class BackwardKernels:
                     *self._inputs, *self._dims, *self._strides, self._scale, stream)
             elif route == "sm90_longkv" and kernel == "dkv":
                 err = self._longkv_dkv(libs["bwd_longkv"], plan, stream)
-            elif route in ("sm90_wgmma", "sm90_longkv"):
+            elif route == "sm90_longkv":
+                err = self._longkv_dq(libs["bwd_longkv"], plan, parts[0], stream)
+            elif route == "sm90_wgmma":
                 part_q, part_k, part_v = ((parts[0], None, None) if kernel == "dq"
                                           else (None, *parts))
                 err = getattr(libs["bwd_sm90"], name + "_sm90")(
@@ -962,29 +967,57 @@ class BackwardKernels:
                 LAUNCHES_BWD_SUM += 1
         return True
 
-    def _longkv_dkv(self, lib, plan, stream):
-        """The long-KV K2: its operands named in ``plan["copies"]`` copied
-        into 16-byte aligned rows (one launch each), then the kernel; the
-        first nonzero error."""
+    def _aligned(self, lib, names, stream, made):
+        """(error, [q, k, v, dout]) with the operands in ``names`` taken from
+        copies in 16-byte aligned rows: those in ``made`` as they are, the
+        others each copied by one copy kernel launch into ``made``, which
+        the caller keeps while the kernel may read them; the first nonzero
+        error and None if a copy fails."""
         global LAUNCHES_BWD_COPY
         q, k, v, do = self._keep[:4]
         ops = {"q": q, "k": k, "v": v, "dout": do}
-        for name in plan["copies"]:
-            t = ops[name]
-            b, n, h, w = t.shape
-            copy = torch.empty((b, n, h, -(-w // 8) * 8), dtype=t.dtype, device=t.device)
-            err = lib.flash_attention_bwd_longkv_copy_rows(
-                t.data_ptr(), copy.data_ptr(), b, n, h, w, *t.stride()[:3], stream)
-            if err != 0:
-                return err
-            LAUNCHES_BWD_COPY += 1
-            ops[name] = copy
-        args = [ops[name] for name in ("q", "k", "v", "dout")]
-        self._copies = args  # kept while the kernel may read them
+        for name in names:
+            if name not in made:
+                t = ops[name]
+                b, n, h, w = t.shape
+                copy = torch.empty((b, n, h, -(-w // 8) * 8), dtype=t.dtype, device=t.device)
+                err = lib.flash_attention_bwd_longkv_copy_rows(
+                    t.data_ptr(), copy.data_ptr(), b, n, h, w, *t.stride()[:3], stream)
+                if err != 0:
+                    return err, None
+                LAUNCHES_BWD_COPY += 1
+                made[name] = copy
+            ops[name] = made[name]
+        return 0, [ops[name] for name in ("q", "k", "v", "dout")]
+
+    def _longkv_dkv(self, lib, plan, stream):
+        """The long-KV K2: its operands named in ``plan["copies"]`` copied
+        into 16-byte aligned rows (every call; kept for K3), then the
+        kernel; the first nonzero error."""
+        self._copies = {}
+        err, args = self._aligned(lib, plan["copies"], stream, self._copies)
+        if err != 0:
+            return err
         strides = [x for t in args for x in t.stride()[:3]]
         return lib.flash_attention_bwd_dkv_longkv_sm90(
-            *(t.data_ptr() for t in args[:3]), args[3].data_ptr(), *self._inputs[4:7],
-            *self._inputs[8:], *self._dims, plan["blocks"], *strides, self._scale, stream)
+            *(t.data_ptr() for t in args), *self._inputs[4:7], *self._inputs[8:],
+            *self._dims, plan["blocks"], *strides, self._scale, stream)
+
+    def _longkv_dq(self, lib, plan, part_q, stream):
+        """The long-KV K3: its operands named in ``plan["copies"]`` from
+        K2's aligned copies (made by this call where ``dkv()`` did not run
+        first), then the kernel, into ``grad_q`` or, split, ``part_q``; the
+        copies are let go once the kernel is enqueued (the caching allocator
+        reuses their memory only after it, in stream order).  The first
+        nonzero error."""
+        err, args = self._aligned(lib, plan["copies"], stream, self._copies)
+        if err == 0:
+            strides = [x for t in args for x in t.stride()[:3]]
+            err = lib.flash_attention_bwd_dq_longkv_sm90(
+                *(t.data_ptr() for t in args), *self._inputs[4:8], _ptr(part_q), *self._dims,
+                plan["splits"], plan["tiles_per_split"], *strides, self._scale, stream)
+        self._copies = {}
+        return err
 
     def dkv(self):
         """K2: dk and dv."""
@@ -996,10 +1029,11 @@ class BackwardKernels:
 
     def dq(self):
         """K3: dq."""
-        global LAUNCHES_BWD_DQ, LAUNCHES_BWD_NARROW
+        global LAUNCHES_BWD_DQ, LAUNCHES_BWD_NARROW, LAUNCHES_BWD_DQ_LONGKV
         if self._run("dq", (self.grad_q,)):
             LAUNCHES_BWD_DQ += 1
             LAUNCHES_BWD_NARROW += self.plan["route"] == "sm90_narrow"
+            LAUNCHES_BWD_DQ_LONGKV += self.plan["route"] == "sm90_longkv"
 
 
 def _valid_keys(q, k, kv_mask, kv_len):

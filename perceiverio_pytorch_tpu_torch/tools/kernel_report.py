@@ -10,8 +10,8 @@ On a machine with an NVIDIA GPU, from the repository root:
      sites, of K1's, K2's and K3's at the multimodal encoder, in both
      dtypes, of K1's at the two classification encoders, of the four
      narrow-route instantiations of K1, K2 and K3 is printed beside, and
-     after the build the four long-KV K2 instantiations' as their source
-     computes it);
+     after the build the three long-KV K2 instantiations' and the long-KV
+     K3's as their source computes them, with their ring slots);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -81,16 +81,17 @@ On a machine with an NVIDIA GPU, from the repository root:
      with DIR the other one, this one, this one, the other one;
  17. (``bwd``) bf16 K2 and K3 alone at the main path's sites (the flow
      self-attend at batch 1 and 2, the flow encoder and decoder, the
-     multimodal encoder, the classification encoders at 8, whose K2 takes
-     the long-KV route), timed as ``k1`` times K1 and, beside the
+     multimodal encoder, the classification encoders at 8, whose K2 and
+     K3 take the long-KV route), timed as ``k1`` times K1 and, beside the
      self-attend and the classification encoders, SDPA's backward (a
      backend's backward op alone where one takes the tensors, and forward
-     and backward less the forward, the same windows), and at the pixel
-     encoder K2 on contiguous K and V against K and V as strided views that
-     every operand's copy into aligned rows takes (``_strided_kv_k2``,
-     contiguous, views, views, contiguous); like ``k1``
-     it needs nothing but ``flash_attention`` and ``BackwardKernels``, so
-     run as a file it times the checkout that ``PYTHONPATH`` names.
+     and backward less the forward, the same windows); at every site K2
+     then K3 as one backward calls them (K3 reading K2's copies into
+     aligned rows where there are any; K2 or K3 timed alone makes its own),
+     and at the long-KV sites the device memory one such backward takes at
+     its peak and still holds after it, beyond its inputs; like ``k1`` it
+     needs nothing but ``flash_attention`` and ``BackwardKernels``, so run
+     as a file it times the checkout that ``PYTHONPATH`` names.
 
 ``python -m perceiverio_pytorch_tpu_torch.tools.kernel_report artifact``
 (or any of ``SECTIONS``' names) runs only those parts, after the build;
@@ -215,19 +216,26 @@ def ptxas_report():
 
 
 def longkv_smem_report(paths):
-    """The long-KV K2's dynamic shared memory and ring slots, as its source
-    computes them (``flash_attention_bwd_longkv_smem``), at the widths whose
-    instantiations it launches."""
+    """The long-KV kernels' dynamic shared memory and ring slots, as their
+    source computes them (``flash_attention_bwd_longkv_smem``,
+    ``flash_attention_bwd_dq_longkv_smem``), at the widths whose
+    instantiations they launch."""
     import ctypes
 
     lib = ctypes.CDLL(paths["bwd_longkv"])
-    lib.flash_attention_bwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.c_int,
-                                                     ctypes.POINTER(ctypes.c_int))
-    for width, nm, bulk in ((261, 5, 1), (261, 5, 0), (322, 6, 0), (512, 8, 0)):
-        slots = ctypes.c_int(0)
-        smem = lib.flash_attention_bwd_longkv_smem(width, bulk, ctypes.byref(slots))
-        print(f"[smem] flash_bwd_dkv_longkv_kernel<{nm}, {'BULK' if bulk else 'TMA'}> at"
-              f" width {width}: {slots.value} ring slots, {smem} bytes dynamic")
+    lib.flash_attention_bwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
+    lib.flash_attention_bwd_dq_longkv_smem.argtypes = (ctypes.c_int,
+                                                        ctypes.POINTER(ctypes.c_int),
+                                                        ctypes.POINTER(ctypes.c_int))
+    for width, nm in ((261, 5), (322, 6), (512, 8)):
+        slots, slots_k, slots_v = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        smem = lib.flash_attention_bwd_longkv_smem(width, ctypes.byref(slots))
+        print(f"[smem] flash_bwd_dkv_longkv_kernel<{nm}> at width {width}: {slots.value} ring"
+              f" slots, {smem} bytes dynamic")
+        smem = lib.flash_attention_bwd_dq_longkv_smem(width, ctypes.byref(slots_k),
+                                                      ctypes.byref(slots_v))
+        print(f"[smem] flash_bwd_dq_longkv_kernel<{nm}> at width {width}: K ring"
+              f" {slots_k.value} slots, V ring {slots_v.value}, {smem} bytes dynamic")
 
 
 def sass_report(paths):
@@ -844,28 +852,21 @@ def _sdpa_backward_op(q, k, v, grad):
         return None
 
 
-def _strided_kv_k2(q, k, v, out, lse, grad, kernels, reps, window_ms):
-    """K2 at the pixel encoder's site on K and V as views whose token stride
-    is the width + 1 (rows neither 16-byte aligned nor packed: every operand
-    is first copied into aligned rows) against ``kernels`` on the contiguous
-    rows, timed contiguous, views, views, contiguous; dK and dV must agree
-    bit for bit."""
-    views = []
-    for x in (k, v):
-        buf = torch.empty(*x.shape[:3], x.shape[3] + 1, dtype=x.dtype, device=x.device)
-        buf[..., :x.shape[3]] = x
-        views.append(buf[..., :x.shape[3]])
-    strided = fa.BackwardKernels(q, *views, out, lse, grad, q_mask=None, kv_mask=None,
+def _backward_memory(q, k, v, out, lse, grad):
+    """The device memory (MB) one backward (K2 then K3) on these tensors
+    takes at its peak and still holds after K3, while its
+    ``BackwardKernels`` lives, beyond what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
                                  softmax_scale=None, kv_logical_len=None)
-    ms = [_window_ms(call, reps, window_ms)[0]
-          for call in (kernels.dkv, strided.dkv, strided.dkv, kernels.dkv)]
-    same = (torch.equal(kernels.grad_k, strided.grad_k)
-            and torch.equal(kernels.grad_v, strided.grad_v))
-    plans = [x.plan["dkv"] for x in (kernels, strided)]
-    return (f"K2 contiguous/strided K, V/strided/contiguous"
-            f" {'/'.join(f'{t:.4f}' for t in ms)} ms (loaders"
-            f" {plans[0].get('loader')} {plans[0].get('copies')},"
-            f" {plans[1].get('loader')} {plans[1].get('copies')}; bit for bit {same})")
+    kernels.dkv()
+    kernels.dq()
+    torch.cuda.synchronize()
+    peak, held = torch.cuda.max_memory_allocated() - base, torch.cuda.memory_allocated() - base
+    del kernels
+    return peak / 1e6, held / 1e6
 
 
 def time_bwd_sites(reps=3, window_ms=10.0):
@@ -885,10 +886,17 @@ def time_bwd_sites(reps=3, window_ms=10.0):
         grad = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
         kernels = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
                                      softmax_scale=None, kv_logical_len=None)
-        (k2, n2), (k3, n3) = (_window_ms(call, reps, window_ms)
-                              for call in (kernels.dkv, kernels.dq))
+        (k2, n2), (k3, n3), (both, n) = (
+            _window_ms(call, reps, window_ms)
+            for call in (kernels.dkv, kernels.dq, lambda: (kernels.dkv(), kernels.dq())))
         line = (f"[bwd] {shape}: K2 {k2:.4f} ms over {n2}, K3 {k3:.4f} ms over {n3}, K2 + K3"
-                f" {k2 + k3:.4f} ({kernels.plan['route']})")
+                f" {k2 + k3:.4f}, K2 then K3 {both:.4f} ms over {n} ({kernels.plan['route']}")
+        if kernels.plan["route"] == "sm90_longkv":
+            peak, held = _backward_memory(q, k, v, out, lse, grad)
+            line += (f", loader {kernels.plan['dkv'].get('loader')}, copies"
+                     f" {kernels.plan['dkv'].get('copies')}; one backward's memory: peak"
+                     f" {peak:.1f} MB, held after K3 {held:.1f} MB")
+        line += ")"
         if shape in self_sites or shape in CLASSIFICATION_TRAIN_SITES:
             op = _sdpa_backward_op(q, k, v, grad)
             if op is not None:
@@ -903,8 +911,6 @@ def time_bwd_sites(reps=3, window_ms=10.0):
                 forward, _ = _window_ms(fwd, reps, window_ms)
             line += (f"; SDPA forward + backward less forward {total - forward:.4f} ms"
                      f" ({total:.4f} - {forward:.4f})")
-        if shape == CLASSIFICATION_TRAIN_SITES[0]:
-            line += "; " + _strided_kv_k2(q, k, v, out, lse, grad, kernels, reps, window_ms)
         print(line, flush=True)
         del q, k, v, out, lse, grad, kernels
         torch.cuda.empty_cache()

@@ -198,10 +198,11 @@ def test_launch_plans_at_the_classification_training_batch(width, dtype):
     batch of 8 (512 latents x 50,176 keys, one head): K1 splits the keys in
     4 (256 blocks) and merges; the bf16 K2 takes the long-KV route, 132
     persistent blocks over 12,544 blocks of 32 keys in one split, after a
-    copy of q and of dO into 16-byte aligned rows at 261 (522-byte rows);
-    the bf16 K3 4 key splits (256 blocks) and a sum; the fp32 K2 12,544
+    copy of q, dO, k and v into 16-byte aligned rows at 261 (522-byte
+    rows); the bf16 K3 the long-KV route too, 2 key splits (128 blocks of
+    64 query rows) and a sum, reading K2's copies; the fp32 K2 12,544
     blocks of 32 keys, the fp32 K3 64 blocks, neither split.  So a step
-    makes K1 1 + merge 1, K2 1 (+ 2 copies in bf16 at 261), K3 1 (+ sum 1
+    makes K1 1 + merge 1, K2 1 (+ 4 copies in bf16 at 261), K3 1 (+ sum 1
     in bf16)."""
     q = torch.empty(8, 512, 1, width, device="meta", dtype=dtype)
     k = torch.empty(8, 50176, 1, width, device="meta", dtype=dtype)
@@ -213,13 +214,13 @@ def test_launch_plans_at_the_classification_training_batch(width, dtype):
     assert bwd["route"] == ("sm90_longkv" if bf16 else "cuda_cores")
     dkv, dq = bwd["dkv"], bwd["dq"]
     assert (dkv["splits"], dkv["col_chunks"], dkv["blocks"], dkv["cuda_launches"]) == (
-        (1, 1, 132, 3 if width == 261 else 1) if bf16 else (1, 1, 12544, 1))
+        (1, 1, 132, 5 if width == 261 else 1) if bf16 else (1, 1, 12544, 1))
     if bf16:
         assert dkv["items"] == 12544
     assert (dq["splits"], dq["col_chunks"], dq["blocks"], dq["cuda_launches"]) == (
-        (4, 1, 256, 2) if bf16 else (1, 1, 64, 1))
+        (2, 1, 128, 2) if bf16 else (1, 1, 64, 1))
     if bf16:
-        assert (dkv["tiles_per_split"], dq["tiles_per_split"]) == (8, 196)
+        assert (dkv["tiles_per_split"], dq["tiles_per_split"]) == (8, 392)
 
 
 def _jax_example():

@@ -952,12 +952,13 @@ def test_backward_kernels_at_the_classification_widths_unmasked(cuda, dtype, tol
             _check(x, y, tol)
 
 
-# The long-KV K2 (bf16, at most 512 query rows over at least 4,224 keys, the
-# wider head 257 to 512 wide), with masks, kv_logical_len and an all-masked
-# entry: the pixel encoder's 261 (522-byte rows) with odd Tq and Tk (K and V
-# copied into aligned rows) and with a multiple of 8 keys (bulk copies,
-# repacked), the 1x1-conv encoder's 512 (TMA) over 2 heads, d = 300 with Dv
-# 264 over 3 heads (q and k copied).
+# The long-KV K2 and K3 (bf16, at most 512 query rows over at least 4,224
+# keys, the wider head 257 to 512 wide), with masks, kv_logical_len and an
+# all-masked entry: the pixel encoder's 261 (522-byte rows: q, dO, K and V
+# copied into aligned rows) with odd Tq and Tk and with a multiple of 8
+# keys, the 1x1-conv encoder's 512 (TMA) over 2 heads, d = 300 with Dv 264
+# over 3 heads (q and k copied).  Tq = 129, 65 and 77 leave a lone last
+# query tile.
 LONGKV_CASES = [(2, 129, 4301, 1, 261, 261), (2, 136, 4400, 1, 261, 261),
                 (3, 65, 4451, 2, 512, 512), (2, 77, 4231, 3, 300, 264)]
 
@@ -965,20 +966,24 @@ LONGKV_CASES = [(2, 129, 4301, 1, 261, 261), (2, 136, 4400, 1, 261, 261),
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES)
 def test_longkv_backward_matches_reference(cuda, b, tq, tk, h, d, dv):
-    """K2 on the long-KV route and K3 against the plain backward, exact
+    """K2 and K3 on the long-KV route against the plain backward, exact
     zeros on wiped rows, tail keys and the all-masked entry, one long-KV
-    launch and one copy launch for each operand the plan copies into
-    aligned rows, and two calls bit for bit."""
+    launch of each, one copy launch for each operand the plan copies into
+    aligned rows (made by K2, read by K3 too), K3's sum when it splits the
+    keys, and two calls bit for bit."""
     args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda)
     plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
     copies = plan["dkv"]["copies"]
-    assert plan["route"] == "sm90_longkv" and plan["dkv"]["cuda_launches"] == 1 + len(copies)
-    before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_LONGKV, fa.LAUNCHES_BWD_COPY,
-              fa.LAUNCHES_BWD_DQ)
+    splits = plan["dq"]["splits"]
+    assert plan["route"] == "sm90_longkv" and plan["dq"]["copies"] == copies
+    assert (plan["dkv"]["cuda_launches"] + plan["dq"]["cuda_launches"]
+            == 2 + (splits > 1) + len(copies))
+    names = ("LAUNCHES_BWD_DKV", "LAUNCHES_BWD_LONGKV", "LAUNCHES_BWD_DQ",
+             "LAUNCHES_BWD_DQ_LONGKV", "LAUNCHES_BWD_COPY", "LAUNCHES_BWD_SUM")
+    before = [getattr(fa, name) for name in names]
     got = fa.flash_attention_backward(*args, **kw)
-    assert (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_LONGKV, fa.LAUNCHES_BWD_COPY,
-            fa.LAUNCHES_BWD_DQ) == (before[0] + 1, before[1] + 1, before[2] + len(copies),
-                                    before[3] + 1)
+    assert [getattr(fa, name) - n for name, n in zip(names, before)] == [
+        1, 1, 1, 1, len(copies), int(splits > 1)]
     again = fa.flash_attention_backward(*args, **kw)
     want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
     torch.cuda.synchronize()
@@ -990,22 +995,46 @@ def test_longkv_backward_matches_reference(cuda, b, tq, tk, h, d, dv):
 @pytest.mark.parametrize("offset", [1, 3, 6])
 @pytest.mark.parametrize("d", [261, 512])
 def test_longkv_realigned_views_match_contiguous(cuda, offset, d):
-    """The long-KV K2's loaders change only how bytes reach shared memory:
-    q, k and v seen ``offset`` elements into NaN-filled buffers (rows d + 8
-    apart, copied into aligned rows first) give dK and dV bit for bit as the
-    contiguous tensors (K and V by bulk copies, repacked, at 261; by TMA at
-    512)."""
+    """The long-KV kernels' loaders change only how bytes reach shared
+    memory: q, k and v seen ``offset`` elements into NaN-filled buffers
+    (rows d + 8 apart, copied into aligned rows first) give dQ, dK and dV
+    bit for bit as the contiguous tensors (copied into aligned rows at 261,
+    by TMA at 512)."""
     args, kw = _backward_case(2, 136, 4400, 1, d, d, torch.bfloat16, cuda)
-    assert fa.backward_plan(*args[:3])["dkv"]["loader"] == ("bulk" if d == 261 else "tma")
+    assert fa.backward_plan(*args[:3])["dkv"]["loader"] == ("copy" if d == 261 else "tma")
     q, k, v, out, lse, grad = args
     views = [_realign_views(x, offset) for x in (q, k, v)]
     plan = fa.backward_plan(*views, kv_logical_len=kw["kv_logical_len"])
     assert plan["route"] == "sm90_longkv"
     assert plan["dkv"]["loader"] == "copy" and "k" in plan["dkv"]["copies"]
+    assert (plan["dq"]["loader"], plan["dq"]["copies"]) == ("copy", plan["dkv"]["copies"])
     want = fa.flash_attention_backward(*args, **kw)
     got = fa.flash_attention_backward(*views, out, lse, grad, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", [LONGKV_CASES[0], LONGKV_CASES[2]])
+def test_longkv_dq_alone_matches_dq_after_dkv(cuda, b, tq, tk, h, d, dv):
+    """The long-KV K3 called alone (its own copies of q, dO, k and v where
+    their rows are not aligned) gives dQ bit for bit as after K2 (K2's
+    copies read), and launches the copies K2 would have made; K3 lets the
+    copies go once it is enqueued."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda)
+    kwargs = dict(q_mask=kw["q_mask"], kv_mask=kw["kv_mask"], softmax_scale=None,
+                  kv_logical_len=kw["kv_logical_len"])
+    both = fa.BackwardKernels(*args, **kwargs)
+    both.dkv()
+    assert set(both._copies) == set(both.plan["dkv"]["copies"])
+    both.dq()
+    assert both._copies == {}
+    alone = fa.BackwardKernels(*args, **kwargs)
+    before = fa.LAUNCHES_BWD_COPY
+    alone.dq()
+    assert fa.LAUNCHES_BWD_COPY - before == len(alone.plan["dq"]["copies"])
+    torch.cuda.synchronize()
+    assert torch.equal(alone.grad_q, both.grad_q)
 
 
 def _tiny_classifier(prep, impl, device):

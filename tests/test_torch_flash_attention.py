@@ -614,8 +614,8 @@ def test_split_backward_reference_matches_pallas(bwd_split_case, num_splits):
      ("encoder", 1, 2048, 1, 182528, 322, "sm90_wgmma", 1, 5704, 8, 256),
      ("self", 1, 2048, 16, 2048, 32, "sm90_narrow", 1, 256, 1, 256),
      ("masked", 2, 100, 2, 777, 41, "sm90_narrow", 1, 28, 1, 4),
-     ("cls_pixel", 8, 512, 1, 50176, 261, "sm90_longkv", 1, 132, 4, 256),
-     ("cls_1x1conv", 8, 512, 1, 50176, 512, "sm90_longkv", 1, 132, 4, 256)],
+     ("cls_pixel", 8, 512, 1, 50176, 261, "sm90_longkv", 1, 132, 2, 128),
+     ("cls_1x1conv", 8, 512, 1, 50176, 512, "sm90_longkv", 1, 132, 2, 128)],
 )
 def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_blocks, dq_splits,
                              dq_blocks):
@@ -626,26 +626,32 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
     which never splits and agrees with the plans that find no split.  The
     classification encoders at the training batch of 8 (512 latents over
     50,176 pixels, d = 261 and 512) take the long-KV route: K2 one launch of
-    132 persistent blocks over 8 x 1,568 blocks of 32 keys, no cluster, its
-    loader by the rows' alignment; K3 the wgmma kernel's plan (4 key
-    splits).  No range is empty and the ranges cover every tile."""
+    132 persistent blocks over 8 x 1,568 blocks of 32 keys, after copies of
+    q, dO, k and v into aligned rows at d = 261; K3 2 key splits of 64 query
+    tiles (128 blocks, one wave), reading K2's copies.  No range is empty
+    and the ranges cover every tile."""
     q = torch.empty(b, tq, h, d, dtype=torch.bfloat16, device="meta")
     k = torch.empty(b, tk, h, d, dtype=torch.bfloat16, device="meta")
     plan = fa.backward_plan(q, k, k)
     assert plan["route"] == route
+    dq_plan = fa._split_plan
     if route == "sm90_longkv":
-        assert (plan["dkv"]["items"], plan["dkv"]["cluster"], plan["dkv"]["loader"],
-                plan["dkv"]["copies"]) == (
-            -(-tk // fa.LONGKV_BLOCK_K) * h * b, 1, "bulk" if d == 261 else "tma",
-            ("q", "dout") if d == 261 else ())
+        copies = ("q", "dout", "k", "v") if d == 261 else ()
+        assert (plan["dkv"]["items"], plan["dkv"]["loader"], plan["dkv"]["copies"]) == (
+            -(-tk // fa.LONGKV_BLOCK_K) * h * b, "copy" if d == 261 else "tma", copies)
+        assert (plan["dq"]["loader"], plan["dq"]["copies"]) == (plan["dkv"]["loader"], copies)
+        assert "cluster" not in plan["dkv"] and "cluster" not in plan["dq"]
+        dq_plan = fa._longkv_dq_split_plan
     assert fa._dkv_split_plan(b, tq, h, tk) == (plan["dkv"]["splits"],
                                                plan["dkv"]["tiles_per_split"])
-    assert fa._split_plan(b, tq, h, tk) == (plan["dq"]["splits"], plan["dq"]["tiles_per_split"])
+    assert dq_plan(b, tq, h, tk) == (plan["dq"]["splits"], plan["dq"]["tiles_per_split"])
     for kernel, splits, blocks, length in (("dkv", dkv_splits, dkv_blocks, tq),
                                            ("dq", dq_splits, dq_blocks, tk)):
         got = plan[kernel]
         assert (got["splits"], got["blocks"]) == (splits, blocks), (kernel, got)
-        assert got["cuda_launches"] == 1 + (splits > 1) + len(got.get("copies", ()))
+        # K2 launches the copies into aligned rows; K3 reads K2's
+        own = got.get("copies", ()) if kernel == "dkv" else ()
+        assert got["cuda_launches"] == 1 + (splits > 1) + len(own)
         tiles = -(-length // fa.BLOCK_K)
         assert (splits - 1) * got["tiles_per_split"] < tiles <= splits * got["tiles_per_split"]
 
@@ -667,9 +673,10 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
 )
 def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
     """bf16 backwards with at most 512 query rows over at least 4,224 keys,
-    whose wider head is 257 to 512 wide, take the long-KV K2 (K3 keeps the
-    wgmma kernel's plan); a forced split count, fp32, more query rows, fewer
-    keys and other widths keep their routes."""
+    whose wider head is 257 to 512 wide, take the long-KV K2 and K3 (K3's
+    key splits by ``_longkv_dq_split_plan``, both on the same loader and
+    copies); a forced split count, fp32, more query rows, fewer keys and
+    other widths keep their routes."""
     q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
     k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
     v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
@@ -677,35 +684,34 @@ def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
     assert plan["route"] == route
     if route == "sm90_longkv":
         items = -(-tk // 32) * h * b
-        copies = fa._bwd_copies(q, k, v)
+        copies, loader = fa._longkv_copies(q, k, v), fa._longkv_loader(k, v)
         assert plan["dkv"] == dict(splits=1, tiles_per_split=-(-tq // 64), col_chunks=1,
                                    blocks=min(items, fa.NUM_SMS), cuda_launches=1 + len(copies),
-                                   items=items, cluster=1, loader=fa._bwd_loader(q, k, v),
-                                   copies=copies)
-        splits, per = fa._split_plan(b, tq, h, tk)
-        assert plan["dq"] == dict(splits=splits, tiles_per_split=per, col_chunks=1,
-                                  blocks=-(-tq // 64) * h * b * splits,
-                                  cuda_launches=1 + (splits > 1))
+                                   items=items, loader=loader, copies=copies)
+        splits, per = fa._longkv_dq_split_plan(b, tq, h, tk)
+        assert plan["dq"] == dict(
+            splits=splits, tiles_per_split=per, col_chunks=1, blocks=-(-tq // 64) * h * b * splits,
+            cuda_launches=1 + (splits > 1), loader=loader, copies=copies)
+        assert plan["dq"]["blocks"] <= fa.NUM_SMS
 
 
 @pytest.mark.parametrize(
     "width,offset,target,loader,copies",
-    [(261, 0, "all", "bulk", ("q", "dout")), (261, 1, "all", "copy", ("q", "dout", "k", "v")),
+    [(261, 0, "all", "copy", ("q", "dout", "k", "v")),
+     (261, 1, "all", "copy", ("q", "dout", "k", "v")),
      (261, 3, "k", "copy", ("q", "dout", "k", "v")), (264, 0, "all", "tma", ()),
      (264, 1, "q", "tma", ("q",)), (264, 4, "v", "copy", ("v",)), (512, 0, "all", "tma", ()),
      (512, 1, "q", "tma", ("q",)), (512, 1, "k", "copy", ("k",)), (512, 2, "v", "copy", ("v",)),
      (384, 3, "k", "copy", ("k",)), (320, 0, "all", "tma", ()),
-     (311, 0, "all", "bulk", ("q", "dout")), (322, 0, "all", "copy", ("q", "dout", "k", "v"))],
+     (311, 0, "all", "copy", ("q", "dout", "k", "v")),
+     (322, 0, "all", "copy", ("q", "dout", "k", "v"))],
 )
 def test_backward_loader_by_row_alignment(width, offset, target, loader, copies):
-    """How the long-KV K2 brings rows into shared memory: the K and V rows
-    by TMA where they are 16-byte aligned; by bulk copies realigned as they
-    are repacked where they are packed from 16-byte aligned starts, one head,
-    at most 320 wide (the pixel encoder's 522-byte rows, Tk a multiple of
-    8); else copied into aligned rows first.  Q and dO always by TMA, copied
-    into aligned rows first where theirs are not (dO contiguous, rows Dv
-    wide).  ``target`` is the operand seen ``offset`` elements into its
-    storage."""
+    """How the long-KV K2 and K3 bring rows into shared memory: every
+    operand by TMA, each copied into 16-byte aligned rows first where its
+    rows are not aligned (the pixel encoder's 522-byte rows, offset views;
+    dO contiguous, rows Dv wide); K3 reads K2's copies.  ``target`` is the
+    operand seen ``offset`` elements into its storage."""
     b, tq, tk, h = 2, 100, 8000, 1
     views = {}
     for name, t in (("q", tq), ("k", tk), ("v", tk)):
@@ -714,19 +720,52 @@ def test_backward_loader_by_row_alignment(width, offset, target, loader, copies)
         views[name] = storage[shift:].view(b, t, h, width)
     plan = fa.backward_plan(views["q"], views["k"], views["v"])
     assert plan["route"] == "sm90_longkv"
-    assert plan["dkv"]["loader"] == fa._bwd_loader(views["q"], views["k"], views["v"]) == loader
+    assert plan["dkv"]["loader"] == fa._longkv_loader(views["k"], views["v"]) == loader
     assert plan["dkv"]["copies"] == copies
     assert plan["dkv"]["cuda_launches"] == 1 + len(copies)
+    assert (plan["dq"]["loader"], plan["dq"]["copies"]) == (loader, copies)
     # a [.., W + pad] buffer seen as [.., :W]: 16-byte strides, which TMA
     # takes whatever the width
     padded = torch.empty(b, tk, h, -(-width // 8) * 8 + 8, dtype=torch.bfloat16,
                          device="meta")[..., :width]
-    assert fa._bwd_loader(padded[:, :tq], padded, padded) == "tma"
-    assert fa._bwd_copies(padded[:, :tq], padded, padded) == (() if width % 8 == 0 else ("dout",))
-    # Tk not a multiple of 8: no bulk copies
-    if loader == "bulk":
-        odd = torch.empty(b, tk + 1, h, width, dtype=torch.bfloat16, device="meta")
-        assert fa._bwd_loader(views["q"], odd, odd) == "copy"
+    assert fa._longkv_loader(padded, padded) == "tma"
+    assert fa._longkv_copies(padded[:, :tq], padded, padded) == (
+        () if width % 8 == 0 else ("dout",))
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,width,target,offset,splits,per,blocks,loader,copies,launches",
+    [(8, 512, 50176, 261, None, 0, 2, 392, 128, "copy", ("q", "dout", "k", "v"), 2),
+     (8, 512, 50176, 512, None, 0, 2, 392, 128, "tma", (), 2),
+     (2, 129, 8000, 300, None, 0, 14, 9, 84, "copy", ("q", "dout", "k", "v"), 2),  # lone tile
+     (1, 64, 50176, 512, None, 0, 98, 8, 98, "tma", (), 2),  # one tile
+     (2, 100, 8000, 512, "k", 1, 14, 9, 56, "copy", ("k",), 2),
+     (2, 100, 8000, 264, "v", 2, 14, 9, 56, "copy", ("v",), 2),
+     (2, 100, 8000, 264, "q", 1, 14, 9, 56, "tma", ("q",), 2)],
+)
+def test_longkv_dq_plan(b, tq, tk, width, target, offset, splits, per, blocks, loader, copies,
+                        launches):
+    """The long-KV K3's plan: 64 query rows a block (a lone last tile, as
+    129 rows give, and a single tile), the keys split as far as one wave of
+    132 blocks allows at 8 tiles of 64 keys a split or more; every operand
+    by TMA, from K2's copies in 16-byte aligned rows where its rows are not
+    aligned (the pixel encoder's 522-byte rows, offset views), so
+    ``cuda_launches`` counts the kernel and the sum.  ``target`` is the
+    operand seen ``offset`` elements into its storage."""
+    views = {}
+    for name, t in (("q", tq), ("k", tk), ("v", tk)):
+        shift = offset if name == target else 0
+        storage = torch.empty(b * t * width + shift, dtype=torch.bfloat16, device="meta")
+        views[name] = storage[shift:].view(b, t, 1, width)
+    plan = fa.backward_plan(views["q"], views["k"], views["v"])
+    assert plan["route"] == "sm90_longkv"
+    got = plan["dq"]
+    assert (got["splits"], got["tiles_per_split"], got["blocks"]) == (splits, per, blocks)
+    assert (got["loader"], got["copies"], got["cuda_launches"]) == (loader, copies, launches)
+    assert plan["dkv"]["copies"] == copies
+    tiles = -(-tk // fa.BLOCK_K)
+    assert (splits - 1) * per < tiles <= splits * per
+    assert blocks <= fa.NUM_SMS
 
 
 def test_backward_plan_routes_by_dtype():
