@@ -9,8 +9,8 @@ Phases (each raises on failure; nothing is caught):
      TF32 off for the comparisons;
   2. build: compiles the flash attention kernels from csrc/ with nvcc, one
      process per source, all at once (K1 forward: the bf16 narrow-head
-     kernel, the bf16 wgmma kernel and the fp32 CUDA-core kernel with the
-     split-KV merge; K2 dK/dV and K3 dQ
+     kernel, the bf16 long-KV kernel, the bf16 wgmma kernel and the fp32
+     CUDA-core kernel with the split-KV merge; K2 dK/dV and K3 dQ
      backward: the bf16 narrow-head kernels, the bf16 wgmma kernels with
      the sum of their split partials, and the fp32 CUDA-core kernels);
   3. kernel: holds K1 against its plain PyTorch version on the card
@@ -23,8 +23,11 @@ Phases (each raises on failure; nothing is caught):
      (512 latents x 50,176 keys, one head of d = dv = 261 for the pixel
      variant and 512 for the 1x1-conv one) in fp32 and bf16, unmasked and
      masked; the bf16 self-attend (batch 1 and 6, with its lse) and the
-     masked bf16 cases at widths 41 and 32 must take the narrow route
-     (``want_plan``); every call twice, bit for bit; records each call's
+     masked bf16 cases at widths 41 and 32 must take the narrow route, the
+     bf16 classification encoders the long-KV route (one split, copies of
+     q, k and v into aligned rows at 261; ``want_plan``), and every call
+     on the long-KV route counts one ``LAUNCHES_LONGKV``; every call twice,
+     bit for bit; records each call's
      route, loader, key splits, column chunks, blocks and CUDA launches;
      times kernel, plain version, F.scaled_dot_product_attention (a
      yardstick only; null where it does not run; a short kernel and SDPA
@@ -32,10 +35,11 @@ Phases (each raises on failure; nothing is caught):
      the bf16 flow encoder at batch 1 and at the bf16 multimodal encoder,
      holds the planned split count against a single split and two calls
      against each other bit for bit; then, at the bf16 pixel encoder (batch
-     16) and the flow encoder (batch 1 and 6), whose rows take the
-     realigning loader, holds views at every offset mod 16 bytes against
-     the same values zero-padded to a multiple of 8 columns (16-byte
-     copies), bit for bit;
+     16; its rows copied into aligned rows on the long-KV route) and the
+     flow encoder (batch 1 and 6, whose rows take the realigning loader),
+     holds views at every offset mod 16 bytes against the same values
+     zero-padded to a multiple of 8 columns (16-byte copies; TMA on the
+     long-KV route), bit for bit;
   4. backward kernels: holds K2 and K3 against the plain backward at the
      three flow sites (batch 1) in fp32 and bf16, at the bf16 self-attend at
      batch 2 (phase R(b)'s), at the multimodal encoder (d = dv = 704) in
@@ -118,8 +122,10 @@ Phases (each raises on failure; nothing is caught):
      50,176 keys, d = dv = 261 and 512), after the flow and multimodal
      phases so that their large blocks leave those phases' allocator state
      alone: K1 with its lse, as training calls it, in fp32 and bf16,
-     unmasked and masked, against the plain version, its plan 4 key splits
-     and a merge; K2 and K3 against the plain backward in fp32 and bf16, as
+     unmasked and masked, against the plain version, its plan (fp32 4 key
+     splits and a merge; bf16 the long-KV route, 2 splits and a merge, and
+     masked at both widths with a lone last query tile, wiped rows exactly
+     0); K2 and K3 against the plain backward in fp32 and bf16, as
      in phase 4 (bf16: both on the long-KV route, masked too at both widths
      with a lone last query tile); bf16 K3 at both encoders
      at its planned splits against one split, and two calls bit for bit;
@@ -128,7 +134,8 @@ Phases (each raises on failure; nothing is caught):
      classifiers with remat, two synthetic images with random labels and
      the cross-entropy, the backward through the kernels (per step: K1 and
      its merge, K2 and K3 once each at the encoder, d = 261 or 512, and in
-     bf16 the sum of K3's key splits) and then with the flash forward and
+     bf16 all three on the long-KV route, the sum of K3's key splits and at
+     261 the copies into aligned rows) and then with the flash forward and
      backward patched to their plain versions; every parameter's gradient
      must agree, in fp32 and in bf16 (PERFORMANCE);
  18. classification train: the port's examples/train_classification.py at
@@ -146,7 +153,8 @@ Phases (each raises on failure; nothing is caught):
      times), and no kernel launch;
  20. server buckets: K1 at the classification encoders (d = 261 and 512,
      50,176 keys) at batches 1, 2 and 4, bf16 with its lse, against the
-     plain version, each plan's splits (33, 16, 8) and merge asserted; K1's
+     plain version, each plan's long-KV route, splits (16, 8, 4), copies
+     and merge asserted; K1's
      torch.library op through torch.ops against the direct launch, bit for
      bit;
  21. export: the full-width bf16 1x1-conv classifier (eval mode, weights
@@ -452,7 +460,7 @@ BF16_KEY_BIAS_TOL = 0.3
 # splits its query rows and the encoder's K3 its keys, each summed once.  The
 # fp32 kernels of K2 and K3 never split.
 STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26, "merge": 1, "sum": 2, "longkv": 0,
-                 "dq_longkv": 0, "copy": 0}
+                 "dq_longkv": 0, "copy": 0, "k1_longkv": 0, "k1_copy": 0}
 FP32_STEP_LAUNCHES = dict(STEP_LAUNCHES, sum=0)
 TRAIN_STEPS = 6  # timed, after one warm-up step
 
@@ -490,7 +498,7 @@ MM_BF16_TOL = 1e-1
 # once; in bf16 K3 splits the keys and sums them once, K2 does not split.
 MM_TRAIN_CHUNKS = 16
 MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 0,
-                    "dq_longkv": 0, "copy": 0}
+                    "dq_longkv": 0, "copy": 0, "k1_longkv": 0, "k1_copy": 0}
 MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0)
 MM_TRAIN_STEPS = 3  # timed, after one warm-up step
 MM_LABEL = 123  # the synthetic clip's class in the gradient phase
@@ -512,26 +520,36 @@ CLS_BF16_TOL = 1e-1
 CLS_TRAIN_SITES = {"cls_pixel": (8, 512, 50176, 1, 261, 261),
                    "cls_1x1conv": (8, 512, 50176, 1, 512, 512)}
 # The long-KV route at both widths with masks, kv_logical_len, an
-# all-masked entry and a lone last query tile (129 and 65 rows), bf16.
+# all-masked entry and a lone last query tile (129 and 65 rows), bf16: K1,
+# K2 and K3.
 CLS_MASKED_SITES = {"cls_pixel_masked": (2, 129, 4301, 1, 261, 261),
                     "cls_1x1conv_masked": (3, 65, 4451, 2, 512, 512)}
-# K1's plan there, on both routes: 4 key splits and their merge.
-CLS_TRAIN_K1_PLAN = {"splits": 4, "cuda_launches": 2}
+# K1's plan there by dtype: the fp32 kernel 4 key splits and their merge; the
+# bf16 long-KV route 2 splits (128 blocks, one wave) and their merge, after
+# copies of q, k and v into 16-byte aligned rows at the pixel encoder
+# (``CLS_K1_COPIES``: their 522-byte rows; one launch each).
+CLS_TRAIN_K1_PLAN = {"fp32": {"route": "cuda_cores", "splits": 4, "cuda_launches": 2},
+                     "bf16": {"route": "sm90_longkv", "splits": 2, "cuda_launches": 2}}
+CLS_K1_COPIES = {"cls_pixel": 3, "cls_1x1conv": 0}
 # Launches per training step of the pixel or 1x1-conv classifier (remat of
 # the self-attend stack, batch 2 or 8): the encoder's cross-attend, outside
 # every checkpoint, is the one flash site: K1 with its merge, K2 and K3 once;
-# in bf16 both take the long-KV route ("longkv", "dq_longkv": 512 latents over
-# 50,176 pixels at batch 2 and 8), where K2 does not split and K3 splits the
-# keys and sums them once; at the pixel encoder K2 first copies q, dO, k and
-# v into 16-byte aligned rows and K3 reads the same copies ("copy": their
-# 522-byte rows; the 1x1-conv encoder's are aligned).  The convnet's sites
-# are all dense.
+# in bf16 all three take the long-KV route ("k1_longkv", "longkv",
+# "dq_longkv": 512 latents over 50,176 pixels at batch 2 and 8), where K1
+# splits the keys and merges them once, K2 does not split and K3 splits the
+# keys and sums them once; at the pixel encoder K1 first copies q, k and v
+# into 16-byte aligned rows ("k1_copy"), K2 copies q, dO, k and v and K3
+# reads K2's copies ("copy": their 522-byte rows; the 1x1-conv encoder's are
+# aligned).  The convnet's sites are all dense.
 CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1,
-                     "dq_longkv": 1, "copy": 0}
-CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0)
-CLS_STEP_COPIES = {"FOURIER_POS_PIXEL": 4, "LEARNED_POS_1X1CONV": 0}
+                     "dq_longkv": 1, "copy": 0, "k1_longkv": 1, "k1_copy": 0}
+CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0, k1_longkv=0)
+CLS_STEP_COPIES = {"FOURIER_POS_PIXEL": dict(copy=4, k1_copy=3),
+                   "LEARNED_POS_1X1CONV": dict(copy=0, k1_copy=0)}
 NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0, "longkv": 0, "dq_longkv": 0,
-               "copy": 0}
+               "copy": 0, "k1_longkv": 0, "k1_copy": 0}
+# The launch counts of K1 alone (``_expected_k1``).
+K1_KEYS = ("K1", "merge", "k1_longkv", "k1_copy")
 CLS_TRAIN_STEPS = 10  # timed, after one warm-up step
 # Timed, after one warm-up step: 12 steps in all, so that train_mlm's
 # eval_every (steps // 2) puts its evaluations at the mid and final steps.
@@ -547,8 +565,9 @@ LM_BF16_TOL = 1e-1  # bf16 logits against fp32, relative to max |logit|
 # The serving stack (phases 20 to 24).  K1 at the classification encoders at
 # the server's buckets below 8 (8 and 16 are held in phases 16 and 3): (B,
 # Tq, Tk, H, D, Dv) for the pixel (d = 261) and 1x1-conv (d = 512) variants,
-# and the key splits each bucket's plan must take (a merge after each).
-BUCKET_SPLITS = {1: 33, 2: 16, 4: 8}
+# and the key splits each bucket's bf16 plan must take on the long-KV route
+# (a merge after each; 128 blocks, one wave).
+BUCKET_SPLITS = {1: 16, 2: 8, 4: 4}
 BUCKET_SITES = {f"{site}_bucket{b}": (b,) + CLS_SITES[site][1:]
                 for site in CLS_SITES for b in BUCKET_SPLITS}
 EXPORT_BATCHES = (1, 4, 16)
@@ -810,7 +829,8 @@ def _library_call(q, k, v, kw):
 def check_case(name, shape, dtype_name, masked, reps, gen, lse=False, want_plan=None):
     """Kernel vs plain version at one shape (with ``lse``, the lse too, as a
     masked case always has it; with ``want_plan``, these keys of the launch
-    plan must hold); returns a result record."""
+    plan must hold; the CUDA launches counted include the long-KV route's
+    copies into aligned rows); returns a result record."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -823,9 +843,13 @@ def check_case(name, shape, dtype_name, masked, reps, gen, lse=False, want_plan=
     if want_plan and any(plan[key] != val for key, val in want_plan.items()):
         raise AssertionError(f"{name}/{dtype_name}: plan {plan}, expected {want_plan}")
     with torch.inference_mode():
-        before = fa.LAUNCHES + fa.LAUNCHES_MERGE
+        before = fa.LAUNCHES + fa.LAUNCHES_MERGE + fa.LAUNCHES_FWD_COPY
+        longkv = fa.LAUNCHES_LONGKV
         got = fa.flash_attention(q, k, v, **kw)
-        cuda_launches = fa.LAUNCHES + fa.LAUNCHES_MERGE - before
+        cuda_launches = fa.LAUNCHES + fa.LAUNCHES_MERGE + fa.LAUNCHES_FWD_COPY - before
+        if fa.LAUNCHES_LONGKV - longkv != (plan["route"] == "sm90_longkv"):
+            raise AssertionError(f"{name}/{dtype_name}: {fa.LAUNCHES_LONGKV - longkv} long-KV"
+                                 f" launches, planned {plan}")
         if cuda_launches != plan["cuda_launches"]:
             raise AssertionError(f"{name}/{dtype_name}: {cuda_launches} CUDA launches, "
                                  f"planned {plan}")
@@ -871,7 +895,8 @@ def check_case(name, shape, dtype_name, masked, reps, gen, lse=False, want_plan=
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     rec = dict(
         site=name, dtype=dtype_name, shape=list(shape), route=plan["route"],
-        loader=plan["loader"], splits=plan["splits"], col_chunks=plan["col_chunks"],
+        loader=plan["loader"], copies=plan.get("copies"), splits=plan["splits"],
+        col_chunks=plan["col_chunks"],
         blocks=plan["blocks"], cuda_launches=cuda_launches, bitwise_repeat=True,
         max_abs_err=err, max_abs_out=scale, lse_err=lse_err, ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=max(flops_ms, bytes_ms),
@@ -903,8 +928,11 @@ def phase_kernels(reps: int = 3):
         records.append(check_case(
             "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen))
         for name, shape in CLS_SITES.items():
-            records.append(check_case(name, shape, dtype_name, False, reps, gen))
-            records.append(check_case(f"{name}_masked", shape, dtype_name, True, reps, gen))
+            plan = _want_k1_plan(name, shape, dtype_name)
+            records.append(check_case(name, shape, dtype_name, False, reps, gen,
+                                      want_plan=plan))
+            records.append(check_case(f"{name}_masked", shape, dtype_name, True, reps, gen,
+                                      want_plan=plan))
     for name, shape in FLOW_SITES.items():  # the serving forward's shapes
         self_site = name == "self"
         records.append(check_case(
@@ -917,6 +945,26 @@ def phase_kernels(reps: int = 3):
                         ("encoder", (SERVE_TILES,) + FLOW_SITES["encoder"][1:])):
         REALIGNED.append(check_realign(gen, name, shape, REALIGN_OFFSETS))
     return records
+
+
+def _want_k1_plan(site, shape, dtype_name):
+    """What K1's plan must hold at a classification encoder site (B, Tq, Tk,
+    H, D, Dv): fp32 the CUDA-core kernel (at the training batch its 4 key
+    splits and merge); bf16 the long-KV route, one split at the served batch
+    of 16 and enough for 128 blocks below (``CLS_TRAIN_K1_PLAN``,
+    ``BUCKET_SPLITS``), a merge after a split, after one copy launch per
+    operand copied into aligned rows (``CLS_K1_COPIES``)."""
+    b = shape[0]
+    if b == CLS_TRAIN_BATCH:
+        plan = dict(CLS_TRAIN_K1_PLAN[dtype_name])
+    elif dtype_name == "fp32":
+        return {"route": "cuda_cores"}
+    else:
+        splits = 1 if b == CLS_SERVE_BATCH else BUCKET_SPLITS[b]
+        plan = {"route": "sm90_longkv", "splits": splits, "cuda_launches": 1 + (splits > 1)}
+    if plan["route"] == "sm90_longkv":
+        plan["cuda_launches"] += CLS_K1_COPIES[site.split("_bucket")[0].split("_train")[0]]
+    return plan
 
 
 def _unaligned_view(x, offset):
@@ -934,12 +982,14 @@ def _unaligned_view(x, offset):
 
 
 def check_realign(gen, site, shape, offsets):
-    """At a bf16 site whose rows are not 16-byte aligned (d = 261, realigned;
-    d = 322, 4-byte copies): views at each element offset in ``offsets``
-    (rows W + 8 apart in a NaN-filled buffer: odd offsets take the
-    realigning loader, even ones 4- or 8-byte copies at 322) against the
-    same values zero-padded to a multiple of 8 columns, which take 16-byte
-    copies, with the site's own scale: output and lse bit for bit (the
+    """At a bf16 site whose rows are not 16-byte aligned (d = 261 on the
+    long-KV route, copied into aligned rows; d = 322, 4-byte copies): views
+    at each element offset in ``offsets`` (rows W + 8 apart in a NaN-filled
+    buffer: on the long-KV route every offset is copied into aligned rows;
+    on the wgmma route odd offsets take the realigning loader, even ones 4-
+    or 8-byte copies at 322) against the same values zero-padded to a
+    multiple of 8 columns, which take 16-byte copies (TMA on the long-KV
+    route), with the site's own scale: output and lse bit for bit (the
     loaders change only how bytes reach shared memory).  Returns the
     record, with each offset's loader."""
     import torch
@@ -954,7 +1004,8 @@ def check_realign(gen, site, shape, offsets):
     with torch.inference_mode():
         padded = [F.pad(x, (0, width - x.shape[-1])) for x in (q, k, v)]
         plan = fa.launch_plan(*padded)
-        if plan["loader"] != "cp.async16":
+        longkv = plan["route"] == "sm90_longkv"
+        if plan["loader"] != ("tma" if longkv else "cp.async16"):
             raise AssertionError(f"{site}: the padded copies take {plan['loader']}")
         want, want_lse = fa.flash_attention(*padded, **kw)
         want = want.view(b, tq, h, width)[..., :dv]
@@ -966,8 +1017,9 @@ def check_realign(gen, site, shape, offsets):
             got, got_lse = fa.flash_attention(*views, **kw)
             torch.cuda.synchronize()
             loaders.append(vplan["loader"])
-            if ((offset % 2 and vplan["loader"] != "realign")
-                    or vplan["splits"] != plan["splits"]):
+            if (((longkv or offset % 2)
+                 and vplan["loader"] != ("copy" if longkv else "realign"))
+                    or (vplan["route"], vplan["splits"]) != (plan["route"], plan["splits"])):
                 raise AssertionError(f"{site}: offset {offset}: plan {vplan} against {plan}")
             if not (torch.equal(got.view(b, tq, h, dv), want)
                     and torch.equal(got_lse, want_lse)):
@@ -1339,7 +1391,10 @@ def phase_cls_kernels(reps: int = 3):
     8, where training runs them (after the flow and multimodal phases, so
     that their large blocks do not change the allocator state those phases
     start from): K1 with its lse (as the autograd Function asks for it) in
-    fp32 and bf16, unmasked and masked, its plan 4 key splits and a merge;
+    fp32 and bf16, unmasked and masked, its plan ``_want_k1_plan``'s (fp32 4
+    key splits and a merge, bf16 the long-KV route's 2 and a merge), and the
+    bf16 long-KV K1 masked at both widths with a lone last query tile
+    (``CLS_MASKED_SITES``, wiped rows exactly 0);
     K2 and K3 against the plain backward in fp32 and bf16, the bf16 K2 and
     K3 on the long-KV route at both sites, two calls bit for bit, and masked
     at both widths with a lone last query tile (``CLS_MASKED_SITES``, wiped
@@ -1357,9 +1412,12 @@ def phase_cls_kernels(reps: int = 3):
             for masked in (False, True):
                 forward.append(check_case(
                     f"{name}_train" + ("_masked" if masked else ""), shape, dtype_name,
-                    masked, reps, gen, lse=True, want_plan=CLS_TRAIN_K1_PLAN))
+                    masked, reps, gen, lse=True,
+                    want_plan=_want_k1_plan(name, shape, dtype_name)))
             backward += check_backward_case(name, shape, dtype_name, False, reps, gen)
     for name, shape in CLS_MASKED_SITES.items():
+        forward.append(check_case(name, shape, "bf16", True, reps, gen,
+                                  want_plan={"route": "sm90_longkv"}))
         backward += check_backward_case(name, shape, "bf16", True, reps, gen)
     check_backward_splits(gen, (("K3", "cls_pixel", CLS_TRAIN_SITES["cls_pixel"]),
                                 ("K3", "cls_1x1conv", CLS_TRAIN_SITES["cls_1x1conv"])))
@@ -1497,7 +1555,8 @@ def _launch_counts():
     return {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DKV, "K3": fa.LAUNCHES_BWD_DQ,
             "merge": fa.LAUNCHES_MERGE, "sum": fa.LAUNCHES_BWD_SUM,
             "longkv": fa.LAUNCHES_BWD_LONGKV, "dq_longkv": fa.LAUNCHES_BWD_DQ_LONGKV,
-            "copy": fa.LAUNCHES_BWD_COPY}
+            "copy": fa.LAUNCHES_BWD_COPY, "k1_longkv": fa.LAUNCHES_LONGKV,
+            "k1_copy": fa.LAUNCHES_FWD_COPY}
 
 
 def _reset_launch_counts():
@@ -1505,7 +1564,7 @@ def _reset_launch_counts():
 
     fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_MERGE = 0
     fa.LAUNCHES_BWD_SUM = fa.LAUNCHES_BWD_LONGKV = fa.LAUNCHES_BWD_COPY = 0
-    fa.LAUNCHES_BWD_DQ_LONGKV = 0
+    fa.LAUNCHES_BWD_DQ_LONGKV = fa.LAUNCHES_LONGKV = fa.LAUNCHES_FWD_COPY = 0
 
 
 def phase_gradients():
@@ -1999,21 +2058,31 @@ def _cls_model(prep, policy, remat=False):
 
 
 def _expected_k1(prep, batch, dtype):
-    """K1 launches and merges of one forward of the classifier: one K1 call
-    at the pixel and 1x1-conv encoders (with a merge when its plan splits
-    the keys), none in the convnet variant."""
+    """K1's launch counts (``K1_KEYS``) in one forward of the classifier:
+    one K1 call at the pixel and 1x1-conv encoders, with a merge when its
+    plan splits the keys, on the long-KV route in bf16, with its copies into
+    aligned rows where the plan makes them (the pixel encoder's q, k and v);
+    none in the convnet variant."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
     site = CLS_SITE_OF[prep]
     if site is None:
-        return 0, 0
+        return dict.fromkeys(K1_KEYS, 0)
     _, tq, tk, h, d, dv = CLS_SITES[site]
     q = torch.empty(batch, tq, h, d, device="meta", dtype=dtype)
     k = torch.empty(batch, tk, h, d, device="meta", dtype=dtype)
     v = torch.empty(batch, tk, h, dv, device="meta", dtype=dtype)
-    return 1, fa.launch_plan(q, k, v)["cuda_launches"] - 1
+    plan = fa.launch_plan(q, k, v)
+    return {"K1": 1, "merge": int(plan["splits"] > 1),
+            "k1_longkv": int(plan["route"] == "sm90_longkv"),
+            "k1_copy": len(plan.get("copies", ()))}
+
+
+def _k1_counts(launches):
+    """The K1 counts (``K1_KEYS``) of a launch dict."""
+    return {key: launches[key] for key in K1_KEYS}
 
 
 def phase_cls_model(prep):
@@ -2041,7 +2110,7 @@ def phase_cls_model(prep):
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
     want = _expected_k1(prep, CLS_MODEL_BATCH, torch.float32)
-    if (launches["K1"], launches["merge"]) != want:
+    if _k1_counts(launches) != want:
         raise AssertionError(f"{prep}: K1 and merge launches {launches}, expected {want}")
     if tuple(logits_kernel.shape) != (CLS_MODEL_BATCH, 1000) or not (
             torch.isfinite(logits_kernel).all() and torch.isfinite(logits_plain).all()):
@@ -2087,10 +2156,9 @@ def phase_cls_serve(prep, fp32_model):
         launches = _launch_counts()
         peak_mem = torch.cuda.max_memory_allocated()
         ref = fp32_model(requests[-1])
-    k1, merges = _expected_k1(prep, CLS_SERVE_BATCH, torch.bfloat16)
-    if (launches["K1"], launches["merge"]) != (k1 * CLS_REQUESTS, merges * CLS_REQUESTS):
-        raise AssertionError(f"{prep}: launches {launches}, expected {k1} K1 and {merges}"
-                             " merges a request")
+    per_request = _expected_k1(prep, CLS_SERVE_BATCH, torch.bfloat16)
+    if _k1_counts(launches) != {key: n * CLS_REQUESTS for key, n in per_request.items()}:
+        raise AssertionError(f"{prep}: launches {launches}, expected {per_request} a request")
     rel = (logits.float() - ref).abs().max().item() / ref.abs().max().item()
     if not rel <= CLS_BF16_TOL:
         raise AssertionError(f"{prep}: bf16 vs fp32 logits {rel} > {CLS_BF16_TOL}")
@@ -2098,7 +2166,8 @@ def phase_cls_serve(prep, fp32_model):
     rec = dict(prep=prep, requests=CLS_REQUESTS, batch=CLS_SERVE_BATCH, latency_s=latencies,
                images_per_s=CLS_REQUESTS * CLS_SERVE_BATCH / total,
                peak_mem_gb=peak_mem / 1e9, launches=launches["K1"],
-               merge_launches=launches["merge"], k1_launches_per_request=k1,
+               merge_launches=launches["merge"], longkv_launches=launches["k1_longkv"],
+               copy_launches=launches["k1_copy"], k1_launches_per_request=per_request["K1"],
                bf16_vs_fp32_rel=rel, bf16_tolerance=CLS_BF16_TOL, top1_agreement=top1)
     print(f"[cls serve] bf16 ClassificationPerceiver 224x224: {json.dumps(rec)}", flush=True)
     return rec
@@ -2241,7 +2310,7 @@ def phase_cls_gradients():
         for label, policy, launches, tol in (
                 ("fp32", dataclasses.replace(PARITY, attn_impl="auto"), CLS_FP32_STEP_LAUNCHES,
                  GRAD_TOL),
-                ("bf16", PERFORMANCE, dict(CLS_STEP_LAUNCHES, copy=CLS_STEP_COPIES[prep]),
+                ("bf16", PERFORMANCE, dict(CLS_STEP_LAUNCHES, **CLS_STEP_COPIES[prep]),
                  BF16_GRAD_TOL)):
             records[prep, label] = _cls_gradient_pass(prep, label, policy, launches, tol,
                                                       img, labels)
@@ -2320,7 +2389,7 @@ def phase_cls_train():
         norms = [m for m in state.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
         initial = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
         expected = (NO_LAUNCHES if CLS_SITE_OF[prep] is None
-                    else dict(CLS_STEP_LAUNCHES, copy=CLS_STEP_COPIES[prep]))
+                    else dict(CLS_STEP_LAUNCHES, **CLS_STEP_COPIES[prep]))
         rec = _train_steps(trainer, state, batches, total, metrics, expected)
         rec.update(prep=prep, batch=8, images_per_s=8 * rec["steps_per_s"])
         if prep == "FOURIER_POS_CONVNET":
@@ -2390,9 +2459,10 @@ def phase_lm_train():
 
 def phase_bucket_kernels(reps: int = 3):
     """K1 at the classification encoders at the server's buckets 1, 2 and 4
-    (bf16, with its lse, against the plain version, each plan's splits and
-    merge asserted); then K1's torch.library op through torch.ops against
-    the direct launch on the same tensors, bit for bit."""
+    (bf16, with its lse, against the plain version, each plan's long-KV
+    route, splits, merge and copies asserted); then K1's torch.library op
+    through torch.ops against the direct launch on the same tensors, bit for
+    bit."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -2400,7 +2470,7 @@ def phase_bucket_kernels(reps: int = 3):
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     records = [check_case(name, shape, "bf16", False, reps, gen, lse=True,
-                          want_plan=dict(splits=BUCKET_SPLITS[shape[0]], cuda_launches=2))
+                          want_plan=_want_k1_plan(name, shape, "bf16"))
                for name, shape in BUCKET_SITES.items()]
     for name, shape in BUCKET_SITES.items():
         q, k, v, _ = _case_inputs(*shape, torch.bfloat16, False, gen)
@@ -2485,7 +2555,7 @@ def _check_artifact_call(prep, model, weights, fn, img):
         want = torch.func.functional_call(model, weights, (img,))
         torch.cuda.synchronize()
     expected = _expected_k1(prep, img.shape[0], torch.bfloat16)
-    if (launches["K1"], launches["merge"]) != expected:
+    if _k1_counts(launches) != expected:
         raise AssertionError(f"{prep}: artifact launches {launches}, expected {expected}")
     if tuple(got.shape) != (img.shape[0], 1000) or not torch.isfinite(got).all():
         raise AssertionError(f"{prep}: artifact logits {tuple(got.shape)}")
@@ -2494,6 +2564,7 @@ def _check_artifact_call(prep, model, weights, fn, img):
     if not diff <= EXPORT_TOL * scale:
         raise AssertionError(f"{prep}: artifact vs eager {diff} > {EXPORT_TOL} * {scale}")
     return dict(batch=img.shape[0], launches=launches["K1"], merge_launches=launches["merge"],
+                longkv_launches=launches["k1_longkv"], copy_launches=launches["k1_copy"],
                 max_abs_diff=diff, max_abs_logit=scale, bitwise=torch.equal(got, want))
 
 
@@ -2582,10 +2653,11 @@ def _check_rows(label, rows_by_client, direct):
 
 
 def _check_stack_launches(label, launches, stats):
-    """K1 (and its merge: every bucket below 16 splits the keys) once per
-    batch the server dispatched, and once per bucket for its warm-up."""
+    """K1 on the long-KV route (and its merge: every bucket below 16 splits
+    the keys) once per batch the server dispatched, and once per bucket for
+    its warm-up."""
     want = stats["batches_dispatched"] + len(stats["bucket_dispatches"])
-    if launches["K1"] != want or launches["merge"] != want:
+    if (launches["K1"], launches["merge"], launches["k1_longkv"]) != (want,) * 3:
         raise AssertionError(f"{label}: launches {launches}, expected {want} (batches "
                              f"{stats['batches_dispatched']} + the warm-up's)")
 
@@ -2624,7 +2696,7 @@ def phase_server(smi, weights, fn, out_dir):
             p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
             occupancy=stats.get("mean_batch_occupancy"), buckets=stats["bucket_dispatches"],
             batches=stats["batches_dispatched"], launches=launches["K1"],
-            merge_launches=launches["merge"],
+            merge_launches=launches["merge"], longkv_launches=launches["k1_longkv"],
             **_check_rows(f"pipeline={pipeline}", res["rows"], direct)))
 
     server = BatchingServer(call, max_batch=4, max_wait_ms=5000.0, pipeline=True)
@@ -2680,7 +2752,8 @@ def phase_http(smi, weights, fn, out_dir):
                server_p99_ms=stats["request_latency_ms"]["p99"],
                occupancy=stats.get("mean_batch_occupancy"), buckets=stats["bucket_dispatches"],
                batches=stats["batches_dispatched"], launches=launches["K1"],
-               merge_launches=launches["merge"], metrics_lines=len(res["metrics"].splitlines()),
+               merge_launches=launches["merge"], longkv_launches=launches["k1_longkv"],
+               metrics_lines=len(res["metrics"].splitlines()),
                **_check_rows("http", res["outputs"], direct))
     t_multi = time.perf_counter()
     multi = serve.multi_demo(out_dir, 224, device="cuda", full_scale=True, call=call)
@@ -2721,9 +2794,10 @@ def _flow_eval_launches(batches):
 
 
 def _cls_eval_launches(batches):
-    """Launches of the 1x1-conv classifier's evaluation forward at batch 8:
-    K1 once at the encoder, its 4 key splits merged once."""
-    return dict(NO_LAUNCHES, K1=batches, merge=batches)
+    """Launches of the 1x1-conv classifier's evaluation forward at batch 8
+    (bf16): K1 once at the encoder on the long-KV route, its 2 key splits
+    merged once."""
+    return dict(NO_LAUNCHES, K1=batches, merge=batches, k1_longkv=batches)
 
 
 def _decode_ms(dataset, batch_size, reps=DECODE_REPS):
@@ -4128,8 +4202,10 @@ def phase_int8_serve(smi, cls_serve):
                 report = quant.quant_error_report(model, [(img,) for img in requests[1:]])
                 with quant.quant_pass(model, "exact"):
                     exact = model(requests[-1])
-            want = (bf16["k1_launches_per_request"] * CLS_REQUESTS, bf16["merge_launches"])
-            if (launches["K1"], launches["merge"]) != want:
+            want = (bf16["k1_launches_per_request"] * CLS_REQUESTS, bf16["merge_launches"],
+                    bf16["longkv_launches"], bf16["copy_launches"])
+            if (launches["K1"], launches["merge"], launches["k1_longkv"],
+                    launches["k1_copy"]) != want:
                 raise AssertionError(f"{prep} {mode}: launches {launches}, bf16's {want}")
             if gemms != sites * CLS_REQUESTS:
                 raise AssertionError(f"{prep} {mode}: {gemms} torch._int_mm calls, expected"
@@ -4144,6 +4220,7 @@ def phase_int8_serve(smi, cls_serve):
             rec = dict(prep=prep, mode=mode, batch=CLS_SERVE_BATCH, requests=CLS_REQUESTS,
                        projections=len(_quant_sites(model)), int_mm_per_request=sites,
                        int_mm_calls=gemms, launches=launches["K1"],
+                       longkv_launches=launches["k1_longkv"],
                        merge_launches=launches["merge"], latency_s=latencies,
                        images_per_s=CLS_REQUESTS * CLS_SERVE_BATCH / total,
                        bf16_images_per_s=bf16["images_per_s"], peak_mem_gb=peak_mem / 1e9,
@@ -4298,13 +4375,14 @@ def phase_int8_export(smi, exported):
             want = torch.func.functional_call(model, weights, (img,))
             gemms = quant.LAUNCHES
         expected = _expected_k1(prep, b, torch.bfloat16)
-        if (launches["K1"], launches["merge"]) != expected or gemms != sites:
+        if _k1_counts(launches) != expected or gemms != sites:
             raise AssertionError(f"int8 artifact at {b}: launches {launches}, eager {gemms}"
                                  f" torch._int_mm, expected {expected} and {sites}")
         if not torch.equal(got, want):
             diff = (got.float() - want.float()).abs().max().item()
             raise AssertionError(f"int8 artifact vs eager at batch {b}: {diff}")
         calls.append(dict(batch=b, launches=launches["K1"], merge_launches=launches["merge"],
+                          longkv_launches=launches["k1_longkv"],
                           eager_int_mm_calls=gemms, bitwise=True))
     with torch.inference_mode():
         latency = _latency(call, _cls_images(gen, 1), EXPORT_REQUESTS)
@@ -4483,9 +4561,9 @@ def phase_demos(serve, cls_serve, mm_serve):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         launches = _launch_counts()
-        if launches["K1"] != want_k1:
-            raise AssertionError(f"{label} demo: {launches['K1']} K1 launches, the serving"
-                                 f" phase holds {want_k1} a request")
+        if launches["K1"] != want_k1 or launches["k1_longkv"]:  # fp32: never the long-KV route
+            raise AssertionError(f"{label} demo: {launches} launches, the serving"
+                                 f" phase holds {want_k1} K1 a request")
         with torch.inference_mode():
             _reset_launch_counts()
             want = direct["call"]()
@@ -4494,7 +4572,8 @@ def phase_demos(serve, cls_serve, mm_serve):
         got = seen["outputs"][-1] if direct.get("hooked", True) else result
         _same(f"{label} demo", got, want)
         records[label] = dict(seconds=seconds, launches=launches["K1"],
-                              merge_launches=launches["merge"], direct_launches=direct_k1,
+                              merge_launches=launches["merge"],
+                              longkv_launches=launches["k1_longkv"], direct_launches=direct_k1,
                               result=direct["describe"](result))
         print(f"[demo] {label}: {json.dumps(records[label])}", flush=True)
         del seen, model, direct
@@ -4897,12 +4976,15 @@ def phase_mesh_serve(smi):
             _into.append(out.detach().clone())
             return out
 
-        fa.LAUNCHES = 0
+        fa.LAUNCHES = fa.LAUNCHES_LONGKV = 0
         with mock.patch.object(ClassificationPerceiver, "forward", recording):
             results[mesh] = evaluate_classification.main(
                 full_scale=True, mesh_devices=mesh, limit=MESH_EVAL_LIMIT,
                 prep_type=PrepType.LEARNED_POS_1X1CONV, device="cuda")
         k1[mesh] = fa.LAUNCHES
+        if fa.LAUNCHES_LONGKV != k1[mesh]:
+            raise AssertionError(f"evaluate_classification --mesh {mesh}: {k1[mesh]} K1"
+                                 f" launches, {fa.LAUNCHES_LONGKV} on the long-KV route")
         torch.cuda.empty_cache()
     same = len(logits[None]) == len(logits[1]) and all(
         torch.equal(a, b) for a, b in zip(logits[None], logits[1]))
@@ -5213,7 +5295,8 @@ def phase_chunk_mesh_and_server(smi):
     finally:
         server.stop()
     batches = ran[len(ran) - stats["batches_dispatched"]:]
-    if served["K1"] != len(batches) or warmups["K1"] != 2 or stats["requests_served"] != len(
+    if (served["K1"], served["k1_longkv"]) != (len(batches),) * 2 or (
+            warmups["K1"], warmups["k1_longkv"]) != (2, 2) or stats["requests_served"] != len(
             images):
         raise AssertionError(f"mesh server: K1 {served} for {len(batches)} batches, warm-ups"
                              f" {warmups}, stats {stats}")
@@ -5558,9 +5641,11 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     k1_sources = {
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
         "sm90_narrow": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_narrow_sm90.cu",
+        "sm90_longkv": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_longkv_sm90.cu",
         "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
     }
     k1_routes = {"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
+                 "bf16, Tq <= 512 over Tk >= 4,224, 257 to 512 wide": "sm90_longkv",
                  "fp32": "cuda_cores"}
     served = [r for r in records if r["dtype"] == "bf16" and r["shape"][0] == SERVE_TILES]
     narrow = [r for r in records if r["route"] == "sm90_narrow"]
@@ -5683,22 +5768,29 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
                                                for c in int8["export"]["calls"]),
                 launches_int8_train=int8["train"]["launches"]["K1"],
                 merge_launches_int8_train=int8["train"]["launches"]["merge"])
-        train_sites = [r for r in cls_k1_train if r["site"].startswith(f"{site}_train")]
+        train_sites = [r for r in cls_k1_train
+                       if r["site"].startswith((f"{site}_train", f"{site}_masked"))]
         train_rec = next(r for r in train_sites
                          if r["site"] == f"{site}_train" and r["dtype"] == "bf16")
         entries.append(dict(
             name=f"flash_attention_fwd_d{CLS_SITES[site][4]}",
             route="cuda",
-            source=k1_sources["sm90_wgmma"],
+            source=k1_sources[site_rec["route"]],
             sources=k1_sources,
             routes=k1_routes,
+            k1_route=site_rec["route"],
             replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
             launches=cls_serve[prep]["launches"],
             merge_launches=cls_serve[prep]["merge_launches"],
+            longkv_launches=cls_serve[prep]["longkv_launches"],
+            copy_launches=cls_serve[prep]["copy_launches"],
             loader=site_rec["loader"],
+            copies=site_rec["copies"],
             realign=[r for r in REALIGNED if r["site"].startswith(site)],
             launches_train=cls_train[prep]["launches"]["K1"],
             merge_launches_train=cls_train[prep]["launches"]["merge"],
+            longkv_launches_train=cls_train[prep]["launches"]["k1_longkv"],
+            copy_launches_train=cls_train[prep]["launches"]["k1_copy"],
             **stack,
             max_abs_err=max(r["max_abs_err"] for r in mine + train_sites),
             **{key: site_rec[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",

@@ -78,6 +78,9 @@
 //     the copies, and left K3 to copy them again: PERF.md.)
 //   * At d = 261: 5 column tiles of 64 (320 columns), not 6; S and dP
 //     reduce over 272.
+//   * The tensor maps, TMA loads, swizzled descriptors, ring positions,
+//     named barriers and the copy into aligned rows are longkv.cuh's, which K1's long-KV route
+//     (flash_attention_fwd_longkv_sm90.cu) shares.
 //
 // Shared memory is zeroed once; TMA zero-fills columns and rows past the
 // tensors, and rows past Tq or kv_len hold zeros or finite stale rows whose
@@ -94,10 +97,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "longkv.cuh"
 #include "sm90.cuh"
 
 namespace {
 
+using namespace longkv;
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;              // query rows of a tile
@@ -164,45 +169,6 @@ struct Smem {
   static_assert(SIZE <= MAX_SMEM, "K2 long-KV tiles exceed shared memory");
   static_assert(V % 1024 == 0 && RING % 1024 == 0, "swizzle atoms");
 };
-
-template <int ID, int N>
-__device__ __forceinline__ void named_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
-}
-
-template <int ID, int N>
-__device__ __forceinline__ void named_arrive() {
-  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
-}
-
-// One TMA copy of the box of `tmap` at (column, head, row, batch) into
-// `dst`, its bytes counted on `bar`.
-__device__ __forceinline__ void tma_load(char* dst, const CUtensorMap* tmap, int col, int h,
-                                         int row, int b, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(sm90::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(col), "r"(h), "r"(row), "r"(b),
-      "r"(sm90::smem_addr(bar))
-      : "memory");
-}
-
-// This thread's arrival on `bar`, which then also waits for `bytes`.
-__device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   sm90::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// A wgmma descriptor of a 128-byte swizzled operand: K-major (the Q, dO,
-// K and V chunks as S's and dP's operands: 8-row groups 1024 bytes apart, a
-// k16 step 32 bytes on) or MN-major (a Q or dO chunk as the A of dK^T or
-// dV^T: 8 query rows, the K of the product, a 1024-byte atom; M = 64
-// columns, one atom).
-__device__ __forceinline__ uint64_t make_desc_sw128(const char* p) {
-  return sm90::make_desc(sm90::smem_addr(p), 16, 1024) | (1ull << 62);
-}
 
 // The query tile walked w-th (of n) by the item of key block kb: each item
 // starts at its own tile, so that the blocks running at once read
@@ -537,28 +503,6 @@ cudaError_t launch(const Params& p, int blocks, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The copy into aligned rows: dst [B, T, H, W8] (contiguous, W8 = W rounded
-// up to 8: 16-byte rows) from src [B, T, H, W] at any 2-byte aligned
-// strides, zeros in columns [W, W8).  Eight columns a thread.
-
-__global__ void copy_rows_kernel(const bf16* src, bf16* dst, int B, int T, int H, int W, int W8,
-                                 long long sb, long long st, long long sh) {
-  const long long units = (long long)B * T * H * (W8 / 8);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < units;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / (W8 / 8);
-    const int c0 = (int)(i - row * (W8 / 8)) * 8;
-    const int h = (int)(row % H);
-    const long long bt = row / H;
-    const bf16* s = src + (bt / T) * sb + (bt % T) * st + h * sh;
-    __align__(16) bf16 out[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = c0 + j < W ? s[c0 + j] : __float2bfloat16_rn(0.f);
-    *reinterpret_cast<uint4*>(dst + row * W8 + c0) = *reinterpret_cast<const uint4*>(out);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K3 (dQ).
 //
 // What bounds it on an H100.  Per (query, key) pair K3 does 4 d + 2 dv FLOP:
@@ -653,11 +597,6 @@ struct DqSmem {
   static_assert(8 * NBAR <= 1024 && SIZE <= MAX_SMEM, "K3 long-KV tiles exceed shared memory");
   static_assert(O % 1024 == 0 && PX % 1024 == 0 && RING % 1024 == 0, "swizzle atoms");
 };
-
-// Slot c on from slot s0 of a ring of n slots (c <= n).
-__device__ __forceinline__ int ring_at(int s0, int c, int n) {
-  return s0 + c >= n ? s0 + c - n : s0 + c;
-}
 
 struct DqWork {
   int b, h, bh, tile, split, k_begin, k_end, nkb;
@@ -907,50 +846,6 @@ __device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, const 
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (looked up at run time), or null.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static bool looked = false;
-  if (!looked) {
-    looked = true;
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A tensor map of a [B, T, H, W] bf16 tensor (strides in elements, every
-// one of them and the address 16-byte aligned) in boxes of `rows` rows x 64
-// columns at (column, head, row, batch), written to shared memory in wgmma's
-// 128-byte swizzle; columns past W and rows past T read as zeros.
-bool make_tmap(CUtensorMap* map, const void* ptr, int B, int T, int H, int W, long long sb,
-               long long st, long long sh, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NM>
 cudaError_t launch_dq(const DqParams& p, int blocks, cudaStream_t stream) {
   constexpr int smem = DqSmem<NM>::SIZE;
@@ -1007,17 +902,11 @@ extern "C" int flash_attention_bwd_dkv_longkv_sm90(
   if (blocks > p.items) blocks = p.items;
   const int nm = (width + 63) / 64;
   // TMA takes a start and strides that are multiples of 16 bytes (a row may
-  // end anywhere: the box reads zeros past it).
-  auto aligned = [](const void* ptr, long long sb, long long st, long long sh) {
-    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb * 2 % 16 == 0 &&
-           st * 2 % 16 == 0 && sh * 2 % 16 == 0;
-  };
-  if (!aligned(q, q_sb, q_st, q_sh) || !aligned(dout, o_sb, o_st, o_sh) ||
-      !aligned(k, k_sb, k_st, k_sh) || !aligned(v, v_sb, v_st, v_sh) ||
-      !make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
-      !make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
-      !make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
-      !make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
+  // end anywhere: the box reads zeros past it); make_tmap refuses others.
+  if (!longkv::make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
+      !longkv::make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
+      !longkv::make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
+      !longkv::make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = nm <= 5   ? launch<5>(p, blocks, s)
@@ -1052,13 +941,7 @@ extern "C" int flash_attention_bwd_longkv_smem(int width, int* slots) {
 extern "C" int flash_attention_bwd_longkv_copy_rows(const void* src, void* dst, int batch, int t,
                                                     int heads, int w, long long sb, long long st,
                                                     long long sh, void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || w < 1) return (int)cudaErrorInvalidValue;
-  const int w8 = (w + 7) / 8 * 8;
-  const long long units = (long long)batch * t * heads * (w8 / 8);
-  const long long blocks = (units + 255) / 256 < 132 * 16 ? (units + 255) / 256 : 132 * 16;
-  copy_rows_kernel<<<(int)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(src), static_cast<bf16*>(dst), batch, t, heads, w, w8, sb, st, sh);
-  return (int)cudaGetLastError();
+  return longkv::copy_rows(src, dst, batch, t, heads, w, sb, st, sh, stream);
 }
 
 // K3 (dQ) on the long-KV route.  Strides are in elements; q, k, v and dout
@@ -1105,16 +988,10 @@ extern "C" int flash_attention_bwd_dq_longkv_sm90(
   p.splits = splits;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
-  auto aligned = [](const void* ptr, long long sb, long long st, long long sh) {
-    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb * 2 % 16 == 0 &&
-           st * 2 % 16 == 0 && sh * 2 % 16 == 0;
-  };
-  if (!aligned(q, q_sb, q_st, q_sh) || !aligned(dout, o_sb, o_st, o_sh) ||
-      !aligned(k, k_sb, k_st, k_sh) || !aligned(v, v_sb, v_st, v_sh) ||
-      !make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
-      !make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
-      !make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
-      !make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
+  if (!longkv::make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
+      !longkv::make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
+      !longkv::make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
+      !longkv::make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
     return (int)cudaErrorInvalidValue;
   const int blocks = p.n_tiles * batch * heads * splits;
   const int nm = (width + 63) / 64;

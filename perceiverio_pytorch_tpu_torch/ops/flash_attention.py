@@ -5,8 +5,12 @@ Counterpart of ``perceiverio_pytorch_tpu/ops/pallas/flash_attention.py``:
 ``_flash_kernel`` (K1) is ``csrc/flash_attention_fwd_narrow_sm90.cu`` for
 bf16 inputs whose head widths are at most ``NARROW_HEAD_DIM`` = 64 (the flow
 self-attends: wgmma with P in registers, a producer warp feeding a K/V ring,
-route ``sm90_narrow``), ``csrc/flash_attention_fwd_sm90.cu`` for wider bf16
-heads (wgmma, route ``sm90_wgmma``) and ``csrc/flash_attention_fwd.cu`` for
+route ``sm90_narrow``), ``csrc/flash_attention_fwd_longkv_sm90.cu`` for bf16
+calls with a short query range against many keys at widths of 257 to 512
+(the classification encoders: Q resident, a producer warpgroup feeding K/V
+rings by TMA, route ``sm90_longkv``),
+``csrc/flash_attention_fwd_sm90.cu`` for other wider bf16 heads (wgmma,
+route ``sm90_wgmma``) and ``csrc/flash_attention_fwd.cu`` for
 fp32 ones (IEEE fp32 on the CUDA cores, route ``cuda_cores``), which also
 holds the merge of split-KV partials;
 ``_bwd_dkv_kernel`` (K2) and ``_bwd_dq_kernel`` (K3) are
@@ -22,7 +26,7 @@ bf16 backward has a short query range against many keys at widths of 257 to
 rings of column chunks by TMA, route ``sm90_longkv``: K2 in persistent
 blocks of keys, K3 in blocks of query rows with Q and dO resident; rows
 that are not 16-byte aligned are copied into aligned ones first by its copy
-kernel, once for both).  The
+kernel, once for both; the forward's copies are its own).  The
 source note at the head of each says what bounds it on an H100 and what its
 design does about that.
 
@@ -46,6 +50,9 @@ design does about that.
     launches that took the narrow route (each also counts in ``LAUNCHES``)
     and ``LAUNCHES_BWD_NARROW`` the K2 and K3 launches that did (each also
     counts in ``LAUNCHES_BWD_DKV`` or ``LAUNCHES_BWD_DQ``).
+    ``LAUNCHES_LONGKV`` counts the K1 launches on the long-KV route (each
+    also in ``LAUNCHES``) and ``LAUNCHES_FWD_COPY`` the launches of their
+    copies into aligned rows (``launch_plan``'s ``copies``).
     ``LAUNCHES_BWD_LONGKV`` counts the K2 launches on the long-KV route
     (each also counts in ``LAUNCHES_BWD_DKV``), ``LAUNCHES_BWD_DQ_LONGKV``
     the K3 launches there (each also in ``LAUNCHES_BWD_DQ``) and
@@ -95,6 +102,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
             "fwd_narrow": "flash_attention_fwd_narrow_sm90.cu",
+            "fwd_longkv": "flash_attention_fwd_longkv_sm90.cu",
             "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu",
             "bwd_narrow": "flash_attention_bwd_narrow_sm90.cu",
             "bwd_longkv": "flash_attention_bwd_longkv_sm90.cu"}
@@ -124,14 +132,16 @@ BLOCK_K = 64
 # the fewest key tiles worth a split of their own.
 NUM_SMS = 132
 MIN_SPLIT_TILES = 8
-# bf16 backwards whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns
-# wide (where the wgmma K2 holds 32 keys a block), with at most LONGKV_MAX_Q
+# bf16 calls whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns wide
+# (where the wgmma K2 holds 32 keys a block), with at most LONGKV_MAX_Q
 # query rows a (batch, head) (8 tiles of 64) over at least LONGKV_MIN_K keys
-# (a key block of LONGKV_BLOCK_K for every SM), take the long-KV kernels and
-# no forced split.  K2: persistent blocks, at most one an SM, walking work
-# items of LONGKV_BLOCK_K keys.  K3: a block of 64 query rows walks its key
-# split in steps of LONGKV_BLOCK_K keys, the keys split so that every block
-# runs in one wave (``_longkv_dq_split_plan``).
+# (a key block of LONGKV_BLOCK_K for every SM), take the long-KV kernels when
+# no split count is forced (``_longkv_shape``): K1 forward, K2 and K3
+# backward.  K2: persistent blocks, at most one an SM, walking work items of
+# LONGKV_BLOCK_K keys.  K3: a block of 64 query rows walks its key split in
+# steps of LONGKV_BLOCK_K keys, the keys split so that every block runs in
+# one wave (``_longkv_dq_split_plan``).  K1: a block of 64 query rows walks
+# its key split in steps of 64 keys, split as K3's.
 LONGKV_MIN_WIDTH = 257
 LONGKV_MAX_Q = 512
 LONGKV_BLOCK_K = 32
@@ -142,6 +152,8 @@ LONGKV_MIN_K = NUM_SMS * LONGKV_BLOCK_K
 # split partials.
 LAUNCHES = 0
 LAUNCHES_NARROW = 0
+LAUNCHES_LONGKV = 0
+LAUNCHES_FWD_COPY = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_NARROW = 0
 LAUNCHES_BWD_LONGKV = 0
@@ -194,7 +206,8 @@ def _nvcc() -> str:
 
 def library_paths() -> Dict[str, str]:
     """The .so path of each kernel source by name ("fwd", "fwd_sm90",
-    "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow", "bwd_longkv"): the name
+    "fwd_narrow", "fwd_longkv", "bwd", "bwd_sm90", "bwd_narrow",
+    "bwd_longkv"): the name
     carries the hash of the source and of every ``csrc/*.cuh`` header, so an
     edit to either builds a new library."""
     headers = b""
@@ -273,6 +286,16 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
             )
             fwd_narrow.flash_attention_fwd_narrow_sm90.restype = ctypes.c_int
+            fwd_longkv = ctypes.CDLL(paths["fwd_longkv"])
+            fwd_longkv.flash_attention_fwd_longkv_sm90.argtypes = (
+                # q, k, v, kv_mask, q_mask, out, lse, part_o, part_m, part_l
+                [ctypes.c_void_p] * 10
+                # B, H, Tq, Tk, kv_len, D, Dv, splits, tiles_per_split
+                + [ctypes.c_int] * 9
+                + _STRIDES * 3  # q, k, v
+                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            )
+            fwd_longkv.flash_attention_fwd_longkv_sm90.restype = ctypes.c_int
             bwd = ctypes.CDLL(paths["bwd"])
             for fn in (bwd.flash_attention_bwd_dkv, bwd.flash_attention_bwd_dq):
                 fn.argtypes = (
@@ -330,15 +353,18 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
             )
             bwd_longkv.flash_attention_bwd_dq_longkv_sm90.restype = ctypes.c_int
-            bwd_longkv.flash_attention_bwd_longkv_copy_rows.argtypes = (
-                [ctypes.c_void_p] * 2  # src, dst
-                + [ctypes.c_int] * 4  # B, T, H, W
-                + _STRIDES  # src
-                + [ctypes.c_void_p]  # stream
-            )
-            bwd_longkv.flash_attention_bwd_longkv_copy_rows.restype = ctypes.c_int
-            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "fwd_narrow": fwd_narrow, "bwd": bwd,
-                     "bwd_sm90": bwd_sm90, "bwd_narrow": bwd_narrow, "bwd_longkv": bwd_longkv}
+            for fn in (fwd_longkv.flash_attention_fwd_longkv_copy_rows,
+                       bwd_longkv.flash_attention_bwd_longkv_copy_rows):
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 2  # src, dst
+                    + [ctypes.c_int] * 4  # B, T, H, W
+                    + _STRIDES  # src
+                    + [ctypes.c_void_p]  # stream
+                )
+                fn.restype = ctypes.c_int
+            _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "fwd_narrow": fwd_narrow,
+                     "fwd_longkv": fwd_longkv, "bwd": bwd, "bwd_sm90": bwd_sm90,
+                     "bwd_narrow": bwd_narrow, "bwd_longkv": bwd_longkv}
     return _libs
 
 
@@ -635,14 +661,19 @@ def _loader(q, k, v, narrow: bool) -> str:
 
 def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     """What a K1 call on these tensors launches: ``route`` ("sm90_narrow"
-    for bf16 on CUDA with Dqk and Dv at most NARROW_HEAD_DIM, "sm90_wgmma"
-    for wider bf16 heads, "cuda_cores" for fp32), ``splits`` and
-    ``tiles_per_split`` (``_split_plan``, or ``num_splits`` ranges when
-    given; the narrow route walks all keys in one split, and a forced
-    ``num_splits`` takes the split-KV kernel, "sm90_wgmma"), ``col_chunks``
-    (``_col_chunks``: the grid's split of the value columns), ``blocks`` of
-    the main kernel's grid, ``cuda_launches`` (the kernel, and the merge
-    when there is more than one split) and ``loader`` (``_loader``)."""
+    for bf16 on CUDA with Dqk and Dv at most NARROW_HEAD_DIM, "sm90_longkv"
+    for bf16 of the long-KV shape (``_longkv_shape``: the classification
+    encoders), "sm90_wgmma" for other wider bf16 heads, "cuda_cores" for
+    fp32), ``splits`` and ``tiles_per_split`` (``_split_plan``; on the
+    long-KV route ``_longkv_dq_split_plan``, one wave of blocks; or
+    ``num_splits`` ranges when given; the narrow route walks all keys in one
+    split, and a forced ``num_splits`` takes the split-KV kernel,
+    "sm90_wgmma"), ``col_chunks`` (``_col_chunks``: the grid's split of the
+    value columns), ``blocks`` of the main kernel's grid, ``cuda_launches``
+    (the kernel, the merge when there is more than one split, and on the
+    long-KV route one copy launch for each of its ``copies``) and ``loader``
+    (``_loader``; on the long-KV route ``_longkv_loader``, with ``copies``:
+    the operands first copied into 16-byte aligned rows)."""
     b, tq, h, d = q.shape
     _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
     if (q.dtype == torch.bfloat16 and num_splits is None
@@ -650,6 +681,14 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
         return dict(route="sm90_narrow", splits=1, tiles_per_split=-(-kv_len // BLOCK_K),
                     col_chunks=1, blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1,
                     loader=_loader(q, k, v, narrow=True))
+    if (q.dtype == torch.bfloat16 and num_splits is None
+            and _longkv_shape(tq, k.shape[1], max(d, v.shape[3]))):
+        splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)
+        copies = tuple(name for name, t in (("q", q), ("k", k), ("v", v)) if not _tma_rows(t))
+        return dict(route="sm90_longkv", splits=splits, tiles_per_split=per, col_chunks=1,
+                    blocks=-(-tq // BLOCK_Q) * h * b * splits,
+                    cuda_launches=1 + (splits > 1) + len(copies),
+                    loader=_longkv_loader(k, v), copies=copies)
     chunks = _col_chunks(v.shape[3])
     splits, per = (_split_plan(b, tq, h, kv_len, chunks) if num_splits is None
                    else _split_bounds(kv_len, num_splits))
@@ -661,6 +700,13 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     )
 
 
+def _longkv_shape(tq: int, tk: int, width: int) -> bool:
+    """A short query range over many keys at a wider head of
+    LONGKV_MIN_WIDTH to COL_CHUNK columns (the classification encoders):
+    the shape that bf16 K1, K2 and K3 take the long-KV kernels at."""
+    return LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq <= LONGKV_MAX_Q and tk >= LONGKV_MIN_K
+
+
 def _tma_rows(t: torch.Tensor) -> bool:
     """A start and batch, token and head strides of ``t`` that are multiples
     of 16 bytes: what a TMA copy addresses (a row may end anywhere)."""
@@ -669,7 +715,7 @@ def _tma_rows(t: torch.Tensor) -> bool:
 
 
 def _longkv_loader(k, v) -> str:
-    """How the long-KV K2 and K3 bring the K and V rows into shared memory:
+    """How the long-KV K1, K2 and K3 bring the K and V rows into shared memory:
     "tma" when both have 16-byte aligned rows (``_tma_rows``), else "copy":
     those not aligned are first copied into 16-byte aligned rows
     (``_longkv_copies``), then "tma"."""
@@ -688,11 +734,12 @@ def _longkv_copies(q, k, v) -> Tuple[str, ...]:
 
 
 def _longkv_dq_split_plan(b: int, tq: int, h: int, kv_len: int):
-    """The long-KV K3's key splits: (splits, tiles_per_split).  As many as
-    keep all blocks in one wave of one block an SM (NUM_SMS // the blocks of
-    a split, each block 64 query rows), at least MIN_SPLIT_TILES key tiles
-    each: 2 at the classification encoders at batch 8 (64 query tiles, 128
-    blocks)."""
+    """The long-KV K3's and K1's key splits: (splits, tiles_per_split).  As
+    many as keep all blocks in one wave of one block an SM (NUM_SMS // the
+    blocks of a split, each block 64 query rows), at least MIN_SPLIT_TILES
+    key tiles each: at the classification encoders (8 query tiles a batch
+    entry) 1 at batch 16, 2 at 8, 4, 8 and 16 at the server's buckets 4, 2
+    and 1 (128 blocks each)."""
     blocks = -(-tq // BLOCK_Q) * h * b
     tiles = -(-kv_len // BLOCK_K)
     return _split_bounds(kv_len, max(1, min(NUM_SMS // blocks, tiles // MIN_SPLIT_TILES)))
@@ -757,8 +804,7 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
             dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=1,
                     blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1),
         )
-    if (num_splits is None and LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq <= LONGKV_MAX_Q
-            and tk >= LONGKV_MIN_K):
+    if num_splits is None and _longkv_shape(tq, tk, width):
         items = -(-tk // LONGKV_BLOCK_K) * h * b
         copies, loader = _longkv_copies(q, k, v), _longkv_loader(k, v)
         splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)
@@ -788,11 +834,13 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
 def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
                           kv_logical_len, return_lse, num_splits=None):
     """K1 on CUDA tensors: the narrow-head kernel for bf16 heads up to
-    NARROW_HEAD_DIM wide, the sm90 kernel for wider bf16 heads, the CUDA-core
-    kernel for fp32, then the merge when the plan splits the keys.
-    ``num_splits`` overrides the plan (for tests that hold split counts
-    against each other; it takes the split-KV kernels)."""
-    global LAUNCHES, LAUNCHES_MERGE, LAUNCHES_NARROW
+    NARROW_HEAD_DIM wide, the long-KV kernel for bf16 calls of its shape
+    (after copies of the operands whose rows it cannot address), the sm90
+    kernel for other wider bf16 heads, the CUDA-core kernel for fp32, then
+    the merge when the plan splits the keys.  ``num_splits`` overrides the
+    plan (for tests that hold split counts against each other; it takes the
+    split-KV kernels)."""
+    global LAUNCHES, LAUNCHES_MERGE, LAUNCHES_NARROW, LAUNCHES_LONGKV
     kv_mask_c, q_mask_c = _check_cuda(
         q, (("q", q), ("k", k), ("v", v)), (("kv_mask", kv_mask), ("q_mask", q_mask)),
         MAX_HEAD_DIM_FWD, "K1 (flash attention forward)")
@@ -823,6 +871,9 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask_c), _ptr(q_mask_c),
                 out.data_ptr(), _ptr(lse), b, h, tq, tk, kv_len, d, dv, *strides, scale,
                 stream)
+        elif plan["route"] == "sm90_longkv":
+            err = _longkv_forward(libs["fwd_longkv"], plan, q, k, v, kv_mask_c, q_mask_c, out,
+                                  lse, part_o, part_ml, kv_len, scale, stream)
         else:
             kernel = (libs["fwd_sm90"].flash_attention_fwd_sm90
                       if plan["route"] == "sm90_wgmma" else libs["fwd"].flash_attention_fwd)
@@ -847,7 +898,40 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
             LAUNCHES_MERGE += 1
     LAUNCHES += 1
     LAUNCHES_NARROW += plan["route"] == "sm90_narrow"
+    LAUNCHES_LONGKV += plan["route"] == "sm90_longkv"
     return (out, lse) if return_lse else out
+
+
+def _copy_rows(fn, t, stream):
+    """(error, copy): ``t`` [B, T, H, W] copied by ``fn`` (a long-KV
+    library's copy kernel) into contiguous rows of W rounded up to 8 (16
+    bytes), zeros in the pad columns."""
+    b, n, h, w = t.shape
+    copy = torch.empty((b, n, h, -(-w // 8) * 8), dtype=t.dtype, device=t.device)
+    return fn(t.data_ptr(), copy.data_ptr(), b, n, h, w, *t.stride()[:3], stream), copy
+
+
+def _longkv_forward(lib, plan, q, k, v, kv_mask, q_mask, out, lse, part_o, part_ml, kv_len,
+                    scale, stream):
+    """The long-KV K1: the operands named in ``plan["copies"]`` copied into
+    16-byte aligned rows (let go once the kernel is enqueued: the caching
+    allocator reuses them only after it, in stream order), then the kernel;
+    the first nonzero error."""
+    global LAUNCHES_FWD_COPY
+    ops = {"q": q, "k": k, "v": v}
+    for name in plan["copies"]:
+        err, ops[name] = _copy_rows(lib.flash_attention_fwd_longkv_copy_rows, ops[name], stream)
+        if err != 0:
+            return err
+        LAUNCHES_FWD_COPY += 1
+    args = [ops[name] for name in ("q", "k", "v")]
+    b, tq, h, d = q.shape
+    return lib.flash_attention_fwd_longkv_sm90(
+        *(t.data_ptr() for t in args), _ptr(kv_mask), _ptr(q_mask), out.data_ptr(), _ptr(lse),
+        _ptr(part_o), _ptr(None if part_ml is None else part_ml[0]),
+        _ptr(None if part_ml is None else part_ml[1]), b, h, tq, k.shape[1], kv_len, d,
+        v.shape[3], plan["splits"], plan["tiles_per_split"],
+        *(x for t in args for x in t.stride()[:3]), scale, stream)
 
 
 def _prepare_grad(q, v, out, grad_out, q_mask):
@@ -978,15 +1062,11 @@ class BackwardKernels:
         ops = {"q": q, "k": k, "v": v, "dout": do}
         for name in names:
             if name not in made:
-                t = ops[name]
-                b, n, h, w = t.shape
-                copy = torch.empty((b, n, h, -(-w // 8) * 8), dtype=t.dtype, device=t.device)
-                err = lib.flash_attention_bwd_longkv_copy_rows(
-                    t.data_ptr(), copy.data_ptr(), b, n, h, w, *t.stride()[:3], stream)
+                err, made[name] = _copy_rows(lib.flash_attention_bwd_longkv_copy_rows,
+                                             ops[name], stream)
                 if err != 0:
                     return err, None
                 LAUNCHES_BWD_COPY += 1
-                made[name] = copy
             ops[name] = made[name]
         return 0, [ops[name] for name in ("q", "k", "v", "dout")]
 

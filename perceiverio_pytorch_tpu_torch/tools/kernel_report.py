@@ -8,10 +8,9 @@ On a machine with an NVIDIA GPU, from the repository root:
      every kernel instantiation's registers, spills, stack and shared memory
      (static; the dynamic size of the sm90 instantiations at the three flow
      sites, of K1's, K2's and K3's at the multimodal encoder, in both
-     dtypes, of K1's at the two classification encoders, of the four
-     narrow-route instantiations of K1, K2 and K3 is printed beside, and
-     after the build the three long-KV K2 instantiations' and the long-KV
-     K3's as their source computes them, with their ring slots);
+     dtypes, of the four narrow-route instantiations of K1, K2 and K3 is
+     printed beside, and after the build the three long-KV K1, K2 and K3
+     instantiations' as their sources compute them, with their ring slots);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -74,7 +73,10 @@ On a machine with an NVIDIA GPU, from the repository root:
      batch 1 and 6, the classification encoders at 16, 8 and the server's
      buckets 1, 2, 4, the multimodal encoder), each timed as
      ``chip_smoke.py`` times a kernel: at least 3 launches and at least
-     10 ms of them.  It needs nothing of K1 but ``flash_attention`` and
+     10 ms of them, with its route; at the classification encoders also
+     SDPA over the same window and the device memory one K1 call takes at
+     its peak beyond its inputs and output (the long-KV route's copies into
+     aligned rows).  It needs nothing of K1 but ``flash_attention`` and
      ``launch_plan``, so run as a file it times the checkout that
      ``PYTHONPATH`` names: to compare two checkouts on one card, run
      ``PYTHONPATH=DIR python perceiverio_pytorch_tpu_torch/tools/kernel_report.py k1``
@@ -173,12 +175,6 @@ def ptxas_report():
     print(f"[smem] flash_fwd_sm90_kernel<176, 32> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_fwd_kernel<6> at d = dv = 704: {smem} bytes dynamic")
-    # K1 at the classification encoders: d = 261 (padded to 272) takes
-    # <168, 128>, d = 512 <256, 64> (the flow decoder's instantiation).
-    for d, nv, bk in ((261, 168, 128), (512, 256, 64)):
-        dp = -(-d // 16) * 16
-        smem = ((64 + bk) * dp + bk * 2 * nv + 64 * bk) * 2 + 4 * 64 * 4
-        print(f"[smem] flash_fwd_sm90_kernel<{nv}, {bk}> at d = dv = {d}: {smem} bytes dynamic")
     # K2 and K3 there: bf16 K2 <8, 11> (16 keys a block, 11 tiles of 64
     # columns), K3 <176, 16, chunked> (Q, dO, K and V at 704, dQ in chunks of
     # 352); fp32 K2 and K3 <6, chunked> (dK/dV or dQ in chunks of 384 + 320).
@@ -217,11 +213,15 @@ def ptxas_report():
 
 def longkv_smem_report(paths):
     """The long-KV kernels' dynamic shared memory and ring slots, as their
-    source computes them (``flash_attention_bwd_longkv_smem``,
+    sources compute them (``flash_attention_fwd_longkv_smem``,
+    ``flash_attention_bwd_longkv_smem``,
     ``flash_attention_bwd_dq_longkv_smem``), at the widths whose
     instantiations they launch."""
     import ctypes
 
+    fwd = ctypes.CDLL(paths["fwd_longkv"])
+    fwd.flash_attention_fwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                                     ctypes.POINTER(ctypes.c_int))
     lib = ctypes.CDLL(paths["bwd_longkv"])
     lib.flash_attention_bwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
     lib.flash_attention_bwd_dq_longkv_smem.argtypes = (ctypes.c_int,
@@ -229,6 +229,10 @@ def longkv_smem_report(paths):
                                                         ctypes.POINTER(ctypes.c_int))
     for width, nm in ((261, 5), (322, 6), (512, 8)):
         slots, slots_k, slots_v = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        smem = fwd.flash_attention_fwd_longkv_smem(width, ctypes.byref(slots_k),
+                                                   ctypes.byref(slots_v))
+        print(f"[smem] flash_fwd_longkv_kernel<{nm}> at width {width}: K ring"
+              f" {slots_k.value} slots, V ring {slots_v.value}, {smem} bytes dynamic")
         smem = lib.flash_attention_bwd_longkv_smem(width, ctypes.byref(slots))
         print(f"[smem] flash_bwd_dkv_longkv_kernel<{nm}> at width {width}: {slots.value} ring"
               f" slots, {smem} bytes dynamic")
@@ -815,11 +819,27 @@ def time_k1_sites(reps=3, window_ms=10.0):
              + CLASSIFICATION_SITES[:2] + CLASSIFICATION_TRAIN_SITES[:2]
              + tuple((b, 512, 50176, 1, d, d) for d in (261, 512) for b in (1, 2, 4))
              + (MULTIMODAL_SITE,))
+    import torch.nn.functional as F
+
     for shape in sites:
         (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
         ms, n = _window_ms(lambda: fa.flash_attention(q, k, v), reps, window_ms)
-        print(f"[k1] {shape}: {ms:.4f} ms over {n} launches "
-              f"({fa.launch_plan(q, k, v)['route']})", flush=True)
+        plan = fa.launch_plan(q, k, v)
+        line = (f"[k1] {shape}: {ms:.4f} ms over {n} launches ({plan['route']}, splits"
+                f" {plan['splits']}, loader {plan['loader']}, copies {plan.get('copies', ())})")
+        if shape[2] == 50176:  # the classification encoders
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+            del out
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa, _ = _window_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps,
+                                 window_ms)
+            line += f"; one call's peak beyond its output {peak / 1e6:.1f} MB; SDPA {sdpa:.4f} ms"
+        print(line, flush=True)
         del q, k, v
         torch.cuda.empty_cache()
 

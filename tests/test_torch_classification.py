@@ -329,18 +329,24 @@ def test_attention_path_at_classification_sites(prep, kv_len, kv_width, on_devic
     assert pm.n_output_channels() == kv_width
 
 
-@pytest.mark.parametrize("batch,splits", [(16, 1), (2, 16), (1, 33)])
+@pytest.mark.parametrize("batch,splits", [(16, 1), (2, 8), (1, 16)])
 @pytest.mark.parametrize("width", [261, 512])
 def test_launch_plan_at_the_classification_encoders(batch, splits, width):
-    """K1 at (B, 512, 50176, 1, d): at the served batch of 16 the grid has 8
-    query blocks x 16 = 128 blocks and one split (no merge); at batch 2 and
-    1 it splits the keys and merges once."""
+    """bf16 K1 at (B, 512, 50176, 1, d) takes the long-KV route: at the
+    served batch of 16 the grid has 8 query blocks x 16 = 128 blocks and one
+    split (no merge); at batch 2 and 1 it splits the keys into 128 blocks
+    and merges once.  At d = 261 (522-byte rows) q, k and v are first copied
+    into 16-byte aligned rows, one launch each; at 512 TMA reads them as
+    they are."""
     q = torch.empty(batch, 512, 1, width, device="meta", dtype=torch.bfloat16)
     k = torch.empty(batch, 50176, 1, width, device="meta", dtype=torch.bfloat16)
     plan = fa.launch_plan(q, k, k)
+    copies = ("q", "k", "v") if width == 261 else ()
+    assert (plan["route"], plan["loader"], plan["copies"]) == (
+        "sm90_longkv", "copy" if copies else "tma", copies)
     assert (plan["splits"], plan["col_chunks"], plan["cuda_launches"]) == (
-        splits, 1, 1 + (splits > 1))
-    assert plan["blocks"] == 8 * batch * splits
+        splits, 1, 1 + (splits > 1) + len(copies))
+    assert plan["blocks"] == 8 * batch * splits == 128
 
 
 def test_classification_refusals():

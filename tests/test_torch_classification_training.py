@@ -195,22 +195,25 @@ def test_classification_gradient_golden_replay():
 @pytest.mark.parametrize("width", [261, 512])
 def test_launch_plans_at_the_classification_training_batch(width, dtype):
     """The pixel (d = 261) and 1x1-conv (d = 512) encoders at the training
-    batch of 8 (512 latents x 50,176 keys, one head): K1 splits the keys in
-    4 (256 blocks) and merges; the bf16 K2 takes the long-KV route, 132
+    batch of 8 (512 latents x 50,176 keys, one head): the bf16 K1 takes the
+    long-KV route, 2 key splits (128 blocks) and a merge, after a copy of q,
+    k and v into 16-byte aligned rows at 261; the fp32 K1 splits the keys
+    in 4 (256 blocks) and merges; the bf16 K2 takes the long-KV route, 132
     persistent blocks over 12,544 blocks of 32 keys in one split, after a
     copy of q, dO, k and v into 16-byte aligned rows at 261 (522-byte
     rows); the bf16 K3 the long-KV route too, 2 key splits (128 blocks of
     64 query rows) and a sum, reading K2's copies; the fp32 K2 12,544
     blocks of 32 keys, the fp32 K3 64 blocks, neither split.  So a step
-    makes K1 1 + merge 1, K2 1 (+ 4 copies in bf16 at 261), K3 1 (+ sum 1
-    in bf16)."""
+    makes K1 1 + merge 1 (+ 3 copies in bf16 at 261), K2 1 (+ 4 copies in
+    bf16 at 261), K3 1 (+ sum 1 in bf16)."""
     q = torch.empty(8, 512, 1, width, device="meta", dtype=dtype)
     k = torch.empty(8, 50176, 1, width, device="meta", dtype=dtype)
-    fwd = fa.launch_plan(q, k, k)
-    assert (fwd["splits"], fwd["col_chunks"], fwd["blocks"], fwd["cuda_launches"]) == (
-        4, 1, 256, 2)
-    bwd = fa.backward_plan(q, k, k)
     bf16 = dtype == torch.bfloat16
+    fwd = fa.launch_plan(q, k, k)
+    assert fwd["route"] == ("sm90_longkv" if bf16 else "cuda_cores")
+    assert (fwd["splits"], fwd["col_chunks"], fwd["blocks"], fwd["cuda_launches"]) == (
+        (2, 1, 128, 2 + 3 * (width == 261)) if bf16 else (4, 1, 256, 2))
+    bwd = fa.backward_plan(q, k, k)
     assert bwd["route"] == ("sm90_longkv" if bf16 else "cuda_cores")
     dkv, dq = bwd["dkv"], bwd["dq"]
     assert (dkv["splits"], dkv["col_chunks"], dkv["blocks"], dkv["cuda_launches"]) == (

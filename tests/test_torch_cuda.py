@@ -13,7 +13,9 @@ versions, which the CPU tests hold against the JAX package;
 K1 also at the classification encoders' widths (261 and 512) over 50,176
 keys, K2 and K3 at those widths (masked small cases, and a few thousand
 keys; K2's long-KV route over 4,231 to 4,451 keys, and its realigned views
-bit for bit), reduced-depth classification and language models on the card
+bit for bit; K1's long-KV route over the same shapes, masked, its offset
+views bit for bit, its op and an exported site against the direct launch),
+reduced-depth classification and language models on the card
 against the same models on the CPU, and one training step of each tiny
 classifier and of the tiny MLM on the card with its launches counted.
 The serving stack on the card: K1's torch.library op bit for bit against
@@ -1037,6 +1039,94 @@ def test_longkv_dq_alone_matches_dq_after_dkv(cuda, b, tq, tk, h, d, dv):
     assert torch.equal(alone.grad_q, both.grad_q)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES)
+def test_longkv_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
+    """K1 on the long-KV route against the plain version with kv_mask,
+    q_mask, kv_logical_len, an all-masked entry and the lse (lone last query
+    tiles of 1, 1 and 13 rows): within bf16 TOL, exact zeros on wiped rows,
+    +inf lse where every key is masked; one K1 launch on the route, a merge
+    when the keys split, one copy launch for each operand the plan copies
+    into aligned rows; two calls bit for bit."""
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 41, cuda)
+    kv_mask[-1] = False
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 30, return_lse=True)
+    plan = fa.launch_plan(q, k, v, kv_logical_len=tk - 30)
+    assert plan["route"] == "sm90_longkv"
+    names = ("LAUNCHES", "LAUNCHES_LONGKV", "LAUNCHES_MERGE", "LAUNCHES_FWD_COPY")
+    before = [getattr(fa, name) for name in names]
+    got, lse = fa.flash_attention(q, k, v, **kw)
+    assert [getattr(fa, name) - n for name, n in zip(names, before)] == [
+        1, 1, int(plan["splits"] > 1), len(plan["copies"])]
+    again, again_lse = fa.flash_attention(q, k, v, **kw)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    _check(got, want, 2e-2)
+    assert torch.all(got.view(b, tq, -1)[~q_mask] == 0) and torch.all(got[-1] == 0)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 6])
+@pytest.mark.parametrize("d", [261, 512])
+def test_longkv_forward_views_match_contiguous(cuda, offset, d):
+    """The long-KV K1's copies into aligned rows change only how bytes
+    reach shared memory: q, k and v seen ``offset`` elements into NaN-filled
+    buffers (rows d + 8 apart, all three copied first) give the output and
+    lse bit for bit as the contiguous tensors (copied at 261, read by TMA
+    at 512)."""
+    q, k, v, _, _ = _inputs(2, 136, 4400, 1, d, d, 43, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    assert fa.launch_plan(q, k, v)["copies"] == (("q", "k", "v") if d == 261 else ())
+    views = [_realign_views(x, offset) for x in (q, k, v)]
+    plan = fa.launch_plan(*views)
+    assert (plan["route"], plan["loader"], plan["copies"]) == (
+        "sm90_longkv", "copy", ("q", "k", "v"))
+    want, want_lse = fa.flash_attention(q, k, v, return_lse=True)
+    got, got_lse = fa.flash_attention(*views, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [261, 512])
+def test_longkv_forward_op_and_artifact_match_the_direct_launch(cuda, d):
+    """K1's torch.library op through torch.ops and a reloaded export_apply
+    artifact of one long-KV site (batch-polymorphic, called at batches 2 and
+    3) against the direct launch on the same masked inputs: bit for bit,
+    one long-KV launch each."""
+    from perceiverio_pytorch_tpu_torch.serving import export_apply, load_exported
+
+    class Site(torch.nn.Module):
+        def forward(self, q, k, v):
+            return fa.flash_attention(q, k, v, kv_logical_len=4380)
+
+    q, k, v, kv_mask, q_mask = _inputs(3, 129, 4400, 1, d, d, 44, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = fa.LAUNCHES_LONGKV
+    out, lse = torch.ops.perceiverio_torch.flash_attention_fwd(
+        q, k, v, kv_mask, q_mask, None, 4380, True)
+    assert fa.LAUNCHES_LONGKV - before == 1
+    want = fa._flash_attention_cuda(q, k, v, q_mask=q_mask, kv_mask=kv_mask,
+                                    softmax_scale=None, kv_logical_len=4380, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    site = Site().eval()
+    serve = load_exported(export_apply(site, {}, q[:2], k[:2], v[:2], batch_polymorphic=True))
+    for b in (2, 3):
+        with torch.inference_mode():
+            before = fa.LAUNCHES_LONGKV
+            got = serve({}, q[:b], k[:b], v[:b])
+            assert fa.LAUNCHES_LONGKV - before == 1
+            direct = site(q[:b], k[:b], v[:b])
+        torch.cuda.synchronize()
+        assert torch.equal(got, direct)
+
+
 def _tiny_classifier(prep, impl, device):
     return ClassificationPerceiver(
         num_classes=train_classification.TINY_CLASSES, prep_type=prep,
@@ -1156,19 +1246,26 @@ def test_export_on_the_card_holds_the_op(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [261, 512])
-@pytest.mark.parametrize("batch,splits", [(1, 33), (2, 16), (4, 8)])
+@pytest.mark.parametrize("batch,splits", [(1, 16), (2, 8), (4, 4)])
 def test_kernel_at_the_server_buckets(cuda, dtype, tol, d, batch, splits):
     """K1 at the classification encoders at the serving buckets 1, 2 and 4
     (512 latents x 50,176 keys, d = 261 and 512), with its lse, against the
-    plain version; the plan's splits and merge as launched."""
+    plain version; the plan's route, splits (bf16: the long-KV route's, 128
+    blocks; fp32: the CUDA-core kernel's 33, 16, 8), copies and merge as
+    launched."""
     q, k, v, _, _ = _inputs(batch, 512, 50176, 1, d, d, 33, cuda)
     q, k, v = (x.to(dtype) for x in (q, k, v))
     plan = fa.launch_plan(q, k, v)
-    assert plan["splits"] == splits and plan["cuda_launches"] == 2
-    before = (fa.LAUNCHES, fa.LAUNCHES_MERGE)
+    longkv = dtype == torch.bfloat16
+    copies = len(plan.get("copies", ()))
+    assert plan["route"] == ("sm90_longkv" if longkv else "cuda_cores")
+    assert plan["splits"] == (splits if longkv else {1: 33, 2: 16, 4: 8}[batch])
+    assert plan["cuda_launches"] == 2 + copies and copies == 3 * (longkv and d == 261)
+    names = ("LAUNCHES", "LAUNCHES_MERGE", "LAUNCHES_LONGKV", "LAUNCHES_FWD_COPY")
+    before = [getattr(fa, name) for name in names]
     got, lse = fa.flash_attention(q, k, v, return_lse=True)
-    assert (fa.LAUNCHES - before[0], fa.LAUNCHES_MERGE - before[1]) == (
-        1, plan["cuda_launches"] - 1)
+    assert [getattr(fa, name) - n for name, n in zip(names, before)] == [
+        1, 1, int(longkv), copies]
     want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(),
                                                   return_lse=True)
     torch.cuda.synchronize()

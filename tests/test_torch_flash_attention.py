@@ -113,6 +113,29 @@ def test_wide_reference_masks_and_lse_match_pallas(num_splits):
     np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
 
 
+def test_longkv_shape_reference_matches_pallas():
+    """K1's plain version at the long-KV route's shape class, few query rows
+    (a lone last tile of 1) against many keys, one head 261 wide (which the
+    bf16 kernel takes on the card from 4,224 keys on), walking the keys in
+    2 ranges and merging as the route's split grid does, against the Pallas
+    kernel in interpreter mode: kv_mask, q_mask, kv_logical_len, an
+    all-masked batch entry (rows exactly 0, lse +inf) and the lse."""
+    q, k, v, kv_mask, q_mask = _inputs(2, 129, 1000, 1, 261, 261, seed=261)
+    kv_mask[1] = False
+    want, want_lse = _jax_flash(q, k, v, kv_mask, q_mask, kv_logical_len=990)
+    got, got_lse = fa.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+        kv_logical_len=990, return_lse=True, num_splits=2,
+    )
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.all(got.numpy()[1] == 0.0) and np.all(got.numpy()[~q_mask] == 0.0)
+    assert np.all(np.isinf(got_lse.numpy()[1]))
+    assert np.array_equal(np.isinf(got_lse.numpy()), np.isinf(want_lse))
+    finite = np.isfinite(want_lse)
+    np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
+
+
 def test_reference_chunking_is_exact():
     """Chunking over query rows does not change the result."""
     q, k, v, kv_mask, q_mask = _inputs(2, 37, 90, 3, 16, 8, seed=3)
@@ -404,8 +427,8 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
     monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
     before = fa.library_paths()
-    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "bwd", "bwd_sm90", "bwd_narrow",
-                           "bwd_longkv"}
+    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "fwd_longkv", "bwd", "bwd_sm90",
+                           "bwd_narrow", "bwd_longkv"}
     assert os.path.basename(before["bwd_sm90"]).startswith("flash_attention_bwd_sm90_")
     with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
@@ -693,6 +716,64 @@ def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
             splits=splits, tiles_per_split=per, col_chunks=1, blocks=-(-tq // 64) * h * b * splits,
             cuda_launches=1 + (splits > 1), loader=loader, copies=copies)
         assert plan["dq"]["blocks"] <= fa.NUM_SMS
+
+
+_QKV = ("q", "k", "v")
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d,dv,dtype,num_splits,target,offset,route,splits,blocks,copies",
+    [(b, 512, 50176, 1, w, w, torch.bfloat16, None, None, 0, "sm90_longkv", splits, 128,
+      _QKV if w == 261 else ())
+     for w in (261, 512) for b, splits in ((16, 1), (8, 2), (4, 4), (2, 8), (1, 16))]
+    + [(2, 129, 4301, 1, 261, 261, torch.bfloat16, None, None, 0, "sm90_longkv", 8, 48, _QKV),
+       (3, 65, 4451, 2, 512, 512, torch.bfloat16, None, None, 0, "sm90_longkv", 8, 96, ()),
+       (2, 100, 8000, 1, 512, 512, torch.bfloat16, None, "k", 1, "sm90_longkv", 14, 56, ("k",)),
+       (2, 100, 8000, 1, 512, 512, torch.bfloat16, None, "q", 3, "sm90_longkv", 14, 56, ("q",)),
+       (2, 100, 8000, 1, 512, 512, torch.bfloat16, None, "all", 8, "sm90_longkv", 14, 56, ()),
+       (16, 512, 50176, 1, 512, 512, torch.bfloat16, 1, None, 0, "sm90_wgmma", 1, 128, None),
+       (16, 512, 50176, 1, 512, 512, torch.float32, None, None, 0, "cuda_cores", 1, 128, None),
+       (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, None, 0, "sm90_wgmma", 3, 216, None),
+       (8, 512, 4223, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 4, 256, None),
+       (8, 512, 50176, 1, 256, 256, torch.bfloat16, None, None, 0, "sm90_wgmma", 4, 256, None),
+       (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, None, 0, "sm90_wgmma", 10, 260,
+        None),  # the multimodal encoder
+       (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, None, 0, "sm90_wgmma", 8, 256,
+        None),  # the flow encoder
+       (1, 182528, 2048, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 2852,
+        None),  # the flow decoder
+       (1, 2048, 2048, 16, 32, 32, torch.bfloat16, None, None, 0, "sm90_narrow", 1, 256,
+        None)],  # the flow self-attend
+)
+def test_longkv_forward_plan(b, tq, tk, h, d, dv, dtype, num_splits, target, offset, route,
+                             splits, blocks, copies):
+    """bf16 K1 calls with at most 512 query rows over at least 4,224 keys,
+    whose wider head is 257 to 512 wide (the classification encoders at the
+    served batch, the training batch and the server's buckets), take the
+    long-KV route: 64 query rows a block (a lone last tile, as 129 rows
+    give), the keys split by ``_longkv_dq_split_plan`` so that all blocks
+    run in one wave, a merge after a split, every operand by TMA, each first
+    copied into 16-byte aligned rows where its rows are not aligned (the
+    pixel encoder's 522-byte rows; offset views: ``target`` seen ``offset``
+    elements into its storage), one launch a copy.  A forced split count,
+    fp32, more query rows, fewer keys, other widths and the flow and
+    multimodal sites keep their routes."""
+    views = {}
+    for name, t, w in (("q", tq, d), ("k", tk, d), ("v", tk, dv)):
+        shift = offset if target in ("all", name) else 0
+        storage = torch.empty(b * t * h * w + shift, dtype=dtype, device="meta")
+        views[name] = storage[shift:].view(b, t, h, w)
+    plan = fa.launch_plan(views["q"], views["k"], views["v"], num_splits=num_splits)
+    assert (plan["route"], plan["splits"], plan["blocks"]) == (route, splits, blocks)
+    if route != "sm90_longkv":
+        assert "copies" not in plan
+        return
+    per = -(-tk // fa.BLOCK_K // splits)
+    assert plan == dict(route=route, splits=splits, tiles_per_split=per, col_chunks=1,
+                        blocks=blocks, cuda_launches=1 + (splits > 1) + len(copies),
+                        loader=fa._longkv_loader(views["k"], views["v"]), copies=copies)
+    assert plan["loader"] == ("copy" if {"k", "v"} & set(copies) else "tma")
+    assert blocks <= fa.NUM_SMS
 
 
 @pytest.mark.parametrize(
