@@ -11,8 +11,9 @@ Phases (each raises on failure; nothing is caught):
      process per source, all at once (K1 forward: the bf16 narrow-head
      kernel, the bf16 long-KV kernel, the bf16 wgmma kernel and the fp32
      CUDA-core kernel with the split-KV merge; K2 dK/dV and K3 dQ
-     backward: the bf16 narrow-head kernels, the bf16 wgmma kernels with
-     the sum of their split partials, and the fp32 CUDA-core kernels);
+     backward: the bf16 narrow-head kernels, the bf16 long-KV kernels, the
+     bf16 wgmma kernels with the sum of their split partials, and the fp32
+     CUDA-core kernels);
   3. kernel: holds K1 against its plain PyTorch version on the card
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
      serving forward's shapes (6 tiles, bf16), at the multimodal encoder
@@ -44,9 +45,13 @@ Phases (each raises on failure; nothing is caught):
      three flow sites (batch 1) in fp32 and bf16, at the bf16 self-attend at
      batch 2 (phase R(b)'s), at the multimodal encoder (d = dv = 704) in
      fp32 and bf16 and at masked cases at widths 41 and 704 (exact zeros on
-     wiped rows and tail keys); the bf16 self-attend and the 41-wide masked
-     case must take the narrow route, one narrow launch each, and give the
-     same bits in two calls; records each call's route, splits, column
+     wiped rows and tail keys; the 704-wide one also over 4,301 keys, on
+     the long-KV route, with a lone last query tile); the bf16 self-attend
+     and the 41-wide masked case must take the narrow route, one narrow
+     launch each, and the bf16 multimodal encoder and the long 704-wide
+     case the long-KV route (K2 with 32 keys an item, K3 in steps of 16
+     keys), one long-KV launch each, and give the same bits in two calls;
+     records each call's route, splits, column
      chunks, blocks and CUDA launches (``backward_plan``); times each
      kernel, the plain backward, SDPA's backward (a yardstick only: its
      flash backend's backward op where that takes the inputs, the bf16
@@ -55,8 +60,10 @@ Phases (each raises on failure; nothing is caught):
      the bounds; then holds
      bf16 K2 at the flow decoder
      and K3 at the flow and multimodal encoders at their planned splits
-     against a single split, and two calls of each (and of K2 at the
-     multimodal encoder) against each other bit for bit;
+     against a single split (at the multimodal encoder the long-KV K3
+     against the wgmma one, which a forced split count takes), and two
+     calls of each (and of the long-KV K2 at the multimodal encoder, which
+     does not split) against each other bit for bit;
   5. model: FlowPerceiver at full width (368x496 tiles, 2048x512 latents,
      24 self-attends), seeded random weights with a random decoder
      projection, fp32, once through the kernel (26 launches) and once with
@@ -495,11 +502,16 @@ MM_BF16_TOL = 1e-1
 # Multimodal training (examples/train_multimodal.py --full-scale): 16
 # decoder chunks, remat.  Per step the encoder's cross-attend is the one
 # flash site, outside every checkpoint: K1 once with its merge, K2 and K3
-# once; in bf16 K3 splits the keys and sums them once, K2 does not split.
+# once; in bf16 K2 and K3 take the long-KV route ("longkv", "dq_longkv":
+# 784 latents over 52,097 keys, rows aligned, no copy), K3 splits the keys
+# and sums them once, K2 does not split.
 MM_TRAIN_CHUNKS = 16
-MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 0,
-                    "dq_longkv": 0, "copy": 0, "k1_longkv": 0, "k1_copy": 0}
-MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0)
+MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1,
+                    "dq_longkv": 1, "copy": 0, "k1_longkv": 0, "k1_copy": 0}
+MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0)
+# The long-KV route at 704 with masks, kv_logical_len, an all-masked entry
+# and a lone last query tile (129 rows), bf16 K2 and K3.
+MM_LONGKV_MASKED = (2, 129, 4301, 1, 704, 704)
 MM_TRAIN_STEPS = 3  # timed, after one warm-up step
 MM_LABEL = 123  # the synthetic clip's class in the gradient phase
 # The classification model's K1 sites: the pixel and 1x1-conv encoders'
@@ -1197,8 +1209,9 @@ def _library_backward_ms(q, k, v, grad, kw, reps, window=False):
 def _want_backward_route(shape, dtype_name):
     """The route ``backward_plan`` must pick at (B, Tq, Tk, H, D, Dv): fp32
     the CUDA-core kernels; bf16 heads up to 64 wide the narrow one; the
-    long-KV K2 and K3 at most 512 query rows over at least 4,224 keys with
-    the wider head 257 to 512 wide (the classification encoders); else
+    long-KV K2 and K3 over at least 4,224 keys with the wider head 257 to
+    512 wide and at most 512 query rows (the classification encoders) or
+    513 to 704 wide and at most 1,024 (the multimodal encoder); else
     wgmma."""
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
 
@@ -1208,8 +1221,9 @@ def _want_backward_route(shape, dtype_name):
         return "cuda_cores"
     if width <= fa.NARROW_HEAD_DIM:
         return "sm90_narrow"
-    if (fa.LONGKV_MIN_WIDTH <= width <= fa.COL_CHUNK and tq <= fa.LONGKV_MAX_Q
-            and tk >= fa.LONGKV_MIN_K):
+    if tk >= fa.LONGKV_MIN_K and (
+            fa.LONGKV_MIN_WIDTH <= width <= fa.COL_CHUNK and tq <= fa.LONGKV_MAX_Q
+            or fa.COL_CHUNK < width <= fa.MAX_HEAD_DIM_BWD and tq <= fa.LONGKV_WIDE_MAX_Q):
         return "sm90_longkv"
     return "sm90_wgmma"
 
@@ -1337,6 +1351,9 @@ def phase_backward(reps: int = 3):
         records += check_backward_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen)
         records += check_backward_case(
             "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen)
+        if dtype_name == "bf16":
+            records += check_backward_case("mm_longkv_masked", MM_LONGKV_MASKED, dtype_name,
+                                           True, reps, gen)
     check_backward_splits(gen, (("K2", "decoder", FLOW_SITES["decoder"]),
                                 ("K3", "encoder", FLOW_SITES["encoder"]),
                                 ("K3", "mm_encoder", MM_SITE), ("K2", "mm_encoder", MM_SITE)))
@@ -1345,9 +1362,11 @@ def phase_backward(reps: int = 3):
 
 def check_backward_splits(gen, cases):
     """At each (kernel, site, shape) of ``cases``, bf16: the planned split
-    count against one split (within the bf16 tolerance), and two calls bit
-    for bit; K2 at the multimodal encoder, which does not split, two calls
-    bit for bit."""
+    count against one split (within the bf16 tolerance; a forced split
+    count takes the wgmma kernels, so at the long-KV sites this holds the
+    long-KV kernel against the wgmma one), and two calls bit for bit; K2
+    at the multimodal encoder, which does not split, two calls bit for
+    bit."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -1380,7 +1399,9 @@ def check_backward_splits(gen, cases):
         for err, peak in diffs:
             if not err <= TOL["bf16"] * peak:
                 raise AssertionError(f"{kernel}: {planned} splits vs 1: {err} (max {peak})")
-        rec = dict(kernel=kernel, site=site, dtype="bf16", splits=planned,
+        routes = [fa.backward_plan(q, k, v, num_splits=n)["route"] for n in (None, 1)]
+        rec = dict(kernel=kernel, site=site, dtype="bf16", splits=planned, route=routes[0],
+                   route_1_split=routes[1],
                    max_abs_diff_vs_1_split=max(d[0] for d in diffs),
                    max_abs_grad=max(d[1] for d in diffs), bitwise_repeat=True)
         print(f"[backward] splits: {json.dumps(rec)}", flush=True)
@@ -5814,6 +5835,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         common = dict(route="cuda", source=bwd_sources["sm90_wgmma"], sources=bwd_sources,
                       routes={"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
                               "bf16, Tq <= 512 over Tk >= 4224, 257 <= d <= 512":
+                              "sm90_longkv",
+                              "bf16, Tq <= 1024 over Tk >= 4224, 513 <= d <= 704":
                               "sm90_longkv", "fp32": "cuda_cores"},
                       replaces=f"perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:{line}")
         entries.append(dict(
@@ -5851,8 +5874,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         ))
         entries.append(dict(
             name=f"{name}_d704",
-            **common,
+            **dict(common, source=bwd_sources["sm90_longkv"]),
+            form=("<11>: 32 keys an item, Q ring 11 slots, dO ring 4" if kernel == "K2" else
+                  "<11>: 16 keys a step, K ring 15 slots, V ring 6, keys split"),
             launches=mm_train["launches"][kernel],
+            longkv_launches_train=mm_train["launches"][
+                "longkv" if kernel == "K2" else "dq_longkv"],
             sum_launches_train=mm_train["launches"]["sum"],
             launches_full_remat_train=mm_train["full_remat"]["launches"][kernel],
             sp_pieces=sp_pieces("mm_encoder", (

@@ -2,12 +2,14 @@
 // Hopper (sm_90a) where a (batch, head) has a short query range and many
 // keys: the classification encoders' cross-attends, 512 latents over 50,176
 // pixels, one head 261 (the pixel variant) or 512 (the 1x1-conv variant)
-// wide.
+// wide, and the multimodal encoder's, 784 latents over 52,097 keys, one
+// head 704 wide.
 //
 // Replaces `_bwd_dkv_kernel` (K2) and `_bwd_dq_kernel` (K3)
 // (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py, launched by
 // `_pallas_attention_bwd` through `pl.pallas_call`) at head widths of 257
-// to 512 whose walk is at most 512 query rows over at least 4,224 keys
+// to 512 whose walk is at most 512 query rows, and of 513 to 704 whose walk
+// is at most 1,024 query rows, over at least 4,224 keys
 // (ops/flash_attention.py `backward_plan`, route "sm90_longkv"; a forced
 // split count keeps flash_attention_bwd_sm90.cu).  The same contract as
 // that file's kernels: p = exp(scale * q k^T - lse) from the forward's
@@ -78,6 +80,20 @@
 //     the copies, and left K3 to copy them again: PERF.md.)
 //   * At d = 261: 5 column tiles of 64 (320 columns), not 6; S and dP
 //     reduce over 272.
+//   * At 513 to 704 columns (NM = 11 chunks: the multimodal encoder, 0.23
+//     TFLOP, 0.23 ms at 989 TFLOP/s) the K and V rows alone take 88 KB, and
+//     two rings of a whole tile each no longer fit.  The rings are made
+//     unequal: the Q ring holds one tile (11 slots), since dK^T reads its
+//     chunks again after dS, which needs the whole S; the dO ring takes what
+//     is left (4 slots), since dP and dV^T walk its chunks in the same
+//     order, and each releases a chunk as soon as its product on it is done
+//     (one commit group a chunk; dV^T and dK^T two groups behind the
+//     newest, so that a slot comes free a chunk before it is needed).  The
+//     176 accumulator registers a thread fit because the producers keep 24
+//     (setmaxnreg) and the consumers 240; P and dS are formed in place in
+//     the product's fragment.  Still 32 keys
+//     an item: Q and dO are read out of L2 once per 32 keys, half what the
+//     16-key blocks of flash_attention_bwd_sm90.cu read there.
 //   * The tensor maps, TMA loads, swizzled descriptors, ring positions,
 //     named barriers and the copy into aligned rows are longkv.cuh's, which K1's long-KV route
 //     (flash_attention_fwd_longkv_sm90.cu) shares.
@@ -113,10 +129,13 @@ constexpr int NT = 64;              // producer threads a side (two warps)
 constexpr int THREADS = CONSUMERS + 2 * NT;  // and a producer warpgroup
 // Registers a thread after setmaxnreg, the 64,512 that 384 threads x 168
 // take at launch shared out: the consumers' accumulators take NM x 16 (128
-// at NM = 8).
-constexpr int PRODUCER_REGS = 88;
-constexpr int CONSUMER_REGS = (168 * THREADS - 2 * NT * PRODUCER_REGS) / CONSUMERS;  // 208
+// at NM = 8: 88 and 208; 176 at NM = 11: 24 and 240).
+template <int NM>
+constexpr int PRODUCER_REGS = NM > 8 ? 24 : 88;
+template <int NM>
+constexpr int CONSUMER_REGS = (168 * THREADS - 2 * NT * PRODUCER_REGS<NM>) / CONSUMERS;
 constexpr int MAX_SMEM = 232448;    // dynamic shared memory a block may use on an H100
+constexpr int MAX_WIDTH = 704;      // the widest head (11 chunks of 64; ops/flash_attention.py)
 constexpr float LOG2E = 1.4426950408889634f;
 // Named barriers (0 is __syncthreads): each warpgroup's own, and P handed
 // from warpgroup 0 to 1 and the exchange area handed back.
@@ -143,8 +162,10 @@ struct Params {
 // Shared memory of a block with NM column tiles of 64: the K and V rows as
 // NM chunks of 32 rows, P, dS, the fp32 P exchange, and as many ring slots
 // (one 128-byte swizzled chunk of 64 rows x 64 columns of Q or dO each) as
-// fit, up to two tiles.  Every offset is a multiple of 1024 bytes (the
-// swizzle's repeat) from a 1024-byte aligned base.
+// fit, up to two tiles a ring.  Where two rings of a tile do not fit (NM =
+// 11), the Q ring holds one tile and the dO ring the slots left (SHORT_O).
+// Every offset is a multiple of 1024 bytes (the swizzle's repeat) from a
+// 1024-byte aligned base.
 template <int NM>
 struct Smem {
   static constexpr int C = 64 * NM;         // columns of the K and V rows
@@ -159,13 +180,16 @@ struct Smem {
   // and 1 KB to align the base.
   static constexpr int FIXED = RING + 8 * (4 * 2 * NM + 4) + 1024;
   static constexpr int FIT = (MAX_SMEM - FIXED) / (2 * SLOT);
-  static constexpr int NSLOT = FIT < 2 * NM ? FIT : 2 * NM;
+  static constexpr bool SHORT_O = FIT < NM;
+  static constexpr int NSQ = SHORT_O ? NM : FIT < 2 * NM ? FIT : 2 * NM;
+  static constexpr int NSO =
+      SHORT_O ? (MAX_SMEM - RING - NSQ * SLOT - 8 * (2 * NSQ + 4) - 1024) / (SLOT + 16) : NSQ;
   static constexpr int Q = RING;
-  static constexpr int O = Q + NSLOT * SLOT;
-  static constexpr int BAR = O + NSLOT * SLOT;
-  static constexpr int NBAR = 4 * NSLOT + 4;
+  static constexpr int O = Q + NSQ * SLOT;
+  static constexpr int BAR = O + NSO * SLOT;
+  static constexpr int NBAR = 2 * NSQ + 2 * NSO + 4;
   static constexpr int SIZE = BAR + 8 * NBAR + 1024;  // with the alignment pad
-  static_assert(NSLOT >= NM, "a tile's chunks must fit the ring");
+  static_assert(NSQ >= NM && NSO >= 2, "a tile's Q chunks must fit the Q ring");
   static_assert(SIZE <= MAX_SMEM, "K2 long-KV tiles exceed shared memory");
   static_assert(V % 1024 == 0 && RING % 1024 == 0, "swizzle atoms");
 };
@@ -202,14 +226,13 @@ template <int NM>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_longkv_kernel(const __grid_constant__ Params p) {
   using L = Smem<NM>;
-  constexpr int NS = L::NSLOT;
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::BAR);
-  uint64_t* empty_q = full_q + NS;
-  uint64_t* full_o = empty_q + NS;
-  uint64_t* empty_o = full_o + NS;
-  uint64_t* full_k = empty_o + NS;
+  uint64_t* empty_q = full_q + L::NSQ;
+  uint64_t* full_o = empty_q + L::NSQ;
+  uint64_t* empty_o = full_o + L::NSO;
+  uint64_t* full_k = empty_o + L::NSO;
   uint64_t* empty_k = full_k + 1;
   uint64_t* full_v = empty_k + 1;
   uint64_t* empty_v = full_v + 1;
@@ -221,9 +244,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   sm90::fence_proxy_async();
   if (tid == 0) {
-    for (int s = 0; s < NS; ++s) {
+    for (int s = 0; s < L::NSQ; ++s) {
       sm90::mbar_init(&full_q[s], 1);  // one TMA copy, its bytes counted
       sm90::mbar_init(&empty_q[s], 8);
+    }
+    for (int s = 0; s < L::NSO; ++s) {
       sm90::mbar_init(&full_o[s], 1);
       sm90::mbar_init(&empty_o[s], 8);
     }
@@ -240,22 +265,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   // producers.
   const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
   if (role < 2) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS<NM>));
     consume<NM>(p, smem, role);
     return;
   }
   // The producers give registers to the consumers (384 threads leave 168
   // a thread; the consumers' accumulators alone take 128 at d = 512).
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS<NM>));
   const int side = __shfl_sync(0xffffffffu, (tid - CONSUMERS) / NT, 0);
   const int pt = (tid - CONSUMERS) % NT;
   const int nch = side ? p.nq : p.no;
+  const int ns = side ? L::NSQ : L::NSO;
   char* ring = smem + (side ? L::Q : L::O);
   uint64_t* full = side ? full_q : full_o;
-  uint64_t* empty = side ? empty_q : empty_o;
+  uint64_t* empty = full + ns;
   char* res = smem + (side ? L::K : L::V);
   uint64_t* full_r = side ? full_k : full_v;
-  uint64_t* empty_r = side ? empty_k : empty_v;
+  uint64_t* empty_r = full_r + 1;
   const CUtensorMap* tm = side ? &p.tm_q : &p.tm_o;
   const CUtensorMap* tm_r = side ? &p.tm_k : &p.tm_v;
   const int BH = p.B * p.H;
@@ -266,18 +292,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     return item;
   };
   // One thread a side issues the TMA copies of an item's query tiles, chunk
-  // by chunk as their slots come free; g counts the ring's chunks.
-  int g = 0;
+  // by chunk as their slots come free: the ring's next slot s in its phase
+  // ph; from the second lap on, the slot's last chunk must have been
+  // released.
+  int s = 0, ph = 0;
+  bool lapped = false;
   auto issue_tiles = [&](int item) {
     const int bh = item % BH, kb = item / BH;
     const int h = bh % p.H, b = bh / p.H;
     for (int w = 0; w < p.n_tiles; ++w) {
       const int t = tile_of(w, kb, p.n_tiles);
-      for (int c = 0; c < nch; ++c, ++g) {
-        const int s = g % NS;
-        if (g >= NS) sm90::mbar_wait(&empty[s], (g / NS - 1) & 1);
+      for (int c = 0; c < nch; ++c) {
+        if (lapped) sm90::mbar_wait(&empty[s], ph ^ 1);
         arrive_expect_tx(&full[s], L::SLOT);
         tma_load(ring + s * L::SLOT, tm, 64 * c, h, t * BQ, b, &full[s]);
+        if (++s == ns) s = 0, ph ^= 1, lapped = true;
       }
     }
   };
@@ -299,7 +328,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int NM>
 __device__ __forceinline__ void consume(const Params& p, char* smem, const int wg) {
   using L = Smem<NM>;
-  constexpr int NS = L::NSLOT;
+  // Commit groups of dV^T or dK^T left in flight before a chunk is
+  // released: a whole tile's when both rings hold a tile, else two fewer
+  // than the dO ring's slots, so that a slot is released a chunk before
+  // the chunk it waits for is needed (one fewer, the most the ring allows,
+  // ran 11% slower on an H100: PERF.md).
+  constexpr int LAG = L::SHORT_O ? L::NSO - 2 : NM;
   char* sK = smem + L::K;
   char* sV = smem + L::V;
   char* sP = smem + L::P;
@@ -308,10 +342,10 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
   char* sQ = smem + L::Q;
   char* sO = smem + L::O;
   uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::BAR);
-  uint64_t* empty_q = full_q + NS;
-  uint64_t* full_o = empty_q + NS;
-  uint64_t* empty_o = full_o + NS;
-  uint64_t* full_k = empty_o + NS;
+  uint64_t* empty_q = full_q + L::NSQ;
+  uint64_t* full_o = empty_q + L::NSQ;
+  uint64_t* empty_o = full_o + L::NSO;
+  uint64_t* full_k = empty_o + L::NSO;
   uint64_t* empty_k = full_k + 1;
   uint64_t* full_v = empty_k + 1;
   uint64_t* empty_v = full_v + 1;
@@ -335,15 +369,20 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
   constexpr uint32_t RES_CHUNK = BK * 128;  // bytes a 64-column chunk of K or V
   constexpr uint32_t Q_STEP = 2048;       // bytes 16 query rows of a chunk
   // Chunks of this warpgroup's first product (S: Q, dP: dO) and of its
-  // accumulated one (dV^T: dO, dK^T: Q), and their barriers.
+  // accumulated one (dV^T: dO, dK^T: Q), their rings' slots and barriers.
   const int n_first = wg ? p.no : p.nq;
   const int n_acc = wg ? p.nq : p.no;
+  const int ns_first = wg ? L::NSO : L::NSQ;
+  const int ns_acc = wg ? L::NSQ : L::NSO;
   const int red16 = (wg ? p.Dv16 : p.D16) / 16;  // 16-column steps of S's or dP's reduction
   uint64_t* full_first = wg ? full_o : full_q;
   uint64_t* empty_first = wg ? empty_o : empty_q;
   uint64_t* full_acc = wg ? full_q : full_o;
   uint64_t* empty_acc = wg ? empty_q : empty_o;
   const uint64_t desc_res = wg ? desc_v : desc_k;
+  // dP releases each dO chunk as soon as its product is done where the dO
+  // ring is shorter than a tile.
+  const bool step_release = L::SHORT_O && wg == 1;
 
   float acc[NM][NF];  // dV^T (warpgroup 0) or dK^T (1): column 64 j + row, key of the fragment
 #pragma unroll
@@ -351,6 +390,9 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
 #pragma unroll
     for (int i = 0; i < NF; ++i) acc[j][i] = 0.f;
 
+  // The rings' next chunks, kept as running counters: slot and phase of
+  // the first product's and of the accumulated one's.
+  int fs = 0, fph = 0, as = 0, aph = 0;
   int it = 0;      // items walked
   int tiles = 0;   // tiles walked, over all items
   for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
@@ -372,8 +414,6 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
       }
       sm90::mbar_wait(wg ? full_v : full_k, it & 1);
       const float* row_g = (wg ? p.delta : p.lse) + (long long)bh * p.Tq;
-      const int first_g = it * p.n_tiles * n_first;  // ring chunks before this item's
-      const int acc_g = it * p.n_tiles * n_acc;
       for (int w = 0; w < p.n_tiles; ++w) {
         const int t = tile_of(w, kb, p.n_tiles);
         // lse (warpgroup 0) or delta (1) of this thread's two rows.
@@ -386,56 +426,67 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
 
         // S = Q K^T (0) or dP = dO V^T (1), chunk by chunk as they land.
         float f[NF];
+        const int fs0 = fs;
+        int prev = fs;
         sm90::wgmma_fence();
         for (int c = 0; c < n_first; ++c) {
-          const int gc = first_g + w * n_first + c;
-          const int s = gc % NS;
-          sm90::mbar_wait(&full_first[s], (gc / NS) & 1);  // TMA: no proxy fence
+          sm90::mbar_wait(&full_first[fs], fph);  // TMA: no proxy fence
           const int steps = min(4, red16 - 4 * c);
           for (int ks = 0; ks < steps; ++ks)
             sm90::wgmma_m64k16<BK, 0, 0>(
-                f, sm90::desc_add(desc_ring_k, s * L::SLOT + ks * K_STEP),
+                f, sm90::desc_add(desc_ring_k, fs * L::SLOT + ks * K_STEP),
                 sm90::desc_add(desc_res, c * RES_CHUNK + ks * K_STEP), (c | ks) > 0);
+          if (step_release) {
+            sm90::wgmma_commit();
+            if (c > 0) {
+              sm90::wgmma_wait<1>();
+              if (lane == 0) sm90::mbar_arrive(&empty_first[prev]);
+            }
+          }
+          prev = fs;
+          if (++fs == ns_first) fs = 0, fph ^= 1;
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_operands<NF>(f);
         if (lane == 0) {
-          for (int c = 0; c < n_first; ++c)
-            sm90::mbar_arrive(&empty_first[(first_g + w * n_first + c) % NS]);
+          if (step_release)
+            sm90::mbar_arrive(&empty_first[prev]);
+          else
+            for (int c = 0; c < n_first; ++c)
+              sm90::mbar_arrive(&empty_first[ring_at(fs0, c, ns_first)]);
           if (w == p.n_tiles - 1) sm90::mbar_arrive(wg ? empty_v : empty_k);
         }
 
         if (wg == 0) {
-          // P in fp32 (to the exchange area) and rounded to bf16 (for dV^T).
-          float pv[NF];
+          // P in fp32 (to the exchange area) and rounded to bf16 (for dV^T),
+          // formed in place.
 #pragma unroll
           for (int i = 0; i < NF; ++i)
-            pv[i] = ((valid >> i) & 1) ? exp2f(f[i] * p.scale_log2 - rowv[(i >> 1) & 1]) : 0.f;
+            f[i] = ((valid >> i) & 1) ? exp2f(f[i] * p.scale_log2 - rowv[(i >> 1) & 1]) : 0.f;
           if (tiles > 0) named_sync<BAR_FREE, CONSUMERS>();  // warpgroup 1 has read the last P
 #pragma unroll
-          for (int i = 0; i < NF; ++i) sPF[i * 128 + t128] = pv[i];
+          for (int i = 0; i < NF; ++i) sPF[i * 128 + t128] = f[i];
 #pragma unroll
           for (int i = 0; i < NF; i += 2) {
             const uint32_t off = sm90::cm_offset(row_lo + 8 * ((i >> 1) & 1),
                                                  8 * (i >> 2) + 2 * (lane & 3), BK);
-            *reinterpret_cast<__nv_bfloat162*>(sP + off) = __floats2bfloat162_rn(pv[i], pv[i + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(sP + off) = __floats2bfloat162_rn(f[i], f[i + 1]);
           }
           sm90::fence_proxy_async();
           named_arrive<BAR_READY, CONSUMERS>();
           sm90::warpgroup_sync<BAR_WG0>();
         } else {
+          // dS = P (dP - delta), formed in place.
           named_sync<BAR_READY, CONSUMERS>();
-          float pv[NF];
 #pragma unroll
-          for (int i = 0; i < NF; ++i) pv[i] = sPF[i * 128 + t128];
+          for (int i = 0; i < NF; ++i) f[i] = sPF[i * 128 + t128] * (f[i] - rowv[(i >> 1) & 1]);
           named_arrive<BAR_FREE, CONSUMERS>();
 #pragma unroll
           for (int i = 0; i < NF; i += 2) {
-            const int r = (i >> 1) & 1;
-            const uint32_t off = sm90::cm_offset(row_lo + 8 * r, 8 * (i >> 2) + 2 * (lane & 3), BK);
-            *reinterpret_cast<__nv_bfloat162*>(sS + off) = __floats2bfloat162_rn(
-                pv[i] * (f[i] - rowv[r]), pv[i + 1] * (f[i + 1] - rowv[r]));
+            const uint32_t off = sm90::cm_offset(row_lo + 8 * ((i >> 1) & 1),
+                                                 8 * (i >> 2) + 2 * (lane & 3), BK);
+            *reinterpret_cast<__nv_bfloat162*>(sS + off) = __floats2bfloat162_rn(f[i], f[i + 1]);
           }
           sm90::fence_proxy_async();
           sm90::warpgroup_sync<BAR_WG1>();
@@ -444,28 +495,40 @@ __device__ __forceinline__ void consume(const Params& p, char* smem, const int w
 
         // dV^T += dO^T P (0) or dK^T += Q^T dS (1) over the tile's 64 rows,
         // one commit group a column chunk, each chunk released when its
-        // group is done.
+        // group is done (LAG groups behind the newest).
+        int rs = as;  // the slot of the next chunk to release
         sm90::wgmma_fence();
 #pragma unroll
         for (int j = 0; j < NM; ++j) {
           if (j < n_acc) {
-            const int gc = acc_g + w * n_acc + j;
-            const int s = gc % NS;
-            sm90::mbar_wait(&full_acc[s], (gc / NS) & 1);
+            sm90::mbar_wait(&full_acc[as], aph);
 #pragma unroll
             for (int ks = 0; ks < BQ / 16; ++ks)
               sm90::wgmma_m64k16<BK, 1, 1>(
-                  acc[j], sm90::desc_add(desc_ring_t, s * L::SLOT + ks * Q_STEP),
+                  acc[j], sm90::desc_add(desc_ring_t, as * L::SLOT + ks * Q_STEP),
                   sm90::desc_add(desc_ps, ks * 32 * BK), 1);
+            if (++as == ns_acc) as = 0, aph ^= 1;
           }
           sm90::wgmma_commit();
+          if constexpr (LAG < NM) {
+            if (j >= LAG) {
+              sm90::wgmma_wait<LAG>();
+              sm90::fence_operands<NF>(acc[j - LAG]);
+              if (j - LAG < n_acc) {
+                if (lane == 0) sm90::mbar_arrive(&empty_acc[rs]);
+                if (++rs == ns_acc) rs = 0;
+              }
+            }
+          }
         }
 #pragma unroll
-        for (int j = 0; j < NM; ++j) {
+        for (int j = NM - LAG; j < NM; ++j) {
           wgmma_wait_n(NM - 1 - j);
           sm90::fence_operands<NF>(acc[j]);
-          if (j < n_acc && lane == 0)
-            sm90::mbar_arrive(&empty_acc[(acc_g + w * n_acc + j) % NS]);
+          if (j < n_acc) {
+            if (lane == 0) sm90::mbar_arrive(&empty_acc[rs]);
+            if (++rs == ns_acc) rs = 0;
+          }
         }
       }
       ++it;
@@ -541,6 +604,18 @@ cudaError_t launch(const Params& p, int blocks, cudaStream_t stream) {
 //     each chunk multicast to both, halved the reads out of L2 but ran ~2%
 //     slower on an H100, each block waiting on the other's releases, while
 //     L2 was not the bound (PERF.md).
+//   * At 513 to 704 columns (NM = 11: the multimodal encoder, 784 latents
+//     over 52,097 keys; 0.17 TFLOP, 0.17 ms at 989 TFLOP/s) the resident Q
+//     and dO tiles take 176 KB, which leaves 9 slots of 32 keys where K and
+//     V each need 11.  So a block walks its keys in steps of 16: a ring
+//     chunk is 16 keys x 64 columns (2 KB), S and dP are N = 16 products,
+//     the P and dS exchanges are halved, and 21 slots fit.  The K ring holds
+//     a step and 4 more (15), the V ring 6, each V chunk released as soon
+//     as dP's product on it is done (one commit group a chunk).  S and dP
+//     are still formed once a step, with no split of the dQ columns (the
+//     wgmma kernel's two chunks of 352 formed them twice); dQ's 11 chunks
+//     are shared 6 / 5 by the warpgroups (192 registers a thread: the
+//     producers keep 24, the consumers 240).
 
 struct DqParams {
   const float* lse;        // [B, H, Tq]
@@ -556,44 +631,55 @@ struct DqParams {
   int splits;
   float scale;             // softmax scale
   float scale_log2;        // softmax scale * log2(e)
-  CUtensorMap tm_q, tm_o, tm_k, tm_v;  // boxes of 64 columns x 64 (Q, dO) or 32 (K, V) rows
+  // Boxes of 64 columns x 64 (Q, dO) or a step's keys (K, V: DqSmem::BKS) rows.
+  CUtensorMap tm_q, tm_o, tm_k, tm_v;
 };
 
 constexpr int DQ_SPLIT_T = 64;  // keys a tile of the split plan (ops/flash_attention.py BLOCK_K)
 // Registers after setmaxnreg: the producers keep 56 (TMA issue loops), the
 // consumers take the rest of the 64,512 (224 a thread): dQ's accumulators
-// are NM / 2 x 32 (128 at d = 512).
-constexpr int DQ_PRODUCER_REGS = 56;
-constexpr int DQ_CONSUMER_REGS = (168 * THREADS - 2 * NT * DQ_PRODUCER_REGS) / CONSUMERS;  // 224
+// are NM / 2 x 32 (128 at d = 512); at NM = 11, 24 and 240 (192 of them
+// dQ's).
+template <int NM>
+constexpr int DQ_PRODUCER_REGS = NM > 8 ? 24 : 56;
+template <int NM>
+constexpr int DQ_CONSUMER_REGS = (168 * THREADS - 2 * NT * DQ_PRODUCER_REGS<NM>) / CONSUMERS;
 // Named barriers of the two exchanges: P (READY, FREE as in K2) and dS.
 constexpr int BAR_DS_READY = 5, BAR_DS_FREE = 6;
 
 // Shared memory of a K3 block with NM column tiles of 64: the resident Q and
 // dO tiles (NM chunks of 64 rows x 64 columns each, 128-byte swizzled), the
 // fp32 P exchange, the dS exchange (bf16 pairs in wgmma's register A
-// layout), and two rings of chunks of 32 keys x 64 columns, K's and V's,
+// layout), and two rings of chunks of BKS keys x 64 columns, K's and V's,
 // sharing what is left.  Every offset is a multiple of 1024 bytes.
 template <int NM>
 struct DqSmem {
+  static constexpr int BKS = NM > 8 ? 16 : BK;   // keys a step
+  static constexpr int NFS = BKS / 2;            // registers of one m64 x BKS fp32 fragment
+  static constexpr int NAS = BKS / 4;            // registers of dS's register A, a step
   static constexpr int CH = BQ * 128;   // a resident chunk
-  static constexpr int SLOT = BK * 128; // a ring chunk
+  static constexpr int SLOT = BKS * 128; // a ring chunk
   static constexpr int Q = 0;
   static constexpr int O = Q + NM * CH;
-  static constexpr int PX = O + NM * CH;        // fp32 P, [NF][128 threads]
-  static constexpr int DX = PX + NF * 128 * 4;  // dS A fragments, [8][128 threads]
-  static constexpr int RING = DX + 8 * 128 * 4;
+  static constexpr int PX = O + NM * CH;         // fp32 P, [NFS][128 threads]
+  static constexpr int DX = PX + NFS * 128 * 4;  // dS A fragments, [NAS][128 threads]
+  static constexpr int RING = DX + NAS * 128 * 4;
   // 1 KB for the barriers and 1 KB to align the base.
   static constexpr int FIT = (MAX_SMEM - RING - 2048) / SLOT;
-  static constexpr int NSK = FIT - FIT / 2;
-  static constexpr int NSV = FIT / 2;
+  // Up to 512 columns each ring holds a step (and more); wider, the K ring
+  // holds a step and 4 more and the V ring the rest, each V chunk released
+  // as dP is done with it (SHORT_V).
+  static constexpr bool SHORT_V = FIT / 2 < NM;
+  static constexpr int NSV = SHORT_V ? (FIT - NM + 2) / 2 : FIT / 2;
+  static constexpr int NSK = FIT - NSV;
   static constexpr int K = RING;
   static constexpr int V = K + NSK * SLOT;
   static constexpr int BAR = V + NSV * SLOT;
   static constexpr int NBAR = 2 * NSK + 2 * NSV + 2;
   static constexpr int SIZE = BAR + 8 * NBAR + 1024;
-  // A block's K chunks are held until dQ has read them, its V chunks until
-  // dP is done: each ring holds a whole step.
-  static_assert(NSK >= NM && NSV >= NM, "a step's chunks must fit each ring");
+  // A block's K chunks are held until dQ has read them: the K ring holds a
+  // whole step; the V ring too unless its chunks are released one by one.
+  static_assert(NSK >= NM && NSV >= (SHORT_V ? 2 : NM), "a step's chunks must fit the rings");
   static_assert(8 * NBAR <= 1024 && SIZE <= MAX_SMEM, "K3 long-KV tiles exceed shared memory");
   static_assert(O % 1024 == 0 && PX % 1024 == 0 && RING % 1024 == 0, "swizzle atoms");
 };
@@ -643,14 +729,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   w.b = w.bh / p.H;
   w.k_begin = w.split * p.tiles_per_split * DQ_SPLIT_T;
   w.k_end = min(p.kv_len, w.k_begin + p.tiles_per_split * DQ_SPLIT_T);
-  w.nkb = w.k_begin < w.k_end ? (w.k_end - w.k_begin + BK - 1) / BK : 0;
+  w.nkb = w.k_begin < w.k_end ? (w.k_end - w.k_begin + L::BKS - 1) / L::BKS : 0;
 
   const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
   if (role < 2) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DQ_CONSUMER_REGS));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(DQ_CONSUMER_REGS<NM>));
     consume_dq<NM>(p, smem, role, w);
   } else {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(DQ_PRODUCER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(DQ_PRODUCER_REGS<NM>));
     // Warp 0 of the producers loads Q and the K ring, warp 1 dO and the V
     // ring, one thread each.
     const int side = __shfl_sync(0xffffffffu, (tid - CONSUMERS) >> 5, 0);
@@ -674,7 +760,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int c = 0; c < nch; ++c, ++g) {
           if (g >= ns) sm90::mbar_wait(&empty[s], ph ^ 1);
           arrive_expect_tx(&full[s], L::SLOT);
-          tma_load(ring + s * L::SLOT, tm, 64 * c, w.h, w.k_begin + kb * BK, w.b, &full[s]);
+          tma_load(ring + s * L::SLOT, tm, 64 * c, w.h, w.k_begin + kb * L::BKS, w.b, &full[s]);
           if (++s == ns) s = 0, ph ^= 1;
         }
       }
@@ -684,13 +770,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // A consumer warpgroup of K3: 0 forms S = Q K^T and P, 1 dP = dO V^T and dS
-// (each an N = 32 product over the step's keys, P handed over in fp32), then
-// each accumulates dQ += dS K over its half of the column chunks, dS from
-// registers (wgmma's register A), K read MN-major from the ring.
+// (each an N = BKS product over the step's keys, P handed over in fp32),
+// then each accumulates dQ += dS K over its half of the column chunks, dS
+// from registers (wgmma's register A), K read MN-major from the ring.
 template <int NM>
 __device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, const int wg,
                                            const DqWork& w) {
   using L = DqSmem<NM>;
+  constexpr int BKS = L::BKS, NFS = L::NFS, NAS = L::NAS;
   constexpr int NA = (NM + 1) / 2;  // dQ column chunks a warpgroup holds at most
   uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* empty_k = full_k + L::NSK;
@@ -718,6 +805,9 @@ __device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, const 
   const int half = (p.nq + 1) / 2;
   const int c0 = wg ? half : 0;
   const int ncw = wg ? p.nq - half : half;
+  // dP releases each V chunk as soon as its product is done where the V
+  // ring is shorter than a step.
+  const bool step_release = L::SHORT_V && wg == 1;
 
   // lse * log2(e) (warpgroup 0) or delta (1) of this thread's two rows;
   // rows past Tq: p = 0.
@@ -739,60 +829,70 @@ __device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, const 
   // Ring positions, kept as running counters (no division in the walk):
   // this warpgroup's first-product ring (slot fs, phase fph) and the slot of
   // the step's first K chunk (ks0).  Chunk c of a step lies c slots on
-  // (ring_at): a step's chunks never outnumber a ring's slots.
+  // (ring_at): a step's chunks never outnumber the K ring's slots.
   int fs = 0, fph = 0, ks0 = 0;
   sm90::mbar_wait(wg ? full_o : full_q, 0);
   for (int kb = 0; kb < w.nkb; ++kb) {
-    const int k0 = w.k_begin + kb * BK;
+    const int k0 = w.k_begin + kb * BKS;
     const int fs0 = fs;
+    int prev = fs;
     // S (0) or dP (1), chunk by chunk as they land.
-    float f[NF];
+    float f[NFS];
     sm90::wgmma_fence();
     for (int c = 0; c < n_first; ++c) {
       sm90::mbar_wait(&full_first[fs], fph);
       const int steps = min(4, red16 - 4 * c);
       for (int ks = 0; ks < steps; ++ks)
-        sm90::wgmma_m64k16<BK, 0, 0>(f, sm90::desc_add(desc_res, c * L::CH + ks * 32),
-                                     sm90::desc_add(desc_first, fs * L::SLOT + ks * 32),
-                                     (c | ks) > 0);
+        sm90::wgmma_m64k16<BKS, 0, 0>(f, sm90::desc_add(desc_res, c * L::CH + ks * 32),
+                                      sm90::desc_add(desc_first, fs * L::SLOT + ks * 32),
+                                      (c | ks) > 0);
+      if (step_release) {
+        sm90::wgmma_commit();
+        if (c > 0) {
+          sm90::wgmma_wait<1>();
+          if (lane == 0) sm90::mbar_arrive(&empty_v[prev]);
+        }
+      }
+      prev = fs;
       if (++fs == ns_first) fs = 0, fph ^= 1;
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
-    sm90::fence_operands<NF>(f);
+    sm90::fence_operands<NFS>(f);
 
-    uint32_t a[8];  // dS as bf16 pairs: the register A of dQ's two k16 steps
+    uint32_t a[NAS];  // dS as bf16 pairs: the register A of dQ's k16 steps
     if (wg == 0) {
-      float pv[NF];
 #pragma unroll
-      for (int i = 0; i < NF; ++i) {
+      for (int i = 0; i < NFS; ++i) {
         const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
         const bool ok = key < w.k_end && (kvm == nullptr || kvm[key] != 0);
-        pv[i] = ok ? exp2f(f[i] * p.scale_log2 - rowv[(i >> 1) & 1]) : 0.f;
+        f[i] = ok ? exp2f(f[i] * p.scale_log2 - rowv[(i >> 1) & 1]) : 0.f;
       }
       if (kb > 0) named_sync<BAR_FREE, CONSUMERS>();  // warpgroup 1 has read the last P
 #pragma unroll
-      for (int i = 0; i < NF; ++i) sPX[i * 128 + t128] = pv[i];
+      for (int i = 0; i < NFS; ++i) sPX[i * 128 + t128] = f[i];
       named_arrive<BAR_READY, CONSUMERS>();
       named_sync<BAR_DS_READY, CONSUMERS>();
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sDX[i * 128 + t128];
+      for (int i = 0; i < NAS; ++i) a[i] = sDX[i * 128 + t128];
       named_arrive<BAR_DS_FREE, CONSUMERS>();
     } else {
-      // Lane c releases the step's V chunk c.
-      if (lane < p.no) sm90::mbar_arrive(&empty_v[ring_at(fs0, lane, L::NSV)]);
+      // Lane c releases the step's V chunk c (each was released as dP was
+      // done with it where the ring is short).
+      if (step_release) {
+        if (lane == 0) sm90::mbar_arrive(&empty_v[prev]);
+      } else if (lane < p.no) {
+        sm90::mbar_arrive(&empty_v[ring_at(fs0, lane, L::NSV)]);
+      }
       named_sync<BAR_READY, CONSUMERS>();
-      float pv[NF];
 #pragma unroll
-      for (int i = 0; i < NF; ++i) pv[i] = sPX[i * 128 + t128];
+      for (int i = 0; i < NFS; ++i) f[i] = sPX[i * 128 + t128] * (f[i] - rowv[(i >> 1) & 1]);
       named_arrive<BAR_FREE, CONSUMERS>();
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = sm90::pack_bf16x2(pv[2 * i] * (f[2 * i] - rowv[i & 1]),
-                                 pv[2 * i + 1] * (f[2 * i + 1] - rowv[i & 1]));
+      for (int i = 0; i < NAS; ++i) a[i] = sm90::pack_bf16x2(f[2 * i], f[2 * i + 1]);
       if (kb > 0) named_sync<BAR_DS_FREE, CONSUMERS>();  // warpgroup 0 has read the last dS
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sDX[i * 128 + t128] = a[i];
+      for (int i = 0; i < NAS; ++i) sDX[i * 128 + t128] = a[i];
       named_arrive<BAR_DS_READY, CONSUMERS>();
       // The step's K chunks: warpgroup 0 waited for them before it formed
       // the P this one has read.
@@ -802,7 +902,7 @@ __device__ __forceinline__ void consume_dq(const DqParams& p, char* smem, const 
     // keys (2048 bytes) a k16 step.
     sm90::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
+    for (int ks = 0; ks < BKS / 16; ++ks) {
 #pragma unroll
       for (int j = 0; j < NA; ++j) {
         if (j < ncw) {
@@ -860,7 +960,7 @@ cudaError_t launch_dq(const DqParams& p, int blocks, cudaStream_t stream) {
 
 // Strides are in elements; the head dim of q, k, v and dout must be
 // contiguous; lse and delta are [B, H, Tq] fp32; dk and dv are contiguous.
-// Head widths d and dv of 1 to 512 whose wider one is above 256.  q, k, v
+// Head widths d and dv of 1 to 704 whose wider one is above 256.  q, k, v
 // and dout must have 16-byte aligned starts and strides (the wrapper copies
 // those that do not into aligned rows: flash_attention_bwd_longkv_copy_rows).
 // `blocks` persistent blocks (at most one an SM fits) walk the
@@ -874,7 +974,7 @@ extern "C" int flash_attention_bwd_dkv_longkv_sm90(
     long long v_st, long long v_sh, long long o_sb, long long o_st, long long o_sh, float scale,
     void* stream) {
   const int width = d > dv_width ? d : dv_width;
-  if (d < 1 || dv_width < 1 || width <= 256 || width > 512 || kv_len < 0 || kv_len > tk ||
+  if (d < 1 || dv_width < 1 || width <= 256 || width > MAX_WIDTH || kv_len < 0 || kv_len > tk ||
       blocks < 1 || batch < 1 || heads < 1 || tq < 1 || tk < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -911,27 +1011,28 @@ extern "C" int flash_attention_bwd_dkv_longkv_sm90(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = nm <= 5   ? launch<5>(p, blocks, s)
                           : nm <= 6 ? launch<6>(p, blocks, s)
-                                    : launch<8>(p, blocks, s);
+                          : nm <= 8 ? launch<8>(p, blocks, s)
+                                    : launch<11>(p, blocks, s);
   return (int)err;
+}
+
+template <int NM>
+int dkv_smem(int* slots_q, int* slots_o) {
+  *slots_q = Smem<NM>::NSQ, *slots_o = Smem<NM>::NSO;
+  return Smem<NM>::SIZE;
 }
 
 // The dynamic shared memory (bytes, the alignment pad included) of the
 // kernel that flash_attention_bwd_dkv_longkv_sm90 launches when the wider
-// head is `width` wide, and the slots of each of its two rings in *slots;
-// -1 for a width it does not launch.  For reports: no launch.
-extern "C" int flash_attention_bwd_longkv_smem(int width, int* slots) {
-  if (width <= 256 || width > 512) return -1;
+// head is `width` wide, and the slots of its Q and dO rings in *slots_q and
+// *slots_o; -1 for a width it does not launch.  For reports: no launch.
+extern "C" int flash_attention_bwd_longkv_smem(int width, int* slots_q, int* slots_o) {
+  if (width <= 256 || width > MAX_WIDTH) return -1;
   const int nm = (width + 63) / 64;
-  if (nm <= 5) {
-    *slots = Smem<5>::NSLOT;
-    return Smem<5>::SIZE;
-  }
-  if (nm <= 6) {
-    *slots = Smem<6>::NSLOT;
-    return Smem<6>::SIZE;
-  }
-  *slots = Smem<8>::NSLOT;
-  return Smem<8>::SIZE;
+  return nm <= 5   ? dkv_smem<5>(slots_q, slots_o)
+         : nm <= 6 ? dkv_smem<6>(slots_q, slots_o)
+         : nm <= 8 ? dkv_smem<8>(slots_q, slots_o)
+                   : dkv_smem<11>(slots_q, slots_o);
 }
 
 // dst [B, T, H, W8] (contiguous, W8 = W rounded up to 8) = src [B, T, H, W]
@@ -948,7 +1049,7 @@ extern "C" int flash_attention_bwd_longkv_copy_rows(const void* src, void* dst, 
 // must have 16-byte aligned starts and strides (the wrapper copies those
 // that do not into aligned rows: flash_attention_bwd_longkv_copy_rows) and
 // a contiguous head dim; lse and delta are [B, H, Tq] fp32.  Head widths d
-// and dv of 1 to 512 whose wider one is above 256.  Split s of `splits`
+// and dv of 1 to 704 whose wider one is above 256.  Split s of `splits`
 // walks keys [s, s + 1) * tiles_per_split * 64 (below kv_len); with splits
 // > 1 it writes fp32 partials (scaled) to part_q [S, B, Tq, H, D] for
 // flash_attention_bwd_sum, else bf16 dq [B, Tq, H, D] (contiguous).
@@ -962,7 +1063,7 @@ extern "C" int flash_attention_bwd_dq_longkv_sm90(
     long long v_sb, long long v_st, long long v_sh, long long o_sb, long long o_st,
     long long o_sh, float scale, void* stream) {
   const int width = d > dv_width ? d : dv_width;
-  if (d < 1 || dv_width < 1 || width <= 256 || width > 512 || kv_len < 0 || kv_len > tk ||
+  if (d < 1 || dv_width < 1 || width <= 256 || width > MAX_WIDTH || kv_len < 0 || kv_len > tk ||
       batch < 1 || heads < 1 || tq < 1 || tk < 1 || splits < 1 || tiles_per_split < 0 ||
       (splits > 1 && part_q == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -988,34 +1089,36 @@ extern "C" int flash_attention_bwd_dq_longkv_sm90(
   p.splits = splits;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
+  const int nm = (width + 63) / 64;
+  const int keys = nm <= 8 ? DqSmem<8>::BKS : DqSmem<11>::BKS;  // a step's: the K and V boxes
   if (!longkv::make_tmap(&p.tm_q, q, batch, tq, heads, d, q_sb, q_st, q_sh, BQ) ||
       !longkv::make_tmap(&p.tm_o, dout, batch, tq, heads, dv_width, o_sb, o_st, o_sh, BQ) ||
-      !longkv::make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, BK) ||
-      !longkv::make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, BK))
+      !longkv::make_tmap(&p.tm_k, k, batch, tk, heads, d, k_sb, k_st, k_sh, keys) ||
+      !longkv::make_tmap(&p.tm_v, v, batch, tk, heads, dv_width, v_sb, v_st, v_sh, keys))
     return (int)cudaErrorInvalidValue;
   const int blocks = p.n_tiles * batch * heads * splits;
-  const int nm = (width + 63) / 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = nm <= 5   ? launch_dq<5>(p, blocks, s)
                           : nm <= 6 ? launch_dq<6>(p, blocks, s)
-                                    : launch_dq<8>(p, blocks, s);
+                          : nm <= 8 ? launch_dq<8>(p, blocks, s)
+                                    : launch_dq<11>(p, blocks, s);
   return (int)err;
+}
+
+template <int NM>
+int dq_smem(int* slots_k, int* slots_v) {
+  *slots_k = DqSmem<NM>::NSK, *slots_v = DqSmem<NM>::NSV;
+  return DqSmem<NM>::SIZE;
 }
 
 // The dynamic shared memory (bytes, the alignment pad included) of the K3
 // kernel at a wider head `width` wide, and the slots of its K and V rings;
 // -1 for a width it does not launch.  For reports: no launch.
 extern "C" int flash_attention_bwd_dq_longkv_smem(int width, int* slots_k, int* slots_v) {
-  if (width <= 256 || width > 512) return -1;
+  if (width <= 256 || width > MAX_WIDTH) return -1;
   const int nm = (width + 63) / 64;
-  if (nm <= 5) {
-    *slots_k = DqSmem<5>::NSK, *slots_v = DqSmem<5>::NSV;
-    return DqSmem<5>::SIZE;
-  }
-  if (nm <= 6) {
-    *slots_k = DqSmem<6>::NSK, *slots_v = DqSmem<6>::NSV;
-    return DqSmem<6>::SIZE;
-  }
-  *slots_k = DqSmem<8>::NSK, *slots_v = DqSmem<8>::NSV;
-  return DqSmem<8>::SIZE;
+  return nm <= 5   ? dq_smem<5>(slots_k, slots_v)
+         : nm <= 6 ? dq_smem<6>(slots_k, slots_v)
+         : nm <= 8 ? dq_smem<8>(slots_k, slots_v)
+                   : dq_smem<11>(slots_k, slots_v);
 }

@@ -58,14 +58,17 @@
 //     double-buffered (two Q/dO tiles do not fit at 512): dP runs on dO(t)
 //     while Q(t) lands, dO(t + 1) loads while dK^T(t) runs, Q(t + 1) while
 //     dP(t + 1) runs.
-//   * Widths above 512 (the multimodal encoder, d = dv = 704 = 11 x 64).
+//   * Widths above 512 (d = dv = 704 = 11 x 64; the multimodal encoder's
+//     backward takes the long-KV route, this form the 704-wide calls over
+//     fewer keys or at a forced split count).
 //     NM = 11 with 16 keys a warpgroup would hold 176 accumulators a
 //     thread, and the tiles with 32 keys a block take 278,528 bytes (K and
 //     V rows 90,112, a Q and a dO tile 180,224, P and dS 8,192), over the
 //     232,448 a block may use.  With 8 keys a warpgroup (16 a block) they
 //     take 229,376 and the accumulators 88 registers: `<8, 11>`, S and dP
-//     as m64n8k16 products, no column chunks and no recomputation.  Its
-//     52,097 keys give 3,257 blocks, one per SM at a time.
+//     as m64n8k16 products, no column chunks and no recomputation.  The
+//     multimodal encoder's 52,097 keys gave 3,257 blocks, one per SM at a
+//     time.
 //   * The starved grid.  The decoder's 2048 keys give 64 blocks at batch 1
 //     on 132 SMs, each walking 2852 query tiles.  The wrapper splits the
 //     query range over blocks (ops/flash_attention.py `_dkv_split_plan`: 8
@@ -114,8 +117,9 @@
 // overlap of one warpgroup's elementwise work with the other's products,
 // the K tile of K3 is not double-buffered; above 512 the tiles are narrow
 // (m64n8k16 products for S and dP) and K3 recomputes S and dP per chunk.
-// K2 and K3 where at most 512 query rows meet at least 4,224 keys, 257 to
-// 512 wide (the classification encoders), take
+// K2 and K3 where at least 4,224 keys meet at most 512 query rows 257 to
+// 512 wide (the classification encoders) or at most 1,024 rows 513 to 704
+// wide (the multimodal encoder), take
 // flash_attention_bwd_longkv_sm90.cu instead, which has them (a TMA
 // producer warpgroup, 128-byte swizzled tiles, rows copied into 16-byte
 // aligned ones first where TMA cannot address them; K2 persistent, K3 with

@@ -21,7 +21,8 @@ in registers, a producer warp feeding a ring, route ``sm90_narrow``),
 ``sm90_wgmma``, with the ordered sum of their split partials) and
 ``csrc/flash_attention_bwd.cu`` for fp32 ones (route ``cuda_cores``); where a
 bf16 backward has a short query range against many keys at widths of 257 to
-512 (the classification encoders), K2 and K3 are
+704 (the classification encoders, 257 to 512; the multimodal encoder, 704),
+K2 and K3 are
 ``csrc/flash_attention_bwd_longkv_sm90.cu`` (a producer warpgroup feeding
 rings of column chunks by TMA, route ``sm90_longkv``: K2 in persistent
 blocks of keys, K3 in blocks of query rows with Q and dO resident; rows
@@ -73,9 +74,11 @@ design does about that.
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
     512 its grid splits the value columns in two), K2 and K3 up to
-    ``MAX_HEAD_DIM_BWD`` = 704 (above 512, K3's grid splits the dQ columns
-    in chunks of 352, the fp32 K2's the dK and dV columns in two, and the
-    bf16 K2 takes 16 keys a block).  A CUDA call above a kernel's limit
+    ``MAX_HEAD_DIM_BWD`` = 704 (above 512, off the long-KV route, K3's grid
+    splits the dQ columns in chunks of 352, the fp32 K2's the dK and dV
+    columns in two, and the bf16 K2 takes 16 keys a block; the long-KV K2
+    keeps 32 keys an item and K3 takes 16 keys a step, unsplit columns).  A
+    CUDA call above a kernel's limit
     raises ``ValueError`` before anything is launched.
 
 The kernels are built with ``nvcc`` at first use, from the sources in this
@@ -139,11 +142,16 @@ MIN_SPLIT_TILES = 8
 # no split count is forced (``_longkv_shape``): K1 forward, K2 and K3
 # backward.  K2: persistent blocks, at most one an SM, walking work items of
 # LONGKV_BLOCK_K keys.  K3: a block of 64 query rows walks its key split in
-# steps of LONGKV_BLOCK_K keys, the keys split so that every block runs in
-# one wave (``_longkv_dq_split_plan``).  K1: a block of 64 query rows walks
-# its key split in steps of 64 keys, split as K3's.
+# steps of LONGKV_BLOCK_K keys (16 above COL_CHUNK columns), the keys split
+# so that every block runs in one wave (``_longkv_dq_split_plan``).  K1: a
+# block of 64 query rows walks its key split in steps of 64 keys, split as
+# K3's.  The backward also takes wider heads, up to MAX_HEAD_DIM_BWD, with at
+# most LONGKV_WIDE_MAX_Q query rows (16 tiles) over as many keys
+# (``_longkv_bwd_shape``: the multimodal encoder, 784 latents over 52,097
+# keys, 704 wide); K1 keeps its wgmma route there.
 LONGKV_MIN_WIDTH = 257
 LONGKV_MAX_Q = 512
+LONGKV_WIDE_MAX_Q = 1024
 LONGKV_BLOCK_K = 32
 LONGKV_MIN_K = NUM_SMS * LONGKV_BLOCK_K
 
@@ -707,6 +715,17 @@ def _longkv_shape(tq: int, tk: int, width: int) -> bool:
     return LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq <= LONGKV_MAX_Q and tk >= LONGKV_MIN_K
 
 
+def _longkv_bwd_shape(tq: int, tk: int, width: int) -> bool:
+    """The shape that bf16 K2 and K3 take the long-KV kernels at:
+    ``_longkv_shape``'s, and at a wider head of COL_CHUNK + 1 to
+    MAX_HEAD_DIM_BWD columns at most LONGKV_WIDE_MAX_Q query rows over as
+    many keys (the multimodal encoder: 784 latents over 52,097 keys, 704
+    wide)."""
+    return _longkv_shape(tq, tk, width) or (
+        COL_CHUNK < width <= MAX_HEAD_DIM_BWD and tq <= LONGKV_WIDE_MAX_Q
+        and tk >= LONGKV_MIN_K)
+
+
 def _tma_rows(t: torch.Tensor) -> bool:
     """A start and batch, token and head strides of ``t`` that are multiples
     of 16 bytes: what a TMA copy addresses (a row may end anywhere)."""
@@ -739,7 +758,8 @@ def _longkv_dq_split_plan(b: int, tq: int, h: int, kv_len: int):
     blocks of a split, each block 64 query rows), at least MIN_SPLIT_TILES
     key tiles each: at the classification encoders (8 query tiles a batch
     entry) 1 at batch 16, 2 at 8, 4, 8 and 16 at the server's buckets 4, 2
-    and 1 (128 blocks each)."""
+    and 1 (128 blocks each); at the multimodal encoder (13 query tiles) 10
+    (130 blocks)."""
     blocks = -(-tq // BLOCK_Q) * h * b
     tiles = -(-kv_len // BLOCK_K)
     return _split_bounds(kv_len, max(1, min(NUM_SMS // blocks, tiles // MIN_SPLIT_TILES)))
@@ -760,9 +780,11 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     ("sm90_narrow" for bf16 with Dqk and Dv at most NARROW_HEAD_DIM and no
     forced split: one launch each, K2 a block per NARROW_BLOCK_K keys, K3 per
     NARROW_BLOCK_Q query rows, never split; "sm90_wgmma" for wider bf16
-    heads or a forced ``num_splits``; "sm90_longkv" for bf16 heads whose
-    wider one is LONGKV_MIN_WIDTH to COL_CHUNK columns wide with at most
-    LONGKV_MAX_Q query rows over at least LONGKV_MIN_K keys and no forced
+    heads or a forced ``num_splits``; "sm90_longkv" for bf16 calls of
+    ``_longkv_bwd_shape`` (the wider head LONGKV_MIN_WIDTH to COL_CHUNK
+    columns wide with at most LONGKV_MAX_Q query rows, or up to
+    MAX_HEAD_DIM_BWD with at most LONGKV_WIDE_MAX_Q, over at least
+    LONGKV_MIN_K keys) and no forced
     split: K2 the long-KV kernel, ``blocks`` persistent blocks (at most one
     an SM) walking ``items`` blocks of LONGKV_BLOCK_K keys, its ``loader``
     (``_longkv_loader``) and the ``copies`` it first makes into aligned rows
@@ -776,8 +798,9 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     counted with K3's column chunks, or ``num_splits`` ranges for both when
     given), ``col_chunks`` (the grid's split of the kernel's output columns:
     above COL_CHUNK columns of d or dv, K3 splits dQ's into ceil(d /
-    WIDE_DQ_CHUNK) on both routes and the fp32 K2 dK's and dV's in two; the
-    bf16 K2 takes 16 keys a block there instead), ``blocks`` of the
+    WIDE_DQ_CHUNK) on the wgmma and fp32 routes and the fp32 K2 dK's and
+    dV's in two; the wgmma K2 takes 16 keys a block there instead; the
+    long-KV kernels never split columns), ``blocks`` of the
     kernel's grid and ``cuda_launches`` (the kernel, and the sum of its
     partials when there is more than one split).  The fp32 kernels never
     split: one block walks all of its query (K2) or key (K3) tiles."""
@@ -804,7 +827,7 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
             dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=1,
                     blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1),
         )
-    if num_splits is None and _longkv_shape(tq, tk, width):
+    if num_splits is None and _longkv_bwd_shape(tq, tk, width):
         items = -(-tk // LONGKV_BLOCK_K) * h * b
         copies, loader = _longkv_copies(q, k, v), _longkv_loader(k, v)
         splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)

@@ -9,8 +9,9 @@ On a machine with an NVIDIA GPU, from the repository root:
      (static; the dynamic size of the sm90 instantiations at the three flow
      sites, of K1's, K2's and K3's at the multimodal encoder, in both
      dtypes, of the four narrow-route instantiations of K1, K2 and K3 is
-     printed beside, and after the build the three long-KV K1, K2 and K3
-     instantiations' as their sources compute them, with their ring slots);
+     printed beside, and after the build the long-KV K1, K2 and K3
+     instantiations' as their sources compute them, with their ring slots:
+     K1's three, K2's and K3's four, 704 wide too);
   2. counts the ``HGMMA`` (wgmma) instructions per kernel in
      ``cuobjdump -sass`` of the built libraries, which shows that the bf16
      forward and backward run on the tensor cores;
@@ -84,8 +85,12 @@ On a machine with an NVIDIA GPU, from the repository root:
  17. (``bwd``) bf16 K2 and K3 alone at the main path's sites (the flow
      self-attend at batch 1 and 2, the flow encoder and decoder, the
      multimodal encoder, the classification encoders at 8, whose K2 and
-     K3 take the long-KV route), timed as ``k1`` times K1 and, beside the
-     self-attend and the classification encoders, SDPA's backward (a
+     K3 take the long-KV route, as the multimodal encoder's do), timed as
+     ``k1`` times K1, at the multimodal encoder also on the wgmma route
+     (K2 unsplit in blocks of 16 keys, K3 in 10 key splits and two dQ
+     column chunks: the plan that route had there), and, beside the
+     self-attend, the classification and multimodal encoders, SDPA's
+     backward (a
      backend's backward op alone where one takes the tensors, and forward
      and backward less the forward, the same windows); at every site K2
      then K3 as one backward calls them (K3 reading K2's copies into
@@ -175,7 +180,8 @@ def ptxas_report():
     print(f"[smem] flash_fwd_sm90_kernel<176, 32> at d = dv = 704: {smem} bytes dynamic")
     smem = 4 * (704 * 64 + 32 * 68 + 64 * 68 + 64 * 64)
     print(f"[smem] flash_fwd_kernel<6> at d = dv = 704: {smem} bytes dynamic")
-    # K2 and K3 there: bf16 K2 <8, 11> (16 keys a block, 11 tiles of 64
+    # K2 and K3 at 704 off the long-KV route (short key ranges, a forced
+    # split count): bf16 K2 <8, 11> (16 keys a block, 11 tiles of 64
     # columns), K3 <176, 16, chunked> (Q, dO, K and V at 704, dQ in chunks of
     # 352); fp32 K2 and K3 <6, chunked> (dK/dV or dQ in chunks of 384 + 320).
     smem = ((2 * 2 * 8 + 2 * 64) * 64 * 11 + 2 * 64 * 2 * 8) * 2
@@ -223,19 +229,20 @@ def longkv_smem_report(paths):
     fwd.flash_attention_fwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                                                      ctypes.POINTER(ctypes.c_int))
     lib = ctypes.CDLL(paths["bwd_longkv"])
-    lib.flash_attention_bwd_longkv_smem.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int))
-    lib.flash_attention_bwd_dq_longkv_smem.argtypes = (ctypes.c_int,
-                                                        ctypes.POINTER(ctypes.c_int),
-                                                        ctypes.POINTER(ctypes.c_int))
-    for width, nm in ((261, 5), (322, 6), (512, 8)):
-        slots, slots_k, slots_v = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-        smem = fwd.flash_attention_fwd_longkv_smem(width, ctypes.byref(slots_k),
-                                                   ctypes.byref(slots_v))
-        print(f"[smem] flash_fwd_longkv_kernel<{nm}> at width {width}: K ring"
-              f" {slots_k.value} slots, V ring {slots_v.value}, {smem} bytes dynamic")
-        smem = lib.flash_attention_bwd_longkv_smem(width, ctypes.byref(slots))
-        print(f"[smem] flash_bwd_dkv_longkv_kernel<{nm}> at width {width}: {slots.value} ring"
-              f" slots, {smem} bytes dynamic")
+    for fn in (lib.flash_attention_bwd_longkv_smem, lib.flash_attention_bwd_dq_longkv_smem):
+        fn.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
+    for width, nm in ((261, 5), (322, 6), (512, 8), (704, 11)):
+        slots_k, slots_v = ctypes.c_int(0), ctypes.c_int(0)
+        if width <= fa.COL_CHUNK:  # K1's long-KV route stops at 512
+            smem = fwd.flash_attention_fwd_longkv_smem(width, ctypes.byref(slots_k),
+                                                       ctypes.byref(slots_v))
+            print(f"[smem] flash_fwd_longkv_kernel<{nm}> at width {width}: K ring"
+                  f" {slots_k.value} slots, V ring {slots_v.value}, {smem} bytes dynamic")
+        slots_q, slots_o = ctypes.c_int(0), ctypes.c_int(0)
+        smem = lib.flash_attention_bwd_longkv_smem(width, ctypes.byref(slots_q),
+                                                   ctypes.byref(slots_o))
+        print(f"[smem] flash_bwd_dkv_longkv_kernel<{nm}> at width {width}: Q ring"
+              f" {slots_q.value} slots, dO ring {slots_o.value}, {smem} bytes dynamic")
         smem = lib.flash_attention_bwd_dq_longkv_smem(width, ctypes.byref(slots_k),
                                                       ctypes.byref(slots_v))
         print(f"[smem] flash_bwd_dq_longkv_kernel<{nm}> at width {width}: K ring"
@@ -900,6 +907,7 @@ def time_bwd_sites(reps=3, window_ms=10.0):
     gen = torch.Generator(device="cuda").manual_seed(0)
     self_sites = (FLOW_SITES[0], (2,) + FLOW_SITES[0][1:])
     sites = self_sites + FLOW_SITES[1:] + (MULTIMODAL_SITE,) + CLASSIFICATION_TRAIN_SITES[:2]
+    sdpa_sites = self_sites + CLASSIFICATION_TRAIN_SITES + (MULTIMODAL_SITE,)
     for shape in sites:
         (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
         out, lse = fa.flash_attention(q, k, v, return_lse=True)
@@ -917,7 +925,21 @@ def time_bwd_sites(reps=3, window_ms=10.0):
                      f" {kernels.plan['dkv'].get('copies')}; one backward's memory: peak"
                      f" {peak:.1f} MB, held after K3 {held:.1f} MB")
         line += ")"
-        if shape in self_sites or shape in CLASSIFICATION_TRAIN_SITES:
+        if shape == MULTIMODAL_SITE and kernels.plan["route"] == "sm90_longkv":
+            # The wgmma route's plan at this site: K2 unsplit (a forced split
+            # count of 1), K3 over 10 key splits.
+            wk2 = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
+                                     softmax_scale=None, kv_logical_len=None, num_splits=1)
+            wk3 = fa.BackwardKernels(q, k, v, out, lse, grad, q_mask=None, kv_mask=None,
+                                     softmax_scale=None, kv_logical_len=None,
+                                     num_splits=kernels.plan["dq"]["splits"])
+            (w2, m2), (w3, m3), (wboth, m) = (
+                _window_ms(call, reps, window_ms)
+                for call in (wk2.dkv, wk3.dq, lambda: (wk2.dkv(), wk3.dq())))
+            line += (f"; wgmma route: K2 {w2:.4f} ms over {m2}, K3 {w3:.4f} ms over {m3},"
+                     f" K2 then K3 {wboth:.4f} ms over {m}")
+            del wk2, wk3
+        if shape in sdpa_sites:
             op = _sdpa_backward_op(q, k, v, grad)
             if op is not None:
                 ms, n = _window_ms(op[1], reps, window_ms)

@@ -1,0 +1,197 @@
+"""Forms of the long-KV backward's 704-wide instantiations (K2 and K3 `<11>`
+in ``csrc/flash_attention_bwd_longkv_sm90.cu``), side by side on one card.
+
+On a machine with an NVIDIA GPU, from the repository root:
+
+    python -m perceiverio_pytorch_tpu_torch.tools.longkv_forms [FORM ...]
+
+A form is the source with a few lines changed (``FORMS``; "kept" is the
+source as it is).  Each runs in a process of its own: the package's
+``csrc/`` is copied into ``build/forms/<form>/``, edited, compiled with
+``nvcc -Xptxas -v`` (the `<11>` kernels' registers, spills and stack are
+printed, with their shared memory and ring slots as the source computes
+them), built into that directory's own kernel libraries, held against the
+plain backward on a masked 704-wide case over 4,301 keys (relative max
+error of dQ, dK, dV; exact zeros on wiped rows and tail keys; two calls bit
+for bit), then K2 and K3 are timed apart at the multimodal encoder (784
+latents over 52,097 keys, bf16), twice each, each reading the mean over at
+least 5 launches and 30 ms.  With no FORM it runs every form and then
+"kept" again, so that the first and last readings bound the card's drift.
+It checks and prints; ``chip_smoke.py`` and the card tests are the checks
+that fail.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+SOURCE = "flash_attention_bwd_longkv_sm90.cu"
+MULTIMODAL_SITE = (1, 784, 52097, 1, 704, 704)
+MASKED_CASE = (2, 129, 4301, 1, 704, 704)
+_K2_LAG = "constexpr int LAG = L::SHORT_O ? L::NSO - 2 : NM;"
+_K3_NSV = "static constexpr int NSV = SHORT_V ? (FIT - NM + 2) / 2 : FIT / 2;"
+_K2_DP_RELEASE = """          if (step_release) {
+            sm90::wgmma_commit();
+            if (c > 0) {
+              sm90::wgmma_wait<1>();
+              if (lane == 0) sm90::mbar_arrive(&empty_first[prev]);
+            }
+          }"""
+_K2_DP_LAST = """          if (step_release)
+            sm90::mbar_arrive(&empty_first[prev]);
+          else
+"""
+# name: (what differs from the source, [(line as it is, line in the form)]).
+FORMS = {
+    "kept": ("K2: dO ring 4 slots, dV^T/dK^T chunks released 2 commit groups behind;"
+             " K3: K ring 15 slots, V ring 6", []),
+    "k2_lag3": ("K2: chunks released 3 groups behind (as many as the dO ring allows)",
+                [(_K2_LAG, _K2_LAG.replace("NSO - 2", "NSO - 1"))]),
+    "k2_lag1": ("K2: chunks released 1 group behind",
+                [(_K2_LAG, _K2_LAG.replace("NSO - 2", "NSO - 3"))]),
+    "k2_dp_wait0": ("K2: dP releases each dO chunk as soon as its own group is done",
+                    [(_K2_DP_RELEASE, """          if (step_release) {
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            if (lane == 0) sm90::mbar_arrive(&empty_first[fs]);
+          }"""), (_K2_DP_LAST, "          if (!step_release)\n")]),
+    "k2_q12_o3": ("K2: Q ring 12 slots, dO ring 3, chunks released 2 groups behind",
+                  [("static constexpr int NSQ = SHORT_O ? NM : FIT",
+                    "static constexpr int NSQ = SHORT_O ? NM + 1 : FIT"),
+                   (_K2_LAG, _K2_LAG.replace("NSO - 2", "NSO - 1"))]),
+    "k3_13_8": ("K3: K ring 13 slots, V ring 8",
+                [(_K3_NSV, _K3_NSV.replace("(FIT - NM + 2) / 2", "8"))]),
+    "k3_17_4": ("K3: K ring 17 slots, V ring 4",
+                [(_K3_NSV, _K3_NSV.replace("(FIT - NM + 2) / 2", "4"))]),
+}
+
+
+def _prepare(name: str, fa) -> str:
+    """csrc/ copied into build/forms/<name>/ and edited; the form's
+    directory.  ``fa`` then builds and loads from there."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(fa._CSRC)))
+    root = os.path.join(repo, "build", "forms", name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(fa._CSRC, os.path.join(root, "csrc"))
+    path = os.path.join(root, "csrc", SOURCE)
+    with open(path) as f:
+        text = f.read()
+    for old, new in FORMS[name][1]:
+        if text.count(old) != 1:
+            raise SystemExit(f"form {name}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    fa._CSRC = os.path.join(root, "csrc")
+    fa.set_build_dir(os.path.join(root, "kernels"))
+    return root
+
+
+def _ptxas(name: str, root: str, fa) -> None:
+    proc = subprocess.run(
+        [fa._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", os.path.join(root, "ptxas.so"),
+         os.path.join(root, "csrc", SOURCE)], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"form {name}: nvcc exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    kernel = None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = entry.group(1)
+        elif kernel and "ILi11E" in kernel and ("Used" in line or "spill" in line):
+            short = "K2 <11>" if "dkv" in kernel else "K3 <11>"
+            print(f"[forms] {name} ptxas {short}: {line.split('info    :')[-1].strip()}",
+                  flush=True)
+
+
+def _smem(name: str, paths) -> None:
+    lib = ctypes.CDLL(paths["bwd_longkv"])
+    for fn in (lib.flash_attention_bwd_longkv_smem, lib.flash_attention_bwd_dq_longkv_smem):
+        fn.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
+    a, b = ctypes.c_int(0), ctypes.c_int(0)
+    smem = lib.flash_attention_bwd_longkv_smem(704, ctypes.byref(a), ctypes.byref(b))
+    line = f"K2 Q ring {a.value}, dO ring {b.value}, {smem} B"
+    smem = lib.flash_attention_bwd_dq_longkv_smem(704, ctypes.byref(a), ctypes.byref(b))
+    print(f"[forms] {name} smem: {line}; K3 K ring {a.value}, V ring {b.value}, {smem} B",
+          flush=True)
+
+
+def _backward_args(shape, masked, gen):
+    """(q, k, v, out, lse, grad) and the masks of a bf16 case
+    (``kernel_report._case``)."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.tools.kernel_report import _case
+
+    (q, k, v), kw = _case(*shape, torch.bfloat16, masked, False, gen)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    grad = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return (q, k, v, out, lse, grad), kw
+
+
+def run_form(name: str) -> None:
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.tools.kernel_report import _window_ms
+
+    root = _prepare(name, fa)
+    _ptxas(name, root, fa)
+    paths = fa.build()
+    _smem(name, paths)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args, kw = _backward_args(MASKED_CASE, True, gen)
+    got = fa.flash_attention_backward(*args, **kw)
+    again = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    rel = [((x.float() - y).abs().max() / y.abs().max()).item() for x, y in zip(got, want)]
+    wiped_rows = ~kw["q_mask"]
+    wiped_rows[-1] = True
+    tail = kw["kv_logical_len"]
+    zeros = all(x.abs().max().item() == 0 for x in (
+        got[0][wiped_rows], got[1][:, tail:], got[2][:, tail:], got[1][-1], got[2][-1]))
+    bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+    args, _ = _backward_args(MULTIMODAL_SITE, False, gen)
+    kernels = fa.BackwardKernels(*args, q_mask=None, kv_mask=None, softmax_scale=None,
+                                 kv_logical_len=None)
+    if kernels.plan["route"] != "sm90_longkv":
+        raise SystemExit(f"form {name}: the multimodal encoder's plan is {kernels.plan}")
+    k2 = [_window_ms(kernels.dkv, 5, 30.0)[0] for _ in range(2)]
+    k3 = [_window_ms(kernels.dq, 5, 30.0)[0] for _ in range(2)]
+    print(f"[forms] {name} ({FORMS[name][0]}): {MASKED_CASE} rel dq/dk/dv "
+          f"{', '.join(f'{x:.3g}' for x in rel)}, exact zeros {zeros}, bit for bit {bitwise};"
+          f" at {MULTIMODAL_SITE}: K2 {k2[0]:.4f}/{k2[1]:.4f} ms, K3 {k3[0]:.4f}/{k3[1]:.4f} ms",
+          flush=True)
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["--one"]:
+        run_form(argv[1])
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("longkv_forms needs a CUDA device")
+    names = argv or list(FORMS) + ["kept"]
+    unknown = [n for n in names if n not in FORMS]
+    if unknown:
+        raise SystemExit(f"unknown forms {unknown}; choose from {list(FORMS)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"[forms] {smi}", flush=True)
+    for name in names:
+        subprocess.run([sys.executable, "-m", "perceiverio_pytorch_tpu_torch.tools.longkv_forms",
+                        "--one", name], check=True)
+
+
+if __name__ == "__main__":
+    main()

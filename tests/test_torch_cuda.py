@@ -12,8 +12,9 @@ narrow-head route at widths up to 64) are held against their plain PyTorch
 versions, which the CPU tests hold against the JAX package;
 K1 also at the classification encoders' widths (261 and 512) over 50,176
 keys, K2 and K3 at those widths (masked small cases, and a few thousand
-keys; K2's long-KV route over 4,231 to 4,451 keys, and its realigned views
-bit for bit; K1's long-KV route over the same shapes, masked, its offset
+keys; K2's and K3's long-KV route over 4,231 to 4,451 keys, at 704 too and
+at the multimodal encoder itself, and its realigned views bit for bit;
+K1's long-KV route over the same shapes up to 512 wide, masked, its offset
 views bit for bit, its op and an exported site against the direct launch),
 reduced-depth classification and language models on the card
 against the same models on the CPU, and one training step of each tiny
@@ -387,9 +388,10 @@ def test_kernel_refuses_bad_inputs(cuda):
         fa.flash_attention_backward(q, q, q, out, lse, out.cpu())
 
 
-def _backward_case(b, tq, tk, h, d, dv, dtype, device, strided=False):
+def _backward_case(b, tq, tk, h, d, dv, dtype, device, strided=False, wipe_last=True):
     q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 5, device)
-    kv_mask[-1] = False  # every row of the last batch entry is all-masked
+    if wipe_last:
+        kv_mask[-1] = False  # every row of the last batch entry is all-masked
     q, k, v = (x.to(dtype) for x in (q, k, v))
     if strided:  # [B, H, T, D] storage seen as [B, T, H, D]
         q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
@@ -433,16 +435,18 @@ def test_backward_kernels_take_strided_inputs(cuda):
         _check(x, y, 1e-4)
 
 
-def _check_backward(got, want, kw, tol):
+def _check_backward(got, want, kw, tol, wiped_last=True):
     """Each gradient against the plain backward, and exact zeros on wiped
     rows, keys past kv_len and the all-masked batch entry."""
     for x, y in zip(got, want):
         _check(x, y, tol)
     dq, dk, dv_ = got
     tail = kw["kv_logical_len"]
-    assert torch.all(dq[-1] == 0) and torch.all(dq[~kw["q_mask"]] == 0)
+    assert torch.all(dq[~kw["q_mask"]] == 0)
     assert torch.all(dk[:, tail:] == 0) and torch.all(dv_[:, tail:] == 0)
-    assert torch.all(dk[-1] == 0) and torch.all(dv_[-1] == 0)
+    if wiped_last:
+        assert torch.all(dq[-1] == 0)
+        assert torch.all(dk[-1] == 0) and torch.all(dv_[-1] == 0)
 
 
 @pytest.mark.cuda
@@ -676,7 +680,8 @@ def test_wide_bf16_backward_forced_splits_agree(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_backward_is_deterministic(cuda, dtype):
     """At d = dv = 704, two calls are equal bit for bit, at the planned
-    splits (bf16: K3's keys split, 13 query blocks x 2 chunks) and at one."""
+    splits (bf16: the long-KV route over 5,000 keys, K3's keys split over
+    13 query blocks) and at one (bf16: the wgmma kernels)."""
     args, kw = _backward_case(1, 784, 5000, 1, 704, 704, dtype, cuda)
     plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
     assert plan["dq"]["splits"] > 1 if dtype == torch.bfloat16 else plan["dq"]["splits"] == 1
@@ -954,26 +959,38 @@ def test_backward_kernels_at_the_classification_widths_unmasked(cuda, dtype, tol
             _check(x, y, tol)
 
 
-# The long-KV K2 and K3 (bf16, at most 512 query rows over at least 4,224
-# keys, the wider head 257 to 512 wide), with masks, kv_logical_len and an
-# all-masked entry: the pixel encoder's 261 (522-byte rows: q, dO, K and V
-# copied into aligned rows) with odd Tq and Tk and with a multiple of 8
-# keys, the 1x1-conv encoder's 512 (TMA) over 2 heads, d = 300 with Dv 264
-# over 3 heads (q and k copied).  Tq = 129, 65 and 77 leave a lone last
-# query tile.
+# The long-KV K2 and K3 (bf16, over at least 4,224 keys, the wider head 257
+# to 512 wide with at most 512 query rows or 513 to 704 wide with at most
+# 1,024), with masks, kv_logical_len and an all-masked entry: the pixel
+# encoder's 261 (522-byte rows: q, dO, K and V copied into aligned rows)
+# with odd Tq and Tk and with a multiple of 8 keys, the 1x1-conv encoder's
+# 512 (TMA) over 2 heads, d = 300 with Dv 264 over 3 heads (q and k
+# copied); the multimodal encoder's 704 (K2 with 11 Q-ring slots and 4 dO
+# slots, K3 in steps of 16 keys) with 129 and 784 query rows, 704 with Dv
+# 512, 512 with Dv 704 and 600 over 2 heads.  Tq = 129, 65, 77 and 784 leave
+# a lone last query tile (of 1, 1, 13 and 16 rows).
 LONGKV_CASES = [(2, 129, 4301, 1, 261, 261), (2, 136, 4400, 1, 261, 261),
-                (3, 65, 4451, 2, 512, 512), (2, 77, 4231, 3, 300, 264)]
+                (3, 65, 4451, 2, 512, 512), (2, 77, 4231, 3, 300, 264),
+                (2, 129, 4301, 1, 704, 704), (2, 784, 4400, 1, 704, 704),
+                (2, 70, 4351, 1, 704, 512), (2, 77, 4231, 1, 512, 704),
+                (2, 100, 4250, 2, 600, 600)]
+# The cases K1 takes its long-KV route at too (the wider head up to 512).
+LONGKV_FWD_CASES = [c for c in LONGKV_CASES if max(c[4], c[5]) <= 512]
+# The multimodal encoder itself (one clip: 784 latents over 52,097 keys, d =
+# dv = 704), its one batch entry not wiped.
+MM_SITE = (1, 784, 52097, 1, 704, 704)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES + [MM_SITE])
 def test_longkv_backward_matches_reference(cuda, b, tq, tk, h, d, dv):
     """K2 and K3 on the long-KV route against the plain backward, exact
-    zeros on wiped rows, tail keys and the all-masked entry, one long-KV
-    launch of each, one copy launch for each operand the plan copies into
-    aligned rows (made by K2, read by K3 too), K3's sum when it splits the
-    keys, and two calls bit for bit."""
-    args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda)
+    zeros on wiped rows, tail keys and the all-masked entry (none at the
+    multimodal encoder's one clip), one long-KV launch of each, one copy
+    launch for each operand the plan copies into aligned rows (made by K2,
+    read by K3 too), K3's sum when it splits the keys, and two calls bit
+    for bit."""
+    args, kw = _backward_case(b, tq, tk, h, d, dv, torch.bfloat16, cuda, wipe_last=b > 1)
     plan = fa.backward_plan(*args[:3], kv_logical_len=kw["kv_logical_len"])
     copies = plan["dkv"]["copies"]
     splits = plan["dq"]["splits"]
@@ -990,7 +1007,7 @@ def test_longkv_backward_matches_reference(cuda, b, tq, tk, h, d, dv):
     want = fa.flash_attention_backward_reference(*(x.float() for x in args), **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
-    _check_backward(got, want, kw, 2e-2)
+    _check_backward(got, want, kw, 2e-2, wiped_last=b > 1)
 
 
 @pytest.mark.cuda
@@ -1017,7 +1034,7 @@ def test_longkv_realigned_views_match_contiguous(cuda, offset, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dv", [LONGKV_CASES[0], LONGKV_CASES[2]])
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", [LONGKV_CASES[0], LONGKV_CASES[2], LONGKV_CASES[5]])
 def test_longkv_dq_alone_matches_dq_after_dkv(cuda, b, tq, tk, h, d, dv):
     """The long-KV K3 called alone (its own copies of q, dO, k and v where
     their rows are not aligned) gives dQ bit for bit as after K2 (K2's
@@ -1040,7 +1057,7 @@ def test_longkv_dq_alone_matches_dq_after_dkv(cuda, b, tq, tk, h, d, dv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_FWD_CASES)
 def test_longkv_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
     """K1 on the long-KV route against the plain version with kv_mask,
     q_mask, kv_logical_len, an all-masked entry and the lse (lone last query

@@ -690,16 +690,28 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
      (1, 77, 4224, 3, 300, 264, torch.bfloat16, None, "sm90_longkv"),
      (8, 512, 50176, 1, 256, 256, torch.bfloat16, None, "sm90_wgmma"),  # 64 keys a wgmma block
      (2, 100, 8000, 1, 64, 257, torch.bfloat16, None, "sm90_longkv"),
-     (8, 512, 50176, 1, 513, 513, torch.bfloat16, None, "sm90_wgmma"),
-     (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, "sm90_wgmma"),  # the multimodal encoder
+     (8, 512, 50176, 1, 513, 513, torch.bfloat16, None, "sm90_longkv"),
+     (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, "sm90_longkv"),  # the multimodal encoder
+     (1, 784, 52097, 1, 704, 704, torch.bfloat16, 10, "sm90_wgmma"),  # a forced split count
+     (1, 784, 52097, 1, 704, 704, torch.float32, None, "cuda_cores"),
+     (1, 1025, 52097, 1, 704, 704, torch.bfloat16, None, "sm90_wgmma"),  # 17 query tiles
+     (1, 1024, 4224, 1, 704, 704, torch.bfloat16, None, "sm90_longkv"),
+     (1, 784, 4223, 1, 704, 704, torch.bfloat16, None, "sm90_wgmma"),  # fewer keys than 132 x 32
+     (2, 100, 8000, 1, 704, 512, torch.bfloat16, None, "sm90_longkv"),
+     (2, 100, 8000, 1, 64, 704, torch.bfloat16, None, "sm90_longkv"),
+     (2, 100, 8000, 1, 705, 705, torch.bfloat16, None, "sm90_wgmma"),  # past the widest head
+     (2, 100, 777, 1, 704, 704, torch.bfloat16, None, "sm90_wgmma"),  # short-KV wide cases
+     (2, 100, 257, 1, 704, 512, torch.bfloat16, None, "sm90_wgmma"),
+     (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, "sm90_wgmma"),  # the flow encoder
      (2, 100, 8000, 2, 48, 48, torch.bfloat16, None, "sm90_narrow")],
 )
 def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
-    """bf16 backwards with at most 512 query rows over at least 4,224 keys,
-    whose wider head is 257 to 512 wide, take the long-KV K2 and K3 (K3's
-    key splits by ``_longkv_dq_split_plan``, both on the same loader and
-    copies); a forced split count, fp32, more query rows, fewer keys and
-    other widths keep their routes."""
+    """bf16 backwards over at least 4,224 keys whose wider head is 257 to
+    512 wide with at most 512 query rows, or 513 to 704 wide with at most
+    1,024 (the multimodal encoder), take the long-KV K2 and K3 (K3's key
+    splits by ``_longkv_dq_split_plan``, both on the same loader and
+    copies, no column chunks); a forced split count, fp32, more query rows,
+    fewer keys, other widths and the flow encoder keep their routes."""
     q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
     k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
     v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
@@ -822,26 +834,49 @@ def test_backward_loader_by_row_alignment(width, offset, target, loader, copies)
      (1, 64, 50176, 512, None, 0, 98, 8, 98, "tma", (), 2),  # one tile
      (2, 100, 8000, 512, "k", 1, 14, 9, 56, "copy", ("k",), 2),
      (2, 100, 8000, 264, "v", 2, 14, 9, 56, "copy", ("v",), 2),
-     (2, 100, 8000, 264, "q", 1, 14, 9, 56, "tma", ("q",), 2)],
+     (2, 100, 8000, 264, "q", 1, 14, 9, 56, "tma", ("q",), 2),
+     (1, 784, 52097, 704, None, 0, 10, 82, 130, "tma", (), 2),  # the multimodal encoder
+     (2, 129, 4301, 704, None, 0, 8, 9, 48, "tma", (), 2),  # lone tile at 704
+     (2, 100, 8000, 704, "k", 1, 14, 9, 56, "copy", ("k",), 2),
+     # off the route: the flow encoder, the short-KV wide cases, a forced split
+     (1, 2048, 182528, 322, None, 0, 8, 357, 256, None, None, 2),
+     (2, 100, 777, 704, None, 0, 1, 13, 8, None, None, 1),
+     (2, 100, 257, 704, None, 0, 1, 5, 8, None, None, 1),
+     (1, 784, 52097, 704, "forced", 0, 10, 82, 260, None, None, 2)],
 )
 def test_longkv_dq_plan(b, tq, tk, width, target, offset, splits, per, blocks, loader, copies,
                         launches):
     """The long-KV K3's plan: 64 query rows a block (a lone last tile, as
     129 rows give, and a single tile), the keys split as far as one wave of
-    132 blocks allows at 8 tiles of 64 keys a split or more; every operand
-    by TMA, from K2's copies in 16-byte aligned rows where its rows are not
-    aligned (the pixel encoder's 522-byte rows, offset views), so
+    132 blocks allows at 8 tiles of 64 keys a split or more (the multimodal
+    encoder: 13 query tiles, 10 splits, 130 blocks, no column chunks); every
+    operand by TMA, from K2's copies in 16-byte aligned rows where its rows
+    are not aligned (the pixel encoder's 522-byte rows, offset views), so
     ``cuda_launches`` counts the kernel and the sum.  ``target`` is the
-    operand seen ``offset`` elements into its storage."""
+    operand seen ``offset`` elements into its storage.  The flow encoder,
+    the short-KV 704-wide cases and a forced split count (``loader`` None)
+    keep the wgmma K3: its split plan, dQ in column chunks of 352 above 512
+    columns."""
     views = {}
     for name, t in (("q", tq), ("k", tk), ("v", tk)):
         shift = offset if name == target else 0
         storage = torch.empty(b * t * width + shift, dtype=torch.bfloat16, device="meta")
         views[name] = storage[shift:].view(b, t, 1, width)
+    if loader is None:
+        forced = 10 if target == "forced" else None
+        plan = fa.backward_plan(views["q"], views["k"], views["v"], num_splits=forced)
+        chunks = -(-width // fa.WIDE_DQ_CHUNK) if width > fa.COL_CHUNK else 1
+        assert plan["route"] == "sm90_wgmma"
+        assert (plan["dq"]["splits"], plan["dq"]["tiles_per_split"], plan["dq"]["blocks"],
+                plan["dq"]["col_chunks"], plan["dq"]["cuda_launches"]) == (
+            splits, per, blocks, chunks, launches)
+        assert "loader" not in plan["dq"] and "copies" not in plan["dkv"]
+        return
     plan = fa.backward_plan(views["q"], views["k"], views["v"])
     assert plan["route"] == "sm90_longkv"
     got = plan["dq"]
     assert (got["splits"], got["tiles_per_split"], got["blocks"]) == (splits, per, blocks)
+    assert got["col_chunks"] == 1
     assert (got["loader"], got["copies"], got["cuda_launches"]) == (loader, copies, launches)
     assert plan["dkv"]["copies"] == copies
     tiles = -(-tk // fa.BLOCK_K)
@@ -937,31 +972,40 @@ MM_SITE = (1, 784, 52097, 1, 704, 704)
 @pytest.mark.parametrize(
     "dtype,dkv,dq",
     [(torch.bfloat16,
-      dict(splits=1, tiles_per_split=13, col_chunks=1, blocks=3257, cuda_launches=1),
-      dict(splits=10, tiles_per_split=82, col_chunks=2, blocks=260, cuda_launches=2)),
+      dict(splits=1, tiles_per_split=13, col_chunks=1, blocks=132, cuda_launches=1, items=1629,
+           loader="tma", copies=()),
+      dict(splits=10, tiles_per_split=82, col_chunks=1, blocks=130, cuda_launches=2,
+           loader="tma", copies=())),
      (torch.float32,
       dict(splits=1, tiles_per_split=13, col_chunks=2, blocks=3258, cuda_launches=1),
       dict(splits=1, tiles_per_split=815, col_chunks=2, blocks=26, cuda_launches=1))],
 )
 def test_backward_plan_at_the_multimodal_encoder(dtype, dkv, dq):
-    """K2 and K3 at d = dv = 704: the bf16 K2 takes 16 keys a block (3,257
-    blocks, no split); K3 splits the dQ columns in two chunks of 352 and,
-    in bf16, the keys as K1 does at this site (13 query blocks x 2 chunks:
-    10 splits, 260 blocks, and the sum); the fp32 K2 splits the dK and dV
-    columns in two, and neither fp32 kernel splits its walk."""
+    """K2 and K3 at d = dv = 704: in bf16 the long-KV route, K2 in 132
+    persistent blocks over 1,629 items of 32 keys, K3 over the keys split
+    as K1 splits them at this site (13 query tiles: 10 splits, 130 blocks,
+    no column chunks, and the sum), both by TMA with no copy; the fp32 K2
+    splits the dK and dV columns in two, and neither fp32 kernel splits its
+    walk.  K1's plan there is unchanged (the wgmma kernel, two value-column
+    chunks, 10 key splits, 260 blocks), and a forced split count keeps the
+    wgmma K2 (16 keys a block) and K3 (dQ in two column chunks of 352)."""
     b, tq, tk, h, d, dv = MM_SITE
     q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
     k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
     v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
     plan = fa.backward_plan(q, k, v)
-    assert plan == dict(route="sm90_wgmma" if dtype == torch.bfloat16 else "cuda_cores",
+    assert plan == dict(route="sm90_longkv" if dtype == torch.bfloat16 else "cuda_cores",
                         dkv=dkv, dq=dq)
     if dtype == torch.bfloat16:
-        assert fa._split_plan(b, tq, h, tk, 2) == (10, 82) == fa._split_plan(
+        assert fa._longkv_dq_split_plan(b, tq, h, tk) == (10, 82) == fa._split_plan(
             b, tq, h, tk, fa._col_chunks(dv))
-        assert fa.launch_plan(q, k, v)["splits"] == plan["dq"]["splits"]
+        assert fa.launch_plan(q, k, v) == dict(
+            route="sm90_wgmma", splits=10, tiles_per_split=82, col_chunks=2, blocks=260,
+            cuda_launches=2, loader="cp.async16")
     forced = fa.backward_plan(q, k, v, num_splits=1)
     assert forced["dq"]["cuda_launches"] == 1 and forced["dq"]["col_chunks"] == 2
+    if dtype == torch.bfloat16:
+        assert forced["route"] == "sm90_wgmma" and forced["dkv"]["blocks"] == 3257
 
 
 @pytest.mark.parametrize(
@@ -971,8 +1015,11 @@ def test_backward_plan_at_the_multimodal_encoder(dtype, dkv, dq):
 )
 def test_backward_column_chunks(d, dv, dq_chunks, fp32_dkv_chunks, dkv_keys):
     """Up to 512 columns nothing is chunked; above, K3 takes ceil(d / 352)
-    dQ-column chunks on both routes, the fp32 K2 two chunks of dK and dV
-    columns, and the bf16 K2 16 keys a block."""
+    dQ-column chunks on the wgmma and fp32 routes, the fp32 K2 two chunks of
+    dK and dV columns, and the wgmma K2 16 keys a block.  On the long-KV
+    route (over at least 4,224 keys, no forced split; from 257 columns) the
+    bf16 K2 keeps 32 keys an item at every width and neither kernel chunks
+    its columns."""
     shape = dict(b=2, tq=100, tk=1000, h=1)
     plans = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -986,3 +1033,25 @@ def test_backward_column_chunks(d, dv, dq_chunks, fp32_dkv_chunks, dkv_keys):
     assert fp32["dkv"]["col_chunks"] == fp32_dkv_chunks
     assert bf16["dkv"]["blocks"] == -(-shape["tk"] // dkv_keys) * shape["b"]
     assert bf16["dq"]["blocks"] == fp32["dq"]["blocks"] == 2 * 2 * dq_chunks
+    tk = 8000
+    q = torch.empty(shape["b"], shape["tq"], 1, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(shape["b"], tk, 1, d, dtype=torch.bfloat16, device="meta")
+    v = torch.empty(shape["b"], tk, 1, dv, dtype=torch.bfloat16, device="meta")
+    plan = fa.backward_plan(q, k, v)
+    if max(d, dv) >= fa.LONGKV_MIN_WIDTH:
+        assert plan["route"] == "sm90_longkv"
+        assert plan["dkv"]["items"] == -(-tk // fa.LONGKV_BLOCK_K) * shape["b"]
+        assert plan["dkv"]["col_chunks"] == plan["dq"]["col_chunks"] == 1
+    else:
+        assert plan["route"] == "sm90_wgmma"
+        assert plan["dkv"]["blocks"] == -(-tk // dkv_keys) * shape["b"]
+
+
+def test_wide_longkv_shape_backward_matches_pallas():
+    """The plain backward at the long-KV route's wider shape class, few
+    query rows (a lone last tile of 2) against many keys, one head 704 wide
+    (the multimodal encoder's, which the bf16 kernels take on the card from
+    4,224 keys on), against jax.grad through the Pallas sweeps in
+    interpreter mode: masks, kv_logical_len, an all-masked entry, exact
+    zeros on wiped rows and tail keys."""
+    _grads_against_pallas(2, 130, 700, 1, 704, 704, 690)
