@@ -17,10 +17,13 @@ Phases (each raises on failure; nothing is caught):
   3. kernel: holds K1 against its plain PyTorch version on the card
      at the three flow attention shapes (batch 1) in fp32 and bf16, at the
      serving forward's shapes (6 tiles, bf16), at the multimodal encoder
-     (784 latents x 52,097 keys, one head of d = dv = 704: two value-column
-     chunks) in fp32 and bf16, at small masked cases at widths 41, 32 and
-     704 (kv_mask, q_mask, ragged Tk, kv_logical_len, an all-masked row,
-     lse), and at the classification encoders at the served batch of 16
+     (784 latents x 52,097 keys, one head of d = dv = 704: in fp32 two
+     value-column chunks, in bf16 the long-KV route, 10 key splits, 130
+     blocks, TMA, no copy; ``MM_K1_PLAN``) in fp32 and bf16, at small
+     masked cases at widths 41, 32 and 704 (kv_mask, q_mask, ragged Tk,
+     kv_logical_len, an all-masked row, lse), at 704 over 4,301 keys on the
+     long-KV route (bf16, masked, with a lone last query tile and the lse:
+     ``MM_LONGKV_MASKED``), and at the classification encoders at the served batch of 16
      (512 latents x 50,176 keys, one head of d = dv = 261 for the pixel
      variant and 512 for the 1x1-conv one) in fp32 and bf16, unmasked and
      masked; the bf16 self-attend (batch 1 and 6, with its lse) and the
@@ -34,8 +37,10 @@ Phases (each raises on failure; nothing is caught):
      yardstick only; null where it does not run; a short kernel and SDPA
      over at least 10 ms of launches) and the bound; then, at
      the bf16 flow encoder at batch 1 and at the bf16 multimodal encoder,
-     holds the planned split count against a single split and two calls
-     against each other bit for bit; then, at the bf16 pixel encoder (batch
+     holds the planned split count against a single split (at the
+     multimodal encoder the long-KV K1 against the wgmma one, which a forced
+     split count takes; both routes recorded) and two calls against each
+     other bit for bit; then, at the bf16 pixel encoder (batch
      16; its rows copied into aligned rows on the long-KV route) and the
      flow encoder (batch 1 and 6, whose rows take the realigning loader),
      holds views at every offset mod 16 bytes against the same values
@@ -86,20 +91,20 @@ Phases (each raises on failure; nothing is caught):
   9. multimodal model: MultiModalPerceiver at full width (16 frames of
      224x224, 30,720 audio samples, 700 classes, 784x512 latents, 8
      self-attends), seeded random weights, fp32, one synthetic clip decoded
-     in 128 chunks, once through K1 (one launch and one merge: the encoder)
-     and once with attention on the plain version; image, audio and label
-     must agree;
+     in 128 chunks, once through K1 (one launch and one merge: the encoder,
+     none on the long-KV route) and once with attention on the plain
+     version; image, audio and label must agree;
  10. multimodal serve: three synthetic clips through the model under the
      PERFORMANCE policy (bf16, query-pad fold), after a warm-up clip: per-clip
-     latency, clips/s, peak memory, K1 and merge launches per clip, and the
-     last clip against the fp32 model;
+     latency, clips/s, peak memory, K1 and merge launches per clip (each K1
+     on the long-KV route), and the last clip against the fp32 model;
  11. multimodal gradients: the full-width model with remat, 16 decoder
      chunks, one synthetic clip with a label and the training example's
      weighted loss, its backward through the kernels (per step: K1, its
-     merge, K2 and K3 once each at the encoder, and in bf16 the sum of K3's
-     key splits) and then with the flash forward and backward patched to
-     their plain versions; every parameter's gradient must agree, in fp32
-     and in bf16 (PERFORMANCE);
+     merge, K2 and K3 once each at the encoder, and in bf16 the three on
+     the long-KV route and the sum of K3's key splits) and then with the
+     flash forward and backward patched to their plain versions; every
+     parameter's gradient must agree, in fp32 and in bf16 (PERFORMANCE);
  12. multimodal train: the port's examples/train_multimodal.py at
      --full-scale (bf16 PERFORMANCE, remat under its remat_policy
      "dots_saveable", 16 chunks, batch 1, synthetic clips) through its
@@ -227,8 +232,8 @@ Phases (each raises on failure; nothing is caught):
      (35 timed) from the directory and again from the .pth: the same
      numbers, the first
      clip's outputs equal to the in-memory model's on the arrays the script
-     decoded, bit for bit, K1 and its merge once a clip, clips/s and peak
-     memory;
+     decoded, bit for bit, K1 (long-KV) and its merge once a clip, clips/s
+     and peak memory;
  29. LoRA: examples/train_mlm.py --full-scale --lora 8 (bf16, batch 8), one
      warm-up step and 5 timed ones through the Trainer (evaluations at steps
      3 and 6, timed apart): the printed adapter count equals the sum of
@@ -260,8 +265,8 @@ The rest of training runs in phases A to E, each where its inputs are
 warm: B after phase 8, A after phase 12, C to E after phase 19.
   A. the multimodal step under dots_saveable: the published Kinetics
      autoencoder (bf16, remat, 16 chunks, one clip with a label), one step's
-     gradients against full remat's bit for bit, K1/K2/K3 once a step each,
-     step time and peak memory of both;
+     gradients against full remat's bit for bit, K1/K2/K3 once a step each
+     (all three on the long-KV route), step time and peak memory of both;
   B. the flow step under dots_saveable: the published flow model (bf16,
      remat, one roll pair), gradients against full remat's bit for bit, K1
      50 a step under both (26 forward, the 24 self-attends recomputed: the
@@ -380,11 +385,11 @@ Q, after phase O, on a new (1, 1) mesh:
      without it (loss and every gradient, bit for bit or within
      BF16_GRAD_TOL; K1/K2/K3 launches as phase 8's); (c) the multimodal
      model under Policy(sp_mesh) on phase 10's clip and weights (the
-     encoder's 52,097 keys through the ring, K1 once a clip, the outputs
-     against phase 10's);
+     encoder's 52,097 keys through the ring, K1 once a clip on the long-KV
+     route, the outputs against phase 10's);
   Q. phase 10's clip through MultiModalPerceiver(chunk_mesh=mesh) (128
      waves of one chunk): every output bit for bit against phase 10's, K1
-     once a clip; the full-width bf16 1x1-conv classifier behind
+     once a clip on the long-KV route; the full-width bf16 1x1-conv classifier behind
      serve_on_mesh (BatchingServer over make_data_parallel_apply, buckets 8
      and 16, pipeline on, 24 single-image requests): every batch the server
      ran bit for bit against the eager model on the same padded batch,
@@ -502,15 +507,23 @@ MM_BF16_TOL = 1e-1
 # Multimodal training (examples/train_multimodal.py --full-scale): 16
 # decoder chunks, remat.  Per step the encoder's cross-attend is the one
 # flash site, outside every checkpoint: K1 once with its merge, K2 and K3
-# once; in bf16 K2 and K3 take the long-KV route ("longkv", "dq_longkv":
-# 784 latents over 52,097 keys, rows aligned, no copy), K3 splits the keys
-# and sums them once, K2 does not split.
+# once; in bf16 all three take the long-KV route ("k1_longkv", "longkv",
+# "dq_longkv": 784 latents over 52,097 keys, rows aligned, no copy), K1
+# and K3 split the keys and merge or sum them once, K2 does not split.
 MM_TRAIN_CHUNKS = 16
 MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1,
-                    "dq_longkv": 1, "copy": 0, "k1_longkv": 0, "k1_copy": 0}
-MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0)
+                    "dq_longkv": 1, "copy": 0, "k1_longkv": 1, "k1_copy": 0}
+MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0, k1_longkv=0)
+# K1's plan at the multimodal encoder by dtype: fp32 the CUDA-core kernel,
+# two value-column chunks, 10 key splits (260 blocks) and their merge; bf16
+# the long-KV route, all the value columns in a block, 10 key splits (130
+# blocks, one wave) and their merge, by TMA with no copy.
+MM_K1_PLAN = {"fp32": {"route": "cuda_cores", "splits": 10, "col_chunks": 2, "blocks": 260,
+                       "cuda_launches": 2},
+              "bf16": {"route": "sm90_longkv", "splits": 10, "col_chunks": 1, "blocks": 130,
+                       "cuda_launches": 2, "loader": "tma", "copies": ()}}
 # The long-KV route at 704 with masks, kv_logical_len, an all-masked entry
-# and a lone last query tile (129 rows), bf16 K2 and K3.
+# and a lone last query tile (129 rows), bf16 K1 (with its lse), K2 and K3.
 MM_LONGKV_MASKED = (2, 129, 4301, 1, 704, 704)
 MM_TRAIN_STEPS = 3  # timed, after one warm-up step
 MM_LABEL = 123  # the synthetic clip's class in the gradient phase
@@ -936,9 +949,13 @@ def phase_kernels(reps: int = 3):
             want_plan=narrow and dict(narrow, loader="realign")))
         records.append(check_case("masked_narrow", NARROW_MASKED, dtype_name, True, reps, gen,
                                   want_plan=narrow and dict(narrow, loader="cp.async16")))
-        records.append(check_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen))
+        records.append(check_case("mm_encoder", MM_SITE, dtype_name, False, reps, gen,
+                                  want_plan=MM_K1_PLAN[dtype_name]))
         records.append(check_case(
             "mm_masked", (2, 100, 777, 1, 704, 704), dtype_name, True, reps, gen))
+        if dtype_name == "bf16":
+            records.append(check_case("mm_longkv_masked", MM_LONGKV_MASKED, dtype_name, True,
+                                      reps, gen, lse=True, want_plan={"route": "sm90_longkv"}))
         for name, shape in CLS_SITES.items():
             plan = _want_k1_plan(name, shape, dtype_name)
             records.append(check_case(name, shape, dtype_name, False, reps, gen,
@@ -1101,8 +1118,10 @@ def check_realign_backward(gen, site, shape, offsets):
 
 def check_splits(gen, site, shape):
     """At a bf16 site whose short grid splits the keys: the planned split
-    count against one split (within the bf16 tolerance), and two calls bit
-    for bit."""
+    count against one split (within the bf16 tolerance; a forced split count
+    takes the wgmma kernel, so at the multimodal encoder this holds the
+    long-KV K1 against the wgmma one: both routes recorded), and two calls
+    bit for bit."""
     import torch
 
     from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
@@ -1126,8 +1145,10 @@ def check_splits(gen, site, shape):
     if not (err <= TOL["bf16"] * scale and lse_err <= 1e-4 * (1 + one_lse.abs().max().item())):
         raise AssertionError(
             f"{site}: {splits} splits vs 1: out {err} (max {scale}), lse {lse_err}")
-    rec = dict(site=site, dtype="bf16", splits=splits, max_abs_diff_vs_1_split=err,
-               max_abs_out=scale, lse_diff_vs_1_split=lse_err, bitwise_repeat=True)
+    routes = [fa.launch_plan(q, k, v, num_splits=n)["route"] for n in (None, 1)]
+    rec = dict(site=site, dtype="bf16", splits=splits, route=routes[0], route_1_split=routes[1],
+               max_abs_diff_vs_1_split=err, max_abs_out=scale, lse_diff_vs_1_split=lse_err,
+               bitwise_repeat=True)
     print(f"[kernel] splits: {json.dumps(rec)}", flush=True)
 
 
@@ -1880,8 +1901,8 @@ def phase_mm_model():
             out_plain = model(images, audio, n_chunks=MM_CHUNKS)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
-    if (launches["K1"], launches["merge"]) != (1, 1):
-        raise AssertionError(f"expected one K1 launch and one merge, got {launches}")
+    if (launches["K1"], launches["merge"], launches["k1_longkv"]) != (1, 1, 0):
+        raise AssertionError(f"expected one fp32 K1 launch and one merge, got {launches}")
     _check_mm_outputs(out_kernel, "kernel")
     _check_mm_outputs(out_plain, "plain")
     diffs = {}
@@ -1930,8 +1951,9 @@ def phase_mm_serve(fp32_model, n_clips: int = 3):
                          weights={k: v.cpu() for k, v in model.state_dict().items()},
                          latency_s=latencies)
         ref = fp32_model(*clips[-1], n_chunks=MM_CHUNKS)
-    if (launches["K1"], launches["merge"]) != (n_clips, n_clips):
-        raise AssertionError(f"expected one K1 launch and one merge a clip, got {launches}")
+    if (launches["K1"], launches["merge"], launches["k1_longkv"]) != (n_clips,) * 3:
+        raise AssertionError(f"expected one long-KV K1 launch and one merge a clip, got"
+                             f" {launches}")
     rel = {key: (out[key].float() - ref[key]).abs().max().item() / ref[key].abs().max().item()
            for key in ref}
     if not all(r <= MM_BF16_TOL for r in rel.values()):
@@ -1939,6 +1961,7 @@ def phase_mm_serve(fp32_model, n_clips: int = 3):
     rec = dict(clips=n_clips, n_chunks=MM_CHUNKS, latency_s=latencies,
                clips_per_s=n_clips / total, peak_mem_gb=peak_mem / 1e9,
                launches=launches["K1"], merge_launches=launches["merge"],
+               longkv_launches=launches["k1_longkv"],
                k1_launches_per_clip=launches["K1"] / n_clips,
                merge_launches_per_clip=launches["merge"] / n_clips,
                bf16_vs_fp32_rel=rel, bf16_tolerance=MM_BF16_TOL)
@@ -3387,7 +3410,8 @@ def phase_evaluate_multimodal(tmp):
                 math.isfinite(res["video_psnr"]) and math.isfinite(res["audio_psnr"])
                 and 0 <= res["top1"] <= res["top5"] <= 1):
             raise AssertionError(f"evaluate_multimodal ({source}): {res}")
-        if launches != dict(NO_LAUNCHES, K1=MM_EVAL_CLIPS, merge=MM_EVAL_CLIPS):
+        if launches != dict(NO_LAUNCHES, K1=MM_EVAL_CLIPS, merge=MM_EVAL_CLIPS,
+                            k1_longkv=MM_EVAL_CLIPS):
             raise AssertionError(f"evaluate_multimodal ({source}): launches {launches} for "
                                  f"{MM_EVAL_CLIPS} clips")
     rec = dict(clips_written=MM_EVAL_CLIPS, clips=MM_EVAL_CLIPS, n_chunks=16, tree_s=tree_s,
@@ -5229,7 +5253,7 @@ def phase_sp_models(smi, mesh):
         launches, rings = _launch_counts(), merges.call_count
     _check_mm_outputs(out, "multimodal under Policy(sp_mesh)")
     gaps = {k: _rel(out[k].cpu(), v) for k, v in MM_SERVED["outputs"].items()}
-    if (launches["K1"], launches["merge"], rings) != (1, 1, 1) or not max(
+    if (launches["K1"], launches["merge"], launches["k1_longkv"], rings) != (1,) * 4 or not max(
             gaps.values()) <= MODEL_TOL:
         raise AssertionError(f"multimodal under Policy(sp_mesh): {launches}, ring {rings},"
                              f" gaps {gaps}")
@@ -5279,7 +5303,7 @@ def phase_chunk_mesh_and_server(smi):
         launches = _launch_counts()
     differ = {k: _rel(out[k].cpu(), v) for k, v in MM_SERVED["outputs"].items()
               if not torch.equal(out[k].cpu(), v)}
-    if differ or (launches["K1"], launches["merge"]) != (1, 1):
+    if differ or (launches["K1"], launches["merge"], launches["k1_longkv"]) != (1, 1, 1):
         raise AssertionError(f"chunk_mesh clip: outputs differ from phase 10's {differ},"
                              f" launches {launches}")
     chunk_rec = dict(bitwise=True, n_chunks=MM_CHUNKS, waves=MM_CHUNKS, launches=launches,
@@ -5666,7 +5690,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
     }
     k1_routes = {"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
-                 "bf16, Tq <= 512 over Tk >= 4,224, 257 to 512 wide": "sm90_longkv",
+                 "bf16 over Tk >= 4,224: Tq <= 512 at 257 to 512 wide, Tq <= 1,024 at 513"
+                 " to 704": "sm90_longkv",
                  "fp32": "cuda_cores"}
     served = [r for r in records if r["dtype"] == "bf16" and r["shape"][0] == SERVE_TILES]
     narrow = [r for r in records if r["route"] == "sm90_narrow"]
@@ -5732,13 +5757,16 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     ), dict(
         name="flash_attention_fwd_d704",
         route="cuda",
-        source=k1_sources["sm90_wgmma"],
+        source=k1_sources[mm_site["route"]],
         sources=k1_sources,
         routes=k1_routes,
+        k1_route=mm_site["route"],
         replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
         launches=mm_serve["launches"],
         merge_launches=mm_serve["merge_launches"],
+        longkv_launches=mm_serve["longkv_launches"],
         launches_train=mm_train["launches"]["K1"],
+        longkv_launches_train=mm_train["launches"]["k1_longkv"],
         launches_full_remat_train=mm_train["full_remat"]["launches"]["K1"],
         launches_evaluate_multimodal=sum(r["launches"]["K1"] for r in mm_eval_runs),
         merge_launches_evaluate_multimodal=sum(r["launches"]["merge"] for r in mm_eval_runs),

@@ -95,7 +95,8 @@
 //     an item: Q and dO are read out of L2 once per 32 keys, half what the
 //     16-key blocks of flash_attention_bwd_sm90.cu read there.
 //   * The tensor maps, TMA loads, swizzled descriptors, ring positions,
-//     named barriers and the copy into aligned rows are longkv.cuh's, which K1's long-KV route
+//     named barriers, the wait of an unrolled count and the copy into
+//     aligned rows are longkv.cuh's, which K1's long-KV route
 //     (flash_attention_fwd_longkv_sm90.cu) shares.
 //
 // Shared memory is zeroed once; TMA zero-fills columns and rows past the
@@ -199,20 +200,6 @@ struct Smem {
 // different tiles (and, items taken batch first, different batch entries)
 // rather than all the same lines of L2 at the same time.
 __device__ __forceinline__ int tile_of(int w, int kb, int n) { return (w + kb) % n; }
-
-// wgmma.wait_group with a count known only after unrolling.
-__device__ __forceinline__ void wgmma_wait_n(int n) {
-  switch (n) {
-    case 0: sm90::wgmma_wait<0>(); break;
-    case 1: sm90::wgmma_wait<1>(); break;
-    case 2: sm90::wgmma_wait<2>(); break;
-    case 3: sm90::wgmma_wait<3>(); break;
-    case 4: sm90::wgmma_wait<4>(); break;
-    case 5: sm90::wgmma_wait<5>(); break;
-    case 6: sm90::wgmma_wait<6>(); break;
-    default: sm90::wgmma_wait<7>(); break;
-  }
-}
 
 template <int NM>
 __device__ __forceinline__ void consume(const Params& p, char* smem, int wg);

@@ -2,9 +2,10 @@
 // K1; flash_attention_bwd_longkv_sm90.cu: K2 and K3), which stream the keys
 // and values of a long walk through shared memory by TMA: the tensor maps
 // (cuTensorMapEncodeTiled, looked up at run time), a TMA load counted on an
-// mbarrier and the arrival that expects its bytes, the wgmma descriptor of a
-// 128-byte swizzled chunk, ring positions, named barriers, and the copy of
-// rows that TMA cannot address (not 16-byte aligned: the pixel encoder's
+// mbarrier and the arrival that expects its bytes, the wgmma descriptors of
+// 128- and 64-byte swizzled chunks, ring positions, named barriers, a
+// wgmma wait of a count known only after unrolling, and the copy of rows
+// that TMA cannot address (not 16-byte aligned: the pixel encoder's
 // 522-byte rows, offset views) into 16-byte aligned rows.
 //
 // A chunk is a box of `rows` rows x 64 bf16 columns (128 bytes a row),
@@ -12,8 +13,11 @@
 // Read K-major (the reduction along the columns: Q, K as S's operands), a
 // k16 step moves 32 bytes on; read MN-major (the reduction along the rows: V
 // as the B of P V, a Q or dO chunk as the A of dK^T or dV^T), 16 rows are
-// 2048 bytes.  TMA zero-fills columns past the row's width and rows past the
-// tensor's end, and counts the whole box's bytes on the barrier.
+// 2048 bytes.  A chunk of 32 columns (64 bytes a row: the 704-wide K1's V
+// chunks, an N = 32 operand read MN-major) takes the 64-byte swizzle: 8-row
+// groups of 512 bytes, 16 rows 1024.  TMA zero-fills columns past the row's
+// width and rows past the tensor's end, and counts the whole box's bytes on
+// the barrier.
 
 #pragma once
 
@@ -52,6 +56,12 @@ __device__ __forceinline__ uint64_t make_desc_sw128(const char* p) {
   return sm90::make_desc(sm90::smem_addr(p), 16, 1024) | (1ull << 62);
 }
 
+// The same of a 64-byte swizzled chunk of 32 columns (one atom), read
+// MN-major: 8-row groups 512 bytes apart.
+__device__ __forceinline__ uint64_t make_desc_sw64(const char* p) {
+  return sm90::make_desc(sm90::smem_addr(p), 16, 512) | (2ull << 62);
+}
+
 // Named barriers over N threads (0 is __syncthreads; the id an immediate:
 // with a register id ptxas reserves all of the block's barriers).
 template <int ID, int N>
@@ -67,6 +77,20 @@ __device__ __forceinline__ void named_arrive() {
 // Slot c on from slot s0 of a ring of n slots (c <= n).
 __device__ __forceinline__ int ring_at(int s0, int c, int n) {
   return s0 + c >= n ? s0 + c - n : s0 + c;
+}
+
+// wgmma.wait_group with a count known only after unrolling.
+__device__ __forceinline__ void wgmma_wait_n(int n) {
+  switch (n) {
+    case 0: sm90::wgmma_wait<0>(); break;
+    case 1: sm90::wgmma_wait<1>(); break;
+    case 2: sm90::wgmma_wait<2>(); break;
+    case 3: sm90::wgmma_wait<3>(); break;
+    case 4: sm90::wgmma_wait<4>(); break;
+    case 5: sm90::wgmma_wait<5>(); break;
+    case 6: sm90::wgmma_wait<6>(); break;
+    default: sm90::wgmma_wait<7>(); break;
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -105,17 +129,19 @@ inline bool tma_aligned(const void* ptr, long long sb, long long st, long long s
 // A tensor map of a [B, T, H, W] bf16 tensor (strides in elements, every
 // one of them and the address 16-byte aligned) in boxes of `rows` rows x 64
 // columns at (column, head, row, batch), written to shared memory in wgmma's
-// 128-byte swizzle; columns past W and rows past T read as zeros.
+// 128-byte swizzle (or of 32 columns in the 64-byte swizzle); columns past W
+// and rows past T read as zeros.
 inline bool make_tmap(CUtensorMap* map, const void* ptr, int B, int T, int H, int W,
-                      long long sb, long long st, long long sh, int rows) {
+                      long long sb, long long st, long long sh, int rows, int cols = 64) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr || !tma_aligned(ptr, sb, st, sh)) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -6,9 +6,10 @@ Counterpart of ``perceiverio_pytorch_tpu/ops/pallas/flash_attention.py``:
 bf16 inputs whose head widths are at most ``NARROW_HEAD_DIM`` = 64 (the flow
 self-attends: wgmma with P in registers, a producer warp feeding a K/V ring,
 route ``sm90_narrow``), ``csrc/flash_attention_fwd_longkv_sm90.cu`` for bf16
-calls with a short query range against many keys at widths of 257 to 512
-(the classification encoders: Q resident, a producer warpgroup feeding K/V
-rings by TMA, route ``sm90_longkv``),
+calls with a short query range against many keys at widths of 257 to 704
+(the classification encoders, 257 to 512; the multimodal encoder, 704: Q
+resident, a producer warpgroup feeding K/V rings by TMA, route
+``sm90_longkv``),
 ``csrc/flash_attention_fwd_sm90.cu`` for other wider bf16 heads (wgmma,
 route ``sm90_wgmma``) and ``csrc/flash_attention_fwd.cu`` for
 fp32 ones (IEEE fp32 on the CUDA cores, route ``cuda_cores``), which also
@@ -73,7 +74,8 @@ design does about that.
     chunks and the long-KV kernels' ``loader`` (``_longkv_loader``).
   * Each kernel states its own head-width limit: K1 takes Dqk and Dv up to
     ``MAX_HEAD_DIM_FWD`` = 704 (the multimodal encoder's single head; above
-    512 its grid splits the value columns in two), K2 and K3 up to
+    512, off the long-KV route, its grid splits the value columns in two),
+    K2 and K3 up to
     ``MAX_HEAD_DIM_BWD`` = 704 (above 512, off the long-KV route, K3's grid
     splits the dQ columns in chunks of 352, the fp32 K2's the dK and dV
     columns in two, and the bf16 K2 takes 16 keys a block; the long-KV K2
@@ -137,18 +139,18 @@ NUM_SMS = 132
 MIN_SPLIT_TILES = 8
 # bf16 calls whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns wide
 # (where the wgmma K2 holds 32 keys a block), with at most LONGKV_MAX_Q
-# query rows a (batch, head) (8 tiles of 64) over at least LONGKV_MIN_K keys
-# (a key block of LONGKV_BLOCK_K for every SM), take the long-KV kernels when
-# no split count is forced (``_longkv_shape``): K1 forward, K2 and K3
-# backward.  K2: persistent blocks, at most one an SM, walking work items of
-# LONGKV_BLOCK_K keys.  K3: a block of 64 query rows walks its key split in
-# steps of LONGKV_BLOCK_K keys (16 above COL_CHUNK columns), the keys split
-# so that every block runs in one wave (``_longkv_dq_split_plan``).  K1: a
-# block of 64 query rows walks its key split in steps of 64 keys, split as
-# K3's.  The backward also takes wider heads, up to MAX_HEAD_DIM_BWD, with at
-# most LONGKV_WIDE_MAX_Q query rows (16 tiles) over as many keys
-# (``_longkv_bwd_shape``: the multimodal encoder, 784 latents over 52,097
-# keys, 704 wide); K1 keeps its wgmma route there.
+# query rows a (batch, head) (8 tiles of 64), or COL_CHUNK + 1 to
+# MAX_HEAD_DIM_FWD (= MAX_HEAD_DIM_BWD) wide with at most LONGKV_WIDE_MAX_Q
+# (16 tiles: the multimodal encoder, 784 latents over 52,097 keys, 704
+# wide), over at least LONGKV_MIN_K keys (a key block of LONGKV_BLOCK_K for
+# every SM), take the long-KV kernels when no split count is forced
+# (``_longkv_shape``): K1 forward, K2 and K3 backward.  K2: persistent
+# blocks, at most one an SM, walking work items of LONGKV_BLOCK_K keys.  K3:
+# a block of 64 query rows walks its key split in steps of LONGKV_BLOCK_K
+# keys (16 above COL_CHUNK columns), the keys split so that every block runs
+# in one wave (``_longkv_dq_split_plan``).  K1: a block of 64 query rows
+# walks its key split in steps of 64 keys, split as K3's, its value columns
+# never split.
 LONGKV_MIN_WIDTH = 257
 LONGKV_MAX_Q = 512
 LONGKV_WIDE_MAX_Q = 1024
@@ -671,13 +673,14 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     """What a K1 call on these tensors launches: ``route`` ("sm90_narrow"
     for bf16 on CUDA with Dqk and Dv at most NARROW_HEAD_DIM, "sm90_longkv"
     for bf16 of the long-KV shape (``_longkv_shape``: the classification
-    encoders), "sm90_wgmma" for other wider bf16 heads, "cuda_cores" for
-    fp32), ``splits`` and ``tiles_per_split`` (``_split_plan``; on the
-    long-KV route ``_longkv_dq_split_plan``, one wave of blocks; or
-    ``num_splits`` ranges when given; the narrow route walks all keys in one
-    split, and a forced ``num_splits`` takes the split-KV kernel,
-    "sm90_wgmma"), ``col_chunks`` (``_col_chunks``: the grid's split of the
-    value columns), ``blocks`` of the main kernel's grid, ``cuda_launches``
+    and multimodal encoders), "sm90_wgmma" for other wider bf16 heads,
+    "cuda_cores" for fp32), ``splits`` and ``tiles_per_split``
+    (``_split_plan``; on the long-KV route ``_longkv_dq_split_plan``, one
+    wave of blocks; or ``num_splits`` ranges when given; the narrow route
+    walks all keys in one split, and a forced ``num_splits`` takes the
+    split-KV kernel, "sm90_wgmma"), ``col_chunks`` (``_col_chunks``: the
+    grid's split of the value columns; 1 on the long-KV route, whose blocks
+    hold all of them), ``blocks`` of the main kernel's grid, ``cuda_launches``
     (the kernel, the merge when there is more than one split, and on the
     long-KV route one copy launch for each of its ``copies``) and ``loader``
     (``_loader``; on the long-KV route ``_longkv_loader``, with ``copies``:
@@ -709,21 +712,15 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
 
 
 def _longkv_shape(tq: int, tk: int, width: int) -> bool:
-    """A short query range over many keys at a wider head of
-    LONGKV_MIN_WIDTH to COL_CHUNK columns (the classification encoders):
-    the shape that bf16 K1, K2 and K3 take the long-KV kernels at."""
-    return LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq <= LONGKV_MAX_Q and tk >= LONGKV_MIN_K
-
-
-def _longkv_bwd_shape(tq: int, tk: int, width: int) -> bool:
-    """The shape that bf16 K2 and K3 take the long-KV kernels at:
-    ``_longkv_shape``'s, and at a wider head of COL_CHUNK + 1 to
-    MAX_HEAD_DIM_BWD columns at most LONGKV_WIDE_MAX_Q query rows over as
-    many keys (the multimodal encoder: 784 latents over 52,097 keys, 704
-    wide)."""
-    return _longkv_shape(tq, tk, width) or (
-        COL_CHUNK < width <= MAX_HEAD_DIM_BWD and tq <= LONGKV_WIDE_MAX_Q
-        and tk >= LONGKV_MIN_K)
+    """The shape that bf16 K1, K2 and K3 take the long-KV kernels at: a
+    short query range over at least LONGKV_MIN_K keys, at most LONGKV_MAX_Q
+    query rows at a wider head of LONGKV_MIN_WIDTH to COL_CHUNK columns (the
+    classification encoders), or at most LONGKV_WIDE_MAX_Q at COL_CHUNK + 1
+    to MAX_HEAD_DIM_BWD (the multimodal encoder: 784 latents over 52,097
+    keys, 704 wide)."""
+    max_q = (LONGKV_MAX_Q if LONGKV_MIN_WIDTH <= width <= COL_CHUNK
+             else LONGKV_WIDE_MAX_Q if COL_CHUNK < width <= MAX_HEAD_DIM_BWD else -1)
+    return tq <= max_q and tk >= LONGKV_MIN_K
 
 
 def _tma_rows(t: torch.Tensor) -> bool:
@@ -759,7 +756,9 @@ def _longkv_dq_split_plan(b: int, tq: int, h: int, kv_len: int):
     key tiles each: at the classification encoders (8 query tiles a batch
     entry) 1 at batch 16, 2 at 8, 4, 8 and 16 at the server's buckets 4, 2
     and 1 (128 blocks each); at the multimodal encoder (13 query tiles) 10
-    (130 blocks)."""
+    of 82 tiles at batch 1 (130 blocks, K1 and K3 alike), 5 at batch 2; 1
+    where a split's blocks outnumber the SMs (batch 16 there: 208 blocks,
+    two waves)."""
     blocks = -(-tq // BLOCK_Q) * h * b
     tiles = -(-kv_len // BLOCK_K)
     return _split_bounds(kv_len, max(1, min(NUM_SMS // blocks, tiles // MIN_SPLIT_TILES)))
@@ -781,7 +780,7 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     forced split: one launch each, K2 a block per NARROW_BLOCK_K keys, K3 per
     NARROW_BLOCK_Q query rows, never split; "sm90_wgmma" for wider bf16
     heads or a forced ``num_splits``; "sm90_longkv" for bf16 calls of
-    ``_longkv_bwd_shape`` (the wider head LONGKV_MIN_WIDTH to COL_CHUNK
+    ``_longkv_shape`` (K1's too: the wider head LONGKV_MIN_WIDTH to COL_CHUNK
     columns wide with at most LONGKV_MAX_Q query rows, or up to
     MAX_HEAD_DIM_BWD with at most LONGKV_WIDE_MAX_Q, over at least
     LONGKV_MIN_K keys) and no forced
@@ -827,7 +826,7 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
             dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=1,
                     blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1),
         )
-    if num_splits is None and _longkv_bwd_shape(tq, tk, width):
+    if num_splits is None and _longkv_shape(tq, tk, width):
         items = -(-tk // LONGKV_BLOCK_K) * h * b
         copies, loader = _longkv_copies(q, k, v), _longkv_loader(k, v)
         splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)

@@ -1,24 +1,29 @@
-"""Forms of the long-KV backward's 704-wide instantiations (K2 and K3 `<11>`
-in ``csrc/flash_attention_bwd_longkv_sm90.cu``), side by side on one card.
+"""Forms of the long-KV kernels' 704-wide instantiations (`<11>`: K1 in
+``csrc/flash_attention_fwd_longkv_sm90.cu``, K2 and K3 in
+``csrc/flash_attention_bwd_longkv_sm90.cu``), side by side on one card.
 
 On a machine with an NVIDIA GPU, from the repository root:
 
-    python -m perceiverio_pytorch_tpu_torch.tools.longkv_forms [FORM ...]
+    python -m perceiverio_pytorch_tpu_torch.tools.longkv_forms [k1 | bwd | FORM ...]
 
-A form is the source with a few lines changed (``FORMS``; "kept" is the
-source as it is).  Each runs in a process of its own: the package's
-``csrc/`` is copied into ``build/forms/<form>/``, edited, compiled with
-``nvcc -Xptxas -v`` (the `<11>` kernels' registers, spills and stack are
-printed, with their shared memory and ring slots as the source computes
-them), built into that directory's own kernel libraries, held against the
-plain backward on a masked 704-wide case over 4,301 keys (relative max
-error of dQ, dK, dV; exact zeros on wiped rows and tail keys; two calls bit
-for bit), then K2 and K3 are timed apart at the multimodal encoder (784
-latents over 52,097 keys, bf16), twice each, each reading the mean over at
-least 5 launches and 30 ms.  With no FORM it runs every form and then
-"kept" again, so that the first and last readings bound the card's drift.
-It checks and prints; ``chip_smoke.py`` and the card tests are the checks
-that fail.
+A form is a source with a few lines changed (``FORMS``; "kept" and
+"k1_kept" are the sources as they are).  Each runs in a process of its
+own: the package's ``csrc/`` is copied into ``build/forms/<form>/``,
+edited, compiled with ``nvcc -Xptxas -v`` (the `<11>` kernels' registers,
+spills and stack are printed, with their shared memory and ring slots as
+the source computes them), built into that directory's own kernel
+libraries and held against the plain version on a masked 704-wide case
+over 4,301 keys.  A backward form: relative max error of dQ, dK, dV,
+exact zeros on wiped rows and tail keys, two calls bit for bit; then K2
+and K3 are timed apart at the multimodal encoder (784 latents over 52,097
+keys, bf16).  A K1 form: relative max error of the output, the lse's
+largest difference and its +inf rows, exact zeros on wiped rows, two calls
+bit for bit; then K1 (with its merge) is timed there.  Each time is read
+twice, each the mean over at least 5 launches and 30 ms.  ``bwd`` runs
+every backward form and then "kept" again, ``k1`` every K1 form and then
+"k1_kept" again, so that the first and last readings bound the card's
+drift; with no argument, both.  It checks and prints; ``chip_smoke.py``
+and the card tests are the checks that fail.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import shutil
 import subprocess
 import sys
 
-SOURCE = "flash_attention_bwd_longkv_sm90.cu"
+SOURCES = {"K1": "flash_attention_fwd_longkv_sm90.cu",
+           "K2/K3": "flash_attention_bwd_longkv_sm90.cu"}
 MULTIMODAL_SITE = (1, 784, 52097, 1, 704, 704)
 MASKED_CASE = (2, 129, 4301, 1, 704, 704)
 _K2_LAG = "constexpr int LAG = L::SHORT_O ? L::NSO - 2 : NM;"
@@ -46,7 +52,21 @@ _K2_DP_LAST = """          if (step_release)
             sm90::mbar_arrive(&empty_first[prev]);
           else
 """
-# name: (what differs from the source, [(line as it is, line in the form)]).
+_K1_SLOTS = "constexpr int WIDE_K_SLOTS = 6;"
+_K1_COLS = "constexpr int WIDE_V_COLS = 64;"
+_K1_LAG = "constexpr int WIDE_V_LAG = 1;"
+_K1_KEYS = "constexpr int WIDE_STEP_KEYS = 64;"
+
+
+def _k1(slots=6, cols=64, lag=1, keys=64):
+    """The K1 form's edits of the WIDE_* constants."""
+    return [(line, line.replace(old, str(new))) for line, old, new in (
+        (_K1_SLOTS, "6", slots), (_K1_COLS, "64", cols), (_K1_LAG, "1", lag),
+        (_K1_KEYS, "64", keys)) if str(new) != old]
+
+
+# name: (what differs from the source, [(line as it is, line in the form)]);
+# the K1 forms' names start with "k1_".
 FORMS = {
     "kept": ("K2: dO ring 4 slots, dV^T/dK^T chunks released 2 commit groups behind;"
              " K3: K ring 15 slots, V ring 6", []),
@@ -68,7 +88,28 @@ FORMS = {
                 [(_K3_NSV, _K3_NSV.replace("(FIT - NM + 2) / 2", "8"))]),
     "k3_17_4": ("K3: K ring 17 slots, V ring 4",
                 [(_K3_NSV, _K3_NSV.replace("(FIT - NM + 2) / 2", "4"))]),
+    "k1_kept": ("K1: steps of 64 keys, V in chunks of 64 columns (6 / 5 O tiles),"
+                " K ring 6 slots, V ring 10, each chunk released 1 group behind", []),
+    "k1_lag2": ("K1: V chunks released 2 groups behind", _k1(lag=2)),
+    "k1_k4": ("K1: K ring 4 slots, V ring 12, 2 behind", _k1(slots=4, lag=2)),
+    "k1_k8": ("K1: K ring 8 slots, V ring 8", _k1(slots=8)),
+    "k1_v32": ("K1: V in chunks of 32 columns (64-byte swizzle, 11 O tiles a warpgroup),"
+               " K ring 11 slots (a step, released after S), V ring 10", _k1(slots=11, cols=32)),
+    "k1_v32_lag2": ("K1: as k1_v32, V chunks released 2 groups behind",
+                    _k1(slots=11, cols=32, lag=2)),
+    "k1_v32_k8": ("K1: as k1_v32, K ring 8 (released one by one), V ring 16, 2 behind",
+                  _k1(slots=8, cols=32, lag=2)),
+    "k1_v32_k5": ("K1: as k1_v32, K ring 5, V ring 22, 3 behind", _k1(slots=5, cols=32, lag=3)),
+    "k1_keys32": ("K1: steps of 32 keys (S as N = 16 products), V in chunks of 32 columns,"
+                  " K ring 11 slots (a step), V ring 42 of 2 KB, 2 behind",
+                  _k1(slots=11, cols=32, lag=2, keys=32)),
 }
+_KEPT = {"K1": "k1_kept", "K2/K3": "kept"}
+
+
+def _kernel(name: str) -> str:
+    """The kernel a form changes: "K1" or "K2/K3"."""
+    return "K1" if name.startswith("k1_") else "K2/K3"
 
 
 def _prepare(name: str, fa) -> str:
@@ -78,7 +119,7 @@ def _prepare(name: str, fa) -> str:
     root = os.path.join(repo, "build", "forms", name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(fa._CSRC, os.path.join(root, "csrc"))
-    path = os.path.join(root, "csrc", SOURCE)
+    path = os.path.join(root, "csrc", SOURCES[_kernel(name)])
     with open(path) as f:
         text = f.read()
     for old, new in FORMS[name][1]:
@@ -96,7 +137,7 @@ def _ptxas(name: str, root: str, fa) -> None:
     proc = subprocess.run(
         [fa._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", os.path.join(root, "ptxas.so"),
-         os.path.join(root, "csrc", SOURCE)], capture_output=True, text=True)
+         os.path.join(root, "csrc", SOURCES[_kernel(name)])], capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"form {name}: nvcc exit {proc.returncode}\n{proc.stderr[-4000:]}")
     kernel = None
@@ -105,12 +146,20 @@ def _ptxas(name: str, root: str, fa) -> None:
         if entry:
             kernel = entry.group(1)
         elif kernel and "ILi11E" in kernel and ("Used" in line or "spill" in line):
-            short = "K2 <11>" if "dkv" in kernel else "K3 <11>"
+            short = "K2 <11>" if "dkv" in kernel else "K3 <11>" if "dq" in kernel else "K1 <11>"
             print(f"[forms] {name} ptxas {short}: {line.split('info    :')[-1].strip()}",
                   flush=True)
 
 
 def _smem(name: str, paths) -> None:
+    if _kernel(name) == "K1":
+        lib = ctypes.CDLL(paths["fwd_longkv"])
+        fn = lib.flash_attention_fwd_longkv_smem
+        fn.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
+        a, b = ctypes.c_int(0), ctypes.c_int(0)
+        smem = fn(704, ctypes.byref(a), ctypes.byref(b))
+        print(f"[forms] {name} smem: K1 K ring {a.value}, V ring {b.value}, {smem} B", flush=True)
+        return
     lib = ctypes.CDLL(paths["bwd_longkv"])
     for fn in (lib.flash_attention_bwd_longkv_smem, lib.flash_attention_bwd_dq_longkv_smem):
         fn.argtypes = (ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
@@ -136,6 +185,40 @@ def _backward_args(shape, masked, gen):
     return (q, k, v, out, lse, grad), kw
 
 
+def _run_k1(name: str, gen) -> None:
+    """K1 of a form: the masked case against the plain version, then K1
+    timed at the multimodal encoder."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.tools.kernel_report import _case, _window_ms
+
+    (q, k, v), kw = _case(*MASKED_CASE, torch.bfloat16, True, False, gen)
+    if fa.launch_plan(q, k, v, kv_logical_len=kw["kv_logical_len"])["route"] != "sm90_longkv":
+        raise SystemExit(f"form {name}: the masked case is off the long-KV route")
+    got, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    again, again_lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                  return_lse=True, **kw)
+    torch.cuda.synchronize()
+    rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+    finite = torch.isfinite(want_lse)
+    lse_err = (lse[finite] - want_lse[finite]).abs().max().item()
+    inf_rows = torch.equal(finite, torch.isfinite(lse))
+    wiped = ~kw["q_mask"]
+    wiped[-1] = True
+    zeros = got.view(*wiped.shape, -1)[wiped].abs().max().item() == 0
+    bitwise = torch.equal(got, again) and torch.equal(lse, again_lse)
+    (q, k, v), _ = _case(*MULTIMODAL_SITE, torch.bfloat16, False, False, gen)
+    plan = fa.launch_plan(q, k, v)
+    if plan["route"] != "sm90_longkv":
+        raise SystemExit(f"form {name}: the multimodal encoder's plan is {plan}")
+    k1 = [_window_ms(lambda: fa.flash_attention(q, k, v), 5, 30.0)[0] for _ in range(2)]
+    print(f"[forms] {name} ({FORMS[name][0]}): {MASKED_CASE} rel out {rel:.3g}, lse"
+          f" {lse_err:.3g}, +inf rows alike {inf_rows}, exact zeros {zeros}, bit for bit"
+          f" {bitwise}; at {MULTIMODAL_SITE}: K1 {k1[0]:.4f}/{k1[1]:.4f} ms", flush=True)
+
+
 def run_form(name: str) -> None:
     import torch
 
@@ -147,6 +230,9 @@ def run_form(name: str) -> None:
     paths = fa.build()
     _smem(name, paths)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    if _kernel(name) == "K1":
+        _run_k1(name, gen)
+        return
     args, kw = _backward_args(MASKED_CASE, True, gen)
     got = fa.flash_attention_backward(*args, **kw)
     again = fa.flash_attention_backward(*args, **kw)
@@ -181,7 +267,14 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("longkv_forms needs a CUDA device")
-    names = argv or list(FORMS) + ["kept"]
+    groups = {kernel: [n for n in FORMS if _kernel(n) == kernel] + [_KEPT[kernel]]
+              for kernel in _KEPT}
+    if not argv:
+        names = groups["K2/K3"] + groups["K1"]
+    elif argv in (["k1"], ["bwd"]):
+        names = groups["K1" if argv == ["k1"] else "K2/K3"]
+    else:
+        names = argv
     unknown = [n for n in names if n not in FORMS]
     if unknown:
         raise SystemExit(f"unknown forms {unknown}; choose from {list(FORMS)}")

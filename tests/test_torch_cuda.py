@@ -12,10 +12,10 @@ narrow-head route at widths up to 64) are held against their plain PyTorch
 versions, which the CPU tests hold against the JAX package;
 K1 also at the classification encoders' widths (261 and 512) over 50,176
 keys, K2 and K3 at those widths (masked small cases, and a few thousand
-keys; K2's and K3's long-KV route over 4,231 to 4,451 keys, at 704 too and
-at the multimodal encoder itself, and its realigned views bit for bit;
-K1's long-KV route over the same shapes up to 512 wide, masked, its offset
-views bit for bit, its op and an exported site against the direct launch),
+keys; K1's, K2's and K3's long-KV route over 4,231 to 4,451 keys, at 704
+too and at the multimodal encoder itself, masked, K2's and K3's realigned
+views and K1's offset views bit for bit, K1's op and an exported site
+against the direct launch),
 reduced-depth classification and language models on the card
 against the same models on the CPU, and one training step of each tiny
 classifier and of the tiny MLM on the card with its launches counted.
@@ -959,23 +959,22 @@ def test_backward_kernels_at_the_classification_widths_unmasked(cuda, dtype, tol
             _check(x, y, tol)
 
 
-# The long-KV K2 and K3 (bf16, over at least 4,224 keys, the wider head 257
-# to 512 wide with at most 512 query rows or 513 to 704 wide with at most
-# 1,024), with masks, kv_logical_len and an all-masked entry: the pixel
+# The long-KV K1, K2 and K3 (bf16, over at least 4,224 keys, the wider head
+# 257 to 512 wide with at most 512 query rows or 513 to 704 wide with at
+# most 1,024), with masks, kv_logical_len and an all-masked entry: the pixel
 # encoder's 261 (522-byte rows: q, dO, K and V copied into aligned rows)
 # with odd Tq and Tk and with a multiple of 8 keys, the 1x1-conv encoder's
 # 512 (TMA) over 2 heads, d = 300 with Dv 264 over 3 heads (q and k
-# copied); the multimodal encoder's 704 (K2 with 11 Q-ring slots and 4 dO
-# slots, K3 in steps of 16 keys) with 129 and 784 query rows, 704 with Dv
-# 512, 512 with Dv 704 and 600 over 2 heads.  Tq = 129, 65, 77 and 784 leave
-# a lone last query tile (of 1, 1, 13 and 16 rows).
+# copied); the multimodal encoder's 704 (K1 with rings of 6 K and 10 V
+# slots, K2 with 11 Q-ring slots and 4 dO slots, K3 in steps of 16 keys)
+# with 129 and 784 query rows, 704 with Dv 512, 512 with Dv 704 and 600 over
+# 2 heads (a partial last column chunk).  Tq = 129, 65, 77 and 784 leave a
+# lone last query tile (of 1, 1, 13 and 16 rows).
 LONGKV_CASES = [(2, 129, 4301, 1, 261, 261), (2, 136, 4400, 1, 261, 261),
                 (3, 65, 4451, 2, 512, 512), (2, 77, 4231, 3, 300, 264),
                 (2, 129, 4301, 1, 704, 704), (2, 784, 4400, 1, 704, 704),
                 (2, 70, 4351, 1, 704, 512), (2, 77, 4231, 1, 512, 704),
                 (2, 100, 4250, 2, 600, 600)]
-# The cases K1 takes its long-KV route at too (the wider head up to 512).
-LONGKV_FWD_CASES = [c for c in LONGKV_CASES if max(c[4], c[5]) <= 512]
 # The multimodal encoder itself (one clip: 784 latents over 52,097 keys, d =
 # dv = 704), its one batch entry not wiped.
 MM_SITE = (1, 784, 52097, 1, 704, 704)
@@ -1057,16 +1056,18 @@ def test_longkv_dq_alone_matches_dq_after_dkv(cuda, b, tq, tk, h, d, dv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_FWD_CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES + [MM_SITE])
 def test_longkv_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
     """K1 on the long-KV route against the plain version with kv_mask,
-    q_mask, kv_logical_len, an all-masked entry and the lse (lone last query
-    tiles of 1, 1 and 13 rows): within bf16 TOL, exact zeros on wiped rows,
-    +inf lse where every key is masked; one K1 launch on the route, a merge
-    when the keys split, one copy launch for each operand the plan copies
-    into aligned rows; two calls bit for bit."""
+    q_mask, kv_logical_len, an all-masked entry (none at the multimodal
+    encoder's one clip) and the lse (lone last query tiles of 1, 1, 13 and
+    16 rows): within bf16 TOL, exact zeros on wiped rows, +inf lse where
+    every key is masked; one K1 launch on the route, a merge when the keys
+    split, one copy launch for each operand the plan copies into aligned
+    rows; two calls bit for bit."""
     q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 41, cuda)
-    kv_mask[-1] = False
+    if b > 1:
+        kv_mask[-1] = False
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=tk - 30, return_lse=True)
     plan = fa.launch_plan(q, k, v, kv_logical_len=tk - 30)
@@ -1081,7 +1082,8 @@ def test_longkv_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(lse, again_lse)
     _check(got, want, 2e-2)
-    assert torch.all(got.view(b, tq, -1)[~q_mask] == 0) and torch.all(got[-1] == 0)
+    assert torch.all(got.view(b, tq, -1)[~q_mask] == 0)
+    assert b == 1 or torch.all(got[-1] == 0)
     assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
     finite = torch.isfinite(want_lse)
     torch.testing.assert_close(lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
@@ -1110,7 +1112,7 @@ def test_longkv_forward_views_match_contiguous(cuda, offset, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [261, 512])
+@pytest.mark.parametrize("d", [261, 512, 704])
 def test_longkv_forward_op_and_artifact_match_the_direct_launch(cuda, d):
     """K1's torch.library op through torch.ops and a reloaded export_apply
     artifact of one long-KV site (batch-polymorphic, called at batches 2 and

@@ -255,31 +255,36 @@ def test_launch_plan_routes_by_dtype():
 
 @pytest.mark.parametrize(
     "dtype,b,tq,dv,want",
-    [(torch.bfloat16, 1, 784, 704, dict(splits=10, tiles_per_split=82, col_chunks=2,
-                                        blocks=260, cuda_launches=2)),
+    [(torch.bfloat16, 1, 784, 704, dict(splits=10, tiles_per_split=82, col_chunks=1,
+                                        blocks=130, cuda_launches=2)),
      (torch.float32, 1, 784, 704, dict(splits=10, tiles_per_split=82, col_chunks=2,
                                        blocks=260, cuda_launches=2)),
-     (torch.bfloat16, 2, 784, 704, dict(splits=5, tiles_per_split=163, col_chunks=2,
-                                        blocks=260, cuda_launches=2)),
-     (torch.bfloat16, 1, 784, 512, dict(splits=20, tiles_per_split=41, col_chunks=1,
-                                        blocks=260, cuda_launches=2)),
-     (torch.bfloat16, 16, 784, 704, dict(splits=1, tiles_per_split=815, col_chunks=2,
-                                         blocks=416, cuda_launches=1))],
+     (torch.bfloat16, 2, 784, 704, dict(splits=5, tiles_per_split=163, col_chunks=1,
+                                        blocks=130, cuda_launches=2)),
+     (torch.bfloat16, 1, 784, 512, dict(splits=10, tiles_per_split=82, col_chunks=1,
+                                        blocks=130, cuda_launches=2)),
+     (torch.bfloat16, 16, 784, 704, dict(splits=1, tiles_per_split=815, col_chunks=1,
+                                         blocks=208, cuda_launches=1))],
 )
 def test_wide_launch_plan(dtype, b, tq, dv, want):
     """The multimodal encoder (784 latents x 52,097 keys, one head of 704):
-    the value columns split in two chunks above 512, and the key splits
-    count the chunks' blocks (13 query blocks x 2 chunks at batch 1 take 10
-    key splits, 260 blocks on 132 SMs)."""
+    bf16 takes the long-KV route, whose blocks hold all the value columns,
+    its keys split for one wave (13 query blocks at batch 1 take 10 key
+    splits, 130 blocks on 132 SMs; a batch of 16 no split, 208 blocks), TMA
+    and no copy; fp32 splits the value columns in two chunks above 512, and
+    its key splits count the chunks' blocks (10 splits, 260 blocks)."""
     q = torch.empty(b, tq, 1, 704, dtype=dtype, device="meta")
     k = torch.empty(b, 52097, 1, 704, dtype=dtype, device="meta")
     v = torch.empty(b, 52097, 1, dv, dtype=dtype, device="meta")
     plan = fa.launch_plan(q, k, v)
-    bf16 = dtype == torch.bfloat16
-    assert plan == dict(route="sm90_wgmma" if bf16 else "cuda_cores",
-                        loader="cp.async16" if bf16 else "elements", **want)
-    assert fa._split_plan(b, tq, 1, 52097, fa._col_chunks(dv)) == (
-        want["splits"], want["tiles_per_split"])
+    if dtype == torch.bfloat16:
+        assert plan == dict(route="sm90_longkv", loader="tma", copies=(), **want)
+        assert fa._longkv_dq_split_plan(b, tq, 1, 52097) == (
+            want["splits"], want["tiles_per_split"])
+    else:
+        assert plan == dict(route="cuda_cores", loader="elements", **want)
+        assert fa._split_plan(b, tq, 1, 52097, fa._col_chunks(dv)) == (
+            want["splits"], want["tiles_per_split"])
     tiles = -(-52097 // fa.BLOCK_K)
     assert (want["splits"] - 1) * want["tiles_per_split"] < tiles
     assert tiles <= want["splits"] * want["tiles_per_split"]
@@ -706,17 +711,19 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
      (2, 100, 8000, 2, 48, 48, torch.bfloat16, None, "sm90_narrow")],
 )
 def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
-    """bf16 backwards over at least 4,224 keys whose wider head is 257 to
-    512 wide with at most 512 query rows, or 513 to 704 wide with at most
-    1,024 (the multimodal encoder), take the long-KV K2 and K3 (K3's key
-    splits by ``_longkv_dq_split_plan``, both on the same loader and
-    copies, no column chunks); a forced split count, fp32, more query rows,
-    fewer keys, other widths and the flow encoder keep their routes."""
+    """bf16 calls over at least 4,224 keys whose wider head is 257 to 512
+    wide with at most 512 query rows, or 513 to 704 wide with at most 1,024
+    (the multimodal encoder), take the long-KV K1, K2 and K3 (K1's and K3's
+    key splits by ``_longkv_dq_split_plan``, K1 and K2 on the same loader,
+    K2 and K3 on the same copies, no column chunks); a forced split count,
+    fp32, more query rows, fewer keys, other widths and the flow encoder
+    keep their routes, K1's and the backward's alike."""
     q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
     k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
     v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
     plan = fa.backward_plan(q, k, v, num_splits=num_splits)
-    assert plan["route"] == route
+    forward = fa.launch_plan(q, k, v, num_splits=num_splits)
+    assert plan["route"] == route and forward["route"] == route
     if route == "sm90_longkv":
         items = -(-tk // 32) * h * b
         copies, loader = fa._longkv_copies(q, k, v), fa._longkv_loader(k, v)
@@ -728,6 +735,11 @@ def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
             splits=splits, tiles_per_split=per, col_chunks=1, blocks=-(-tq // 64) * h * b * splits,
             cuda_launches=1 + (splits > 1), loader=loader, copies=copies)
         assert plan["dq"]["blocks"] <= fa.NUM_SMS
+        k1_copies = tuple(name for name, t in zip("qkv", (q, k, v)) if not fa._tma_rows(t))
+        assert forward == dict(
+            route=route, splits=splits, tiles_per_split=per, col_chunks=1,
+            blocks=plan["dq"]["blocks"], cuda_launches=1 + (splits > 1) + len(k1_copies),
+            loader=loader, copies=k1_copies)
 
 
 _QKV = ("q", "k", "v")
@@ -748,8 +760,13 @@ _QKV = ("q", "k", "v")
        (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, None, 0, "sm90_wgmma", 3, 216, None),
        (8, 512, 4223, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 4, 256, None),
        (8, 512, 50176, 1, 256, 256, torch.bfloat16, None, None, 0, "sm90_wgmma", 4, 256, None),
-       (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, None, 0, "sm90_wgmma", 10, 260,
-        None),  # the multimodal encoder
+       (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, None, 0, "sm90_longkv", 10, 130,
+        ()),  # the multimodal encoder
+       (2, 784, 52097, 1, 704, 704, torch.bfloat16, None, "v", 4, "sm90_longkv", 5, 130,
+        ("v",)),
+       (1, 784, 52097, 1, 704, 704, torch.bfloat16, 10, None, 0, "sm90_wgmma", 10, 260, None),
+       (1, 1025, 52097, 1, 704, 704, torch.bfloat16, None, None, 0, "sm90_wgmma", 7, 238,
+        None),
        (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, None, 0, "sm90_wgmma", 8, 256,
         None),  # the flow encoder
        (1, 182528, 2048, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 2852,
@@ -759,17 +776,18 @@ _QKV = ("q", "k", "v")
 )
 def test_longkv_forward_plan(b, tq, tk, h, d, dv, dtype, num_splits, target, offset, route,
                              splits, blocks, copies):
-    """bf16 K1 calls with at most 512 query rows over at least 4,224 keys,
-    whose wider head is 257 to 512 wide (the classification encoders at the
-    served batch, the training batch and the server's buckets), take the
-    long-KV route: 64 query rows a block (a lone last tile, as 129 rows
+    """bf16 K1 calls over at least 4,224 keys whose wider head is 257 to
+    512 wide with at most 512 query rows (the classification encoders at the
+    served batch, the training batch and the server's buckets), or 513 to
+    704 wide with at most 1,024 (the multimodal encoder), take the long-KV
+    route: 64 query rows a block (a lone last tile, as 129 and 784 rows
     give), the keys split by ``_longkv_dq_split_plan`` so that all blocks
     run in one wave, a merge after a split, every operand by TMA, each first
     copied into 16-byte aligned rows where its rows are not aligned (the
     pixel encoder's 522-byte rows; offset views: ``target`` seen ``offset``
     elements into its storage), one launch a copy.  A forced split count,
-    fp32, more query rows, fewer keys, other widths and the flow and
-    multimodal sites keep their routes."""
+    fp32, more query rows, fewer keys, other widths and the flow sites keep
+    their routes."""
     views = {}
     for name, t, w in (("q", tq, d), ("k", tk, d), ("v", tk, dv)):
         shift = offset if target in ("all", name) else 0
@@ -986,9 +1004,11 @@ def test_backward_plan_at_the_multimodal_encoder(dtype, dkv, dq):
     as K1 splits them at this site (13 query tiles: 10 splits, 130 blocks,
     no column chunks, and the sum), both by TMA with no copy; the fp32 K2
     splits the dK and dV columns in two, and neither fp32 kernel splits its
-    walk.  K1's plan there is unchanged (the wgmma kernel, two value-column
-    chunks, 10 key splits, 260 blocks), and a forced split count keeps the
-    wgmma K2 (16 keys a block) and K3 (dQ in two column chunks of 352)."""
+    walk.  K1's plan there is the long-KV route's with the same 10 key
+    splits and 130 blocks (the wgmma kernel's grid, forced to 10 splits,
+    has two value-column chunks, 260 blocks), and a forced split count keeps
+    the wgmma K2 (16 keys a block) and K3 (dQ in two column chunks of
+    352)."""
     b, tq, tk, h, d, dv = MM_SITE
     q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
     k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
@@ -1000,6 +1020,9 @@ def test_backward_plan_at_the_multimodal_encoder(dtype, dkv, dq):
         assert fa._longkv_dq_split_plan(b, tq, h, tk) == (10, 82) == fa._split_plan(
             b, tq, h, tk, fa._col_chunks(dv))
         assert fa.launch_plan(q, k, v) == dict(
+            route="sm90_longkv", splits=10, tiles_per_split=82, col_chunks=1, blocks=130,
+            cuda_launches=2, loader="tma", copies=())
+        assert fa.launch_plan(q, k, v, num_splits=10) == dict(
             route="sm90_wgmma", splits=10, tiles_per_split=82, col_chunks=2, blocks=260,
             cuda_launches=2, loader="cp.async16")
     forced = fa.backward_plan(q, k, v, num_splits=1)
