@@ -9,7 +9,7 @@ Phases (each raises on failure; nothing is caught):
      TF32 off for the comparisons;
   2. build: compiles the flash attention kernels from csrc/ with nvcc, one
      process per source, all at once (K1 forward: the bf16 narrow-head
-     kernel, the bf16 long-KV kernel, the bf16 wgmma kernel and the fp32
+     kernel, the bf16 long-KV and long-Q kernels, the bf16 wgmma kernel and the fp32
      CUDA-core kernel with the split-KV merge; K2 dK/dV and K3 dQ
      backward: the bf16 narrow-head kernels, the bf16 long-KV kernels, the
      bf16 wgmma kernels with the sum of their split partials, and the fp32
@@ -29,21 +29,28 @@ Phases (each raises on failure; nothing is caught):
      masked; the bf16 self-attend (batch 1 and 6, with its lse) and the
      masked bf16 cases at widths 41 and 32 must take the narrow route, the
      bf16 classification encoders the long-KV route (one split, copies of
-     q, k and v into aligned rows at 261; ``want_plan``), and every call
-     on the long-KV route counts one ``LAUNCHES_LONGKV``; every call twice,
+     q, k and v into aligned rows at 261; ``want_plan``), the bf16 flow
+     encoder at batch 1 and 6 the long-KV route (4 and 11 key splits, 128
+     and 2,112 blocks, a merge, copies of q, k and v) and the decoder the
+     long-Q route (132 persistent blocks, one split, no copy;
+     ``FLOW_K1_PLAN``); masked bf16 cases of both routes' flow shapes
+     (``FLOW_MASKED``: 1,100 latents over 4,400 keys at 322, 8,500
+     queries over 777 keys at 512, each with a ragged last tile and its
+     lse); every call on the long-KV route counts one ``LAUNCHES_LONGKV``,
+     every call on the long-Q route one ``LAUNCHES_LONGQ``; every call twice,
      bit for bit; records each call's
      route, loader, key splits, column chunks, blocks and CUDA launches;
      times kernel, plain version, F.scaled_dot_product_attention (a
      yardstick only; null where it does not run; a short kernel and SDPA
      over at least 10 ms of launches) and the bound; then, at
      the bf16 flow encoder at batch 1 and at the bf16 multimodal encoder,
-     holds the planned split count against a single split (at the
-     multimodal encoder the long-KV K1 against the wgmma one, which a forced
-     split count takes; both routes recorded) and two calls against each
+     holds the planned split count against a single split (the long-KV K1
+     against the wgmma one, which a forced split count takes; both routes
+     recorded) and two calls against each
      other bit for bit; then, at the bf16 pixel encoder (batch
-     16; its rows copied into aligned rows on the long-KV route) and the
-     flow encoder (batch 1 and 6, whose rows take the realigning loader),
-     holds views at every offset mod 16 bytes against the same values
+     16) and the flow encoder (batch 1 and 6), both on the long-KV route,
+     whose views are copied into aligned rows, holds views at every offset
+     mod 16 bytes against the same values
      zero-padded to a multiple of 8 columns (16-byte copies; TMA on the
      long-KV route), bit for bit;
   4. backward kernels: holds K2 and K3 against the plain backward at the
@@ -74,9 +81,10 @@ Phases (each raises on failure; nothing is caught):
      projection, fp32, once through the kernel (26 launches) and once with
      attention on the plain version; the two flows must agree;
   6. serve: three synthetic 436x1024 frame pairs through FlowInference under
-     the PERFORMANCE policy (bf16), 6 tiles per request in one forward; 24
-     of each request's 26 K1 launches (the self-attends) on the narrow
-     route;
+     the PERFORMANCE policy (bf16), 6 tiles per request in one forward; of
+     each request's 26 K1 launches 24 (the self-attends) on the narrow
+     route, the encoder's on the long-KV route (its merge and 3 copies)
+     and the decoder's on the long-Q route (``FLOW_FORWARD_LAUNCHES``);
   7. gradients: the full-width model with remat, one endpoint-error loss
      on a synthetic roll pair and its backward through the kernels (per
      step: K1 26 + 24 recomputed, K2 26, K3 26), then with the flash forward
@@ -87,7 +95,8 @@ Phases (each raises on failure; nothing is caught):
      PERFORMANCE, remat, batch 1, synthetic roll pairs) through its Trainer:
      one warm-up step, then timed steps with finite losses and parameters
      that move once the warmup's lr-0 step is past; 48 narrow-route K1
-     launches a step, and 24 narrow-route K2 and 24 K3;
+     launches a step, one long-KV and one long-Q (``STEP_LAUNCHES``), and
+     24 narrow-route K2 and 24 K3;
   9. multimodal model: MultiModalPerceiver at full width (16 frames of
      224x224, 30,720 audio samples, 700 classes, 784x512 latents, 8
      self-attends), seeded random weights, fp32, one synthetic clip decoded
@@ -207,7 +216,8 @@ Phases (each raises on failure; nothing is caught):
      printed with the parameters whose gradient identical backward passes do
      not reproduce, by default and with cuDNN's deterministic algorithms;
      every step launches K1/K2/K3 as phase 8, every evaluation K1 26 times
-     a pair;
+     a pair (``FLOW_FORWARD_LAUNCHES``: one long-KV with its merge and 3
+     copies, one long-Q);
      then step times with prefetch 2 and 0 in alternating windows, the
      decode ms of a batch, the seconds of each save, sync and async, the
      step that overlaps an async write, the restore, and the train state's
@@ -216,7 +226,8 @@ Phases (each raises on failure; nothing is caught):
      436x1024 (6 tiles each) from its final checkpoint: the model that
      restore_eval_variables gives equals the trained model in memory bit
      for bit, the script's numbers equal flow_error_stats on
-     FlowInference's output, pairs/s, 26 K1 launches a pair;
+     FlowInference's output, pairs/s, 26 K1 launches a pair, one of them
+     long-KV (its merge and 3 copies) and one long-Q, no K2 or K3;
  27. classification from files: the 1x1-conv classifier (d = 512) through
      examples/train_classification.py --full-scale --data-dir on 3 classes
      x 12 images of 224x224 at batch 8 (20 trained, 16 held out), 5 steps
@@ -363,7 +374,8 @@ without a mesh, for 1 + 3 steps:
      2 and 4), each held as in M, under deterministic algorithms for both
      runs;
   O. FlowInference on the mesh over phase 6's three pairs and weights: the
-     flows equal phase 6's bit for bit, 26 K1 launches a request;
+     flows equal phase 6's bit for bit, K1's launches a request as phase
+     6's (26: one long-KV with its merge and 3 copies, one long-Q);
      evaluate_classification --full-scale --prep-type LEARNED_POS_1X1CONV
      --mesh 1 over 64 images: every batch's logits and the top-1/top-5
      equal the run without --mesh; then the process group is torn down.
@@ -376,11 +388,14 @@ Q, after phase O, on a new (1, 1) mesh:
      piece merged by the ring's own lse_merge with one-process reductions,
      then K2/K3 on each piece with the merged output and the global lse:
      the output, dK/dV concatenated and dQ summed against K1/K2/K3 on the
-     whole site within TOL (relative to max |x|), the pieces' summed ms
+     whole site within TOL (relative to max |x|; in bf16 each piece's K1,
+     22,816 to 91,264 keys at the flow encoder, on the long-KV route, its
+     route and splits recorded), the pieces' summed ms
      beside the whole site's; (b) the published flow model under
      Policy(sp_mesh=mesh) on phase 6's pairs and weights (the encoder
      through the ring once a request: the flows against phase 6's, bit for
-     bit or the largest gap within MODEL_TOL, 26 K1 launches a request) and
+     bit or the largest gap within MODEL_TOL, K1's launches a request as
+     phase 6's) and
      a phase-8 step (train_flow's model, loss and remat, bf16) with and
      without it (loss and every gradient, bit for bit or within
      BF16_GRAD_TOL; K1/K2/K3 launches as phase 8's); (c) the multimodal
@@ -414,7 +429,8 @@ phases 6 and 8 (24 self-attends of 2048 x 512 latents, 16 heads):
      max |grad|, and each under BF16_KEY_BIAS_TOL of it in bf16), K1, K2
      and K3 exactly 48 launches each; (c) a one-stage pipe mesh
      (``make_pipeline_mesh(1)``, a one-rank group): phase 6's flows under
-     Policy(pp_mesh) bit for bit, 26 K1 a request, and a phase-8 step's
+     Policy(pp_mesh) bit for bit, K1's launches a request as phase 6's,
+     and a phase-8 step's
      loss and gradients bit for bit against the step without it, K1 50 /
      K2 26 / K3 26; then the process group is torn down.  No point-to-point
      send runs on one card.
@@ -471,9 +487,17 @@ BF16_KEY_BIAS_TOL = 0.3
 # the encoder's K1 splits its keys and merges them once, the decoder's K2
 # splits its query rows and the encoder's K3 its keys, each summed once.  The
 # fp32 kernels of K2 and K3 never split.
+# In bf16 the encoder's K1 takes the long-KV route ("k1_longkv": its keys
+# split 4 ways and merged once, after copies of q, k and v, whose 644-byte
+# rows TMA cannot address, "k1_copy") and the decoder's the long-Q route
+# ("k1_longq": no split, no copy); K2 and K3 keep the wgmma kernels there.
 STEP_LAUNCHES = {"K1": 26 + 24, "K2": 26, "K3": 26, "merge": 1, "sum": 2, "longkv": 0,
-                 "dq_longkv": 0, "copy": 0, "k1_longkv": 0, "k1_copy": 0}
-FP32_STEP_LAUNCHES = dict(STEP_LAUNCHES, sum=0)
+                 "dq_longkv": 0, "copy": 0, "k1_longkv": 1, "k1_copy": 3, "k1_longq": 1}
+FP32_STEP_LAUNCHES = dict(STEP_LAUNCHES, sum=0, k1_longkv=0, k1_copy=0, k1_longq=0)
+# A bf16 flow forward of any batch (a request's 6 tiles, an evaluation
+# batch): K1 at the 26 sites, the encoder's on the long-KV route (its split
+# keys merged once, 3 copies), the decoder's on the long-Q route.
+FLOW_FORWARD_LAUNCHES = {"K1": 26, "merge": 1, "k1_longkv": 1, "k1_copy": 3, "k1_longq": 1}
 TRAIN_STEPS = 6  # timed, after one warm-up step
 
 FLOW_SITES = {
@@ -483,6 +507,27 @@ FLOW_SITES = {
     "decoder": (1, 182528, 2048, 1, 512, 512),
 }
 SITE_LAUNCHES = {"encoder": 1, "self": 24, "decoder": 1}
+# K1's bf16 plans at the flow encoder and decoder by batch (1: a training
+# step, 6: a request's tiles): the encoder on the long-KV route, its keys
+# split for whole waves (4 splits, 128 blocks; 11, 2,112 blocks: 16 waves)
+# and merged, after copies of q, k and v (644-byte rows); the decoder on the
+# long-Q route, 132 persistent blocks, one split, no copy.
+FLOW_K1_PLAN = {
+    ("encoder", 1): {"route": "sm90_longkv", "splits": 4, "blocks": 128, "cuda_launches": 5,
+                     "loader": "copy", "copies": ("q", "k", "v")},
+    ("encoder", 6): {"route": "sm90_longkv", "splits": 11, "blocks": 2112, "cuda_launches": 5,
+                     "loader": "copy", "copies": ("q", "k", "v")},
+    ("decoder", 1): {"route": "sm90_longq", "splits": 1, "blocks": 132,
+                     "cuda_launches": 1, "loader": "tma", "copies": ()},
+    ("decoder", 6): {"route": "sm90_longq", "splits": 1, "blocks": 132,
+                     "cuda_launches": 1, "loader": "tma", "copies": ()},
+}
+# Masked cases of the two routes' flow shapes, bf16 K1 with its lse: 1,100
+# latents over 4,400 keys at the encoder's 322 (18 query tiles, the last of
+# 12 rows; long-KV), 8,500 queries over 777 keys at the decoder's 512 (a
+# last tile of 52 rows; long-Q).
+FLOW_MASKED = {"encoder_masked": (2, 1100, 4400, 1, 322, 322),
+               "decoder_masked": (2, 8500, 777, 1, 512, 512)}
 # The bf16 self-attend's plan: the narrow-head kernel, one launch, no split
 # (K1; K2 and K3 likewise, each).
 NARROW_PLAN = {"route": "sm90_narrow", "splits": 1, "cuda_launches": 1}
@@ -512,7 +557,7 @@ MM_BF16_TOL = 1e-1
 # and K3 split the keys and merge or sum them once, K2 does not split.
 MM_TRAIN_CHUNKS = 16
 MM_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1,
-                    "dq_longkv": 1, "copy": 0, "k1_longkv": 1, "k1_copy": 0}
+                    "dq_longkv": 1, "copy": 0, "k1_longkv": 1, "k1_copy": 0, "k1_longq": 0}
 MM_FP32_STEP_LAUNCHES = dict(MM_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0, k1_longkv=0)
 # K1's plan at the multimodal encoder by dtype: fp32 the CUDA-core kernel,
 # two value-column chunks, 10 key splits (260 blocks) and their merge; bf16
@@ -567,12 +612,12 @@ CLS_K1_COPIES = {"cls_pixel": 3, "cls_1x1conv": 0}
 # reads K2's copies ("copy": their 522-byte rows; the 1x1-conv encoder's are
 # aligned).  The convnet's sites are all dense.
 CLS_STEP_LAUNCHES = {"K1": 1, "K2": 1, "K3": 1, "merge": 1, "sum": 1, "longkv": 1,
-                     "dq_longkv": 1, "copy": 0, "k1_longkv": 1, "k1_copy": 0}
+                     "dq_longkv": 1, "copy": 0, "k1_longkv": 1, "k1_copy": 0, "k1_longq": 0}
 CLS_FP32_STEP_LAUNCHES = dict(CLS_STEP_LAUNCHES, sum=0, longkv=0, dq_longkv=0, k1_longkv=0)
 CLS_STEP_COPIES = {"FOURIER_POS_PIXEL": dict(copy=4, k1_copy=3),
                    "LEARNED_POS_1X1CONV": dict(copy=0, k1_copy=0)}
 NO_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "merge": 0, "sum": 0, "longkv": 0, "dq_longkv": 0,
-               "copy": 0, "k1_longkv": 0, "k1_copy": 0}
+               "copy": 0, "k1_longkv": 0, "k1_copy": 0, "k1_longq": 0}
 # The launch counts of K1 alone (``_expected_k1``).
 K1_KEYS = ("K1", "merge", "k1_longkv", "k1_copy")
 CLS_TRAIN_STEPS = 10  # timed, after one warm-up step
@@ -869,12 +914,14 @@ def check_case(name, shape, dtype_name, masked, reps, gen, lse=False, want_plan=
         raise AssertionError(f"{name}/{dtype_name}: plan {plan}, expected {want_plan}")
     with torch.inference_mode():
         before = fa.LAUNCHES + fa.LAUNCHES_MERGE + fa.LAUNCHES_FWD_COPY
-        longkv = fa.LAUNCHES_LONGKV
+        longkv, longq = fa.LAUNCHES_LONGKV, fa.LAUNCHES_LONGQ
         got = fa.flash_attention(q, k, v, **kw)
         cuda_launches = fa.LAUNCHES + fa.LAUNCHES_MERGE + fa.LAUNCHES_FWD_COPY - before
-        if fa.LAUNCHES_LONGKV - longkv != (plan["route"] == "sm90_longkv"):
+        if (fa.LAUNCHES_LONGKV - longkv, fa.LAUNCHES_LONGQ - longq) != (
+                plan["route"] == "sm90_longkv", plan["route"] == "sm90_longq"):
             raise AssertionError(f"{name}/{dtype_name}: {fa.LAUNCHES_LONGKV - longkv} long-KV"
-                                 f" launches, planned {plan}")
+                                 f" and {fa.LAUNCHES_LONGQ - longq} long-Q launches, planned"
+                                 f" {plan}")
         if cuda_launches != plan["cuda_launches"]:
             raise AssertionError(f"{name}/{dtype_name}: {cuda_launches} CUDA launches, "
                                  f"planned {plan}")
@@ -943,7 +990,7 @@ def phase_kernels(reps: int = 3):
             self_site = name == "self"
             records.append(check_case(name, shape, dtype_name, False, reps, gen,
                                       lse=self_site and dtype_name == "bf16",
-                                      want_plan=narrow if self_site else None))
+                                      want_plan=_want_flow_plan(name, 1, dtype_name)))
         records.append(check_case(
             "masked", (2, 100, 777, 2, 41, 64), dtype_name, True, reps, gen,
             want_plan=narrow and dict(narrow, loader="realign")))
@@ -956,6 +1003,10 @@ def phase_kernels(reps: int = 3):
         if dtype_name == "bf16":
             records.append(check_case("mm_longkv_masked", MM_LONGKV_MASKED, dtype_name, True,
                                       reps, gen, lse=True, want_plan={"route": "sm90_longkv"}))
+            for name, shape in FLOW_MASKED.items():
+                route = "sm90_longkv" if name.startswith("encoder") else "sm90_longq"
+                records.append(check_case(name, shape, dtype_name, True, reps, gen, lse=True,
+                                          want_plan={"route": route}))
         for name, shape in CLS_SITES.items():
             plan = _want_k1_plan(name, shape, dtype_name)
             records.append(check_case(name, shape, dtype_name, False, reps, gen,
@@ -966,7 +1017,7 @@ def phase_kernels(reps: int = 3):
         self_site = name == "self"
         records.append(check_case(
             name, (SERVE_TILES,) + shape[1:], "bf16", False, reps, gen, lse=self_site,
-            want_plan=NARROW_PLAN if self_site else None))
+            want_plan=_want_flow_plan(name, SERVE_TILES, "bf16")))
     check_splits(gen, "encoder", FLOW_SITES["encoder"])
     check_splits(gen, "mm_encoder", MM_SITE)
     for name, shape in (("cls_pixel", CLS_SITES["cls_pixel"]),
@@ -974,6 +1025,15 @@ def phase_kernels(reps: int = 3):
                         ("encoder", (SERVE_TILES,) + FLOW_SITES["encoder"][1:])):
         REALIGNED.append(check_realign(gen, name, shape, REALIGN_OFFSETS))
     return records
+
+
+def _want_flow_plan(site, batch, dtype_name):
+    """What K1's plan must hold at a flow site at this batch: bf16 the
+    narrow route at the self-attend, ``FLOW_K1_PLAN`` at the encoder and the
+    decoder; fp32 the CUDA-core kernel."""
+    if dtype_name == "fp32":
+        return {"route": "cuda_cores"}
+    return NARROW_PLAN if site == "self" else FLOW_K1_PLAN[(site, batch)]
 
 
 def _want_k1_plan(site, shape, dtype_name):
@@ -1565,7 +1625,8 @@ def phase_serve(fp32_model, n_requests: int = 3):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     latencies, flows = [], []
-    fa.LAUNCHES = fa.LAUNCHES_MERGE = fa.LAUNCHES_NARROW = 0
+    _reset_launch_counts()
+    fa.LAUNCHES_NARROW = 0
     t_all = time.perf_counter()
     for img1, img2 in requests[1:]:
         t0 = time.perf_counter()
@@ -1579,14 +1640,18 @@ def phase_serve(fp32_model, n_requests: int = 3):
     # Phase O serves the same pairs with the same weights on a mesh.
     SERVED.update(requests=requests[1:], flows=[f.cpu() for f in flows], latency_s=latencies,
                   weights={k: v.cpu() for k, v in model.state_dict().items()})
-    launches, narrow = fa.LAUNCHES, fa.LAUNCHES_NARROW
-    if launches != 26 * n_requests or narrow != 24 * n_requests:
-        raise AssertionError(f"expected {26 * n_requests} kernel launches, {24 * n_requests}"
-                             f" of them narrow, got {launches} and {narrow}")
+    counts, narrow = _launch_counts(), fa.LAUNCHES_NARROW
+    launches = counts["K1"]
+    want = _flow_eval_launches(n_requests)
+    if counts != want or narrow != 24 * n_requests:
+        raise AssertionError(f"expected {want}, {24 * n_requests} K1 launches narrow, got"
+                             f" {counts} and {narrow}")
     rec = dict(requests=n_requests, tiles_per_request=6,
                latency_s=latencies, pairs_per_s=n_requests / total,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=launches, merge_launches=fa.LAUNCHES_MERGE, narrow_launches=narrow)
+               launches=launches, merge_launches=counts["merge"], narrow_launches=narrow,
+               longkv_launches=counts["k1_longkv"], copy_launches=counts["k1_copy"],
+               longq_launches=counts["k1_longq"])
     print(f"[serve] bf16 FlowInference 436x1024: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -1598,7 +1663,7 @@ def _launch_counts():
             "merge": fa.LAUNCHES_MERGE, "sum": fa.LAUNCHES_BWD_SUM,
             "longkv": fa.LAUNCHES_BWD_LONGKV, "dq_longkv": fa.LAUNCHES_BWD_DQ_LONGKV,
             "copy": fa.LAUNCHES_BWD_COPY, "k1_longkv": fa.LAUNCHES_LONGKV,
-            "k1_copy": fa.LAUNCHES_FWD_COPY}
+            "k1_copy": fa.LAUNCHES_FWD_COPY, "k1_longq": fa.LAUNCHES_LONGQ}
 
 
 def _reset_launch_counts():
@@ -1607,6 +1672,7 @@ def _reset_launch_counts():
     fa.LAUNCHES = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_MERGE = 0
     fa.LAUNCHES_BWD_SUM = fa.LAUNCHES_BWD_LONGKV = fa.LAUNCHES_BWD_COPY = 0
     fa.LAUNCHES_BWD_DQ_LONGKV = fa.LAUNCHES_LONGKV = fa.LAUNCHES_FWD_COPY = 0
+    fa.LAUNCHES_LONGQ = 0
 
 
 def phase_gradients():
@@ -2833,8 +2899,8 @@ def phase_serve_example(smi, out_dir):
 
 def _flow_eval_launches(batches):
     """Launches of the flow model's evaluation forward at batch 1 (eval
-    mode): K1 at the 26 sites, the encoder's key splits merged once."""
-    return dict(NO_LAUNCHES, K1=26 * batches, merge=batches)
+    mode): ``FLOW_FORWARD_LAUNCHES`` a batch."""
+    return dict(NO_LAUNCHES, **{k: n * batches for k, n in FLOW_FORWARD_LAUNCHES.items()})
 
 
 def _cls_eval_launches(batches):
@@ -3257,7 +3323,7 @@ def phase_evaluate_flow(flow_files):
     mine = {k: round(v / pixels, 4) for k, v in totals.items()}
     if result["pairs"] != pairs or any(result[k] != v for k, v in mine.items()):
         raise AssertionError(f"evaluate_flow {result} vs flow_error_stats {mine}")
-    if launches["K1"] != _flow_eval_launches(pairs)["K1"] or launches["K2"] or launches["K3"]:
+    if launches != _flow_eval_launches(pairs):
         raise AssertionError(f"evaluate_flow launches {launches} for {pairs} pairs")
     rec = dict(result=result, flow_error_stats=mine, pairs=pairs, tiles_per_pair=SERVE_TILES,
                restored_bit_for_bit=True, launches=launches,
@@ -4996,7 +5062,7 @@ def phase_mesh_serve(smi):
     infer(*SERVED["requests"][0])  # warm-up
     torch.cuda.synchronize()
     latencies = []
-    fa.LAUNCHES = fa.LAUNCHES_MERGE = 0
+    _reset_launch_counts()
     for (img1, img2), want in zip(SERVED["requests"], SERVED["flows"]):
         t0 = time.perf_counter()
         flow = infer(img1, img2)
@@ -5006,9 +5072,10 @@ def phase_mesh_serve(smi):
             raise AssertionError("FlowInference(mesh) differs from phase 6: max"
                                  f" {(flow.cpu() - want).abs().max().item()}")
     n = len(SERVED["requests"])
-    launches = dict(K1=fa.LAUNCHES, merge=fa.LAUNCHES_MERGE)
-    if launches["K1"] != 26 * n:
-        raise AssertionError(f"FlowInference(mesh): {launches} for {n} requests")
+    launches = _launch_counts()
+    if launches != _flow_eval_launches(n):
+        raise AssertionError(f"FlowInference(mesh): {launches} for {n} requests, expected"
+                             f" {_flow_eval_launches(n)}")
     del model, infer
     torch.cuda.empty_cache()
     logits, results, k1 = {}, {}, {}
@@ -5127,8 +5194,14 @@ def phase_sp_merge(smi):
                 out, lse = _one_process_ring(q, pieces)
                 dq, dk, dvv = _pieces_backward(q, pieces, out, lse, grad, tk)
                 finite = torch.isfinite(lse_w)
+                # bf16: each flow encoder piece (22,816 to 91,264 keys) takes
+                # K1's long-KV route, its rows copied; the d = 704 ones too.
+                piece_plan = fa.launch_plan(q, pieces[0][0], pieces[0][1])
+                if dtype_name == "bf16" and piece_plan["route"] != "sm90_longkv":
+                    raise AssertionError(f"{site}: a piece of {n} takes {piece_plan}")
                 rec = dict(site=site, dtype=dtype_name, shape=list(shape), pieces=n,
-                           keys_per_piece=pieces[0][0].shape[1],
+                           keys_per_piece=pieces[0][0].shape[1], piece_route=piece_plan["route"],
+                           piece_splits=piece_plan["splits"],
                            out_rel=_rel(out, out_w),
                            lse_max_abs_diff=(lse - lse_w)[finite].abs().max().item(),
                            dq_rel=_rel(dq, dq_w), dk_rel=_rel(dk, dk_w), dv_rel=_rel(dvv, dv_w))
@@ -5214,7 +5287,7 @@ def phase_sp_models(smi, mesh):
             gaps.append((flow.cpu() - want).abs().max().item() / want.abs().max().item())
         launches, rings = _launch_counts(), merges.call_count
     n = len(SERVED["requests"])
-    if launches["K1"] != 26 * n or rings != n or not max(gaps) <= MODEL_TOL:
+    if launches != _flow_eval_launches(n) or rings != n or not max(gaps) <= MODEL_TOL:
         raise AssertionError(f"flow under Policy(sp_mesh): launches {launches}, ring {rings}"
                              f" for {n} requests, gaps {gaps}")
     flow_rec = dict(requests=n, bitwise=max(gaps) == 0.0, max_rel_gap=max(gaps),
@@ -5505,7 +5578,7 @@ def phase_pp_one_stage(smi):
                                      " phase 6's")
         launches = _launch_counts()
     n = len(SERVED["requests"])
-    if launches["K1"] != 26 * n:
+    if launches != _flow_eval_launches(n):
         raise AssertionError(f"one-stage pp flows: launches {launches} for {n} requests")
     serve_rec = dict(requests=n, bitwise=True, latency_s=latencies,
                      phase6_latency_s=SERVED["latency_s"], launches=launches)
@@ -5552,9 +5625,10 @@ def _site_sums(records, keep, per_site):
 def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve, cls_train,
                  cls_k1_train, buckets, serving, files, int8, demos, utilities, mesh):
     """One entry each for K1 on the flow path, K1 on the multimodal path,
-    K2 and K3.  K1 (two sources: the bf16 wgmma
-    kernel, which the serving forward runs, and the fp32 CUDA-core kernel
-    with the split-KV merge): times summed over the 26 launches of one
+    K2 and K3.  K1 (``sources``, by route: the bf16 narrow, long-KV and
+    long-Q kernels, which the serving forward runs, the bf16 wgmma kernel
+    and the fp32 CUDA-core kernel with the split-KV merge; ``source`` the
+    narrow one, which takes 24 of the 26): times summed over the 26 launches of one
     serving forward (6 tiles, bf16), the launches of the serving run (and,
     apart, of the training run), merges counted apart.  K2 and K3 (three sources
     each: the bf16 wgmma kernels with the sum of their split partials and the
@@ -5621,8 +5695,12 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
     one-process schedules, with ``pp_schedule``: each case's error, launches
     and ms) and ``launches_pp_serve`` (R(c)'s requests) on the flow K1 entry,
     ``launches_pp_backward`` (R(b)) and ``launches_pp_train`` (R(c)'s step)
-    on the flow K1, K2 and K3 entries.  Each entry's error is the largest of
-    all its comparisons."""
+    on the flow K1, K2 and K3 entries.  K1 at the flow encoder and decoder
+    on their own routes (``flash_attention_fwd_flow_encoder``: long-KV,
+    ``flash_attention_fwd_flow_decoder``: long-Q): the 6-tile serving
+    sites' times (``_batch1``: batch 1's), the serving run's launches on
+    the route and the training run's (``launches_train``).  Each entry's
+    error is the largest of all its comparisons."""
     flow_files, cls_files = files["flow"]["launches"], files["cls"]["launches"]
     mm_eval_runs = files["evaluate_multimodal"]["runs"].values()
 
@@ -5687,21 +5765,40 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         "sm90_wgmma": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
         "sm90_narrow": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_narrow_sm90.cu",
         "sm90_longkv": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_longkv_sm90.cu",
+        "sm90_longq": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_longq_sm90.cu",
         "cuda_cores": "perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd.cu",
     }
     k1_routes = {"bf16": "sm90_wgmma", "bf16, d and dv <= 64": "sm90_narrow",
-                 "bf16 over Tk >= 4,224: Tq <= 512 at 257 to 512 wide, Tq <= 1,024 at 513"
+                 "bf16 over Tk >= 4,224: Tq <= 2,048 at 257 to 512 wide, Tq <= 1,024 at 513"
                  " to 704": "sm90_longkv",
+                 "bf16, Tq >= 8,448 over Tk <= 8,192 at 257 to 512 wide": "sm90_longq",
                  "fp32": "cuda_cores"}
     served = [r for r in records if r["dtype"] == "bf16" and r["shape"][0] == SERVE_TILES]
     narrow = [r for r in records if r["route"] == "sm90_narrow"]
     self_rec = next(r for r in served if r["site"] == "self")
     self_one = next(r for r in records if r["site"] == "self" and r["dtype"] == "bf16"
                     and r["shape"][0] == 1)
+    timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+    def flow_entry(site, route, launches, extra):
+        """K1 at a flow cross-attend on its own route: the 6-tile serving
+        site's times (and batch 1's), the serving and training launches."""
+        mine = [r for r in records if r["route"] == route]
+        served_rec = next(r for r in served if r["site"] == site)
+        one = next(r for r in records if r["site"] == site and r["dtype"] == "bf16"
+                   and r["shape"][0] == 1)
+        return dict(
+            name=f"flash_attention_fwd_flow_{site}", route="cuda", source=k1_sources[route],
+            k1_route=route, replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
+            launches=serve[launches], launches_train=train["launches"][extra],
+            **{key: served_rec[key] for key in timed + ("splits", "blocks", "loader",
+                                                        "copies")},
+            **{f"{key}_batch1": one[key] for key in timed[:4] + ("splits", "blocks")},
+            max_abs_err=max(r["max_abs_err"] for r in mine), sites=mine)
     entries = [dict(
         name="flash_attention_fwd",
         route="cuda",
-        source="perceiverio_pytorch_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+        source=k1_sources["sm90_narrow"],
         sources=k1_sources,
         routes=k1_routes,
         replaces="perceiverio_pytorch_tpu/ops/pallas/flash_attention.py:77",
@@ -5738,7 +5835,8 @@ def kernels_line(records, serve, backward, train, mm_serve, mm_train, cls_serve,
         **_site_sums(records, lambda r: r["dtype"] == "bf16"
                      and r["shape"][0] == SERVE_TILES, SITE_LAUNCHES),
         sites=records,
-    ), dict(
+    ), flow_entry("encoder", "sm90_longkv", "longkv_launches", "k1_longkv"),
+        flow_entry("decoder", "sm90_longq", "longq_launches", "k1_longq"), dict(
         name="flash_attention_fwd_d32",
         route="cuda",
         source=k1_sources["sm90_narrow"],

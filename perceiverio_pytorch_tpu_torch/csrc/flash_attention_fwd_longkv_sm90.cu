@@ -1,15 +1,17 @@
 // Flash attention forward (K1) for bf16 inputs on Hopper (sm_90a) where a
 // (batch, head) has a short query range and many keys: the classification
 // encoders' cross-attends, 512 latents over 50,176 pixels, one head 512 wide
-// (the 1x1-conv variant) or 261 (the pixel variant), and the multimodal
+// (the 1x1-conv variant) or 261 (the pixel variant), the flow encoder's,
+// 2,048 latents over 182,528 pixels, one head 322 wide, and the multimodal
 // encoder's, 784 latents over 52,097 keys, one head 704 wide.
 //
 // Replaces `_flash_kernel` (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py,
 // launched by `_flash_forward` through `pl.pallas_call`) at head widths of
-// 257 to 512 whose walk is at most 512 query rows, and of 513 to 704 whose
+// 257 to 512 whose walk is at most 2,048 query rows, and of 513 to 704 whose
 // walk is at most 1,024 query rows, over at least 4,224 keys
-// (ops/flash_attention.py `launch_plan`, route "sm90_longkv", the shape K2
-// and K3 take their long-KV kernels at; a forced split count keeps
+// (ops/flash_attention.py `launch_plan`, route "sm90_longkv"; K2 and K3 take
+// their long-KV kernels at the same shape but for at most 512 query rows at
+// 257 to 512 columns; a forced split count keeps
 // flash_attention_fwd_sm90.cu).  The same contract as that
 // file's kernel: S = Q K^T from bf16 x bf16 with fp32 sums, the scale
 // applied after the product; keys at or beyond kv_len and keys whose kv_mask
@@ -35,16 +37,22 @@
 // TFLOP, 0.12 ms at 989 TFLOP/s; 13 query tiles stream 1.9 GB out of L2)
 // its `<176, 32>` took 1.83 ms: above 512 columns it split the value columns
 // into two grid chunks of 352, each forming S again (1.5x the tensor FLOPs).
+// At the flow encoder (0.481 TFLOP a batch entry, 0.49 ms at 989 TFLOP/s;
+// 32 query tiles stream 7.7 GB of K and V at 322 columns, padded to 384 in
+// shared memory, out of L2) the wgmma kernel took 4.39 ms at batch 1 and
+// about 25 at 6 tiles.
 //
 // The design:
 //   * Q resident.  A block holds 64 query rows: Q stays in shared memory for
 //     the whole walk as 64-column chunks in wgmma's 128-byte swizzle (64 KB
 //     at d = 512, 88 KB at 704), and the block walks its key split in steps
-//     of 64 keys.  The wrapper splits the keys so that all blocks run in one
-//     wave of one block an SM (ops/flash_attention.py
-//     `_longkv_dq_split_plan`: 1 split at batch 16, 128 blocks; 2 at 8; 4,
-//     8, 16 at the server's buckets 4, 2, 1; 10 at the multimodal encoder,
-//     130 blocks), with the merge after a split call.
+//     of 64 keys.  The wrapper splits the keys so that the blocks, one an
+//     SM, fill whole waves (ops/flash_attention.py `_longkv_fwd_split_plan`:
+//     1 split at batch 16, 128 blocks; 2 at 8; 4, 8, 16 at the server's
+//     buckets 4, 2, 1; 10 at the multimodal encoder, 130 blocks; 4 at the
+//     flow encoder, 128 blocks, and 11 at its 6 tiles, 2,112 blocks in 16
+//     waves, where one wave's rule gave 1 split of 192 blocks, 1.45 waves),
+//     with the merge after a split call.
 //   * A producer warpgroup keeps K and V in flight by TMA (longkv.cuh), as
 //     chunks of 64 keys x 64 columns (8 KB) in two rings, K's and V's, that
 //     share what shared memory is left (10 and 10 slots at 512, 12 and 11 at
@@ -67,11 +75,15 @@
 //     no exchange, the warpgroups unsynchronised) ran 4-5% slower at 512
 //     and as fast at 261 on an H100; making those warpgroups take turns
 //     issuing S, 15% slower again (PERF.md).
-//   * Rows that are not 16-byte aligned (the pixel encoder's 522 bytes;
-//     offset views), which TMA cannot address, are first copied into
-//     16-byte aligned rows (longkv.cuh copy_rows; the wrapper launches it).
-//     At d = 261 the tiles are 5 column chunks (320 columns); S reduces over
-//     272.
+//   * Rows that are not 16-byte aligned (the pixel encoder's 522 bytes, the
+//     flow encoder's 644; offset views), which TMA cannot address, are
+//     first copied into 16-byte aligned rows (longkv.cuh copy_rows; the
+//     wrapper launches it).  At d = 261 the tiles are 5 column chunks (320
+//     columns); S reduces over 272.  At d = 322, 6 chunks (384 columns): S
+//     reduces over 336 (one k16 step in the sixth chunk), and the sixth V
+//     chunk, 2 real columns, falls to warpgroup 1, whose P V then takes no
+//     longer than warpgroup 0's three full chunks, so a narrower tail chunk
+//     would not shorten a step.
 //   * At 513 to 704 columns (NM = 11 chunks: the multimodal encoder) two
 //     walls stand in the way of the design above.  Shared memory: Q resident
 //     takes 88 KB, which leaves 16 slots of 8 KB where a step's K and V

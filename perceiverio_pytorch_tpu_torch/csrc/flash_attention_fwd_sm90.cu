@@ -2,8 +2,18 @@
 // tensor cores.
 //
 // Replaces `_flash_kernel` (perceiverio_pytorch_tpu/ops/pallas/flash_attention.py,
-// launched by `_flash_forward` through `pl.pallas_call`) for bf16 q, k, v;
-// fp32 inputs take the CUDA-core kernel in flash_attention_fwd.cu.  Same
+// launched by `_flash_forward` through `pl.pallas_call`) for bf16 q, k, v
+// that no other bf16 route takes; fp32 inputs take the CUDA-core kernel in
+// flash_attention_fwd.cu.  No main-path site takes it now: the flow
+// self-attends take the narrow kernel (flash_attention_fwd_narrow_sm90.cu),
+// the flow, classification and multimodal encoders the long-KV one
+// (flash_attention_fwd_longkv_sm90.cu), the flow decoder the long-Q one
+// (flash_attention_fwd_longq_sm90.cu).  It keeps calls off those routes:
+// a forced split count (the tests' tool), more query rows or fewer keys
+// than the long-KV and long-Q shapes, and widths of 65 to 256.  It was
+// the flow sites' kernel until the long-KV K1 took the encoder and the
+// long-Q K1 the decoder (here 4.39 and 5.8 ms at batch 1 on an H100;
+// PERF.md).  Same
 // semantics as the Pallas kernel: S = Q K^T from bf16 x bf16 with fp32
 // accumulation, the scale applied after the product; keys at or beyond
 // kv_len and keys whose kv_mask byte is 0 get probability 0; an online
@@ -14,7 +24,8 @@
 // prescaled by scale * log2(e), so m is kept in base 2 and turned back into
 // natural units for the lse and the split partials.
 //
-// What bounds it on an H100.  Every flow site is compute-bound: per 368x496
+// What bounds it on an H100 (at the sites it was designed for, which other
+// kernels now take).  Every flow site is compute-bound: per 368x496
 // tile 4.8e11 FLOP at the encoder cross-attend (2048 queries x 182,528 keys,
 // d = 322), 8.6e9 at each latent self-attend (2048 x 2048, 16 heads of 32),
 // 7.7e11 at the decoder cross-attend (182,528 x 2048, d = 512), against at
@@ -77,8 +88,10 @@
 //     and l in fp32 to a workspace, and the merge kernel of
 //     flash_attention_fwd.cu combines them in split order.  The wrapper
 //     picks the splits (ops/flash_attention.py `_split_plan`): 8 at the flow
-//     encoder at batch 1 (32 q blocks -> 256 blocks), 2 at 6 tiles, 1 at the
-//     decoder and the self-attends; 10 at the multimodal encoder.
+//     encoder's shape at batch 1 (32 q blocks -> 256 blocks), 2 at 6 tiles,
+//     1 at the decoder's and the self-attends'; 10 at the multimodal
+//     encoder's (under a forced split count or fp32: the bf16 calls there
+//     take the other routes).
 //   * Value widths above 512 (the multimodal encoder's single head of 704:
 //     d = dv = 704 over 52,097 keys, 784 queries).  Two walls: one
 //     warpgroup's half of 704 value columns is 352 fp32 registers a thread

@@ -7,9 +7,12 @@ bf16 inputs whose head widths are at most ``NARROW_HEAD_DIM`` = 64 (the flow
 self-attends: wgmma with P in registers, a producer warp feeding a K/V ring,
 route ``sm90_narrow``), ``csrc/flash_attention_fwd_longkv_sm90.cu`` for bf16
 calls with a short query range against many keys at widths of 257 to 704
-(the classification encoders, 257 to 512; the multimodal encoder, 704: Q
-resident, a producer warpgroup feeding K/V rings by TMA, route
-``sm90_longkv``),
+(the classification and flow encoders, 257 to 512; the multimodal encoder,
+704: Q resident, a producer warpgroup feeding K/V rings by TMA, route
+``sm90_longkv``), ``csrc/flash_attention_fwd_longq_sm90.cu`` for bf16 calls
+with many query rows against a short key range at widths of 257 to 512
+(the flow decoder: persistent blocks walking the query tiles, route
+``sm90_longq``),
 ``csrc/flash_attention_fwd_sm90.cu`` for other wider bf16 heads (wgmma,
 route ``sm90_wgmma``) and ``csrc/flash_attention_fwd.cu`` for
 fp32 ones (IEEE fp32 on the CUDA cores, route ``cuda_cores``), which also
@@ -53,8 +56,9 @@ design does about that.
     and ``LAUNCHES_BWD_NARROW`` the K2 and K3 launches that did (each also
     counts in ``LAUNCHES_BWD_DKV`` or ``LAUNCHES_BWD_DQ``).
     ``LAUNCHES_LONGKV`` counts the K1 launches on the long-KV route (each
-    also in ``LAUNCHES``) and ``LAUNCHES_FWD_COPY`` the launches of their
-    copies into aligned rows (``launch_plan``'s ``copies``).
+    also in ``LAUNCHES``), ``LAUNCHES_LONGQ`` those on the long-Q route
+    (each also in ``LAUNCHES``) and ``LAUNCHES_FWD_COPY`` the launches of
+    their copies into aligned rows (``launch_plan``'s ``copies``).
     ``LAUNCHES_BWD_LONGKV`` counts the K2 launches on the long-KV route
     (each also counts in ``LAUNCHES_BWD_DKV``), ``LAUNCHES_BWD_DQ_LONGKV``
     the K3 launches there (each also in ``LAUNCHES_BWD_DQ``) and
@@ -108,6 +112,7 @@ _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _SOURCES = {"fwd": "flash_attention_fwd.cu", "fwd_sm90": "flash_attention_fwd_sm90.cu",
             "fwd_narrow": "flash_attention_fwd_narrow_sm90.cu",
             "fwd_longkv": "flash_attention_fwd_longkv_sm90.cu",
+            "fwd_longq": "flash_attention_fwd_longq_sm90.cu",
             "bwd": "flash_attention_bwd.cu", "bwd_sm90": "flash_attention_bwd_sm90.cu",
             "bwd_narrow": "flash_attention_bwd_narrow_sm90.cu",
             "bwd_longkv": "flash_attention_bwd_longkv_sm90.cu"}
@@ -139,23 +144,39 @@ NUM_SMS = 132
 MIN_SPLIT_TILES = 8
 # bf16 calls whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns wide
 # (where the wgmma K2 holds 32 keys a block), with at most LONGKV_MAX_Q
-# query rows a (batch, head) (8 tiles of 64), or COL_CHUNK + 1 to
-# MAX_HEAD_DIM_FWD (= MAX_HEAD_DIM_BWD) wide with at most LONGKV_WIDE_MAX_Q
-# (16 tiles: the multimodal encoder, 784 latents over 52,097 keys, 704
-# wide), over at least LONGKV_MIN_K keys (a key block of LONGKV_BLOCK_K for
-# every SM), take the long-KV kernels when no split count is forced
-# (``_longkv_shape``): K1 forward, K2 and K3 backward.  K2: persistent
-# blocks, at most one an SM, walking work items of LONGKV_BLOCK_K keys.  K3:
-# a block of 64 query rows walks its key split in steps of LONGKV_BLOCK_K
-# keys (16 above COL_CHUNK columns), the keys split so that every block runs
-# in one wave (``_longkv_dq_split_plan``).  K1: a block of 64 query rows
-# walks its key split in steps of 64 keys, split as K3's, its value columns
-# never split.
+# query rows a (batch, head) (8 tiles of 64; K1 LONGKV_K1_MAX_Q, 32 tiles:
+# the flow encoder, 2,048 latents over 182,528 pixels, 322 wide), or
+# COL_CHUNK + 1 to MAX_HEAD_DIM_FWD (= MAX_HEAD_DIM_BWD) wide with at most
+# LONGKV_WIDE_MAX_Q (16 tiles: the multimodal encoder, 784 latents over
+# 52,097 keys, 704 wide), over at least LONGKV_MIN_K keys (a key block of
+# LONGKV_BLOCK_K for every SM), take the long-KV kernels when no split
+# count is forced (``_longkv_shape``): K1 forward, K2 and K3 backward.  K2:
+# persistent blocks, at most one an SM, walking work items of
+# LONGKV_BLOCK_K keys.  K3: a block of 64 query rows walks its key split in
+# steps of LONGKV_BLOCK_K keys (16 above COL_CHUNK columns), the keys split
+# so that every block runs in one wave (``_longkv_dq_split_plan``).  K1: a
+# block of 64 query rows walks its key split in steps of 64 keys, its value
+# columns never split, the keys split as K3's or, at the rows only K1 takes
+# (the flow encoder), as K3's or for whole waves, whichever ends sooner
+# (``_longkv_fwd_split_plan``: a block's walk counted as its key tiles plus
+# LONGKV_BLOCK_TILES for its Q load, its first chunks and its epilogue).
 LONGKV_MIN_WIDTH = 257
 LONGKV_MAX_Q = 512
+LONGKV_K1_MAX_Q = 2048
 LONGKV_WIDE_MAX_Q = 1024
 LONGKV_BLOCK_K = 32
 LONGKV_MIN_K = NUM_SMS * LONGKV_BLOCK_K
+LONGKV_BLOCK_TILES = 4
+# bf16 K1 calls whose wider head is LONGKV_MIN_WIDTH to COL_CHUNK columns
+# wide with at least LONGQ_MIN_Q query rows a (batch, head) (a tile of 64
+# for every SM) over at most LONGQ_MAX_K keys (K and V of a batch entry, 16
+# MB at 512 wide, stay in L2 while every query tile reads them) take the
+# long-Q kernel when no split count is forced (``_longq_shape``: the flow
+# decoder, 182,528 queries over 2,048 latents, 512 wide): persistent
+# blocks, min(query tiles x B x H, NUM_SMS), walking the query tiles, the
+# keys never split.
+LONGQ_MIN_Q = NUM_SMS * BLOCK_Q
+LONGQ_MAX_K = 8192
 
 # Kernel launches since import (or since the caller last reset them): K1,
 # K2 and K3, the merge of K1's split-KV partials and the sum of K2's or K3's
@@ -164,6 +185,7 @@ LAUNCHES = 0
 LAUNCHES_NARROW = 0
 LAUNCHES_LONGKV = 0
 LAUNCHES_FWD_COPY = 0
+LAUNCHES_LONGQ = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_NARROW = 0
 LAUNCHES_BWD_LONGKV = 0
@@ -306,6 +328,14 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
             )
             fwd_longkv.flash_attention_fwd_longkv_sm90.restype = ctypes.c_int
+            fwd_longq = ctypes.CDLL(paths["fwd_longq"])
+            fwd_longq.flash_attention_fwd_longq_sm90.argtypes = (
+                [ctypes.c_void_p] * 7  # q, k, v, kv_mask, q_mask, out, lse
+                + [ctypes.c_int] * 7  # B, H, Tq, Tk, kv_len, D, Dv
+                + _STRIDES * 3  # q, k, v
+                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            )
+            fwd_longq.flash_attention_fwd_longq_sm90.restype = ctypes.c_int
             bwd = ctypes.CDLL(paths["bwd"])
             for fn in (bwd.flash_attention_bwd_dkv, bwd.flash_attention_bwd_dq):
                 fn.argtypes = (
@@ -373,8 +403,8 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 )
                 fn.restype = ctypes.c_int
             _libs = {"fwd": fwd, "fwd_sm90": fwd_sm90, "fwd_narrow": fwd_narrow,
-                     "fwd_longkv": fwd_longkv, "bwd": bwd, "bwd_sm90": bwd_sm90,
-                     "bwd_narrow": bwd_narrow, "bwd_longkv": bwd_longkv}
+                     "fwd_longkv": fwd_longkv, "fwd_longq": fwd_longq, "bwd": bwd,
+                     "bwd_sm90": bwd_sm90, "bwd_narrow": bwd_narrow, "bwd_longkv": bwd_longkv}
     return _libs
 
 
@@ -593,11 +623,12 @@ def _col_chunks(dv: int) -> int:
 
 
 def _split_plan(b: int, tq: int, h: int, tk: int, col_chunks: int = 1):
-    """K1's split-KV plan: (splits, tiles_per_split) for B, Tq, H, the
-    keys' length and the value-column chunks of the grid.
+    """The wgmma and fp32 K1's split-KV plan: (splits, tiles_per_split) for
+    B, Tq, H, the keys' length and the value-column chunks of the grid
+    (the wgmma K3's too).
 
     A grid of at least two blocks per SM takes one split.  A shorter one
-    (the flow encoder: 32 query blocks a batch entry) starts from enough
+    (the flow encoder's shape: 32 query blocks a batch entry) starts from enough
     splits for two blocks per SM, at least MIN_SPLIT_TILES tiles each, and
     drops splits while that does not lengthen the kernel, counted as waves
     of one block per SM times the tiles a block walks: 8 splits (256
@@ -671,20 +702,24 @@ def _loader(q, k, v, narrow: bool) -> str:
 
 def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     """What a K1 call on these tensors launches: ``route`` ("sm90_narrow"
-    for bf16 on CUDA with Dqk and Dv at most NARROW_HEAD_DIM, "sm90_longkv"
-    for bf16 of the long-KV shape (``_longkv_shape``: the classification
-    and multimodal encoders), "sm90_wgmma" for other wider bf16 heads,
-    "cuda_cores" for fp32), ``splits`` and ``tiles_per_split``
-    (``_split_plan``; on the long-KV route ``_longkv_dq_split_plan``, one
-    wave of blocks; or ``num_splits`` ranges when given; the narrow route
-    walks all keys in one split, and a forced ``num_splits`` takes the
-    split-KV kernel, "sm90_wgmma"), ``col_chunks`` (``_col_chunks``: the
-    grid's split of the value columns; 1 on the long-KV route, whose blocks
-    hold all of them), ``blocks`` of the main kernel's grid, ``cuda_launches``
-    (the kernel, the merge when there is more than one split, and on the
-    long-KV route one copy launch for each of its ``copies``) and ``loader``
-    (``_loader``; on the long-KV route ``_longkv_loader``, with ``copies``:
-    the operands first copied into 16-byte aligned rows)."""
+    for bf16 on CUDA with Dqk and Dv at most NARROW_HEAD_DIM, "sm90_longq"
+    for bf16 of the long-Q shape (``_longq_shape``: the flow decoder),
+    "sm90_longkv" for bf16 of K1's long-KV shape (``_longkv_shape``: the
+    classification, flow and multimodal encoders), "sm90_wgmma" for other
+    wider bf16 heads, "cuda_cores" for fp32), ``splits`` and
+    ``tiles_per_split`` (``_split_plan``; on the long-KV route
+    ``_longkv_fwd_split_plan``, whole waves of blocks; or ``num_splits``
+    ranges when given; the narrow and long-Q routes walk all keys in one
+    split, and a forced ``num_splits`` takes the split-KV kernel,
+    "sm90_wgmma"), ``col_chunks`` (``_col_chunks``: the grid's split of the
+    value columns; 1 on the long-KV and long-Q routes, whose blocks hold all
+    of them), ``blocks`` of the main kernel's grid (on the long-Q route the
+    persistent blocks, min(query tiles x B x H, NUM_SMS)),
+    ``cuda_launches`` (the kernel, the merge when there is more than one
+    split, and on the long-KV and long-Q routes one copy launch for each of
+    its ``copies``) and ``loader`` (``_loader``; on the long-KV and long-Q
+    routes ``_longkv_loader``, with ``copies``: the operands first copied
+    into 16-byte aligned rows, ``_k1_copies``)."""
     b, tq, h, d = q.shape
     _, kv_len = _scale_and_len(q, k, None, kv_logical_len)
     if (q.dtype == torch.bfloat16 and num_splits is None
@@ -692,10 +727,16 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
         return dict(route="sm90_narrow", splits=1, tiles_per_split=-(-kv_len // BLOCK_K),
                     col_chunks=1, blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1,
                     loader=_loader(q, k, v, narrow=True))
+    width = max(d, v.shape[3])
+    if q.dtype == torch.bfloat16 and num_splits is None and _longq_shape(tq, k.shape[1], width):
+        copies = _k1_copies(q, k, v)
+        return dict(route="sm90_longq", splits=1, tiles_per_split=-(-kv_len // BLOCK_K),
+                    col_chunks=1, blocks=min(-(-tq // BLOCK_Q) * h * b, NUM_SMS),
+                    cuda_launches=1 + len(copies), loader=_longkv_loader(k, v), copies=copies)
     if (q.dtype == torch.bfloat16 and num_splits is None
-            and _longkv_shape(tq, k.shape[1], max(d, v.shape[3]))):
-        splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)
-        copies = tuple(name for name, t in (("q", q), ("k", k), ("v", v)) if not _tma_rows(t))
+            and _longkv_shape(tq, k.shape[1], width, LONGKV_K1_MAX_Q)):
+        splits, per = _longkv_fwd_split_plan(b, tq, h, kv_len, width)
+        copies = _k1_copies(q, k, v)
         return dict(route="sm90_longkv", splits=splits, tiles_per_split=per, col_chunks=1,
                     blocks=-(-tq // BLOCK_Q) * h * b * splits,
                     cuda_launches=1 + (splits > 1) + len(copies),
@@ -711,16 +752,34 @@ def launch_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
     )
 
 
-def _longkv_shape(tq: int, tk: int, width: int) -> bool:
+def _longkv_shape(tq: int, tk: int, width: int, max_q: int) -> bool:
     """The shape that bf16 K1, K2 and K3 take the long-KV kernels at: a
-    short query range over at least LONGKV_MIN_K keys, at most LONGKV_MAX_Q
-    query rows at a wider head of LONGKV_MIN_WIDTH to COL_CHUNK columns (the
-    classification encoders), or at most LONGKV_WIDE_MAX_Q at COL_CHUNK + 1
-    to MAX_HEAD_DIM_BWD (the multimodal encoder: 784 latents over 52,097
-    keys, 704 wide)."""
-    max_q = (LONGKV_MAX_Q if LONGKV_MIN_WIDTH <= width <= COL_CHUNK
+    short query range over at least LONGKV_MIN_K keys, at a wider head of
+    LONGKV_MIN_WIDTH to COL_CHUNK columns at most ``max_q`` query rows (K2
+    and K3: LONGKV_MAX_Q, the classification encoders; K1:
+    LONGKV_K1_MAX_Q, also the flow encoder, 2,048 latents over 182,528
+    pixels, 322 wide, whose K2 and K3 keep the wgmma kernels), or at most
+    LONGKV_WIDE_MAX_Q at COL_CHUNK + 1 to MAX_HEAD_DIM_BWD (the multimodal
+    encoder: 784 latents over 52,097 keys, 704 wide)."""
+    max_q = (max_q if LONGKV_MIN_WIDTH <= width <= COL_CHUNK
              else LONGKV_WIDE_MAX_Q if COL_CHUNK < width <= MAX_HEAD_DIM_BWD else -1)
     return tq <= max_q and tk >= LONGKV_MIN_K
+
+
+def _longq_shape(tq: int, tk: int, width: int) -> bool:
+    """The shape that bf16 K1 takes the long-Q kernel at: a wider head of
+    LONGKV_MIN_WIDTH to COL_CHUNK columns, at least LONGQ_MIN_Q query rows
+    over at most LONGQ_MAX_K keys (the flow decoder: 182,528 queries over
+    2,048 latents, 512 wide)."""
+    return LONGKV_MIN_WIDTH <= width <= COL_CHUNK and tq >= LONGQ_MIN_Q and tk <= LONGQ_MAX_K
+
+
+def _k1_copies(q, k, v) -> Tuple[str, ...]:
+    """The operands the long-KV and long-Q K1 read from copies in 16-byte
+    aligned rows (one copy kernel launch each): those whose rows TMA cannot
+    address (``_tma_rows``: the flow encoder's 644-byte rows, offset
+    views)."""
+    return tuple(name for name, t in (("q", q), ("k", k), ("v", v)) if not _tma_rows(t))
 
 
 def _tma_rows(t: torch.Tensor) -> bool:
@@ -747,6 +806,29 @@ def _longkv_copies(q, k, v) -> Tuple[str, ...]:
     makes them itself when ``dkv()`` did not run first."""
     return tuple((["q"] if not _tma_rows(q) else []) + (["dout"] if v.shape[3] % 8 else [])
                  + [name for name, t in (("k", k), ("v", v)) if not _tma_rows(t)])
+
+
+def _longkv_fwd_split_plan(b: int, tq: int, h: int, kv_len: int, width: int):
+    """The long-KV K1's key splits: (splits, tiles_per_split).  K3's
+    one-wave plan (``_longkv_dq_split_plan``) where K2 and K3 take the
+    long-KV route too (the classification and multimodal encoders).  At the
+    rows only K1 takes (more than LONGKV_MAX_Q at LONGKV_MIN_WIDTH to
+    COL_CHUNK columns: the flow encoder), of that plan and the fewest
+    splits whose blocks fill whole waves (NUM_SMS / gcd(blocks, NUM_SMS),
+    each split at least MIN_SPLIT_TILES key tiles), the one whose blocks
+    end sooner, counted as waves of NUM_SMS blocks times the key tiles a
+    block walks plus LONGKV_BLOCK_TILES; the one-wave plan on a tie.  The
+    flow encoder: 4 splits at batch 1 (128 blocks, one wave), 11 at its 6
+    tiles (2,112 blocks, 16 waves, where one split left 1.45)."""
+    one_wave = _longkv_dq_split_plan(b, tq, h, kv_len)
+    if tq <= LONGKV_MAX_Q or width > COL_CHUNK:
+        return one_wave
+    blocks = -(-tq // BLOCK_Q) * h * b
+    tiles = -(-kv_len // BLOCK_K)
+    whole = _split_bounds(kv_len, min(NUM_SMS // math.gcd(blocks, NUM_SMS),
+                                      max(1, tiles // MIN_SPLIT_TILES)))
+    return min((one_wave, whole),
+               key=lambda plan: -(-blocks * plan[0] // NUM_SMS) * (plan[1] + LONGKV_BLOCK_TILES))
 
 
 def _longkv_dq_split_plan(b: int, tq: int, h: int, kv_len: int):
@@ -826,7 +908,7 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
             dq=dict(splits=1, tiles_per_split=-(-kv_len // BLOCK_K), col_chunks=1,
                     blocks=-(-tq // NARROW_BLOCK_Q) * h * b, cuda_launches=1),
         )
-    if num_splits is None and _longkv_shape(tq, tk, width):
+    if num_splits is None and _longkv_shape(tq, tk, width, LONGKV_MAX_Q):
         items = -(-tk // LONGKV_BLOCK_K) * h * b
         copies, loader = _longkv_copies(q, k, v), _longkv_loader(k, v)
         splits, per = _longkv_dq_split_plan(b, tq, h, kv_len)
@@ -856,13 +938,14 @@ def backward_plan(q, k, v, *, kv_logical_len=None, num_splits=None) -> Dict:
 def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
                           kv_logical_len, return_lse, num_splits=None):
     """K1 on CUDA tensors: the narrow-head kernel for bf16 heads up to
-    NARROW_HEAD_DIM wide, the long-KV kernel for bf16 calls of its shape
-    (after copies of the operands whose rows it cannot address), the sm90
-    kernel for other wider bf16 heads, the CUDA-core kernel for fp32, then
+    NARROW_HEAD_DIM wide, the long-Q and long-KV kernels for bf16 calls of
+    their shapes (after copies of the operands whose rows they cannot
+    address), the sm90 kernel for other wider bf16 heads, the CUDA-core
+    kernel for fp32, then
     the merge when the plan splits the keys.  ``num_splits`` overrides the
     plan (for tests that hold split counts against each other; it takes the
     split-KV kernels)."""
-    global LAUNCHES, LAUNCHES_MERGE, LAUNCHES_NARROW, LAUNCHES_LONGKV
+    global LAUNCHES, LAUNCHES_MERGE, LAUNCHES_NARROW, LAUNCHES_LONGKV, LAUNCHES_LONGQ
     kv_mask_c, q_mask_c = _check_cuda(
         q, (("q", q), ("k", k), ("v", v)), (("kv_mask", kv_mask), ("q_mask", q_mask)),
         MAX_HEAD_DIM_FWD, "K1 (flash attention forward)")
@@ -896,6 +979,13 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
         elif plan["route"] == "sm90_longkv":
             err = _longkv_forward(libs["fwd_longkv"], plan, q, k, v, kv_mask_c, q_mask_c, out,
                                   lse, part_o, part_ml, kv_len, scale, stream)
+        elif plan["route"] == "sm90_longq":
+            err, args = _aligned_rows(libs["fwd_longkv"], plan["copies"], q, k, v, stream)
+            if err == 0:
+                err = libs["fwd_longq"].flash_attention_fwd_longq_sm90(
+                    *(t.data_ptr() for t in args), _ptr(kv_mask_c), _ptr(q_mask_c),
+                    out.data_ptr(), _ptr(lse), b, h, tq, tk, kv_len, d, dv,
+                    *(x for t in args for x in t.stride()[:3]), scale, stream)
         else:
             kernel = (libs["fwd_sm90"].flash_attention_fwd_sm90
                       if plan["route"] == "sm90_wgmma" else libs["fwd"].flash_attention_fwd)
@@ -921,6 +1011,7 @@ def _flash_attention_cuda(q, k, v, *, q_mask, kv_mask, softmax_scale,
     LAUNCHES += 1
     LAUNCHES_NARROW += plan["route"] == "sm90_narrow"
     LAUNCHES_LONGKV += plan["route"] == "sm90_longkv"
+    LAUNCHES_LONGQ += plan["route"] == "sm90_longq"
     return (out, lse) if return_lse else out
 
 
@@ -933,20 +1024,29 @@ def _copy_rows(fn, t, stream):
     return fn(t.data_ptr(), copy.data_ptr(), b, n, h, w, *t.stride()[:3], stream), copy
 
 
+def _aligned_rows(lib, copies, q, k, v, stream):
+    """(error, [q, k, v]) with the operands named in ``copies`` copied into
+    16-byte aligned rows by the long-KV library's copy kernel (let go once
+    the kernel that reads them is enqueued: the caching allocator reuses
+    them only after it, in stream order); the first nonzero error."""
+    global LAUNCHES_FWD_COPY
+    ops = {"q": q, "k": k, "v": v}
+    for name in copies:
+        err, ops[name] = _copy_rows(lib.flash_attention_fwd_longkv_copy_rows, ops[name], stream)
+        if err != 0:
+            return err, None
+        LAUNCHES_FWD_COPY += 1
+    return 0, [ops[name] for name in ("q", "k", "v")]
+
+
 def _longkv_forward(lib, plan, q, k, v, kv_mask, q_mask, out, lse, part_o, part_ml, kv_len,
                     scale, stream):
     """The long-KV K1: the operands named in ``plan["copies"]`` copied into
-    16-byte aligned rows (let go once the kernel is enqueued: the caching
-    allocator reuses them only after it, in stream order), then the kernel;
-    the first nonzero error."""
-    global LAUNCHES_FWD_COPY
-    ops = {"q": q, "k": k, "v": v}
-    for name in plan["copies"]:
-        err, ops[name] = _copy_rows(lib.flash_attention_fwd_longkv_copy_rows, ops[name], stream)
-        if err != 0:
-            return err
-        LAUNCHES_FWD_COPY += 1
-    args = [ops[name] for name in ("q", "k", "v")]
+    16-byte aligned rows (``_aligned_rows``), then the kernel; the first
+    nonzero error."""
+    err, args = _aligned_rows(lib, plan["copies"], q, k, v, stream)
+    if err != 0:
+        return err
     b, tq, h, d = q.shape
     return lib.flash_attention_fwd_longkv_sm90(
         *(t.data_ptr() for t in args), _ptr(kv_mask), _ptr(q_mask), out.data_ptr(), _ptr(lse),

@@ -89,7 +89,7 @@ On a machine with an NVIDIA GPU, from the repository root:
      ``k1`` times K1, at the multimodal encoder also on the wgmma route
      (K2 unsplit in blocks of 16 keys, K3 in 10 key splits and two dQ
      column chunks: the plan that route had there), and, beside the
-     self-attend, the classification and multimodal encoders, SDPA's
+     flow sites, the classification and multimodal encoders, SDPA's
      backward (a
      backend's backward op alone where one takes the tensors, and forward
      and backward less the forward, the same windows); at every site K2
@@ -820,7 +820,11 @@ def _window_ms(call, reps, window_ms):
 
 def time_k1_sites(reps=3, window_ms=10.0):
     """Section 16: bf16 K1 alone at the main path's sites, each beside one
-    call's peak memory beyond its output and SDPA over the same window."""
+    call's peak memory beyond its output, SDPA over the same window and the
+    host time of ``launch_plan`` (the mean of 2,000 calls, which every K1
+    call makes)."""
+    import time
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     sites = (FLOW_SITES + tuple((6,) + shape[1:] for shape in FLOW_SITES)
              + CLASSIFICATION_SITES[:2] + CLASSIFICATION_TRAIN_SITES[:2]
@@ -832,8 +836,13 @@ def time_k1_sites(reps=3, window_ms=10.0):
         (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
         ms, n = _window_ms(lambda: fa.flash_attention(q, k, v), reps, window_ms)
         plan = fa.launch_plan(q, k, v)
+        start = time.perf_counter()
+        for _ in range(2000):
+            fa.launch_plan(q, k, v)
+        plan_us = (time.perf_counter() - start) / 2000 * 1e6
         line = (f"[k1] {shape}: {ms:.4f} ms over {n} launches ({plan['route']}, splits"
-                f" {plan['splits']}, loader {plan['loader']}, copies {plan.get('copies', ())})")
+                f" {plan['splits']}, blocks {plan['blocks']}, loader {plan['loader']}, copies"
+                f" {plan.get('copies', ())}); launch_plan {plan_us:.1f} us")
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -901,7 +910,7 @@ def _backward_memory(q, k, v, out, lse, grad):
 
 def time_bwd_sites(reps=3, window_ms=10.0):
     """Section 17: bf16 K2 and K3 alone at the main path's sites, and SDPA's
-    backward beside the self-attend and the classification encoders: a
+    backward beside the flow sites and the classification encoders: a
     backend's backward op alone where one takes the tensors
     (``_sdpa_backward_op``), and forward and backward less the forward, each
     over the same window."""
@@ -910,7 +919,7 @@ def time_bwd_sites(reps=3, window_ms=10.0):
     gen = torch.Generator(device="cuda").manual_seed(0)
     self_sites = (FLOW_SITES[0], (2,) + FLOW_SITES[0][1:])
     sites = self_sites + FLOW_SITES[1:] + (MULTIMODAL_SITE,) + CLASSIFICATION_TRAIN_SITES[:2]
-    sdpa_sites = self_sites + CLASSIFICATION_TRAIN_SITES + (MULTIMODAL_SITE,)
+    sdpa_sites = self_sites + FLOW_SITES[1:] + CLASSIFICATION_TRAIN_SITES + (MULTIMODAL_SITE,)
     for shape in sites:
         (q, k, v), _ = _case(*shape, torch.bfloat16, False, False, gen)
         out, lse = fa.flash_attention(q, k, v, return_lse=True)

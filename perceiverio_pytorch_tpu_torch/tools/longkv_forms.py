@@ -1,10 +1,24 @@
 """Forms of the long-KV kernels' 704-wide instantiations (`<11>`: K1 in
 ``csrc/flash_attention_fwd_longkv_sm90.cu``, K2 and K3 in
-``csrc/flash_attention_bwd_longkv_sm90.cu``), side by side on one card.
+``csrc/flash_attention_bwd_longkv_sm90.cu``), and of K1 at the flow
+encoder and decoder, side by side on one card.
 
 On a machine with an NVIDIA GPU, from the repository root:
 
-    python -m perceiverio_pytorch_tpu_torch.tools.longkv_forms [k1 | bwd | FORM ...]
+    python -m perceiverio_pytorch_tpu_torch.tools.longkv_forms [k1 | bwd | flow | FORM ...]
+
+``flow`` times K1's forms at the flow sites (``FLOW_FORMS``) from the
+sources as they are, each launched through its C entry point with its own
+plan: at the decoder (182,528 queries over 2,048 latents, 512 wide) (a) the
+long-KV `<8>` with one split, a block a query tile; (b) the long-Q kernel of
+``csrc/flash_attention_fwd_longq_sm90.cu``, persistent blocks; at the
+encoder (2,048 latents over 182,528 pixels, 322 wide, q, k and v first
+copied into 16-byte rows) (a) the long-KV `<6>` with the one-wave split
+plan (``_longkv_dq_split_plan``); (b) with ``_longkv_fwd_split_plan``'s;
+each at batch 1 and 6 and held against the plain version on masked cases
+first (ragged last tiles, d != dv, all masks, an all-masked entry).  It
+prints the long-Q and `<6>`/`<8>` kernels' registers, spills and stack
+(``nvcc -Xptxas -v``) and the long-Q kernel's shared memory and ring slots.
 
 A form is a source with a few lines changed (``FORMS``; "kept" and
 "k1_kept" are the sources as they are).  Each runs in a process of its
@@ -258,6 +272,160 @@ def run_form(name: str) -> None:
           flush=True)
 
 
+# The flow sites (B, Tq, Tk, H, D, Dv) and masked cases of their shapes
+# (ragged last query tiles, d != dv), K1 forms named by site and letter.
+FLOW_DECODER = (1, 182528, 2048, 1, 512, 512)
+FLOW_ENCODER = (1, 2048, 182528, 1, 322, 322)
+FLOW_MASKED = ((2, 8500, 777, 1, 512, 512), (2, 8600, 2100, 2, 300, 264),
+               (2, 200, 4400, 1, 322, 322), (2, 9000, 130, 1, 264, 512))
+FLOW_FORMS = {
+    "decoder_a": "the long-KV <8>, one split, a block a query tile",
+    "decoder_b": "long-Q, persistent blocks",
+    "encoder_a": "the long-KV <6>, the one-wave split plan",
+    "encoder_b": "the long-KV <6>, the whole-wave split plan",
+}
+
+
+def _flow_plan(form, q, k, v, kv_len):
+    """The launch plan of K1 ``form`` on these tensors."""
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    b, tq, h, _ = q.shape
+    copies = fa._k1_copies(q, k, v)
+    if form == "decoder_b":
+        return dict(route="sm90_longq", splits=1, copies=copies,
+                    blocks=min(-(-tq // fa.BLOCK_Q) * h * b, fa.NUM_SMS))
+    if form == "decoder_a":
+        splits, per = 1, -(-kv_len // fa.BLOCK_K)
+    elif form == "encoder_a":
+        splits, per = fa._longkv_dq_split_plan(b, tq, h, kv_len)
+    else:
+        splits, per = fa._longkv_fwd_split_plan(b, tq, h, kv_len, max(q.shape[3], v.shape[3]))
+    return dict(route="sm90_longkv", splits=splits, tiles_per_split=per, copies=copies)
+
+
+def _flow_call(plan, q, k, v, kw):
+    """K1 on ``plan``'s route, its merge after a split: (out, lse), as
+    ``_flash_attention_cuda`` makes them."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[3]
+    scale, kv_len = fa._scale_and_len(q, k, None, kw.get("kv_logical_len"))
+    kv_mask = kw.get("kv_mask")
+    q_mask = kw.get("q_mask")
+    kv_mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
+    q_mask = None if q_mask is None else q_mask.to(torch.bool).contiguous()
+    out = torch.empty((b, tq, h * dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    splits = plan["splits"]
+    part_o = part_ml = None
+    if splits > 1:
+        part_o = torch.empty((splits, b, h, tq, dv), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((2, splits, b, h, tq), dtype=torch.float32, device=q.device)
+    libs = fa._load()
+    stream = torch.cuda.current_stream().cuda_stream
+    if plan["route"] == "sm90_longq":
+        err, args = fa._aligned_rows(libs["fwd_longkv"], plan["copies"], q, k, v, stream)
+        if err == 0:
+            err = libs["fwd_longq"].flash_attention_fwd_longq_sm90(
+                *(t.data_ptr() for t in args), fa._ptr(kv_mask), fa._ptr(q_mask),
+                out.data_ptr(), lse.data_ptr(), b, h, tq, tk, kv_len, d, dv,
+                *(x for t in args for x in t.stride()[:3]), scale, stream)
+    else:
+        err = fa._longkv_forward(libs["fwd_longkv"], plan, q, k, v, kv_mask, q_mask, out, lse,
+                                 part_o, part_ml, kv_len, scale, stream)
+    if err == 0 and splits > 1:
+        err = libs["fwd"].flash_attention_fwd_merge(
+            part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(), fa._ptr(q_mask),
+            out.data_ptr(), lse.data_ptr(), 1, splits, b, h, tq, dv, stream)
+    if err != 0:
+        raise SystemExit(f"{plan}: CUDA error {err}")
+    return out, lse
+
+
+def _flow_ptxas(fa):
+    """Registers, spills and stack of the long-Q kernel and of the long-KV
+    K1 `<6>` and `<8>`; the long-Q kernel's shared memory and ring slots."""
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(fa._CSRC))), "build",
+                        "forms", "flow")
+    os.makedirs(root, exist_ok=True)
+    for source, marks in (("flash_attention_fwd_longq_sm90.cu", ("longq",)),
+                          ("flash_attention_fwd_longkv_sm90.cu", ("ILi6E", "ILi8E"))):
+        proc = subprocess.run(
+            [fa._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+             os.path.join(root, "ptxas.so"), os.path.join(fa._CSRC, source)],
+            capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"nvcc exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        kernel = None
+        for line in (proc.stdout + proc.stderr).splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = entry.group(1)
+            elif (kernel and "kernel" in kernel and any(m in kernel for m in marks)
+                  and ("Used" in line or "spill" in line or "wgmma" in line)):
+                print(f"[forms] ptxas {kernel}: {line.split('info    :')[-1].strip()}",
+                      flush=True)
+    lib = ctypes.CDLL(fa.library_paths()["fwd_longq"])
+    fn = lib.flash_attention_fwd_longq_smem
+    fn.argtypes = (ctypes.POINTER(ctypes.c_int),) * 2
+    a, b = ctypes.c_int(0), ctypes.c_int(0)
+    smem = fn(ctypes.byref(a), ctypes.byref(b))
+    print(f"[forms] long-Q smem {smem} B, K ring {a.value}, V ring {b.value}", flush=True)
+
+
+def run_flow(forms) -> None:
+    """The flow sites' K1 forms ``forms``: each checked on the masked cases
+    of its route, then timed at batch 1 and 6 (two readings each)."""
+    import torch
+
+    from perceiverio_pytorch_tpu_torch.ops import flash_attention as fa
+    from perceiverio_pytorch_tpu_torch.tools.kernel_report import _case, _window_ms
+
+    fa.build()
+    _flow_ptxas(fa)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for form in forms:
+        checks = []
+        for shape in FLOW_MASKED:
+            (q, k, v), kw = _case(*shape, torch.bfloat16, True, False, gen)
+            kw["kv_logical_len"] = shape[2] - 50
+            plan = _flow_plan(form, q, k, v, kw["kv_logical_len"])
+            got, lse = _flow_call(plan, q, k, v, kw)
+            again, again_lse = _flow_call(plan, q, k, v, kw)
+            want, want_lse = fa.flash_attention_reference(
+                q.float(), k.float(), v.float(), return_lse=True, **kw)
+            torch.cuda.synchronize()
+            rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+            finite = torch.isfinite(want_lse)
+            lse_err = (lse[finite] - want_lse[finite]).abs().max().item()
+            wiped = ~kw["q_mask"]
+            wiped[-1] = True
+            ok = (torch.equal(finite, torch.isfinite(lse))
+                  and got.view(*wiped.shape, -1)[wiped].abs().max().item() == 0
+                  and torch.equal(got, again) and torch.equal(lse, again_lse))
+            checks.append(f"{shape} rel {rel:.3g} lse {lse_err:.3g}"
+                          f"{'' if ok and rel < 2e-2 and lse_err < 1e-4 else ' FAILED'}")
+            del q, k, v, got, again, want
+        times = []
+        site = FLOW_DECODER if form.startswith("decoder") else FLOW_ENCODER
+        for b in (1, 6):
+            (q, k, v), _ = _case(b, *site[1:], torch.bfloat16, False, False, gen)
+            plan = _flow_plan(form, q, k, v, k.shape[1])
+            call = lambda: _flow_call(plan, q, k, v, {})  # noqa: E731
+            ms = [_window_ms(call, 3, 30.0)[0] for _ in range(2)]
+            times.append(f"batch {b}: {ms[0]:.4f}/{ms[1]:.4f} ms (splits {plan['splits']},"
+                         f" blocks {plan.get('blocks', '-')})")
+            del q, k, v
+            torch.cuda.empty_cache()
+        print(f"[forms] {form} ({FLOW_FORMS[form]}): {'; '.join(checks)}; {'; '.join(times)}",
+              flush=True)
+
+
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["--one"]:
@@ -267,6 +435,13 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("longkv_forms needs a CUDA device")
+    if argv[:1] == ["flow"] or (argv and all(n in FLOW_FORMS for n in argv)):
+        forms = [n for n in argv if n in FLOW_FORMS] or list(FLOW_FORMS)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+        print(f"[forms] {smi.stdout.strip()}", flush=True)
+        run_flow(forms + [forms[0]] if len(forms) > 1 else forms)
+        return
     groups = {kernel: [n for n in FORMS if _kernel(n) == kernel] + [_KEPT[kernel]]
               for kernel in _KEPT}
     if not argv:

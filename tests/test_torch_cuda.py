@@ -978,6 +978,19 @@ LONGKV_CASES = [(2, 129, 4301, 1, 261, 261), (2, 136, 4400, 1, 261, 261),
 # The multimodal encoder itself (one clip: 784 latents over 52,097 keys, d =
 # dv = 704), its one batch entry not wiped.
 MM_SITE = (1, 784, 52097, 1, 704, 704)
+# K1 alone at the flow encoder's width (644-byte rows, copied into aligned
+# rows): 200 query rows, and 1,100 (18 tiles, a last one of 12 rows: past
+# the backward's 8 tiles, on K1's long-KV route only), then the flow encoder
+# itself (2,048 latents over 182,528 pixels, 4 key splits).
+FLOW_ENCODER_CASES = [(2, 200, 4400, 1, 322, 322), (2, 1100, 4400, 1, 322, 322),
+                      (1, 2048, 182528, 1, 322, 322)]
+# The long-Q K1 (bf16, at least 8,448 query rows over at most 8,192 keys, 257
+# to 512 wide): ragged last query tiles (8,500 rows: 52 in the last; 8,600:
+# 24; 9,000: 40), d != dv both ways, 2 heads, a key range short of a step
+# (130 keys), then the flow decoder itself (182,528 queries over 2,048
+# latents, 512 wide).
+LONGQ_CASES = [(2, 8500, 777, 1, 512, 512), (2, 8600, 2100, 2, 300, 264),
+               (2, 9000, 130, 1, 264, 512), (1, 182528, 2048, 1, 512, 512)]
 
 
 @pytest.mark.cuda
@@ -1056,7 +1069,7 @@ def test_longkv_dq_alone_matches_dq_after_dkv(cuda, b, tq, tk, h, d, dv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES + [MM_SITE])
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGKV_CASES + [MM_SITE] + FLOW_ENCODER_CASES)
 def test_longkv_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
     """K1 on the long-KV route against the plain version with kv_mask,
     q_mask, kv_logical_len, an all-masked entry (none at the multimodal
@@ -1091,16 +1104,16 @@ def test_longkv_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 3, 6])
-@pytest.mark.parametrize("d", [261, 512])
+@pytest.mark.parametrize("d", [261, 512, 322])
 def test_longkv_forward_views_match_contiguous(cuda, offset, d):
     """The long-KV K1's copies into aligned rows change only how bytes
     reach shared memory: q, k and v seen ``offset`` elements into NaN-filled
     buffers (rows d + 8 apart, all three copied first) give the output and
-    lse bit for bit as the contiguous tensors (copied at 261, read by TMA
-    at 512)."""
-    q, k, v, _, _ = _inputs(2, 136, 4400, 1, d, d, 43, cuda)
+    lse bit for bit as the contiguous tensors (copied at 261 and at the flow
+    encoder's 322, read by TMA at 512)."""
+    q, k, v, _, _ = _inputs(2, 136 if d != 322 else 1100, 4400, 1, d, d, 43, cuda)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    assert fa.launch_plan(q, k, v)["copies"] == (("q", "k", "v") if d == 261 else ())
+    assert fa.launch_plan(q, k, v)["copies"] == (("q", "k", "v") if d % 8 else ())
     views = [_realign_views(x, offset) for x in (q, k, v)]
     plan = fa.launch_plan(*views)
     assert (plan["route"], plan["loader"], plan["copies"]) == (
@@ -1112,24 +1125,31 @@ def test_longkv_forward_views_match_contiguous(cuda, offset, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [261, 512, 704])
-def test_longkv_forward_op_and_artifact_match_the_direct_launch(cuda, d):
+@pytest.mark.parametrize("d,route", [(261, "sm90_longkv"), (512, "sm90_longkv"),
+                                     (704, "sm90_longkv"), (322, "sm90_longkv"),
+                                     (512, "sm90_longq")])
+def test_longkv_forward_op_and_artifact_match_the_direct_launch(cuda, d, route):
     """K1's torch.library op through torch.ops and a reloaded export_apply
-    artifact of one long-KV site (batch-polymorphic, called at batches 2 and
-    3) against the direct launch on the same masked inputs: bit for bit,
-    one long-KV launch each."""
+    artifact of one long-KV site (129 query rows over 4,400 keys; at the
+    flow encoder's 322 1,100 rows) or long-Q site (8,500 query rows over
+    4,400 keys), batch-polymorphic, called at batches 2 and 3, against the
+    direct launch on the same masked inputs: bit for bit, one launch on the
+    route each."""
     from perceiverio_pytorch_tpu_torch.serving import export_apply, load_exported
 
     class Site(torch.nn.Module):
         def forward(self, q, k, v):
             return fa.flash_attention(q, k, v, kv_logical_len=4380)
 
-    q, k, v, kv_mask, q_mask = _inputs(3, 129, 4400, 1, d, d, 44, cuda)
+    tq = 8500 if route == "sm90_longq" else 1100 if d == 322 else 129
+    counter = "LAUNCHES_LONGQ" if route == "sm90_longq" else "LAUNCHES_LONGKV"
+    q, k, v, kv_mask, q_mask = _inputs(3, tq, 4400, 1, d, d, 44, cuda)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    before = fa.LAUNCHES_LONGKV
+    assert fa.launch_plan(q, k, v)["route"] == route
+    before = getattr(fa, counter)
     out, lse = torch.ops.perceiverio_torch.flash_attention_fwd(
         q, k, v, kv_mask, q_mask, None, 4380, True)
-    assert fa.LAUNCHES_LONGKV - before == 1
+    assert getattr(fa, counter) - before == 1
     want = fa._flash_attention_cuda(q, k, v, q_mask=q_mask, kv_mask=kv_mask,
                                     softmax_scale=None, kv_logical_len=4380, return_lse=True)
     torch.cuda.synchronize()
@@ -1138,12 +1158,71 @@ def test_longkv_forward_op_and_artifact_match_the_direct_launch(cuda, d):
     serve = load_exported(export_apply(site, {}, q[:2], k[:2], v[:2], batch_polymorphic=True))
     for b in (2, 3):
         with torch.inference_mode():
-            before = fa.LAUNCHES_LONGKV
+            before = getattr(fa, counter)
             got = serve({}, q[:b], k[:b], v[:b])
-            assert fa.LAUNCHES_LONGKV - before == 1
+            assert getattr(fa, counter) - before == 1
             direct = site(q[:b], k[:b], v[:b])
         torch.cuda.synchronize()
         assert torch.equal(got, direct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dv", LONGQ_CASES)
+def test_longq_forward_matches_reference(cuda, b, tq, tk, h, d, dv):
+    """K1 on the long-Q route against the plain version with kv_mask,
+    q_mask, kv_logical_len, an all-masked entry (none at the flow decoder's
+    one batch entry) and the lse: within bf16 TOL, exact zeros on wiped
+    rows, +inf lse where every key is masked; one K1 launch on the route, no
+    merge, a copy launch for each operand whose rows are not 16-byte aligned
+    (q and k at d = 300); two calls bit for bit."""
+    q, k, v, kv_mask, q_mask = _inputs(b, tq, tk, h, d, dv, 45, cuda)
+    if b > 1:
+        kv_mask[-1] = False
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kv_len = tk - 30 if tk > 1000 else tk - 3
+    kw = dict(kv_mask=kv_mask, q_mask=q_mask, kv_logical_len=kv_len, return_lse=True)
+    plan = fa.launch_plan(q, k, v, kv_logical_len=kv_len)
+    copies = ("q", "k") if d == 300 else ()  # 600-byte rows; 528 are aligned
+    assert (plan["route"], plan["splits"], plan["copies"], plan["cuda_launches"]) == (
+        "sm90_longq", 1, copies, 1 + len(copies))
+    names = ("LAUNCHES", "LAUNCHES_LONGQ", "LAUNCHES_LONGKV", "LAUNCHES_MERGE",
+             "LAUNCHES_FWD_COPY")
+    before = [getattr(fa, name) for name in names]
+    got, lse = fa.flash_attention(q, k, v, **kw)
+    assert [getattr(fa, name) - n for name, n in zip(names, before)] == [
+        1, 1, 0, 0, len(copies)]
+    again, again_lse = fa.flash_attention(q, k, v, **kw)
+    want, want_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    _check(got, want, 2e-2)
+    assert torch.all(got.view(b, tq, -1)[~q_mask] == 0)
+    assert b == 1 or torch.all(got[-1] == 0)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[finite], want_lse[finite], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 6])
+@pytest.mark.parametrize("d", [300, 512])
+def test_longq_forward_views_match_contiguous(cuda, offset, d):
+    """The long-Q K1's copies into aligned rows change only how bytes reach
+    shared memory: q, k and v seen ``offset`` elements into NaN-filled
+    buffers (rows d + 8 apart, all three copied first) give the output and
+    lse bit for bit as the contiguous tensors (600-byte rows copied at 300,
+    read by TMA at 512)."""
+    q, k, v, _, _ = _inputs(2, 8500, 777, 1, d, d, 46, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    assert fa.launch_plan(q, k, v)["copies"] == (("q", "k", "v") if d % 8 else ())
+    views = [_realign_views(x, offset) for x in (q, k, v)]
+    plan = fa.launch_plan(*views)
+    assert (plan["route"], plan["loader"], plan["copies"]) == (
+        "sm90_longq", "copy", ("q", "k", "v"))
+    want, want_lse = fa.flash_attention(q, k, v, return_lse=True)
+    got, got_lse = fa.flash_attention(*views, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
 
 
 def _tiny_classifier(prep, impl, device):

@@ -136,6 +136,28 @@ def test_longkv_shape_reference_matches_pallas():
     np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
 
 
+def test_longq_shape_reference_matches_pallas():
+    """K1's plain version at the long-Q route's shape class, many query rows
+    (a ragged last tile of 44 rows) over a short key range, d = 264 with dv
+    = 300 (the bf16 kernel takes 257 to 512 wide from 8,448 query rows on),
+    against the Pallas kernel in interpreter mode: kv_mask, q_mask,
+    kv_logical_len short of the keys, an all-masked batch entry (rows
+    exactly 0, lse +inf) and the lse."""
+    q, k, v, kv_mask, q_mask = _inputs(2, 300, 70, 1, 264, 300, seed=300)
+    kv_mask[1] = False
+    want, want_lse = _jax_flash(q, k, v, kv_mask, q_mask, kv_logical_len=67)
+    got, got_lse = fa.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_mask=torch.from_numpy(kv_mask), q_mask=torch.from_numpy(q_mask),
+        kv_logical_len=67, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert np.all(got.numpy()[1] == 0.0) and np.all(got.numpy()[~q_mask] == 0.0)
+    assert np.all(np.isinf(got_lse.numpy()[1]))
+    assert np.array_equal(np.isinf(got_lse.numpy()), np.isinf(want_lse))
+    finite = np.isfinite(want_lse)
+    np.testing.assert_allclose(got_lse.numpy()[finite], want_lse[finite], **TOL)
+
+
 def test_reference_chunking_is_exact():
     """Chunking over query rows does not change the result."""
     q, k, v, kv_mask, q_mask = _inputs(2, 37, 90, 3, 16, 8, seed=3)
@@ -247,6 +269,9 @@ def test_launch_plan_routes_by_dtype():
     q = torch.zeros(1, 2048, 1, 322, dtype=torch.bfloat16)
     k = torch.zeros(1, 182528, 1, 322, dtype=torch.bfloat16)
     plan = fa.launch_plan(q, k, k)
+    assert plan == dict(route="sm90_longkv", splits=4, tiles_per_split=713, col_chunks=1,
+                        blocks=128, cuda_launches=5, loader="copy", copies=("q", "k", "v"))
+    plan = fa.launch_plan(q, k, k, num_splits=8)
     assert plan == dict(route="sm90_wgmma", splits=8, tiles_per_split=357, col_chunks=1,
                         blocks=256, cuda_launches=2, loader="cp.async4")
     plan = fa.launch_plan(q.float(), k.float(), k.float(), num_splits=1)
@@ -432,8 +457,8 @@ def test_library_names_hash_the_headers(tmp_path, monkeypatch):
         shutil.copy(os.path.join(fa._CSRC, name), tmp_path / name)
     monkeypatch.setattr(fa, "_CSRC", str(tmp_path))
     before = fa.library_paths()
-    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "fwd_longkv", "bwd", "bwd_sm90",
-                           "bwd_narrow", "bwd_longkv"}
+    assert set(before) == {"fwd", "fwd_sm90", "fwd_narrow", "fwd_longkv", "fwd_longq", "bwd",
+                           "bwd_sm90", "bwd_narrow", "bwd_longkv"}
     assert os.path.basename(before["bwd_sm90"]).startswith("flash_attention_bwd_sm90_")
     with open(tmp_path / "sm90.cuh", "a") as f:
         f.write("// edited\n")
@@ -640,6 +665,8 @@ def test_split_backward_reference_matches_pallas(bwd_split_case, num_splits):
     "site,b,tq,h,tk,d,route,dkv_splits,dkv_blocks,dq_splits,dq_blocks",
     [("decoder", 1, 182528, 1, 2048, 512, "sm90_wgmma", 8, 512, 1, 2852),
      ("encoder", 1, 2048, 1, 182528, 322, "sm90_wgmma", 1, 5704, 8, 256),
+     ("decoder", 6, 182528, 1, 2048, 512, "sm90_wgmma", 2, 768, 1, 17112),
+     ("encoder", 6, 2048, 1, 182528, 322, "sm90_wgmma", 1, 34224, 2, 384),
      ("self", 1, 2048, 16, 2048, 32, "sm90_narrow", 1, 256, 1, 256),
      ("masked", 2, 100, 2, 777, 41, "sm90_narrow", 1, 28, 1, 4),
      ("cls_pixel", 8, 512, 1, 50176, 261, "sm90_longkv", 1, 132, 2, 128),
@@ -648,8 +675,10 @@ def test_split_backward_reference_matches_pallas(bwd_split_case, num_splits):
 def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_blocks, dq_splits,
                              dq_blocks):
     """The flow sites at batch 1: K2 splits the decoder's query rows (64
-    key blocks of 32 on 132 SMs), K3 the encoder's keys (K1's plan: 32
-    query blocks); the full grids take one split, and the self-attend and a
+    key blocks of 32 on 132 SMs), K3 the encoder's keys (the wgmma K1's
+    plan: 32 query blocks); at 6 tiles 2 splits each; the full grids take
+    one split; K2 and K3 stay on the wgmma kernels at both flow sites (K1
+    takes the long-KV and long-Q routes there), and the self-attend and a
     41-wide case take the narrow route (blocks of 128 keys or query rows),
     which never splits and agrees with the plans that find no split.  The
     classification encoders at the training batch of 8 (512 latents over
@@ -690,7 +719,8 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
      (2, 512, 50176, 1, 512, 512, torch.bfloat16, None, "sm90_longkv"),  # phase 17's batch
      (8, 512, 50176, 1, 261, 261, torch.float32, None, "cuda_cores"),
      (8, 512, 50176, 1, 261, 261, torch.bfloat16, 1, "sm90_wgmma"),  # a forced split count
-     (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, "sm90_wgmma"),  # 9 query tiles
+     # 9 query tiles: K1's long-KV route takes up to 32, K2's and K3's up to 8
+     (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, ("sm90_longkv", "sm90_wgmma")),
      (8, 512, 4223, 1, 512, 512, torch.bfloat16, None, "sm90_wgmma"),  # fewer keys than 132 x 32
      (1, 77, 4224, 3, 300, 264, torch.bfloat16, None, "sm90_longkv"),
      (8, 512, 50176, 1, 256, 256, torch.bfloat16, None, "sm90_wgmma"),  # 64 keys a wgmma block
@@ -707,23 +737,45 @@ def test_backward_split_plan(site, b, tq, h, tk, d, route, dkv_splits, dkv_block
      (2, 100, 8000, 1, 705, 705, torch.bfloat16, None, "sm90_wgmma"),  # past the widest head
      (2, 100, 777, 1, 704, 704, torch.bfloat16, None, "sm90_wgmma"),  # short-KV wide cases
      (2, 100, 257, 1, 704, 512, torch.bfloat16, None, "sm90_wgmma"),
-     (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, "sm90_wgmma"),  # the flow encoder
+     # the flow encoder at batch 1 and 6: K1 long-KV, K2 and K3 wgmma
+     (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, ("sm90_longkv", "sm90_wgmma")),
+     (6, 2048, 182528, 1, 322, 322, torch.bfloat16, None, ("sm90_longkv", "sm90_wgmma")),
+     (1, 2049, 182528, 1, 322, 322, torch.bfloat16, None, "sm90_wgmma"),  # 33 query tiles
+     (1, 2048, 4223, 1, 322, 322, torch.bfloat16, None, "sm90_wgmma"),  # fewer keys
+     (1, 2048, 182528, 1, 322, 322, torch.bfloat16, 4, "sm90_wgmma"),  # a forced split count
+     (1, 2048, 182528, 1, 322, 322, torch.float32, None, "cuda_cores"),
+     (1, 2048, 182528, 1, 256, 256, torch.bfloat16, None, "sm90_wgmma"),  # 64 keys a K2 block
+     (1, 2048, 182528, 1, 513, 513, torch.bfloat16, None, "sm90_wgmma"),  # 513: 16 tiles at most
+     # the flow decoder at batch 1 and 6: K1 long-Q, K2 and K3 wgmma
+     (1, 182528, 2048, 1, 512, 512, torch.bfloat16, None, ("sm90_longq", "sm90_wgmma")),
+     (6, 182528, 2048, 1, 512, 512, torch.bfloat16, None, ("sm90_longq", "sm90_wgmma")),
      (2, 100, 8000, 2, 48, 48, torch.bfloat16, None, "sm90_narrow")],
 )
 def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
     """bf16 calls over at least 4,224 keys whose wider head is 257 to 512
-    wide with at most 512 query rows, or 513 to 704 wide with at most 1,024
-    (the multimodal encoder), take the long-KV K1, K2 and K3 (K1's and K3's
-    key splits by ``_longkv_dq_split_plan``, K1 and K2 on the same loader,
-    K2 and K3 on the same copies, no column chunks); a forced split count,
-    fp32, more query rows, fewer keys, other widths and the flow encoder
-    keep their routes, K1's and the backward's alike."""
+    wide with at most 512 query rows (K1: 2,048, the flow encoder's 32
+    query tiles), or 513 to 704 wide with at most 1,024 (the multimodal
+    encoder), take the long-KV K1, K2 and K3 (K1's key splits by
+    ``_longkv_fwd_split_plan``, K3's by ``_longkv_dq_split_plan``, K1 and K2
+    on the same loader, K2 and K3 on the same copies, no column chunks); a
+    forced split count, fp32, more query rows, fewer keys and other widths
+    keep their routes, K1's and the backward's alike; the flow decoder's K1
+    takes the long-Q route (``route`` a pair: K1's, the backward's)."""
     q = torch.empty(b, tq, h, d, dtype=dtype, device="meta")
     k = torch.empty(b, tk, h, d, dtype=dtype, device="meta")
     v = torch.empty(b, tk, h, dv, dtype=dtype, device="meta")
     plan = fa.backward_plan(q, k, v, num_splits=num_splits)
     forward = fa.launch_plan(q, k, v, num_splits=num_splits)
-    assert plan["route"] == route and forward["route"] == route
+    fwd_route, route = route if isinstance(route, tuple) else (route, route)
+    assert plan["route"] == route and forward["route"] == fwd_route
+    k1_copies = tuple(name for name, t in zip("qkv", (q, k, v)) if not fa._tma_rows(t))
+    if fwd_route == "sm90_longkv":
+        splits, per = fa._longkv_fwd_split_plan(b, tq, h, tk, max(d, dv))
+        assert forward == dict(
+            route=fwd_route, splits=splits, tiles_per_split=per, col_chunks=1,
+            blocks=-(-tq // 64) * h * b * splits,
+            cuda_launches=1 + (splits > 1) + len(k1_copies),
+            loader=fa._longkv_loader(k, v), copies=k1_copies)
     if route == "sm90_longkv":
         items = -(-tk // 32) * h * b
         copies, loader = fa._longkv_copies(q, k, v), fa._longkv_loader(k, v)
@@ -735,11 +787,9 @@ def test_longkv_route_by_shape(b, tq, tk, h, d, dv, dtype, num_splits, route):
             splits=splits, tiles_per_split=per, col_chunks=1, blocks=-(-tq // 64) * h * b * splits,
             cuda_launches=1 + (splits > 1), loader=loader, copies=copies)
         assert plan["dq"]["blocks"] <= fa.NUM_SMS
-        k1_copies = tuple(name for name, t in zip("qkv", (q, k, v)) if not fa._tma_rows(t))
-        assert forward == dict(
-            route=route, splits=splits, tiles_per_split=per, col_chunks=1,
-            blocks=plan["dq"]["blocks"], cuda_launches=1 + (splits > 1) + len(k1_copies),
-            loader=loader, copies=k1_copies)
+        assert forward["loader"] == loader
+        if tq <= fa.LONGKV_MAX_Q:  # one wave: K1's and K3's plans agree
+            assert (forward["splits"], forward["blocks"]) == (splits, plan["dq"]["blocks"])
 
 
 _QKV = ("q", "k", "v")
@@ -757,7 +807,9 @@ _QKV = ("q", "k", "v")
        (2, 100, 8000, 1, 512, 512, torch.bfloat16, None, "all", 8, "sm90_longkv", 14, 56, ()),
        (16, 512, 50176, 1, 512, 512, torch.bfloat16, 1, None, 0, "sm90_wgmma", 1, 128, None),
        (16, 512, 50176, 1, 512, 512, torch.float32, None, None, 0, "cuda_cores", 1, 128, None),
-       (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, None, 0, "sm90_wgmma", 3, 216, None),
+       # 9 query tiles: 11 key splits, 6 whole waves
+       (8, 513, 50176, 1, 261, 261, torch.bfloat16, None, None, 0, "sm90_longkv", 11, 792,
+        _QKV),
        (8, 512, 4223, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 4, 256, None),
        (8, 512, 50176, 1, 256, 256, torch.bfloat16, None, None, 0, "sm90_wgmma", 4, 256, None),
        (1, 784, 52097, 1, 704, 704, torch.bfloat16, None, None, 0, "sm90_longkv", 10, 130,
@@ -767,10 +819,38 @@ _QKV = ("q", "k", "v")
        (1, 784, 52097, 1, 704, 704, torch.bfloat16, 10, None, 0, "sm90_wgmma", 10, 260, None),
        (1, 1025, 52097, 1, 704, 704, torch.bfloat16, None, None, 0, "sm90_wgmma", 7, 238,
         None),
-       (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, None, 0, "sm90_wgmma", 8, 256,
-        None),  # the flow encoder
-       (1, 182528, 2048, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 2852,
-        None),  # the flow decoder
+       # the flow encoder at batch 1 and 6 (16 whole waves), its 644-byte rows
+       # copied; a forced split count, fp32, 33 query tiles
+       (1, 2048, 182528, 1, 322, 322, torch.bfloat16, None, None, 0, "sm90_longkv", 4, 128,
+        _QKV),
+       (6, 2048, 182528, 1, 322, 322, torch.bfloat16, None, None, 0, "sm90_longkv", 11, 2112,
+        _QKV),
+       (1, 2048, 182528, 1, 322, 322, torch.bfloat16, 8, None, 0, "sm90_wgmma", 8, 256, None),
+       (1, 2048, 182528, 1, 322, 322, torch.float32, None, None, 0, "cuda_cores", 8, 256,
+        None),
+       (1, 2049, 182528, 1, 322, 322, torch.bfloat16, None, None, 0, "sm90_wgmma", 8, 264,
+        None),
+       # the flow decoder at batch 1 and 6: the long-Q route, 132 blocks
+       (1, 182528, 2048, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_longq", 1, 132,
+        ()),
+       (6, 182528, 2048, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_longq", 1, 132,
+        ()),
+       (1, 182528, 2048, 1, 512, 512, torch.bfloat16, 1, None, 0, "sm90_wgmma", 1, 2852,
+        None),  # a forced split count
+       (1, 182528, 2048, 1, 512, 512, torch.float32, None, None, 0, "cuda_cores", 1, 2852,
+        None),
+       # the long-Q route's edges: 8,448 query rows (132 tiles) and up to 8,192
+       # keys, ragged last tiles, offset views copied into aligned rows
+       (1, 8447, 2048, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 132, None),
+       (1, 8448, 8192, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_longq", 1, 132, ()),
+       (1, 8448, 8193, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 132, None),
+       (1, 8448, 2048, 1, 256, 256, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 132, None),
+       (1, 8448, 2048, 1, 513, 513, torch.bfloat16, None, None, 0, "sm90_wgmma", 1, 264, None),
+       (2, 8500, 777, 1, 512, 512, torch.bfloat16, None, None, 0, "sm90_longq", 1, 132, ()),
+       (2, 9000, 130, 1, 264, 512, torch.bfloat16, None, "q", 1, "sm90_longq", 1, 132,
+        ("q",)),
+       (2, 8600, 2100, 2, 300, 264, torch.bfloat16, None, "all", 3, "sm90_longq", 1, 132,
+        _QKV),
        (1, 2048, 2048, 16, 32, 32, torch.bfloat16, None, None, 0, "sm90_narrow", 1, 256,
         None)],  # the flow self-attend
 )
@@ -786,8 +866,13 @@ def test_longkv_forward_plan(b, tq, tk, h, d, dv, dtype, num_splits, target, off
     copied into 16-byte aligned rows where its rows are not aligned (the
     pixel encoder's 522-byte rows; offset views: ``target`` seen ``offset``
     elements into its storage), one launch a copy.  A forced split count,
-    fp32, more query rows, fewer keys, other widths and the flow sites keep
-    their routes."""
+    fp32, more query rows, fewer keys and other widths keep their routes.
+    The flow encoder's 32 query tiles take the long-KV route too (K1 only),
+    its keys split for one wave or for whole waves, whichever ends sooner
+    (``_longkv_fwd_split_plan``: 4 splits at batch 1, 11 at its 6 tiles,
+    2,112 blocks), after copies of its 644-byte rows.  bf16 K1 calls of at least 8,448 query rows over at most 8,192
+    keys at 257 to 512 columns (the flow decoder) take the long-Q route:
+    persistent blocks, one an SM, one key split, no merge."""
     views = {}
     for name, t, w in (("q", tq, d), ("k", tk, d), ("v", tk, dv)):
         shift = offset if target in ("all", name) else 0
@@ -795,6 +880,13 @@ def test_longkv_forward_plan(b, tq, tk, h, d, dv, dtype, num_splits, target, off
         views[name] = storage[shift:].view(b, t, h, w)
     plan = fa.launch_plan(views["q"], views["k"], views["v"], num_splits=num_splits)
     assert (plan["route"], plan["splits"], plan["blocks"]) == (route, splits, blocks)
+    if route == "sm90_longq":
+        assert plan == dict(route=route, splits=1, tiles_per_split=-(-tk // fa.BLOCK_K),
+                            col_chunks=1, blocks=blocks, cuda_launches=1 + len(copies),
+                            loader=fa._longkv_loader(views["k"], views["v"]), copies=copies)
+        assert blocks == min(-(-tq // fa.BLOCK_Q) * h * b, fa.NUM_SMS)
+        assert plan["loader"] == ("copy" if {"k", "v"} & set(copies) else "tma")
+        return
     if route != "sm90_longkv":
         assert "copies" not in plan
         return
@@ -803,7 +895,8 @@ def test_longkv_forward_plan(b, tq, tk, h, d, dv, dtype, num_splits, target, off
                         blocks=blocks, cuda_launches=1 + (splits > 1) + len(copies),
                         loader=fa._longkv_loader(views["k"], views["v"]), copies=copies)
     assert plan["loader"] == ("copy" if {"k", "v"} & set(copies) else "tma")
-    assert blocks <= fa.NUM_SMS
+    assert (splits, per) == fa._longkv_fwd_split_plan(b, tq, h, tk, max(d, dv))
+    assert blocks <= fa.NUM_SMS or blocks % fa.NUM_SMS == 0  # whole waves
 
 
 @pytest.mark.parametrize(
